@@ -7,7 +7,7 @@ port's NamedTuples on a device. Fields are matched by name, following the
 port's annotations: a `torch.Tensor` field becomes a tensor of the same
 dtype, an `int`/`float`/`bool` field a python number, a NamedTuple field
 recurses. Fields the port does not have (the PRNG key, UWB, the imported-
-world mesh, the kernel switches) are dropped. This module imports no jax.
+world mesh, `use_pallas`) are dropped. This module imports no jax.
 """
 
 from __future__ import annotations

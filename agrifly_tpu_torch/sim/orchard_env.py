@@ -1,13 +1,15 @@
 """Config #3: depth-camera orchard flight — render + RAPPIDS + tracking.
 
 Port of `agrifly_tpu/sim/orchard_env.py` in the configuration
-`make_params(use_pallas=True, fused_ticks=False)`: one `frame_step`
-renders a depth frame from the true pose (the raycast kernel on CUDA),
-runs the RAPPIDS planner on it (the inflation kernel on CUDA), then
-advances `steps_per_frame` 2 ms ticks that track the planned trajectory
-through the quantized, delayed radio channel (200 Hz mocap estimator ->
-RunTracking at 100 Hz -> rates command -> 30 ms delay line -> onboard
-rates controller). The ticks run as plain torch ops.
+`make_params(use_pallas=True)`: one `frame_step` renders a depth frame
+from the true pose (the raycast kernel on CUDA), runs the RAPPIDS planner
+on it (the inflation kernel on CUDA), then advances `steps_per_frame` 2 ms
+ticks that track the planned trajectory through the quantized, delayed
+radio channel (200 Hz mocap estimator -> RunTracking at 100 Hz -> rates
+command -> 30 ms delay line -> onboard rates controller). With
+`fused_ticks` (the default, as in the JAX package) the ticks run as one
+CUDA kernel (`sim/cuda_frame.py`); otherwise as plain torch ops
+(`frame_ticks_plain`).
 
 The mission climbs to `takeoff_height` until `start_flight_time`, then
 plans toward the waypoints; before a plan exists it hovers at 2 m.
@@ -70,6 +72,7 @@ class OrchardEnvParams(NamedTuple):
     inflation_downsample: int  # pooled pyramid inflation factor
     track_lookahead: torch.Tensor  # 0.04 s (main.cpp:571)
     land: bool  # descend + settle after the last waypoint
+    fused_ticks: bool  # run the tick block as one kernel (sim/cuda_frame.py)
 
 
 class PlannedTraj(NamedTuple):
@@ -104,9 +107,10 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
                 steps_per_frame=16, n_candidates=256, pyramid_capacity=32,
                 planner_rounds=2, inflation_downsample=2, width=640, height=480,
                 seed=0, noise_scale=1.0, waypoints=None, land=False,
-                device=None) -> OrchardEnvParams:
+                fused_ticks=True, device=None) -> OrchardEnvParams:
     """The JAX package's defaults; `waypoints` are flown in order with the
-    reference's 1 m switching radius, defaulting to `goal_world`."""
+    reference's 1 m switching radius, defaulting to `goal_world`.
+    fused_ticks=False runs the tick block as plain torch ops."""
     base = env_mod.make_params(noise_scale=noise_scale, device=device)
     cam = rappids.make_camera(width, height, focal=width / 2.0, depth_scale=10.0 / 256.0,
                               device=device)
@@ -131,7 +135,7 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
         pyramid_capacity=int(pyramid_capacity), planner_rounds=int(planner_rounds),
         inflation_downsample=int(inflation_downsample),
         track_lookahead=torch.tensor(0.04, dtype=torch.float32, device=device),
-        land=bool(land),
+        land=bool(land), fused_ticks=bool(fused_ticks),
     )
 
 
@@ -256,11 +260,28 @@ def _sim_tick(params: OrchardEnvParams, s: OrchardEnvState, noise) -> OrchardEnv
     return s._replace(base=new_base, mstage=mstage)
 
 
-def frame_ticks(params: OrchardEnvParams, s: OrchardEnvState, noise) -> OrchardEnvState:
-    """The physics/tracking ticks of one frame; noise: (ticks, 2, 3)."""
+def frame_ticks_plain(params: OrchardEnvParams, s: OrchardEnvState,
+                      noise) -> OrchardEnvState:
+    """The physics/tracking ticks of one frame as plain torch ops (the
+    counterpart of the JAX package's `frame_ticks_jnp`); noise: (ticks, 2, 3)."""
+    frame_ticks_plain.calls += 1
     for i in range(noise.shape[0]):
         s = _sim_tick(params, s, noise[i])
     return s
+
+
+frame_ticks_plain.calls = 0  # calls since the last reset
+
+
+def frame_ticks(params: OrchardEnvParams, s: OrchardEnvState, noise) -> OrchardEnvState:
+    """Tick-block dispatch: the fused kernel when `params.fused_ticks`
+    (`sim/cuda_frame.frame_ticks`, which takes the plain ticks on CPU
+    tensors), else `frame_ticks_plain`."""
+    if params.fused_ticks:
+        from agrifly_tpu_torch.sim import cuda_frame
+
+        return cuda_frame.frame_ticks(params, s, noise)
+    return frame_ticks_plain(params, s, noise)
 
 
 def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):

@@ -5,18 +5,22 @@ These tests import no JAX, so they run on a machine with a GPU and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 (--noconftest: tests/conftest.py configures JAX). Without a card they skip.
-Both kernels are held bit for bit: the raycast codes everywhere, the
-inflation's ok everywhere and its maxd and edges wherever ok.
+The raycaster and the inflation are held bit for bit: the raycast codes
+everywhere, the inflation's ok everywhere and its maxd and edges wherever
+ok. The fused tick block is held to the tick criteria of
+tests/_torch_parity.py against the plain ticks on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cuda, gradient_scene, make_scene  # noqa: F401  (cuda: fixture)
+from _torch_parity import compare_state, cuda, gradient_scene, make_scene  # noqa: F401
+from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
 from agrifly_tpu_torch.render import cuda_raycast, orchard, raycast
+from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
 
 def _poses(seed, n, device):
@@ -62,3 +66,31 @@ def test_inflate_kernel_bit_equal_to_plain(cuda, kind, W, H, shrink_extra):  # n
     assert cuda_inflate.inflate_pyramids.launches == before + 1
     assert torch.equal(ok, ok_r) and int(ok.sum()) >= 1
     assert torch.equal(maxd[ok], maxd_r[ok]) and torch.equal(edges[ok], edges_r[ok])
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cold", "takeoff", "tracking", "landing", "complete",
+                                  "ekf_full"])
+def test_frame_ticks_kernel_matches_plain(cuda, case):  # noqa: F811
+    from chip_smoke import tick_states  # the smoke test's five port-built states
+
+    p = orchard_env.make_params(start_flight_time=0.3)
+    s = tick_states(p)["takeoff" if case == "ekf_full" else case]
+    if case == "ekf_full":  # the EKF's full prediction (after a first UWB fix)
+        kf = s.base.logic.kf._replace(uwb_init=torch.tensor(True))
+        s = s._replace(base=s.base._replace(logic=s.base.logic._replace(kf=kf)))
+    p = orchard_env.OrchardEnv(p).to(cuda).params
+    leaves, rebuild = convert.flatten_tensors(s)
+    s = rebuild([t.to(cuda) for t in leaves])
+    noise = torch.randn((16, 2, 3), generator=torch.Generator().manual_seed(7)).to(cuda)
+    before = cuda_frame.frame_ticks.launches
+    got = cuda_frame.frame_ticks(p, s, noise)
+    ref = orchard_env.frame_ticks_plain(p, s, noise)
+    torch.cuda.synchronize()
+    assert cuda_frame.frame_ticks.launches == before + 1
+    assert int(got.base.step) == int(s.base.step) + 16
+    if case == "landing":
+        assert int(ref.mstage) == orchard_env.MSTAGE_COMPLETE
+    leaves, rebuild = convert.flatten_tensors(ref)
+    compare_state(got, rebuild([t.cpu() for t in leaves]))

@@ -47,7 +47,7 @@ def _port(jp, js):
 def test_params_from_numpy_equal_port_make_params():
     jp, _, _ = _jax()
     tp, _ = _port(jp, _jax()[2])
-    mine = T.make_params(**KW)
+    mine = T.make_params(fused_ticks=False, **KW)  # the JAX configuration's tick path
     assert tp._replace(base=None, scene=None, planner=None, waypoints=None, num_waypoints=None,
                        takeoff_height=None, start_flight_step=None, track_lookahead=None) == \
         mine._replace(base=None, scene=None, planner=None, waypoints=None, num_waypoints=None,
@@ -106,6 +106,7 @@ def test_port_imports_no_jax():
         sys.modules["jax"] = None
         import agrifly_tpu_torch.sim.orchard_env, agrifly_tpu_torch.convert
         import agrifly_tpu_torch.render.cuda_raycast, agrifly_tpu_torch.planner.cuda_inflate
+        import agrifly_tpu_torch.sim.cuda_frame
         jaxy = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
         theirs = sorted(m for m in sys.modules if m.split(".")[0] == "agrifly_tpu")
         assert theirs == ["agrifly_tpu", "agrifly_tpu.models", "agrifly_tpu.models.constants"], theirs

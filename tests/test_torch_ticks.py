@@ -4,7 +4,9 @@ From one state and the same IMU noise block, every discrete leaf (flight
 state, panic, ring slots and counters, estimator counters) must be equal
 and every float leaf within |d| <= 1e-3 (|ref| + 1e-3); commanded body
 rates and their wire codes are held to the command floor documented in
-tests/_torch_parity.py.
+tests/_torch_parity.py. The cases cover every mission stage of the tick:
+cold, takeoff, tracking a plan, the landing descent (from its start, and
+reaching touchdown mid-block) and the idled complete stage.
 """
 
 import functools
@@ -62,7 +64,24 @@ def _with_plan(s):
     return s._replace(planned=planned)
 
 
-@pytest.mark.parametrize("case", ["cold", "takeoff", "tracking"])
+def _landing(s, stage, since_steps):
+    """The landing stage entered at the current position `since_steps`
+    ticks ago (tests/test_pallas_frame.py's landing state for 0)."""
+    return s._replace(mstage=jnp.int32(stage), land_pos=jnp.asarray(s.base.plant.pos),
+                      land_start_step=s.base.step - since_steps)
+
+
+def _touchdown_steps(z0):
+    """Ticks since landing entry that put touchdown (the descent with its
+    blend-in reaching z = 0) eight ticks into the block."""
+    t = 0.0
+    while z0 - T.LANDING_SPEED * min(t / T.LANDING_BLEND_TIME, 1.0) * t >= 0.0:
+        t += 0.002
+    return round(t / 0.002) - 8
+
+
+@pytest.mark.parametrize("case", ["cold", "takeoff", "tracking", "landing", "touchdown",
+                                  "complete"])
 def test_tick_block_matches_jax(case):
     jp, ticks = _jax()
     if case == "cold":
@@ -71,6 +90,12 @@ def test_tick_block_matches_jax(case):
         s = _warm_state()
         if case == "tracking":
             s = _with_plan(s)
+        elif case == "landing":
+            s = _landing(s, J.MSTAGE_LANDING, 0)
+        elif case == "touchdown":
+            s = _landing(s, J.MSTAGE_LANDING, _touchdown_steps(float(s.base.plant.pos[2])))
+        elif case == "complete":
+            s = _landing(s, J.MSTAGE_COMPLETE, 0)
     noise = _noise(99)
     ref = ticks(s, jnp.asarray(noise))
 
@@ -80,5 +105,11 @@ def test_tick_block_matches_jax(case):
     worst = compare_state(got, ref)
     print(case, worst[:3])
     assert int(got.base.step) == int(s.base.step) + 16
-    if case != "cold":
+    if case in ("takeoff", "tracking"):
         assert float(got.base.plant.pos[2]) > 0.1  # airborne
+    if case in ("touchdown", "complete"):
+        assert int(ref.mstage) == T.MSTAGE_COMPLETE
+        # the idle command went into the ring
+        assert (np.asarray(ref.base.ring.types) == 6).any()
+    if case == "landing":
+        assert int(ref.mstage) == T.MSTAGE_LANDING
