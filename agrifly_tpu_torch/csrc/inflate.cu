@@ -1,7 +1,9 @@
-// RAPPIDS pyramid inflation: one thread block per seed.
+// RAPPIDS pyramid inflation: one thread block per seed and image.
 //
 // Replaces the TPU kernel agrifly_tpu/planner/pallas_inflate.py (_kernel,
-// launched by inflate_pyramids with one seed per program). It computes what
+// launched by inflate_pyramids with one seed per program, and batched over a
+// fleet's images by jax.vmap): the grid is (seeds, images), and block (p, b)
+// inflates seed p of image b. It computes what
 // agrifly_tpu_torch/planner/rappids.py::inflate_pyramid computes for one
 // seed, in integers only, so ok, maxd and the four edges are bit-identical to
 // the plain version for every seed that ends ok (the edges of a failed seed
@@ -17,13 +19,15 @@
 // block-wide min/max reduction (warp shuffles, then one value per warp in
 // shared memory), so every thread ends a pass holding the same scalars.
 //
-// What bounds it on the card: latency. A planning round inflates 10-20
-// seeds, so only 10-20 of the 132 SMs work, each sweeping a 240x320 int32
+// What bounds it on the card: latency. For one vehicle a planning round
+// inflates 10-20 seeds, so only 10-20 of the 132 SMs work (a fleet of 16
+// fills the card with 160-320 blocks), each sweeping a 240x320 int32
 // image (300 KB, resident in L2 after the first pass) about a dozen times
 // with a barrier per reduction. The design spends 512 threads per seed to
 // shorten each sweep; the TPU kernel's per-tile skip tables are not used.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -121,17 +125,20 @@ __device__ __forceinline__ void corner(int* v, int s_a, bool a_is_min, bool a_se
   if (use_b) v[1] = b_is_min ? min(v[1], s_b) : max(v[1], s_b);
 }
 
-// seeds: (P, 12) int32 [x0, y0, min_pyr_depth, l0, r0, t0, b0, ok0, edge_off,
-// ignore, numer, shrink_extra]; out: (P, 8) int32 [ok, maxd, right, top,
+// Block (p, b) inflates seed p of image b. img: (B, H, W) int32; seeds:
+// (B, P, 12) int32 [x0, y0, min_pyr_depth, l0, r0, t0, b0, ok0, edge_off,
+// ignore, numer, shrink_extra]; out: (B, P, 8) int32 [ok, maxd, right, top,
 // left, bottom, 0, 0].
 __global__ void __launch_bounds__(kThreads)
-inflate_kernel(const int* __restrict__ img, const int* __restrict__ seeds,
+inflate_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
                int* __restrict__ out, int H, int W) {
   __shared__ Shared sh;
-  const int* s = seeds + blockIdx.x * 12;
+  const int* img = img_all + static_cast<int64_t>(blockIdx.y) * H * W;
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int* s = seeds + row * 12;
   const int x0 = s[0], y0 = s[1], minpyr = s[2];
   const int edge_off = s[8], ignore = s[9], numer = s[10], extra = s[11];
-  int* o = out + blockIdx.x * 8;
+  int* o = out + row * 8;
   bool ok = s[7] != 0;
 
   auto finish = [&](bool good, int maxd, int rf, int tf, int lf, int bf) {
@@ -306,9 +313,11 @@ inflate_kernel(const int* __restrict__ img, const int* __restrict__ seeds,
 
 }  // namespace
 
-// img: (H, W) int32; seeds: (P, 12) int32; out: (P, 8) int32. P >= 1.
-extern "C" int inflate_launch(const int* img, const int* seeds, int* out, int P,
+// img: (B, H, W) int32; seeds: (B, P, 12) int32; out: (B, P, 8) int32.
+// B, P >= 1; B <= 65535. One block per (seed, image): grid (P, B).
+extern "C" int inflate_launch(const int* img, const int* seeds, int* out, int B, int P,
                               int H, int W, void* stream) {
-  inflate_kernel<<<P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(img, seeds, out, H, W);
+  inflate_kernel<<<dim3(P, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(img, seeds,
+                                                                                out, H, W);
   return static_cast<int>(cudaGetLastError());
 }

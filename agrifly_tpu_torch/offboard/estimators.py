@@ -108,11 +108,15 @@ def pipe_push(p: PredictionPipe, now_us, delay_us, acc, angvel, do_push):
 
 
 def _pipe_ordered(p: PredictionPipe):
-    """Pipe contents in logical (push) order; slots >= count get act = 2^30."""
+    """Pipe contents in logical (push) order; slots >= count get act = 2^30.
+    The pipe's leaves may carry a leading vehicle shape."""
     idx = torch.arange(PIPE_CAPACITY, dtype=torch.int32, device=p.head.device)
-    src = ((p.head + idx) % PIPE_CAPACITY).long()
-    act = torch.where(idx < p.count, p.active_us[src], 2 ** 30)
-    return act, p.acc[src], p.angvel[src], p.ballistic[src]
+    src = ((p.head[..., None] + idx) % PIPE_CAPACITY).long()
+    act = torch.where(idx < p.count[..., None], torch.take_along_dim(p.active_us, src, -1),
+                      2 ** 30)
+    return (act, torch.take_along_dim(p.acc, src[..., None], -2),
+            torch.take_along_dim(p.angvel, src[..., None], -2),
+            torch.take_along_dim(p.ballistic, src, -1))
 
 
 def pipe_clear_expired(p: PredictionPipe, t_us):
@@ -128,7 +132,11 @@ def pipe_clear_expired(p: PredictionPipe, t_us):
 def _integrate_segment(pos, vel, att, angvel, acc, cmd_angvel, ballistic, dt,
                        v0=None, w0=None):
     """One piecewise-constant-command segment. v0/w0 given: the prediction
-    flavor (frozen start velocity and angvel); None: the update replay."""
+    flavor (frozen start velocity and angvel); None: the update replay.
+    dt and ballistic have the vehicles' leading shape, the vectors one
+    trailing axis more."""
+    c = torch.where(ballistic, 1.0, exp(-dt / TAU_TRACK_ANGVEL))[..., None]
+    dt = dt[..., None]
     if v0 is not None:
         new_pos = pos + v0 * dt + acc * (dt * dt * 0.5)
         new_att = rot.qmul(att, rot.from_rotation_vector(w0 * dt))
@@ -136,7 +144,6 @@ def _integrate_segment(pos, vel, att, angvel, acc, cmd_angvel, ballistic, dt,
         new_pos = pos + vel * dt
         new_att = rot.qmul(att, rot.from_rotation_vector(angvel * dt))
     new_vel = vel + acc * dt
-    c = torch.where(ballistic, 1.0, exp(-dt / TAU_TRACK_ANGVEL))
     return new_pos, new_vel, new_att, c * angvel + (1.0 - c) * cmd_angvel
 
 
@@ -149,13 +156,14 @@ def _step_var(p00, p01, p11, proc, dt):
 def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
     """Integrate the command stream from t0 to t1 over the pipe's slots,
     bug-compatible with the reference's segmentation (see the JAX package's
-    `_replay`). Returns (pos, vel, att, angvel, var_pos, var_att)."""
+    `_replay`), for a state with any leading vehicle shape. Returns (pos,
+    vel, att, angvel, var_pos, var_att)."""
     pos, vel, att, angvel = s.pos, s.vel, s.att, s.angvel
     v0 = s.vel if frozen else None
     w0 = s.angvel if frozen else None
     act, accs, angvels, balls = _pipe_ordered(s.pipe)
-    vp = (s.var_pos[0, 0], s.var_pos[0, 1], s.var_pos[1, 1])
-    va = (s.var_att[0, 0], s.var_att[0, 1], s.var_att[1, 1])
+    vp = (s.var_pos[..., 0, 0], s.var_pos[..., 0, 1], s.var_pos[..., 1, 1])
+    va = (s.var_att[..., 0, 0], s.var_att[..., 0, 1], s.var_att[..., 1, 1])
 
     t = torch.clamp(t0_us, min=0)
     t1 = t1_us
@@ -165,7 +173,7 @@ def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
     cur_angvel = torch.zeros_like(pos)
     cur_ball = torch.ones((), dtype=torch.bool, device=pos.device)
     for i in range(PIPE_CAPACITY):
-        act_i = act[i]
+        act_i = act[..., i]
         remaining = torch.clamp(t1 - t, min=0)
         window = torch.where(has != 0, act_i - a_cur, 2 ** 30)
         dt_us = torch.where(act_i <= t, 0, torch.minimum(remaining, window))
@@ -177,9 +185,9 @@ def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
             va = _step_var(*va, PROC_STD_ATT, dt)
         t = t + dt_us
         adopt = act_i <= t
-        cur_acc = torch.where(adopt, accs[i], cur_acc)
-        cur_angvel = torch.where(adopt, angvels[i], cur_angvel)
-        cur_ball = torch.where(adopt, balls[i] != 0, cur_ball)
+        cur_acc = torch.where(adopt[..., None], accs[..., i, :], cur_acc)
+        cur_angvel = torch.where(adopt[..., None], angvels[..., i, :], cur_angvel)
+        cur_ball = torch.where(adopt, balls[..., i] != 0, cur_ball)
         a_cur = torch.where(adopt, act_i, a_cur)
         has = torch.maximum(has, adopt.to(torch.int32))
 
@@ -190,8 +198,8 @@ def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
     if update_variance:
         vp = _step_var(*vp, PROC_STD_POS, dt)
         va = _step_var(*va, PROC_STD_ATT, dt)
-    var_pos = torch.stack([torch.stack([vp[0], vp[1]]), torch.stack([vp[1], vp[2]])])
-    var_att = torch.stack([torch.stack([va[0], va[1]]), torch.stack([va[1], va[2]])])
+    var_pos = torch.stack([torch.stack([vp[0], vp[1]], -1), torch.stack([vp[1], vp[2]], -1)], -2)
+    var_att = torch.stack([torch.stack([va[0], va[1]], -1), torch.stack([va[1], va[2]], -1)], -2)
     return pos, vel, att, angvel, var_pos, var_att
 
 

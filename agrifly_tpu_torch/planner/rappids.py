@@ -12,6 +12,13 @@ Pyramid inflation runs in `build_pyramid_set`: on a CUDA tensor through
 the hand-written kernel (`planner/cuda_inflate.py`), on a CPU tensor
 through the plain batched `inflate_pyramid`.
 
+Every function takes a leading vehicle shape L on its image and vectors:
+L = () plans for one vehicle, L = (B,) for a fleet in the same launches
+(the counterpart of the JAX package's `jax.vmap` over vehicles, written
+as an axis). A (P, ...) set or (N, ...) batch of one vehicle is then
+(*L, P, ...) or (*L, N, ...), and every gather and sort works along the
+vehicle's own axis.
+
 Every sort is stable (`jnp.argsort` is), since quantized pyramid depths
 tie often and the order decides `find_containing_pyramid`. Nothing here
 reads a tensor back to the host.
@@ -35,6 +42,13 @@ MAX_SECTIONS = 8
 MAX_CHECK_ITERS = 24
 LAZY_DEDUPE_PX = 8  # seeds closer than this (px, both axes) duplicate
 LAZY_DEDUPE_Z_QUANTA = 2.0  # ... when their depths are within this many codes
+
+
+def _take(x, idx, vec_dims=0):
+    """x gathered along its per-vehicle item axis (the one before its
+    `vec_dims` trailing axes) at idx (*L, M): x[..., idx, <trailing>]."""
+    idx = idx.reshape(idx.shape + (1,) * vec_dims)
+    return torch.take_along_dim(x, idx, dim=-1 - vec_dims)
 
 
 class CameraModel(NamedTuple):
@@ -102,37 +116,39 @@ def project(cam: CameraModel, point):
 def candidates_from_samples(params: PlannerParams, px, py, depth, tf, vel0, acc0):
     """Rest-to-rest candidates from explicit (pixel, depth, duration) samples,
     starting at the camera origin with the current velocity/acceleration
-    (hpp:393-404)."""
-    n = px.shape[0]
+    (hpp:393-404). Samples (*L, N); vel0, acc0 (*L, 3)."""
     goal = deproject(params.cam, px, py, depth)
-    zero = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
-    return traj_mod.generate(zero, vel0.expand(n, 3), acc0.expand(n, 3), tf,
+    zero = torch.zeros(px.shape + (3,), dtype=torch.float32, device=px.device)
+    return traj_mod.generate(zero, vel0[..., None, :].expand_as(zero),
+                             acc0[..., None, :].expand_as(zero), tf,
                              goal_pos=goal, goal_vel=zero, goal_acc=zero)
 
 
 def samples_from_uniform(params: PlannerParams, u, min_depth=1.5, max_depth=3.0,
                          min_time=2.0, max_time=3.0):
-    """Map a (4, N) uniform block to (px, py, depth, tf): pixel uniform in
-    the central 80% of the image, depth U(1.5,3) m, duration U(2,3) s
+    """Map a (*L, 4, N) uniform block to (px, py, depth, tf): pixel uniform
+    in the central 80% of the image, depth U(1.5,3) m, duration U(2,3) s
     (hpp:334-427). The JAX package draws u = uniform(key, (4, N))."""
     cam = params.cam
-    px = 0.1 * cam.width + u[0] * (0.8 * cam.width)
-    py = 0.1 * cam.height + u[1] * (0.8 * cam.height)
-    depth = min_depth + u[2] * (max_depth - min_depth)
-    tf = min_time + u[3] * (max_time - min_time)
+    px = 0.1 * cam.width + u[..., 0, :] * (0.8 * cam.width)
+    py = 0.1 * cam.height + u[..., 1, :] * (0.8 * cam.height)
+    depth = min_depth + u[..., 2, :] * (max_depth - min_depth)
+    tf = min_time + u[..., 3, :] * (max_time - min_time)
     return px, py, depth, tf
 
 
 def sample_candidates(params: PlannerParams, u, vel0, acc0):
-    """N random candidates from the (4, N) uniform block u."""
+    """N random candidates from the (*L, 4, N) uniform block u."""
     return candidates_from_samples(params, *samples_from_uniform(params, u), vel0, acc0)
 
 
 def exploration_cost(tr: traj_mod.Traj, goal_cam):
-    """-(progress toward goal)/duration (Rappids_Simulator/main.cpp:95-109)."""
+    """-(progress toward goal)/duration (Rappids_Simulator/main.cpp:95-109),
+    for (*L, N) candidates and a (*L, 3) goal."""
     end = traj_mod.position(tr, tr.tf)
-    sg = norm3(goal_cam)
-    pig = norm3(goal_cam - end)
+    goal = goal_cam[..., None, :]
+    sg = norm3(goal)
+    pig = norm3(goal - end)
     return -(sg - pig) / tr.tf
 
 
@@ -142,20 +158,21 @@ def exploration_cost(tr: traj_mod.Traj, goal_cam):
 
 
 class PyramidSet(NamedTuple):
-    """Fixed-capacity set of depth-sorted pyramids."""
+    """Fixed-capacity set of depth-sorted pyramids (leading shape L)."""
 
-    depth: torch.Tensor  # (P,) base-plane depth [m]; +inf for unused slots
-    bounds: torch.Tensor  # (P, 4) f32 pixel bounds [right, top, left, bottom]
-    normals: torch.Tensor  # (P, 4, 3) lateral-face unit normals
-    valid: torch.Tensor  # (P,) bool
+    depth: torch.Tensor  # (*L, P) base-plane depth [m]; +inf for unused slots
+    bounds: torch.Tensor  # (*L, P, 4) f32 pixel bounds [right, top, left, bottom]
+    normals: torch.Tensor  # (*L, P, 4, 3) lateral-face unit normals
+    valid: torch.Tensor  # (*L, P) bool
 
 
-def empty_pyramid_set(capacity, device) -> PyramidSet:
+def empty_pyramid_set(capacity, device, lead=()) -> PyramidSet:
+    shape = tuple(lead) + (capacity,)
     return PyramidSet(
-        depth=torch.full((capacity,), math.inf, dtype=torch.float32, device=device),
-        bounds=torch.zeros((capacity, 4), dtype=torch.float32, device=device),
-        normals=torch.zeros((capacity, 4, 3), dtype=torch.float32, device=device),
-        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        depth=torch.full(shape, math.inf, dtype=torch.float32, device=device),
+        bounds=torch.zeros(shape + (4,), dtype=torch.float32, device=device),
+        normals=torch.zeros(shape + (4, 3), dtype=torch.float32, device=device),
+        valid=torch.zeros(shape, dtype=torch.bool, device=device),
     )
 
 
@@ -180,14 +197,14 @@ def _pyramid_from_edges(cam: CameraModel, right, top, left, bottom, depth):
 class SeedSetup(NamedTuple):
     """Per-seed integer set-up of one inflation batch (the kernel's prologue)."""
 
-    x0: torch.Tensor  # (P,) int32
+    x0: torch.Tensor  # (*L, P) int32
     y0: torch.Tensor
     min_pyr_depth: torch.Tensor
     left0: torch.Tensor
     right0: torch.Tensor
     top0: torch.Tensor
     bottom0: torch.Tensor
-    ok0: torch.Tensor  # (P,) bool
+    ok0: torch.Tensor  # (*L, P) bool
     edge_off: torch.Tensor  # () int32
     ignore: torch.Tensor  # () int32
     numer: torch.Tensor  # () int32: shrink_px = numer // max(img, 1) + extra
@@ -231,32 +248,37 @@ def _rmax(x):
     return x.amax(dim=(-2, -1))
 
 
-def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_extra: int = 0):
-    """Integer inflation of P seeds (x0s, y0s, min_depths: (P,)) on one
-    (H, W) int32 depth-code image: the plain version of the inflation
-    kernel (`planner/cuda_inflate.py`, `csrc/inflate.cu`).
+def _rany(x):
+    return x.flatten(-2).any(dim=-1)
 
-    Returns (ok (P,) bool, maxd (P,) int32 expanded-rect min depth,
-    edges (P, 4) int32 [right, top, left, bottom]); the maxd and edges of
-    seeds that are not ok are unspecified. Batched form of the JAX
+
+def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_extra: int = 0):
+    """Integer inflation of P seeds (x0s, y0s, min_depths: (*L, P)) on
+    (*L, H, W) int32 depth-code images, seed row l on image l: the plain
+    version of the inflation kernel (`planner/cuda_inflate.py`,
+    `csrc/inflate.cu`).
+
+    Returns (ok (*L, P) bool, maxd (*L, P) int32 expanded-rect min depth,
+    edges (*L, P, 4) int32 [right, top, left, bottom]); the maxd and edges
+    of seeds that are not ok are unspecified. Batched form of the JAX
     package's `inflate_pyramid`: each reduction is a masked min/max over
-    (P, H, W). shrink_extra adds a pixel margin to every shrink distance
-    (the pooled-image path)."""
+    (*L, P, H, W). shrink_extra adds a pixel margin to every shrink
+    distance (the pooled-image path)."""
     W, H = params.cam.width, params.cam.height
     s = seed_setup(params, x0s, y0s, min_depths, shrink_extra)
     dev = img.device
     big = torch.tensor(BIG, dtype=torch.int32, device=dev)
     xs = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
     ys = torch.arange(H, dtype=torch.int32, device=dev)[None, :, None]
-    col = lambda v: v[:, None, None]  # noqa: E731  (P,) -> (P, 1, 1)
+    col = lambda v: v[..., None, None]  # noqa: E731  (*L, P) -> (*L, P, 1, 1)
     x0, y0 = s.x0, s.y0
-    img = img[None]
+    img = img[..., None, :, :]
     edge_off = s.edge_off
 
     blocked = (img > s.ignore) & (img < col(s.min_pyr_depth))
     in_rect0 = ((xs >= col(s.left0)) & (xs <= col(s.right0))
                 & (ys >= col(s.top0)) & (ys <= col(s.bottom0)))
-    ok = s.ok0 & ~torch.any((blocked & in_rect0).flatten(1), dim=1)
+    ok = s.ok0 & ~_rany(blocked & in_rect0)
 
     # max-sweep expansion; a round that changes nothing is a fixpoint, so a
     # fixed number of rounds equals the JAX package's early-exit while_loop
@@ -308,7 +330,7 @@ def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_ext
             edge = torch.maximum(_rmax(torch.where(use_primary, primary, -big)), init_primary)
         hi_val = _rmax(torch.where(use_hi, alt_hi, -big))
         lo_val = _rmin(torch.where(use_lo, alt_lo, big))
-        return edge, hi_val, lo_val, torch.any(fail.flatten(1), dim=1)
+        return edge, hi_val, lo_val, _rany(fail)
 
     rows_tb = (ys >= col(t)) & (ys <= col(b))
     cols_lr = (xs >= col(l)) & (xs <= col(r))
@@ -335,7 +357,7 @@ def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_ext
                  else _rmax(torch.where(use_a, s_a, -big)))
         b_val = (_rmin(torch.where(use_b, s_b, big)) if b_is_min
                  else _rmax(torch.where(use_b, s_b, -big)))
-        return a_val, b_val, torch.any(both_bad.flatten(1), dim=1)
+        return a_val, b_val, _rany(both_bad)
 
     h_span = col(torch.clamp(bottom_f - top_f, min=1))
     w_span = col(torch.clamp(right_f - left_f, min=1))
@@ -388,7 +410,7 @@ def _pooled(params: PlannerParams, img, k: int):
     H, W = cam.height, cam.width
     ignore = (params.true_radius / cam.depth_scale).to(torch.int32)
     masked = torch.where(img > ignore, img, torch.full_like(img, 1 << 17))
-    pooled = masked.reshape(H // k, k, W // k, k).amin(dim=(1, 3))
+    pooled = masked.reshape(img.shape[:-2] + (H // k, k, W // k, k)).amin(dim=(-3, -1))
     cam_small = CameraModel(focal=cam.focal / k, cx=cam.cx / k, cy=cam.cy / k,
                             width=W // k, height=H // k, depth_scale=cam.depth_scale)
     return pooled, cam_small
@@ -396,7 +418,8 @@ def _pooled(params: PlannerParams, img, k: int):
 
 def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
                       seed_depth, seed_valid, capacity, downsample: int = 1) -> PyramidSet:
-    """Inflate pyramids at the seeds and keep the `capacity` shallowest.
+    """Inflate pyramids at the seeds (*L, P) on the images (*L, H, W) and
+    keep each image's `capacity` shallowest.
 
     downsample k > 1 inflates on a k x k masked-min-pooled image with a
     scaled camera and a one-pooled-pixel margin (strictly conservative);
@@ -418,15 +441,15 @@ def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
         work_params, img, seed_px, seed_py, seed_depth, shrink_extra)
     base_depth = maxd.to(torch.float32) * params.cam.depth_scale - params.plan_radius
     e = edges.to(torch.float32)
-    bounds, normals = _pyramid_from_edges(work_params.cam, e[:, 0], e[:, 1], e[:, 2],
-                                          e[:, 3], base_depth)
+    bounds, normals = _pyramid_from_edges(work_params.cam, e[..., 0], e[..., 1], e[..., 2],
+                                          e[..., 3], base_depth)
     if k > 1:
         bounds = bounds * k
     ok = ok & seed_valid
     depth = torch.where(ok, base_depth, math.inf)
-    take = torch.argsort(depth, stable=True)[:capacity]
-    return PyramidSet(depth=depth[take], bounds=bounds[take], normals=normals[take],
-                      valid=ok[take])
+    take = torch.argsort(depth, dim=-1, stable=True)[..., :capacity]
+    return PyramidSet(depth=_take(depth, take), bounds=_take(bounds, take, 1),
+                      normals=_take(normals, take, 2), valid=_take(ok, take))
 
 
 def prefilter_seeds(params: PlannerParams, depth_u16, seed_px, seed_py,
@@ -448,37 +471,40 @@ def prefilter_seeds(params: PlannerParams, depth_u16, seed_px, seed_py,
     shrink = torch.div(s.numer, torch.clamp(img, min=1), rounding_mode="floor") + (1 if k > 1 else 0)
     ys = torch.arange(Hd, device=img.device)[None, :, None]
     xs = torch.arange(Wd, device=img.device)[None, None, :]
-    col = lambda v: v[:, None, None]  # noqa: E731
-    blocked = (img[None] > s.ignore) & (img[None] < col(s.min_pyr_depth))
+    col = lambda v: v[..., None, None]  # noqa: E731
+    img = img[..., None, :, :]
+    shrink = shrink[..., None, :, :]
+    blocked = (img > s.ignore) & (img < col(s.min_pyr_depth))
     in_rect0 = ((xs >= col(s.left0)) & (xs <= col(s.right0))
                 & (ys >= col(s.top0)) & (ys <= col(s.bottom0)))
     box = ((torch.abs(xs - col(s.x0)) <= shrink + PIXEL_BUFFER)
            & (torch.abs(ys - col(s.y0)) <= shrink + PIXEL_BUFFER))
-    doomed = torch.any((blocked & (in_rect0 | box)).flatten(1), dim=1)
+    doomed = _rany(blocked & (in_rect0 | box))
     return seed_valid & ~doomed
 
 
 def merge_pyramid_sets(a: PyramidSet, b: PyramidSet) -> PyramidSet:
     """Union of two sets, re-sorted by depth, keeping a's capacity."""
-    capacity = a.depth.shape[0]
-    depth = torch.cat([a.depth, b.depth])
-    order = torch.argsort(depth, stable=True)[:capacity]
+    capacity = a.depth.shape[-1]
+    depth = torch.cat([a.depth, b.depth], dim=-1)
+    order = torch.argsort(depth, dim=-1, stable=True)[..., :capacity]
     return PyramidSet(
-        depth=depth[order],
-        bounds=torch.cat([a.bounds, b.bounds])[order],
-        normals=torch.cat([a.normals, b.normals])[order],
-        valid=torch.cat([a.valid, b.valid])[order],
+        depth=_take(depth, order),
+        bounds=_take(torch.cat([a.bounds, b.bounds], dim=-2), order, 1),
+        normals=_take(torch.cat([a.normals, b.normals], dim=-3), order, 2),
+        valid=_take(torch.cat([a.valid, b.valid], dim=-1), order),
     )
 
 
 def find_containing_pyramid(pyrs: PyramidSet, px, py, depth):
     """First (shallowest-base) pyramid deeper than `depth` containing the
-    pixel with the search buffer (cpp:356-380), for (...) query points.
-    Returns (found, index)."""
+    pixel with the search buffer (cpp:356-380), for (*L, M) query points
+    against a set of leading shape L. Returns (found, index)."""
     px, py, depth = px[..., None], py[..., None], depth[..., None]
-    hit = (pyrs.valid & (pyrs.depth >= depth)
-           & (pyrs.bounds[:, 2] + PIXEL_BUFFER < px) & (px < pyrs.bounds[:, 0] - PIXEL_BUFFER)
-           & (pyrs.bounds[:, 1] + PIXEL_BUFFER < py) & (py < pyrs.bounds[:, 3] - PIXEL_BUFFER))
+    b = pyrs.bounds[..., None, :, :]  # (*L, 1, P, 4)
+    hit = (pyrs.valid[..., None, :] & (pyrs.depth[..., None, :] >= depth)
+           & (b[..., 2] + PIXEL_BUFFER < px) & (px < b[..., 0] - PIXEL_BUFFER)
+           & (b[..., 1] + PIXEL_BUFFER < py) & (py < b[..., 3] - PIXEL_BUFFER))
     return torch.any(hit, dim=-1), torch.argmax(hit.to(torch.int8), dim=-1)
 
 
@@ -506,49 +532,50 @@ def _quartic_or_cubic_roots(c0, c1, c2, c3, c4):
 
 
 def monotonic_sections(tr: traj_mod.Traj):
-    """Split [0, tf] at the roots of zdot (cpp:303-354), for (N,) candidates.
+    """Split [0, tf] at the roots of zdot (cpp:303-354), for (*L, N)
+    candidates.
 
-    Returns (t1s, t2s, valid), each (N, MAX_SECTIONS)."""
+    Returns (t1s, t2s, valid), each (*L, N, MAX_SECTIONS)."""
     # zdot(t) = v0z + a0z t + gz t^2/2 + bz t^3/6 + az t^4/24
     roots, rvalid = _quartic_or_cubic_roots(
-        tr.alpha[:, 2] / 24.0, tr.beta[:, 2] / 6.0, tr.gamma[:, 2] / 2.0,
-        tr.a0[:, 2], tr.v0[:, 2])
-    tf = tr.tf[:, None]
+        tr.alpha[..., 2] / 24.0, tr.beta[..., 2] / 6.0, tr.gamma[..., 2] / 2.0,
+        tr.a0[..., 2], tr.v0[..., 2])
+    tf = tr.tf[..., None]
     interior = rvalid & (roots > 0.0) & (roots < tf)
     bnd = torch.cat([torch.zeros_like(tf), torch.where(interior, roots, tf), tf], dim=-1)
-    bnd = torch.sort(bnd, dim=-1).values  # (N, 6)
-    t1s, t2s = bnd[:, :-1], bnd[:, 1:]
+    bnd = torch.sort(bnd, dim=-1).values  # (*L, N, 6)
+    t1s, t2s = bnd[..., :-1], bnd[..., 1:]
     valid = (t2s - t1s) > 1e-6
-    pad = MAX_SECTIONS - t1s.shape[1]
-    zpad = torch.zeros_like(tf).expand(-1, pad)
+    pad = MAX_SECTIONS - t1s.shape[-1]
+    zpad = torch.zeros_like(t1s[..., :1]).expand(t1s.shape[:-1] + (pad,))
     return (torch.cat([t1s, zpad], dim=-1), torch.cat([t2s, zpad], dim=-1),
-            torch.cat([valid, torch.zeros_like(valid[:, :pad])], dim=-1))
+            torch.cat([valid, torch.zeros_like(valid[..., :pad])], dim=-1))
 
 
 def _poly_at(tr: traj_mod.Traj, axis: int, t):
     """Position along one axis; z and x/y round their t^2 term as the JAX
     package's `_z_at` (a0 t t / 2) and collision_check (a0 t^2 / 2) do."""
-    t2 = tr.a0[:, axis] * t * t if axis == 2 else tr.a0[:, axis] * ipow(t, 2)
-    return (tr.p0[:, axis] + tr.v0[:, axis] * t + t2 / 2.0
-            + tr.gamma[:, axis] * ipow(t, 3) / 6.0 + tr.beta[:, axis] * ipow(t, 4) / 24.0
-            + tr.alpha[:, axis] * ipow(t, 5) / 120.0)
+    t2 = tr.a0[..., axis] * t * t if axis == 2 else tr.a0[..., axis] * ipow(t, 2)
+    return (tr.p0[..., axis] + tr.v0[..., axis] * t + t2 / 2.0
+            + tr.gamma[..., axis] * ipow(t, 3) / 6.0 + tr.beta[..., axis] * ipow(t, 4) / 24.0
+            + tr.alpha[..., axis] * ipow(t, 5) / 120.0)
 
 
 def _deepest_collision_time(tr: traj_mod.Traj, normals, t1, t2, increasing):
     """Deepest in-time crossing of the 4 lateral faces (cpp:382-454), for
-    (N,) candidates against their (N, 4, 3) pyramid normals. Assumes
+    (*L, N) candidates against their (*L, N, 4, 3) pyramid normals. Assumes
     p0 == 0 (camera-frame planning), so t = 0 factors out of n.p(t)."""
-    def nd(v):  # (N, 4): normals @ v, summed left to right
-        v = v[:, None, :]
+    def nd(v):  # (*L, N, 4): normals @ v, summed left to right
+        v = v[..., None, :]
         return normals[..., 0] * v[..., 0] + normals[..., 1] * v[..., 1] + normals[..., 2] * v[..., 2]
 
     roots, rvalid = _quartic_or_cubic_roots(
         nd(tr.alpha) / 120.0, nd(tr.beta) / 24.0, nd(tr.gamma) / 6.0,
         nd(tr.a0) / 2.0, nd(tr.v0))
-    in_window = rvalid & (roots > t1[:, None, None]) & (roots < t2[:, None, None])
-    any_hit = torch.any(in_window.flatten(1), dim=1)
-    t_inc = torch.where(in_window, roots, -math.inf).flatten(1).amax(dim=1)
-    t_dec = torch.where(in_window, roots, math.inf).flatten(1).amin(dim=1)
+    in_window = rvalid & (roots > t1[..., None, None]) & (roots < t2[..., None, None])
+    any_hit = _rany(in_window)
+    t_inc = torch.where(in_window, roots, -math.inf).flatten(-2).amax(dim=-1)
+    t_dec = torch.where(in_window, roots, math.inf).flatten(-2).amin(dim=-1)
     return any_hit, torch.where(increasing, t_inc, t_dec)
 
 
@@ -561,25 +588,24 @@ def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, 
     MAX_CHECK_ITERS masked steps; a candidate whose loop would have ended
     keeps its state, so the result is identical and nothing syncs.
 
-    enabled: (N,) bool, False skips a candidate. Returns (free, fail_px,
+    enabled: (*L, N) bool, False skips a candidate. Returns (free, fail_px,
     fail_py, fail_depth): the pixel and depth of each candidate's first
     uncovered section's deepest point (0s when none)."""
     t1s, t2s, valid = monotonic_sections(tr)
-    live = valid & enabled[:, None]
-    n = tr.tf.shape[0]
+    live = valid & enabled[..., None]
     dev = tr.tf.device
-    status = torch.zeros(n, dtype=torch.int32, device=dev)
-    zf = torch.zeros(n, dtype=torch.float32, device=dev)
+    status = torch.zeros(tr.tf.shape, dtype=torch.int32, device=dev)
+    zf = torch.zeros(tr.tf.shape, dtype=torch.float32, device=dev)
     fail = (zf, zf, zf)
     slot_iota = torch.arange(MAX_SECTIONS, device=dev)
     two = torch.full_like(status, 2)
 
     for _ in range(MAX_CHECK_ITERS):
-        running = torch.any(live, dim=1) & (status == 0)
+        running = torch.any(live, dim=-1) & (status == 0)
         # pop the first live section (order only affects pyramid reuse)
-        oh = slot_iota == torch.argmax(live.to(torch.int8), dim=1, keepdim=True)
-        t1 = torch.where(oh, t1s, 0.0).sum(1)
-        t2 = torch.where(oh, t2s, 0.0).sum(1)
+        oh = slot_iota == torch.argmax(live.to(torch.int8), dim=-1, keepdim=True)
+        t1 = torch.where(oh, t1s, 0.0).sum(-1)
+        t2 = torch.where(oh, t2s, 0.0).sum(-1)
 
         z1 = _poly_at(tr, 2, t1)
         z2 = _poly_at(tr, 2, t2)
@@ -599,19 +625,19 @@ def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, 
         fail = tuple(torch.where(first_fail, v, f) for f, v in zip(fail, (px, py, deep_z)))
         status = torch.where(running & no_cover, two, status)
 
-        normals = pyrs.normals[pidx]  # (N, 4, 3)
+        normals = _take(pyrs.normals, pidx, 2)  # (*L, N, 4, 3)
         hit, t_col = _deepest_collision_time(tr, normals, t1, t2, increasing)
 
         # remainder section outside the pyramid goes back into the freed slot
         new_t1 = torch.where(increasing, t1, t_col)
         new_t2 = torch.where(increasing, t_col, t2)
         push = ~skip & found & hit & ((new_t2 - new_t1) > 1e-6)
-        upd = oh & running[:, None]
-        t1s = torch.where(upd & push[:, None], new_t1[:, None], t1s)
-        t2s = torch.where(upd & push[:, None], new_t2[:, None], t2s)
-        live = torch.where(upd, push[:, None], live)
+        upd = oh & running[..., None]
+        t1s = torch.where(upd & push[..., None], new_t1[..., None], t1s)
+        t2s = torch.where(upd & push[..., None], new_t2[..., None], t2s)
+        live = torch.where(upd, push[..., None], live)
 
-    free = (status == 0) & ~torch.any(live, dim=1)
+    free = (status == 0) & ~torch.any(live, dim=-1)
     return free, fail[0], fail[1], fail[2]
 
 
@@ -621,8 +647,8 @@ def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, 
 
 
 class PlanResult(NamedTuple):
-    found: torch.Tensor  # bool
-    best_idx: torch.Tensor  # int64 into the candidate batch
+    found: torch.Tensor  # (*L,) bool
+    best_idx: torch.Tensor  # (*L,) int64 into the candidate batch
     best_cost: torch.Tensor
     traj: traj_mod.Traj  # the selected candidate
     num_candidates: int
@@ -635,15 +661,14 @@ class PlanResult(NamedTuple):
 def _greedy_seed_dedupe(px, py, z, valid, tol_px, tol_z):
     """Greedy first-wins dedupe of inflation seeds ordered by priority: seed
     j drops when an earlier KEPT seed lies within tol_px pixels on both axes
-    and tol_z meters in depth."""
-    close = ((torch.abs(px[:, None] - px[None, :]) <= tol_px)
-             & (torch.abs(py[:, None] - py[None, :]) <= tol_px)
-             & (torch.abs(z[:, None] - z[None, :]) <= tol_z))
-    idx = torch.arange(px.shape[0], device=px.device)
+    and tol_z meters in depth. Seeds (*L, M)."""
+    pair = lambda v: torch.abs(v[..., :, None] - v[..., None, :])  # noqa: E731
+    close = (pair(px) <= tol_px) & (pair(py) <= tol_px) & (pair(z) <= tol_z)
+    idx = torch.arange(px.shape[-1], device=px.device)
     later = idx[None, :] > idx[:, None]
     keep = valid
-    for j in range(px.shape[0]):
-        keep = keep & ~(keep[j] & close[j] & later[j])
+    for j in range(px.shape[-1]):
+        keep = keep & ~(keep[..., j, None] & close[..., j, :] & later[j])
     return keep
 
 
@@ -657,26 +682,29 @@ def plan_debug(params: PlannerParams, depth_u16, samples, vel0, acc0, grav, goal
 
 def plan(params: PlannerParams, depth_u16, u, vel0, acc0, grav, goal_cam,
          pyramid_capacity=32, rounds=2, inflation_downsample=1, lazy_rounds=1):
-    """One planning call on a (H, W) depth-code image: sample from the
-    (4, N) uniform block u, gate, build pyramids, pick the cheapest free
-    candidate. All vectors are camera-frame (main.cpp:489-495)."""
-    n = u.shape[1]
+    """One planning call per (H, W) depth-code image of depth_u16
+    (*L, H, W): sample from the (*L, 4, N) uniform block u, gate, build
+    pyramids, pick the cheapest free candidate. All vectors are
+    camera-frame (main.cpp:489-495), (*L, 3)."""
+    n = u.shape[-1]
     tr, cost, feas, vel_ok, gate, collision_free, pyrs = _plan_core(
         params, depth_u16, samples_from_uniform(params, u), vel0, acc0, grav,
         goal_cam, pyramid_capacity, rounds, inflation_downsample, lazy_rounds)
     ok = gate & collision_free
     best_cost = torch.where(ok, cost, math.inf)
-    best_idx = torch.argmin(best_cost)
+    best = torch.argmin(best_cost, dim=-1, keepdim=True)
+    count = lambda m: m.sum(dim=-1, dtype=torch.int32)  # noqa: E731
     return PlanResult(
-        found=torch.any(ok),
-        best_idx=best_idx,
-        best_cost=best_cost[best_idx],
-        traj=traj_mod.Traj(*(x[best_idx] for x in tr)),
+        found=torch.any(ok, dim=-1),
+        best_idx=best[..., 0],
+        best_cost=_take(best_cost, best)[..., 0],
+        traj=traj_mod.Traj(*(_take(x, best, 1)[..., 0, :] if x.dim() > cost.dim()
+                             else _take(x, best)[..., 0] for x in tr)),
         num_candidates=n,
-        num_feasible=feas.sum(dtype=torch.int32),
-        num_velocity_admissible=(feas & vel_ok).sum(dtype=torch.int32),
-        num_collision_free=ok.sum(dtype=torch.int32),
-        num_pyramids=pyrs.valid.sum(dtype=torch.int32),
+        num_feasible=count(feas),
+        num_velocity_admissible=count(feas & vel_ok),
+        num_collision_free=count(ok),
+        num_pyramids=count(pyrs.valid),
     )
 
 
@@ -685,11 +713,11 @@ def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
     """Shared planning pipeline: candidates, gates, pyramid rounds
     (pre-planned + lazy on-demand), collision labels."""
     tr = candidates_from_samples(params, *samples, vel0, acc0)
-    n = tr.tf.shape[0]
     dev = tr.tf.device
+    lead = tr.tf.shape[:-1]
     cost = exploration_cost(tr, goal_cam)
     feas = traj_mod.check_input_feasibility(
-        tr, grav, params.fmin, params.fmax, params.wmax, params.min_section_time,
+        tr, grav[..., None, :], params.fmin, params.fmax, params.wmax, params.min_section_time,
         # sampler durations are U(2,3) s: identical verdicts, fewer levels
         static_max_tf=3.0)
     vel_ok = traj_mod.check_velocity_feasibility(tr, params.vmax)
@@ -698,26 +726,27 @@ def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
     # pyramid seeds: endpoints of the cheapest gated candidates
     end = traj_mod.position(tr, tr.tf)
     epx, epy = project(params.cam, end)
-    order = torch.argsort(torch.where(gate, cost, math.inf), stable=True)
+    endz = end[..., 2]
+    order = torch.argsort(torch.where(gate, cost, math.inf), dim=-1, stable=True)
 
     per_round = pyramid_capacity // (rounds + lazy_rounds)
-    pyrs = empty_pyramid_set(pyramid_capacity, dev)
+    pyrs = empty_pyramid_set(pyramid_capacity, dev, lead)
     for rnd in range(rounds):
-        take = order[rnd * per_round:(rnd + 1) * per_round]
-        seed_valid = gate[take]
+        take = order[..., rnd * per_round:(rnd + 1) * per_round]
+        seed_valid = _take(gate, take)
+        px_t, py_t, z_t = _take(epx, take), _take(epy, take), _take(endz, take)
         if rnd > 0:
             # skip seeds already covered by an existing pyramid
-            f, _ = find_containing_pyramid(pyrs, epx[take], epy[take], end[take][:, 2])
+            f, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
             seed_valid = seed_valid & ~f
-        new_pyrs = build_pyramid_set(
-            params, depth_u16, epx[take], epy[take], end[take][:, 2],
-            seed_valid, per_round, downsample=inflation_downsample)
+        new_pyrs = build_pyramid_set(params, depth_u16, px_t, py_t, z_t, seed_valid,
+                                     per_round, downsample=inflation_downsample)
         # as in the JAX package, the first round's merge sets the capacity
         # of the set to pyramid_capacity - per_round
-        base = pyrs if rnd > 0 else empty_pyramid_set(pyramid_capacity - per_round, dev)
+        base = pyrs if rnd > 0 else empty_pyramid_set(pyramid_capacity - per_round, dev, lead)
         pyrs = merge_pyramid_sets(base, new_pyrs)
 
-    everyone = torch.ones(n, dtype=torch.bool, device=dev)
+    everyone = torch.ones_like(gate)
     collision_free, fail_px, fail_py, fail_z = collision_check(params, pyrs, tr, everyone)
 
     # lazy rounds (DepthImagePlanner.cpp:270-273): the cheapest gated
@@ -732,25 +761,25 @@ def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
         # required pyramid depth can never inflate
         pxi = torch.clamp(fail_px.to(torch.int32), 0, params.cam.width - 1)
         pyi = torch.clamp(fail_py.to(torch.int32), 0, params.cam.height - 1)
-        seed_code = img_i[pyi.long(), pxi.long()]
+        seed_code = _take(img_i.flatten(-2), pyi.long() * params.cam.width + pxi.long())
         minpyr_i = ((fail_z + scale + params.plan_radius) / scale).to(torch.int32)
         seedable = failed & ((seed_code <= ignore_i) | (seed_code >= minpyr_i))
-        order2 = torch.argsort(torch.where(seedable, cost, math.inf), stable=True)
+        order2 = torch.argsort(torch.where(seedable, cost, math.inf), dim=-1, stable=True)
         # consider 4x more fail points than slots; prefilter the doomed,
         # dedupe near-identical survivors, inflate 2x per_round of them
-        take = order2[:4 * per_round]
-        covered, _ = find_containing_pyramid(pyrs, fail_px[take], fail_py[take], fail_z[take])
-        seed_valid = seedable[take] & ~covered
-        px_t, py_t, z_t = fail_px[take], fail_py[take], fail_z[take]
+        take = order2[..., :4 * per_round]
+        px_t, py_t, z_t = _take(fail_px, take), _take(fail_py, take), _take(fail_z, take)
+        covered, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
+        seed_valid = _take(seedable, take) & ~covered
         # one depth-code quantum deeper, so the floored pyramid base clears z
         seed_depth = z_t + scale
         seed_valid = prefilter_seeds(params, depth_u16, px_t, py_t, seed_depth,
                                      seed_valid, downsample=inflation_downsample)
         keep = _greedy_seed_dedupe(px_t, py_t, z_t, seed_valid,
                                    float(LAZY_DEDUPE_PX), LAZY_DEDUPE_Z_QUANTA * scale)
-        sel = torch.argsort((~keep).to(torch.int8), stable=True)[:2 * per_round]
-        new_pyrs = build_pyramid_set(params, depth_u16, px_t[sel], py_t[sel],
-                                     seed_depth[sel], keep[sel], per_round,
+        sel = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)[..., :2 * per_round]
+        new_pyrs = build_pyramid_set(params, depth_u16, _take(px_t, sel), _take(py_t, sel),
+                                     _take(seed_depth, sel), _take(keep, sel), per_round,
                                      downsample=inflation_downsample)
         pyrs = merge_pyramid_sets(pyrs, new_pyrs)
         refree, fail_px2, fail_py2, fail_z2 = collision_check(params, pyrs, tr, failed)

@@ -184,7 +184,9 @@ def _section_verdict(tr: Traj, grav, t1, t2, fmin_allowed, fmax_allowed, wmax_al
 def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
                             wmax_allowed=20.0, min_time_section=0.02,
                             max_depth=9, static_max_tf=None):
-    """Interval-bisection proof that thrust in [fmin, fmax] and |w| <= wmax.
+    """Interval-bisection proof that thrust in [fmin, fmax] and |w| <= wmax,
+    for trajectories of any batch shape; grav (3,) or broadcastable to
+    their (..., 3) vectors.
 
     True = InputFeasible. A needed section narrower than min_time_section
     rejects (InputIndeterminable); uncertain sections recurse into the next
@@ -205,7 +207,7 @@ def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
         tr_b = Traj(*(x[..., None, :] if x.dim() == len(batch) + 1 else x[..., None]
                       for x in tr))
         _, infeas, split = _section_verdict(
-            tr_b, grav, t1, t2, fmin_allowed, fmax_allowed, wmax_allowed)
+            tr_b, grav[..., None, :], t1, t2, fmin_allowed, fmax_allowed, wmax_allowed)
         ok = ok & ~torch.any(needed & (too_narrow | infeas), dim=-1)
         if level == max_depth:
             ok = ok & ~torch.any(needed & split, dim=-1)

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from agrifly_tpu.models import constants as qconst
+from agrifly_tpu_torch.models import constants as qconst
 from agrifly_tpu_torch.models import ekf
 from agrifly_tpu_torch.models import logic as onboard
 from agrifly_tpu_torch.models import plant as plant_mod

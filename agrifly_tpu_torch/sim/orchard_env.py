@@ -14,6 +14,14 @@ CUDA kernel (`sim/cuda_frame.py`); otherwise as plain torch ops
 The mission climbs to `takeoff_height` until `start_flight_time`, then
 plans toward the waypoints; before a plan exists it hovers at 2 m.
 
+A fleet (`frame_step_fleet`, `fly_fleet`) is B vehicles sharing one
+`OrchardEnvParams`, with a leading B axis on every state leaf: the
+counterpart of the JAX package's `jax.vmap` over the perception, written
+as that axis. The perception code takes any leading shape, so one frame
+of a fleet launches the raycast kernel once for all B images, the
+inflation kernel once per planner round for all B images, and the tick
+kernel once for all B vehicles.
+
 Randomness: `frame_step` draws the planner's (4, N) uniform block and the
 (steps_per_frame, 2, 3) IMU normal block from a torch.Generator, or takes
 them as `draws` (the parity tests inject the JAX package's draws).
@@ -27,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from agrifly_tpu.models import constants as qconst
+from agrifly_tpu_torch.models import constants as qconst
 from agrifly_tpu_torch.convert import flatten_tensors
 from agrifly_tpu_torch.io import radio
 from agrifly_tpu_torch.offboard import controller as offboard_ctrl
@@ -107,10 +115,16 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
                 steps_per_frame=16, n_candidates=256, pyramid_capacity=32,
                 planner_rounds=2, inflation_downsample=2, width=640, height=480,
                 seed=0, noise_scale=1.0, waypoints=None, land=False,
-                fused_ticks=True, device=None) -> OrchardEnvParams:
+                fused_ticks=True, device="cuda") -> OrchardEnvParams:
     """The JAX package's defaults; `waypoints` are flown in order with the
     reference's 1 m switching radius, defaulting to `goal_world`.
-    fused_ticks=False runs the tick block as plain torch ops."""
+    fused_ticks=False runs the tick block as plain torch ops. The tensors
+    are built on the card unless `device` names another; with no card,
+    the default raises instead of building on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_params: no CUDA device; pass device='cpu' to build the "
+                           "environment on the CPU")
     base = env_mod.make_params(noise_scale=noise_scale, device=device)
     cam = rappids.make_camera(width, height, focal=width / 2.0, depth_scale=10.0 / 256.0,
                               device=device)
@@ -273,34 +287,63 @@ def frame_ticks_plain(params: OrchardEnvParams, s: OrchardEnvState,
 frame_ticks_plain.calls = 0  # calls since the last reset
 
 
+def frame_ticks_plain_fleet(params: OrchardEnvParams, s: OrchardEnvState,
+                            noise) -> OrchardEnvState:
+    """`frame_ticks_plain` for each vehicle of a fleet, stacked: the
+    reference for the fleet's tick kernel. noise: (B, ticks, 2, 3)."""
+    leaves, rebuild = flatten_tensors(s)
+    return stack_states([frame_ticks_plain(params, rebuild([t[b] for t in leaves]), noise[b])
+                         for b in range(noise.shape[0])])
+
+
+def stack_states(states) -> OrchardEnvState:
+    """One fleet state from single-vehicle states: row b is states[b]."""
+    flat = [flatten_tensors(s) for s in states]
+    return flat[0][1]([torch.stack(col) for col in zip(*(leaves for leaves, _ in flat))])
+
+
 def frame_ticks(params: OrchardEnvParams, s: OrchardEnvState, noise) -> OrchardEnvState:
-    """Tick-block dispatch: the fused kernel when `params.fused_ticks`
+    """Tick-block dispatch for one vehicle (noise (ticks, 2, 3)) or a fleet
+    (noise (B, ticks, 2, 3)): the fused kernel when `params.fused_ticks`
     (`sim/cuda_frame.frame_ticks`, which takes the plain ticks on CPU
-    tensors), else `frame_ticks_plain`."""
+    tensors), else the plain ticks."""
     if params.fused_ticks:
         from agrifly_tpu_torch.sim import cuda_frame
 
         return cuda_frame.frame_ticks(params, s, noise)
+    if noise.dim() == 4:
+        return frame_ticks_plain_fleet(params, s, noise)
     return frame_ticks_plain(params, s, noise)
+
+
+def _where(mask, a, b):
+    """torch.where with a mask of the state's leading (vehicle) shape,
+    broadcast over the leaf's own trailing axes."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim())), a, b)
 
 
 def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     """Render -> plan -> mission bookkeeping (everything before the ticks).
-    u: the planner's (4, n_candidates) uniform block. Returns (state,
-    plan_info)."""
+
+    Every state leaf carries the same leading vehicle shape L: () for one
+    vehicle, (B,) for a fleet. u: the planner's (*L, 4, n_candidates)
+    uniform block. Returns (state, plan_info)."""
     base = s.base
     p = params.base
     dev = base.step.device
+    lead = base.step.shape
 
     # the estimator's view, which the planner gets (main.cpp:469,489-495)
     est_pos, est_vel, est_att, _ = estimators.mocap_get_prediction(
         base.mocap, base.step * p.dt_us, p.est_latency_us)
     est_att_n = rot.qnormalize(est_att)
 
-    # 1. render a depth frame from the *true* pose
+    # 1. render depth frames from the *true* poses, all vehicles in one call
     cam_att = raycast.camera_attitude(base.plant.att)
+    cfg = params.render_cfg
     depth = cuda_raycast.render_depth_batch(
-        params.render_cfg, params.scene, base.plant.pos[None], cam_att[None])[0]
+        cfg, params.scene, base.plant.pos.reshape(-1, 3), cam_att.reshape(-1, 4)
+    ).reshape(lead + (cfg.height, cfg.width))
 
     # 2. plan in the camera frame (main.cpp:484-508)
     cam_att_est = raycast.camera_attitude(est_att_n)
@@ -308,7 +351,7 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     grav = const(GRAV_W, dev)
     vel_cam = lin3.mv3t(R_wc, est_vel)
     acc_cam = lin3.mv3t(R_wc, rot.rotate(est_att_n, const((0.0, 0.0, 1.0), dev))
-                        * base.last_cmd_thrust + grav)
+                        * base.last_cmd_thrust[..., None] + grav)
     grav_cam = lin3.mv3t(R_wc, grav)
 
     # waypoint switching at the reference's 1 m radius; after the last
@@ -323,7 +366,7 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     if params.land:
         enter_land = at_wp & ~has_next
         mstage = torch.where(enter_land, MSTAGE_LANDING, mstage)
-        land_pos = torch.where(enter_land, est_pos, land_pos)
+        land_pos = _where(enter_land, est_pos, land_pos)
         land_start_step = torch.where(enter_land, base.step, land_start_step)
     goal_world = params.waypoints[waypoint_idx.long()]
     goal_cam = lin3.mv3t(R_wc, goal_world - est_pos)
@@ -335,7 +378,7 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
 
     adopt = res.found & in_flight & (mstage == MSTAGE_CRUISE)
     old = s.planned
-    pick = lambda new, prev: torch.where(adopt, new, prev)  # noqa: E731
+    pick = lambda new, prev: _where(adopt, new, prev)  # noqa: E731
     planned = PlannedTraj(
         planned=old.planned | adopt, alpha=pick(res.traj.alpha, old.alpha),
         beta=pick(res.traj.beta, old.beta), gamma=pick(res.traj.gamma, old.gamma),
@@ -364,6 +407,14 @@ def draw(params: OrchardEnvParams, gen: torch.Generator, device):
     return u, noise
 
 
+def draw_fleet(params: OrchardEnvParams, gen: torch.Generator, B: int, device):
+    """One fleet frame's random draws from gen: u (B, 4, N) and noise
+    (B, steps_per_frame, 2, 3)."""
+    u = torch.rand((B, 4, params.n_candidates), generator=gen, device=device)
+    noise = torch.randn((B, params.steps_per_frame, 2, 3), generator=gen, device=device)
+    return u, noise
+
+
 def frame_step(params: OrchardEnvParams, s: OrchardEnvState, gen=None, draws=None):
     """One 33 ms frame: render -> plan -> steps_per_frame tracked ticks.
 
@@ -378,18 +429,51 @@ def frame_step(params: OrchardEnvParams, s: OrchardEnvState, gen=None, draws=Non
                    **plan_info)
 
 
-def fly(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int, gen: torch.Generator):
-    """n_frames of frame_step. Returns (state, outputs stacked per frame)."""
+def frame_step_fleet(params: OrchardEnvParams, s: OrchardEnvState, gen=None, draws=None):
+    """One frame of a B-vehicle fleet (a leading B axis on every state
+    leaf; see `init_state_fleet`). draws: optional (u (B, 4, N), noise
+    (B, ticks, 2, 3)), else drawn from `gen`. Returns (state, outputs dict,
+    each output with a leading B)."""
+    if draws is None:
+        draws = draw_fleet(params, gen, s.base.step.shape[0], s.base.step.device)
+    return frame_step(params, s, draws=draws)
+
+
+def init_state_fleet(params: OrchardEnvParams, positions) -> OrchardEnvState:
+    """The state of a fleet spawned at positions (B, 3): row b is
+    `init_state(params, pos=positions[b])`."""
+    pos = torch.as_tensor(positions, dtype=torch.float32, device=params.waypoints.device)
+    if pos.dim() != 2 or pos.shape[1] != 3:
+        raise ValueError(f"need (B, 3) positions, got {tuple(pos.shape)}")
+    leaves, rebuild = flatten_tensors(init_state(params))
+    s = rebuild([t.expand((pos.shape[0],) + t.shape).clone() for t in leaves])
+    return s._replace(base=s.base._replace(plant=s.base.plant._replace(pos=pos.clone())))
+
+
+def _fly(step, params, s, n_frames, gen):
     outs = []
     for _ in range(n_frames):
-        s, out = frame_step(params, s, gen)
+        s, out = step(params, s, gen)
         outs.append(out)
     return s, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+def fly(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int, gen: torch.Generator):
+    """n_frames of frame_step. Returns (state, outputs stacked per frame)."""
+    return _fly(frame_step, params, s, n_frames, gen)
+
+
+def fly_fleet(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int,
+              gen: torch.Generator):
+    """n_frames of frame_step_fleet. Returns (state, outputs stacked
+    (frames, B, ...))."""
+    return _fly(frame_step_fleet, params, s, n_frames, gen)
+
+
 class OrchardEnv(torch.nn.Module):
     """The orchard environment as a module: its parameters are buffers, so
-    `.to(device)` moves them; `frame_step` and `fly` take a state and a
+    `.to(device)` moves them; `frame_step` and `fly` (one vehicle) and
+    `frame_step_fleet` and `fly_fleet` (a fleet) take a state and a
     torch.Generator on that device."""
 
     def __init__(self, params: OrchardEnvParams):
@@ -406,8 +490,17 @@ class OrchardEnv(torch.nn.Module):
     def init_state(self, pos=(0.0, 0.0, 0.0)) -> OrchardEnvState:
         return init_state(self.params, pos)
 
+    def init_state_fleet(self, positions) -> OrchardEnvState:
+        return init_state_fleet(self.params, positions)
+
     def frame_step(self, state, gen=None, draws=None):
         return frame_step(self.params, state, gen, draws)
 
+    def frame_step_fleet(self, state, gen=None, draws=None):
+        return frame_step_fleet(self.params, state, gen, draws)
+
     def fly(self, state, n_frames: int, gen: torch.Generator):
         return fly(self.params, state, n_frames, gen)
+
+    def fly_fleet(self, state, n_frames: int, gen: torch.Generator):
+        return fly_fleet(self.params, state, n_frames, gen)

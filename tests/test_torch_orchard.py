@@ -11,6 +11,7 @@ import functools
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +48,7 @@ def _port(jp, js):
 def test_params_from_numpy_equal_port_make_params():
     jp, _, _ = _jax()
     tp, _ = _port(jp, _jax()[2])
-    mine = T.make_params(fused_ticks=False, **KW)  # the JAX configuration's tick path
+    mine = T.make_params(fused_ticks=False, device="cpu", **KW)  # the JAX configuration's tick path
     assert tp._replace(base=None, scene=None, planner=None, waypoints=None, num_waypoints=None,
                        takeoff_height=None, start_flight_step=None, track_lookahead=None) == \
         mine._replace(base=None, scene=None, planner=None, waypoints=None, num_waypoints=None,
@@ -101,17 +102,23 @@ def test_flight_envelope():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports with jax
+    blocked and loads no module of the JAX package."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
-        import agrifly_tpu_torch.sim.orchard_env, agrifly_tpu_torch.convert
-        import agrifly_tpu_torch.render.cuda_raycast, agrifly_tpu_torch.planner.cuda_inflate
-        import agrifly_tpu_torch.sim.cuda_frame
+        import agrifly_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(agrifly_tpu_torch.__path__,
+                                                       "agrifly_tpu_torch.")]
+        for name in names + ["chip_smoke"]:
+            importlib.import_module(name)
         jaxy = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
         theirs = sorted(m for m in sys.modules if m.split(".")[0] == "agrifly_tpu")
-        assert theirs == ["agrifly_tpu", "agrifly_tpu.models", "agrifly_tpu.models.constants"], theirs
+        assert theirs == [], theirs
+        assert "agrifly_tpu_torch.sim.orchard_env" in names and len(names) > 30, names
         print("ok", jaxy)
     """)
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok ['jax']", res.stdout
