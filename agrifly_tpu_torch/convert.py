@@ -24,25 +24,31 @@ def _is_namedtuple_type(t) -> bool:
     return isinstance(t, type) and issubclass(t, tuple) and hasattr(t, "_fields")
 
 
+def _convert(hint, leaf, device, where):
+    args = typing.get_args(hint)
+    if typing.get_origin(hint) is typing.Union and len(args) == 2 and type(None) in args:
+        if leaf is None:
+            return None
+        hint = next(a for a in args if a is not type(None))
+    if _is_namedtuple_type(hint):
+        return from_numpy(hint, leaf, device)
+    if hint is torch.Tensor:
+        arr = np.array(leaf)
+        if arr.dtype.type not in _DTYPES:
+            raise TypeError(f"{where}: unexpected dtype {arr.dtype}")
+        return torch.from_numpy(arr).to(device)
+    if hint in (int, float, bool):
+        return hint(np.asarray(leaf).item())
+    raise TypeError(f"{where}: unsupported annotation {hint}")
+
+
 def from_numpy(cls, tree, device=None):
     """Build the port NamedTuple `cls` from a same-shaped tree of numpy
     leaves (matched by field name)."""
     hints = typing.get_type_hints(cls)
-    values = {}
-    for name in cls._fields:
-        hint, leaf = hints[name], getattr(tree, name)
-        if _is_namedtuple_type(hint):
-            values[name] = from_numpy(hint, leaf, device)
-        elif hint is torch.Tensor:
-            arr = np.array(leaf)
-            if arr.dtype.type not in _DTYPES:
-                raise TypeError(f"{cls.__name__}.{name}: unexpected dtype {arr.dtype}")
-            values[name] = torch.from_numpy(arr).to(device)
-        elif hint in (int, float, bool):
-            values[name] = hint(np.asarray(leaf).item())
-        else:
-            raise TypeError(f"{cls.__name__}.{name}: unsupported annotation {hint}")
-    return cls(**values)
+    return cls(**{name: _convert(hints[name], getattr(tree, name), device,
+                                 f"{cls.__name__}.{name}")
+                  for name in cls._fields})
 
 
 def params_from_numpy(tree, device=None):

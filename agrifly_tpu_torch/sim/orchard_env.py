@@ -2,11 +2,12 @@
 
 Port of `agrifly_tpu/sim/orchard_env.py` in the configuration
 `make_params(use_pallas=True)`: one `frame_step` renders a depth frame
-from the true pose (the raycast kernel on CUDA), runs the RAPPIDS planner
-on it (the inflation kernel on CUDA), then advances `steps_per_frame` 2 ms
-ticks that track the planned trajectory through the quantized, delayed
-radio channel (200 Hz mocap estimator -> RunTracking at 100 Hz -> rates
-command -> 30 ms delay line -> onboard rates controller). With
+from the true pose (the raycast kernel on CUDA; in an imported world,
+`make_params(mesh_scene=...)`, the strip-culled mesh kernel), runs the
+RAPPIDS planner on it (the inflation kernel on CUDA), then advances
+`steps_per_frame` 2 ms ticks that track the planned trajectory through the
+quantized, delayed radio channel (200 Hz mocap estimator -> RunTracking at
+100 Hz -> rates command -> 30 ms delay line -> onboard rates controller). With
 `fused_ticks` (the default, as in the JAX package) the ticks run as one
 CUDA kernel (`sim/cuda_frame.py`); otherwise as plain torch ops
 (`frame_ticks_plain`).
@@ -18,7 +19,7 @@ A fleet (`frame_step_fleet`, `fly_fleet`) is B vehicles sharing one
 `OrchardEnvParams`, with a leading B axis on every state leaf: the
 counterpart of the JAX package's `jax.vmap` over the perception, written
 as that axis. The perception code takes any leading shape, so one frame
-of a fleet launches the raycast kernel once for all B images, the
+of a fleet launches the raycast (or mesh) kernel once for all B images, the
 inflation kernel once per planner round for all B images, and the tick
 kernel once for all B vehicles.
 
@@ -30,7 +31,7 @@ Nothing in a frame reads a tensor back to the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,8 +46,9 @@ from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.ops.fmath import const, norm3
 from agrifly_tpu_torch.planner import rappids
 from agrifly_tpu_torch.planner import traj as traj_mod
-from agrifly_tpu_torch.render import cuda_raycast, raycast
+from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, raycast
 from agrifly_tpu_torch.render import orchard as orch
+from agrifly_tpu_torch.render.meshscene import MeshScene
 from agrifly_tpu_torch.sim import delayline
 from agrifly_tpu_torch.sim import env as env_mod
 
@@ -81,6 +83,8 @@ class OrchardEnvParams(NamedTuple):
     track_lookahead: torch.Tensor  # 0.04 s (main.cpp:571)
     land: bool  # descend + settle after the last waypoint
     fused_ticks: bool  # run the tick block as one kernel (sim/cuda_frame.py)
+    mesh: Optional[MeshScene] = None  # an imported world rendered in place of the
+    # procedural orchard (render/meshscene.py); None: the procedural orchard
 
 
 class PlannedTraj(NamedTuple):
@@ -115,12 +119,15 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
                 steps_per_frame=16, n_candidates=256, pyramid_capacity=32,
                 planner_rounds=2, inflation_downsample=2, width=640, height=480,
                 seed=0, noise_scale=1.0, waypoints=None, land=False,
-                fused_ticks=True, device="cuda") -> OrchardEnvParams:
+                fused_ticks=True, mesh_scene=None, device="cuda") -> OrchardEnvParams:
     """The JAX package's defaults; `waypoints` are flown in order with the
     reference's 1 m switching radius, defaulting to `goal_world`.
-    fused_ticks=False runs the tick block as plain torch ops. The tensors
-    are built on the card unless `device` names another; with no card,
-    the default raises instead of building on the CPU."""
+    fused_ticks=False runs the tick block as plain torch ops. mesh_scene:
+    an imported world (`render/meshscene.py`: an OBJ or primitives file, or
+    a baked orchard), moved to `device`, rendered instead of the
+    procedural orchard. The tensors are built on the card unless `device`
+    names another; with no card, the default raises instead of building on
+    the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_params: no CUDA device; pass device='cpu' to build the "
@@ -136,6 +143,9 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
         raise ValueError(f"{len(wps)} waypoints > {MAX_WAYPOINTS}")
     wp = np.zeros((MAX_WAYPOINTS, 3), np.float32)
     wp[:len(wps)] = wps
+    if mesh_scene is not None:
+        leaves, rebuild = flatten_tensors(mesh_scene)
+        mesh_scene = rebuild([t.to(device) for t in leaves])
     return OrchardEnvParams(
         base=base, scene=orch.make_params(seed=seed, device=device),
         render_cfg=raycast.make_config(width, height, far=10.0, dda_steps=8),
@@ -149,7 +159,7 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
         pyramid_capacity=int(pyramid_capacity), planner_rounds=int(planner_rounds),
         inflation_downsample=int(inflation_downsample),
         track_lookahead=torch.tensor(0.04, dtype=torch.float32, device=device),
-        land=bool(land), fused_ticks=bool(fused_ticks),
+        land=bool(land), fused_ticks=bool(fused_ticks), mesh=mesh_scene,
     )
 
 
@@ -338,12 +348,16 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
         base.mocap, base.step * p.dt_us, p.est_latency_us)
     est_att_n = rot.qnormalize(est_att)
 
-    # 1. render depth frames from the *true* poses, all vehicles in one call
-    cam_att = raycast.camera_attitude(base.plant.att)
+    # 1. render depth frames from the *true* poses, all vehicles in one call:
+    # the imported world when there is one, else the procedural orchard
+    cam_att = raycast.camera_attitude(base.plant.att).reshape(-1, 4)
     cfg = params.render_cfg
-    depth = cuda_raycast.render_depth_batch(
-        cfg, params.scene, base.plant.pos.reshape(-1, 3), cam_att.reshape(-1, 4)
-    ).reshape(lead + (cfg.height, cfg.width))
+    pos = base.plant.pos.reshape(-1, 3)
+    if params.mesh is not None:
+        depth = cuda_meshscene.render_depth_batch(cfg, params.mesh, pos, cam_att)
+    else:
+        depth = cuda_raycast.render_depth_batch(cfg, params.scene, pos, cam_att)
+    depth = depth.reshape(lead + (cfg.height, cfg.width))
 
     # 2. plan in the camera frame (main.cpp:484-508)
     cam_att_est = raycast.camera_attitude(est_att_n)

@@ -5,12 +5,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from `agrifly_tpu_torch/csrc` (one nvcc
-each, in parallel) and holds each against its plain PyTorch version at the
-shapes the orchard frame gives it: the raycaster and the pyramid inflation
-bit for bit (one image, and 16 fleet images in one launch), the fused
-16-tick block within the tick tolerances in five mission states, for one
-vehicle and for fleets of 5 and 37 in one launch. It then flies:
+It builds the four CUDA kernel libraries from `agrifly_tpu_torch/csrc`
+(one nvcc each, in parallel) and holds each kernel against its plain
+PyTorch version at the shapes the orchard frame gives it: the raycaster
+and the pyramid inflation bit for bit (one image, and 16 fleet images in
+one launch), the fused 16-tick block within the tick tolerances in five
+mission states, for one vehicle and for fleets of 5 and 37 in one launch,
+and the two imported-world (mesh) raycasters, strip-culled and window, bit
+for bit and against each other (a baked orchard and a scene of spheres,
+cylinders and OBJ triangles; 1 and 16 cameras in one launch). It then
+flies:
 
 - the single-vehicle orchard frame (640x480 depth, 256 candidates, 16
   ticks per frame) through `OrchardEnv.fly`: 100 frames in the default
@@ -19,7 +23,14 @@ vehicle and for fleets of 5 and 37 in one launch. It then flies:
 - a fleet of 16 vehicles in lanes 3 m apart, 40 frames through
   `OrchardEnv.fly_fleet`, whose every frame launches the raycaster once,
   the inflation once per planner round and the tick kernel once, for all
-  16 vehicles; then timed fleet frames of 64 vehicles.
+  16 vehicles; then timed fleet frames of 64 vehicles;
+- the same frame through an imported world (`make_params(mesh_scene=...)`,
+  the procedural orchard baked into primitives): first in turns with the
+  procedural orchard from the single flight's final state (8 frames each,
+  procedural, imported, imported, procedural), then one vehicle for 50
+  frames and 16 in lanes for 20, every frame launching the strip-culled
+  mesh kernel once and the procedural raycaster never; then one batch
+  render of the fleet's poses through the window mesh kernel.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -42,8 +53,13 @@ FRAMES = 100  # the default (fused) single-vehicle flight
 PLAIN_FRAMES = 5  # the fused_ticks=False flight
 FLEET, FLEET_FRAMES, BIG_FLEET = 16, 40, 64  # the fleet flight; the timed big fleet
 FLEET_START = 0.3  # [s] planning starts inside the fleet flight
+MESH_FRAMES, MESH_FLEET_FRAMES = 50, 20  # the imported-world flights
+TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
+MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
-KERNELS = ("raycast", "inflate", "frame")
+KERNELS = ("raycast", "inflate", "frame", "meshscene")  # one library per csrc/<name>.cu
+DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "frame_kernel",
+                  "meshscene_strips_kernel", "meshscene_window_kernel")
 
 # The least time the card could take for a kernel's work (its bound): the
 # larger of its bytes over the memory rate and its operations over the
@@ -56,6 +72,11 @@ RAY_OPS_PER_CELL = 150  # csrc/raycast.cu tree_hit: 5 hashes, cylinder, 2 sphere
 RAY_OPS_PER_PIXEL = 40  # ray set-up, ground plane, DDA set-up, code
 INFLATE_OPS_PER_PIXEL = 8  # csrc/inflate.cu pass C: one shrink divide, 4 band tests
 TICK_OPS = 20000  # csrc/frame.cu sim_tick, float operations per vehicle and tick
+# csrc/meshscene.cu: per pixel (ray, ground plane, code), and per pixel and
+# primitive row by kind (none, sphere, cylinder, triangle; loop and switch
+# included)
+MESH_OPS_PER_PIXEL = 32
+MESH_ROW_OPS = (6, 47, 50, 66)
 
 
 def _check(cond, what):
@@ -238,6 +259,166 @@ def check_inflate_batched(dev):
     return res
 
 
+def baked_orchard(dev):
+    """The procedural orchard baked into primitives over MESH_X x MESH_Y."""
+    from agrifly_tpu_torch.render import meshscene, orchard
+
+    return meshscene.from_orchard(orchard.make_params(seed=SEED), MESH_X, MESH_Y, device=dev)
+
+
+def mixed_scene(dev, directory):
+    """Spheres, z-cylinders and trees from a primitives file and 60 boxes
+    plus 400 loose triangles from an OBJ file, both written to `directory`
+    and loaded, over the flight's rectangle."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch.render import meshscene
+
+    rng = np.random.default_rng(SEED)
+    lo, hi = (MESH_X[0], MESH_Y[0]), (MESH_X[1], MESH_Y[1])
+    lines = [f"sphere {x:.4f} {y:.4f} {rng.uniform(0.5, 4):.4f} {rng.uniform(0.2, 1.5):.4f}"
+             for x, y in rng.uniform(lo, hi, (40, 2))]
+    lines += [f"cylinder {x:.4f} {y:.4f} 0 {rng.uniform(0.5, 3):.4f} {rng.uniform(0.1, 0.4):.4f}"
+              for x, y in rng.uniform(lo, hi, (40, 2))]
+    lines += [f"tree {x:.4f} {y:.4f} 0.2 1.5 {x:.4f} {y:.4f} 2.5 1.1"
+              for x, y in rng.uniform(lo, hi, (40, 2))]
+    verts, faces = [], []
+    for x, y in rng.uniform(lo, hi, (60, 2)):  # boxes: 6 quads each
+        sx, sy, sz = rng.uniform(0.3, 2.0, 3)
+        n = len(verts)
+        verts += [(x + dx * sx, y + dy * sy, dz * sz) for dz in (0, 1) for dx, dy in
+                  ((0, 0), (1, 0), (1, 1), (0, 1))]
+        faces += [[n + i for i in q] for q in ((1, 2, 3, 4), (5, 6, 7, 8), (1, 2, 6, 5),
+                                                (2, 3, 7, 6), (3, 4, 8, 7), (4, 1, 5, 8))]
+    for c in rng.uniform((*lo, 0.0), (*hi, 4.0), (400, 3)):  # loose leaves
+        n = len(verts)
+        verts += [tuple(c + rng.normal(0, 0.5, 3)) for _ in range(3)]
+        faces.append([n + 1, n + 2, n + 3])
+    prims, obj = f"{directory}/scene.txt", f"{directory}/scene.obj"
+    with open(prims, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(obj, "w") as f:
+        f.writelines(f"v {x:.5f} {y:.5f} {z:.5f}\n" for x, y, z in verts)
+        f.writelines("f " + " ".join(map(str, q)) + "\n" for q in faces)
+    a, b = meshscene.load_primitives(prims, device=dev), meshscene.load_obj(obj, device=dev)
+    return meshscene.MeshScene(*(torch.cat([x, y]) for x, y in zip(a[:3], b[:3])),
+                               count=a.count + b.count, material=torch.cat([a.material,
+                                                                            b.material]))
+
+
+def mesh_poses(g, B, dev):
+    """B cameras over the mesh rectangle at 0.5-3.5 m, random yaw, small
+    pitch and roll (world-from-camera attitudes)."""
+    import torch
+
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.render import raycast
+
+    u = torch.rand(B, 6, generator=g)
+    pos = torch.stack([MESH_X[0] + 10 + u[:, 0] * (MESH_X[1] - MESH_X[0] - 20),
+                       MESH_Y[0] + 5 + u[:, 1] * (MESH_Y[1] - MESH_Y[0] - 10),
+                       0.5 + u[:, 2] * 3.0], dim=1)
+    body = rot.from_euler_ypr((u[:, 3] - 0.5) * 6.283, (u[:, 4] - 0.5) * 0.6,
+                              (u[:, 5] - 0.5) * 0.6)
+    return pos.to(dev), raycast.camera_attitude(body).to(dev)
+
+
+def mesh_bound(cfg, kinds, rows_per_pixel_block, pixels_per_block, n_bytes, B):
+    """The mesh kernels' bound: `kinds` (..., K) int row kinds, of which the
+    first `rows_per_pixel_block` (...,) rows of each block of
+    `pixels_per_block` pixels are tested."""
+    import torch
+
+    ops_by_kind = torch.tensor(MESH_ROW_OPS, dtype=torch.float64, device=kinds.device)
+    tested = torch.arange(kinds.shape[-1], device=kinds.device) < rows_per_pixel_block[..., None]
+    row_ops = float((ops_by_kind[kinds.clamp(0, 3)] * tested).sum())
+    return n_bytes, B * cfg.height * cfg.width * MESH_OPS_PER_PIXEL + row_ops * pixels_per_block
+
+
+def check_meshscene(dev):
+    """The strip-culled (K4) and window (K4w) mesh kernels against their
+    plain versions (render_strips, render_depth_window) and each other at
+    640x480, with 1 and 16 random-yaw cameras in one launch, on the baked
+    orchard and on the mixed scene. Returns the B = 1 baked-orchard results
+    (K4, K4w)."""
+    import tempfile
+
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene, raycast
+
+    cfg = raycast.make_config(640, 480)
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    g = torch.Generator().manual_seed(SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {"baked orchard": baked_orchard(dev), "mixed scene": mixed_scene(dev, tmp)}
+    out = {}
+    for label, mesh in scenes.items():
+        kinds = [int((mesh.prims[:, 0] == k).sum()) for k in (1, 2, 3)]
+        for B in (1, 16):
+            pos, cam = mesh_poses(g, B, dev)
+            windows = meshscene.select_window(mesh, pos, reach, 192)
+            strips, nvis = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
+            before = (cuda_meshscene.render_depth_strips_batch.launches,
+                      cuda_meshscene.render_depth_window_batch.launches)
+            k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
+            k4w = cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam)
+            _check((cuda_meshscene.render_depth_strips_batch.launches,
+                    cuda_meshscene.render_depth_window_batch.launches)
+                   == (before[0] + 1, before[1] + 1), f"mesh kernels ({label}): not one launch each")
+            ref4 = meshscene.render_strips(cfg, strips, pos, cam)
+            ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
+            err4, err4w = int((k4 - ref4).abs().max()), int((k4w - ref4w).abs().max())
+            _check(err4 == 0, f"K4 differs from plain ({label}, B={B}): max {err4} codes")
+            _check(err4w == 0, f"K4w differs from plain ({label}, B={B}): max {err4w} codes")
+            _check(torch.equal(k4, k4w), f"K4 differs from K4w ({label}, B={B})")
+            _check(k4.unique().numel() > 20, f"mesh render of an empty scene ({label})")
+            nv = nvis.float()
+            line = (f"mesh {label} ({mesh.count} primitives: {kinds[0]} spheres, {kinds[1]} "
+                    f"cylinders, {kinds[2]} triangles), B={B} {cfg.width}x{cfg.height}, "
+                    f"window {windows.shape[1]} rows: K4 and K4w bit-equal to plain and to "
+                    f"each other; n_vis per strip mean {float(nv.mean()):.3f}, max "
+                    f"{int(nv.max())}")
+            if label == "baked orchard":
+                rows = cuda_meshscene.camera_rows(pos, cam)
+                res4, res4w = mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, k4,
+                                           err4, err4w)
+                line += (f"; K4 {res4['ms']:.4f} ms (launch alone {res4['launch_ms']:.4f}), "
+                         f"plain {res4['plain_ms']:.4f}, bound {res4['bound_ms']:.6f} "
+                         f"({res4['bound_by']}); K4w {res4w['ms']:.4f} ms (launch alone "
+                         f"{res4w['launch_ms']:.4f}), plain {res4w['plain_ms']:.4f}, bound "
+                         f"{res4w['bound_ms']:.6f} ({res4w['bound_by']})")
+                out[B] = (res4, res4w)
+            print(line)
+    return tuple({k: v for k, v in r.items() if k != "launch_ms"} for r in out[1])
+
+
+def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w):
+    """Wrapper, bare launch and plain times of K4 and K4w on one input, and
+    their bounds (the rows each pixel block tests, by kind)."""
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene
+
+    B, K = windows.shape[:2]
+    ms4 = cuda_ms(lambda: cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam))
+    ms4w = cuda_ms(lambda: cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam))
+    launch4 = cuda_ms(lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, rows, nvis,
+                                                     strips), reps=50)
+    launch4w = cuda_ms(lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, rows,
+                                                      windows), reps=50)
+    plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=3)
+    plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=3)
+    # bytes: camera rows, n_vis and the rows tested (K4) or the windows
+    # (K4w), and the codes; operations: MESH_ROW_OPS per tested row and pixel
+    n4 = nbytes(rows, nvis, codes) + int(nvis.sum()) * 4 * meshscene.ROW_WIDTH
+    b4, o4 = mesh_bound(cfg, strips[..., 0].long(), nvis, cuda_meshscene.TILE_H * cfg.width,
+                        n4, B)
+    b4w, o4w = mesh_bound(cfg, windows[..., 0].long(), windows.new_full((B,), K),
+                          cfg.height * cfg.width, nbytes(rows, windows, codes), B)
+    return ({**result(err4, ms4, plain4, b4, o4), "launch_ms": launch4},
+            {**result(err4w, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w})
+
+
 def tick_states(params):
     """Five CPU states for the tick block, built with the port alone: cold,
     takeoff (25 plain tick blocks), tracking (a trajectory adopted at the
@@ -397,12 +578,17 @@ def check_frame_ticks_batched(dev):
     return worst
 
 
+RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window")
+
+
 def reset_counts():
     from agrifly_tpu_torch.planner import cuda_inflate
-    from agrifly_tpu_torch.render import cuda_raycast
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
     cuda_raycast.render_depth_batch.launches = 0
+    cuda_meshscene.render_depth_strips_batch.launches = 0
+    cuda_meshscene.render_depth_window_batch.launches = 0
     cuda_inflate.inflate_pyramids.launches = 0
     cuda_frame.frame_ticks.launches = 0
     orchard_env.frame_ticks_plain.calls = 0
@@ -410,21 +596,26 @@ def reset_counts():
 
 def read_counts():
     from agrifly_tpu_torch.planner import cuda_inflate
-    from agrifly_tpu_torch.render import cuda_raycast
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
     return {"raycast": cuda_raycast.render_depth_batch.launches,
+            "meshscene_strips": cuda_meshscene.render_depth_strips_batch.launches,
+            "meshscene_window": cuda_meshscene.render_depth_window_batch.launches,
             "inflate": cuda_inflate.inflate_pyramids.launches,
             "frame_ticks": cuda_frame.frame_ticks.launches,
             "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls}
 
 
-def check_counts(launches, frames, fused, rounds):
-    """Per frame, whatever the number of vehicles: one raycast launch, one
-    inflation launch per planner round, and one tick launch (fused) or one
-    plain tick block (plain, one vehicle)."""
-    _check(launches["raycast"] == frames,
-           f"raycast launched {launches['raycast']} times in {frames} frames")
+def check_counts(launches, frames, fused, rounds, render="raycast"):
+    """Per frame, whatever the number of vehicles: one launch of the render
+    kernel (the raycaster, or K4 in an imported world) and none of the
+    other render kernels, one inflation launch per planner round, and one
+    tick launch (fused) or one plain tick block (plain, one vehicle)."""
+    for name in RENDER_KERNELS:
+        want = frames if name == render else 0
+        _check(launches[name] == want,
+               f"{name} launched {launches[name]} times in {frames} frames (want {want})")
     _check(launches["inflate"] == rounds * frames,
            f"inflate launched {launches['inflate']} times in {frames} frames of {rounds} rounds")
     ticks_k, ticks_p = (frames, 0) if fused else (0, frames)
@@ -437,31 +628,37 @@ def check_counts(launches, frames, fused, rounds):
 def frame_split(p, state, gen, dev, label):
     """Where a frame's time goes, from `state` (each part timed apart, so
     the parts need not sum to the frame)."""
-    from agrifly_tpu_torch.render import cuda_raycast, raycast
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, raycast
     from agrifly_tpu_torch.sim import orchard_env
 
     lead = state.base.step.shape
     u, noise = (orchard_env.draw_fleet(p, gen, lead[0], dev) if lead
                 else orchard_env.draw(p, gen, dev))
     cam_att = raycast.camera_attitude(state.base.plant.att).reshape(-1, 4)
-    render = cuda_ms(lambda: cuda_raycast.render_depth_batch(
-        p.render_cfg, p.scene, state.base.plant.pos.reshape(-1, 3), cam_att), reps=5)
+    pos = state.base.plant.pos.reshape(-1, 3)
+    if p.mesh is not None:
+        render = cuda_ms(lambda: cuda_meshscene.render_depth_batch(
+            p.render_cfg, p.mesh, pos, cam_att), reps=5)
+    else:
+        render = cuda_ms(lambda: cuda_raycast.render_depth_batch(
+            p.render_cfg, p.scene, pos, cam_att), reps=5)
     percept = cuda_ms(lambda: orchard_env._frame_percept(p, state, u), reps=5)
     ticks = cuda_ms(lambda: orchard_env.frame_ticks(p, state, noise), reps=5)
     print(f"frame split ({label}): render {render:.3f} ms, plan {percept - render:.3f} ms, "
           f"16 ticks {ticks:.3f} ms")
 
 
-def fly(dev, fused, frames, state=None):
+def fly(dev, fused, frames, state=None, mesh=None):
     """The single-vehicle slice: OrchardEnv at full width flies `frames`
     frames on the card, from `state` or from the start; fused: the default
-    configuration (the tick kernel), else fused_ticks=False (plain ticks)."""
+    configuration (the tick kernel), else fused_ticks=False (plain ticks);
+    mesh: an imported world in place of the procedural orchard."""
     import torch
 
     from agrifly_tpu_torch.sim import orchard_env
 
-    env = orchard_env.OrchardEnv(
-        orchard_env.make_params(start_flight_time=1.0, fused_ticks=fused, device=dev))
+    env = orchard_env.OrchardEnv(orchard_env.make_params(
+        start_flight_time=1.0, fused_ticks=fused, mesh_scene=mesh, device=dev))
     state = env.init_state() if state is None else state
     plans0 = int(state.plan_count)
     gen = torch.Generator(device=dev).manual_seed(SEED + fused)
@@ -473,7 +670,8 @@ def fly(dev, fused, frames, state=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    check_counts(launches, frames, fused, env.params.planner_rounds + 1)
+    check_counts(launches, frames, fused, env.params.planner_rounds + 1,
+                 "raycast" if mesh is None else "meshscene_strips")
     pos = outs["pos"]
     _check(tuple(pos.shape) == (frames, 3) and bool(torch.isfinite(pos).all()),
            "non-finite or misshaped positions")
@@ -481,42 +679,57 @@ def fly(dev, fused, frames, state=None):
     plans = int(state.plan_count) - plans0
     _check(plans > 0, "no plan was adopted")
     x = float(pos[-1, 0])
-    _check(x > 1.0, f"no forward progress (x = {x:.3f} m)")
+    if mesh is None:
+        _check(x > 1.0, f"no forward progress (x = {x:.3f} m)")
     frame_ms = 1e3 * seconds / frames
-    label = "fused" if fused else "plain"
-    print(f"flight ({label} ticks): {frames} frames at 640x480, 256 candidates: "
+    label = f"{'fused' if fused else 'plain'} ticks" + ("" if mesh is None else
+                                                         ", imported world")
+    print(f"flight ({label}): {frames} frames at 640x480, 256 candidates: "
           f"{frame_ms:.3f} ms/frame; {plans} plans adopted, x = {x:.3f} m, "
           f"z = {float(pos[-1, 2]):.3f} m; {launches}")
-    frame_split(env.params, state, gen, dev, f"{label} ticks")
+    frame_split(env.params, state, gen, dev, label)
     if fused:
-        profile_frame(lambda: env.frame_step(state, gen), frame_ms, "frame")
+        profile_frame(lambda: env.frame_step(state, gen), frame_ms, f"frame ({label})")
     return state, launches
 
 
-def fly_fleet(dev):
-    """The fleet slice: FLEET vehicles in lanes 3 m apart fly FLEET_FRAMES
-    frames of the default configuration through OrchardEnv.fly_fleet."""
+def fly_fleet(dev, frames=FLEET_FRAMES, mesh=None):
+    """The fleet slice: FLEET vehicles in lanes 3 m apart fly `frames`
+    frames of the default configuration through OrchardEnv.fly_fleet, in
+    the procedural orchard or the imported world `mesh`."""
     import torch
 
     from agrifly_tpu_torch.sim import orchard_env
 
     env = orchard_env.OrchardEnv(
-        orchard_env.make_params(start_flight_time=FLEET_START, device=dev))
+        orchard_env.make_params(start_flight_time=FLEET_START, mesh_scene=mesh, device=dev))
     state = env.init_state_fleet(lanes(FLEET, dev))
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, outs = env.fly_fleet(state, FLEET_FRAMES, gen)
+    state, outs = env.fly_fleet(state, frames, gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    check_counts(launches, FLEET_FRAMES, True, env.params.planner_rounds + 1)
+    check_counts(launches, frames, True, env.params.planner_rounds + 1,
+                 "raycast" if mesh is None else "meshscene_strips")
     pos = outs["pos"]
-    _check(tuple(pos.shape) == (FLEET_FRAMES, FLEET, 3) and bool(torch.isfinite(pos).all()),
+    _check(tuple(pos.shape) == (frames, FLEET, 3) and bool(torch.isfinite(pos).all()),
            "fleet: non-finite or misshaped positions")
     _check(not bool((outs["panic"] != 0).any()), "fleet: a vehicle panicked")
+    frame_ms = 1e3 * seconds / frames
+    if mesh is not None:
+        label = f"fleet of {FLEET}, imported world"
+        print(f"fleet flight ({label}): {FLEET} vehicles x {frames} frames at 640x480, 256 "
+              f"candidates: {frame_ms:.3f} ms per fleet frame ({FLEET * 32.0 / frame_ms:.3f}x "
+              f"real time in aggregate); plans adopted per vehicle "
+              f"{state.plan_count.tolist()}, mean z {float(pos[-1, :, 2].mean()):.3f} m; "
+              f"{launches}")
+        frame_split(env.params, state, gen, dev, label)
+        profile_frame(lambda: env.frame_step_fleet(state, gen), frame_ms, f"fleet frame ({label})")
+        return state, launches
     # The mission is the JAX package's, shared by the fleet: before a vehicle
     # has a plan it hovers toward the world origin's lane. The two lanes
     # next to it plan; the others are pulled toward it too fast for the
@@ -531,7 +744,6 @@ def fly_fleet(dev):
                            f"(mean x {x0:.3f} -> {x1:.3f} m)")
     _check(bool((y1[~centre].abs() < y0[~centre].abs()).all()),
            f"fleet: an outer vehicle did not move toward the hover lane ({y1.tolist()})")
-    frame_ms = 1e3 * seconds / FLEET_FRAMES
     print(f"fleet flight: {FLEET} vehicles x {FLEET_FRAMES} frames at 640x480, 256 candidates: "
           f"{frame_ms:.3f} ms per fleet frame ({FLEET * 32.0 / frame_ms:.3f}x real time in "
           f"aggregate); plans adopted per vehicle {state.plan_count.tolist()}, centre-lane mean "
@@ -541,6 +753,75 @@ def fly_fleet(dev):
     frame_split(env.params, state, gen, dev, f"fleet of {FLEET}")
     profile_frame(lambda: env.frame_step_fleet(state, gen), frame_ms, f"fleet frame, B={FLEET}")
     return state, launches
+
+
+def fly_worlds_in_turns(dev, state, mesh):
+    """The procedural orchard and the imported world `mesh` (the same trees,
+    baked), each flown TURN_FRAMES frames from one mid-flight `state` with
+    the same draws, in turns: procedural, imported, imported, procedural.
+    Within one call and one state, the two worlds' frame times differ only
+    by their render and the host's drift."""
+    import torch
+
+    from agrifly_tpu_torch.sim import orchard_env
+
+    envs = {world: orchard_env.OrchardEnv(orchard_env.make_params(
+        start_flight_time=1.0, mesh_scene=m, device=dev))
+        for world, m in (("procedural", None), ("imported", mesh))}
+    times = {world: [] for world in envs}
+    for world in ("procedural", "imported", "imported", "procedural"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = envs[world].fly(state, TURN_FRAMES, gen)
+        torch.cuda.synchronize()
+        times[world].append(1e3 * (time.perf_counter() - t0) / TURN_FRAMES)
+        check_counts(read_counts(), TURN_FRAMES, True, envs[world].params.planner_rounds + 1,
+                     "raycast" if world == "procedural" else "meshscene_strips")
+        _check(bool(torch.isfinite(outs["pos"]).all()) and not bool((outs["panic"] != 0).any()),
+               f"worlds in turns: {world} flight not sane")
+    print(f"worlds in turns from one state ({TURN_FRAMES} frames each, same draws): "
+          + "; ".join(f"{w} {', '.join(f'{t:.3f}' for t in ts)} ms/frame"
+                      for w, ts in times.items()))
+
+
+def fly_mesh(dev, state):
+    """The imported-world slice: the procedural orchard baked into
+    primitives, flown in turns with the procedural orchard from `state`
+    (a procedural flight's), by one vehicle for MESH_FRAMES frames and by
+    FLEET vehicles in lanes for MESH_FLEET_FRAMES, every frame through K4;
+    then the fleet's final poses rendered in one call of
+    render_depth_batch(strip_culling=False), the window kernel (K4w), held
+    equal to K4 on the same poses. Returns the launches of the single
+    flight, of the fleet flight and of the window render."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, raycast
+
+    mesh = baked_orchard(dev)
+    fly_worlds_in_turns(dev, state, mesh)
+    _, launches = fly(dev, True, MESH_FRAMES, mesh=mesh)
+    state, fleet_launches = fly_fleet(dev, MESH_FLEET_FRAMES, mesh)
+    cfg = raycast.make_config(640, 480)
+    pos = state.base.plant.pos
+    cam = raycast.camera_attitude(state.base.plant.att)
+    culled = cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam)
+    reset_counts()
+    window = cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam, strip_culling=False)
+    torch.cuda.synchronize()
+    window_launches = read_counts()
+    _check(window_launches["meshscene_window"] == 1 and window_launches["meshscene_strips"] == 0
+           and window_launches["raycast"] == 0, f"window render: {window_launches}")
+    _check(torch.equal(window, culled), "K4w differs from K4 on the fleet's poses")
+    ms = cuda_ms(lambda: cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam,
+                                                           strip_culling=False), reps=5)
+    print(f"window render of the fleet's {FLEET} poses (K4w, one launch): equal to K4; "
+          f"{ms:.4f} ms; {window_launches}")
+    profile_frame(lambda: [cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam,
+                                                             strip_culling=False)
+                           for _ in range(5)], 5 * ms, f"5 window renders, B={FLEET}")
+    return launches, fleet_launches, window_launches
 
 
 def time_big_fleet(dev):
@@ -596,7 +877,7 @@ def profile_frame(step, frame_ms, label):
         print(f"profiled {label}: not measured (the profiler saw no device time)")
         return
     ours = ", ".join(f"{name} {e.self_device_time_total / e.count:.1f} us x{e.count}"
-                     for e in kernels for name in KERNELS if f"{name}_kernel" in e.key)
+                     for e in kernels for name in DEVICE_KERNELS if name in e.key)
     print(f"profiled {label}: device busy {busy_ms:.3f} ms in {sum(e.count for e in kernels)} "
           f"kernels ({100 * busy_ms / frame_ms:.2f}% of the unprofiled {frame_ms:.3f} ms); "
           f"{ours}")
@@ -645,7 +926,7 @@ def main() -> int:
     try:
         from agrifly_tpu_torch import cuda_build  # noqa: F401
         from agrifly_tpu_torch.planner import cuda_inflate  # noqa: F401
-        from agrifly_tpu_torch.render import cuda_raycast  # noqa: F401
+        from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast  # noqa: F401
         from agrifly_tpu_torch.sim import cuda_frame  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the port is not here: {exc}", file=sys.stderr)
@@ -662,6 +943,7 @@ def main() -> int:
         k2b = check_inflate_batched(dev)
         k3 = check_frame_ticks(dev)
         k3b_worst = check_frame_ticks_batched(dev)
+        k4, k4w = check_meshscene(dev)
         state, launches = fly(dev, fused=True, frames=FRAMES)
         fly(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         check_ticks_against_cpu(state, dev, 1.0)
@@ -670,6 +952,7 @@ def main() -> int:
         k3b = tick_result(max(k3b_worst, worst), p_dev, fleet_state, noise, plain_reps=1,
                           plain_warmup=0)
         time_big_fleet(dev)
+        mesh_launches, _, window_launches = fly_mesh(dev, state)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
@@ -692,6 +975,12 @@ def main() -> int:
         {"name": "inflate_batched", "route": "cuda", "source": source("inflate"),
          "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174",
          "launches": fleet_launches["inflate"], **k2b},
+        {"name": "meshscene_strips", "route": "cuda", "source": source("meshscene"),
+         "replaces": "agrifly_tpu/render/pallas_meshscene.py:224",
+         "launches": mesh_launches["meshscene_strips"], **k4},
+        {"name": "meshscene_window", "route": "cuda", "source": source("meshscene"),
+         "replaces": "agrifly_tpu/render/pallas_meshscene.py:164",
+         "launches": window_launches["meshscene_window"], **k4w},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ These tests import no JAX, so they run on a machine with a GPU and no JAX:
 (--noconftest: tests/conftest.py configures JAX). Without a card they skip.
 The raycaster and the inflation are held bit for bit: the raycast codes
 everywhere, the inflation's ok everywhere and its maxd and edges wherever
-ok. The fused tick block is held to the tick criteria of
+ok; the mesh raycasters, strip-culled (K4) and window (K4w), bit for bit
+and equal to each other. The fused tick block is held to the tick criteria of
 tests/_torch_parity.py against the plain ticks on the card, for one vehicle
 and for a fleet (one launch for B vehicles); the inflation for one image
 and for a batch of images (one launch for B x P seeds).
@@ -21,7 +22,7 @@ from _torch_parity import compare_state, cuda, gradient_scene, make_scene  # noq
 from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
-from agrifly_tpu_torch.render import cuda_raycast, orchard, raycast
+from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
 from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
 
@@ -144,3 +145,32 @@ def test_frame_ticks_kernel_batched_matches_plain(cuda, B):  # noqa: F811
     assert torch.equal(got.base.step, fleet.base.step + 16)
     leaves, rebuild = convert.flatten_tensors(ref)
     compare_state(got, rebuild([t.cpu() for t in leaves]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["baked", "mixed"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F811
+    """K4 and K4w at 640x480, one launch each for B cameras of random yaw,
+    against render_strips and render_depth_window on the card, and equal
+    to each other; on the baked orchard and on the scene of primitives and
+    OBJ triangles that chip_smoke.py writes and loads."""
+    from chip_smoke import baked_orchard, mesh_poses, mixed_scene
+
+    cfg = raycast.make_config(640, 480)
+    mesh = baked_orchard(cuda) if scene == "baked" else mixed_scene(cuda, tmp_path)
+    pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
+    windows = meshscene.select_window(mesh, pos, cfg.far * meshscene.slant_factor(cfg), 192)
+    before = (cuda_meshscene.render_depth_strips_batch.launches,
+              cuda_meshscene.render_depth_window_batch.launches)
+    k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
+    k4w = cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam)
+    strips, nvis = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
+    ref4 = meshscene.render_strips(cfg, strips, pos, cam)
+    ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
+    torch.cuda.synchronize()
+    assert (cuda_meshscene.render_depth_strips_batch.launches,
+            cuda_meshscene.render_depth_window_batch.launches) == (before[0] + 1, before[1] + 1)
+    assert k4.shape == (B, 480, 640) and windows.shape[1] == 192
+    assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
+    assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
