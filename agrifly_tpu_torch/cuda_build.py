@@ -9,6 +9,8 @@ The flags keep float32 arithmetic IEEE-exact: no fast math, and
 `-fmad=false` so nvcc does not contract a*b+c into one rounding. The plain
 PyTorch versions round every product separately, and a contraction moves a
 ray's t by an ulp, which flips depth codes at quantization edges.
+`-Xptxas -v` makes ptxas report each kernel's registers, shared memory and
+spills; `build_logs` keeps that report per library.
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
-# seconds spent compiling, per kernel, in this process
+# seconds spent compiling, and nvcc's report, per kernel, in this process
 build_seconds: dict = {}
+build_logs: dict = {}
 
 
 def _nvcc() -> str:
@@ -52,6 +55,7 @@ def _compile(src: Path, lib: Path) -> None:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent load never sees half a file
     build_seconds[src.stem] = time.perf_counter() - t0
+    build_logs[src.stem] = proc.stderr + proc.stdout
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,13 +1,16 @@
-"""Batched pyramid inflation through the hand-written CUDA kernel.
+"""Batched pyramid inflation through the hand-written CUDA kernels.
 
-Port of `agrifly_tpu/planner/pallas_inflate.py` with one seed per thread
-block (the JAX package's default of one seed per program), batched over
-images as `jax.vmap` batches it over a fleet's vehicles: P seeds on each
-of B images are one launch of B x P blocks. The prologue (seed validity,
-initial rectangle, thresholds) stays in float32 torch,
-`rappids.seed_setup`, shared with the plain version; the kernel
-(`csrc/inflate.cu`) runs the integer passes. On CPU tensors
-`inflate_pyramids` runs the plain version, `rappids.inflate_pyramid`.
+Port of `agrifly_tpu/planner/pallas_inflate.py`, batched over images as
+`jax.vmap` batches it over a fleet's vehicles. With one seed per program
+(the JAX package's default, `DEFAULT_SEEDS_PER_PROGRAM = 1`) P seeds on
+each of B images are one launch of B x P blocks (K2); with
+`seeds_per_program=S > 1` they are one launch of B x ceil(P/S) blocks of S
+seeds each (K2g), the seed rows padded to a multiple of S. The prologue
+(seed validity, initial rectangle, thresholds) stays in float32 torch,
+`rappids.seed_setup`, shared with the plain version; the kernels
+(`csrc/inflate.cu`) run the integer passes. Both give K2's results, seed
+for seed. On CPU tensors `inflate_pyramids` runs the plain version,
+`rappids.inflate_pyramid`, for any S.
 """
 
 from __future__ import annotations
@@ -19,25 +22,53 @@ import torch
 from agrifly_tpu_torch import cuda_build
 from agrifly_tpu_torch.planner import rappids
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+DEFAULT_SEEDS_PER_PROGRAM = 1
+MAX_SEEDS_PER_PROGRAM = 8  # the largest K2g instance csrc/inflate.cu compiles (kMaxGroup)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"inflate_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+               "inflate_grouped_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
+
+
+def _fn(name: str):
+    fn = getattr(cuda_build.load("inflate"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _out_for(img, seeds):
+    return torch.empty(seeds.shape[:-1] + (8,), dtype=torch.int32, device=img.device)
+
+
+def _stream(img):
+    return torch.cuda.current_stream(img.device).cuda_stream
 
 
 def _launch(img: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-    """One launch for contiguous images (*L, H, W) int32 and seed rows
+    """One K2 launch for contiguous images (*L, H, W) int32 and seed rows
     (*L, P, 12) int32; returns (*L, P, 8) int32."""
-    lib = cuda_build.load("inflate")
-    fn = lib.inflate_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
     H, W = img.shape[-2:]
-    P = seeds.shape[-2]
     B = img.numel() // (H * W)
-    out = torch.empty(seeds.shape[:-1] + (8,), dtype=torch.int32, device=img.device)
-    status = fn(img.data_ptr(), seeds.data_ptr(), out.data_ptr(), B, P, H, W,
-                torch.cuda.current_stream(img.device).cuda_stream)
+    out = _out_for(img, seeds)
+    status = _fn("inflate_launch")(img.data_ptr(), seeds.data_ptr(), out.data_ptr(), B,
+                                   seeds.shape[-2], H, W, _stream(img))
     cuda_build.check(status, "inflate_launch")
     inflate_pyramids.launches += 1
+    return out
+
+
+def _launch_grouped(img: torch.Tensor, seeds: torch.Tensor, S: int) -> torch.Tensor:
+    """One K2g launch for contiguous images (*L, H, W) int32 and seed rows
+    (*L, G*S, 12) int32, S seeds per block; returns (*L, G*S, 8) int32."""
+    H, W = img.shape[-2:]
+    B = img.numel() // (H * W)
+    out = _out_for(img, seeds)
+    status = _fn("inflate_grouped_launch")(img.data_ptr(), seeds.data_ptr(), out.data_ptr(), B,
+                                           seeds.shape[-2] // S, S, H, W, _stream(img))
+    cuda_build.check(status, "inflate_grouped_launch")
+    inflate_pyramids.grouped_launches += 1
     return out
 
 
@@ -52,15 +83,47 @@ def seed_rows(params: rappids.PlannerParams, x0s, y0s, min_depths, shrink_extra:
         dim=-1).contiguous()
 
 
+def pad_seed_rows(rows: torch.Tensor, S: int) -> torch.Tensor:
+    """(*L, P, 12) seed rows padded to (*L, ceil(P/S)*S, 12) with copies of
+    row 0 whose ok flag (column 7) is cleared: they fail at once in the
+    kernel, and their output rows are sliced off."""
+    P = rows.shape[-2]
+    n_pad = -(-P // S) * S - P
+    if n_pad == 0:
+        return rows
+    pad = rows[..., :1, :].expand(rows.shape[:-2] + (n_pad, 12)).clone()
+    pad[..., 7] = 0
+    return torch.cat([rows, pad], dim=-2).contiguous()
+
+
+def grouped_rows(rows: torch.Tensor, S: int, launch) -> torch.Tensor:
+    """`launch(padded rows)` -> (*L, Ppad, 8) output rows on the rows padded
+    to a multiple of S, sliced back to the P seeds of `rows`."""
+    return launch(pad_seed_rows(rows, S))[..., :rows.shape[-2], :]
+
+
+def _seeds_per_program(seeds_per_program) -> int:
+    S = DEFAULT_SEEDS_PER_PROGRAM if seeds_per_program is None else seeds_per_program
+    if isinstance(S, bool) or not isinstance(S, int) or S < 1:
+        raise ValueError(f"seeds_per_program must be an int >= 1, got {S!r}")
+    if S > MAX_SEEDS_PER_PROGRAM:
+        raise ValueError(f"seeds_per_program={S} is above the largest compiled grouped kernel, "
+                         f"{MAX_SEEDS_PER_PROGRAM} seeds per block")
+    return S
+
+
 def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
-                     shrink_extra: int = 0):
+                     shrink_extra: int = 0, seeds_per_program=None):
     """Inflate P seeds (x0s, y0s, min_depths: (*L, P)) on (*L, H, W) int32
     images of depth codes, seed row l on image l, in one launch.
 
     Same contract as `rappids.inflate_pyramid`: returns (ok (*L, P) bool,
     maxd (*L, P) int32, edges (*L, P, 4) int32 [right, top, left, bottom]),
-    bit-identical to it wherever ok. CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version."""
+    bit-identical to it wherever ok. seeds_per_program S (None: 1) picks
+    the kernel: K2 for S = 1, K2g with S seeds per block for 1 < S <=
+    MAX_SEEDS_PER_PROGRAM. CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version for any S."""
+    S = _seeds_per_program(seeds_per_program)
     H, W = params.cam.height, params.cam.width
     if img.dim() < 2 or img.shape[-2:] != (H, W) or img.dtype != torch.int32:
         raise ValueError(f"need (..., {H}, {W}) int32 images, got {tuple(img.shape)} {img.dtype}")
@@ -75,8 +138,14 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
     if x0s.numel() == 0:
         z = torch.zeros(x0s.shape, dtype=torch.int32, device=img.device)
         return z.bool(), z, z[..., None].expand(x0s.shape + (4,))
-    out = _launch(img.contiguous(), seed_rows(params, x0s, y0s, min_depths, shrink_extra))
+    img = img.contiguous()
+    rows = seed_rows(params, x0s, y0s, min_depths, shrink_extra)
+    if S == 1:
+        out = _launch(img, rows)
+    else:
+        out = grouped_rows(rows, S, lambda padded: _launch_grouped(img, padded, S))
     return out[..., 0] > 0, out[..., 1], out[..., 2:6]
 
 
-inflate_pyramids.launches = 0  # kernel launches since the last reset
+inflate_pyramids.launches = 0  # K2 launches since the last reset
+inflate_pyramids.grouped_launches = 0  # K2g launches since the last reset

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from agrifly_tpu_torch import card_or_raise
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.ops.fmath import norm3, scalar, sqrt
 from agrifly_tpu_torch.render import orchard as orch
@@ -67,21 +68,13 @@ class MeshScene(NamedTuple):
 # ----------------------------------------------------------------------
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("meshscene: no CUDA device; pass device='cpu' to build the "
-                           "scene on the CPU")
-    return device
-
-
 def build_scene(spheres=(), cylinders=(), triangles=(), sphere_mats=None,
                 cylinder_mats=None, triangle_mats=None, device="cuda") -> MeshScene:
     """spheres: (cx, cy, cz, r); cylinders: (cx, cy, z0, z1, r);
     triangles: ((v0), (v1), (v2)) vertex triples in world frame.
     *_mats: optional per-primitive material ids (defaults: cylinders are
     trunks, spheres and triangles canopy)."""
-    device = _device(device)
+    device = card_or_raise(device, "meshscene")
     rows, cxy, rad, mats = [], [], [], []
     for i, (cx, cy, cz, r) in enumerate(spheres):
         rows.append([PRIM_SPHERE, cx, cy, cz, r, 0, 0, 0, 0, 0])

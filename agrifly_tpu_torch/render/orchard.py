@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from agrifly_tpu_torch import card_or_raise
 from agrifly_tpu_torch.ops.fmath import sqrt
 
 
@@ -37,9 +38,12 @@ FLOAT_FIELDS = ("row_spacing", "tree_spacing", "presence", "jitter",
 def make_params(row_spacing=6.0, tree_spacing=4.0, presence=0.95, jitter=0.3,
                 trunk_radius=0.18, trunk_height=1.2, canopy_radius=1.35,
                 canopy_height=2.6, seed=0, clear_radius=3.0,
-                device=None) -> OrchardParams:
+                device="cuda") -> OrchardParams:
     """Every tree's geometry must stay inside its own grid cell, which is
-    what makes the renderer's single-pass DDA exact."""
+    what makes the renderer's single-pass DDA exact. The tensors are built
+    on the card unless `device` names another; with no card, the default
+    raises instead of building on the CPU."""
+    device = card_or_raise(device, "orchard.make_params")
     extent = jitter + 1.2 * canopy_radius  # 1.2 = max per-tree size factor
     if extent > min(row_spacing, tree_spacing) / 2.0 + 1e-6:
         raise ValueError(f"tree extent {extent} overflows the grid cell")

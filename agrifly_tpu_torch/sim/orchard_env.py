@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from agrifly_tpu_torch import card_or_raise
 from agrifly_tpu_torch.models import constants as qconst
 from agrifly_tpu_torch.convert import flatten_tensors
 from agrifly_tpu_torch.io import radio
@@ -128,10 +129,7 @@ def make_params(goal_world=(120.0, 0.0, 3.5), takeoff_height=3.5, start_flight_t
     procedural orchard. The tensors are built on the card unless `device`
     names another; with no card, the default raises instead of building on
     the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_params: no CUDA device; pass device='cpu' to build the "
-                           "environment on the CPU")
+    device = card_or_raise(device, "orchard_env.make_params")
     base = env_mod.make_params(noise_scale=noise_scale, device=device)
     cam = rappids.make_camera(width, height, focal=width / 2.0, depth_scale=10.0 / 256.0,
                               device=device)

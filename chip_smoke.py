@@ -13,8 +13,16 @@ one launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch,
 and the two imported-world (mesh) raycasters, strip-culled and window, bit
 for bit and against each other (a baked orchard and a scene of spheres,
-cylinders and OBJ triangles; 1 and 16 cameras in one launch). It then
-flies:
+cylinders and OBJ triangles; 1 and 16 cameras in one launch). The grouped
+inflation kernel (K2g, S = 2, 4, 8 seeds per block) is held bit for bit
+against the one-seed kernel and the plain version on the endpoint seeds of
+the RAPPIDS evaluation harnesses (128 and 1024 candidates on four orchard
+views at 640x480), ragged, on a blocker-free scene and batched, and timed
+against K2. It then runs the evaluation path on those views
+(`measure_conservativeness`, `measure_plan_conservativeness`,
+`measure_collision_checking_speed`, `find_fastest_trajectory`) and checks
+that no candidate the pyramid check frees collides by the ray-sphere
+oracle. It then flies:
 
 - the single-vehicle orchard frame (640x480 depth, 256 candidates, 16
   ticks per frame) through `OrchardEnv.fly`: 100 frames in the default
@@ -58,8 +66,13 @@ TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene")  # one library per csrc/<name>.cu
-DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "frame_kernel",
+DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel")
+GROUPS = (2, 4, 8)  # the K2g instances held and timed (seeds per block)
+# The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
+# attitude at these positions; the harnesses' start state and goal.
+EVAL_POSES = ((5.0, 0.0, 2.5), (12.0, 1.5, 2.0), (20.0, -1.0, 3.0), (30.0, 0.5, 1.5))
+EVAL_VEL0, EVAL_GRAV, EVAL_GOAL = (0.0, 0.0, 1.5), (0.0, 9.81, 0.0), (0.0, 0.0, 50.0)
 
 # The least time the card could take for a kernel's work (its bound): the
 # larger of its bytes over the memory rate and its operations over the
@@ -259,6 +272,268 @@ def check_inflate_batched(dev):
     return res
 
 
+def eval_views(dev):
+    """The planner parameters of the evaluation harnesses and their four
+    orchard views at 640x480, rendered in one raycast launch."""
+    import torch
+
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.planner import rappids
+    from agrifly_tpu_torch.render import cuda_raycast, orchard, raycast
+
+    params = rappids.make_params(rappids.make_camera(640, 480, focal=320.0, device=dev),
+                                 true_radius=0.116, plan_radius=0.174, min_check_dist=0.5)
+    att = raycast.camera_attitude(rot.identity(dev).expand(len(EVAL_POSES), 4))
+    before = cuda_raycast.render_depth_batch.launches
+    views = cuda_raycast.render_depth_batch(raycast.make_config(640, 480),
+                                            orchard.make_params(seed=SEED, device=dev),
+                                            torch.tensor(EVAL_POSES, device=dev), att)
+    _check(cuda_raycast.render_depth_batch.launches == before + 1, "views: not one launch")
+    return params, views
+
+
+def eval_state(dev):
+    """The harnesses' (4, 3) start velocity, acceleration and gravity."""
+    import torch
+
+    vec = lambda v: torch.tensor(v, device=dev).expand(len(EVAL_POSES), 3)  # noqa: E731
+    return vec(EVAL_VEL0), vec((0.0, 0.0, 0.0)), vec(EVAL_GRAV)
+
+
+def eval_draws(n, dev):
+    """The (4 views, 4, n) uniform block of the harness with n candidates."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + n)
+    return torch.rand(len(EVAL_POSES), 4, n, generator=g).to(dev)
+
+
+def endpoint_seeds(params, u, dev):
+    """The candidates' endpoints (px, py, depth), each (4, n): the seeds
+    `measure_conservativeness` and `measure_collision_checking_speed`
+    inflate."""
+    from agrifly_tpu_torch.planner import rappids
+
+    return list(rappids.endpoint_seeds(
+        params, rappids.sample_candidates(params, u, *eval_state(dev)[:2])))
+
+
+def _same_inflation(got, ref, what):
+    """ok everywhere, maxd and edges wherever ok; returns the number ok."""
+    import torch
+
+    ok = ref[0]
+    _check(torch.equal(got[0], ok), f"grouped inflation: ok differs ({what})")
+    _check(torch.equal(got[1][ok], ref[1][ok]) and torch.equal(got[2][ok], ref[2][ok]),
+           f"grouped inflation: maxd/edges differ on ok seeds ({what})")
+    return int(ok.sum())
+
+
+def device_us(step, names):
+    """Device microseconds per launch of the kernels whose name holds each
+    of `names`, over one profiled `step()` (each None where the profiler
+    saw no such launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except RuntimeError:
+        return [None] * len(names)
+    out = []
+    for name in names:
+        hits = [e for e in rows if e.device_type == DeviceType.CUDA and name in e.key]
+        n = sum(e.count for e in hits)
+        out.append(sum(e.self_device_time_total for e in hits) / n
+                   if n and sum(e.self_device_time_total for e in hits) > 0 else None)
+    return out
+
+
+def time_grouped(label, prm, img, sd, extra, plain=False):
+    """K2 and K2g at each S on one image's seeds: the wrapper, the bare
+    launch, and the device time from the profiler (3 launches each).
+    Returns {S: (wrapper ms, launch ms, device us)}, plain ms (or None),
+    the seeds that ended ok and the bytes and operations of K2's bound."""
+    from agrifly_tpu_torch.planner import cuda_inflate, rappids
+
+    rows = cuda_inflate.seed_rows(prm, *sd, extra)
+    padded = {S: cuda_inflate.pad_seed_rows(rows, S) for S in GROUPS}
+    launch = {1: lambda: cuda_inflate._launch(img, rows),
+              **{S: (lambda S=S: cuda_inflate._launch_grouped(img, padded[S], S)) for S in GROUPS}}
+    wrapper = {S: cuda_ms(lambda S=S: cuda_inflate.inflate_pyramids(prm, img, *sd, extra,
+                                                                    seeds_per_program=S))
+               for S in launch}
+    bare = {S: cuda_ms(fn, reps=20) for S, fn in launch.items()}
+    names = ["inflate_kernel("] + [f"inflate_grouped_kernel<{S}>" for S in GROUPS]
+    dev_us = dict(zip(launch, device_us(lambda: [fn() for fn in launch.values() for _ in range(3)],
+                                        names)))
+    n_ok = int(cuda_inflate.inflate_pyramids(prm, img, *sd, extra)[0].sum())
+    plain_ms = (cuda_ms(lambda: rappids.inflate_pyramid(prm, img, *sd, extra), reps=3)
+                if plain else None)
+    H, W = img.shape[-2:]
+    bound = (nbytes(img, rows) + rows.numel() // 12 * 32, n_ok * H * W * INFLATE_OPS_PER_PIXEL)
+    us = lambda v: "not measured" if v is None else f"{v:.1f} us"  # noqa: E731
+    print(f"inflate timing {label} ({n_ok} ok): " + "; ".join(
+        f"{'K2' if S == 1 else f'K2g S={S}'} {wrapper[S]:.4f} ms (launch {bare[S]:.4f} ms, "
+        f"device {us(dev_us[S])})" for S in launch)
+        + (f"; plain {plain_ms:.4f} ms" if plain else ""))
+    return {S: (wrapper[S], bare[S], dev_us[S]) for S in launch}, plain_ms, bound
+
+
+def check_inflate_grouped(dev, params, views):
+    """The grouped inflation kernel (K2g) on the evaluation harnesses' seed
+    batches: the endpoints of 128 and 1024 candidates on each of the four
+    views at full resolution, through inflate_pyramids(seeds_per_program=S)
+    for S in GROUPS, counted; each result held bit for bit against K2 and
+    (P = 128) the plain version. Then ragged P = 13 (S = 4), the
+    blocker-free gradient scene of check_inflate, one batched call over the
+    four views, and the times of K2 and K2g. Returns (the kernels-line
+    fields of S = 4 at P = 128 on view 0, K2g launches in the counted run)."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_inflate, rappids
+
+    batches = {n: endpoint_seeds(params, eval_draws(n, dev), dev) for n in (128, 1024)}
+    one = lambda n, v, k=None: [x[v, :k] for x in batches[n]]  # noqa: E731
+    reset_counts()
+    got = {(n, S, v): cuda_inflate.inflate_pyramids(params, views[v], *one(n, v), 0,
+                                                    seeds_per_program=S)
+           for n in batches for S in GROUPS for v in range(len(EVAL_POSES))}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    _check(launches["inflate_grouped"] == len(got) and launches["inflate"] == 0,
+           f"grouped inflation: {launches} for {len(got)} calls")
+    refs = {}
+    for (n, S, v), out in got.items():
+        if (n, v) not in refs:
+            refs[n, v] = [cuda_inflate.inflate_pyramids(params, views[v], *one(n, v), 0)]
+            if n == 128:
+                refs[n, v].append(rappids.inflate_pyramid(params, views[v], *one(n, v), 0))
+        for ref in refs[n, v]:
+            _same_inflation(out, ref, f"view {v}, P={n}, S={S}")
+    ok_by_n = {n: sum(int(refs[n, v][0][0].sum()) for v in range(len(EVAL_POSES)))
+               for n in batches}
+    _check(min(ok_by_n.values()) > 0, "grouped inflation: no seed inflated")
+
+    # ragged, blocker-free, batched
+    sd = one(128, 0, 13)
+    ragged = cuda_inflate.inflate_pyramids(params, views[0], *sd, 0, seeds_per_program=4)
+    for ref in (cuda_inflate.inflate_pyramids(params, views[0], *sd, 0),
+                rappids.inflate_pyramid(params, views[0], *sd, 0)):
+        _same_inflation(ragged, ref, "ragged P=13, S=4")
+    _, cam_small = rappids._pooled(params, views[0], 2)
+    small = params._replace(cam=cam_small)
+    Hs, Ws = cam_small.height, cam_small.width
+    ys, xs = torch.meshgrid(torch.arange(Hs, device=dev), torch.arange(Ws, device=dev),
+                            indexing="ij")
+    gradient = (20000 + 3 * xs + 7 * ys).to(torch.int32)
+    g = torch.Generator().manual_seed(SEED)
+    gsd = [(torch.rand(20, generator=g) * 0.8 * Ws + 0.1 * Ws).to(dev),
+           (torch.rand(20, generator=g) * 0.8 * Hs + 0.1 * Hs).to(dev),
+           (torch.rand(20, generator=g) * 1.5 + 1.5).to(dev)]
+    g_ref = (cuda_inflate.inflate_pyramids(small, gradient, *gsd, 1),
+             rappids.inflate_pyramid(small, gradient, *gsd, 1))
+    b_ref = (cuda_inflate.inflate_pyramids(params, views, *batches[128], 0),
+             rappids.inflate_pyramid(params, views, *batches[128], 0))
+    for S in GROUPS:
+        for ref in g_ref:
+            n_grad = _same_inflation(cuda_inflate.inflate_pyramids(
+                small, gradient, *gsd, 1, seeds_per_program=S), ref, f"gradient, S={S}")
+        for ref in b_ref:
+            _same_inflation(cuda_inflate.inflate_pyramids(
+                params, views, *batches[128], 0, seeds_per_program=S), ref,
+                f"batched 4 views x P=128, S={S}")
+    _check(n_grad > 0, "grouped inflation: no seed inflated on the gradient scene")
+    print(f"inflate_grouped: K2g S={GROUPS} bit-equal to K2 on the endpoint seeds of 4 views "
+          f"x P=128 ({ok_by_n[128]} ok) and x P=1024 ({ok_by_n[1024]} ok), to the plain version "
+          f"at P=128; ragged P=13 (S=4), gradient {Ws}x{Hs} ({n_grad} ok), batched 4 x 128 in one "
+          f"launch: bit-equal; {launches['inflate_grouped']} launches in the counted run")
+    H, W = views.shape[-2:]
+
+    # times: full resolution at P = 128 and 1024, the frame's pooled image
+    # at P = 10 and 20 (the endpoints halved, as build_pyramid_set halves them)
+    times = {}
+    for n in (128, 1024):
+        times[n] = time_grouped(f"{W}x{H} P={n}", params, views[0], one(n, 0), 0, plain=n == 128)
+    pooled = rappids._pooled(params, views[0], 2)[0]
+    for n in (10, 20):
+        psd = [x / 2 for x in one(128, 0, n)[:2]] + [one(128, 0, n)[2]]
+        time_grouped(f"pooled {Ws}x{Hs} P={n}", small, pooled, psd, 1)
+    (per_s, plain_ms, (n_bytes, n_ops)) = times[128]
+    return result(0, per_s[4][0], plain_ms, n_bytes, n_ops), launches["inflate_grouped"]
+
+
+def evaluate(dev, params, views):
+    """The RAPPIDS evaluation path on the four views, one call of each
+    harness for all four (a leading view axis), counted: then 0
+    false-frees against the ray-sphere oracle on the same pyramid sets,
+    and some candidates free and some colliding."""
+    import torch
+
+    from agrifly_tpu_torch.planner import oracle, rappids
+
+    vel0, acc0, grav = eval_state(dev)
+    goal = torch.tensor(EVAL_GOAL, device=dev).expand(len(EVAL_POSES), 3)
+    u = {n: eval_draws(n, dev) for n in (128, 256, 512, 1024)}
+    direction = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inc, cor = rappids.measure_conservativeness(params, views, u[128], vel0, acc0, grav)
+    p_inc, p_cor, p_free = rappids.measure_plan_conservativeness(
+        params, views, u[256], vel0, acc0, grav, goal, pyramid_capacity=32, rounds=2,
+        lazy_rounds=1)
+    seconds, per_traj, used = rappids.measure_collision_checking_speed(
+        params, views, u[1024], vel0, acc0, grav)
+    fast = rappids.find_fastest_trajectory(params, views, u[512], vel0, acc0, grav, direction)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # K2 once per endpoint set (2), three rounds per plan (2 plans)
+    _check(launches["inflate"] == 8 and launches["inflate_grouped"] == 0
+           and launches["raycast"] == 0, f"evaluation launches {launches}")
+
+    # 0 false-frees on the same pyramid sets
+    tr = rappids.sample_candidates(params, u[128], vel0, acc0)
+    pyrs = rappids.build_pyramid_set(params, views, *rappids.endpoint_seeds(params, tr),
+                                     torch.ones_like(tr.tf, dtype=torch.bool), 32)
+    free = rappids.is_collision_free(params, pyrs, tr)
+    free_oracle = oracle.is_collision_free_ground_truth(params, views, tr)
+    _check(not bool((free & ~free_oracle).any()), "a pyramid-free candidate collides (N=128)")
+    _check(torch.equal(inc, (~free & free_oracle).sum(-1, dtype=torch.int32))
+           and torch.equal(cor, (~free & ~free_oracle).sum(-1, dtype=torch.int32)),
+           "measure_conservativeness disagrees with its parts")
+    tr2, _, _, _, gate, cfree, _ = rappids.plan_debug(
+        params, views, rappids.samples_from_uniform(params, u[256]), vel0, acc0, grav, goal)
+    free2 = oracle.is_collision_free_ground_truth(params, views, tr2)
+    _check(not bool((gate & cfree & ~free2).any()), "a planner-free candidate collides (plan)")
+    _check(torch.equal(p_free, (gate & cfree).sum(-1, dtype=torch.int32)),
+           "measure_plan_conservativeness disagrees with plan_debug")
+    best = rappids.traj_mod.Traj(*(x[:, None] for x in fast.traj))
+    best_free = oracle.is_collision_free_ground_truth(params, views, best)[:, 0]
+    _check(not bool((fast.found & ~best_free).any()), "find_fastest_trajectory picked a collision")
+    _check(bool(free_oracle.any()) and bool((~free_oracle).any()) and bool(free.any())
+           and bool(fast.found.any()), "the evaluation is vacuous")
+    tr0 = rappids.traj_mod.Traj(*(x[0] for x in tr))
+    oracle_ms = cuda_ms(lambda: oracle.is_collision_free_ground_truth(params, views[0], tr0),
+                        reps=3, warmup=1)
+    print(f"evaluate (4 views, {views.shape[-1]}x{views.shape[-2]}, {wall:.3f} s for the four "
+          f"harnesses; {launches}): "
+          f"conservativeness N=128 incorrect {inc.tolist()} correct {cor.tolist()}, pyramid-free "
+          f"{free.sum(-1).tolist()} oracle-free {free_oracle.sum(-1).tolist()}, 0 false-frees; "
+          f"plan N=256 (32 pyramids, 2+1 rounds) incorrect {p_inc.tolist()} correct "
+          f"{p_cor.tolist()} free {p_free.tolist()}, 0 false-frees; collision checking N=1024: "
+          f"{seconds * 1e3:.3f} ms for 4 x 1024, {per_traj * 1e6:.4f} us per trajectory, "
+          f"{used} pyramids; fastest N=512 found {fast.found.tolist()} cost "
+          f"{[round(c, 4) for c in fast.best_cost.tolist()]}, oracle-free; oracle "
+          f"{oracle_ms:.3f} ms per 128 candidates (one view)")
+
+
 def baked_orchard(dev):
     """The procedural orchard baked into primitives over MESH_X x MESH_Y."""
     from agrifly_tpu_torch.render import meshscene, orchard
@@ -384,14 +659,17 @@ def check_meshscene(dev):
                 rows = cuda_meshscene.camera_rows(pos, cam)
                 res4, res4w = mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, k4,
                                            err4, err4w)
-                line += (f"; K4 {res4['ms']:.4f} ms (launch alone {res4['launch_ms']:.4f}), "
-                         f"plain {res4['plain_ms']:.4f}, bound {res4['bound_ms']:.6f} "
-                         f"({res4['bound_by']}); K4w {res4w['ms']:.4f} ms (launch alone "
-                         f"{res4w['launch_ms']:.4f}), plain {res4w['plain_ms']:.4f}, bound "
+                us = lambda v: "not measured" if v is None else f"{v:.1f} us"  # noqa: E731
+                line += (f"; K4 {res4['ms']:.4f} ms (launch alone {res4['launch_ms']:.4f}, "
+                         f"device {us(res4['device_us'])}), plain {res4['plain_ms']:.4f}, bound "
+                         f"{res4['bound_ms']:.6f} ({res4['bound_by']}); K4w {res4w['ms']:.4f} ms "
+                         f"(launch alone {res4w['launch_ms']:.4f}, device "
+                         f"{us(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
                          f"{res4w['bound_ms']:.6f} ({res4w['bound_by']})")
                 out[B] = (res4, res4w)
             print(line)
-    return tuple({k: v for k, v in r.items() if k != "launch_ms"} for r in out[1])
+    return tuple({k: v for k, v in r.items() if k not in ("launch_ms", "device_us")}
+                 for r in out[1])
 
 
 def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w):
@@ -406,6 +684,11 @@ def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w)
                                                      strips), reps=50)
     launch4w = cuda_ms(lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, rows,
                                                       windows), reps=50)
+    dev4, dev4w = device_us(lambda: [cuda_meshscene._launch(name, cfg, rows, *args)
+                                     for name, args in (("meshscene_strips_launch", (nvis, strips)),
+                                                        ("meshscene_window_launch", (windows,)))
+                                     for _ in range(3)],
+                            ("meshscene_strips_kernel", "meshscene_window_kernel"))
     plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=3)
     plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=3)
     # bytes: camera rows, n_vis and the rows tested (K4) or the windows
@@ -415,8 +698,9 @@ def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w)
                         n4, B)
     b4w, o4w = mesh_bound(cfg, windows[..., 0].long(), windows.new_full((B,), K),
                           cfg.height * cfg.width, nbytes(rows, windows, codes), B)
-    return ({**result(err4, ms4, plain4, b4, o4), "launch_ms": launch4},
-            {**result(err4w, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w})
+    return ({**result(err4, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4},
+            {**result(err4w, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w,
+             "device_us": dev4w})
 
 
 def tick_states(params):
@@ -590,6 +874,7 @@ def reset_counts():
     cuda_meshscene.render_depth_strips_batch.launches = 0
     cuda_meshscene.render_depth_window_batch.launches = 0
     cuda_inflate.inflate_pyramids.launches = 0
+    cuda_inflate.inflate_pyramids.grouped_launches = 0
     cuda_frame.frame_ticks.launches = 0
     orchard_env.frame_ticks_plain.calls = 0
 
@@ -603,6 +888,7 @@ def read_counts():
             "meshscene_strips": cuda_meshscene.render_depth_strips_batch.launches,
             "meshscene_window": cuda_meshscene.render_depth_window_batch.launches,
             "inflate": cuda_inflate.inflate_pyramids.launches,
+            "inflate_grouped": cuda_inflate.inflate_pyramids.grouped_launches,
             "frame_ticks": cuda_frame.frame_ticks.launches,
             "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls}
 
@@ -618,6 +904,7 @@ def check_counts(launches, frames, fused, rounds, render="raycast"):
                f"{name} launched {launches[name]} times in {frames} frames (want {want})")
     _check(launches["inflate"] == rounds * frames,
            f"inflate launched {launches['inflate']} times in {frames} frames of {rounds} rounds")
+    _check(launches["inflate_grouped"] == 0, "the frame launched the grouped inflation")
     ticks_k, ticks_p = (frames, 0) if fused else (0, frames)
     _check(launches["frame_ticks"] == ticks_k,
            f"frame_ticks launched {launches['frame_ticks']} times in {frames} frames")
@@ -905,7 +1192,7 @@ def check_ticks_against_cpu(state, dev, start_flight_time):
 
 
 def build_kernels():
-    """Build the three kernels, one nvcc each, all started together."""
+    """Build the kernel libraries, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from agrifly_tpu_torch import cuda_build
@@ -915,6 +1202,28 @@ def build_kernels():
         list(pool.map(cuda_build.load, KERNELS))
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
+    print(ptxas_report(cuda_build.build_logs.get("inflate", "")))
+
+
+def ptxas_report(log):
+    """One line from ptxas's -v report of the inflation kernels: registers,
+    shared memory and spill bytes of K2 and each K2g instance."""
+    import re
+
+    kernels, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"(inflate_kernel|inflate_grouped_kernelILi(\d+)E)", line)
+        if "Compiling entry function" in line and entry:
+            name = "K2" if entry.group(2) is None else f"K2g S={entry.group(2)}"
+        elif name and "spill" in line:
+            spill = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            kernels.append([name, ", ".join(f"{b} B spill {k}" for b, k in spill)])
+        elif name and "Used" in line:
+            kernels[-1].append(line.split(":", 1)[1].strip())
+            name = None
+    return "ptxas (inflate.cu): " + ("; ".join(f"{k} {u} ({sp})" for k, sp, u in
+                                               (r for r in kernels if len(r) == 3))
+                                     or "not rebuilt in this process")
 
 
 def main() -> int:
@@ -944,6 +1253,11 @@ def main() -> int:
         k3 = check_frame_ticks(dev)
         k3b_worst = check_frame_ticks_batched(dev)
         k4, k4w = check_meshscene(dev)
+        t_eval = time.perf_counter()
+        eval_params, views = eval_views(dev)
+        k2g, k2g_launches = check_inflate_grouped(dev, eval_params, views)
+        evaluate(dev, eval_params, views)
+        print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
         state, launches = fly(dev, fused=True, frames=FRAMES)
         fly(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         check_ticks_against_cpu(state, dev, 1.0)
@@ -981,6 +1295,9 @@ def main() -> int:
         {"name": "meshscene_window", "route": "cuda", "source": source("meshscene"),
          "replaces": "agrifly_tpu/render/pallas_meshscene.py:164",
          "launches": window_launches["meshscene_window"], **k4w},
+        {"name": "inflate_grouped", "route": "cuda", "source": source("inflate"),
+         "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174 (_kernel_grouped:559)",
+         "launches": k2g_launches, **k2g},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

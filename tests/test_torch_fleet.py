@@ -126,7 +126,7 @@ def _plan_inputs(B, seed):
 @pytest.mark.parametrize("downsample", [1, 2])
 def test_batched_plan_equals_per_image_plan(downsample):
     W, H = KW["width"], KW["height"]
-    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0), 0.116, 0.174, 0.5)
+    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0, device="cpu"), 0.116, 0.174, 0.5)
     inputs = _plan_inputs(3, seed=11)
     kw = dict(pyramid_capacity=KW["pyramid_capacity"], inflation_downsample=downsample)
     batched = trp.plan(params, *inputs, **kw)
@@ -156,7 +156,7 @@ def _inflation_batch(W, H, P):
 @pytest.mark.parametrize("shrink_extra", [0, 1])
 def test_batched_plain_inflation_equals_per_image(shrink_extra):
     W, H = 160, 120
-    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0), 0.116, 0.174)
+    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0, device="cpu"), 0.116, 0.174)
     imgs, seeds = _inflation_batch(W, H, 16)
     batched = trp.inflate_pyramid(params, imgs, *seeds, shrink_extra)
     via_wrapper = cuda_inflate.inflate_pyramids(params, imgs, *seeds, shrink_extra)
@@ -171,7 +171,7 @@ def test_batched_plain_inflation_equals_per_image(shrink_extra):
 @pytest.mark.parametrize("downsample", [1, 2])
 def test_batched_pyramid_set_and_prefilter_equal_per_image(downsample):
     W, H = 160, 120
-    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0), 0.116, 0.174)
+    params = trp.make_params(trp.make_camera(W, H, focal=W / 2.0, device="cpu"), 0.116, 0.174)
     imgs, (px, py, md) = _inflation_batch(W, H, 12)
     valid = torch.ones(px.shape, dtype=torch.bool)
     valid[:, 3] = False

@@ -22,7 +22,7 @@ from agrifly_tpu_torch.planner import cuda_inflate, rappids as trp
 
 def _params(W, H):
     return (jrp.make_params(jrp.make_camera(W, H, focal=W / 2.0), 0.116, 0.174),
-            trp.make_params(trp.make_camera(W, H, focal=W / 2.0), 0.116, 0.174))
+            trp.make_params(trp.make_camera(W, H, focal=W / 2.0, device="cpu"), 0.116, 0.174))
 
 
 def _seeds(W, H, P, seed):

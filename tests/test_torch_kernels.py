@@ -11,7 +11,9 @@ ok; the mesh raycasters, strip-culled (K4) and window (K4w), bit for bit
 and equal to each other. The fused tick block is held to the tick criteria of
 tests/_torch_parity.py against the plain ticks on the card, for one vehicle
 and for a fleet (one launch for B vehicles); the inflation for one image
-and for a batch of images (one launch for B x P seeds).
+and for a batch of images (one launch for B x P seeds). The grouped
+inflation (K2g, S seeds per block) is held to K2 and to the plain version
+the same way, bit for bit wherever ok.
 """
 
 import numpy as np
@@ -174,3 +176,73 @@ def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F81
     assert k4.shape == (B, 480, 640) and windows.shape[1] == 192
     assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
     assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
+
+
+def _endpoint_seeds(params, n, seed, lead=()):
+    """The endpoints of n candidates drawn from a seed (the evaluation
+    harnesses' seeds): pixel x, pixel y, depth, each (*lead, n)."""
+    dev = params.cam.focal.device
+    u = torch.rand(tuple(lead) + (4, n), generator=torch.Generator().manual_seed(seed)).to(dev)
+    vel = torch.tensor([0.0, 0.0, 1.5], device=dev).expand(tuple(lead) + (3,))
+    return list(rappids.endpoint_seeds(
+        params, rappids.sample_candidates(params, u, vel, torch.zeros_like(vel))))
+
+
+def _assert_grouped(params, img, seeds, S, shrink_extra=0):
+    """K2g with S seeds per block, one launch, against K2 and the plain
+    version: ok everywhere, maxd and edges wherever ok."""
+    counts = lambda: (cuda_inflate.inflate_pyramids.launches,  # noqa: E731
+                      cuda_inflate.inflate_pyramids.grouped_launches)
+    before = counts()
+    ok, maxd, edges = cuda_inflate.inflate_pyramids(params, img, *seeds, shrink_extra,
+                                                    seeds_per_program=S)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1)
+    k2 = cuda_inflate.inflate_pyramids(params, img, *seeds, shrink_extra)
+    plain = rappids.inflate_pyramid(params, img, *seeds, shrink_extra)
+    for ok_r, maxd_r, edges_r in (k2, plain):
+        assert torch.equal(ok, ok_r)
+        assert torch.equal(maxd[ok], maxd_r[ok]) and torch.equal(edges[ok], edges_r[ok])
+    return int(ok.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_grouped_inflate_kernel_on_an_orchard_view(cuda, S):  # noqa: F811
+    """128 endpoint seeds on a rendered 640x480 orchard view, full
+    resolution."""
+    params = rappids.make_params(rappids.make_camera(640, 480, device=cuda), 0.116, 0.174)
+    att = raycast.camera_attitude(rot.identity(cuda)[None])
+    img = cuda_raycast.render_depth_batch(raycast.make_config(640, 480),
+                                          orchard.make_params(device=cuda),
+                                          torch.tensor([[5.0, 0.0, 2.5]], device=cuda), att)[0]
+    assert _assert_grouped(params, img, _endpoint_seeds(params, 128, S), S) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clutter", "gradient"])
+def test_grouped_inflate_kernel_ragged_and_gradient(cuda, kind):  # noqa: F811
+    """P = 13 seeds with S = 4 (three pad rows) on a cluttered and on the
+    blocker-free gradient scene at 320x240, with the pooled path's margin."""
+    W, H = 320, 240
+    params = rappids.make_params(rappids.make_camera(W, H, focal=W / 2.0, device=cuda),
+                                 0.116, 0.174)
+    img = make_scene(W, H, 8, seed=3) if kind == "clutter" else gradient_scene(W, H)
+    rng = np.random.default_rng(13)
+    seeds = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(30, W - 30, 13).astype(np.float32),
+        rng.integers(30, H - 30, 13).astype(np.float32),
+        rng.uniform(1.5, 3.0, 13).astype(np.float32))]
+    assert _assert_grouped(params, torch.from_numpy(img).to(cuda), seeds, 4, 1) >= 1
+
+
+@pytest.mark.cuda
+def test_grouped_inflate_kernel_batched(cuda):  # noqa: F811
+    """Four orchard views x 128 endpoint seeds in one launch (S = 4)."""
+    params = rappids.make_params(rappids.make_camera(640, 480, device=cuda), 0.116, 0.174)
+    pos = torch.tensor([[5.0, 0.0, 2.5], [12.0, 1.5, 2.0], [20.0, -1.0, 3.0],
+                        [30.0, 0.5, 1.5]], device=cuda)
+    att = raycast.camera_attitude(rot.identity(cuda).expand(4, 4))
+    imgs = cuda_raycast.render_depth_batch(raycast.make_config(640, 480),
+                                           orchard.make_params(device=cuda), pos, att)
+    assert _assert_grouped(params, imgs, _endpoint_seeds(params, 128, 4, (4,)), 4) >= 4

@@ -81,7 +81,7 @@ def _random_geometry(seed, n):
 def _baked():
     """The procedural orchard baked into primitives: (JAX, port)."""
     return (JM.from_orchard(JO.make_params(seed=0), X_RANGE, Y_RANGE),
-            TM.from_orchard(TO.make_params(), X_RANGE, Y_RANGE, device="cpu"))
+            TM.from_orchard(TO.make_params(device="cpu"), X_RANGE, Y_RANGE, device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,7 +164,7 @@ def test_loaders_build_on_the_card_or_raise(monkeypatch, tmp_path):
     prims = tmp_path / "scene.txt"
     prims.write_text(PRIMS_TXT)
     for build in (lambda: TM.load_obj(str(obj)), lambda: TM.load_primitives(str(prims)),
-                  lambda: TM.from_orchard(TO.make_params(), (0, 10), (0, 10)),
+                  lambda: TM.from_orchard(TO.make_params(device="cpu"), (0, 10), (0, 10)),
                   lambda: TM.build_scene(spheres=[(0, 0, 1, 1)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

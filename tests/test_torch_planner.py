@@ -29,7 +29,7 @@ def _params():
     # the orchard env's planner: radii from the CF mini-quad's arm length
     arm = 0.058
     jp = jrp.make_params(jrp.make_camera(W, H, focal=W / 2.0), 2 * arm, 3 * arm, 0.5)
-    tp = trp.make_params(trp.make_camera(W, H, focal=W / 2.0), 2 * arm, 3 * arm, 0.5)
+    tp = trp.make_params(trp.make_camera(W, H, focal=W / 2.0, device="cpu"), 2 * arm, 3 * arm, 0.5)
     return jp, tp
 
 

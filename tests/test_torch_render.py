@@ -50,7 +50,7 @@ def test_camera_attitude_matches():
 
 def test_plain_render_matches_jnp_renderer():
     cfg_j, cfg_t = jray.make_config(160, 120), tray.make_config(160, 120)
-    scene_j, scene_t = jorch.make_params(), torch_orch.make_params()
+    scene_j, scene_t = jorch.make_params(), torch_orch.make_params(device="cpu")
     pos, _, cam = _poses(1, 6)
     got = tray.render_depth(cfg_t, scene_t, torch.from_numpy(pos), torch.from_numpy(cam)).numpy()
     ref = np.stack([np.asarray(jray.render_depth(cfg_j, scene_j, jnp.asarray(p), jnp.asarray(c)))
@@ -62,7 +62,7 @@ def test_plain_render_matches_jnp_renderer():
 def test_plain_render_matches_pallas_kernel_interpret():
     # the Pallas kernel renders 16-row strips, so H must be a multiple of 16
     cfg_j, cfg_t = jray.make_config(128, 96), tray.make_config(128, 96)
-    scene_j, scene_t = jorch.make_params(), torch_orch.make_params()
+    scene_j, scene_t = jorch.make_params(), torch_orch.make_params(device="cpu")
     pos, _, cam = _poses(2, 2)
     ref = np.asarray(jpr.render_depth_batch(cfg_j, scene_j, jnp.asarray(pos), jnp.asarray(cam),
                                             interpret=True))
@@ -72,7 +72,7 @@ def test_plain_render_matches_pallas_kernel_interpret():
 
 
 def test_cpu_tensors_take_the_plain_version():
-    cfg, scene = tray.make_config(64, 48), torch_orch.make_params()
+    cfg, scene = tray.make_config(64, 48), torch_orch.make_params(device="cpu")
     pos, body, cam = _poses(3, 2)
     before = cuda_raycast.render_depth_batch.launches
     a = cuda_raycast.render_depth_body_batch(cfg, scene, torch.from_numpy(pos),
@@ -84,7 +84,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize("bad", ["shape", "dtype"])
 def test_wrapper_rejects_bad_inputs(bad):
-    cfg, scene = tray.make_config(64, 48), torch_orch.make_params()
+    cfg, scene = tray.make_config(64, 48), torch_orch.make_params(device="cpu")
     pos, cam = torch.zeros(2, 3), torch.tensor([[1.0, 0, 0, 0]] * 2)
     if bad == "shape":
         pos = pos[:, :2]
