@@ -1,5 +1,5 @@
 // The fused tick block: 16 ticks of the orchard frame's physics, onboard
-// logic, estimator and offboard tracking, one thread per vehicle.
+// logic, estimator and offboard tracking, one warp per vehicle.
 //
 // Replaces the TPU kernel agrifly_tpu/sim/pallas_frame.py (frame_ticks,
 // the pallas_call built in _get_call), which evaluates the traced jaxpr of
@@ -12,12 +12,30 @@
 // with `where` is computed here only when it is selected: the result is
 // the same.
 //
-// What bounds it on the card: one thread's serial chain of dependent
-// float operations (~20k per tick, 16 ticks), at B = 1 one thread on one
-// SM; the state (877 values) lives in a per-thread struct in local memory,
-// which stays in L1 at this size. Nothing is read or written between ticks.
-// A later version would give each vehicle a warp and split the 9x9
-// covariance update and the 8-slot replay sweeps across its lanes.
+// What bounds it on the card: one vehicle's serial chain of dependent
+// float operations. Clock64 section timers on an H100 (chip_smoke.py's
+// frame_sections) put ~50k cycles in a tick of a thread that runs
+// everything itself: the two mocap replays ~47%, the offboard controller
+// ~20%, the onboard logic ~17%, the plant ~5%; and ~18k cycles a launch in
+// reading and writing the ~1000 state and parameter values one at a time.
+// So the design (a block of kVehicles warps, warp w for vehicle
+// blockIdx.x * kVehicles + w):
+//   - the vehicle's State and the block's Params live in shared memory; the
+//     warp's 32 lanes copy them in and the written leaves out together,
+//     walking flat per-element tables built at compile time from the leaf
+//     tables below, eight loads in flight per lane;
+//   - lane 0 (the leader) runs the tick chain alone, as one thread of a
+//     one-thread-per-vehicle kernel would (Helpers is then empty);
+//   - the replay's 9 segments are spread over lanes 1-9 (the helpers),
+//     which wait at __syncwarp for the leader's requests: each segment's
+//     decay expf and its rotation from_rotation_vector, the costly parts of
+//     a segment, one segment a lane (one request for the prediction, whose
+//     rotations need no decay; two for the measurement update); the leader
+//     then chains the segments in the plain loop's order, so every output
+//     keeps its operation order and value.
+// The covariance predict (cov_predict_block) stays serial: the timers saw
+// it run on no tick of the orchard frame, whose estimator gets no UWB fix.
+// Nothing is read or written between ticks.
 //
 // The leaf tables below are the contract with sim/cuda_frame.py, which
 // parses them: the order, dtype and element count (0 for a 0-d tensor) of
@@ -28,7 +46,30 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+// Section timers, compiled only with -DFRAME_SECTIONS (chip_smoke.py's
+// frame_sections builds that variant): clock64() cycles and runs of each
+// Section of the tick chain on block 0's thread 0 (vehicle 0's leader), read
+// and reset by frame_sections_read. Without the define they are empty.
+enum Section {
+  kSecTicks, kSecPlant, kSecLogic, kSecEkfPredict, kSecCovPredict, kSecMocapUpdate,
+  kSecReplayUpdate, kSecPrediction, kSecOffboard, kNumSections
+};
+#ifdef FRAME_SECTIONS
+__device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];
+#define SECTION_BEGIN(k) const long long section_start_##k = clock64();
+#define SECTION_END(k)                                  \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {            \
+    g_sec[k] += clock64() - section_start_##k;          \
+    g_cnt[k] += 1;                                      \
+  }
+#else
+#define SECTION_BEGIN(k)
+#define SECTION_END(k)
+#endif
 
 // clang-format off
 #define STATE_LEAVES(X) \
@@ -282,15 +323,85 @@ struct LeafPtrs {
   const void* params[kNumParam];
 };
 
-template <class T>
-__device__ __forceinline__ void copy_in(T* dst, const void* src, int n, int b) {
-  const T* s = static_cast<const T*>(src) + static_cast<int64_t>(b) * n;
-  for (int i = 0; i < n; ++i) dst[i] = s[i];
+// One element of a leaf, for the warp's copies: its byte offset in State or
+// Params, its index in the leaf, the leaf's element count, the leaf, its
+// bytes per element, and where a written leaf goes (the output buffer kind,
+// and the elements of the same kind's written leaves before it).
+enum { kOutF32 = 0, kOutI32 = 1, kOutBOOL = 2, kOutNone = 3 };
+struct Elem {
+  unsigned short dst, i, numel, out_prefix;
+  unsigned char leaf, size, out;
+};
+
+template <int N>
+struct Elems {
+  Elem e[N];
+};
+
+#define IS_WRITTEN_W 1
+#define IS_WRITTEN_P 0
+#define OUT_OF_F32 kOutF32
+#define OUT_OF_I32 kOutI32
+#define OUT_OF_BOOL kOutBOOL
+#define COUNT_STATE(name, path, ty, n, rw) +NUMEL(n)
+#define COUNT_PARAM(name, path, ty, n) +NUMEL(n)
+constexpr int kStateElems = 0 STATE_LEAVES(COUNT_STATE);
+constexpr int kParamElems = 0 PARAM_LEAVES(COUNT_PARAM);
+#undef COUNT_STATE
+#undef COUNT_PARAM
+
+constexpr Elems<kStateElems> make_state_elems() {
+  Elems<kStateElems> t{};
+  int k = 0, leaf = 0, prefix[3] = {0, 0, 0};
+#define X(name, path, ty, n, rw)                                                              \
+  for (int i = 0; i < NUMEL(n); ++i)                                                          \
+    t.e[k++] = Elem{static_cast<unsigned short>(offsetof(State, name) + i * sizeof(ty##_t)),  \
+                    static_cast<unsigned short>(i), static_cast<unsigned short>(NUMEL(n)),    \
+                    static_cast<unsigned short>(IS_WRITTEN_##rw ? prefix[OUT_OF_##ty] : 0),   \
+                    static_cast<unsigned char>(leaf), static_cast<unsigned char>(sizeof(ty##_t)), \
+                    static_cast<unsigned char>(IS_WRITTEN_##rw ? OUT_OF_##ty : kOutNone)};    \
+  if (IS_WRITTEN_##rw) prefix[OUT_OF_##ty] += NUMEL(n);                                       \
+  ++leaf;
+  STATE_LEAVES(X)
+#undef X
+  return t;
 }
 
-template <class T>
-__device__ __forceinline__ void copy_out(T* dst, const T* src, int n) {
-  for (int i = 0; i < n; ++i) dst[i] = src[i];
+constexpr Elems<kParamElems> make_param_elems() {
+  Elems<kParamElems> t{};
+  int k = 0, leaf = 0;
+#define X(name, path, ty, n)                                                                  \
+  for (int i = 0; i < NUMEL(n); ++i)                                                          \
+    t.e[k++] = Elem{static_cast<unsigned short>(offsetof(Params, name) + i * sizeof(ty##_t)), \
+                    static_cast<unsigned short>(i), static_cast<unsigned short>(NUMEL(n)), 0, \
+                    static_cast<unsigned char>(leaf), static_cast<unsigned char>(sizeof(ty##_t)), \
+                    static_cast<unsigned char>(kOutNone)};                                    \
+  ++leaf;
+  PARAM_LEAVES(X)
+#undef X
+  return t;
+}
+
+// in device memory: the lanes read different entries at once
+__device__ const Elems<kStateElems> kStateTable = make_state_elems();
+__device__ const Elems<kParamElems> kParamTable = make_param_elems();
+
+// Copies element k, k + stride, ... of row b of the leaves `src` into the
+// struct at `dst`, eight elements a round, so each thread keeps eight loads
+// in flight.
+template <int N>
+__device__ void copy_in(char* dst, const void* const* src, const Elems<N>& table, int b, int k,
+                        int stride) {
+#pragma unroll 8
+  for (; k < N; k += stride) {
+    const Elem el = table.e[k];
+    const char* p = static_cast<const char*>(src[el.leaf]) +
+                    (static_cast<int64_t>(b) * el.numel + el.i) * el.size;
+    if (el.size == 4)
+      *reinterpret_cast<int*>(dst + el.dst) = __ldg(reinterpret_cast<const int*>(p));
+    else
+      dst[el.dst] = static_cast<char>(__ldg(reinterpret_cast<const unsigned char*>(p)));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -805,7 +916,9 @@ __device__ void ekf_predict(State& S, f3 gyro, f3 acc, float dt) {
     dva.a[3 * i + 2] = dt * (ax * r1 - ay * r0);
   }
   f3 g = add(scl(gyro, dt), dvs(ld3(S.kf_last_att_corr), 2.0f));
+  SECTION_BEGIN(kSecCovPredict)
   cov_predict_block(S.kf_cov, dt, dva, g, 25.0f * dt * dt, 0.01f * dt * dt);
+  SECTION_END(kSecCovPredict)
   st3(S.kf_last_att_corr, f3{0.0f, 0.0f, 0.0f});
 }
 
@@ -909,7 +1022,9 @@ __device__ void logic_step(const Params& P, State& S, f3 gyro, f3 acc, bool radi
 
   // UpdateEstimator (no range update)
   int prev_resets = S.last_check_num_resets;
+  SECTION_BEGIN(kSecEkfPredict)
   ekf_predict(S, gyro_f, acc_f, P.l_onboard_period);
+  SECTION_END(kSecEkfPredict)
   if (S.gyro_cal_enabled) {
     st3(S.gyro_cal_accum, add(ld3(S.gyro_cal_accum), gyro_raw));
     S.gyro_cal_count = wadd(S.gyro_cal_count, 1);
@@ -1145,22 +1260,6 @@ __device__ void pipe_clear_expired(State& S, int t_us) {
   S.pipe_count = S.pipe_count - advance;
 }
 
-// one piecewise-constant-command segment; frozen: the prediction flavor
-// (start velocity v0 and angvel w0 held)
-__device__ void integrate_segment(Mocap& m, f3 acc, f3 cmd_angvel, bool ballistic, float dt,
-                                  bool frozen, f3 v0, f3 w0) {
-  if (frozen) {
-    m.pos = add(add(m.pos, scl(v0, dt)), scl(acc, dt * dt * 0.5f));
-    m.att = qmul(m.att, from_rotation_vector(scl(w0, dt)));
-  } else {
-    m.pos = add(m.pos, scl(m.vel, dt));
-    m.att = qmul(m.att, from_rotation_vector(scl(m.angvel, dt)));
-  }
-  m.vel = add(m.vel, scl(acc, dt));
-  float c = ballistic ? 1.0f : expf(-dt / 0.04f);
-  m.angvel = add(scl(m.angvel, c), scl(cmd_angvel, 1.0f - c));
-}
-
 __device__ __forceinline__ void step_var(float* p, float proc, float dt) {
   // the reference puts sigma, not sigma^2, in Q (kept bug-compatible)
   float n00 = p[0] + dt * (p[1] + p[1]) + (dt * dt) * p[2] + ipow4(dt) * proc / 4.0f;
@@ -1182,44 +1281,149 @@ __device__ __forceinline__ Mocap mocap_of(const State& S) {
   return m;
 }
 
+// The replay's segments: one per pipe slot, and the final open one.
+constexpr int kSegs = kPipeCap + 1;
+
+// a segment's decay of the angular velocity toward its command
+__device__ __forceinline__ float segment_decay(bool ballistic, float dt) {
+  return ballistic ? 1.0f : expf(-dt / 0.04f);
+}
+
+// A vehicle leader's requests to its helper lanes, in shared memory:
+// segment i is lane i + 1's. op: kDecay, kRotation or both (bits), or
+// kDone.
+enum { kDone = 0, kDecay = 1, kRotation = 2 };
+struct WarpWork {
+  int op;
+  float dt[kSegs];
+  f3 w[kSegs];
+  bool ballistic[kSegs];
+  float decay[kSegs];
+  f4 rot[kSegs];
+};
+
+// Segment i's share of a request: its decay c = segment_decay(ballistic,
+// dt) and/or its rotation from_rotation_vector(w dt).
+__device__ __forceinline__ void segment_work(int op, bool ballistic, float dt, f3 w, float* c,
+                                             f4* rot) {
+  if (op & kDecay) *c = segment_decay(ballistic, dt);
+  if (op & kRotation) *rot = from_rotation_vector(scl(w, dt));
+}
+
+// The lanes that help one vehicle's thread with the replay's per-segment
+// work: lanes 1..kSegs of its warp, or none (work null: the thread does the
+// work itself, as in a one-thread-per-vehicle kernel).
+struct Helpers {
+  WarpWork* work;
+
+  // segment_work(op, ...) for every segment: c[i] and/or rot[i]
+  __device__ void segments(int op, const bool* ballistic, const float* dt, const f3* w, float* c,
+                           f4* rot) const {
+    if (!work) {
+      for (int i = 0; i < kSegs; ++i) segment_work(op, ballistic[i], dt[i], w[i], c + i, rot + i);
+      return;
+    }
+    for (int i = 0; i < kSegs; ++i) {
+      work->ballistic[i] = ballistic[i];
+      work->dt[i] = dt[i];
+      work->w[i] = w[i];
+    }
+    work->op = op;
+    __syncwarp();  // the helpers compute between these two barriers (help())
+    __syncwarp();
+    for (int i = 0; i < kSegs; ++i) {
+      if (op & kDecay) c[i] = work->decay[i];
+      if (op & kRotation) rot[i] = work->rot[i];
+    }
+  }
+  // ends the helpers' loop; the leader calls it once, after its last tick
+  __device__ void release() const {
+    if (!work) return;
+    work->op = kDone;
+    __syncwarp();
+  }
+};
+
+// A helper lane's loop: its segment of each request, until released.
+__device__ void help(WarpWork& work, int lane) {
+  const int i = lane - 1;
+  for (;;) {
+    __syncwarp();
+    const int op = work.op;
+    if (op == kDone) return;
+    if (i < kSegs)
+      segment_work(op, work.ballistic[i], work.dt[i], work.w[i], &work.decay[i], &work.rot[i]);
+    __syncwarp();
+  }
+}
+
 // _replay: integrate the command stream from t0 to t1 over the pipe's
-// slots, a plain loop over the 8 slots and the final open segment
+// slots and the final open segment; frozen: the prediction flavor (start
+// velocity v0 and angvel w0 held). The plain version is one loop that
+// integrates a piecewise-constant-command segment per slot. Here the loop's
+// integer walk first lays out the segments (length, command); the helpers
+// compute each segment's decay and rotation; then the segments are chained
+// in order with the plain loop's operations.
 __device__ Mocap replay(const State& S, int t0_us, int t1_us, bool update_variance,
-                        bool frozen) {
+                        bool frozen, const Helpers& hp) {
   Mocap m = mocap_of(S);
   const f3 v0 = m.vel, w0 = m.angvel;
   PipeView v;
   pipe_ordered(S, v);
+  float dt[kSegs];
+  f3 acc[kSegs], cmd[kSegs];
+  bool ball[kSegs];
   int t = max(t0_us, 0);
   int has = 0, a_cur = 0;
   f3 cur_acc = f3{0.0f, 0.0f, 0.0f}, cur_angvel = f3{0.0f, 0.0f, 0.0f};
   bool cur_ball = true;
-  for (int i = 0; i < kPipeCap; ++i) {
-    int act_i = v.act[i];
-    int remaining = max(wsub(t1_us, t), 0);
-    int window = has != 0 ? wsub(act_i, a_cur) : (1 << 30);
-    int dt_us = act_i <= t ? 0 : min(remaining, window);
-    float dt = static_cast<float>(dt_us) * 1e-6f;
-    integrate_segment(m, cur_acc, cur_angvel, cur_ball, dt, frozen, v0, w0);
-    if (update_variance) {
-      step_var(m.vp, kProcStdPos, dt);
-      step_var(m.va, kProcStdAtt, dt);
+  for (int i = 0; i < kSegs; ++i) {
+    int dt_us;
+    if (i < kPipeCap) {
+      int remaining = max(wsub(t1_us, t), 0);
+      int window = has != 0 ? wsub(v.act[i], a_cur) : (1 << 30);
+      dt_us = v.act[i] <= t ? 0 : min(remaining, window);
+    } else {  // final segment to t1 (the newest message's window is unbounded)
+      dt_us = max(wsub(t1_us, t), 0);
     }
+    dt[i] = static_cast<float>(dt_us) * 1e-6f;
+    acc[i] = cur_acc;
+    cmd[i] = cur_angvel;
+    ball[i] = cur_ball;
     t = wadd(t, dt_us);
-    if (act_i <= t) {
+    if (i < kPipeCap && v.act[i] <= t) {
       cur_acc = v.acc[i];
       cur_angvel = v.angvel[i];
       cur_ball = v.ballistic[i];
-      a_cur = act_i;
+      a_cur = v.act[i];
       has = 1;
     }
   }
-  // final segment to t1 (the newest message's window is unbounded)
-  float dt = static_cast<float>(max(wsub(t1_us, t), 0)) * 1e-6f;
-  integrate_segment(m, cur_acc, cur_angvel, cur_ball, dt, frozen, v0, w0);
-  if (update_variance) {
-    step_var(m.vp, kProcStdPos, dt);
-    step_var(m.va, kProcStdAtt, dt);
+  float c[kSegs];
+  f3 w[kSegs];  // the angular velocity each segment's attitude turns by
+  f4 rot[kSegs];
+  for (int i = 0; i < kSegs; ++i) w[i] = w0;
+  if (frozen) {  // w0 throughout: decays and rotations in one request
+    hp.segments(kDecay | kRotation, ball, dt, w, c, rot);
+  } else {  // each segment turns by the angular velocity the decays leave it
+    hp.segments(kDecay, ball, dt, w, c, rot);
+    f3 angvel = m.angvel;
+    for (int i = 0; i < kSegs; ++i) {
+      w[i] = angvel;
+      angvel = add(scl(angvel, c[i]), scl(cmd[i], 1.0f - c[i]));
+    }
+    hp.segments(kRotation, ball, dt, w, c, rot);
+  }
+  for (int i = 0; i < kSegs; ++i) {
+    if (frozen) m.pos = add(add(m.pos, scl(v0, dt[i])), scl(acc[i], dt[i] * dt[i] * 0.5f));
+    else m.pos = add(m.pos, scl(m.vel, dt[i]));
+    m.att = qmul(m.att, rot[i]);
+    m.vel = add(m.vel, scl(acc[i], dt[i]));
+    m.angvel = add(scl(m.angvel, c[i]), scl(cmd[i], 1.0f - c[i]));
+    if (update_variance) {
+      step_var(m.vp, kProcStdPos, dt[i]);
+      step_var(m.va, kProcStdAtt, dt[i]);
+    }
   }
   return m;
 }
@@ -1233,7 +1437,8 @@ __device__ __forceinline__ void mocap_store(State& S, const Mocap& m) {
 
 // UpdateWithMeasurement: replay the pipe to now, 6-sigma gate, 2x2 KF
 // corrections, force-accept + reset after 10 straight rejections
-__device__ void mocap_update(State& S, int now_us, f3 meas_pos, f4 meas_att, int dt_advance_us) {
+__device__ void mocap_update(State& S, int now_us, f3 meas_pos, f4 meas_att, int dt_advance_us,
+                             const Helpers& hp) {
   const float meas_var_pos = static_cast<float>(0.02 * 0.02);
   const float meas_var_att = static_cast<float>((5.0 * 3.14159265358979323846 / 180.0) *
                                                 (5.0 * 3.14159265358979323846 / 180.0));
@@ -1251,7 +1456,9 @@ __device__ void mocap_update(State& S, int now_us, f3 meas_pos, f4 meas_att, int
     S.mc_us_since_good_meas = 0;
     return;
   }
-  Mocap r = replay(S, S.mc_estimate_us, now_us, true, false);
+  SECTION_BEGIN(kSecReplayUpdate)
+  Mocap r = replay(S, S.mc_estimate_us, now_us, true, false, hp);
+  SECTION_END(kSecReplayUpdate)
 
   float innov_pos = r.vp[0] + meas_var_pos;
   float innov_att = r.va[0] + meas_var_att;
@@ -1322,8 +1529,9 @@ __device__ void mocap_update(State& S, int now_us, f3 meas_pos, f4 meas_att, int
 }
 
 // GetPrediction: forward-simulate the latency (estimate at now + latency)
-__device__ __forceinline__ Mocap mocap_get_prediction(const State& S, int now_us, int latency_us) {
-  return replay(S, S.mc_estimate_us, wadd(now_us, latency_us), false, true);
+__device__ __forceinline__ Mocap mocap_get_prediction(const State& S, int now_us, int latency_us,
+                                                     const Helpers& hp) {
+  return replay(S, S.mc_estimate_us, wadd(now_us, latency_us), false, true, hp);
 }
 
 // ---------------------------------------------------------------------------
@@ -1430,7 +1638,8 @@ constexpr float kLandingSpeed = 0.5f, kLandingBlendTime = 2.0f;
 
 // physics_tick with the mocap estimator; returns the estimator's
 // prediction and now_us (master time after this tick)
-__device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int* now_us) {
+__device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int* now_us,
+                              const Helpers& hp) {
   const f3 grav = f3{0.0f, 0.0f, kGravZ};
   const m3 imu_rot_inv = ldm(P.p_imu_rot_inv);
   float dt = static_cast<float>(P.dt_us) * 1e-6f;
@@ -1440,7 +1649,9 @@ __device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int
   bool delivered = ring_pop_due(S, S.step, P.dt_us, P.radio_delay_us, &mtype, &mflags, mfields);
   float motor_cmds[4];
   for (int i = 0; i < 4; ++i) motor_cmds[i] = S.des_motor_speeds[i];
+  SECTION_BEGIN(kSecPlant)
   f3 acc_imu = plant_step(P, S, motor_cmds, dt);
+  SECTION_END(kSecPlant)
   f3 angvel = ld3(S.plant_angvel);
   f4 att = ld4(S.plant_att);
   f3 gyro_true = mv3(imu_rot_inv, angvel);
@@ -1451,7 +1662,9 @@ __device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int
   acc_meas = add(acc_true, scl(sub(acc_meas, acc_true), P.noise_scale));
 
   // onboard logic tick (constant battery)
+  SECTION_BEGIN(kSecLogic)
   logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields);
+  SECTION_END(kSecLogic)
 
   *now_us = wmul(wadd(S.step, 1), P.dt_us);
 
@@ -1460,11 +1673,16 @@ __device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int
   bool mfire = mocap_acc > P.mocap_period_us;
   if (mfire) {
     mocap_acc = wsub(mocap_acc, P.mocap_period_us);
-    mocap_update(S, *now_us, ld3(S.plant_pos), att, P.mocap_period_us);
+    SECTION_BEGIN(kSecMocapUpdate)
+    mocap_update(S, *now_us, ld3(S.plant_pos), att, P.mocap_period_us, hp);
+    SECTION_END(kSecMocapUpdate)
   }
   S.mocap_acc_us = mocap_acc;
   S.gps_acc_us = wadd(S.gps_acc_us, P.dt_us);
-  return mocap_get_prediction(S, *now_us, P.est_latency_us);
+  SECTION_BEGIN(kSecPrediction)
+  const Mocap pred = mocap_get_prediction(S, *now_us, P.est_latency_us, hp);
+  SECTION_END(kSecPrediction)
+  return pred;
 }
 
 // _tracking_refs: receding-horizon reference state at sim step
@@ -1499,10 +1717,10 @@ __device__ void tracking_refs(const Params& P, const State& S, int step, f3* ref
 
 // _sim_tick: one tick with tracking/takeoff offboard control; noise: the
 // tick's (gyro (3,), acc (3,)) unit normals
-__device__ void sim_tick(const Params& P, State& S, const float* noise) {
+__device__ void sim_tick(const Params& P, State& S, const float* noise, const Helpers& hp) {
   const int step = S.step;  // the tick's step, before physics
   int now_us;
-  Mocap est = physics_tick(P, S, noise, &now_us);
+  Mocap est = physics_tick(P, S, noise, &now_us, hp);
 
   // offboard loop cadence
   int acc_us = wadd(S.offboard_acc_us, P.dt_us);
@@ -1532,6 +1750,7 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise) {
   bool track = in_flight && S.pl_planned && mstage == MSTAGE_CRUISE;
   f3 cmd_angvel;
   float cmd_thrust;
+  SECTION_BEGIN(kSecOffboard)
   if (track) {
     f3 ref_pos, ref_vel, ref_acc, ref_angvel_w;
     float ref_thrust;
@@ -1541,6 +1760,7 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise) {
   } else {
     offboard_run(P, est.pos, est.vel, est.att, hover_pos, hover_vel, &cmd_angvel, &cmd_thrust);
   }
+  SECTION_END(kSecOffboard)
 
   // the rates command (or, once complete, the idle command) into the ring
   int fields[kNumFields] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -1568,46 +1788,58 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise) {
 }
 
 // ---------------------------------------------------------------------------
-// the kernel: one thread per vehicle, n_ticks ticks
+// the kernel: one warp per vehicle, n_ticks ticks
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32) frame_kernel(const LeafPtrs ptrs,
-                                                   const float* __restrict__ noise,
-                                                   float* __restrict__ out_f,
-                                                   int* __restrict__ out_i,
-                                                   unsigned char* __restrict__ out_b, int B,
-                                                   int n_ticks) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  Params P;
-#define X(name, path, ty, n) \
-  copy_in<ty##_t>(reinterpret_cast<ty##_t*>(&P.name), ptrs.params[kP_##name], NUMEL(n), 0);
-  PARAM_LEAVES(X)
-#undef X
-  State S;
-#define X(name, path, ty, n, rw) \
-  copy_in<ty##_t>(reinterpret_cast<ty##_t*>(&S.name), ptrs.state[kS_##name], NUMEL(n), b);
-  STATE_LEAVES(X)
-#undef X
+constexpr int kVehicles = 4;  // vehicles (warps) per block
+constexpr int kThreads = 32 * kVehicles;
 
-  const float* nz = noise + static_cast<int64_t>(b) * n_ticks * 6;
-  for (int k = 0; k < n_ticks; ++k) sim_tick(P, S, nz + 6 * k);
+// Writes the W leaves of row b of `src` to the three flat output buffers,
+// leaf-major by dtype in table order, [B, numel] per leaf; element k, k +
+// stride, ... of the state table.
+__device__ void copy_out(const char* src, float* out_f, int* out_i, unsigned char* out_b, int B,
+                         int b, int k, int stride) {
+#pragma unroll 8
+  for (; k < kStateElems; k += stride) {
+    const Elem el = kStateTable.e[k];
+    if (el.out == kOutNone) continue;
+    const int64_t o = static_cast<int64_t>(B) * el.out_prefix + static_cast<int64_t>(b) * el.numel + el.i;
+    if (el.out == kOutF32) out_f[o] = *reinterpret_cast<const float*>(src + el.dst);
+    else if (el.out == kOutI32) out_i[o] = *reinterpret_cast<const int*>(src + el.dst);
+    else out_b[o] = static_cast<unsigned char>(src[el.dst]);
+  }
+}
 
-  // W leaves: leaf-major in three flat buffers, [B, numel] per leaf
-  int64_t oF32 = 0, oI32 = 0, oBOOL = 0;
-  float* bF32 = out_f;
-  int* bI32 = out_i;
-  unsigned char* bBOOL = out_b;
-#define W_OUT(name, ty, n)                                                             \
-  copy_out<ty##_t>(b##ty + o##ty + static_cast<int64_t>(b) * NUMEL(n),                 \
-                   reinterpret_cast<const ty##_t*>(&S.name), NUMEL(n));                \
-  o##ty += static_cast<int64_t>(B) * NUMEL(n);
-#define P_OUT(name, ty, n)
-#define X(name, path, ty, n, rw) rw##_OUT(name, ty, n)
-  STATE_LEAVES(X)
-#undef X
-#undef W_OUT
-#undef P_OUT
+__global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__ LeafPtrs ptrs,
+                                                         const float* __restrict__ noise,
+                                                         float* __restrict__ out_f,
+                                                         int* __restrict__ out_i,
+                                                         unsigned char* __restrict__ out_b, int B,
+                                                         int n_ticks) {
+  __shared__ Params P;
+  __shared__ State states[kVehicles];
+  __shared__ WarpWork work[kVehicles];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kVehicles + warp;
+  copy_in(reinterpret_cast<char*>(&P), ptrs.params, kParamTable, 0, threadIdx.x, kThreads);
+  __syncthreads();
+  if (b >= B) return;  // a whole warp: no barrier of the block follows
+  State& S = states[warp];
+  copy_in(reinterpret_cast<char*>(&S), ptrs.state, kStateTable, b, lane, 32);
+  __syncwarp();
+
+  if (lane == 0) {
+    const Helpers hp{&work[warp]};
+    const float* nz = noise + static_cast<int64_t>(b) * n_ticks * 6;
+    SECTION_BEGIN(kSecTicks)
+    for (int k = 0; k < n_ticks; ++k) sim_tick(P, S, nz + 6 * k, hp);
+    SECTION_END(kSecTicks)
+    hp.release();
+  } else {
+    help(work[warp], lane);
+  }
+  __syncwarp();
+  copy_out(reinterpret_cast<const char*>(&S), out_f, out_i, out_b, B, b, lane, 32);
 }
 
 }  // namespace
@@ -1622,9 +1854,21 @@ extern "C" int frame_ticks_launch(const void* const* state, const void* const* p
   LeafPtrs ptrs;
   for (int i = 0; i < kNumState; ++i) ptrs.state[i] = state[i];
   for (int i = 0; i < kNumParam; ++i) ptrs.params[i] = params[i];
-  int threads = 32;
-  int blocks = (B + threads - 1) / threads;
-  frame_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int blocks = (B + kVehicles - 1) / kVehicles;
+  frame_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       ptrs, noise, out_f, out_i, out_b, B, n_ticks);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef FRAME_SECTIONS
+// sec, cnt: kNumSections cycles and runs each, summed since the last read;
+// resets them. Returns the cudaError_t of the copies.
+extern "C" int frame_sections_read(unsigned long long* sec, unsigned long long* cnt) {
+  unsigned long long zero[kNumSections] = {0};
+  cudaError_t e = cudaMemcpyFromSymbol(sec, g_sec, sizeof(g_sec));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(cnt, g_cnt, sizeof(g_cnt));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_sec, zero, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_cnt, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+#endif

@@ -16,9 +16,8 @@
 //   pass C  edge-band shrinks, 4 bands x 4 accumulators
 //   pass D  corner shrinks, one quadrant at a time, each seeing the edges the
 //           previous corner left (the plain version's order)
-// Each pass is a block-strided loop over the pixels of its region and a
-// block-wide min/max reduction (warp shuffles, then one value per warp in
-// shared memory), so every thread ends a pass holding the same scalars.
+// Each pass sweeps the pixels of its region and ends in a block-wide
+// min/max reduction, so every thread ends a pass holding the same scalars.
 //
 // K2: grid (P, B), block (p, b) inflates seed p of image b.
 // K2g: grid (P/S, B), block (g, b) inflates seeds gS .. gS+S-1 of image b.
@@ -31,88 +30,207 @@
 // sweeps; a group with no live seed ends. Unlike the TPU's grouped kernel,
 // pass B never skips: it always takes the minimum over the rectangle.
 //
-// What bounds it on the card: latency. For one vehicle a planning round
-// inflates 10-20 seeds, so only 10-20 of the 132 SMs work (a fleet of 16
-// fills the card with 160-320 blocks), each sweeping a 240x320 int32
-// image (300 KB, resident in L2 after the first pass) about a dozen times
-// with a barrier per reduction. The design spends 512 threads per seed (K2)
-// or group (K2g) to shorten each sweep. K2g trades parallel blocks for fewer
-// image sweeps; measured on an NVIDIA H100 (PERF.md) that pays only where
-// about a thousand seeds inflate on one 640x480 image, and loses at 128
-// seeds and at the frame's 10-20, so the default is K2. The TPU kernel's
-// per-tile skip tables are not used.
+// What bounds it on the card: latency and issued instructions, not bytes.
+// A planning round of one vehicle inflates 10-20 seeds, so 10-20 of the 132
+// SMs work (a fleet of 16 fills the card with 160-320 blocks); each block
+// sweeps a 240x320 int32 image (300 KB, from L2 and L1) several times, with
+// a barrier per reduction. Clock64 timers on an H100 put most of a live
+// seed's cycles in the per-pixel work of pass C, then the expansion, pass D
+// and pass B. The design cuts the instructions per pixel and the pixels:
+//   - a region is swept row by row: warp w takes rows w, w + 16, ...; its
+//     lanes take 4 neighbouring pixels each with one 16-byte load (rows of a
+//     width divisible by 4; else one pixel a lane), so no pixel pays an
+//     integer division for its coordinates and neighbouring lanes read
+//     neighbouring addresses;
+//   - a pixel's shrink quotient numer / p comes from a table in shared
+//     memory (numer / d for d < 4096, filled by the block once a seed has
+//     passed pass A), not from an integer division;
+//   - a reduction is one warp reduction instruction per value
+//     (__reduce_min_sync / __reduce_max_sync), one store per warp, one
+//     barrier, and one more warp reduction over the 16 warps' slots; the
+//     slots alternate between two buffers, so no second barrier guards them;
+//   - the expansion searches outward from each edge in chunks of growing
+//     width (32 columns, 64, ...; 16 rows, 32, ...) up to the clamp the
+//     expansion applies, and stops after the first chunk that holds a
+//     blocker: a farther blocked line cannot be the nearest (the TPU
+//     kernel's early-exit sweeps, pallas_inflate.py:25-31);
+//   - pass C sweeps each edge band over its own region (rows [t, b] right of
+//     r and left of l, cols [l, r] above t and below b, each with its edge
+//     line, the regions bands_pixel's tests select) with that band's test
+//     alone, not the whole image with all four.
+// Skipped pixels would contribute only the reductions' identities, so the
+// results are unchanged. Staging the whole image in one block's shared
+// memory (as 16-bit codes with an escape code for values past 65535, since a
+// pooled 240x320 int32 image exceeds a block's 227 KB) was measured and made
+// the launch slower; the TPU kernel's per-tile skip tables are not used.
+//
+// K2c, the cluster form of K2: a planning round of one vehicle leaves most
+// SMs idle, so each seed gets a thread-block cluster of C blocks (2, 4 or 8;
+// grid (P C, B)). Block rank k owns the k-th slab of ceil(H / C) rows and
+// stages it in its shared memory as int32 with one bulk copy (TMA, completion
+// on an mbarrier); every pass sweeps only the block's own slab. A reduction
+// reduces each block's warps first, pushes the block's result into every
+// block of the cluster (distributed shared memory), and after one cluster
+// barrier reads the C results locally; the expansion's first chunks are C
+// times wider, since each of its steps costs a cluster barrier. On an H100
+// this beat K2 on one image with 10-20 seeds (C = 8; pooled 240x320 and
+// 480x640) and lost on 160 seeds or more; pulling the 16 C warp partials
+// from the other blocks instead made K2c no faster than K2. The caller picks
+// C (cuda_inflate.py's cluster_size, from H x W and the grid); C = 1 is K2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;  // the largest cluster K2c takes (the portable limit)
+// the largest row slab a K2c block stages (cuda_inflate.py's MAX_SLAB_BYTES);
+// with the block's other shared memory it stays under the card's 227 KB
+constexpr int kMaxSlabBytes = 200 * 1024;
 constexpr int kBig = 1 << 20;
 constexpr int kPixelBuffer = 2;
 constexpr int kExpandRounds = 8;
+constexpr int kFirstChunkCols = 32;  // the expansion's first column chunk (K2; K2c: x C); each next is twice as wide
+constexpr int kFirstChunkRows = 16;  // the same for rows
+// the shrink passes' quotients numer / p for p < kShrinkTable, in shared
+// memory (numer = focal * plan_radius / depth_scale: 712 on the pooled
+// 240x320 frame, 1425 at 640x480)
+constexpr int kShrinkTable = 4096;
 constexpr int kMaxGroup = 8;  // the largest compiled K2g instance (seeds per block)
 constexpr int kBandValues = 16;  // pass C accumulators per seed
 // min-reduced pass C accumulators: right edge/lo, left lo, top lo, bottom edge/lo
 constexpr unsigned kBandMinMask =
     (1u << 0) | (1u << 2) | (1u << 6) | (1u << 10) | (1u << 12) | (1u << 14);
 
-// Block-wide reduction of K values; value k is a min when bit k % Period of
-// min_mask is set, else a max. sh has at least K rows.
+// The per-warp partials of the reductions: two buffers of `per_turn` rows in
+// shared memory, used in turns (K2c: also the per-block results, `blocks`).
+// A warp writes a buffer again only two reductions later, after a barrier
+// that every warp (of the cluster, for K2c) reaches once it has read that
+// buffer, so one barrier per reduction suffices (K2c: a block barrier and a
+// cluster barrier).
+struct Slots {
+  int (*rows)[kWarps];
+  int per_turn;
+  int turn;
+  int cluster;  // the blocks that share each reduction (1: the block alone)
+  int (*blocks)[kMaxCluster];  // K2c: [turn * per_turn + k][rank], each block's result
+};
+
+// Block-wide (cluster-wide) reduction of K values; value k is a min when bit
+// k % Period of min_mask is set, else a max. Every thread ends holding the K
+// results.
 template <int K, int Period = K>
-__device__ void block_reduce(int (&v)[K], unsigned min_mask, int (*sh)[kWarps]) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ void block_reduce(int (&v)[K], unsigned min_mask, Slots& sl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int (*sh)[kWarps] = sl.rows + sl.turn * sl.per_turn;
+  const int turn = sl.turn;
+  sl.turn ^= 1;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    bool is_min = (min_mask >> (k % Period)) & 1u;
-    for (int off = 16; off > 0; off >>= 1) {
-      int o = __shfl_xor_sync(0xffffffffu, v[k], off);
-      v[k] = is_min ? min(v[k], o) : max(v[k], o);
-    }
+    const bool is_min = (min_mask >> (k % Period)) & 1u;
+    v[k] = is_min ? __reduce_min_sync(0xffffffffu, v[k]) : __reduce_max_sync(0xffffffffu, v[k]);
   }
-  __syncthreads();  // the previous reduction's readers are done with sh
   if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) sh[k][warp] = v[k];
   }
+  if (sl.cluster == 1) {  // K2, K2g
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool is_min = (min_mask >> (k % Period)) & 1u;
+      const int w = sh[k][lane % kWarps];  // lanes past kWarps repeat a slot: min/max ignore repeats
+      v[k] = is_min ? __reduce_min_sync(0xffffffffu, w) : __reduce_max_sync(0xffffffffu, w);
+    }
+    return;
+  }
+  // K2c (K <= kWarps): warp k reduces value k over the block's warps and
+  // stores the block's result into slot [k][rank] of every block of the
+  // cluster; after the cluster barrier each thread reduces the C block
+  // results from its own shared memory. Few remote stores, no remote loads.
   __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = sl.cluster, rank = static_cast<int>(cluster.block_rank());
+  int (*bs)[kMaxCluster] = sl.blocks + turn * sl.per_turn;
+  if (warp < K) {
+    const bool is_min = (min_mask >> (warp % Period)) & 1u;
+    const int w = sh[warp][lane % kWarps];
+    const int r = is_min ? __reduce_min_sync(0xffffffffu, w) : __reduce_max_sync(0xffffffffu, w);
+    if (lane < C) *cluster.map_shared_rank(&bs[warp][rank], lane) = r;
+  }
+  cluster.sync();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    bool is_min = (min_mask >> (k % Period)) & 1u;
-    int r = sh[k][0];
-    for (int w = 1; w < kWarps; ++w) r = is_min ? min(r, sh[k][w]) : max(r, sh[k][w]);
-    v[k] = r;
-  }
-}
-
-// Calls f(x, y, pixel) for every pixel of rows [ya, yb] x cols [xa, xb]
-// (clipped to the image) this thread owns.
-template <typename F>
-__device__ void for_region(const int* img, int H, int W, int ya, int yb, int xa,
-                           int xb, F f) {
-  ya = max(ya, 0);
-  yb = min(yb, H - 1);
-  xa = max(xa, 0);
-  xb = min(xb, W - 1);
-  if (yb < ya || xb < xa) return;
-  int w = xb - xa + 1;
-  int n = (yb - ya + 1) * w;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    int y = ya + i / w;
-    int x = xa + i % w;
-    f(x, y, img[y * W + x]);
+    const bool is_min = (min_mask >> (k % Period)) & 1u;
+    const int w = bs[k][lane % C];
+    v[k] = is_min ? __reduce_min_sync(0xffffffffu, w) : __reduce_max_sync(0xffffffffu, w);
   }
 }
 
 // One image and the scalars every seed row of a launch shares.
 struct Image {
-  const int* img;
+  const int* px;  // rows y_lo .. y_hi, row y at px + (y - y_lo) * W
   int H, W, edge_off, ignore, numer, extra;
-  __device__ int shrink(int p) const { return numer / max(p, 1) + extra; }
+  int y_lo, y_hi;  // the rows this block sweeps: all (K2, K2g) or its slab (K2c)
+  bool vec;  // every row starts on 16 bytes: four pixels per load
+  bool staged;  // px is the block's shared-memory slab (K2c), not the image in device memory
+  unsigned short* quot;  // quot[d] = numer / d for d < kShrinkTable (shrink_table)
+  __device__ const int* row(int y) const { return px + (y - y_lo) * W; }
+  // the shrink distance of a pixel: numer / max(p, 1) + extra, the quotient
+  // looked up where the table holds it (0 wherever d > numer >= 0)
+  __device__ int shrink(int p) const {
+    const int d = max(p, 1);
+    const int q = d > numer ? 0 : (d < kShrinkTable ? quot[d] : numer / d);
+    return (numer >= 0 ? q : numer / d) + extra;
+  }
   // a pixel nearer than the base depth maxd (the shrink passes' pixels)
   __device__ bool relevant(int p, int maxd) const { return p > ignore && p < maxd; }
 };
+
+template <bool Staged, typename F>
+__device__ __forceinline__ void sweep(const Image& im, int ya, int yb, int xa, int xb, F& f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (im.vec) {
+    const int x_first = (xa & ~3) + 4 * lane;
+    for (int y = ya + warp; y <= yb; y += kWarps) {
+      const int* row = im.row(y);
+      for (int x = x_first; x <= xb; x += 128) {
+        const int4* at = reinterpret_cast<const int4*>(row + x);
+        const int4 q = Staged ? *at : __ldg(at);
+        const int px[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (x + j >= xa && x + j <= xb) f(x + j, y, px[j]);
+      }
+    }
+  } else {
+    for (int y = ya + warp; y <= yb; y += kWarps) {
+      const int* row = im.row(y);
+      for (int x = xa + lane; x <= xb; x += 32) f(x, y, Staged ? row[x] : __ldg(row + x));
+    }
+  }
+}
+
+// Calls f(x, y, pixel) for every pixel of rows [ya, yb] x cols [xa, xb]
+// (clipped to the block's rows) this thread owns: warp w takes rows ya + w,
+// ya + w + kWarps, ...; in a row, lane i takes the 4-pixel group i, i + 32,
+// ... of the groups that meet [xa, xb] (or pixel i, i + 32, ... where rows
+// are not 16-byte aligned).
+template <typename F>
+__device__ void for_region(const Image& im, int ya, int yb, int xa, int xb, F f) {
+  ya = max(ya, im.y_lo);
+  yb = min(yb, im.y_hi);
+  xa = max(xa, 0);
+  xb = min(xb, im.W - 1);
+  if (yb < ya || xb < xa) return;
+  if (im.staged) sweep<true>(im, ya, yb, xa, xb, f);
+  else sweep<false>(im, ya, yb, xa, xb, f);
+}
 
 struct Rect {
   int l, r, t, b;
@@ -123,40 +241,70 @@ struct Edges {
 };
 
 // --- pass A: the initial rectangle must be free ---
-__device__ bool pass_a(const Image& im, int minpyr, const Rect& q, int (*sh)[kWarps]) {
+__device__ bool pass_a(const Image& im, int minpyr, const Rect& q, Slots& sl) {
   int v[1] = {0};
-  for_region(im.img, im.H, im.W, q.t, q.b, q.l, q.r, [&](int, int, int p) {
+  for_region(im, q.t, q.b, q.l, q.r, [&](int, int, int p) {
     if (p > im.ignore && p < minpyr) v[0] = 1;
   });
-  block_reduce<1>(v, 0u, sh);
+  block_reduce<1>(v, 0u, sl);
   return v[0] == 0;
 }
 
 // --- max-sweep expansion ---
-__device__ void expand(const Image& im, int minpyr, Rect& q, int (*sh)[kWarps]) {
-  const int H = im.H, W = im.W, edge_off = im.edge_off;
+//
+// A round pushes r to the column before the first blocked one right of it
+// within rows [t, b] (at most to W - 1 - edge_off, where the plain version
+// clamps it), l likewise leftward (at least to edge_off), then b and t the
+// same way within the new columns. Each search walks outward in chunks of
+// doubling width and stops after the first chunk that holds a blocker, whose
+// minimum (maximum) is then the nearest blocked line. K2c's first chunks are
+// C times wider: its pixels spread over C blocks, and each step costs a
+// cluster barrier.
+__device__ void expand(const Image& im, int minpyr, Rect& q, Slots& sl) {
+  const int H = im.H, W = im.W, eo = im.edge_off;
+  const int x_hi = W - 1 - eo, y_hi = H - 1 - eo;
   auto blocked = [&](int p) { return p > im.ignore && p < minpyr; };
   int l = q.l, r = q.r, t = q.t, b = q.b;
   for (int round = 0; round < kExpandRounds; ++round) {
-    int v[2] = {kBig, -kBig};  // first blocked x right of r, last left of l
-    for_region(im.img, H, W, t, b, 0, W - 1, [&](int x, int, int p) {
-      if (!blocked(p)) return;
-      if (x > r) v[0] = min(v[0], x);
-      if (x < l) v[1] = max(v[1], x);
-    });
-    block_reduce<2>(v, 1u, sh);
-    int r2 = max(r, min(v[0] - 1, W - 1 - edge_off));
-    int l2 = min(l, max(v[1] + 1, edge_off));
-    int w[2] = {kBig, -kBig};  // first blocked y below b, last above t
-    for_region(im.img, H, W, 0, H - 1, l2, r2, [&](int, int y, int p) {
-      if (!blocked(p)) return;
-      if (y > b) w[0] = min(w[0], y);
-      if (y < t) w[1] = max(w[1], y);
-    });
-    block_reduce<2>(w, 1u, sh);
-    int b2 = max(b, min(w[0] - 1, H - 1 - edge_off));
-    int t2 = min(t, max(w[1] + 1, edge_off));
-    bool changed = l2 != l || r2 != r || t2 != t || b2 != b;
+    int hit[2] = {kBig, -kBig};  // first blocked x right of r, last left of l
+    for (int n = kFirstChunkCols * sl.cluster, xr = r + 1, xl = l - 1;; xr += n, xl -= n, n *= 2) {
+      const bool go_r = hit[0] == kBig && xr <= x_hi, go_l = hit[1] == -kBig && xl >= eo;
+      if (!go_r && !go_l) break;
+      int v[2] = {kBig, -kBig};
+      if (go_r)
+        for_region(im, t, b, xr, min(xr + n - 1, x_hi), [&](int x, int, int p) {
+          if (blocked(p)) v[0] = min(v[0], x);
+        });
+      if (go_l)
+        for_region(im, t, b, max(xl - n + 1, eo), xl, [&](int x, int, int p) {
+          if (blocked(p)) v[1] = max(v[1], x);
+        });
+      block_reduce<2>(v, 1u, sl);
+      hit[0] = min(hit[0], v[0]);
+      hit[1] = max(hit[1], v[1]);
+    }
+    const int r2 = max(r, hit[0] != kBig ? hit[0] - 1 : x_hi);
+    const int l2 = min(l, hit[1] != -kBig ? hit[1] + 1 : eo);
+    int hit_y[2] = {kBig, -kBig};  // first blocked y below b, last above t
+    for (int n = kFirstChunkRows * sl.cluster, yb = b + 1, yt = t - 1;; yb += n, yt -= n, n *= 2) {
+      const bool go_b = hit_y[0] == kBig && yb <= y_hi, go_t = hit_y[1] == -kBig && yt >= eo;
+      if (!go_b && !go_t) break;
+      int v[2] = {kBig, -kBig};
+      if (go_b)
+        for_region(im, yb, min(yb + n - 1, y_hi), l2, r2, [&](int, int y, int p) {
+          if (blocked(p)) v[0] = min(v[0], y);
+        });
+      if (go_t)
+        for_region(im, max(yt - n + 1, eo), yt, l2, r2, [&](int, int y, int p) {
+          if (blocked(p)) v[1] = max(v[1], y);
+        });
+      block_reduce<2>(v, 1u, sl);
+      hit_y[0] = min(hit_y[0], v[0]);
+      hit_y[1] = max(hit_y[1], v[1]);
+    }
+    const int b2 = max(b, hit_y[0] != kBig ? hit_y[0] - 1 : y_hi);
+    const int t2 = min(t, hit_y[1] != -kBig ? hit_y[1] + 1 : eo);
+    const bool changed = l2 != l || r2 != r || t2 != t || b2 != b;
     l = l2;
     r = r2;
     t = t2;
@@ -167,12 +315,12 @@ __device__ void expand(const Image& im, int minpyr, Rect& q, int (*sh)[kWarps]) 
 }
 
 // --- pass B: base depth, the min valid depth inside the rectangle ---
-__device__ int pass_b(const Image& im, const Rect& q, int (*sh)[kWarps]) {
+__device__ int pass_b(const Image& im, const Rect& q, Slots& sl) {
   int v[1] = {kBig};
-  for_region(im.img, im.H, im.W, q.t, q.b, q.l, q.r, [&](int, int, int p) {
+  for_region(im, q.t, q.b, q.l, q.r, [&](int, int, int p) {
     if (p > im.ignore) v[0] = min(v[0], p);
   });
-  block_reduce<1>(v, 1u, sh);
+  block_reduce<1>(v, 1u, sl);
   return min(v[0], 65535);
 }
 
@@ -301,16 +449,16 @@ struct Corner {
 // One seed's corner pass (K2).
 template <bool Right, bool Top>
 __device__ bool corner_pass(const Image& im, const Rect& q, int x0, int y0, int maxd, Edges& e,
-                            int h_span, int w_span, int (*sh)[kWarps]) {
+                            int h_span, int w_span, Slots& sl) {
   using C = Corner<Right, Top>;
   int v[3];
   C::init(v);
   int ya, yb, xa, xb;
   C::region(im, q, ya, yb, xa, xb);
-  for_region(im.img, im.H, im.W, ya, yb, xa, xb, [&](int x, int y, int p) {
+  for_region(im, ya, yb, xa, xb, [&](int x, int y, int p) {
     if (im.relevant(p, maxd)) C::pixel(v, x, y, im.shrink(p), x0, y0, e, h_span, w_span);
   });
-  block_reduce<3>(v, C::kMinMask, sh);
+  block_reduce<3>(v, C::kMinMask, sl);
   return C::apply(v, e);
 }
 
@@ -334,42 +482,74 @@ __device__ void write_row(int* o, bool good, int maxd, const Edges& e) {
 
 // Seed rows: [x0, y0, min_pyr_depth, l0, r0, t0, b0, ok0, edge_off, ignore,
 // numer, shrink_extra]; the last four are equal on every row of a launch.
-__device__ Image image_of(const int* img_all, const int* s, int H, int W) {
-  return Image{img_all + static_cast<int64_t>(blockIdx.y) * H * W, H, W, s[8], s[9], s[10], s[11]};
+// quot: the block's shrink table (shrink_table fills it).
+__device__ const int* image_at(const int* img_all, int H, int W) {
+  return img_all + static_cast<int64_t>(blockIdx.y) * H * W;
 }
 
-// K2: block (p, b) inflates seed p of image b. img: (B, H, W) int32; seeds:
-// (B, P, 12) int32; out: (B, P, 8) int32 [ok, maxd, right, top, left,
-// bottom, 0, 0].
-__global__ void __launch_bounds__(kThreads)
-inflate_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
-               int* __restrict__ out, int H, int W) {
-  __shared__ int sh[kBandValues][kWarps];
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-  const int* s = seeds + row * 12;
-  const Image im = image_of(img_all, s, H, W);
+__device__ bool rows_aligned(const int* img, int W) {
+  return W % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
+}
+
+__device__ Image image_of(const int* img_all, const int* s, int H, int W,
+                          unsigned short* quot) {
+  const int* img = image_at(img_all, H, W);
+  return Image{img, H, W, s[8], s[9], s[10], s[11], 0, H - 1, rows_aligned(img, W), false, quot};
+}
+
+// quot[d] = numer / d for 1 <= d < kShrinkTable (the block's threads
+// together; the caller's next barrier publishes it).
+__device__ void shrink_table(unsigned short* quot, int numer) {
+  for (int d = 1 + threadIdx.x; d < kShrinkTable && d <= numer; d += kThreads)
+    quot[d] = static_cast<unsigned short>(numer / d);
+}
+
+// One seed (row s) on the image im, by one block (K2) or one cluster (K2c,
+// each block over its own rows); thread 0 of `writer` writes the output row o.
+__device__ void inflate_seed(const Image& im, const int* s, int* o, bool writer, Slots& sl) {
+  const int H = im.H, W = im.W;
   const int x0 = s[0], y0 = s[1], minpyr = s[2];
-  int* o = out + row * 8;
   auto finish = [&](bool good, int maxd, const Edges& e) {
-    if (threadIdx.x == 0) write_row(o, good, maxd, e);
+    if (writer && threadIdx.x == 0) write_row(o, good, maxd, e);
   };
 
   Rect q{s[3], s[4], s[5], s[6]};
   bool ok = s[7] != 0;
-  ok = pass_a(im, minpyr, q, sh) && ok;
+  ok = pass_a(im, minpyr, q, sl) && ok;
   if (!ok) {
     finish(false, 0, Edges{q.r, q.t, q.l, q.b});
     return;
   }
-  expand(im, minpyr, q, sh);
-  const int maxd = pass_b(im, q, sh);
+  shrink_table(im.quot, im.numer);  // published by expand's first barrier
+  expand(im, minpyr, q, sl);
+  const int maxd = pass_b(im, q, sl);
 
+  // pass C: each band over its own region (the region bands_pixel's test
+  // selects for it), then one reduction
   int a[kBandValues];
   bands_init(a);
-  for_region(im.img, H, W, 0, H - 1, 0, W - 1, [&](int x, int y, int p) {
-    if (im.relevant(p, maxd)) bands_pixel(a, im, x, y, im.shrink(p), x0, y0, q);
+  const int t_init = im.edge_off, b_init = H - 1 - im.edge_off;
+  for_region(im, q.t, q.b, q.r, W - 1, [&](int x, int y, int p) {  // right
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 0, x - sp, y + sp, y - sp, x0, y0, true, t_init, b_init);
   });
-  block_reduce<kBandValues>(a, kBandMinMask, sh);
+  for_region(im, q.t, q.b, 0, q.l, [&](int x, int y, int p) {  // left
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 4, x + sp, y + sp, y - sp, x0, y0, false, t_init, b_init);
+  });
+  for_region(im, 0, q.t, q.l, q.r, [&](int x, int y, int p) {  // top
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 8, y + sp, x + sp, x - sp, y0, x0, false, t_init, b_init);
+  });
+  for_region(im, q.b, H - 1, q.l, q.r, [&](int x, int y, int p) {  // bottom
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 12, y - sp, x + sp, x - sp, y0, x0, true, t_init, b_init);
+  });
+  block_reduce<kBandValues>(a, kBandMinMask, sl);
   Edges e;
   ok = band_edges(a, im, e);
   if (!ok) {
@@ -380,15 +560,110 @@ inflate_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
   // corners, in the plain version's order
   const int h_span = max(e.b - e.t, 1), w_span = max(e.r - e.l, 1);
   bool c;
-  c = corner_pass<true, true>(im, q, x0, y0, maxd, e, h_span, w_span, sh);
+  c = corner_pass<true, true>(im, q, x0, y0, maxd, e, h_span, w_span, sl);
   ok = ok && c;
-  c = corner_pass<true, false>(im, q, x0, y0, maxd, e, h_span, w_span, sh);
+  c = corner_pass<true, false>(im, q, x0, y0, maxd, e, h_span, w_span, sl);
   ok = ok && c;
-  c = corner_pass<false, true>(im, q, x0, y0, maxd, e, h_span, w_span, sh);
+  c = corner_pass<false, true>(im, q, x0, y0, maxd, e, h_span, w_span, sl);
   ok = ok && c;
-  c = corner_pass<false, false>(im, q, x0, y0, maxd, e, h_span, w_span, sh);
+  c = corner_pass<false, false>(im, q, x0, y0, maxd, e, h_span, w_span, sl);
   ok = ok && c;
   finish(ok && final_ok(e, x0, y0), maxd, e);
+}
+
+// K2: block (p, b) inflates seed p of image b. img: (B, H, W) int32; seeds:
+// (B, P, 12) int32; out: (B, P, 8) int32 [ok, maxd, right, top, left,
+// bottom, 0, 0].
+__global__ void __launch_bounds__(kThreads)
+inflate_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
+               int* __restrict__ out, int H, int W) {
+  __shared__ int sh[2 * kBandValues][kWarps];
+  __shared__ unsigned short quot[kShrinkTable];
+  Slots sl{sh, kBandValues, 0, 1, nullptr};
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int* s = seeds + row * 12;
+  inflate_seed(image_of(img_all, s, H, W, quot), s, out + row * 8, true, sl);
+}
+
+// --- K2c: a cluster per seed ---
+
+// The shared memory of a K2c block: its row slab, then the mbarrier of the
+// slab's bulk copy, the warp slots, the shrink table and the block slots.
+struct ClusterSmem {
+  int slab_bytes;  // rows * W * 4, rounded up to 16
+  __host__ __device__ static int slab_rows(int H, int C) { return (H + C - 1) / C; }
+  __host__ __device__ ClusterSmem(int H, int W, int C)
+      : slab_bytes((slab_rows(H, C) * W * 4 + 15) / 16 * 16) {}
+  __host__ __device__ int bar() const { return slab_bytes; }
+  __host__ __device__ int slots() const { return slab_bytes + 16; }
+  __host__ __device__ int quot() const { return slots() + 2 * kBandValues * kWarps * 4; }
+  __host__ __device__ int blocks() const { return quot() + kShrinkTable * 2; }
+  __host__ __device__ int bytes() const { return blocks() + 2 * kBandValues * kMaxCluster * 4; }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// rows [y_lo, y_lo + n) of img into the slab: one bulk copy (TMA) issued by
+// thread 0 and awaited on an mbarrier where the rows are 16-byte aligned,
+// else the block's plain loads; the block's threads see the slab on return.
+__device__ void stage_rows(int* slab, const int* img, int W, int y_lo, int n, bool aligned,
+                           uint64_t* bar) {
+  const int count = n * W;
+  if (count <= 0) return;
+  if (!aligned) {
+    for (int i = threadIdx.x; i < count; i += kThreads) slab[i] = __ldg(img + y_lo * W + i);
+    __syncthreads();
+    return;
+  }
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+                 "r"(count * 4)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(smem_addr(slab)),
+        "l"(img + y_lo * W), "r"(count * 4), "r"(b)
+        : "memory");
+  }
+  __syncthreads();  // the mbarrier is initialised before anyone waits on it
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n\t"
+      "@!done bra LAB_WAIT;\n\t}" ::"r"(b)
+      : "memory");
+}
+
+// K2c: cluster (p, b) of C blocks (grid (P C, B)) inflates seed p of image
+// b; block rank k stages and sweeps rows [k R, (k + 1) R) with R =
+// ceil(H / C). Same arguments and output as K2.
+__global__ void __launch_bounds__(kThreads)
+inflate_cluster_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
+                       int* __restrict__ out, int H, int W, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ClusterSmem lay(H, W, C);
+  const int rank = blockIdx.x % C;
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * (gridDim.x / C) + blockIdx.x / C;
+  const int* s = seeds + row * 12;
+  const int* img = image_at(img_all, H, W);
+  const int rows = ClusterSmem::slab_rows(H, C);
+  const int y_lo = rank * rows, y_hi = min(H, y_lo + rows) - 1;
+  int* slab = reinterpret_cast<int*>(smem);
+  const bool aligned = rows_aligned(img, W);
+  stage_rows(slab, img, W, y_lo, y_hi - y_lo + 1, aligned,
+             reinterpret_cast<uint64_t*>(smem + lay.bar()));
+  unsigned short* quot = reinterpret_cast<unsigned short*>(smem + lay.quot());
+  Slots sl{reinterpret_cast<int(*)[kWarps]>(smem + lay.slots()), kBandValues, 0, C,
+           reinterpret_cast<int(*)[kMaxCluster]>(smem + lay.blocks())};
+  const Image im{slab, H, W, s[8], s[9], s[10], s[11], y_lo, y_hi, aligned, true, quot};
+  inflate_seed(im, s, out + row * 8, rank == 0, sl);
+  cg::this_cluster().sync();  // no block leaves while another may read its slots
 }
 
 // One seed of a K2g group, as the block's threads share it in shared memory
@@ -403,7 +678,7 @@ struct GroupSeed {
 // One shared corner sweep of a group (K2g): the live seeds' quadrants, in
 // their bounding box; each pixel counts for the seeds whose quadrant holds it.
 template <bool Right, bool Top, int S>
-__device__ void group_corner(const Image& im, GroupSeed* gs, int (*sh)[kWarps]) {
+__device__ void group_corner(const Image& im, GroupSeed* gs, Slots& sl) {
   using C = Corner<Right, Top>;
   int ya = im.H, yb = -1, xa = im.W, xb = -1, maxd_hi = 0;
   for (int s = 0; s < S; ++s) {
@@ -419,7 +694,7 @@ __device__ void group_corner(const Image& im, GroupSeed* gs, int (*sh)[kWarps]) 
   int v[3 * S];
 #pragma unroll
   for (int s = 0; s < S; ++s) C::init(v + 3 * s);
-  for_region(im.img, im.H, im.W, ya, yb, xa, xb, [&](int x, int y, int p) {
+  for_region(im, ya, yb, xa, xb, [&](int x, int y, int p) {
     if (!im.relevant(p, maxd_hi)) return;
     const int sp = im.shrink(p);
 #pragma unroll
@@ -429,7 +704,7 @@ __device__ void group_corner(const Image& im, GroupSeed* gs, int (*sh)[kWarps]) 
         C::pixel(v + 3 * s, x, y, sp, g.x0, g.y0, g.e, g.h_span, g.w_span);
     }
   });
-  block_reduce<3 * S, 3>(v, C::kMinMask, sh);
+  block_reduce<3 * S, 3>(v, C::kMinMask, sl);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < S; ++s)
@@ -450,21 +725,24 @@ template <int S>
 __global__ void __launch_bounds__(kThreads)
 inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
                        int* __restrict__ out, int H, int W) {
-  __shared__ int sh[kBandValues * S][kWarps];
+  __shared__ int sh[2 * kBandValues * S][kWarps];
   __shared__ GroupSeed gs[S];
+  __shared__ unsigned short quot[kShrinkTable];
+  Slots sl{sh, kBandValues * S, 0, 1, nullptr};
   const int64_t row0 = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * S;
-  const Image im = image_of(img_all, seeds + row0 * 12, H, W);
+  const Image im = image_of(img_all, seeds + row0 * 12, H, W, quot);
+  shrink_table(quot, im.numer);  // published by pass A's barrier
 
   // passes A, expand and B, one seed after another
   for (int s = 0; s < S; ++s) {
     const int* r = seeds + (row0 + s) * 12;
     Rect q{r[3], r[4], r[5], r[6]};
     bool ok = r[7] != 0;
-    ok = ok && pass_a(im, r[2], q, sh);
+    ok = ok && pass_a(im, r[2], q, sl);
     int maxd = 0;
     if (ok) {
-      expand(im, r[2], q, sh);
-      maxd = pass_b(im, q, sh);
+      expand(im, r[2], q, sl);
+      maxd = pass_b(im, q, sl);
     }
     if (threadIdx.x == 0)
       gs[s] = GroupSeed{r[0], r[1], maxd, 0, 0, q, Edges{q.r, q.t, q.l, q.b}, ok};
@@ -480,7 +758,7 @@ inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ 
       bands_init(a + kBandValues * s);
       if (gs[s].live) maxd_hi = max(maxd_hi, gs[s].maxd);
     }
-    for_region(im.img, H, W, 0, H - 1, 0, W - 1, [&](int x, int y, int p) {
+    for_region(im, 0, H - 1, 0, W - 1, [&](int x, int y, int p) {
       if (!im.relevant(p, maxd_hi)) return;
       const int sp = im.shrink(p);
 #pragma unroll
@@ -489,7 +767,7 @@ inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ 
         if (g.live && p < g.maxd) bands_pixel(a + kBandValues * s, im, x, y, sp, g.x0, g.y0, g.q);
       }
     });
-    block_reduce<kBandValues * S, kBandValues>(a, kBandMinMask, sh);
+    block_reduce<kBandValues * S, kBandValues>(a, kBandMinMask, sl);
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -504,10 +782,10 @@ inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ 
 
     // pass D: the corners in K2's order, one shared sweep each
     if (any_live(gs, S)) {
-      group_corner<true, true, S>(im, gs, sh);
-      group_corner<true, false, S>(im, gs, sh);
-      group_corner<false, true, S>(im, gs, sh);
-      group_corner<false, false, S>(im, gs, sh);
+      group_corner<true, true, S>(im, gs, sl);
+      group_corner<true, false, S>(im, gs, sl);
+      group_corner<false, true, S>(im, gs, sl);
+      group_corner<false, false, S>(im, gs, sl);
     }
   }
 
@@ -529,11 +807,36 @@ int launch_grouped(const int* img, const int* seeds, int* out, int B, int G, int
 }  // namespace
 
 // img: (B, H, W) int32; seeds: (B, P, 12) int32; out: (B, P, 8) int32.
-// B, P >= 1; B <= 65535. One block per (seed, image): grid (P, B).
-extern "C" int inflate_launch(const int* img, const int* seeds, int* out, int B, int P,
-                              int H, int W, void* stream) {
-  inflate_kernel<<<dim3(P, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(img, seeds,
-                                                                                out, H, W);
+// B, P >= 1; B <= 65535. C = 1: K2, one block per (seed, image), grid (P,
+// B). C = 2, 4 or 8: K2c, a cluster of C blocks per (seed, image), grid
+// (P C, B), each block's slab of ceil(H / C) rows at most kMaxSlabBytes.
+extern "C" int inflate_launch(const int* img, const int* seeds, int* out, int B, int P, int H,
+                              int W, int C, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 1) {
+    inflate_kernel<<<dim3(P, B), kThreads, 0, st>>>(img, seeds, out, H, W);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const ClusterSmem lay(H, W, C);
+  if ((C != 2 && C != 4 && C != kMaxCluster) || lay.slab_bytes > kMaxSlabBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(inflate_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P * C, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = lay.bytes();
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, inflate_cluster_kernel, img, seeds, out, H, W, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

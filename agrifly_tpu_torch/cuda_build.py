@@ -3,7 +3,8 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C interface. On first
 use `load(name)` compiles it with nvcc for Hopper (sm_90a) into
 `agrifly_tpu_torch/_build/lib<name>.so` and opens it with ctypes. A library
-newer than its source is reused.
+newer than its source is reused. `load(name, defines)` builds a variant of
+the same source with those macros defined (`lib<name>-<DEFINE>.so`).
 
 The flags keep float32 arithmetic IEEE-exact: no fast math, and
 `-fmad=false` so nvcc does not contract a*b+c into one rounding. The plain
@@ -45,26 +46,27 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _compile(src: Path, lib: Path) -> None:
+def _compile(src: Path, lib: Path, defines: tuple = ()) -> None:
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent load never sees half a file
-    build_seconds[src.stem] = time.perf_counter() - t0
-    build_logs[src.stem] = proc.stderr + proc.stdout
+    build_seconds[lib.stem[3:]] = time.perf_counter() - t0
+    build_logs[lib.stem[3:]] = proc.stderr + proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The compiled kernel library `name`, built on first use."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The compiled kernel library `name` (with the macros `defines`
+    defined), built on first use."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD / f"lib{name}.so"
+    lib = BUILD / f"lib{'-'.join((name, *defines))}.so"
     if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-        _compile(src, lib)
+        _compile(src, lib, defines)
     return ctypes.CDLL(str(lib))
 
 

@@ -16,6 +16,7 @@ for seed. On CPU tensors `inflate_pyramids` runs the plain version,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,10 +25,15 @@ from agrifly_tpu_torch.planner import rappids
 
 DEFAULT_SEEDS_PER_PROGRAM = 1
 MAX_SEEDS_PER_PROGRAM = 8  # the largest K2g instance csrc/inflate.cu compiles (kMaxGroup)
+CLUSTER_SIZES = (2, 4, 8)  # the K2c cluster sizes csrc/inflate.cu takes (kMaxCluster = 8)
+MAX_SLAB_BYTES = 200 * 1024  # the largest row slab a K2c block stages (kMaxSlabBytes)
+# K2c's grid at most this many blocks a SM: on an H100 K2c beat K2 at 80-160
+# blocks (one image, 10 or 20 seeds, C = 8) and lost at 320-1024 (PERF.md)
+CLUSTER_BLOCKS_PER_SM = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"inflate_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+_SIGNATURES = {"inflate_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
                "inflate_grouped_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
 
 
@@ -46,16 +52,43 @@ def _stream(img):
     return torch.cuda.current_stream(img.device).cuda_stream
 
 
-def _launch(img: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-    """One K2 launch for contiguous images (*L, H, W) int32 and seed rows
-    (*L, P, 12) int32; returns (*L, P, 8) int32."""
+def slab_bytes(H: int, W: int, C: int) -> int:
+    """The int32 row slab a K2c block of a C-block cluster stages: ceil(H / C)
+    rows, rounded up to 16 bytes."""
+    return (-(-H // C) * W * 4 + 15) // 16 * 16
+
+
+def cluster_size(B: int, P: int, H: int, W: int, sms: int) -> int:
+    """Blocks per seed for B x P seeds on H x W images on a card of `sms`
+    SMs: the largest cluster whose slab fits and whose grid stays within
+    CLUSTER_BLOCKS_PER_SM blocks a SM (K2c); 1 (K2) where none does."""
+    fits = [C for C in CLUSTER_SIZES if slab_bytes(H, W, C) <= MAX_SLAB_BYTES
+            and B * P * C <= CLUSTER_BLOCKS_PER_SM * sms]
+    return max(fits, default=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(img: torch.Tensor, seeds: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+    """One K2 or K2c launch for contiguous images (*L, H, W) int32 and seed
+    rows (*L, P, 12) int32; returns (*L, P, 8) int32. cluster: the blocks
+    per seed (None: `cluster_size`'s choice; 1 is K2)."""
     H, W = img.shape[-2:]
     B = img.numel() // (H * W)
+    P = seeds.shape[-2]
+    if cluster is None:
+        cluster = cluster_size(B, P, H, W, _sm_count(img.device.index))
     out = _out_for(img, seeds)
-    status = _fn("inflate_launch")(img.data_ptr(), seeds.data_ptr(), out.data_ptr(), B,
-                                   seeds.shape[-2], H, W, _stream(img))
+    status = _fn("inflate_launch")(img.data_ptr(), seeds.data_ptr(), out.data_ptr(), B, P, H, W,
+                                   cluster, _stream(img))
     cuda_build.check(status, "inflate_launch")
-    inflate_pyramids.launches += 1
+    if cluster == 1:
+        inflate_pyramids.launches += 1
+    else:
+        inflate_pyramids.cluster_launches += 1
     return out
 
 
@@ -120,7 +153,7 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
     Same contract as `rappids.inflate_pyramid`: returns (ok (*L, P) bool,
     maxd (*L, P) int32, edges (*L, P, 4) int32 [right, top, left, bottom]),
     bit-identical to it wherever ok. seeds_per_program S (None: 1) picks
-    the kernel: K2 for S = 1, K2g with S seeds per block for 1 < S <=
+    the kernel: K2 (or K2c) for S = 1, K2g with S seeds per block for 1 < S <=
     MAX_SEEDS_PER_PROGRAM. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version for any S."""
     S = _seeds_per_program(seeds_per_program)
@@ -148,4 +181,5 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
 
 
 inflate_pyramids.launches = 0  # K2 launches since the last reset
+inflate_pyramids.cluster_launches = 0  # K2c launches since the last reset
 inflate_pyramids.grouped_launches = 0  # K2g launches since the last reset

@@ -2,14 +2,16 @@
 
 Port of `agrifly_tpu/sim/pallas_frame.py::frame_ticks` and, for a fleet,
 `frame_ticks_batched`. `frame_ticks` runs `csrc/frame.cu` on CUDA tensors:
-one thread per vehicle advances the whole `OrchardEnvState` through the
-ticks of one frame, one launch for all B vehicles of a fleet (state leaves
-with a leading B axis, parameters shared). On CPU tensors it runs the plain
+one warp per vehicle advances the whole `OrchardEnvState` through the
+ticks of one frame (its lane 0 runs the tick chain, lanes 1-9 the mocap
+replay's per-segment work), one launch for all B vehicles of a fleet
+(state leaves with a leading B axis, parameters shared). On CPU tensors it runs the plain
 version, `orchard_env.frame_ticks_plain` (`frame_ticks_plain_fleet` for a
 fleet).
 
 The kernel reads each state and parameter leaf through its own device
-pointer and writes the leaves the ticks change into three flat buffers
+pointer (the warp's lanes copy a vehicle's leaves into shared memory
+together) and writes the leaves the ticks change into three flat buffers
 (float32, int32, bool); the returned leaves are views into them, and the
 leaves the ticks never write are the input tensors. `frame.cu` declares
 the leaves it reads, in order, in two X-macro tables; `leaf_table()`

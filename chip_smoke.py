@@ -10,8 +10,11 @@ It builds the four CUDA kernel libraries from `agrifly_tpu_torch/csrc`
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 and the pyramid inflation bit for bit (one image, and 16 fleet images in
 one launch), the fused 16-tick block within the tick tolerances in five
-mission states, for one vehicle and for fleets of 5 and 37 in one launch,
-and the two imported-world (mesh) raycasters, strip-culled and window, bit
+mission states, for one vehicle and for fleets of 5 and 37 in one launch
+(then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
+clock64() timers around the tick chain's sections, in a copy of
+`csrc/frame.cu` built beside the kernels), and the two imported-world
+(mesh) raycasters, strip-culled and window, bit
 for bit and against each other (a baked orchard and a scene of spheres,
 cylinders and OBJ triangles; 1 and 16 cameras in one launch). The grouped
 inflation kernel (K2g, S = 2, 4, 8 seeds per block) is held bit for bit
@@ -44,8 +47,8 @@ Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
 output is sane, and holds a 16-tick block of the kernel on the card against
 the plain block on the CPU from the flight's final state. It prints the
-card's name and power limit, build and kernel times, frame times and their
-split, then one JSON line with the kernels and, last, one JSON line with
+card's name and power limit, build and kernel times (each kernel's device
+time from CUDA events), frame times and their split, then one JSON line with the kernels and, last, one JSON line with
 the device. It exits non-zero, with no result, when anything fails or
 there is no CUDA device.
 """
@@ -66,7 +69,8 @@ TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene")  # one library per csrc/<name>.cu
-DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_grouped_kernel", "frame_kernel",
+DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_cluster_kernel",
+                  "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held and timed (seeds per block)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
@@ -81,6 +85,7 @@ EVAL_VEL0, EVAL_GRAV, EVAL_GOAL = (0.0, 0.0, 1.5), (0.0, 9.81, 0.0), (0.0, 0.0, 
 # lower the bound). Operation counts per item are read off the sources.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+SPIN_CYCLES = 10_000_000  # GPU clock cycles device_us queues ahead of a timed launch (~5 ms)
 RAY_OPS_PER_CELL = 150  # csrc/raycast.cu tree_hit: 5 hashes, cylinder, 2 spheres
 RAY_OPS_PER_PIXEL = 40  # ray set-up, ground plane, DDA set-up, code
 INFLATE_OPS_PER_PIXEL = 8  # csrc/inflate.cu pass C: one shrink divide, 4 band tests
@@ -181,10 +186,10 @@ def _inflate_case(name, prm, img, sd, extra):
 
     from agrifly_tpu_torch.planner import cuda_inflate, rappids
 
-    before = cuda_inflate.inflate_pyramids.launches
+    count = lambda: sum(read_counts()[k] for k in ("inflate", "inflate_cluster"))  # noqa: E731
+    before = count()
     got = cuda_inflate.inflate_pyramids(prm, img, *sd, extra)
-    _check(cuda_inflate.inflate_pyramids.launches == before + 1,
-           f"inflate ({name}): not one launch")
+    _check(count() == before + 1, f"inflate ({name}): not one launch")
     ref = rappids.inflate_pyramid(prm, img, *sd, extra)
     ok = ref[0]
     _check(torch.equal(got[0], ok), f"inflate kernel: ok differs ({name})")
@@ -202,10 +207,38 @@ def _inflate_case(name, prm, img, sd, extra):
     H, W = img.shape[-2:]
     res = result(err, ms, plain_ms, nbytes(img, rows) + rows.numel() // 12 * 32,
                  n_ok * H * W * INFLATE_OPS_PER_PIXEL)
+    dev_us = device_us(lambda: cuda_inflate._launch(img, rows))
     print(f"inflate {name}: bit-equal ({n_ok} ok seeds); kernel {ms:.4f} ms (launch alone "
-          f"{launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.6f} ms "
-          f"({res['bound_by']})")
+          f"{launch_ms:.4f} ms, device {us_text(dev_us)}), plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.6f} ms ({res['bound_by']}); "
+          + inflate_clusters(img, rows, got))
     return res, n_ok
+
+
+def inflate_clusters(img, rows, got):
+    """K2 (one block a seed) and K2c at every cluster size whose slab fits,
+    each held bit for bit against `got` (the kernel's result) and timed
+    (device_us); the text names cluster_size's choice."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_inflate
+
+    H, W = img.shape[-2:]
+    B, P = img.numel() // (H * W), rows.shape[-2]
+    sizes = [1] + [C for C in cuda_inflate.CLUSTER_SIZES
+                   if cuda_inflate.slab_bytes(H, W, C) <= cuda_inflate.MAX_SLAB_BYTES]
+    times = {}
+    for C in sizes:
+        out = cuda_inflate._launch(img, rows, cluster=C)
+        ok = out[..., 0] > 0
+        _check(torch.equal(ok, got[0]) and torch.equal(out[..., 1][ok], got[1][ok])
+               and torch.equal(out[..., 2:6][ok], got[2][ok]),
+               f"inflate: K2c C={C} differs from the chosen kernel")
+        times[C] = device_us(lambda C=C: cuda_inflate._launch(img, rows, cluster=C))
+    chosen = cuda_inflate.cluster_size(B, P, H, W, cuda_inflate._sm_count(img.device.index))
+    return ("device by blocks per seed (bit-equal): " + ", ".join(
+        f"{'K2' if C == 1 else f'K2c C={C}'} {us_text(t)}" for C, t in times.items())
+        + f"; chosen C={chosen}")
 
 
 def check_inflate(dev):
@@ -329,34 +362,34 @@ def _same_inflation(got, ref, what):
     return int(ok.sum())
 
 
-def device_us(step, names):
-    """Device microseconds per launch of the kernels whose name holds each
-    of `names`, over one profiled `step()` (each None where the profiler
-    saw no such launch)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def us_text(v):
+    return "not measured" if v is None else f"{v:.1f} us"
 
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        rows = prof.key_averages()
-    except RuntimeError:
-        return [None] * len(names)
-    out = []
-    for name in names:
-        hits = [e for e in rows if e.device_type == DeviceType.CUDA and name in e.key]
-        n = sum(e.count for e in hits)
-        out.append(sum(e.self_device_time_total for e in hits) / n
-                   if n and sum(e.self_device_time_total for e in hits) > 0 else None)
-    return out
+
+def device_us(launch, reps=5):
+    """Device microseconds of one call of `launch` (which launches one
+    kernel), the mean of `reps`: CUDA events around the call, queued behind
+    a few milliseconds of GPU spin so that the launch is on the stream before
+    the start event runs and the host's launch cost stays out of the time."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    launch()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return 1e3 * total / reps
 
 
 def time_grouped(label, prm, img, sd, extra, plain=False):
-    """K2 and K2g at each S on one image's seeds: the wrapper, the bare
-    launch, and the device time from the profiler (3 launches each).
+    """K2 (K2c where the wrapper picks it) and K2g at each S on one image's
+    seeds: the wrapper, the bare launch, and the device time (device_us).
     Returns {S: (wrapper ms, launch ms, device us)}, plain ms (or None),
     the seeds that ended ok and the bytes and operations of K2's bound."""
     from agrifly_tpu_torch.planner import cuda_inflate, rappids
@@ -369,18 +402,18 @@ def time_grouped(label, prm, img, sd, extra, plain=False):
                                                                     seeds_per_program=S))
                for S in launch}
     bare = {S: cuda_ms(fn, reps=20) for S, fn in launch.items()}
-    names = ["inflate_kernel("] + [f"inflate_grouped_kernel<{S}>" for S in GROUPS]
-    dev_us = dict(zip(launch, device_us(lambda: [fn() for fn in launch.values() for _ in range(3)],
-                                        names)))
+    dev_us = {S: device_us(fn) for S, fn in launch.items()}
     n_ok = int(cuda_inflate.inflate_pyramids(prm, img, *sd, extra)[0].sum())
     plain_ms = (cuda_ms(lambda: rappids.inflate_pyramid(prm, img, *sd, extra), reps=3)
                 if plain else None)
     H, W = img.shape[-2:]
     bound = (nbytes(img, rows) + rows.numel() // 12 * 32, n_ok * H * W * INFLATE_OPS_PER_PIXEL)
-    us = lambda v: "not measured" if v is None else f"{v:.1f} us"  # noqa: E731
+    C = cuda_inflate.cluster_size(img.numel() // (H * W), rows.shape[-2], H, W,
+                                  cuda_inflate._sm_count(img.device.index))
+    one = "K2" if C == 1 else f"K2c C={C}"  # the kernel inflate_pyramids picks for S = 1
     print(f"inflate timing {label} ({n_ok} ok): " + "; ".join(
-        f"{'K2' if S == 1 else f'K2g S={S}'} {wrapper[S]:.4f} ms (launch {bare[S]:.4f} ms, "
-        f"device {us(dev_us[S])})" for S in launch)
+        f"{one if S == 1 else f'K2g S={S}'} {wrapper[S]:.4f} ms (launch {bare[S]:.4f} ms, "
+        f"device {us_text(dev_us[S])})" for S in launch)
         + (f"; plain {plain_ms:.4f} ms" if plain else ""))
     return {S: (wrapper[S], bare[S], dev_us[S]) for S in launch}, plain_ms, bound
 
@@ -392,8 +425,9 @@ def check_inflate_grouped(dev, params, views):
     for S in GROUPS, counted; each result held bit for bit against K2 and
     (P = 128) the plain version. Then ragged P = 13 (S = 4), the
     blocker-free gradient scene of check_inflate, one batched call over the
-    four views, and the times of K2 and K2g. Returns (the kernels-line
-    fields of S = 4 at P = 128 on view 0, K2g launches in the counted run)."""
+    four views, and the times of K2 and K2g. Returns the kernels-line
+    fields of K2g (S = 4) and of K2 at P = 128 on view 0, and K2g's
+    launches in the counted run."""
     import torch
 
     from agrifly_tpu_torch.planner import cuda_inflate, rappids
@@ -406,7 +440,8 @@ def check_inflate_grouped(dev, params, views):
            for n in batches for S in GROUPS for v in range(len(EVAL_POSES))}
     torch.cuda.synchronize()
     launches = read_counts()
-    _check(launches["inflate_grouped"] == len(got) and launches["inflate"] == 0,
+    _check(launches["inflate_grouped"] == len(got) and launches["inflate"] == 0
+           and launches["inflate_cluster"] == 0,
            f"grouped inflation: {launches} for {len(got)} calls")
     refs = {}
     for (n, S, v), out in got.items():
@@ -465,14 +500,15 @@ def check_inflate_grouped(dev, params, views):
         psd = [x / 2 for x in one(128, 0, n)[:2]] + [one(128, 0, n)[2]]
         time_grouped(f"pooled {Ws}x{Hs} P={n}", small, pooled, psd, 1)
     (per_s, plain_ms, (n_bytes, n_ops)) = times[128]
-    return result(0, per_s[4][0], plain_ms, n_bytes, n_ops), launches["inflate_grouped"]
+    return (result(0, per_s[4][0], plain_ms, n_bytes, n_ops),
+            result(0, per_s[1][0], plain_ms, n_bytes, n_ops), launches["inflate_grouped"])
 
 
 def evaluate(dev, params, views):
     """The RAPPIDS evaluation path on the four views, one call of each
     harness for all four (a leading view axis), counted: then 0
     false-frees against the ray-sphere oracle on the same pyramid sets,
-    and some candidates free and some colliding."""
+    and some candidates free and some colliding. Returns the launches."""
     import torch
 
     from agrifly_tpu_torch.planner import oracle, rappids
@@ -494,8 +530,9 @@ def evaluate(dev, params, views):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    # K2 once per endpoint set (2), three rounds per plan (2 plans)
-    _check(launches["inflate"] == 8 and launches["inflate_grouped"] == 0
+    # K2 once per endpoint set (2), K2 or K2c three rounds per plan (2 plans)
+    _check(launches["inflate"] + launches["inflate_cluster"] == 8
+           and launches["inflate"] >= 2 and launches["inflate_grouped"] == 0
            and launches["raycast"] == 0, f"evaluation launches {launches}")
 
     # 0 false-frees on the same pyramid sets
@@ -532,6 +569,7 @@ def evaluate(dev, params, views):
           f"{used} pyramids; fastest N=512 found {fast.found.tolist()} cost "
           f"{[round(c, 4) for c in fast.best_cost.tolist()]}, oracle-free; oracle "
           f"{oracle_ms:.3f} ms per 128 candidates (one view)")
+    return launches
 
 
 def baked_orchard(dev):
@@ -659,12 +697,11 @@ def check_meshscene(dev):
                 rows = cuda_meshscene.camera_rows(pos, cam)
                 res4, res4w = mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, k4,
                                            err4, err4w)
-                us = lambda v: "not measured" if v is None else f"{v:.1f} us"  # noqa: E731
                 line += (f"; K4 {res4['ms']:.4f} ms (launch alone {res4['launch_ms']:.4f}, "
-                         f"device {us(res4['device_us'])}), plain {res4['plain_ms']:.4f}, bound "
-                         f"{res4['bound_ms']:.6f} ({res4['bound_by']}); K4w {res4w['ms']:.4f} ms "
-                         f"(launch alone {res4w['launch_ms']:.4f}, device "
-                         f"{us(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
+                         f"device {us_text(res4['device_us'])}), plain {res4['plain_ms']:.4f}, "
+                         f"bound {res4['bound_ms']:.6f} ({res4['bound_by']}); K4w "
+                         f"{res4w['ms']:.4f} ms (launch alone {res4w['launch_ms']:.4f}, device "
+                         f"{us_text(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
                          f"{res4w['bound_ms']:.6f} ({res4w['bound_by']})")
                 out[B] = (res4, res4w)
             print(line)
@@ -684,11 +721,9 @@ def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w)
                                                      strips), reps=50)
     launch4w = cuda_ms(lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, rows,
                                                       windows), reps=50)
-    dev4, dev4w = device_us(lambda: [cuda_meshscene._launch(name, cfg, rows, *args)
-                                     for name, args in (("meshscene_strips_launch", (nvis, strips)),
-                                                        ("meshscene_window_launch", (windows,)))
-                                     for _ in range(3)],
-                            ("meshscene_strips_kernel", "meshscene_window_kernel"))
+    dev4, dev4w = (device_us(lambda name=name, args=args: cuda_meshscene._launch(
+        name, cfg, rows, *args)) for name, args in (("meshscene_strips_launch", (nvis, strips)),
+                                                    ("meshscene_window_launch", (windows,))))
     plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=3)
     plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=3)
     # bytes: camera rows, n_vis and the rows tested (K4) or the windows
@@ -862,6 +897,94 @@ def check_frame_ticks_batched(dev):
     return worst
 
 
+def tick_split(dev):
+    """K3's device time per bare launch (device_us) at n_ticks = 0, 1 and
+    16: one vehicle in the tracking state, and fleets of
+    16 and 64 of the five mission states. The n_ticks = 0 launch is the
+    kernel's leaf prologue and epilogue alone; the difference to 16 ticks
+    is the tick chain."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+
+    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p = orchard_env.OrchardEnv(p_cpu).to(dev).params
+    states = tick_states(p_cpu)
+    pleaves = cuda_frame.param_leaves(p)
+    out = {}
+    for B, names in ((1, ("tracking",)), (16, tuple(states)), (64, tuple(states))):
+        fleet = to_device(orchard_env.stack_states([states[names[b % len(names)]]
+                                                    for b in range(B)]), dev)
+        leaves, _ = convert.flatten_tensors(fleet)
+        for n in ((0, 1, 16) if B < 64 else (16,)):
+            noise = torch.randn((B, n, 2, 3), generator=torch.Generator().manual_seed(n)).to(dev)
+            out[B, n] = device_us(lambda: cuda_frame._launch(leaves, pleaves, noise))
+    print("frame_ticks device time per launch (bare launch): " + "; ".join(
+        f"B={B} ({'tracking' if B == 1 else 'five states'}) n_ticks={n}: {us_text(v)}"
+        for (B, n), v in out.items()))
+
+
+# csrc/frame.cu's Section enum, in order: the statements its clock64() timers
+# enclose in the FRAME_SECTIONS build
+SECTIONS = ("ticks", "plant", "logic", "ekf_predict", "cov_predict", "mocap_update",
+            "replay (update)", "prediction", "offboard")
+SECTION_LAUNCHES = 20  # timed 16-tick launches, after one warm-up
+TIMED_FRAME = ("frame", ("FRAME_SECTIONS",))  # cuda_build.load's arguments for the timed build
+
+
+def frame_sections(dev):
+    """Cycles per tick of each section of the tick chain (vehicle 0, the
+    tracking state, SECTION_LAUNCHES launches of 16 ticks) from frame.cu's
+    FRAME_SECTIONS build, and the leader's measured chain time: the ticks'
+    cycles per launch over the card's maximum SM clock."""
+    import ctypes
+
+    import torch
+
+    from agrifly_tpu_torch import convert, cuda_build
+    from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+
+    lib = cuda_build.load(*TIMED_FRAME)
+    lib.frame_ticks_launch.argtypes = cuda_frame._ARGTYPES
+    lib.frame_ticks_launch.restype = ctypes.c_int
+    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p = orchard_env.OrchardEnv(p_cpu).to(dev).params
+    leaves, _ = convert.flatten_tensors(to_device(tick_states(p_cpu)["tracking"], dev))
+    pleaves = cuda_frame.param_leaves(p)
+    noise = torch.randn((1, 16, 2, 3), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    specs, _ = cuda_frame.leaf_table()
+    bufs = {ty: torch.empty(sum(max(s.numel, 1) for s in specs if s.written and s.dtype == ty),
+                            dtype=ty, device=dev) for ty in cuda_frame._DTYPES.values()}
+    ptrs = [(ctypes.c_void_p * len(x))(*[t.data_ptr() for t in x]) for x in (leaves, pleaves)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        cuda_build.check(lib.frame_ticks_launch(
+            *ptrs, noise.data_ptr(), bufs[torch.float32].data_ptr(),
+            bufs[torch.int32].data_ptr(), bufs[torch.bool].data_ptr(), 1, 16, stream),
+            "frame_sections")
+
+    sec, cnt = (ctypes.c_ulonglong * len(SECTIONS))(), (ctypes.c_ulonglong * len(SECTIONS))()
+    launch()
+    torch.cuda.synchronize()
+    lib.frame_sections_read(sec, cnt)
+    for _ in range(SECTION_LAUNCHES):
+        launch()
+    torch.cuda.synchronize()
+    cuda_build.check(lib.frame_sections_read(sec, cnt), "frame_sections_read")
+    ticks = SECTION_LAUNCHES * 16
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60, check=True).stdout.split()[0])
+    chain_ms = sec[0] / SECTION_LAUNCHES / (mhz * 1e3)
+    print(f"frame_ticks section timers (tracking state, cycles per tick over {ticks} ticks): "
+          + ", ".join(f"{name} {sec[k] / ticks:.0f} (runs {cnt[k]})"
+                      for k, name in enumerate(SECTIONS))
+          + f"; measured chain time {sec[0] / SECTION_LAUNCHES:.0f} cycles per 16 ticks = "
+            f"{chain_ms:.6f} ms at the {mhz:.0f} MHz maximum SM clock")
+
+
 RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window")
 
 
@@ -874,6 +997,7 @@ def reset_counts():
     cuda_meshscene.render_depth_strips_batch.launches = 0
     cuda_meshscene.render_depth_window_batch.launches = 0
     cuda_inflate.inflate_pyramids.launches = 0
+    cuda_inflate.inflate_pyramids.cluster_launches = 0
     cuda_inflate.inflate_pyramids.grouped_launches = 0
     cuda_frame.frame_ticks.launches = 0
     orchard_env.frame_ticks_plain.calls = 0
@@ -888,6 +1012,7 @@ def read_counts():
             "meshscene_strips": cuda_meshscene.render_depth_strips_batch.launches,
             "meshscene_window": cuda_meshscene.render_depth_window_batch.launches,
             "inflate": cuda_inflate.inflate_pyramids.launches,
+            "inflate_cluster": cuda_inflate.inflate_pyramids.cluster_launches,
             "inflate_grouped": cuda_inflate.inflate_pyramids.grouped_launches,
             "frame_ticks": cuda_frame.frame_ticks.launches,
             "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls}
@@ -896,14 +1021,16 @@ def read_counts():
 def check_counts(launches, frames, fused, rounds, render="raycast"):
     """Per frame, whatever the number of vehicles: one launch of the render
     kernel (the raycaster, or K4 in an imported world) and none of the
-    other render kernels, one inflation launch per planner round, and one
-    tick launch (fused) or one plain tick block (plain, one vehicle)."""
+    other render kernels, one inflation launch (K2 or K2c) per planner
+    round, and one tick launch (fused) or one plain tick block (plain, one
+    vehicle)."""
     for name in RENDER_KERNELS:
         want = frames if name == render else 0
         _check(launches[name] == want,
                f"{name} launched {launches[name]} times in {frames} frames (want {want})")
-    _check(launches["inflate"] == rounds * frames,
-           f"inflate launched {launches['inflate']} times in {frames} frames of {rounds} rounds")
+    inflations = launches["inflate"] + launches["inflate_cluster"]
+    _check(inflations == rounds * frames,
+           f"inflation launched {inflations} times in {frames} frames of {rounds} rounds")
     _check(launches["inflate_grouped"] == 0, "the frame launched the grouped inflation")
     ticks_k, ticks_p = (frames, 0) if fused else (0, frames)
     _check(launches["frame_ticks"] == ticks_k,
@@ -1198,8 +1325,10 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        timed = pool.submit(cuda_build.load, *TIMED_FRAME)
         list(pool.map(cuda_build.load, KERNELS))
+        timed.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
     print(ptxas_report(cuda_build.build_logs.get("inflate", "")))
@@ -1207,14 +1336,16 @@ def build_kernels():
 
 def ptxas_report(log):
     """One line from ptxas's -v report of the inflation kernels: registers,
-    shared memory and spill bytes of K2 and each K2g instance."""
+    shared memory and spill bytes of K2, K2c and each K2g instance."""
     import re
 
     kernels, name = [], None
     for line in log.splitlines():
-        entry = re.search(r"(inflate_kernel|inflate_grouped_kernelILi(\d+)E)", line)
+        entry = re.search(r"(inflate_kernel|inflate_cluster_kernel|inflate_grouped_kernelILi(\d+)E)",
+                          line)
         if "Compiling entry function" in line and entry:
-            name = "K2" if entry.group(2) is None else f"K2g S={entry.group(2)}"
+            name = ({"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c"}.get(entry.group(1))
+                    or f"K2g S={entry.group(2)}")
         elif name and "spill" in line:
             spill = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             kernels.append([name, ", ".join(f"{b} B spill {k}" for b, k in spill)])
@@ -1252,11 +1383,13 @@ def main() -> int:
         k2b = check_inflate_batched(dev)
         k3 = check_frame_ticks(dev)
         k3b_worst = check_frame_ticks_batched(dev)
+        tick_split(dev)
+        frame_sections(dev)
         k4, k4w = check_meshscene(dev)
         t_eval = time.perf_counter()
         eval_params, views = eval_views(dev)
-        k2g, k2g_launches = check_inflate_grouped(dev, eval_params, views)
-        evaluate(dev, eval_params, views)
+        k2g, k2_eval, k2g_launches = check_inflate_grouped(dev, eval_params, views)
+        eval_launches = evaluate(dev, eval_params, views)
         print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
         state, launches = fly(dev, fused=True, frames=FRAMES)
         fly(dev, fused=False, frames=PLAIN_FRAMES, state=state)
@@ -1279,7 +1412,10 @@ def main() -> int:
          "launches": launches["raycast"], **k1},
         {"name": "inflate", "route": "cuda", "source": source("inflate"),
          "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174",
-         "launches": launches["inflate"], **k2},
+         "launches": eval_launches["inflate"], **k2_eval},
+        {"name": "inflate_cluster", "route": "cuda", "source": source("inflate"),
+         "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174",
+         "launches": launches["inflate_cluster"], **k2},
         {"name": "frame_ticks", "route": "cuda", "source": source("frame"),
          "replaces": "agrifly_tpu/sim/pallas_frame.py:144",
          "launches": launches["frame_ticks"], **k3},
@@ -1299,6 +1435,10 @@ def main() -> int:
          "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174 (_kernel_grouped:559)",
          "launches": k2g_launches, **k2g},
     ]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        print(f"chip_smoke: FAIL: not launched on their paths: {idle}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -188,7 +188,9 @@ def test_batched_pyramid_set_and_prefilter_equal_per_image(downsample):
 
 
 def test_fly_fleet_on_cpu():
-    p = T.make_params(device="cpu", **{**KW, "start_flight_time": 0.3})
+    # a smaller camera and candidate set: the flight's shapes and take-off, not the plans
+    p = T.make_params(device="cpu", **{**KW, "start_flight_time": 0.3, "width": 80, "height": 60,
+                                       "n_candidates": 32, "pyramid_capacity": 8})
     env = T.OrchardEnv(p)
     s0 = env.init_state_fleet([[0.0, -3.0, 0.0], [0.0, 0.0, 0.0], [0.0, 3.0, 0.0]])
     s, outs = env.fly_fleet(s0, 10, torch.Generator().manual_seed(0))

@@ -7,14 +7,20 @@ These tests import no JAX, so they run on a machine with a GPU and no JAX:
 (--noconftest: tests/conftest.py configures JAX). Without a card they skip.
 The raycaster and the inflation are held bit for bit: the raycast codes
 everywhere, the inflation's ok everywhere and its maxd and edges wherever
-ok; the mesh raycasters, strip-culled (K4) and window (K4w), bit for bit
-and equal to each other. The fused tick block is held to the tick criteria of
+ok (one image and a batch, and the shapes its early exits, search chunks
+and shrink table make risky); the mesh raycasters, strip-culled (K4) and window
+(K4w), bit for bit and equal to each other. The fused tick block is held to the tick criteria of
 tests/_torch_parity.py against the plain ticks on the card, for one vehicle
 and for a fleet (one launch for B vehicles); the inflation for one image
 and for a batch of images (one launch for B x P seeds). The grouped
 inflation (K2g, S seeds per block) is held to K2 and to the plain version
-the same way, bit for bit wherever ok.
+the same way, bit for bit wherever ok; the cluster form (K2c) at every
+cluster size on the edge cases. The cluster-size choice and the constants
+the wrappers share with the kernel sources are checked on the CPU too.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,6 +57,11 @@ def test_raycast_kernel_bit_equal_to_plain(cuda, B):  # noqa: F811
     assert got.unique().numel() > 20
 
 
+def _inflations():
+    """K2 and K2c launches so far (the wrapper picks one per call)."""
+    return cuda_inflate.inflate_pyramids.launches + cuda_inflate.inflate_pyramids.cluster_launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,W,H", [("clutter", 160, 120), ("gradient", 160, 120),
                                       ("clutter", 320, 240), ("clutter", 640, 480)])
@@ -64,11 +75,11 @@ def test_inflate_kernel_bit_equal_to_plain(cuda, kind, W, H, shrink_extra):  # n
     seeds = [torch.from_numpy(a).to(cuda) for a in (
         rng.integers(2, W - 2, 20).astype(np.float32), rng.integers(2, H - 2, 20).astype(np.float32),
         rng.uniform(1.5, 3.0, 20).astype(np.float32))]
-    before = cuda_inflate.inflate_pyramids.launches
+    before = _inflations()
     ok, maxd, edges = cuda_inflate.inflate_pyramids(params, img, *seeds, shrink_extra)
     ok_r, maxd_r, edges_r = rappids.inflate_pyramid(params, img, *seeds, shrink_extra)
     torch.cuda.synchronize()
-    assert cuda_inflate.inflate_pyramids.launches == before + 1
+    assert _inflations() == before + 1
     assert torch.equal(ok, ok_r) and int(ok.sum()) >= 1
     assert torch.equal(maxd[ok], maxd_r[ok]) and torch.equal(edges[ok], edges_r[ok])
 
@@ -88,13 +99,135 @@ def test_inflate_kernel_batched_bit_equal_to_plain(cuda, W, H, shrink_extra):  #
         rng.integers(2, W - 2, (4, 10)).astype(np.float32),
         rng.integers(2, H - 2, (4, 10)).astype(np.float32),
         rng.uniform(1.5, 3.0, (4, 10)).astype(np.float32))]
-    before = cuda_inflate.inflate_pyramids.launches
+    before = _inflations()
     ok, maxd, edges = cuda_inflate.inflate_pyramids(params, imgs, *seeds, shrink_extra)
     ok_r, maxd_r, edges_r = rappids.inflate_pyramid(params, imgs, *seeds, shrink_extra)
     torch.cuda.synchronize()
-    assert cuda_inflate.inflate_pyramids.launches == before + 1
+    assert _inflations() == before + 1
     assert ok.shape == (4, 10) and torch.equal(ok, ok_r) and int(ok.sum()) >= 1
     assert torch.equal(maxd[ok], maxd_r[ok]) and torch.equal(edges[ok], edges_r[ok])
+
+
+def _edge_case(kind, dev):
+    """(params, image, seeds, shrink_extra) of one shape the kernel's
+    early exits, search chunks and shrink table make risky."""
+    W, H = 320, 240
+    params = rappids.make_params(rappids.make_camera(W, H, focal=W / 2.0, device=dev),
+                                 0.116, 0.174)
+    img = make_scene(W, H, 8, seed=5)
+    rng = np.random.default_rng(len(kind))
+    P = {"one seed": 1, "ragged": 7, "slab rows": 20}.get(kind, 12)
+    x0 = rng.integers(30, W - 30, P).astype(np.float32)
+    y0 = rng.integers(30, H - 30, P).astype(np.float32)
+    depth = rng.uniform(1.5, 3.0, P).astype(np.float32)
+    extra = 1
+    if kind == "early fail":  # seeds on the obstacles: most fail pass A
+        ys, xs = np.nonzero(img < 140)
+        pick = rng.choice(len(xs), P, replace=False)
+        x0, y0 = xs[pick].astype(np.float32), ys[pick].astype(np.float32)
+        x0[:3], y0[:3] = rng.integers(30, W - 30, 3), rng.integers(30, H - 30, 3)
+    elif kind == "middle rows":  # rectangles across the image's middle rows
+        y0[:] = H // 2 + rng.integers(-3, 4, P)
+    elif kind == "slab rows":  # blockers and seeds on the rows where K2c's slabs meet
+        img = np.full((H, W), 230, np.int32)
+        for k, y in enumerate((30, 60, 90, 120, 150, 180, 210)):
+            img[y, 20 + 30 * k: 140 + 30 * k] = 60
+        img[40:200, 100] = 60
+        y0[:] = rng.choice([29, 31, 59, 61, 119, 121, 179, 181], P)
+        depth = rng.uniform(1.0, 2.0, P).astype(np.float32)
+    elif kind == "gradient":  # no blocker: every search runs to the image's edge
+        img = gradient_scene(W, H)
+    elif kind == "pooled fill":  # a 2x2-pooled 640x480 frame with ignored cells (1 << 17)
+        full = np.full((2 * H, 2 * W), 230, np.int32)
+        full[:, 2 * W // 3:] = 1  # nearer than the vehicle radius: ignored
+        full[100:300, 150:180] = 60
+        big = rappids.make_params(rappids.make_camera(2 * W, 2 * H, focal=W * 1.0, device=dev),
+                                  0.116, 0.174)
+        pooled, cam = rappids._pooled(big, torch.from_numpy(full).to(dev), 2)
+        assert int((pooled == 1 << 17).sum()) > 1000
+        return big._replace(cam=cam), pooled, _seeds(x0, y0, depth, dev), extra
+    elif kind == "above 65535":  # codes past 16 bits, and seeds deeper than 65535 codes
+        img = np.where(img < 230, 70000, 200000).astype(np.int32)
+        img[40:200, 20:26] = 5000
+        depth = rng.uniform(2900.0, 4000.0, P).astype(np.float32)
+    return params, torch.from_numpy(img).to(dev), _seeds(x0, y0, depth, dev), extra
+
+
+def _seeds(x0, y0, depth, dev):
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (x0, y0, depth)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one seed", "ragged", "early fail", "middle rows",
+                                  "pooled fill", "above 65535", "slab rows", "gradient"])
+def test_inflate_kernel_edge_cases(cuda, kind):  # noqa: F811
+    """K2, and K2c at every cluster size, against the plain version: one
+    seed; a ragged P = 7; seeds that fail pass A before the block fills its
+    shrink table; rectangles across the middle rows; a pooled frame holding
+    the 1 << 17 fill of ignored cells; pixels above 65535 with seeds deep
+    enough that blocking depends on their exact values; blockers and seeds
+    on the rows where the slabs of 2, 4 and 8 blocks meet (P = 20, more than
+    one cluster per seed's share of the card's SMs); a blocker-free
+    gradient."""
+    params, img, seeds, extra = _edge_case(kind, cuda)
+    ok_r, maxd_r, edges_r = rappids.inflate_pyramid(params, img, *seeds, extra)
+    rows = cuda_inflate.seed_rows(params, *seeds, extra)
+    got = [cuda_inflate.inflate_pyramids(params, img, *seeds, extra)]
+    for C in (1,) + cuda_inflate.CLUSTER_SIZES:
+        out = cuda_inflate._launch(img.contiguous(), rows, cluster=C)
+        got.append((out[..., 0] > 0, out[..., 1], out[..., 2:6]))
+    torch.cuda.synchronize()
+    for ok, maxd, edges in got:
+        assert torch.equal(ok, ok_r) and int(ok.sum()) >= 1
+        assert torch.equal(maxd[ok], maxd_r[ok]) and torch.equal(edges[ok], edges_r[ok])
+    if kind == "early fail":
+        assert int((~ok_r).sum()) >= 3
+
+
+CSRC = Path(cuda_inflate.__file__).resolve().parents[1] / "csrc"
+
+
+def _constant(source, name):
+    """An int constexpr of a kernel source (a product of literals)."""
+    expr = re.search(rf"constexpr int {name} = ([0-9* ]+);", source).group(1)
+    return int(np.prod([int(f) for f in expr.split("*")]))
+
+
+def test_inflate_cluster_constants_match_the_kernel_source():
+    src = (CSRC / "inflate.cu").read_text()
+    assert _constant(src, "kMaxSlabBytes") == cuda_inflate.MAX_SLAB_BYTES
+    assert _constant(src, "kMaxCluster") == max(cuda_inflate.CLUSTER_SIZES)
+    assert _constant(src, "kMaxGroup") == cuda_inflate.MAX_SEEDS_PER_PROGRAM
+
+
+@pytest.mark.parametrize("B,P,H,W,want", [
+    (1, 10, 240, 320, 8),    # the frame's round, one vehicle: 80 blocks
+    (1, 20, 240, 320, 8),    # 160 blocks
+    (1, 33, 240, 320, 8),    # 264 blocks, two a SM
+    (1, 34, 240, 320, 4),
+    (1, 132, 240, 320, 2),   # the smallest cluster (a 240-row slab is too large)
+    (1, 133, 240, 320, 1),   # K2
+    (16, 10, 240, 320, 1),   # a fleet's round fills the card with K2's blocks
+    (1, 16, 480, 640, 8),    # 480x640: only 8 blocks' 60-row slabs fit
+    (1, 34, 480, 640, 1),
+    (1, 128, 480, 640, 1),   # the evaluation's seed batches
+    (1, 1, 2000, 2000, 1),   # no cluster's slab fits
+])
+def test_inflate_cluster_size(B, P, H, W, want):
+    """K2c's blocks per seed from H x W and the grid on a 132-SM card."""
+    assert cuda_inflate.cluster_size(B, P, H, W, 132) == want
+    if want > 1:
+        assert cuda_inflate.slab_bytes(H, W, want) <= cuda_inflate.MAX_SLAB_BYTES
+        assert B * P * want <= cuda_inflate.CLUSTER_BLOCKS_PER_SM * 132
+
+
+def test_frame_section_names_match_the_kernel_source():
+    """chip_smoke.py's section names follow frame.cu's Section enum."""
+    from chip_smoke import SECTIONS
+
+    body = re.search(r"enum Section \{([^}]*)\}", (CSRC / "frame.cu").read_text()).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kNumSections" and len(names) - 1 == len(SECTIONS)
 
 
 @pytest.mark.cuda
@@ -125,11 +258,12 @@ def test_frame_ticks_kernel_matches_plain(cuda, case):  # noqa: F811
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [5, 37])
+@pytest.mark.parametrize("B", [5, 37, 65])
 def test_frame_ticks_kernel_batched_matches_plain(cuda, B):  # noqa: F811
     """The fleet's tick kernel (K3b): the five mission states, repeated to
-    B rows (37 crosses the 32-thread block), in one launch, against the
-    plain ticks of each vehicle on the card."""
+    B rows (none a multiple of the kernel's 4 vehicles per block, so the
+    last block has idle warps), in one launch, against the plain ticks of
+    each vehicle on the card."""
     from chip_smoke import tick_states
 
     p = orchard_env.make_params(start_flight_time=0.3, device="cpu")

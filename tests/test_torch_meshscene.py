@@ -211,6 +211,15 @@ def test_small_scene_window_is_shorter_than_capacity():
 # ----------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jnp_render(scene):
+    """The JAX package's jnp renderer on `scene`, compiled once for every pose
+    (eager, it dispatches op by op)."""
+    jm = (_baked() if scene == "baked" else _mixed())[0]
+    cfg = JR.make_config(W, H)
+    return jax.jit(lambda p, c: JM.render_depth(cfg, jm, p, c))
+
+
 @pytest.mark.parametrize("scene", ["baked", "mixed"])
 def test_plain_renderers_match_jax(scene):
     """K4w's and K4's plain versions against the JAX Pallas kernels
@@ -233,7 +242,7 @@ def test_plain_renderers_match_jax(scene):
                                                   jnp.asarray(cam), interpret=True))
     k4 = np.asarray(JP.render_depth_strips_batch(cfg_j, win_j, jnp.asarray(pos),
                                                  jnp.asarray(cam), interpret=True))
-    jnp_codes = np.stack([np.asarray(JM.render_depth(cfg_j, jm, jnp.asarray(p), jnp.asarray(c)))
+    jnp_codes = np.stack([np.asarray(_jnp_render(scene)(jnp.asarray(p), jnp.asarray(c)))
                           for p, c in zip(pos, cam)])
     _check_codes(window_codes, k4w, f"{scene}: render_depth_window vs Pallas K4w (interpret)")
     _check_codes(strip_codes, k4, f"{scene}: render_strips vs Pallas K4 (interpret)")
