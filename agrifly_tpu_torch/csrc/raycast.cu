@@ -1,18 +1,35 @@
-// Orchard depth raycaster: one thread per output pixel.
+// Orchard depth raycaster: one thread per output pixel, a warp per 8 x 4
+// pixel tile, with an exact early exit from the cell march.
 //
 // Replaces the TPU kernel agrifly_tpu/render/pallas_raycast.py
-// (_kernel / _tree_hit_tile, launched by render_depth_batch). It computes
-// exactly what agrifly_tpu_torch/render/raycast.py::render_depth computes,
-// with the same float32 operations in the same order, so its int32 codes
-// equal the plain version's bit for bit. That needs the build flags of
-// cuda_build.py: -fmad=false and no fast math (IEEE division and sqrt).
+// (_kernel / _tree_hit_tile, launched by render_depth_batch). Its codes
+// equal agrifly_tpu_torch/render/raycast.py::render_depth's bit for bit: the
+// ray, the ground plane, the DDA and every tree it evaluates use the plain
+// version's float32 operations in their order. That needs the build flags
+// of cuda_build.py: -fmad=false and no fast math (IEEE division and sqrt).
+// raycast.py::render_depth_exit is the plain mirror of this kernel's
+// traversal (the cells it evaluates, and where it stops).
 //
-// What bounds it on the card: arithmetic. A pixel reads 12 camera scalars
-// and 10 scene scalars (cached) and writes one int32, but runs 8 DDA cells x
-// (5 integer hashes + 1 cylinder + 2 sphere intersections), ~600 float and
-// integer operations. At 640x480 that is ~2e8 operations, a few tens of
-// microseconds on an H100; the design keeps every intermediate in registers
-// and launches one thread per pixel so 300k threads fill all 132 SMs.
+// What bounds it on the card: arithmetic. A pixel reads 7 camera scalars
+// and 10 scene scalars (cached) and writes one int32; the reference's work
+// is 8 DDA cells x (5 integer hashes + 1 cylinder + 2 sphere intersections,
+// with IEEE divides and square roots). The design does less of that work:
+//
+// - Early exit. Every tree lies inside its own grid cell (orchard.py
+//   make_params' premise, which the kernel re-checks from the scene table:
+//   `contained`), so once the ray cannot reach the next cell before
+//   min(best, 256 * scale), no later cell can change the code, and the
+//   march stops. A ray crosses ~2-3 cells before its first hit or the far
+//   clip instead of 8.
+// - A cell whose tree is absent skips the intersections (its hit is BIG in
+//   the plain version too).
+// - A warp is an 8 x 4 pixel tile, so its lanes walk the same cells and
+//   leave the loop together; blocks are 4 warps (a 16 x 8 tile) so that
+//   the card's block scheduler balances the tiles' uneven costs over the
+//   SMs at a fine grain (2400 blocks an image).
+// - The world-from-camera matrix is built in the kernel from the camera
+//   quaternion (rotation.py::to_matrix's operations), so the wrapper
+//   launches nothing before the kernel.
 //
 // Signed overflow is undefined in C++, so the int32 hash multiplies in
 // uint32 and reinterprets; >> stays an arithmetic shift on the signed value
@@ -24,6 +41,15 @@
 namespace {
 
 constexpr float kBig = 1e9f;
+constexpr int kTileW = 16;  // block tile: 2 x 2 warps of 8 x 4 pixels
+constexpr int kTileH = 8;
+constexpr int kThreads = 128;
+
+// The early exit's float margins (see beyond_next_cells)
+constexpr float kReachRel = 1.0f + 0.00006103515625f;  // 1 + 2^-14
+constexpr float kReachAbs = 0.00006103515625f;         // 2^-14
+constexpr float kSlackSqrt = 0.001953125f;             // 2^-9
+constexpr float kSlackLin = 0.000003814697265625f;     // 2^-18
 
 struct Scene {
   float row_spacing, tree_spacing, presence, jitter, trunk_radius,
@@ -48,6 +74,9 @@ __device__ __forceinline__ float cell_rand(int ix, int iy, int seed, int salt) {
   return static_cast<float>(h & 0x7FFFFF) / 8388608.0f;
 }
 
+// A miss (disc < 0, or NaN) returns BIG before the square root and the
+// divides, and the far root only where the near one is not ahead: the
+// plain version computes all and selects, with the same result.
 __device__ __forceinline__ float sphere_hit(float ox, float oy, float oz,
                                             float dx, float dy, float dz,
                                             float cx, float cy, float cz,
@@ -57,72 +86,137 @@ __device__ __forceinline__ float sphere_hit(float ox, float oy, float oz,
   float b = 2.0f * (sx * dx + sy * dy + sz * dz);
   float c = sx * sx + sy * sy + sz * sz - r * r;
   float disc = b * b - 4.0f * a * c;
-  float sq = sqrtf(fmaxf(disc, 0.0f));
+  if (!(disc >= 0.0f)) return kBig;
+  float sq = sqrtf(disc);
   float s0 = (-b - sq) / (2.0f * a);
+  if (s0 > 0.0f) return s0;
   float s1 = (-b + sq) / (2.0f * a);
-  float s = s0 > 0.0f ? s0 : s1;
-  return (disc >= 0.0f && s > 0.0f) ? s : kBig;
+  return s1 > 0.0f ? s1 : kBig;
 }
 
+// t of the first hit with the tree of cell (ix, iy), BIG for none or an
+// absent tree (whose intersections are skipped: the plain version's BIG).
 __device__ __forceinline__ float tree_hit(const Scene& sc, int ix, int iy,
                                           float ox, float oy, float oz,
                                           float dx, float dy, float dz) {
   float r0 = cell_rand(ix, iy, sc.seed, 0);
   float r1 = cell_rand(ix, iy, sc.seed, 1);
   float r2 = cell_rand(ix, iy, sc.seed, 2);
-  float r3 = cell_rand(ix, iy, sc.seed, 3);
-  float r4 = cell_rand(ix, iy, sc.seed, 4);
   float cx = (static_cast<float>(ix) + 0.5f) * sc.tree_spacing + (r1 - 0.5f) * 2.0f * sc.jitter;
   float cy = (static_cast<float>(iy) + 0.5f) * sc.row_spacing + (r2 - 0.5f) * 2.0f * sc.jitter;
   bool present = (r0 < sc.presence) && (sqrtf(cx * cx + cy * cy) > sc.clear_radius);
+  if (!present) return kBig;
+  float r3 = cell_rand(ix, iy, sc.seed, 3);
+  float r4 = cell_rand(ix, iy, sc.seed, 4);
   float size = 0.8f + 0.4f * r3;
   float can_r = sc.canopy_radius * size;
   float can_h = sc.canopy_height * size;
   float trunk_r = sc.trunk_radius * size;
   float trunk_h = sc.trunk_height * size;
 
-  // trunk cylinder
+  // trunk cylinder (a miss skips the root, as in sphere_hit)
+  float t_trunk = kBig;
   float rx = ox - cx, ry = oy - cy;
   float a = dx * dx + dy * dy;
   float b = 2.0f * (rx * dx + ry * dy);
   float c = rx * rx + ry * ry - trunk_r * trunk_r;
   float disc = b * b - 4.0f * a * c;
-  bool ok = (disc >= 0.0f) && (a > 1e-12f);
-  float sq = sqrtf(fmaxf(disc, 0.0f));
-  float a_safe = a > 1e-12f ? a : 1.0f;
-  float t0 = (-b - sq) / (2.0f * a_safe);
-  float t1 = (-b + sq) / (2.0f * a_safe);
-  float t = t0 > 0.0f ? t0 : t1;
-  float z = oz + t * dz;
-  float t_trunk = (ok && t > 0.0f && z >= 0.0f && z <= trunk_h) ? t : kBig;
+  if (disc >= 0.0f && a > 1e-12f) {
+    float sq = sqrtf(disc);
+    float t = (-b - sq) / (2.0f * a);
+    if (!(t > 0.0f)) t = (-b + sq) / (2.0f * a);
+    float z = oz + t * dz;
+    if (t > 0.0f && z >= 0.0f && z <= trunk_h) t_trunk = t;
+  }
 
   float t_c1 = sphere_hit(ox, oy, oz, dx, dy, dz, cx, cy, can_h, can_r);
   float t_c2 = sphere_hit(ox, oy, oz, dx, dy, dz,
                           cx + (r4 - 0.5f) * 0.6f, cy + (r2 - 0.5f) * 0.6f,
                           can_h + 0.8f * can_r, can_r * 0.7f);
-  float tt = fminf(t_trunk, fminf(t_c1, t_c2));
-  return present ? tt : kBig;
+  return fminf(t_trunk, fminf(t_c1, t_c2));
 }
 
-__global__ void raycast_kernel(const float* __restrict__ cam,
-                               const float* __restrict__ scene_f,
-                               const int* __restrict__ seed,
-                               int* __restrict__ out, int B, int H, int W,
-                               float focal, float scale, int dda_steps) {
-  int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t n = static_cast<int64_t>(B) * H * W;
-  if (idx >= n) return;
-  int x = static_cast<int>(idx % W);
-  int y = static_cast<int>((idx / W) % H);
-  int bi = static_cast<int>(idx / (static_cast<int64_t>(W) * H));
+// Whether every tree lies inside its own cell, from the scene's fields:
+// the largest xy reach of a tree from its cell's centre is the jitter plus
+// the widest of the trunk (1.2 trunk_radius), the first canopy sphere (1.2
+// canopy_radius) and the second (offset up to 0.3 m, radius 0.84
+// canopy_radius); 1.2 is the largest size factor. orchard.py::contained is
+// its plain version.
+__device__ __forceinline__ bool contained(const Scene& sc) {
+  float jit = fabsf(sc.jitter), can = fabsf(sc.canopy_radius);
+  float half = 0.5f * fminf(sc.tree_spacing, sc.row_spacing);
+  // each reach tested alone, so that a NaN field fails the test
+  return sc.tree_spacing > 0.0f && sc.row_spacing > 0.0f &&
+         jit + 1.2f * fabsf(sc.trunk_radius) <= half && jit + 1.2f * can <= half &&
+         jit + (0.3f + 0.84f * can) <= half;
+}
+
+// Whether the cells after (ix, iy) can no longer change the code. Each
+// later cell of the march lies past the current cell's x boundary bx or its
+// y boundary by (the DDA steps each index one way only), and its tree, hence
+// any hit with it, lies inside it. So if the ray's xy position at t = reach
+// has crossed neither boundary, every later hit has t > reach. reach is
+// lim = min(best, 256 scale) widened: a hit beyond lim leaves the code as it
+// is (it cannot lower best, and past 256 scale the code is 255 whatever
+// the hit).
+//
+// The margins (u = 2^-24, the float32 unit roundoff). A computed root of the
+// quadratic is, to within a relative 8u and an absolute ~u (|s| / |d|), the
+// exact root for a tree whose centre moved by ~2u (|o| + |c|) and whose
+// radius squared moved by ~6u |s|^2 (the discriminant's b^2 - 4ac rounds
+// relative to b^2 ~ 4 |s|^2 |d|^2), s the ray origin less the centre: a
+// radius change of at most sqrt(6u) |s| < 2^-10.7 |s|. For a hit at t <=
+// reach, |s| <= reach (|dx| + |dy| + |dz|) + the tree's radius, and the
+// radius is below half the cell (contained). Hence:
+// - reach = lim (1 + 2^-14) + 2^-14 (S + R) covers the relative and absolute
+//   error of t itself (8u lim and ~2u (lim + S + R), with room);
+// - the boundaries are pulled toward the ray by slack = 2^-9 (reach
+//   (|dx| + |dy| + |dz|) + S + R), which covers the radius change (2^-10.7
+//   |s|) with room, plus 2^-18 (1 + |px| + |py| + |pz|), which covers the
+//   rounding of the centres, the boundaries and px + reach dx (each a few u
+//   of the positions, with the positions' own magnitudes).
+// The slack is a few centimetres in a 4 x 6 m cell, so the exit comes
+// almost as early as the exact geometry allows. A scene that fails
+// `contained` never exits early: it marches all cells, as the plain version.
+__device__ __forceinline__ bool beyond_next_cells(float best, float far256, float px, float py,
+                                                  float dx, float dy, float adx, float po,
+                                                  float sr, int ix, int iy, int step_x,
+                                                  int step_y, const Scene& sc) {
+  float lim = best < far256 ? best : far256;
+  float reach = lim * kReachRel + kReachAbs * sr;
+  float slack = kSlackSqrt * (reach * adx + sr) + kSlackLin * po;
+  float qx = px + reach * dx;
+  float qy = py + reach * dy;
+  float bx = static_cast<float>(ix + (step_x > 0 ? 1 : 0)) * sc.tree_spacing;
+  float by = static_cast<float>(iy + (step_y > 0 ? 1 : 0)) * sc.row_spacing;
+  bool in_x = step_x > 0 ? qx <= bx - slack : qx >= bx + slack;
+  bool in_y = step_y > 0 ? qy <= by - slack : qy >= by + slack;
+  return in_x && in_y;
+}
+
+__global__ void __launch_bounds__(kThreads)
+raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
+               const float* __restrict__ scene_f, const int* __restrict__ seed,
+               int* __restrict__ out, int* __restrict__ cells_out, int H, int W,
+               float focal, float scale, int dda_steps) {
+  int ntx = (W + kTileW - 1) / kTileW;
+  int warp = static_cast<int>(threadIdx.x) >> 5, lane = static_cast<int>(threadIdx.x) & 31;
+  int x = (static_cast<int>(blockIdx.x) % ntx) * kTileW + (warp & 1) * 8 + (lane & 7);
+  int y = (static_cast<int>(blockIdx.x) / ntx) * kTileH + (warp >> 1) * 4 + (lane >> 3);
+  int bi = static_cast<int>(blockIdx.y);
+  if (x >= W || y >= H) return;
 
   Scene sc{scene_f[0], scene_f[1], scene_f[2], scene_f[3], scene_f[4],
            scene_f[5], scene_f[6], scene_f[7], scene_f[8], seed[0]};
-  const float* s = cam + bi * 12;
-  float px = s[0], py = s[1], pz = s[2];
-  float R00 = s[3], R01 = s[4], R02 = s[5];
-  float R10 = s[6], R11 = s[7], R12 = s[8];
-  float R20 = s[9], R21 = s[10], R22 = s[11];
+  const float* p = cam_pos + bi * 3;
+  float px = p[0], py = p[1], pz = p[2];
+  // world-from-camera matrix, rotation.py::to_matrix
+  const float* q = cam_att + bi * 4;
+  float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  float r0 = qw * qw, r1 = qx * qx, r2 = qy * qy, r3 = qz * qz;
+  float R00 = r0 + r1 - r2 - r3, R01 = 2.0f * (qx * qy - qw * qz), R02 = 2.0f * (qx * qz + qw * qy);
+  float R10 = 2.0f * (qx * qy + qw * qz), R11 = r0 - r1 + r2 - r3, R12 = 2.0f * (qy * qz - qw * qx);
+  float R20 = 2.0f * (qx * qz - qw * qy), R21 = 2.0f * (qy * qz + qw * qx), R22 = r0 - r1 - r2 + r3;
 
   float col = (static_cast<float>(x) - static_cast<float>(W) * 0.5f) / focal;
   float row = (static_cast<float>(y) - static_cast<float>(H) * 0.5f) / focal;
@@ -151,8 +245,21 @@ __global__ void raycast_kernel(const float* __restrict__ cam,
   float t_dx = fabsf(inv_dx);
   float t_dy = fabsf(inv_dy);
 
-  for (int k = 0; k < dda_steps; ++k) {
+  // the early exit's per-pixel terms
+  bool exits = contained(sc);
+  float far256 = scale * 256.0f;
+  float adx = fabsf(dx) + fabsf(dy) + fabsf(dz);
+  float po = 1.0f + fabsf(px) + fabsf(py) + fabsf(pz);
+  float sr = sc.tree_spacing + sc.row_spacing;
+
+  int k = 0;
+  while (k < dda_steps) {
     best = fminf(best, tree_hit(sc, ix, iy, px, py, pz, dx, dy, dz));
+    ++k;
+    if (exits && k < dda_steps &&
+        beyond_next_cells(best, far256, px, py, dx, dy, adx, po, sr, ix, iy, step_x, step_y, sc)) {
+      break;
+    }
     bool go_x = next_x <= next_y;
     if (go_x) {
       ix += step_x;
@@ -163,22 +270,26 @@ __global__ void raycast_kernel(const float* __restrict__ cam,
     }
   }
 
+  int64_t idx = (static_cast<int64_t>(bi) * H + y) * W + x;
   float code = fminf(fmaxf(floorf(best / scale), 0.0f), 255.0f);
   out[idx] = static_cast<int>(code);
+  if (cells_out != nullptr) cells_out[idx] = k;
 }
 
 }  // namespace
 
-// cam: (B, 12) float32 [px, py, pz, R00..R22]; scene: 9 float32 (order of
-// orchard.FLOAT_FIELDS); seed: 1 int32; out: (B, H, W) int32.
-extern "C" int raycast_launch(const float* cam, const float* scene,
-                              const int* seed, int* out, int B, int H, int W,
-                              float focal, float scale, int dda_steps,
-                              void* stream) {
-  int64_t n = static_cast<int64_t>(B) * H * W;
-  int threads = 256;
-  int blocks = static_cast<int>((n + threads - 1) / threads);
-  raycast_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cam, scene, seed, out, B, H, W, focal, scale, dda_steps);
+// cam_pos: (B, 3) float32; cam_att: (B, 4) float32 world-from-camera
+// quaternions (w, x, y, z); scene: 9 float32 (order of
+// orchard.FLOAT_FIELDS); seed: 1 int32; out: (B, H, W) int32 codes;
+// cells: null, or (B, H, W) int32 that receives the cells each pixel
+// evaluated.
+extern "C" int raycast_launch(const float* cam_pos, const float* cam_att, const float* scene,
+                              const int* seed, int* out, int* cells, int B, int H, int W,
+                              float focal, float scale, int dda_steps, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;
+  dim3 grid(static_cast<unsigned>(((W + kTileW - 1) / kTileW) * ((H + kTileH - 1) / kTileH)),
+            static_cast<unsigned>(B));
+  raycast_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cam_pos, cam_att, scene, seed, out, cells, H, W, focal, scale, dda_steps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,7 @@
 Port of `agrifly_tpu/render/pallas_raycast.py`. `render_depth_batch` runs
 `csrc/raycast.cu` on CUDA tensors; on CPU tensors it runs the plain
 version, `raycast.render_depth`. The kernel's codes equal the plain
-version's bit for bit.
+version's bit for bit; `raycast.render_depth_exit` mirrors its early exit.
 """
 
 from __future__ import annotations
@@ -13,31 +13,58 @@ import ctypes
 import torch
 
 from agrifly_tpu_torch import cuda_build
-from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.render import orchard as orch
 from agrifly_tpu_torch.render import raycast
 from agrifly_tpu_torch.render.raycast import RenderConfig
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P]
+
+# the last scene's table, with the scene itself (so its tensors' ids are
+# not reused while the entry lives) and the tensors' versions (which an
+# in-place change bumps): (scene, versions, table)
+_last_table = None
 
 
-def _launch(cfg: RenderConfig, scene: orch.OrchardParams, cam: torch.Tensor) -> torch.Tensor:
+def scene_table(scene: orch.OrchardParams):
+    """The kernel's scene table, (9 float32 fields in the order of
+    orchard.FLOAT_FIELDS, 1 int32 seed), on the scene's device: built once
+    while one OrchardParams is rendered and left unchanged (device-side
+    stack and cast, no host read)."""
+    global _last_table
+    versions = tuple(t._version for t in scene)
+    if (_last_table is not None and versions == _last_table[1]
+            and all(a is b for a, b in zip(scene, _last_table[0]))):
+        return _last_table[2]
+    table = (torch.stack([getattr(scene, k) for k in orch.FLOAT_FIELDS]).contiguous(),
+             scene.seed.to(torch.int32).reshape(1).contiguous())
+    _last_table = (scene, versions, table)
+    return table
+
+
+def _launch(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos: torch.Tensor,
+            cam_att: torch.Tensor, cells: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch for B cameras: cam_pos (B, 3), cam_att (B, 4) float32 on
+    the card. `cells`, a (B, H, W) int32 tensor, receives the cells each
+    pixel evaluated (the frame passes none)."""
     lib = cuda_build.load("raycast")
     fn = lib.raycast_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    scene_f = torch.stack([getattr(scene, k) for k in orch.FLOAT_FIELDS]).contiguous()
-    seed = scene.seed.to(torch.int32).contiguous()
-    for t in (scene_f, seed):
-        if t.device != cam.device:
-            raise ValueError(f"scene on {t.device}, cameras on {cam.device}")
-    B = cam.shape[0]
-    out = torch.empty((B, cfg.height, cfg.width), dtype=torch.int32, device=cam.device)
-    status = fn(cam.data_ptr(), scene_f.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                B, cfg.height, cfg.width, cfg.focal, cfg.far / 256.0, cfg.dda_steps,
-                torch.cuda.current_stream(cam.device).cuda_stream)
+    scene_f, seed = scene_table(scene)
+    if scene_f.device != cam_pos.device:
+        raise ValueError(f"scene on {scene_f.device}, cameras on {cam_pos.device}")
+    B = cam_pos.shape[0]
+    out = torch.empty((B, cfg.height, cfg.width), dtype=torch.int32, device=cam_pos.device)
+    if cells is not None and (cells.shape != out.shape or cells.dtype != torch.int32
+                              or cells.device != out.device or not cells.is_contiguous()):
+        raise ValueError(f"cells must be a contiguous int32 {tuple(out.shape)} tensor on "
+                         f"{out.device}")
+    pos, att = cam_pos.contiguous(), cam_att.contiguous()
+    status = fn(pos.data_ptr(), att.data_ptr(), scene_f.data_ptr(), seed.data_ptr(),
+                out.data_ptr(), None if cells is None else cells.data_ptr(), B, cfg.height,
+                cfg.width, cfg.focal, cfg.far / 256.0, cfg.dda_steps,
+                torch.cuda.current_stream(cam_pos.device).cuda_stream)
     cuda_build.check(status, "raycast_launch")
     render_depth_batch.launches += 1
     return out
@@ -58,14 +85,7 @@ def render_depth_batch(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, ca
         raise ValueError("cam_pos and cam_att on different devices")
     if not cam_pos.is_cuda:
         return raycast.render_depth(cfg, scene, cam_pos, cam_att)
-    return _launch(cfg, scene, camera_rows(cam_pos, cam_att))
-
-
-def camera_rows(cam_pos, cam_att):
-    """The kernel's (B, 12) float32 camera rows: position, then the
-    world-from-camera rotation matrix row by row."""
-    B = cam_pos.shape[0]
-    return torch.cat([cam_pos, rot.to_matrix(cam_att).reshape(B, 9)], dim=1).contiguous()
+    return _launch(cfg, scene, cam_pos, cam_att)
 
 
 render_depth_batch.launches = 0  # kernel launches since the last reset

@@ -58,6 +58,21 @@ def make_params(row_spacing=6.0, tree_spacing=4.0, presence=0.95, jitter=0.3,
     )
 
 
+def contained(p: OrchardParams) -> torch.Tensor:
+    """Whether every tree lies inside its own grid cell (a 0-d bool tensor
+    on the scene's device): the jitter plus the widest of the trunk (1.2
+    trunk_radius), the first canopy sphere (1.2 canopy_radius) and the
+    second (offset up to 0.3 m, radius 0.84 canopy_radius) within half the
+    smaller spacing. `make_params` checks only the first sphere; the second
+    can leave its cell. The plain version of `csrc/raycast.cu`'s
+    `contained`, in its float32 operations; a NaN field fails it."""
+    jit, can = torch.abs(p.jitter), torch.abs(p.canopy_radius)
+    half = 0.5 * torch.minimum(p.tree_spacing, p.row_spacing)
+    return ((p.tree_spacing > 0) & (p.row_spacing > 0)
+            & (jit + 1.2 * torch.abs(p.trunk_radius) <= half) & (jit + 1.2 * can <= half)
+            & (jit + (0.3 + 0.84 * can) <= half))
+
+
 def _mix(h):
     h = h ^ (h >> 13)
     h = h * 1274126177

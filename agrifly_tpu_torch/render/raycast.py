@@ -98,13 +98,17 @@ def tree_hit(scene: orch.OrchardParams, ix, iy, o, d):
     return torch.where(f["present"], t, BIG)
 
 
-def render_depth(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
-    """Render depth frames.
+# the early exit's float margins (csrc/raycast.cu kReachRel ... kSlackLin)
+_REACH_REL = 1.0 + 2.0 ** -14
+_REACH_ABS = 2.0 ** -14
+_SLACK_SQRT = 2.0 ** -9
+_SLACK_LIN = 2.0 ** -18
 
-    cam_pos: (..., 3) world camera positions; cam_att: (..., 4) world-from-
-    camera quaternions (see camera_attitude). Returns (..., H, W) int32 codes
-    in [0, 255], 255 = beyond the far plane.
-    """
+
+def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early_exit: bool):
+    """The ray set-up and the DDA over orchard cells. Returns the codes and,
+    with early_exit, which stops a pixel's march as `csrc/raycast.cu` does
+    (see `render_depth_exit`), the cells each pixel evaluated (else None)."""
     H, W = cfg.height, cfg.width
     dev = cam_pos.device
     focal = scalar(cfg.focal, cam_pos)
@@ -146,10 +150,38 @@ def render_depth(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att)
     t_dx = torch.abs(inv_dx)
     t_dy = torch.abs(inv_dy)
 
+    scale = scalar(cfg.far / 256.0, best)
+    cells = None
+    if early_exit:
+        exits = orch.contained(scene)
+        far256 = scale * 256.0
+        adx = torch.abs(dx) + torch.abs(dy) + torch.abs(dz)
+        po = 1.0 + torch.abs(ox) + torch.abs(oy) + torch.abs(oz)
+        sr = scene.tree_spacing + scene.row_spacing
+        active = torch.ones(shape, dtype=torch.bool, device=dev)
+        cells = torch.zeros(shape, dtype=torch.int32, device=dev)
+
     # one pass is exact: each tree lies inside its own cell
     o, d = (ox, oy, oz), (dx, dy, dz)
-    for _ in range(cfg.dda_steps):
-        best = torch.minimum(best, tree_hit(scene, ix, iy, o, d))
+    for k in range(cfg.dda_steps):
+        hit = torch.minimum(best, tree_hit(scene, ix, iy, o, d))
+        if not early_exit:
+            best = hit
+        else:
+            best = torch.where(active, hit, best)
+            cells = cells + active.to(torch.int32)
+        if early_exit and k + 1 < cfg.dda_steps:
+            # csrc/raycast.cu beyond_next_cells, its margins derived there
+            lim = torch.where(best < far256, best, far256)
+            reach = lim * _REACH_REL + _REACH_ABS * sr
+            slack = _SLACK_SQRT * (reach * adx + sr) + _SLACK_LIN * po
+            qx = ox + reach * dx
+            qy = oy + reach * dy
+            bx = (ix + (step_x > 0).to(torch.int32)).to(torch.float32) * scene.tree_spacing
+            by = (iy + (step_y > 0).to(torch.int32)).to(torch.float32) * scene.row_spacing
+            in_x = torch.where(step_x > 0, qx <= bx - slack, qx >= bx + slack)
+            in_y = torch.where(step_y > 0, qy <= by - slack, qy >= by + slack)
+            active = active & ~(exits & in_x & in_y)
         go_x = next_x <= next_y
         ix = torch.where(go_x, ix + step_x, ix)
         iy = torch.where(go_x, iy, iy + step_y)
@@ -158,5 +190,26 @@ def render_depth(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att)
 
     # clip in float before the int cast: a miss is t = 1e9, whose code does
     # not fit an int32
-    code = torch.floor(best / scalar(cfg.far / 256.0, best))
-    return torch.clamp(code, 0.0, 255.0).to(torch.int32)
+    code = torch.floor(best / scale)
+    return torch.clamp(code, 0.0, 255.0).to(torch.int32), cells
+
+
+def render_depth(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
+    """Render depth frames.
+
+    cam_pos: (..., 3) world camera positions; cam_att: (..., 4) world-from-
+    camera quaternions (see camera_attitude). Returns (..., H, W) int32 codes
+    in [0, 255], 255 = beyond the far plane.
+    """
+    return _march(cfg, scene, cam_pos, cam_att, early_exit=False)[0]
+
+
+def render_depth_exit(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
+    """The plain mirror of the raycast kernel's traversal: render_depth
+    with the kernel's exact early exit, in its float32 operations. After
+    each cell, a pixel whose ray can no longer reach the next cell before
+    min(best, far) stops, where `orchard.contained(scene)`
+    holds; later cells could not change its code. Returns (codes, equal to
+    render_depth's, and the (..., H, W) int32 number of cells each pixel
+    evaluated). The tests and chip_smoke.py use it; the frame does not."""
+    return _march(cfg, scene, cam_pos, cam_att, early_exit=True)

@@ -8,15 +8,19 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the four CUDA kernel libraries from `agrifly_tpu_torch/csrc`
 (one nvcc each, in parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
-and the pyramid inflation bit for bit (one image, and 16 fleet images in
-one launch), the fused 16-tick block within the tick tolerances in five
+bit for bit (one image and 16 in one launch, on the default orchard, a
+scene at `make_params`' limit and one whose second canopy spheres leave
+their cells, with the cells its early exit evaluates equal to its plain
+mirror's), the two imported-world (mesh) raycasters, strip-culled and
+window, bit for bit and against each other (a baked orchard and a scene of
+spheres, cylinders and OBJ triangles; 1 and 16 cameras in one launch; the
+strip-culled kernel's per-strip row counts equal to `strip_windows`'), the
+pyramid inflation bit for bit (one image, and 16 fleet images in one
+launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
 (then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
-clock64() timers around the tick chain's sections, in a copy of
-`csrc/frame.cu` built beside the kernels), and the two imported-world
-(mesh) raycasters, strip-culled and window, bit
-for bit and against each other (a baked orchard and a scene of spheres,
-cylinders and OBJ triangles; 1 and 16 cameras in one launch). The grouped
+clock64() timers around the tick chain's sections, in a variant of
+`csrc/frame.cu` built beside the kernels). The grouped
 inflation kernel (K2g, S = 2, 4, 8 seeds per block) is held bit for bit
 against the one-seed kernel and the plain version on the endpoint seeds of
 the RAPPIDS evaluation harnesses (128 and 1024 candidates on four orchard
@@ -95,6 +99,7 @@ TICK_OPS = 20000  # csrc/frame.cu sim_tick, float operations per vehicle and tic
 # included)
 MESH_OPS_PER_PIXEL = 32
 MESH_ROW_OPS = (6, 47, 50, 66)
+MESH_CULL_OPS = 70  # K4's culling of one row for one strip: bounding sphere, camera, 7 tests
 
 
 def _check(cond, what):
@@ -145,14 +150,32 @@ def lanes(B, dev, x=0.0, z=0.0):
     return torch.stack([torch.full((B,), float(x)), y, torch.full((B,), float(z))], 1).to(dev)
 
 
+# The scenes K1 is held on, as make_params keywords (the same for the port
+# and the JAX package; tests/test_torch_raycast_exit.py and
+# tests/test_torch_kernels.py import them from here).
+RAY_SCENES = {
+    "default": {},
+    # jitter + 1.2 canopy_radius = 2.0 = half the 4 m tree spacing
+    "limit": {"jitter": 0.38},
+    # accepted by make_params (1.88 + 1.2 * 0.1 = 2.0), but the second canopy
+    # sphere reaches 1.88 + 0.3 + 0.84 * 0.1 = 2.264 m from the cell centre,
+    # so the containment test fails and the early exit must stay off
+    "loose": {"jitter": 1.88, "canopy_radius": 0.1, "trunk_radius": 0.1},
+}
+
+
 def check_raycast(dev):
-    """The raycast kernel against raycast.render_depth at 640x480, B = 1 and 16."""
+    """The raycast kernel (K1) against raycast.render_depth at 640x480, B = 1
+    and 16: bit-equal codes, and the cells its early exit evaluated equal to
+    its plain mirror's (render_depth_exit), on the default orchard and on
+    the limit and loose scenes; then its wrapper, launch and device times
+    on the default orchard."""
     import torch
 
     from agrifly_tpu_torch.ops import rotation as rot
     from agrifly_tpu_torch.render import cuda_raycast, orchard, raycast
 
-    cfg, scene = raycast.make_config(640, 480), orchard.make_params(device=dev)
+    cfg = raycast.make_config(640, 480)
     g = torch.Generator().manual_seed(SEED)
     results = {}
     for B in (1, 16):
@@ -160,20 +183,38 @@ def check_raycast(dev):
                            torch.rand(B, generator=g) * 3 + 0.5], dim=1).to(dev)
         ypr = ((torch.rand(B, 3, generator=g) - 0.5) * 0.6).to(dev)
         cam = raycast.camera_attitude(rot.from_euler_ypr(ypr[:, 0], ypr[:, 1], ypr[:, 2]))
+        mean_cells = {}
+        for name, kw in RAY_SCENES.items():
+            scene = orchard.make_params(device=dev, **kw)
+            got = cuda_raycast.render_depth_batch(cfg, scene, pos, cam)
+            ref = raycast.render_depth(cfg, scene, pos, cam)
+            err = int((got - ref).abs().max())
+            _check(err == 0, f"raycast kernel differs from plain at B={B}, {name} scene "
+                             f"(max {err} codes)")
+            _check(got.unique().numel() > 20, f"raycast rendered an empty scene ({name})")
+            cells = torch.empty_like(got)
+            cuda_raycast._launch(cfg, scene, pos, cam, cells)
+            _check(torch.equal(cells, raycast.render_depth_exit(cfg, scene, pos, cam)[1]),
+                   f"raycast kernel: cells per pixel differ from the plain mirror ({name}, B={B})")
+            _check(name != "loose" or int(cells.min()) == cfg.dda_steps,
+                   "raycast kernel: early exit on a scene that fails the containment test")
+            mean_cells[name] = float(cells.float().mean())
+        scene = orchard.make_params(device=dev)
         got = cuda_raycast.render_depth_batch(cfg, scene, pos, cam)
-        ref = raycast.render_depth(cfg, scene, pos, cam)
-        err = int((got - ref).abs().max())
-        _check(err == 0, f"raycast kernel differs from plain at B={B} (max {err} codes)")
-        _check(got.unique().numel() > 20, "raycast rendered an empty scene")
         ms = cuda_ms(lambda: cuda_raycast.render_depth_batch(cfg, scene, pos, cam))
-        rows = cuda_raycast.camera_rows(pos, cam)
-        launch_ms = cuda_ms(lambda: cuda_raycast._launch(cfg, scene, rows), reps=50)
+        launch_ms = cuda_ms(lambda: cuda_raycast._launch(cfg, scene, pos, cam), reps=50)
+        dev_us = device_us(lambda: cuda_raycast._launch(cfg, scene, pos, cam))
         plain_ms = cuda_ms(lambda: raycast.render_depth(cfg, scene, pos, cam), reps=3)
-        res = result(err, ms, plain_ms, nbytes(rows, got) + 40,
+        # bytes: camera position and attitude, the scene table, the codes;
+        # operations: the reference's 8 cells a pixel (the early exit does less)
+        res = result(0, ms, plain_ms, nbytes(pos, cam, got) + 40,
                      got.numel() * (RAY_OPS_PER_PIXEL + RAY_OPS_PER_CELL * cfg.dda_steps))
-        print(f"raycast B={B} 640x480: bit-equal; kernel {ms:.4f} ms (launch alone "
-              f"{launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.6f} ms "
-              f"({res['bound_by']})")
+        print(f"raycast B={B} 640x480: bit-equal on the default, limit and loose scenes, cells "
+              f"equal to the plain mirror; mean cells per pixel "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in mean_cells.items())} of {cfg.dda_steps}; "
+              f"kernel {ms:.4f} ms (launch alone {launch_ms:.4f} ms, device {us_text(dev_us)}), "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{res['bound_ms']:.6f} ms ({res['bound_by']})")
         results[B] = res
     return results[1]
 
@@ -637,24 +678,48 @@ def mesh_poses(g, B, dev):
     return pos.to(dev), raycast.camera_attitude(body).to(dev)
 
 
-def mesh_bound(cfg, kinds, rows_per_pixel_block, pixels_per_block, n_bytes, B):
+def mesh_bound(cfg, kinds, rows_per_pixel_block, pixels_per_block, n_bytes, B, cull_rows=0):
     """The mesh kernels' bound: `kinds` (..., K) int row kinds, of which the
     first `rows_per_pixel_block` (...,) rows of each block of
-    `pixels_per_block` pixels are tested."""
+    `pixels_per_block` pixels are tested; `cull_rows` (strip, row) pairs
+    culled at MESH_CULL_OPS each."""
     import torch
 
     ops_by_kind = torch.tensor(MESH_ROW_OPS, dtype=torch.float64, device=kinds.device)
     tested = torch.arange(kinds.shape[-1], device=kinds.device) < rows_per_pixel_block[..., None]
     row_ops = float((ops_by_kind[kinds.clamp(0, 3)] * tested).sum())
-    return n_bytes, B * cfg.height * cfg.width * MESH_OPS_PER_PIXEL + row_ops * pixels_per_block
+    return n_bytes, (B * cfg.height * cfg.width * MESH_OPS_PER_PIXEL + row_ops * pixels_per_block
+                     + cull_rows * MESH_CULL_OPS)
+
+
+def kernels_per_call(fn, calls=20):
+    """Device kernels one call of fn launches: torch.profiler over `calls`
+    calls, or None where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    except RuntimeError:
+        return None
+    return n / calls if n else None
 
 
 def check_meshscene(dev):
     """The strip-culled (K4) and window (K4w) mesh kernels against their
-    plain versions (render_strips, render_depth_window) and each other at
-    640x480, with 1 and 16 random-yaw cameras in one launch, on the baked
-    orchard and on the mixed scene. Returns the B = 1 baked-orchard results
-    (K4, K4w)."""
+    plain versions (strip_windows then render_strips, render_depth_window)
+    and each other at 640x480, with 1 and 16 random-yaw cameras in one
+    launch, on the baked orchard and on the mixed scene: K4's per-strip row
+    counts equal strip_windows' n_vis, and the codes are bit-equal. On the
+    baked orchard: the wrapper, launch and device times of both, and the
+    kernels one render_depth_batch call launches. Returns the B = 1 baked-orchard
+    results (K4, K4w)."""
     import tempfile
 
     import torch
@@ -672,7 +737,7 @@ def check_meshscene(dev):
         for B in (1, 16):
             pos, cam = mesh_poses(g, B, dev)
             windows = meshscene.select_window(mesh, pos, reach, 192)
-            strips, nvis = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
+            strips, nvis_r = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
             before = (cuda_meshscene.render_depth_strips_batch.launches,
                       cuda_meshscene.render_depth_window_batch.launches)
             k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
@@ -680,62 +745,67 @@ def check_meshscene(dev):
             _check((cuda_meshscene.render_depth_strips_batch.launches,
                     cuda_meshscene.render_depth_window_batch.launches)
                    == (before[0] + 1, before[1] + 1), f"mesh kernels ({label}): not one launch each")
+            nvis = torch.full_like(nvis_r, -1)
+            again = cuda_meshscene._launch("meshscene_strips_launch", cfg, pos, cam, windows, nvis)
+            _check(torch.equal(nvis, nvis_r), f"K4's n_vis differs from strip_windows' ({label}, "
+                                              f"B={B})")
             ref4 = meshscene.render_strips(cfg, strips, pos, cam)
             ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
             err4, err4w = int((k4 - ref4).abs().max()), int((k4w - ref4w).abs().max())
             _check(err4 == 0, f"K4 differs from plain ({label}, B={B}): max {err4} codes")
             _check(err4w == 0, f"K4w differs from plain ({label}, B={B}): max {err4w} codes")
-            _check(torch.equal(k4, k4w), f"K4 differs from K4w ({label}, B={B})")
+            _check(torch.equal(k4, k4w) and torch.equal(again, k4),
+                   f"K4 differs from K4w ({label}, B={B})")
             _check(k4.unique().numel() > 20, f"mesh render of an empty scene ({label})")
             nv = nvis.float()
             line = (f"mesh {label} ({mesh.count} primitives: {kinds[0]} spheres, {kinds[1]} "
                     f"cylinders, {kinds[2]} triangles), B={B} {cfg.width}x{cfg.height}, "
                     f"window {windows.shape[1]} rows: K4 and K4w bit-equal to plain and to "
-                    f"each other; n_vis per strip mean {float(nv.mean()):.3f}, max "
-                    f"{int(nv.max())}")
+                    f"each other, K4's n_vis equal to strip_windows'; n_vis per strip mean "
+                    f"{float(nv.mean()):.3f}, max {int(nv.max())}")
             if label == "baked orchard":
-                rows = cuda_meshscene.camera_rows(pos, cam)
-                res4, res4w = mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, k4,
-                                           err4, err4w)
-                line += (f"; K4 {res4['ms']:.4f} ms (launch alone {res4['launch_ms']:.4f}, "
-                         f"device {us_text(res4['device_us'])}), plain {res4['plain_ms']:.4f}, "
-                         f"bound {res4['bound_ms']:.6f} ({res4['bound_by']}); K4w "
-                         f"{res4w['ms']:.4f} ms (launch alone {res4w['launch_ms']:.4f}, device "
+                res4, res4w = mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, k4)
+                line += (f"; K4 {res4['ms']:.4f} ms (render_depth_batch with select_window "
+                         f"{res4['batch_ms']:.4f}, launch alone {res4['launch_ms']:.4f}, device "
+                         f"{us_text(res4['device_us'])}), plain {res4['plain_ms']:.4f}, bound "
+                         f"{res4['bound_ms']:.6f} ({res4['bound_by']}); K4w {res4w['ms']:.4f} ms "
+                         f"(launch alone {res4w['launch_ms']:.4f}, device "
                          f"{us_text(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
-                         f"{res4w['bound_ms']:.6f} ({res4w['bound_by']})")
+                         f"{res4w['bound_ms']:.6f} ({res4w['bound_by']}); kernels per "
+                         f"render_depth_batch call {res4['kernels_per_call']}")
                 out[B] = (res4, res4w)
             print(line)
-    return tuple({k: v for k, v in r.items() if k not in ("launch_ms", "device_us")}
-                 for r in out[1])
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return tuple({k: r[k] for k in keep} for r in out[1])
 
 
-def mesh_timings(cfg, windows, pos, cam, strips, nvis, rows, codes, err4, err4w):
-    """Wrapper, bare launch and plain times of K4 and K4w on one input, and
-    their bounds (the rows each pixel block tests, by kind)."""
+def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
+    """Wrapper, bare launch, device and plain times of K4 and K4w on one
+    input, their bounds, and the kernels one render_depth_batch call launches."""
     from agrifly_tpu_torch.render import cuda_meshscene, meshscene
 
     B, K = windows.shape[:2]
     ms4 = cuda_ms(lambda: cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam))
     ms4w = cuda_ms(lambda: cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam))
-    launch4 = cuda_ms(lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, rows, nvis,
-                                                     strips), reps=50)
-    launch4w = cuda_ms(lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, rows,
-                                                      windows), reps=50)
-    dev4, dev4w = (device_us(lambda name=name, args=args: cuda_meshscene._launch(
-        name, cfg, rows, *args)) for name, args in (("meshscene_strips_launch", (nvis, strips)),
-                                                    ("meshscene_window_launch", (windows,))))
+    batch_ms = cuda_ms(lambda: cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam))
+    per_call = kernels_per_call(lambda: cuda_meshscene.render_depth_batch(cfg, mesh, pos, cam))
+    launch = {name: (lambda name=name: cuda_meshscene._launch(name, cfg, pos, cam, windows))
+              for name in ("meshscene_strips_launch", "meshscene_window_launch")}
+    launch4, launch4w = (cuda_ms(launch[n], reps=50) for n in launch)
+    dev4, dev4w = (device_us(launch[n]) for n in launch)
     plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=3)
     plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=3)
-    # bytes: camera rows, n_vis and the rows tested (K4) or the windows
-    # (K4w), and the codes; operations: MESH_ROW_OPS per tested row and pixel
-    n4 = nbytes(rows, nvis, codes) + int(nvis.sum()) * 4 * meshscene.ROW_WIDTH
+    # bytes: camera positions and attitudes, the windows, the codes;
+    # operations: MESH_ROW_OPS per tested row and pixel, and for K4 the
+    # culling of every (strip, window row)
+    n_bytes = nbytes(pos, cam, windows, codes)
     b4, o4 = mesh_bound(cfg, strips[..., 0].long(), nvis, cuda_meshscene.TILE_H * cfg.width,
-                        n4, B)
+                        n_bytes, B, cull_rows=nvis.numel() * K)
     b4w, o4w = mesh_bound(cfg, windows[..., 0].long(), windows.new_full((B,), K),
-                          cfg.height * cfg.width, nbytes(rows, windows, codes), B)
-    return ({**result(err4, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4},
-            {**result(err4w, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w,
-             "device_us": dev4w})
+                          cfg.height * cfg.width, n_bytes, B)
+    return ({**result(0, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4,
+             "batch_ms": batch_ms, "kernels_per_call": per_call},
+            {**result(0, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w, "device_us": dev4w})
 
 
 def tick_states(params):
@@ -1331,28 +1401,35 @@ def build_kernels():
         timed.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
-    print(ptxas_report(cuda_build.build_logs.get("inflate", "")))
+    for name in ("raycast", "meshscene", "inflate"):
+        print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
 
 
-def ptxas_report(log):
-    """One line from ptxas's -v report of the inflation kernels: registers,
-    shared memory and spill bytes of K2, K2c and each K2g instance."""
+# kernel entry names in ptxas's report -> short names
+PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
+               "meshscene": {"meshscene_strips_kernel": "K4", "meshscene_window_kernel": "K4w"},
+               "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
+                           "inflate_grouped_kernelILi": "K2g S="}}
+
+
+def ptxas_report(lib, log):
+    """One line from ptxas's -v report of a library's kernels: registers,
+    shared memory and spill bytes of each (K2g: each instance)."""
     import re
 
+    names = PTXAS_NAMES[lib]
     kernels, name = [], None
     for line in log.splitlines():
-        entry = re.search(r"(inflate_kernel|inflate_cluster_kernel|inflate_grouped_kernelILi(\d+)E)",
-                          line)
+        entry = re.search("(" + "|".join(names) + r")(\d+)?", line)
         if "Compiling entry function" in line and entry:
-            name = ({"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c"}.get(entry.group(1))
-                    or f"K2g S={entry.group(2)}")
+            name = names[entry.group(1)] + (entry.group(2) or "")
         elif name and "spill" in line:
             spill = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             kernels.append([name, ", ".join(f"{b} B spill {k}" for b, k in spill)])
         elif name and "Used" in line:
             kernels[-1].append(line.split(":", 1)[1].strip())
             name = None
-    return "ptxas (inflate.cu): " + ("; ".join(f"{k} {u} ({sp})" for k, sp, u in
+    return f"ptxas ({lib}.cu): " + ("; ".join(f"{k} {u} ({sp})" for k, sp, u in
                                                (r for r in kernels if len(r) == 3))
                                      or "not rebuilt in this process")
 
@@ -1379,13 +1456,13 @@ def main() -> int:
         print(card_line())
         build_kernels()
         k1 = check_raycast(dev)
+        k4, k4w = check_meshscene(dev)
         k2 = check_inflate(dev)
         k2b = check_inflate_batched(dev)
         k3 = check_frame_ticks(dev)
         k3b_worst = check_frame_ticks_batched(dev)
         tick_split(dev)
         frame_sections(dev)
-        k4, k4w = check_meshscene(dev)
         t_eval = time.perf_counter()
         eval_params, views = eval_views(dev)
         k2g, k2_eval, k2g_launches = check_inflate_grouped(dev, eval_params, views)

@@ -6,10 +6,11 @@ These tests import no JAX, so they run on a machine with a GPU and no JAX:
 
 (--noconftest: tests/conftest.py configures JAX). Without a card they skip.
 The raycaster and the inflation are held bit for bit: the raycast codes
-everywhere, the inflation's ok everywhere and its maxd and edges wherever
+everywhere (and the cells its early exit evaluates, against its plain
+mirror, on a scene where the exit is barred too), the inflation's ok everywhere and its maxd and edges wherever
 ok (one image and a batch, and the shapes its early exits, search chunks
-and shrink table make risky); the mesh raycasters, strip-culled (K4) and window
-(K4w), bit for bit and equal to each other. The fused tick block is held to the tick criteria of
+and shrink table make risky); the mesh raycasters, strip-culled (K4, whose per-strip row counts
+equal strip_windows') and window (K4w), bit for bit and equal to each other. The fused tick block is held to the tick criteria of
 tests/_torch_parity.py against the plain ticks on the card, for one vehicle
 and for a fleet (one launch for B vehicles); the inflation for one image
 and for a batch of images (one launch for B x P seeds). The grouped
@@ -32,6 +33,7 @@ from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
 from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
 from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+from chip_smoke import RAY_SCENES  # the default orchard, the make_params limit, a loose scene
 
 
 def _poses(seed, n, device):
@@ -43,10 +45,17 @@ def _poses(seed, n, device):
     return pos.to(device), raycast.camera_attitude(body).to(device)
 
 
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 4])
-def test_raycast_kernel_bit_equal_to_plain(cuda, B):  # noqa: F811
-    cfg, scene = raycast.make_config(640, 480), orchard.make_params(device=cuda)
+@pytest.mark.parametrize("scene_name", list(RAY_SCENES))
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_raycast_kernel_bit_equal_to_plain(cuda, B, scene_name):  # noqa: F811
+    """K1 at 640x480, one launch for B cameras, bit-equal to render_depth;
+    the cells it evaluated per pixel equal its plain mirror's
+    (render_depth_exit), all 8 where the scene fails the containment test."""
+    cfg = raycast.make_config(640, 480)
+    scene = orchard.make_params(device=cuda, **RAY_SCENES[scene_name])
     pos, cam = _poses(B, B, cuda)
     before = cuda_raycast.render_depth_batch.launches
     got = cuda_raycast.render_depth_batch(cfg, scene, pos, cam)
@@ -55,6 +64,15 @@ def test_raycast_kernel_bit_equal_to_plain(cuda, B):  # noqa: F811
     assert cuda_raycast.render_depth_batch.launches == before + 1
     assert torch.equal(got, ref)
     assert got.unique().numel() > 20
+    cells = torch.empty_like(got)
+    again = cuda_raycast._launch(cfg, scene, pos, cam, cells)
+    mirror, mirror_cells = raycast.render_depth_exit(cfg, scene, pos, cam)
+    assert torch.equal(again, ref) and torch.equal(mirror, ref)
+    assert torch.equal(cells, mirror_cells)
+    if scene_name == "loose":
+        assert int(cells.min()) == cfg.dda_steps
+    else:
+        assert float(cells.float().mean()) < 4.0
 
 
 def _inflations():
@@ -287,29 +305,37 @@ def test_frame_ticks_kernel_batched_matches_plain(cuda, B):  # noqa: F811
 @pytest.mark.parametrize("scene", ["baked", "mixed"])
 @pytest.mark.parametrize("B", [1, 4])
 def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F811
-    """K4 and K4w at 640x480, one launch each for B cameras of random yaw,
-    against render_strips and render_depth_window on the card, and equal
-    to each other; on the baked orchard and on the scene of primitives and
-    OBJ triangles that chip_smoke.py writes and loads."""
+    """K4 and K4w at 640x480, one launch each for B cameras of random yaw:
+    K4's in-kernel strip culling keeps strip_windows' n_vis rows per
+    strip, and its codes equal render_strips', render_depth_window's and
+    K4w's; on the baked orchard and on the scene of primitives and OBJ
+    triangles that chip_smoke.py writes and loads, with the frame's 192-row
+    window and a 300-row one (two staged chunks)."""
     from chip_smoke import baked_orchard, mesh_poses, mixed_scene
 
     cfg = raycast.make_config(640, 480)
     mesh = baked_orchard(cuda) if scene == "baked" else mixed_scene(cuda, tmp_path)
     pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
-    windows = meshscene.select_window(mesh, pos, cfg.far * meshscene.slant_factor(cfg), 192)
-    before = (cuda_meshscene.render_depth_strips_batch.launches,
-              cuda_meshscene.render_depth_window_batch.launches)
-    k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
-    k4w = cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam)
-    strips, nvis = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
-    ref4 = meshscene.render_strips(cfg, strips, pos, cam)
-    ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
-    torch.cuda.synchronize()
-    assert (cuda_meshscene.render_depth_strips_batch.launches,
-            cuda_meshscene.render_depth_window_batch.launches) == (before[0] + 1, before[1] + 1)
-    assert k4.shape == (B, 480, 640) and windows.shape[1] == 192
-    assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
-    assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    for capacity in (192, 300):
+        windows = meshscene.select_window(mesh, pos, reach, capacity)
+        before = (cuda_meshscene.render_depth_strips_batch.launches,
+                  cuda_meshscene.render_depth_window_batch.launches)
+        k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
+        k4w = cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam)
+        torch.cuda.synchronize()
+        assert (cuda_meshscene.render_depth_strips_batch.launches,
+                cuda_meshscene.render_depth_window_batch.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+        nvis = torch.full((B, 480 // cuda_meshscene.TILE_H), -1, dtype=torch.int32, device=cuda)
+        again = cuda_meshscene._launch("meshscene_strips_launch", cfg, pos, cam, windows, nvis)
+        strips, nvis_r = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
+        ref4 = meshscene.render_strips(cfg, strips, pos, cam)
+        ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
+        assert k4.shape == (B, 480, 640) and windows.shape[1] == min(capacity, mesh.count)
+        assert torch.equal(nvis, nvis_r) and torch.equal(again, k4)
+        assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
+        assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
 
 
 def _endpoint_seeds(params, n, seed, lead=()):
