@@ -1,5 +1,6 @@
-// RAPPIDS pyramid inflation: one thread block per seed and image (K2), or
-// per group of S seeds on one image (K2g).
+// RAPPIDS pyramid inflation: one thread block per seed and image (K2), a
+// cluster of blocks per seed (K2c), or a cluster of S blocks per group of S
+// seeds on one image (K2g).
 //
 // Replaces the TPU kernel agrifly_tpu/planner/pallas_inflate.py, launched by
 // inflate_pyramids: _kernel with one seed per program (K2, batched over a
@@ -20,15 +21,32 @@
 // min/max reduction, so every thread ends a pass holding the same scalars.
 //
 // K2: grid (P, B), block (p, b) inflates seed p of image b.
-// K2g: grid (P/S, B), block (g, b) inflates seeds gS .. gS+S-1 of image b.
-// Passes A, expand and B run one seed after another with K2's code. Pass C
-// is one sweep of the image for all of the group's live seeds: each pixel is
-// read and its shrink divided once, into 16 S accumulators and one
-// reduction. Pass D keeps K2's corner order: one shared sweep per corner over
-// the bounding box of the live seeds' quadrants, so each seed's corner sees
-// the edges its previous corner left. A seed that fails leaves the shared
-// sweeps; a group with no live seed ends. Unlike the TPU's grouped kernel,
-// pass B never skips: it always takes the minimum over the rectangle.
+// K2g: grid (P, B) in clusters of S blocks, cluster (g, b) inflates seeds
+// gS .. gS+S-1 of image b. Block rank s runs seed gS+s's passes A, expand,
+// B and C alone with K2's code, all the group's seeds in parallel (a grid of
+// P blocks, as K2's), and publishes the seed to every block of the cluster
+// through distributed shared memory. Pass D is split over the cluster by
+// rows: of every live seed's quadrant block rank k sweeps, with K2's sweep,
+// the groups of 16 rows k, k + S, k + 2S, ... counted from the quadrant's
+// first row, so each quadrant's work spreads evenly over the S blocks. The
+// block keeps each seed's warp partials in shared memory, and one combine
+// per corner reduces the group's values over the cluster (a block and a
+// cluster barrier), after which every block applies them to its own copy of
+// the seeds. The corners keep K2's order, so each seed's corner sees the
+// edges its previous corner left. A seed that fails (a padded row, ok
+// cleared, fails at once) leaves the shared passes; a group with no live
+// seed ends. The accumulators are K2's (16 a thread), so the kernel holds
+// K2's registers whatever S. Unlike the TPU's grouped kernel, pass B never
+// skips: it always takes the minimum over the rectangle. A cluster runs for
+// its slowest seed's own passes: the others wait at the barrier that
+// publishes the seeds. Measured on an H100, forms that split pass C over
+// the cluster too were slower than this one, since a block that waits does
+// no work: a slab of ceil(H / S) rows swept once for a chunk of seeds (each
+// pixel read and its shrink looked up once for the chunk, which visits more
+// pixels than the seeds' own bands hold and tests every seed at each), each
+// seed's bands split by such slabs, and each seed's bands split by
+// interleaved row groups as pass D is now. So was the first form, one block
+// per group running passes A, expand and B one seed after another.
 //
 // What bounds it on the card: latency and issued instructions, not bytes.
 // A planning round of one vehicle inflates 10-20 seeds, so 10-20 of the 132
@@ -56,8 +74,7 @@
 //     kernel's early-exit sweeps, pallas_inflate.py:25-31);
 //   - pass C sweeps each edge band over its own region (rows [t, b] right of
 //     r and left of l, cols [l, r] above t and below b, each with its edge
-//     line, the regions bands_pixel's tests select) with that band's test
-//     alone, not the whole image with all four.
+//     line) with that band's test alone, not the whole image with all four.
 // Skipped pixels would contribute only the reductions' identities, so the
 // results are unchanged. Staging the whole image in one block's shared
 // memory (as 16-bit codes with an escape code for values past 65535, since a
@@ -101,7 +118,8 @@ constexpr int kFirstChunkRows = 16;  // the same for rows
 // memory (numer = focal * plan_radius / depth_scale: 712 on the pooled
 // 240x320 frame, 1425 at 640x480)
 constexpr int kShrinkTable = 4096;
-constexpr int kMaxGroup = 8;  // the largest compiled K2g instance (seeds per block)
+constexpr int kMaxGroup = 8;  // the largest K2g group (seeds, and blocks of its cluster)
+static_assert(kMaxGroup <= kMaxCluster, "a K2g group is one cluster");
 constexpr int kBandValues = 16;  // pass C accumulators per seed
 // min-reduced pass C accumulators: right edge/lo, left lo, top lo, bottom edge/lo
 constexpr unsigned kBandMinMask =
@@ -180,6 +198,10 @@ struct Image {
   bool vec;  // every row starts on 16 bytes: four pixels per load
   bool staged;  // px is the block's shared-memory slab (K2c), not the image in device memory
   unsigned short* quot;  // quot[d] = numer / d for d < kShrinkTable (shrink_table)
+  // of each region's rows, in groups of kWarps from its first row, this
+  // block sweeps group part, part + parts, ... (K2g's blocks split every
+  // region so; K2 and K2c sweep every group)
+  int part = 0, parts = 1;
   __device__ const int* row(int y) const { return px + (y - y_lo) * W; }
   // the shrink distance of a pixel: numer / max(p, 1) + extra, the quotient
   // looked up where the table holds it (0 wherever d > numer >= 0)
@@ -197,7 +219,7 @@ __device__ __forceinline__ void sweep(const Image& im, int ya, int yb, int xa, i
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (im.vec) {
     const int x_first = (xa & ~3) + 4 * lane;
-    for (int y = ya + warp; y <= yb; y += kWarps) {
+    for (int y = ya + im.part * kWarps + warp; y <= yb; y += kWarps * im.parts) {
       const int* row = im.row(y);
       for (int x = x_first; x <= xb; x += 128) {
         const int4* at = reinterpret_cast<const int4*>(row + x);
@@ -209,7 +231,7 @@ __device__ __forceinline__ void sweep(const Image& im, int ya, int yb, int xa, i
       }
     }
   } else {
-    for (int y = ya + warp; y <= yb; y += kWarps) {
+    for (int y = ya + im.part * kWarps + warp; y <= yb; y += kWarps * im.parts) {
       const int* row = im.row(y);
       for (int x = xa + lane; x <= xb; x += 32) f(x, y, Staged ? row[x] : __ldg(row + x));
     }
@@ -364,17 +386,35 @@ __device__ __forceinline__ void bands_init(int* a) {
   }
 }
 
-// A relevant pixel (x, y) with shrink sp, for a seed at (x0, y0) with the
-// expanded rectangle q.
-__device__ __forceinline__ void bands_pixel(int* a, const Image& im, int x, int y, int sp,
-                                            int x0, int y0, const Rect& q) {
-  const int t_init = im.edge_off, b_init = im.H - 1 - im.edge_off;
-  int s_right = x - sp, s_left = x + sp, s_top = y + sp, s_bottom = y - sp;
-  bool rows_tb = y >= q.t && y <= q.b, cols_lr = x >= q.l && x <= q.r;
-  if (x >= q.r && rows_tb) band(a + 0, s_right, s_top, s_bottom, x0, y0, true, t_init, b_init);
-  if (x <= q.l && rows_tb) band(a + 4, s_left, s_top, s_bottom, x0, y0, false, t_init, b_init);
-  if (y <= q.t && cols_lr) band(a + 8, s_top, s_left, s_right, y0, x0, false, t_init, b_init);
-  if (y >= q.b && cols_lr) band(a + 12, s_bottom, s_left, s_right, y0, x0, true, t_init, b_init);
+// Pass C's sweep for a seed at (x0, y0) with the expanded rectangle q and
+// base depth maxd: each band over its own region (rows [t, b] right of r and
+// left of l, cols [l, r] above t and below b, each with its edge line) with
+// that band's test alone, clipped to the block's rows; into a[16].
+__device__ __forceinline__ void bands_sweep(const Image& im, const Rect& q, int maxd, int x0,
+                                            int y0, int* a) {
+  const int H = im.H, W = im.W;
+  const int t_init = im.edge_off, b_init = H - 1 - im.edge_off;
+  bands_init(a);
+  for_region(im, q.t, q.b, q.r, W - 1, [&](int x, int y, int p) {  // right
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 0, x - sp, y + sp, y - sp, x0, y0, true, t_init, b_init);
+  });
+  for_region(im, q.t, q.b, 0, q.l, [&](int x, int y, int p) {  // left
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 4, x + sp, y + sp, y - sp, x0, y0, false, t_init, b_init);
+  });
+  for_region(im, 0, q.t, q.l, q.r, [&](int x, int y, int p) {  // top
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 8, y + sp, x + sp, x - sp, y0, x0, false, t_init, b_init);
+  });
+  for_region(im, q.b, H - 1, q.l, q.r, [&](int x, int y, int p) {  // bottom
+    if (!im.relevant(p, maxd)) return;
+    const int sp = im.shrink(p);
+    band(a + 12, y - sp, x + sp, x - sp, y0, x0, true, t_init, b_init);
+  });
 }
 
 // The edges from one seed's reduced band accumulators; false when a band failed.
@@ -424,9 +464,6 @@ struct Corner {
     xa = Right ? q.r : 0;
     xb = Right ? im.W - 1 : q.l;
   }
-  __device__ static bool contains(const Rect& q, int x, int y) {
-    return (Top ? y <= q.t : y >= q.b) && (Right ? x >= q.r : x <= q.l);
-  }
   __device__ static void pixel(int* v, int x, int y, int sp, int x0, int y0, const Edges& e,
                                int h_span, int w_span) {
     const int eh = Right ? e.r : e.l, ev = Top ? e.t : e.b;
@@ -446,18 +483,27 @@ struct Corner {
   }
 };
 
-// One seed's corner pass (K2).
+// One seed's corner sweep over its quadrant (clipped to the block's rows)
+// into v[3].
 template <bool Right, bool Top>
-__device__ bool corner_pass(const Image& im, const Rect& q, int x0, int y0, int maxd, Edges& e,
-                            int h_span, int w_span, Slots& sl) {
+__device__ void corner_sweep(const Image& im, const Rect& q, int x0, int y0, int maxd,
+                             const Edges& e, int h_span, int w_span, int* v) {
   using C = Corner<Right, Top>;
-  int v[3];
   C::init(v);
   int ya, yb, xa, xb;
   C::region(im, q, ya, yb, xa, xb);
   for_region(im, ya, yb, xa, xb, [&](int x, int y, int p) {
     if (im.relevant(p, maxd)) C::pixel(v, x, y, im.shrink(p), x0, y0, e, h_span, w_span);
   });
+}
+
+// One seed's corner pass (K2, K2c).
+template <bool Right, bool Top>
+__device__ bool corner_pass(const Image& im, const Rect& q, int x0, int y0, int maxd, Edges& e,
+                            int h_span, int w_span, Slots& sl) {
+  using C = Corner<Right, Top>;
+  int v[3];
+  corner_sweep<Right, Top>(im, q, x0, y0, maxd, e, h_span, w_span, v);
   block_reduce<3>(v, C::kMinMask, sl);
   return C::apply(v, e);
 }
@@ -524,31 +570,9 @@ __device__ void inflate_seed(const Image& im, const int* s, int* o, bool writer,
   expand(im, minpyr, q, sl);
   const int maxd = pass_b(im, q, sl);
 
-  // pass C: each band over its own region (the region bands_pixel's test
-  // selects for it), then one reduction
+  // pass C: each band over its own region, then one reduction
   int a[kBandValues];
-  bands_init(a);
-  const int t_init = im.edge_off, b_init = H - 1 - im.edge_off;
-  for_region(im, q.t, q.b, q.r, W - 1, [&](int x, int y, int p) {  // right
-    if (!im.relevant(p, maxd)) return;
-    const int sp = im.shrink(p);
-    band(a + 0, x - sp, y + sp, y - sp, x0, y0, true, t_init, b_init);
-  });
-  for_region(im, q.t, q.b, 0, q.l, [&](int x, int y, int p) {  // left
-    if (!im.relevant(p, maxd)) return;
-    const int sp = im.shrink(p);
-    band(a + 4, x + sp, y + sp, y - sp, x0, y0, false, t_init, b_init);
-  });
-  for_region(im, 0, q.t, q.l, q.r, [&](int x, int y, int p) {  // top
-    if (!im.relevant(p, maxd)) return;
-    const int sp = im.shrink(p);
-    band(a + 8, y + sp, x + sp, x - sp, y0, x0, false, t_init, b_init);
-  });
-  for_region(im, q.b, H - 1, q.l, q.r, [&](int x, int y, int p) {  // bottom
-    if (!im.relevant(p, maxd)) return;
-    const int sp = im.shrink(p);
-    band(a + 12, y - sp, x + sp, x - sp, y0, x0, true, t_init, b_init);
-  });
+  bands_sweep(im, q, maxd, x0, y0, a);
   block_reduce<kBandValues>(a, kBandMinMask, sl);
   Edges e;
   ok = band_edges(a, im, e);
@@ -666,8 +690,11 @@ inflate_cluster_kernel(const int* __restrict__ img_all, const int* __restrict__ 
   cg::this_cluster().sync();  // no block leaves while another may read its slots
 }
 
-// One seed of a K2g group, as the block's threads share it in shared memory
-// (thread 0 writes it between barriers).
+// --- K2g: a cluster of S blocks per group of S seeds ---
+
+// One seed of a K2g group, as every block of the cluster holds it: block
+// rank s publishes seed s's after its passes A, expand, B and C; the shared
+// corners then update every block's copy alike, from the same combined values.
 struct GroupSeed {
   int x0, y0, maxd, h_span, w_span;
   Rect q;
@@ -675,40 +702,74 @@ struct GroupSeed {
   bool live;
 };
 
-// One shared corner sweep of a group (K2g): the live seeds' quadrants, in
-// their bounding box; each pixel counts for the seeds whose quadrant holds it.
-template <bool Right, bool Top, int S>
-__device__ void group_corner(const Image& im, GroupSeed* gs, Slots& sl) {
-  using C = Corner<Right, Top>;
-  int ya = im.H, yb = -1, xa = im.W, xb = -1, maxd_hi = 0;
-  for (int s = 0; s < S; ++s) {
-    if (!gs[s].live) continue;
-    int y0, y1, x0, x1;
-    C::region(im, gs[s].q, y0, y1, x0, x1);
-    ya = min(ya, y0);
-    yb = max(yb, y1);
-    xa = min(xa, x0);
-    xb = max(xb, x1);
-    maxd_hi = max(maxd_hi, gs[s].maxd);
+// The dynamic shared memory of a K2g block (the cluster's blocks map one
+// another's at the same offsets): the warp slots (the own passes' reductions
+// in two turns of 16 values, a corner's kGroupValues partials), the blocks'
+// results of a combine in two turns, the combined values, the shrink table
+// and the group's seeds.
+struct GroupSmem {
+  static constexpr int kGroupValues = 3 * kMaxGroup;  // a corner of every seed
+  static constexpr int kRows = 2 * kBandValues > kGroupValues ? 2 * kBandValues : kGroupValues;
+  __host__ __device__ static constexpr int rows() { return 0; }
+  __host__ __device__ static constexpr int blocks() { return kRows * kWarps * 4; }
+  __host__ __device__ static constexpr int combined() {
+    return blocks() + 2 * kGroupValues * kMaxCluster * 4;
   }
-  int v[3 * S];
+  __host__ __device__ static constexpr int quot() { return combined() + kGroupValues * 4; }
+  __host__ __device__ static constexpr int seeds() { return quot() + kShrinkTable * 2; }
+  __host__ __device__ static constexpr int bytes() {
+    return seeds() + kMaxGroup * static_cast<int>(sizeof(GroupSeed));
+  }
+};
+
+struct GroupSlots {
+  int (*rows)[kWarps];  // [value][warp]: this block's warp partials
+  int (*blocks)[kMaxCluster];  // [turn * kGroupValues + value][rank]: the blocks' results
+  int* out;  // [value]: the combined values
+  int turn;
+};
+
+// This warp's reduction of each of the K values into rows[k][warp]: a min
+// where bit k % Period of min_mask is set, else a max.
+template <int K, int Period = K>
+__device__ __forceinline__ void warp_partials(const int* v, unsigned min_mask,
+                                              int (*rows)[kWarps]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int s = 0; s < S; ++s) C::init(v + 3 * s);
-  for_region(im, ya, yb, xa, xb, [&](int x, int y, int p) {
-    if (!im.relevant(p, maxd_hi)) return;
-    const int sp = im.shrink(p);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const GroupSeed& g = gs[s];
-      if (g.live && p < g.maxd && C::contains(g.q, x, y))
-        C::pixel(v + 3 * s, x, y, sp, g.x0, g.y0, g.e, g.h_span, g.w_span);
-    }
-  });
-  block_reduce<3 * S, 3>(v, C::kMinMask, sl);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      if (gs[s].live) gs[s].live = C::apply(v + 3 * s, gs[s].e);
+  for (int k = 0; k < K; ++k) {
+    const bool is_min = (min_mask >> (k % Period)) & 1u;
+    const int r = is_min ? __reduce_min_sync(0xffffffffu, v[k])
+                         : __reduce_max_sync(0xffffffffu, v[k]);
+    if (lane == 0) rows[k][warp] = r;
+  }
+}
+
+// Cluster-wide reduction of the n values whose warp partials are in
+// sl.rows (value k a min where bit k % period of min_mask is set): warp w
+// reduces values w, w + kWarps, ... over the block's warps and stores each
+// into slot [k][rank] of every block of the cluster; after the cluster
+// barrier it reduces the C blocks' results from its own shared memory into
+// sl.out. The block slots alternate between two turns: a block can run at
+// most one combine ahead of another, whose next cluster barrier holds it.
+__device__ void cluster_combine(GroupSlots& sl, int n, int period, unsigned min_mask, int C) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  int (*bs)[kMaxCluster] = sl.blocks + sl.turn * GroupSmem::kGroupValues;
+  sl.turn ^= 1;
+  __syncthreads();  // the partials are in
+  for (int k = warp; k < n; k += kWarps) {
+    const bool is_min = (min_mask >> (k % period)) & 1u;
+    const int w = sl.rows[k][lane % kWarps];
+    const int r = is_min ? __reduce_min_sync(0xffffffffu, w) : __reduce_max_sync(0xffffffffu, w);
+    if (lane < C) *cluster.map_shared_rank(&bs[k][rank], lane) = r;
+  }
+  cluster.sync();  // every block's results are in; the partials are read
+  for (int k = warp; k < n; k += kWarps) {
+    const bool is_min = (min_mask >> (k % period)) & 1u;
+    const int w = bs[k][lane % C];
+    const int r = is_min ? __reduce_min_sync(0xffffffffu, w) : __reduce_max_sync(0xffffffffu, w);
+    if (lane == 0) sl.out[k] = r;
   }
   __syncthreads();
 }
@@ -719,89 +780,96 @@ __device__ bool any_live(const GroupSeed* gs, int S) {
   return any;
 }
 
-// K2g: block (g, b) inflates seeds gS .. gS+S-1 of image b. img: (B, H, W)
-// int32; seeds: (B, G S, 12) int32; out: (B, G S, 8) int32, as K2.
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
-                       int* __restrict__ out, int H, int W) {
-  __shared__ int sh[2 * kBandValues * S][kWarps];
-  __shared__ GroupSeed gs[S];
-  __shared__ unsigned short quot[kShrinkTable];
-  Slots sl{sh, kBandValues * S, 0, 1, nullptr};
-  const int64_t row0 = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * S;
-  const Image im = image_of(img_all, seeds + row0 * 12, H, W, quot);
-  shrink_table(quot, im.numer);  // published by pass A's barrier
-
-  // passes A, expand and B, one seed after another
+// One corner of the group (pass D): the block sweeps its share (im.part of
+// im.parts) of each live seed's quadrant (K2's sweep); the seeds' warp
+// partials are combined over the cluster at once, and every block applies
+// the edges.
+template <bool Right, bool Top>
+__device__ void group_corner(const Image& im, GroupSeed* gs, int S, GroupSlots& sl) {
+  using C = Corner<Right, Top>;
   for (int s = 0; s < S; ++s) {
-    const int* r = seeds + (row0 + s) * 12;
-    Rect q{r[3], r[4], r[5], r[6]};
-    bool ok = r[7] != 0;
-    ok = ok && pass_a(im, r[2], q, sl);
-    int maxd = 0;
-    if (ok) {
-      expand(im, r[2], q, sl);
-      maxd = pass_b(im, q, sl);
-    }
-    if (threadIdx.x == 0)
-      gs[s] = GroupSeed{r[0], r[1], maxd, 0, 0, q, Edges{q.r, q.t, q.l, q.b}, ok};
+    const GroupSeed& g = gs[s];
+    if (!g.live) continue;
+    int v[3];
+    corner_sweep<Right, Top>(im, g.q, g.x0, g.y0, g.maxd, g.e, g.h_span, g.w_span, v);
+    warp_partials<3>(v, C::kMinMask, sl.rows + 3 * s);
+  }
+  cluster_combine(sl, 3 * S, 3, C::kMinMask, S);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s)
+      if (gs[s].live) gs[s].live = C::apply(sl.out + 3 * s, gs[s].e);
   }
   __syncthreads();
+}
 
-  if (any_live(gs, S)) {
-    // pass C: one sweep for every live seed
-    int a[kBandValues * S];
-    int maxd_hi = 0;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      bands_init(a + kBandValues * s);
-      if (gs[s].live) maxd_hi = max(maxd_hi, gs[s].maxd);
-    }
-    for_region(im, 0, H - 1, 0, W - 1, [&](int x, int y, int p) {
-      if (!im.relevant(p, maxd_hi)) return;
-      const int sp = im.shrink(p);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const GroupSeed& g = gs[s];
-        if (g.live && p < g.maxd) bands_pixel(a + kBandValues * s, im, x, y, sp, g.x0, g.y0, g.q);
-      }
-    });
-    block_reduce<kBandValues * S, kBandValues>(a, kBandMinMask, sl);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        GroupSeed& g = gs[s];
-        if (!g.live) continue;
-        g.live = band_edges(a + kBandValues * s, im, g.e);
-        g.h_span = max(g.e.b - g.e.t, 1);
-        g.w_span = max(g.e.r - g.e.l, 1);
-      }
-    }
-    __syncthreads();
+// K2g: cluster (g, b) of S blocks (grid (G S, B)) inflates seeds gS ..
+// gS+S-1 of image b. Block rank s runs seed gS+s's passes A, expand, B and
+// C alone over the whole image (K2's functions), then publishes it to every
+// block of the cluster; pass D is split over the cluster, block rank k
+// sweeping the row groups k, k + S, ... of every live seed's quadrants, each
+// corner combined over the cluster once. Rank s writes seed gS+s's row.
+// img: (B, H, W) int32; seeds: (B, G S, 12) int32; out: (B, G S, 8) int32,
+// as K2.
+// No minimum of blocks a SM in the bound: ptxas then takes 40 registers,
+// spilling five of the expansion's scalars, and three blocks fit a SM. With
+// __launch_bounds__(kThreads, 2) it took 59 and spilled nothing, and the
+// launch ran slower on an H100 at 1024 seeds (two blocks a SM).
+__global__ void __launch_bounds__(kThreads)
+inflate_grouped_kernel(const int* __restrict__ img_all, const int* __restrict__ seeds,
+                       int* __restrict__ out, int H, int W, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t row0 = (static_cast<int64_t>(blockIdx.y) * (gridDim.x / S) + blockIdx.x / S) * S;
+  const int* s = seeds + (row0 + rank) * 12;
+  unsigned short* quot = reinterpret_cast<unsigned short*>(smem + GroupSmem::quot());
+  GroupSeed* gs = reinterpret_cast<GroupSeed*>(smem + GroupSmem::seeds());
+  int (*rows)[kWarps] = reinterpret_cast<int(*)[kWarps]>(smem + GroupSmem::rows());
+  const Image whole = image_of(img_all, s, H, W, quot);
+  shrink_table(quot, whole.numer);
+  // publishes the table, and every block of the cluster runs before any
+  // block writes to another's shared memory
+  cluster.sync();
 
-    // pass D: the corners in K2's order, one shared sweep each
-    if (any_live(gs, S)) {
-      group_corner<true, true, S>(im, gs, sl);
-      group_corner<true, false, S>(im, gs, sl);
-      group_corner<false, true, S>(im, gs, sl);
-      group_corner<false, false, S>(im, gs, sl);
-    }
+  // passes A, expand, B and C of seed rank, this block alone (K2's code);
+  // a padded row (ok cleared) fails at once
+  Slots own{rows, kBandValues, 0, 1, nullptr};
+  Rect q{s[3], s[4], s[5], s[6]};
+  GroupSeed mine{s[0], s[1], 0, 0, 0, q, Edges{q.r, q.t, q.l, q.b}, s[7] != 0};
+  mine.live = mine.live && pass_a(whole, s[2], q, own);
+  if (mine.live) {
+    expand(whole, s[2], mine.q, own);
+    mine.maxd = pass_b(whole, mine.q, own);
+    int a[kBandValues];
+    bands_sweep(whole, mine.q, mine.maxd, mine.x0, mine.y0, a);
+    block_reduce<kBandValues>(a, kBandMinMask, own);
+    mine.live = band_edges(a, whole, mine.e);
+    mine.h_span = max(mine.e.b - mine.e.t, 1);
+    mine.w_span = max(mine.e.r - mine.e.l, 1);
+  }
+  if (threadIdx.x < S) *cluster.map_shared_rank(&gs[rank], static_cast<int>(threadIdx.x)) = mine;
+  cluster.sync();
+
+  // pass D, split over the cluster: the corners in K2's order, each seed's
+  // corner seeing the edges its previous corner left
+  if (any_live(gs, S)) {  // a group with no live seed ends
+    Image split = whole;  // this block's share of every region's rows
+    split.part = rank;
+    split.parts = S;
+    GroupSlots sl{rows, reinterpret_cast<int(*)[kMaxCluster]>(smem + GroupSmem::blocks()),
+                  reinterpret_cast<int*>(smem + GroupSmem::combined()), 0};
+    group_corner<true, true>(split, gs, S, sl);
+    group_corner<true, false>(split, gs, S, sl);
+    group_corner<false, true>(split, gs, S, sl);
+    group_corner<false, false>(split, gs, S, sl);
   }
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      const GroupSeed& g = gs[s];
-      write_row(out + (row0 + s) * 8, g.live && final_ok(g.e, g.x0, g.y0), g.maxd, g.e);
-    }
+    const GroupSeed& g = gs[rank];
+    write_row(out + (row0 + rank) * 8, g.live && final_ok(g.e, g.x0, g.y0), g.maxd, g.e);
   }
-}
-
-template <int S>
-int launch_grouped(const int* img, const int* seeds, int* out, int B, int G, int H, int W,
-                   cudaStream_t stream) {
-  inflate_grouped_kernel<S><<<dim3(G, B), kThreads, 0, stream>>>(img, seeds, out, H, W);
-  return static_cast<int>(cudaGetLastError());
+  // every store into another block's shared memory came before a cluster
+  // barrier that block waited at too, so a block may leave now
 }
 
 }  // namespace
@@ -845,18 +913,24 @@ extern "C" int inflate_max_group() { return kMaxGroup; }
 
 // img: (B, H, W) int32; seeds: (B, G S, 12) int32 (a ragged P padded to G S
 // with ok-cleared rows); out: (B, G S, 8) int32. 2 <= S <= kMaxGroup;
-// B, G >= 1; B <= 65535. One block per group of S seeds and image: grid (G, B).
+// B, G >= 1; B <= 65535. One cluster of S blocks per group of S seeds and
+// image: grid (G S, B). A cluster size the card refuses returns its error.
 extern "C" int inflate_grouped_launch(const int* img, const int* seeds, int* out, int B, int G,
                                       int S, int H, int W, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 2: return launch_grouped<2>(img, seeds, out, B, G, H, W, st);
-    case 3: return launch_grouped<3>(img, seeds, out, B, G, H, W, st);
-    case 4: return launch_grouped<4>(img, seeds, out, B, G, H, W, st);
-    case 5: return launch_grouped<5>(img, seeds, out, B, G, H, W, st);
-    case 6: return launch_grouped<6>(img, seeds, out, B, G, H, W, st);
-    case 7: return launch_grouped<7>(img, seeds, out, B, G, H, W, st);
-    case 8: return launch_grouped<8>(img, seeds, out, B, G, H, W, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (S < 2 || S > kMaxGroup) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G * S, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = GroupSmem::bytes();
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, inflate_grouped_kernel, img, seeds, out, H, W, S);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,32 +13,42 @@
 // (IEEE division and sqrt).
 //
 // Layout: one block per (16 x 32 pixel tile, vehicle), 600 blocks for one
-// 640 x 480 image: one wave at up to 8 resident blocks a SM. Its 256
-// threads are 8 warps of 2 image rows x 16 columns; a thread owns two
-// pixels, columns x and x + 16 of its row, so the block's fixed costs (the
-// camera, the culling) and each staged row's loads serve two pixels. The
-// block's primitive rows are staged in shared memory 256 at a time (10 KB),
-// and every thread tests the same row in lockstep, so the switch on the
-// row's kind is uniform across the warp, as Pallas's lax.switch is per tile.
-// A sphere or cylinder that the ray misses costs no square root or divide.
+// 640 x 480 image. Its 256 threads are 8 warps of 2 image rows x 16
+// columns; a thread owns two pixels, columns x and x + 16 of its row, so the
+// block's fixed costs (the camera, the culling) and each staged row's loads
+// serve two pixels. Every thread tests the same row in lockstep.
+//
+// What is shared is computed once: a block stages its rows 256 at a time in
+// shared memory (16 KB) in their camera-relative form (prepare_row: the
+// offset camera - p0, a sphere's or cylinder's cc, a triangle's
+// qv = tv x e1 and qv . e2), thread i preparing row i, and sorted by kind
+// (stage_rows), so each kind has its own loop and no row pays a switch;
+// kind 0 rows, which give BIG, are left out. A thread computes its pixels'
+// own terms (4a, 2a, 4ca, 2ca) once. Per pixel and row a sphere or cylinder
+// then costs ~10 float operations to its miss test, a triangle its edge
+// vector products, det, the divide and u before its first reject. A miss
+// costs no square root, divide or min, nor does a triangle with
+// |det| < 1e-12. meshscene.render_depth_window_prepared mirrors these
+// operations (in window order: the min over the rows does not depend on it).
 //
 // K4 does the strip culling itself (one launch from the frame's window, no
 // strips table in device memory): for each chunk of the window, thread i
 // computes row i's bounding sphere and camera-frame centre and tests it
-// against its strip's five halfspaces; the passing rows are compacted into
-// shared memory in window order by warp ballots and a prefix count over the
-// warps, and the block renders only them. Every block of a strip repeats
-// the strip's culling, at most one window row a thread.
+// against its strip's five halfspaces; the passing rows are staged as
+// above, each prepared by the thread that culled it, and the block renders
+// only them. Every block of a strip repeats the strip's culling, at most
+// one window row a thread. K4w tests every window row against every pixel.
 // `nvis`, where it is not null, receives each strip's count of passing rows
 // (strip_windows' n_vis).
 //
-// What bounds it on the card: arithmetic. A pixel reads 7 camera scalars
-// and its rows from shared memory and writes one int32, but runs ~40-60
-// float operations per row (sphere, z-cylinder, Moller-Trumbore triangle)
-// over n_vis rows (a few to a few tens after strip culling); every
-// intermediate stays in registers. The world-from-camera matrix is built in
-// the kernel from the camera quaternion (rotation.py::to_matrix's
-// operations), so the wrapper launches nothing before the kernel.
+// What bounds it on the card: the instructions it issues. A pixel reads 7
+// camera scalars and its rows from shared memory and writes one int32, but
+// runs ~10-35 float operations per row (sphere, z-cylinder,
+// Moller-Trumbore triangle) over n_vis rows (K4: a few to a few tens after
+// strip culling; K4w: the whole window); every intermediate stays in
+// registers. The world-from-camera matrix is built in the kernel from the
+// camera quaternion (rotation.py::to_matrix's operations), so the wrapper
+// launches nothing before the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,56 +92,110 @@ __device__ __forceinline__ Camera camera_of(const float* __restrict__ cam_pos,
                  2.0f * (x * z - w * y), 2.0f * (y * z + w * x), r0 - r1 - r2 + r3}};
 }
 
-// A miss (disc < 0, or NaN) returns BIG before the square root and the
-// divides, and the far root only where the near one is not ahead: the
-// plain version computes all and selects, with the same result.
-__device__ __forceinline__ float sphere_hit(const Camera& c, const Dir& d, const float* p) {
-  float ox = c.x - p[0], oy = c.y - p[1], oz = c.z - p[2];
-  float a = d.x * d.x + d.y * d.y + d.z * d.z;
-  float bq = 2.0f * (ox * d.x + oy * d.y + oz * d.z);
-  float cc = ox * ox + oy * oy + oz * oz - p[3] * p[3];
-  float disc = bq * bq - 4.0f * a * cc;
-  if (!(disc >= 0.0f)) return kBig;
-  float sq = sqrtf(disc);
-  float t0 = (-bq - sq) / (2.0f * a);
-  if (t0 > 0.0f) return t0;
-  float t1 = (-bq + sq) / (2.0f * a);
-  return t1 > 0.0f ? t1 : kBig;
+// A window row in its camera-relative form, as a block stages it in shared
+// memory: the terms of the plain version's _hit that depend only on the row
+// and the camera, in its float32 operations (meshscene.prepare_rows), so
+// that per pixel and row only the work left by kind remains. With
+// o = camera - p[0:3]:
+//   sphere    q[0] = (ox, oy, oz, ox*ox + oy*oy + oz*oz - r*r)
+//   cylinder  q[0] = (ox, oy, ox*ox + oy*oy - r*r, z0), q[1].x = z1
+//   triangle  q[0] = (tv = o, qv . e2), q[1] = (qv = tv x e1, e1.x),
+//             q[2] = (e1.y, e1.z, e2.x, e2.y), q[3].x = e2.z
+constexpr int kQuads = 4;  // float4s per prepared row
+
+__device__ __forceinline__ int row_kind(const float* q) {
+  return min(max(static_cast<int>(q[0]), 0), 3);
 }
 
-// z-axis cylinder (cx, cy, z0, z1, r)
-__device__ __forceinline__ float cylinder_hit(const Camera& c, const Dir& d, const float* p) {
-  float ox = c.x - p[0], oy = c.y - p[1];
-  float ca = d.x * d.x + d.y * d.y;
-  float cb = 2.0f * (ox * d.x + oy * d.y);
-  float cc = ox * ox + oy * oy - p[4] * p[4];
-  float disc = cb * cb - 4.0f * ca * cc;
-  if (!(disc >= 0.0f && ca > 1e-12f)) return kBig;
-  float sq = sqrtf(disc);
-  float tc = (-cb - sq) / (2.0f * ca);
-  if (!(tc > 0.0f)) tc = (-cb + sq) / (2.0f * ca);
-  float z = c.z + tc * d.z;
-  return (tc > 0.0f && z >= p[2] && z <= p[3]) ? tc : kBig;
+// Row q (kind, p0..p8) of kind `kind` (row_kind) prepared for camera c into dst.
+__device__ __forceinline__ void prepare_row(const float* q, int kind, const Camera& c,
+                                            float4* dst) {
+  const float* p = q + 1;
+  const float ox = c.x - p[0], oy = c.y - p[1], oz = c.z - p[2];
+  if (kind == 1) {
+    dst[0] = make_float4(ox, oy, oz, ox * ox + oy * oy + oz * oz - p[3] * p[3]);
+  } else if (kind == 2) {
+    dst[0] = make_float4(ox, oy, ox * ox + oy * oy - p[4] * p[4], p[2]);
+    dst[1].x = p[3];
+  } else if (kind == 3) {
+    const float qvx = oy * p[5] - oz * p[4];
+    const float qvy = oz * p[3] - ox * p[5];
+    const float qvz = ox * p[4] - oy * p[3];
+    dst[0] = make_float4(ox, oy, oz, qvx * p[6] + qvy * p[7] + qvz * p[8]);
+    dst[1] = make_float4(qvx, qvy, qvz, p[3]);
+    dst[2] = make_float4(p[4], p[5], p[6], p[7]);
+    dst[3].x = p[8];
+  }
 }
 
-// Moller-Trumbore with v0 = p[0:3], e1 = p[3:6], e2 = p[6:9]
-__device__ __forceinline__ float triangle_hit(const Camera& c, const Dir& d, const float* p) {
-  float e1x = p[3], e1y = p[4], e1z = p[5];
-  float e2x = p[6], e2y = p[7], e2z = p[8];
-  float pvx = d.y * e2z - d.z * e2y;
-  float pvy = d.z * e2x - d.x * e2z;
-  float pvz = d.x * e2y - d.y * e2x;
+// One pixel's ray and its own terms of _hit: ca = dx*dx + dy*dy; a = ca +
+// dz*dz equals _hit's dx*dx + dy*dy + dz*dz bit for bit (summed left to
+// right), and `4 * a * cc` groups as (4 a) cc.
+struct Ray {
+  float dx, dy, dz;
+  float a4, a2;  // 4 a, 2 a
+  float ca4, ca2;  // 4 ca, 2 ca
+  bool vertical;  // ca <= 1e-12: the cylinder test fails
+};
+
+__device__ __forceinline__ Ray ray_of(const Dir& d) {
+  const float ca = d.x * d.x + d.y * d.y;
+  const float a = ca + d.z * d.z;
+  return Ray{d.x, d.y, d.z, 4.0f * a, 2.0f * a, 4.0f * ca, 2.0f * ca, !(ca > 1e-12f)};
+}
+
+// Each hit test lowers `best` where the ray hits nearer; a miss (disc < 0,
+// or NaN) returns before the square root, the divides and the min, and the
+// far root is taken only where the near one is not ahead: the plain version
+// computes all, selects, and takes the min with BIG, with the same result.
+__device__ __forceinline__ void sphere_hit(const float4& s, const Ray& r, float& best) {
+  float bq = 2.0f * (s.x * r.dx + s.y * r.dy + s.z * r.dz);
+  float disc = bq * bq - r.a4 * s.w;
+  if (!(disc >= 0.0f)) return;
+  float sq = sqrtf(disc);
+  float t0 = (-bq - sq) / r.a2;
+  if (t0 > 0.0f) {
+    best = fminf(best, t0);
+    return;
+  }
+  float t1 = (-bq + sq) / r.a2;
+  if (t1 > 0.0f) best = fminf(best, t1);
+}
+
+// z-axis cylinder: s = (ox, oy, cc, z0), z1; cz the camera's height
+__device__ __forceinline__ void cylinder_hit(const float4& s, float z1, float cz, const Ray& r,
+                                             float& best) {
+  if (r.vertical) return;
+  float cb = 2.0f * (s.x * r.dx + s.y * r.dy);
+  float disc = cb * cb - r.ca4 * s.z;
+  if (!(disc >= 0.0f)) return;
+  float sq = sqrtf(disc);
+  float tc = (-cb - sq) / r.ca2;
+  if (!(tc > 0.0f)) tc = (-cb + sq) / r.ca2;
+  float z = cz + tc * r.dz;
+  if (tc > 0.0f && z >= s.w && z <= z1) best = fminf(best, tc);
+}
+
+// Moller-Trumbore from the prepared row q[0..3]. Every return is one of the
+// plain version's conditions on a value computed as it computes it (det,
+// u, v, t), so the rejects are exact; |det| < 1e-12 skips the divide, where
+// the plain version divides by 1 and fails `ok`.
+__device__ __forceinline__ void triangle_hit(const float4* q, const Ray& r, float& best) {
+  const float4 q0 = q[0], q1 = q[1], q2 = q[2];
+  const float e1x = q1.w, e1y = q2.x, e1z = q2.y;
+  const float e2x = q2.z, e2y = q2.w, e2z = q[3].x;
+  float pvx = r.dy * e2z - r.dz * e2y;
+  float pvy = r.dz * e2x - r.dx * e2z;
+  float pvz = r.dx * e2y - r.dy * e2x;
   float det = pvx * e1x + pvy * e1y + pvz * e1z;
-  float inv_det = 1.0f / (fabsf(det) < 1e-12f ? 1.0f : det);
-  float tvx = c.x - p[0], tvy = c.y - p[1], tvz = c.z - p[2];
-  float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  float qvx = tvy * e1z - tvz * e1y;
-  float qvy = tvz * e1x - tvx * e1z;
-  float qvz = tvx * e1y - tvy * e1x;
-  float v = (qvx * d.x + qvy * d.y + qvz * d.z) * inv_det;
-  float tt = (qvx * e2x + qvy * e2y + qvz * e2z) * inv_det;
-  bool ok = fabsf(det) >= 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && tt > 0.0f;
-  return ok ? tt : kBig;
+  if (!(fabsf(det) >= 1e-12f)) return;
+  float inv_det = 1.0f / det;
+  float u = (q0.x * pvx + q0.y * pvy + q0.z * pvz) * inv_det;
+  if (!(u >= 0.0f)) return;
+  float v = (q1.x * r.dx + q1.y * r.dy + q1.z * r.dz) * inv_det;
+  if (!(v >= 0.0f && u + v <= 1.0f)) return;
+  float tt = q0.w * inv_det;
+  if (tt > 0.0f) best = fminf(best, tt);
 }
 
 __device__ __forceinline__ float norm3(float x, float y, float z) {
@@ -179,11 +243,12 @@ __device__ __forceinline__ bool strip_visible(const float* q, const Camera& c, f
 }
 
 // This thread's two pixels of tile (strip t, column tile tx), columns x
-// and x + 16 of row y: the camera, the two rays and their ground-plane t.
+// and x + 16 of row y: the camera, the two rays with their own terms, and
+// their ground-plane t.
 struct Pixels {
   int x, y;
   Camera c;
-  Dir d[2];
+  Ray r[2];
   float best[2];
 };
 
@@ -197,6 +262,7 @@ __device__ __forceinline__ Pixels pixels_of(const float* __restrict__ cam_pos,
   px.c = camera_of(cam_pos, cam_att, b);
   const float* R = px.c.R;
   float row = (static_cast<float>(px.y) - static_cast<float>(H) * 0.5f) / focal;
+#pragma unroll
   for (int j = 0; j < 2; ++j) {
     float col = (static_cast<float>(px.x + j * kHalfW) - static_cast<float>(W) * 0.5f) / focal;
     Dir d{R[0] * col + R[1] * row + R[2], R[3] * col + R[4] * row + R[5],
@@ -204,34 +270,82 @@ __device__ __forceinline__ Pixels pixels_of(const float* __restrict__ cam_pos,
     // ground plane z = 0
     float dz_safe = fabsf(d.z) < 1e-9f ? 1e-9f : d.z;
     float t_ground = -px.c.z / dz_safe;
-    px.d[j] = d;
+    px.r[j] = ray_of(d);
     px.best[j] = (t_ground > 0.0f && d.z != 0.0f) ? t_ground : kBig;
   }
   return px;
 }
 
-__device__ __forceinline__ float row_hit(int kind, const Camera& c, const Dir& d,
-                                         const float* p) {
-  switch (kind) {
-    case 1: return sphere_hit(c, d, p);
-    case 2: return cylinder_hit(c, d, p);
-    case 3: return triangle_hit(c, d, p);
-    default: return kBig;
+// A chunk's rows as the block stages them: prepared, sorted by kind
+// (spheres, then cylinders, then triangles; window order within a kind),
+// kind 0 rows left out (their test gives BIG for every pixel). The min over
+// the rows does not depend on their order, so the codes stay the plain
+// version's. n[k - 1] is the count of kind k.
+struct Staged {
+  int n[3];
+};
+
+// Stages this thread's row q of kind `kind` (0: none) for camera c, at most
+// one row a thread: warp ballots and a prefix count over the warps give
+// each row its slot. Every thread of the block calls it; on return the
+// rows are in shared memory.
+__device__ __forceinline__ Staged stage_rows(const float* q, int kind, const Camera& c,
+                                             float4 (*srow)[kQuads], int (*warp_rows)[kWarps]) {
+  const int tid = static_cast<int>(threadIdx.x), warp = tid >> 5, lane = tid & 31;
+  unsigned ballot[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) ballot[k] = __ballot_sync(0xffffffffu, kind == k + 1);
+  __syncthreads();  // the previous chunk is consumed
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) warp_rows[k][warp] = __popc(ballot[k]);
   }
+  __syncthreads();
+  Staged st{{0, 0, 0}};
+  int at[3] = {0, 0, 0};
+  for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      at[k] += w < warp ? warp_rows[k][w] : 0;
+      st.n[k] += warp_rows[k][w];
+    }
+  }
+  if (kind > 0) {
+    const unsigned below = (1u << lane) - 1u;
+    int i = kind == 1 ? at[0] + __popc(ballot[0] & below)
+          : kind == 2 ? st.n[0] + at[1] + __popc(ballot[1] & below)
+                      : st.n[0] + st.n[1] + at[2] + __popc(ballot[2] & below);
+    prepare_row(q, kind, c, srow[i]);
+  }
+  __syncthreads();
+  return st;
 }
 
-// both pixels' best over the n staged rows (n is the same for the whole block)
-__device__ __forceinline__ void render_rows(const float* srow, int n, Pixels& px) {
-  for (int i = 0; i < n; ++i) {
-    const float* q = srow + i * kRowWidth;
-    int kind = min(max(static_cast<int>(q[0]), 0), 3);
-    px.best[0] = fminf(px.best[0], row_hit(kind, px.c, px.d[0], q + 1));
-    px.best[1] = fminf(px.best[1], row_hit(kind, px.c, px.d[1], q + 1));
+// both pixels' best over the staged rows, one loop per kind (the same for
+// every thread of the block: no switch per row)
+__device__ __forceinline__ void render_rows(float4 (*srow)[kQuads], const Staged& st,
+                                            Pixels& px) {
+  const int ns = st.n[0], nc = ns + st.n[1], nt = nc + st.n[2];
+  for (int i = 0; i < ns; ++i) {
+    const float4 s = srow[i][0];
+    sphere_hit(s, px.r[0], px.best[0]);
+    sphere_hit(s, px.r[1], px.best[1]);
+  }
+  for (int i = ns; i < nc; ++i) {
+    const float4 s = srow[i][0];
+    const float z1 = srow[i][1].x;
+    cylinder_hit(s, z1, px.c.z, px.r[0], px.best[0]);
+    cylinder_hit(s, z1, px.c.z, px.r[1], px.best[1]);
+  }
+  for (int i = nc; i < nt; ++i) {
+    triangle_hit(srow[i], px.r[0], px.best[0]);
+    triangle_hit(srow[i], px.r[1], px.best[1]);
   }
 }
 
 __device__ __forceinline__ void write_codes(int* __restrict__ out, const Pixels& px, int b,
                                             int H, int W, float scale) {
+#pragma unroll
   for (int j = 0; j < 2; ++j) {
     int x = px.x + j * kHalfW;
     if (x < W) {
@@ -247,13 +361,13 @@ meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restri
                         const float* __restrict__ windows, int* __restrict__ out,
                         int* __restrict__ nvis, int T, int K, int H, int W, float focal,
                         float scale, Frustum f) {
-  __shared__ float srow[kChunk * kRowWidth];
-  __shared__ int warp_rows[kWarps];
+  __shared__ float4 srow[kChunk][kQuads];
+  __shared__ int warp_rows[3][kWarps];
   int ntx = (W + kTileW - 1) / kTileW;
   int t = static_cast<int>(blockIdx.x) / ntx;
   int tx = static_cast<int>(blockIdx.x) % ntx;
   int b = static_cast<int>(blockIdx.y);
-  int tid = static_cast<int>(threadIdx.x), warp = tid >> 5, lane = tid & 31;
+  int tid = static_cast<int>(threadIdx.x);
   Pixels px = pixels_of(cam_pos, cam_att, b, t, tx, H, W, focal);
 
   // strip t's vertical halfspaces (strip_windows' ey_min, ey_max, sy_min, sy_max)
@@ -271,22 +385,10 @@ meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restri
     int m = min(kChunk, K - base);
     const float* q = win + static_cast<int64_t>(base + tid) * kRowWidth;
     bool vis = tid < m && strip_visible(q, px.c, ey_min, ey_max, sy_min, sy_max, f);
-    unsigned ballot = __ballot_sync(0xffffffffu, vis);
-    __syncthreads();  // the previous chunk is consumed
-    if (lane == 0) warp_rows[warp] = __popc(ballot);
-    __syncthreads();
-    int at = 0, n = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < warp ? warp_rows[w] : 0;
-      n += warp_rows[w];
-    }
-    if (vis) {
-      float* dst = srow + (at + __popc(ballot & ((1u << lane) - 1u))) * kRowWidth;
-      for (int k = 0; k < kRowWidth; ++k) dst[k] = q[k];
-    }
-    __syncthreads();
-    render_rows(srow, n, px);
-    total += n;
+    // the culling thread stages its row if it passes
+    Staged st = stage_rows(q, vis ? row_kind(q) : 0, px.c, srow, warp_rows);
+    render_rows(srow, st, px);
+    if (nvis != nullptr) total += __syncthreads_count(vis);
   }
   if (nvis != nullptr && tx == 0 && tid == 0) nvis[static_cast<int64_t>(b) * T + t] = total;
   write_codes(out, px, b, H, W, scale);
@@ -297,7 +399,8 @@ __global__ void __launch_bounds__(kThreads)
 meshscene_window_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
                         const float* __restrict__ windows, int* __restrict__ out, int K, int H,
                         int W, float focal, float scale) {
-  __shared__ float srow[kChunk * kRowWidth];
+  __shared__ float4 srow[kChunk][kQuads];
+  __shared__ int warp_rows[3][kWarps];
   int ntx = (W + kTileW - 1) / kTileW;
   int t = static_cast<int>(blockIdx.x) / ntx;
   int tx = static_cast<int>(blockIdx.x) % ntx;
@@ -307,12 +410,10 @@ meshscene_window_kernel(const float* __restrict__ cam_pos, const float* __restri
   const float* win = windows + static_cast<int64_t>(b) * K * kRowWidth;
   for (int base = 0; base < K; base += kChunk) {
     int m = min(kChunk, K - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < m * kRowWidth; i += kThreads) {
-      srow[i] = win[static_cast<int64_t>(base) * kRowWidth + i];
-    }
-    __syncthreads();
-    render_rows(srow, m, px);
+    const float* q = win + static_cast<int64_t>(base + tid) * kRowWidth;
+    // thread i stages row i of the chunk
+    Staged st = stage_rows(q, tid < m ? row_kind(q) : 0, px.c, srow, warp_rows);
+    render_rows(srow, st, px);
   }
   write_codes(out, px, b, H, W, scale);
 }

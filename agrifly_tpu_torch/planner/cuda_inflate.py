@@ -4,9 +4,10 @@ Port of `agrifly_tpu/planner/pallas_inflate.py`, batched over images as
 `jax.vmap` batches it over a fleet's vehicles. With one seed per program
 (the JAX package's default, `DEFAULT_SEEDS_PER_PROGRAM = 1`) P seeds on
 each of B images are one launch of B x P blocks (K2); with
-`seeds_per_program=S > 1` they are one launch of B x ceil(P/S) blocks of S
-seeds each (K2g), the seed rows padded to a multiple of S. The prologue
-(seed validity, initial rectangle, thresholds) stays in float32 torch,
+`seeds_per_program=S > 1` they are one launch of B x ceil(P/S) clusters of
+S blocks (K2g: a block per seed for its passes A to C, the group's corner
+sweeps split over the cluster), the seed rows padded to a multiple of S.
+The prologue (seed validity, initial rectangle, thresholds) stays in float32 torch,
 `rappids.seed_setup`, shared with the plain version; the kernels
 (`csrc/inflate.cu`) run the integer passes. Both give K2's results, seed
 for seed. On CPU tensors `inflate_pyramids` runs the plain version,
@@ -24,7 +25,7 @@ from agrifly_tpu_torch import cuda_build
 from agrifly_tpu_torch.planner import rappids
 
 DEFAULT_SEEDS_PER_PROGRAM = 1
-MAX_SEEDS_PER_PROGRAM = 8  # the largest K2g instance csrc/inflate.cu compiles (kMaxGroup)
+MAX_SEEDS_PER_PROGRAM = 8  # the largest K2g instance csrc/inflate.cu compiles (kMaxGroup, a cluster)
 CLUSTER_SIZES = (2, 4, 8)  # the K2c cluster sizes csrc/inflate.cu takes (kMaxCluster = 8)
 MAX_SLAB_BYTES = 200 * 1024  # the largest row slab a K2c block stages (kMaxSlabBytes)
 # K2c's grid at most this many blocks a SM: on an H100 K2c beat K2 at 80-160
@@ -94,7 +95,8 @@ def _launch(img: torch.Tensor, seeds: torch.Tensor, cluster: int | None = None) 
 
 def _launch_grouped(img: torch.Tensor, seeds: torch.Tensor, S: int) -> torch.Tensor:
     """One K2g launch for contiguous images (*L, H, W) int32 and seed rows
-    (*L, G*S, 12) int32, S seeds per block; returns (*L, G*S, 8) int32."""
+    (*L, G*S, 12) int32, a cluster of S blocks per group of S seeds; returns
+    (*L, G*S, 8) int32. Raises where the card refuses the launch."""
     H, W = img.shape[-2:]
     B = img.numel() // (H * W)
     out = _out_for(img, seeds)
@@ -141,7 +143,7 @@ def _seeds_per_program(seeds_per_program) -> int:
         raise ValueError(f"seeds_per_program must be an int >= 1, got {S!r}")
     if S > MAX_SEEDS_PER_PROGRAM:
         raise ValueError(f"seeds_per_program={S} is above the largest compiled grouped kernel, "
-                         f"{MAX_SEEDS_PER_PROGRAM} seeds per block")
+                         f"{MAX_SEEDS_PER_PROGRAM} seeds (one cluster of as many blocks)")
     return S
 
 
@@ -153,7 +155,7 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
     Same contract as `rappids.inflate_pyramid`: returns (ok (*L, P) bool,
     maxd (*L, P) int32, edges (*L, P, 4) int32 [right, top, left, bottom]),
     bit-identical to it wherever ok. seeds_per_program S (None: 1) picks
-    the kernel: K2 (or K2c) for S = 1, K2g with S seeds per block for 1 < S <=
+    the kernel: K2 (or K2c) for S = 1, K2g with S seeds per cluster for 1 < S <=
     MAX_SEEDS_PER_PROGRAM. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version for any S."""
     S = _seeds_per_program(seeds_per_program)

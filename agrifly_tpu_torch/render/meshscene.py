@@ -400,6 +400,103 @@ def render_depth_window(cfg: RenderConfig, window, cam_pos, cam_att):
     return _code(cfg, best)
 
 
+def prepare_rows(window, cam_pos):
+    """The window's rows in their camera-relative form, as the mesh kernels
+    stage them: the terms of `_hit` that depend only on the row and the
+    camera, in `_hit`'s float32 operations. window (..., K, ROW_WIDTH),
+    cam_pos (..., 3). Returns the clamped kind (..., K) int32 and, each
+    (..., K): o = camera - p[0:3] (a sphere's and a cylinder's offset, a
+    triangle's tv), the sphere's and the cylinder's cc, the triangle's
+    qv = tv x e1 and qv . e2 (the numerator of its t)."""
+    kind = window[..., 0].to(torch.int32).clamp(0, 3)
+    p = [window[..., 1 + k] for k in range(9)]
+    cx, cy, cz = (cam_pos[..., i, None] for i in range(3))
+    ox, oy, oz = cx - p[0], cy - p[1], cz - p[2]
+    cc_sphere = ox * ox + oy * oy + oz * oz - p[3] * p[3]
+    cc_cyl = ox * ox + oy * oy - p[4] * p[4]
+    qvx = oy * p[5] - oz * p[4]
+    qvy = oz * p[3] - ox * p[5]
+    qvz = ox * p[4] - oy * p[3]
+    qe2 = qvx * p[6] + qvy * p[7] + qvz * p[8]
+    return kind, dict(o=(ox, oy, oz), cc_sphere=cc_sphere, cc_cyl=cc_cyl, qv=(qvx, qvy, qvz),
+                      qe2=qe2, z=(p[2], p[3]), e1=tuple(p[3:6]), e2=tuple(p[6:9]))
+
+
+def _hit_prepared(kind, row, cz, dirs, pix):
+    """`_hit` from a prepared row (one entry of prepare_rows, its values
+    broadcastable against the rays) and the pixels' own terms `pix`
+    (ca, 4a, 2a, 4ca, 2ca of _pixel_terms): the same float32 values."""
+    dx, dy, dz = dirs
+    ca, a4, a2, ca4, ca2 = pix
+    ox, oy, oz = row["o"]
+
+    bq = 2.0 * (ox * dx + oy * dy + oz * dz)
+    disc = bq * bq - a4 * row["cc_sphere"]
+    sq = sqrt(torch.clamp(disc, min=0.0))
+    t0 = (-bq - sq) / a2
+    t1 = (-bq + sq) / a2
+    ts = torch.where(t0 > 0, t0, t1)
+    t_sphere = torch.where((disc >= 0) & (ts > 0), ts, BIG)
+
+    cb = 2.0 * (ox * dx + oy * dy)
+    disc = cb * cb - ca4 * row["cc_cyl"]
+    sq = sqrt(torch.clamp(disc, min=0.0))
+    ca2_safe = torch.where(ca > 1e-12, ca2, 2.0)
+    t0 = (-cb - sq) / ca2_safe
+    t1 = (-cb + sq) / ca2_safe
+    tc = torch.where(t0 > 0, t0, t1)
+    z = cz + tc * dz
+    z0, z1 = row["z"]
+    ok = (disc >= 0) & (ca > 1e-12) & (tc > 0) & (z >= z0) & (z <= z1)
+    t_cyl = torch.where(ok, tc, BIG)
+
+    e1x, e1y, e1z = row["e1"]
+    e2x, e2y, e2z = row["e2"]
+    qvx, qvy, qvz = row["qv"]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = pvx * e1x + pvy * e1y + pvz * e1z
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
+    u = (ox * pvx + oy * pvy + oz * pvz) * inv_det
+    v = (qvx * dx + qvy * dy + qvz * dz) * inv_det
+    tt = row["qe2"] * inv_det
+    ok = (torch.abs(det) >= 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (tt > 0)
+    t_tri = torch.where(ok, tt, BIG)
+
+    return torch.where(kind == 1, t_sphere, torch.where(
+        kind == 2, t_cyl, torch.where(kind == 3, t_tri, BIG)))
+
+
+def _pixel_terms(dirs):
+    """The terms of `_hit` that depend only on the pixel: ca = dx^2 + dy^2,
+    then 4a, 2a, 4ca and 2ca, where a = ca + dz^2 equals _hit's
+    dx^2 + dy^2 + dz^2 bit for bit (summed left to right) and `4 * a * cc`
+    groups as (4 a) cc."""
+    dx, dy, dz = dirs
+    ca = dx * dx + dy * dy
+    a = ca + dz * dz
+    return ca, 4.0 * a, 2.0 * a, 4.0 * ca, 2.0 * ca
+
+
+def render_depth_window_prepared(cfg: RenderConfig, window, cam_pos, cam_att):
+    """render_depth_window in the mesh kernels' operation order since their
+    redesign: each row prepared once per camera (prepare_rows), each pixel's
+    own terms once (_pixel_terms), then per pixel and row only what is left.
+    The same codes as render_depth_window, bit for bit; the tests hold the
+    kernels' order to it, the frame does not call it."""
+    dirs, best = _rays(cfg, cam_pos, cam_att)
+    pix = _pixel_terms(dirs)
+    kind, prep = prepare_rows(window, cam_pos)
+    at = lambda v, k: v[..., k, None, None]  # noqa: E731  (..., K) -> (..., 1, 1)
+    cz = cam_pos[..., 2, None, None]
+    for k in range(window.shape[-2]):
+        row = {name: tuple(at(x, k) for x in v) if isinstance(v, tuple) else at(v, k)
+               for name, v in prep.items()}
+        best = torch.minimum(best, _hit_prepared(at(kind, k), row, cz, dirs, pix))
+    return _code(cfg, best)
+
+
 def render_strips(cfg: RenderConfig, strips, cam_pos, cam_att):
     """Depth codes from per-strip tables (see strip_windows): the plain
     version of the strip-culled kernel (K4). strips (..., T, K,

@@ -14,18 +14,18 @@ their cells, with the cells its early exit evaluates equal to its plain
 mirror's), the two imported-world (mesh) raycasters, strip-culled and
 window, bit for bit and against each other (a baked orchard and a scene of
 spheres, cylinders and OBJ triangles; 1 and 16 cameras in one launch; the
-strip-culled kernel's per-strip row counts equal to `strip_windows`'), the
-pyramid inflation bit for bit (one image, and 16 fleet images in one
+strip-culled kernel's per-strip row counts equal to `strip_windows`'; a
+window of edge-case rows), the pyramid inflation bit for bit (one image, and 16 fleet images in one
 launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
 (then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
 clock64() timers around the tick chain's sections, in a variant of
 `csrc/frame.cu` built beside the kernels). The grouped
-inflation kernel (K2g, S = 2, 4, 8 seeds per block) is held bit for bit
-against the one-seed kernel and the plain version on the endpoint seeds of
-the RAPPIDS evaluation harnesses (128 and 1024 candidates on four orchard
-views at 640x480), ragged, on a blocker-free scene and batched, and timed
-against K2. It then runs the evaluation path on those views
+inflation kernel (K2g, a cluster of S blocks per S seeds) is held bit for
+bit against the one-seed kernel and the plain version on the endpoint seeds
+of the RAPPIDS evaluation harnesses (128 candidates on four orchard views at
+640x480, every S = 2 .. 8; 1024 candidates, S = 2, 4, 8), ragged, on a
+blocker-free scene and batched, and timed against K2 at S = 2, 4, 8. It then runs the evaluation path on those views
 (`measure_conservativeness`, `measure_plan_conservativeness`,
 `measure_collision_checking_speed`, `find_fastest_trajectory`) and checks
 that no candidate the pyramid check frees collides by the ray-sphere
@@ -76,7 +76,7 @@ KERNELS = ("raycast", "inflate", "frame", "meshscene")  # one library per csrc/<
 DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_cluster_kernel",
                   "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel")
-GROUPS = (2, 4, 8)  # the K2g instances held and timed (seeds per block)
+GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
 # attitude at these positions; the harnesses' start state and goal.
 EVAL_POSES = ((5.0, 0.0, 2.5), (12.0, 1.5, 2.0), (20.0, -1.0, 3.0), (30.0, 0.5, 1.5))
@@ -94,11 +94,17 @@ RAY_OPS_PER_CELL = 150  # csrc/raycast.cu tree_hit: 5 hashes, cylinder, 2 sphere
 RAY_OPS_PER_PIXEL = 40  # ray set-up, ground plane, DDA set-up, code
 INFLATE_OPS_PER_PIXEL = 8  # csrc/inflate.cu pass C: one shrink divide, 4 band tests
 TICK_OPS = 20000  # csrc/frame.cu sim_tick, float operations per vehicle and tick
-# csrc/meshscene.cu: per pixel (ray, ground plane, code), and per pixel and
-# primitive row by kind (none, sphere, cylinder, triangle; loop and switch
-# included)
-MESH_OPS_PER_PIXEL = 32
-MESH_ROW_OPS = (6, 47, 50, 66)
+# csrc/meshscene.cu, each term counted where the inputs need it: per pixel
+# (its ray; a = ca + dz^2 and 4a, 2a, 4ca, 2ca; the ground plane; the code);
+# per window row and vehicle, by kind (none, sphere, cylinder, triangle), its
+# camera-relative form (the clamped kind; camera - p0; a sphere's or
+# cylinder's cc; a triangle's qv = tv x e1 and qv . e2); per pixel and tested
+# row, by kind, the float operations of a miss (a sphere's or cylinder's
+# discriminant and its test; a triangle's edge products, det, the divide and
+# u to its first reject); a hit's square root and divides are not counted
+MESH_OPS_PER_PIXEL = 41
+MESH_PREP_OPS = (3, 13, 10, 20)
+MESH_ROW_OPS = (0, 10, 9, 24)
 MESH_CULL_OPS = 70  # K4's culling of one row for one strip: bounding sphere, camera, 7 tests
 
 
@@ -463,7 +469,8 @@ def check_inflate_grouped(dev, params, views):
     """The grouped inflation kernel (K2g) on the evaluation harnesses' seed
     batches: the endpoints of 128 and 1024 candidates on each of the four
     views at full resolution, through inflate_pyramids(seeds_per_program=S)
-    for S in GROUPS, counted; each result held bit for bit against K2 and
+    for every S = 2 .. 8 (P = 128; clusters of every size) and S in GROUPS
+    (P = 1024), counted; each result held bit for bit against K2 and
     (P = 128) the plain version. Then ragged P = 13 (S = 4), the
     blocker-free gradient scene of check_inflate, one batched call over the
     four views, and the times of K2 and K2g. Returns the kernels-line
@@ -475,10 +482,12 @@ def check_inflate_grouped(dev, params, views):
 
     batches = {n: endpoint_seeds(params, eval_draws(n, dev), dev) for n in (128, 1024)}
     one = lambda n, v, k=None: [x[v, :k] for x in batches[n]]  # noqa: E731
+    every_s = tuple(range(2, cuda_inflate.MAX_SEEDS_PER_PROGRAM + 1))
     reset_counts()
     got = {(n, S, v): cuda_inflate.inflate_pyramids(params, views[v], *one(n, v), 0,
                                                     seeds_per_program=S)
-           for n in batches for S in GROUPS for v in range(len(EVAL_POSES))}
+           for n in batches for S in (every_s if n == 128 else GROUPS)
+           for v in range(len(EVAL_POSES))}
     torch.cuda.synchronize()
     launches = read_counts()
     _check(launches["inflate_grouped"] == len(got) and launches["inflate"] == 0
@@ -525,10 +534,11 @@ def check_inflate_grouped(dev, params, views):
                 params, views, *batches[128], 0, seeds_per_program=S), ref,
                 f"batched 4 views x P=128, S={S}")
     _check(n_grad > 0, "grouped inflation: no seed inflated on the gradient scene")
-    print(f"inflate_grouped: K2g S={GROUPS} bit-equal to K2 on the endpoint seeds of 4 views "
-          f"x P=128 ({ok_by_n[128]} ok) and x P=1024 ({ok_by_n[1024]} ok), to the plain version "
-          f"at P=128; ragged P=13 (S=4), gradient {Ws}x{Hs} ({n_grad} ok), batched 4 x 128 in one "
-          f"launch: bit-equal; {launches['inflate_grouped']} launches in the counted run")
+    print(f"inflate_grouped: K2g S={every_s} bit-equal to K2 and to the plain version on the "
+          f"endpoint seeds of 4 views x P=128 ({ok_by_n[128]} ok), S={GROUPS} to K2 x P=1024 "
+          f"({ok_by_n[1024]} ok); ragged P=13 (S=4), gradient {Ws}x{Hs} ({n_grad} ok), batched "
+          f"4 x 128 in one launch (S={GROUPS}): bit-equal; {launches['inflate_grouped']} launches "
+          f"in the counted run")
     H, W = views.shape[-2:]
 
     # times: full resolution at P = 128 and 1024, the frame's pooled image
@@ -617,7 +627,8 @@ def baked_orchard(dev):
     """The procedural orchard baked into primitives over MESH_X x MESH_Y."""
     from agrifly_tpu_torch.render import meshscene, orchard
 
-    return meshscene.from_orchard(orchard.make_params(seed=SEED), MESH_X, MESH_Y, device=dev)
+    return meshscene.from_orchard(orchard.make_params(seed=SEED, device=dev), MESH_X, MESH_Y,
+                                 device=dev)
 
 
 def mixed_scene(dev, directory):
@@ -661,6 +672,52 @@ def mixed_scene(dev, directory):
                                                                             b.material]))
 
 
+def edge_rows(dev):
+    """A window of rows at the mesh kernels' edge cases, the same 20 rows
+    for four cameras: (windows (4, 20, 10), cam_pos (4, 3), cam_att (4, 4)).
+    Camera 0 looks straight down from z = 3, so the pixel at (W / 2, H / 2)
+    of an image with even W and H has the ray (0, 0, -1): vertical against
+    the cylinder below it (ca = 0), tangent to a sphere (disc = 0), and
+    parallel to a zero-area and a tiny triangle (|det| < 1e-12). Camera 1
+    is inside a sphere, camera 2 at z = 0 (no ground hit), camera 3 at a
+    generic pose. Kind 0 rows, zero and not, lie between the others."""
+    import torch
+
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.render import raycast
+
+    rows = [
+        [2, 0.0, 0.0, 0.0, 1.0, 0.3],  # cylinder right below camera 0
+        [1, 0.5, 0.0, 1.0, 0.5],  # tangent to camera 0's centre ray at t = 2
+        [3, -1.0, -1.0, 0.5, 1.0, 0.0, 0.0, 2.0, 0.0, 0.0],  # zero area
+        [3, 0.2, 0.2, 1.5, 1e-7, 0.0, 0.0, 0.0, 1e-7, 0.0],  # |det| ~ 1e-14
+        [0],
+        [3, -2.1, 1.0, 0.2, 3.0, 0.0, 0.0, 0.0, 2.0, 0.1],
+        [0, 9.0, 9.0, 9.0, 9.0, 9.0, 9.0, 9.0, 9.0, 9.0],  # kind 0 with parameters
+        [1, 10.2, 0.1, 2.1, 1.0],  # holds camera 1
+        [2, 14.0, -1.0, 0.0, 3.0, 0.25],
+        [0],
+        [2, 25.0, 0.0, 0.0, 2.0, 0.4],  # in front of camera 2
+        [1, 24.0, 1.0, 0.5, 0.6],
+        [3, 23.0, -2.0, 0.0, 0.0, 3.0, 0.0, 0.0, 0.0, 2.0],  # a wall facing camera 2
+        [1, 36.0, 4.0, 1.5, 1.2],
+        [2, 34.0, 3.0, 0.0, 2.5, 0.3],
+        [3, 35.0, 0.0, 0.0, 0.0, 2.0, 0.0, 1.0, 0.0, 3.0],
+        [3, 33.0, 5.0, 1.0, -1.0, 0.5, 0.8, 0.3, -0.7, 0.4],
+        [1, 40.0, 2.0, 0.0, 2.0],  # reaches below the ground
+        [0],
+        [2, 31.0, 3.5, 1.0, 1.0, 0.2],  # flat: z0 = z1
+    ]
+    window = torch.tensor([r + [0.0] * (10 - len(r)) for r in rows], dtype=torch.float32)
+    pos = torch.tensor([[0.0, 0.0, 3.0], [10.0, 0.0, 2.0], [20.0, 0.0, 0.0], [30.0, 2.0, 1.5]])
+    yaw, pitch, roll = torch.tensor([[0.0, 0.0, 0.0, 0.4], [0.0, 0.0, 0.0, 0.1],
+                                     [0.0, 0.0, 0.0, -0.05]])
+    body = rot.from_euler_ypr(yaw, pitch, roll)
+    att = raycast.camera_attitude(body)
+    att[0] = torch.tensor([0.0, 1.0, 0.0, 0.0])  # world-from-camera R = diag(1, -1, -1)
+    return window.expand(4, -1, -1).contiguous().to(dev), pos.to(dev), att.to(dev)
+
+
 def mesh_poses(g, B, dev):
     """B cameras over the mesh rectangle at 0.5-3.5 m, random yaw, small
     pitch and roll (world-from-camera attitudes)."""
@@ -678,18 +735,24 @@ def mesh_poses(g, B, dev):
     return pos.to(dev), raycast.camera_attitude(body).to(dev)
 
 
-def mesh_bound(cfg, kinds, rows_per_pixel_block, pixels_per_block, n_bytes, B, cull_rows=0):
-    """The mesh kernels' bound: `kinds` (..., K) int row kinds, of which the
-    first `rows_per_pixel_block` (...,) rows of each block of
-    `pixels_per_block` pixels are tested; `cull_rows` (strip, row) pairs
-    culled at MESH_CULL_OPS each."""
+def mesh_bound(cfg, window_kinds, kinds, rows_per_pixel_block, pixels_per_block, n_bytes,
+               cull_rows=0):
+    """The mesh kernels' bound: `window_kinds` (B, K) the window's row
+    kinds, each row prepared once per vehicle; `kinds` (..., K) the kinds
+    of the rows tested, of which the first `rows_per_pixel_block` (...,)
+    of each block of `pixels_per_block` pixels are; `cull_rows` (strip,
+    row) pairs culled at MESH_CULL_OPS each. Returns (bytes, operations)."""
     import torch
 
-    ops_by_kind = torch.tensor(MESH_ROW_OPS, dtype=torch.float64, device=kinds.device)
+    def by_kind(table, k):
+        return torch.tensor(table, dtype=torch.float64, device=k.device)[k.long().clamp(0, 3)]
+
     tested = torch.arange(kinds.shape[-1], device=kinds.device) < rows_per_pixel_block[..., None]
-    row_ops = float((ops_by_kind[kinds.clamp(0, 3)] * tested).sum())
-    return n_bytes, (B * cfg.height * cfg.width * MESH_OPS_PER_PIXEL + row_ops * pixels_per_block
-                     + cull_rows * MESH_CULL_OPS)
+    row_ops = float((by_kind(MESH_ROW_OPS, kinds) * tested).sum())
+    prep_ops = float(by_kind(MESH_PREP_OPS, window_kinds).sum())
+    B = window_kinds.shape[0]
+    return n_bytes, (B * cfg.height * cfg.width * MESH_OPS_PER_PIXEL + prep_ops
+                     + row_ops * pixels_per_block + cull_rows * MESH_CULL_OPS)
 
 
 def kernels_per_call(fn, calls=20):
@@ -716,10 +779,10 @@ def check_meshscene(dev):
     plain versions (strip_windows then render_strips, render_depth_window)
     and each other at 640x480, with 1 and 16 random-yaw cameras in one
     launch, on the baked orchard and on the mixed scene: K4's per-strip row
-    counts equal strip_windows' n_vis, and the codes are bit-equal. On the
-    baked orchard: the wrapper, launch and device times of both, and the
-    kernels one render_depth_batch call launches. Returns the B = 1 baked-orchard
-    results (K4, K4w)."""
+    counts equal strip_windows' n_vis, and the codes are bit-equal; the
+    wrapper, launch and device times of both, and the kernels one
+    render_depth_batch call launches. Then the edge rows (check_edge_rows).
+    Returns the B = 1 baked-orchard results (K4, K4w)."""
     import tempfile
 
     import torch
@@ -763,20 +826,48 @@ def check_meshscene(dev):
                     f"window {windows.shape[1]} rows: K4 and K4w bit-equal to plain and to "
                     f"each other, K4's n_vis equal to strip_windows'; n_vis per strip mean "
                     f"{float(nv.mean()):.3f}, max {int(nv.max())}")
+            res4, res4w = mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, k4)
+            line += (f"; K4 {res4['ms']:.4f} ms (render_depth_batch with select_window "
+                     f"{res4['batch_ms']:.4f}, launch alone {res4['launch_ms']:.4f}, device "
+                     f"{us_text(res4['device_us'])}), plain {res4['plain_ms']:.4f}, bound "
+                     f"{res4['bound_ms']:.6f} ({res4['bound_by']}); K4w {res4w['ms']:.4f} ms "
+                     f"(launch alone {res4w['launch_ms']:.4f}, device "
+                     f"{us_text(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
+                     f"{res4w['bound_ms']:.6f} ({res4w['bound_by']}); kernels per "
+                     f"render_depth_batch call {res4['kernels_per_call']}")
             if label == "baked orchard":
-                res4, res4w = mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, k4)
-                line += (f"; K4 {res4['ms']:.4f} ms (render_depth_batch with select_window "
-                         f"{res4['batch_ms']:.4f}, launch alone {res4['launch_ms']:.4f}, device "
-                         f"{us_text(res4['device_us'])}), plain {res4['plain_ms']:.4f}, bound "
-                         f"{res4['bound_ms']:.6f} ({res4['bound_by']}); K4w {res4w['ms']:.4f} ms "
-                         f"(launch alone {res4w['launch_ms']:.4f}, device "
-                         f"{us_text(res4w['device_us'])}), plain {res4w['plain_ms']:.4f}, bound "
-                         f"{res4w['bound_ms']:.6f} ({res4w['bound_by']}); kernels per "
-                         f"render_depth_batch call {res4['kernels_per_call']}")
                 out[B] = (res4, res4w)
             print(line)
+    check_edge_rows(cfg, dev)
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return tuple({k: r[k] for k in keep} for r in out[1])
+
+
+def check_edge_rows(cfg, dev):
+    """K4 and K4w on edge_rows' window (a vertical ray against a cylinder,
+    a tangent sphere, triangles with |det| < 1e-12, a camera inside a
+    sphere and one at z = 0, kind 0 rows): bit-equal to their plain
+    versions, to render_depth_window_prepared and to each other; K4's n_vis
+    equal to strip_windows'."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene
+
+    windows, pos, cam = edge_rows(dev)
+    k4w = cuda_meshscene.render_depth_window_batch(cfg, windows, pos, cam)
+    nvis = torch.full((pos.shape[0], cfg.height // cuda_meshscene.TILE_H), -1,
+                      dtype=torch.int32, device=dev)
+    k4 = cuda_meshscene._launch("meshscene_strips_launch", cfg, pos, cam, windows, nvis)
+    strips, nvis_r = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
+    ref = meshscene.render_depth_window(cfg, windows, pos, cam)
+    _check(torch.equal(k4w, ref), "K4w differs from plain on the edge rows")
+    _check(torch.equal(meshscene.render_depth_window_prepared(cfg, windows, pos, cam), ref),
+           "render_depth_window_prepared differs from render_depth_window on the edge rows")
+    _check(torch.equal(k4, meshscene.render_strips(cfg, strips, pos, cam))
+           and torch.equal(k4, k4w) and torch.equal(nvis, nvis_r),
+           "K4 differs from plain or from K4w on the edge rows")
+    print(f"mesh edge rows ({windows.shape[1]} rows, 4 cameras): K4 and K4w bit-equal to plain, "
+          f"to the prepared mirror and to each other, K4's n_vis equal to strip_windows'")
 
 
 def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
@@ -799,10 +890,10 @@ def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
     # operations: MESH_ROW_OPS per tested row and pixel, and for K4 the
     # culling of every (strip, window row)
     n_bytes = nbytes(pos, cam, windows, codes)
-    b4, o4 = mesh_bound(cfg, strips[..., 0].long(), nvis, cuda_meshscene.TILE_H * cfg.width,
-                        n_bytes, B, cull_rows=nvis.numel() * K)
-    b4w, o4w = mesh_bound(cfg, windows[..., 0].long(), windows.new_full((B,), K),
-                          cfg.height * cfg.width, n_bytes, B)
+    b4, o4 = mesh_bound(cfg, windows[..., 0], strips[..., 0], nvis,
+                        cuda_meshscene.TILE_H * cfg.width, n_bytes, cull_rows=nvis.numel() * K)
+    b4w, o4w = mesh_bound(cfg, windows[..., 0], windows[..., 0], windows.new_full((B,), K),
+                          cfg.height * cfg.width, n_bytes)
     return ({**result(0, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4,
              "batch_ms": batch_ms, "kernels_per_call": per_call},
             {**result(0, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w, "device_us": dev4w})
@@ -1409,12 +1500,12 @@ def build_kernels():
 PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
                "meshscene": {"meshscene_strips_kernel": "K4", "meshscene_window_kernel": "K4w"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
-                           "inflate_grouped_kernelILi": "K2g S="}}
+                           "inflate_grouped_kernel": "K2g"}}
 
 
 def ptxas_report(lib, log):
     """One line from ptxas's -v report of a library's kernels: registers,
-    shared memory and spill bytes of each (K2g: each instance)."""
+    shared memory and spill bytes of each."""
     import re
 
     names = PTXAS_NAMES[lib]

@@ -218,6 +218,20 @@ def test_inflate_cluster_constants_match_the_kernel_source():
     assert _constant(src, "kMaxGroup") == cuda_inflate.MAX_SEEDS_PER_PROGRAM
 
 
+def test_grouped_constants_match_the_kernel_source():
+    """K2g: the launcher takes every S from 2 to MAX_SEEDS_PER_PROGRAM
+    (kMaxGroup) and launches it as a cluster of S blocks, within the
+    portable cluster size (kMaxCluster); each block's shared memory holds
+    a corner's values of a whole group."""
+    src = (CSRC / "inflate.cu").read_text()
+    launcher = src[src.index('extern "C" int inflate_grouped_launch'):]
+    assert "if (S < 2 || S > kMaxGroup) return" in launcher
+    assert "attr[0].val.clusterDim.x = S;" in launcher
+    assert _constant(src, "kMaxGroup") == cuda_inflate.MAX_SEEDS_PER_PROGRAM
+    assert cuda_inflate.MAX_SEEDS_PER_PROGRAM <= _constant(src, "kMaxCluster")
+    assert "kGroupValues = 3 * kMaxGroup;" in src
+
+
 @pytest.mark.parametrize("B,P,H,W,want", [
     (1, 10, 240, 320, 8),    # the frame's round, one vehicle: 80 blocks
     (1, 20, 240, 320, 8),    # 160 blocks
@@ -302,23 +316,30 @@ def test_frame_ticks_kernel_batched_matches_plain(cuda, B):  # noqa: F811
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["baked", "mixed"])
+@pytest.mark.parametrize("scene", ["baked", "mixed", "edge"])
 @pytest.mark.parametrize("B", [1, 4])
 def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F811
     """K4 and K4w at 640x480, one launch each for B cameras of random yaw:
     K4's in-kernel strip culling keeps strip_windows' n_vis rows per
-    strip, and its codes equal render_strips', render_depth_window's and
-    K4w's; on the baked orchard and on the scene of primitives and OBJ
-    triangles that chip_smoke.py writes and loads, with the frame's 192-row
-    window and a 300-row one (two staged chunks)."""
-    from chip_smoke import baked_orchard, mesh_poses, mixed_scene
+    strip, and its codes equal render_strips', render_depth_window's,
+    render_depth_window_prepared's and K4w's; on the baked orchard and on
+    the scene of primitives and OBJ triangles that chip_smoke.py writes and
+    loads, with the frame's 192-row window and a 300-row one (two staged
+    chunks), and on chip_smoke.py's window of edge-case rows (its first B
+    cameras)."""
+    from chip_smoke import baked_orchard, edge_rows, mesh_poses, mixed_scene
 
     cfg = raycast.make_config(640, 480)
-    mesh = baked_orchard(cuda) if scene == "baked" else mixed_scene(cuda, tmp_path)
-    pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
-    reach = cfg.far * meshscene.slant_factor(cfg)
-    for capacity in (192, 300):
-        windows = meshscene.select_window(mesh, pos, reach, capacity)
+    if scene == "edge":
+        windows, pos, cam = (t[:B] for t in edge_rows(cuda))
+        cases = [(windows, windows.shape[1])]
+    else:
+        mesh = baked_orchard(cuda) if scene == "baked" else mixed_scene(cuda, tmp_path)
+        pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
+        reach = cfg.far * meshscene.slant_factor(cfg)
+        cases = [(meshscene.select_window(mesh, pos, reach, capacity), min(capacity, mesh.count))
+                 for capacity in (192, 300)]
+    for windows, rows in cases:
         before = (cuda_meshscene.render_depth_strips_batch.launches,
                   cuda_meshscene.render_depth_window_batch.launches)
         k4 = cuda_meshscene.render_depth_strips_batch(cfg, windows, pos, cam)
@@ -332,9 +353,10 @@ def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F81
         strips, nvis_r = meshscene.strip_windows(cfg, windows, pos, cam, cuda_meshscene.TILE_H)
         ref4 = meshscene.render_strips(cfg, strips, pos, cam)
         ref4w = meshscene.render_depth_window(cfg, windows, pos, cam)
-        assert k4.shape == (B, 480, 640) and windows.shape[1] == min(capacity, mesh.count)
+        assert k4.shape == (B, 480, 640) and windows.shape[1] == rows
         assert torch.equal(nvis, nvis_r) and torch.equal(again, k4)
         assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
+        assert torch.equal(meshscene.render_depth_window_prepared(cfg, windows, pos, cam), ref4w)
         assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
 
 
@@ -366,8 +388,11 @@ def _assert_grouped(params, img, seeds, S, shrink_extra=0):
     return int(ok.sum())
 
 
+EVERY_S = list(range(2, cuda_inflate.MAX_SEEDS_PER_PROGRAM + 1))  # K2g's cluster sizes
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [2, 4, 8])
+@pytest.mark.parametrize("S", EVERY_S)
 def test_grouped_inflate_kernel_on_an_orchard_view(cuda, S):  # noqa: F811
     """128 endpoint seeds on a rendered 640x480 orchard view, full
     resolution."""
@@ -380,10 +405,12 @@ def test_grouped_inflate_kernel_on_an_orchard_view(cuda, S):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", EVERY_S)
 @pytest.mark.parametrize("kind", ["clutter", "gradient"])
-def test_grouped_inflate_kernel_ragged_and_gradient(cuda, kind):  # noqa: F811
-    """P = 13 seeds with S = 4 (three pad rows) on a cluttered and on the
-    blocker-free gradient scene at 320x240, with the pooled path's margin."""
+def test_grouped_inflate_kernel_ragged_and_gradient(cuda, kind, S):  # noqa: F811
+    """P = 13 seeds with S seeds a cluster (pad rows where S does not divide
+    13) on a cluttered and on the blocker-free gradient scene at 320x240,
+    with the pooled path's margin."""
     W, H = 320, 240
     params = rappids.make_params(rappids.make_camera(W, H, focal=W / 2.0, device=cuda),
                                  0.116, 0.174)
@@ -393,16 +420,29 @@ def test_grouped_inflate_kernel_ragged_and_gradient(cuda, kind):  # noqa: F811
         rng.integers(30, W - 30, 13).astype(np.float32),
         rng.integers(30, H - 30, 13).astype(np.float32),
         rng.uniform(1.5, 3.0, 13).astype(np.float32))]
-    assert _assert_grouped(params, torch.from_numpy(img).to(cuda), seeds, 4, 1) >= 1
+    assert _assert_grouped(params, torch.from_numpy(img).to(cuda), seeds, S, 1) >= 1
 
 
 @pytest.mark.cuda
-def test_grouped_inflate_kernel_batched(cuda):  # noqa: F811
-    """Four orchard views x 128 endpoint seeds in one launch (S = 4)."""
+@pytest.mark.parametrize("S", EVERY_S)
+def test_grouped_inflate_kernel_batched(cuda, S):  # noqa: F811
+    """Four orchard views x 128 endpoint seeds in one launch."""
     params = rappids.make_params(rappids.make_camera(640, 480, device=cuda), 0.116, 0.174)
     pos = torch.tensor([[5.0, 0.0, 2.5], [12.0, 1.5, 2.0], [20.0, -1.0, 3.0],
                         [30.0, 0.5, 1.5]], device=cuda)
     att = raycast.camera_attitude(rot.identity(cuda).expand(4, 4))
     imgs = cuda_raycast.render_depth_batch(raycast.make_config(640, 480),
                                            orchard.make_params(device=cuda), pos, att)
-    assert _assert_grouped(params, imgs, _endpoint_seeds(params, 128, 4, (4,)), 4) >= 4
+    assert _assert_grouped(params, imgs, _endpoint_seeds(params, 128, 4, (4,)), S) >= 4
+
+
+@pytest.mark.cuda
+def test_grouped_inflate_refused_launch_raises(cuda):  # noqa: F811
+    """A group size with no compiled cluster (S = 9) is refused by the
+    launch, and the wrapper raises: no fall back to K2 or the plain version."""
+    img = torch.from_numpy(gradient_scene(320, 240)).to(cuda)
+    rows = torch.zeros((9, 12), dtype=torch.int32, device=cuda)
+    before = cuda_inflate.inflate_pyramids.grouped_launches
+    with pytest.raises(RuntimeError, match="inflate_grouped_launch"):
+        cuda_inflate._launch_grouped(img, rows, 9)
+    assert cuda_inflate.inflate_pyramids.grouped_launches == before
