@@ -3,11 +3,14 @@
 `params_from_numpy` and `state_from_numpy` turn the JAX package's
 `OrchardEnvParams` / `OrchardEnvState`, given as NamedTuples of numpy
 arrays (for instance `jax.tree_util.tree_map(np.asarray, state)`), into the
-port's NamedTuples on a device. Fields are matched by name, following the
-port's annotations: a `torch.Tensor` field becomes a tensor of the same
-dtype, an `int`/`float`/`bool` field a python number, a NamedTuple field
-recurses. Fields the port does not have (the PRNG key, UWB, the imported-
-world mesh, `use_pallas`) are dropped. This module imports no jax.
+port's NamedTuples on a device; `env_params_from_numpy`,
+`env_state_from_numpy` and `command_from_numpy` do the same for `sim/env`'s
+`EnvParams`, `EnvState` and `Command` (UWB raises: not ported yet). Fields
+are matched by name, following the port's annotations: a `torch.Tensor`
+field becomes a tensor of the same dtype, an `int`/`float`/`bool` field a
+python number, a NamedTuple field recurses. Fields the port does not have
+(the PRNG key, UWB, the imported-world mesh, `use_pallas`) are dropped.
+This module imports no jax.
 """
 
 from __future__ import annotations
@@ -63,6 +66,35 @@ def state_from_numpy(tree, device=None):
     from agrifly_tpu_torch.sim.orchard_env import OrchardEnvState
 
     return from_numpy(OrchardEnvState, tree, device)
+
+
+def _no_uwb(tree, what):
+    if getattr(tree, "uwb", None) is not None:
+        raise NotImplementedError(f"{what}: UWB is not ported yet (ROADMAP Queue 1 item 3)")
+
+
+def env_params_from_numpy(tree, device=None):
+    """The port's env.EnvParams from the JAX package's, as numpy leaves."""
+    from agrifly_tpu_torch.sim.env import EnvParams
+
+    _no_uwb(tree, "env_params_from_numpy")
+    return from_numpy(EnvParams, tree, device)
+
+
+def env_state_from_numpy(tree, device=None):
+    """The port's env.EnvState from the JAX package's, as numpy leaves (a
+    vmapped state keeps its leading B); the PRNG key is dropped."""
+    from agrifly_tpu_torch.sim.env import EnvState
+
+    _no_uwb(tree, "env_state_from_numpy")
+    return from_numpy(EnvState, tree, device)
+
+
+def command_from_numpy(tree, device=None):
+    """The port's env.Command from the JAX package's, as numpy leaves."""
+    from agrifly_tpu_torch.sim.env import Command
+
+    return from_numpy(Command, tree, device)
 
 
 def leaves(tree, prefix=()):

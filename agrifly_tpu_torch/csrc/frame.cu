@@ -4,13 +4,9 @@
 // Replaces the TPU kernel agrifly_tpu/sim/pallas_frame.py (frame_ticks,
 // the pallas_call built in _get_call), which evaluates the traced jaxpr of
 // orchard_env._sim_tick inside one kernel. Here the tick chain is written
-// out by hand as device functions, one section per torch module of
-// agrifly_tpu_torch it mirrors, with the same float32 operations in the
-// same order (the build flags of cuda_build.py: -fmad=false, no fast math,
-// IEEE division and sqrtf). The Cephes polynomials of ops/trig.py stand in
-// for acosf/asinf/atan2f. Every branch that torch computes and discards
-// with `where` is computed here only when it is selected: the result is
-// the same.
+// out by hand as device functions: sim/env's tick in tick.cuh (shared with
+// the env rollout kernel, rollout.cu, and written as tick.cuh says), the
+// orchard's trajectory tracking below.
 //
 // What bounds it on the card: one vehicle's serial chain of dependent
 // float operations. Clock64 section timers on an H100 (chip_smoke.py's
@@ -37,18 +33,13 @@
 // it run on no tick of the orchard frame, whose estimator gets no UWB fix.
 // Nothing is read or written between ticks.
 //
-// The leaf tables below are the contract with sim/cuda_frame.py, which
-// parses them: the order, dtype and element count (0 for a 0-d tensor) of
-// the state leaves (convert.leaves order) and of the parameter leaves the
-// ticks read. W leaves are written to the three flat output buffers (by
-// dtype, in table order); P leaves pass through (the wrapper returns the
-// input tensors).
-
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-#include <string.h>
+// The leaf tables are the contract with sim/cuda_frame.py, which parses
+// them: tick.cuh's env tables (OrchardEnvState.base, OrchardEnvParams.base)
+// and then the orchard's own below, the order, dtype and element count (0
+// for a 0-d tensor) of the state leaves (convert.leaves order) and of the
+// parameter leaves the ticks read. W leaves are written to the three flat
+// output buffers (by dtype, in table order); P leaves pass through (the
+// wrapper returns the input tensors).
 
 // Section timers, compiled only with -DFRAME_SECTIONS (chip_smoke.py's
 // frame_sections builds that variant): clock64() cycles and runs of each
@@ -71,115 +62,12 @@ __device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];
 #define SECTION_END(k)
 #endif
 
+#include "tick.cuh"
+
+// The orchard's state leaves after OrchardEnvState.base, and its parameter
+// leaves after OrchardEnvParams.base.
 // clang-format off
-#define STATE_LEAVES(X) \
-  X(plant_pos, "base.plant.pos", F32, 3, W)                               \
-  X(plant_vel, "base.plant.vel", F32, 3, W)                               \
-  X(plant_att, "base.plant.att", F32, 4, W)                               \
-  X(plant_angvel, "base.plant.angvel", F32, 3, W)                         \
-  X(plant_motor_speeds, "base.plant.motor_speeds", F32, 4, W)             \
-  X(fs, "base.logic.fs", I32, 0, W)                                       \
-  X(cycle_count, "base.logic.cycle_count", I32, 0, W)                     \
-  X(kf_pos, "base.logic.kf.pos", F32, 3, W)                               \
-  X(kf_vel, "base.logic.kf.vel", F32, 3, W)                               \
-  X(kf_att, "base.logic.kf.att", F32, 4, W)                               \
-  X(kf_angvel, "base.logic.kf.angvel", F32, 3, W)                         \
-  X(kf_cov, "base.logic.kf.cov", F32, 81, W)                              \
-  X(kf_imu_init, "base.logic.kf.imu_init", BOOL, 0, W)                    \
-  X(kf_uwb_init, "base.logic.kf.uwb_init", BOOL, 0, W)                    \
-  X(kf_last_att_corr, "base.logic.kf.last_att_corr", F32, 3, W)           \
-  X(kf_num_rejected, "base.logic.kf.num_rejected", I32, 0, W)             \
-  X(kf_num_rejected_seq, "base.logic.kf.num_rejected_seq", I32, 0, W)     \
-  X(kf_num_resets, "base.logic.kf.num_resets", I32, 0, W)                 \
-  X(acc_lp_xm0, "base.logic.acc_lp.xm0", F32, 3, W)                       \
-  X(acc_lp_xm1, "base.logic.acc_lp.xm1", F32, 3, W)                       \
-  X(acc_lp_ym0, "base.logic.acc_lp.ym0", F32, 3, W)                       \
-  X(acc_lp_ym1, "base.logic.acc_lp.ym1", F32, 3, W)                       \
-  X(gyro_lp_xm0, "base.logic.gyro_lp.xm0", F32, 3, W)                     \
-  X(gyro_lp_xm1, "base.logic.gyro_lp.xm1", F32, 3, W)                     \
-  X(gyro_lp_ym0, "base.logic.gyro_lp.ym0", F32, 3, W)                     \
-  X(gyro_lp_ym1, "base.logic.gyro_lp.ym1", F32, 3, W)                     \
-  X(temp_lp_xm0, "base.logic.temp_lp.xm0", F32, 0, W)                     \
-  X(temp_lp_xm1, "base.logic.temp_lp.xm1", F32, 0, W)                     \
-  X(temp_lp_ym0, "base.logic.temp_lp.ym0", F32, 0, W)                     \
-  X(temp_lp_ym1, "base.logic.temp_lp.ym1", F32, 0, W)                     \
-  X(batt_lp_xm0, "base.logic.batt_lp.xm0", F32, 0, W)                     \
-  X(batt_lp_xm1, "base.logic.batt_lp.xm1", F32, 0, W)                     \
-  X(batt_lp_ym0, "base.logic.batt_lp.ym0", F32, 0, W)                     \
-  X(batt_lp_ym1, "base.logic.batt_lp.ym1", F32, 0, W)                     \
-  X(gyro_raw, "base.logic.gyro_raw", F32, 3, W)                           \
-  X(gyro_bias, "base.logic.gyro_bias", F32, 3, W)                         \
-  X(gyro_cal_enabled, "base.logic.gyro_cal_enabled", BOOL, 0, W)          \
-  X(gyro_cal_accum, "base.logic.gyro_cal_accum", F32, 3, W)               \
-  X(gyro_cal_count, "base.logic.gyro_cal_count", I32, 0, W)               \
-  X(radio_new, "base.logic.radio_new", BOOL, 0, W)                        \
-  X(radio_type, "base.logic.radio_type", I32, 0, W)                       \
-  X(radio_flags, "base.logic.radio_flags", I32, 0, W)                     \
-  X(radio_floats, "base.logic.radio_floats", F32, 10, W)                  \
-  X(radio_count, "base.logic.radio_count", I32, 0, W)                     \
-  X(us_since_radio, "base.logic.us_since_radio", I32, 0, W)               \
-  X(us_since_uwb, "base.logic.us_since_uwb", I32, 0, W)                   \
-  X(next_target_idx, "base.logic.next_target_idx", I32, 0, W)             \
-  X(uwb_meas_count, "base.logic.uwb_meas_count", I32, 0, W)               \
-  X(cmd_rate_lpdt, "base.logic.cmd_rate_lpdt", F32, 0, W)                 \
-  X(loop_lpdt, "base.logic.loop_lpdt", F32, 0, W)                         \
-  X(us_since_est_reset, "base.logic.us_since_est_reset", I32, 0, W)       \
-  X(last_check_num_resets, "base.logic.last_check_num_resets", I32, 0, W) \
-  X(warnings, "base.logic.warnings", I32, 0, W)                           \
-  X(panic_reason, "base.logic.panic_reason", I32, 0, W)                   \
-  X(des_motor_speeds, "base.logic.des_motor_speeds", F32, 4, W)           \
-  X(des_motor_forces, "base.logic.des_motor_forces", F32, 4, W)           \
-  X(prop_cal_running, "base.logic.prop_cal_running", BOOL, 0, W)          \
-  X(prop_cal_factors, "base.logic.prop_cal_factors", F32, 4, W)           \
-  X(prop_cal_accum, "base.logic.prop_cal_accum", F32, 4, W)               \
-  X(prop_cal_count, "base.logic.prop_cal_count", I32, 0, W)               \
-  X(should_write_params, "base.logic.should_write_params", BOOL, 0, W)    \
-  X(batt_voltage, "base.logic.batt_voltage", F32, 0, W)                   \
-  X(batt_current, "base.logic.batt_current", F32, 0, W)                   \
-  X(test_motors_on, "base.logic.test_motors_on", BOOL, 0, W)              \
-  X(test_motors_frac, "base.logic.test_motors_frac", F32, 0, W)           \
-  X(tel_counter, "base.logic.tel_counter", I32, 0, W)                     \
-  X(debug, "base.logic.debug", F32, 6, W)                                 \
-  X(ring_types, "base.ring.types", I32, 32, W)                            \
-  X(ring_flags, "base.ring.flags", I32, 32, W)                            \
-  X(ring_fields, "base.ring.fields", I32, 320, W)                         \
-  X(ring_send_step, "base.ring.send_step", I32, 32, W)                    \
-  X(ring_head, "base.ring.head", I32, 0, W)                               \
-  X(ring_count, "base.ring.count", I32, 0, W)                             \
-  X(offboard_acc_us, "base.offboard_acc_us", I32, 0, W)                   \
-  X(step, "base.step", I32, 0, W)                                         \
-  X(last_cmd_thrust, "base.last_cmd_thrust", F32, 0, W)                   \
-  X(last_cmd_angvel, "base.last_cmd_angvel", F32, 3, W)                   \
-  X(mc_initialized, "base.mocap.initialized", BOOL, 0, W)                 \
-  X(mc_pos, "base.mocap.pos", F32, 3, W)                                  \
-  X(mc_vel, "base.mocap.vel", F32, 3, W)                                  \
-  X(mc_att, "base.mocap.att", F32, 4, W)                                  \
-  X(mc_angvel, "base.mocap.angvel", F32, 3, W)                            \
-  X(mc_var_pos, "base.mocap.var_pos", F32, 4, W)                          \
-  X(mc_var_att, "base.mocap.var_att", F32, 4, W)                          \
-  X(mc_estimate_us, "base.mocap.estimate_us", I32, 0, W)                  \
-  X(mc_us_since_good_meas, "base.mocap.us_since_good_meas", I32, 0, W)    \
-  X(mc_num_rejected, "base.mocap.num_rejected", I32, 0, W)                \
-  X(mc_num_rejected_consec, "base.mocap.num_rejected_consec", I32, 0, W)  \
-  X(pipe_active_us, "base.mocap.pipe.active_us", I32, 8, W)               \
-  X(pipe_acc, "base.mocap.pipe.acc", F32, 24, W)                          \
-  X(pipe_angvel, "base.mocap.pipe.angvel", F32, 24, W)                    \
-  X(pipe_ballistic, "base.mocap.pipe.ballistic", I32, 8, W)               \
-  X(pipe_head, "base.mocap.pipe.head", I32, 0, W)                         \
-  X(pipe_count, "base.mocap.pipe.count", I32, 0, W)                       \
-  X(mocap_acc_us, "base.mocap_acc_us", I32, 0, W)                         \
-  X(gps_pos, "base.gpsimu.pos", F32, 3, P)                                \
-  X(gps_vel, "base.gpsimu.vel", F32, 3, P)                                \
-  X(gps_att, "base.gpsimu.att", F32, 4, P)                                \
-  X(gps_angvel, "base.gpsimu.angvel", F32, 3, P)                          \
-  X(gps_cov, "base.gpsimu.cov", F32, 81, P)                               \
-  X(gps_imu_init, "base.gpsimu.imu_init", BOOL, 0, P)                     \
-  X(gps_uwb_init, "base.gpsimu.uwb_init", BOOL, 0, P)                     \
-  X(gps_last_att_corr, "base.gpsimu.last_att_corr", F32, 3, P)            \
-  X(gps_num_rejected, "base.gpsimu.num_rejected", I32, 0, P)              \
-  X(gps_num_rejected_seq, "base.gpsimu.num_rejected_seq", I32, 0, P)      \
-  X(gps_num_resets, "base.gpsimu.num_resets", I32, 0, P)                  \
-  X(gps_acc_us, "base.gps_acc_us", I32, 0, W)                             \
+#define ORCHARD_STATE_LEAVES(X) \
   X(pl_planned, "planned.planned", BOOL, 0, P)                            \
   X(pl_alpha, "planned.alpha", F32, 3, P)                                 \
   X(pl_beta, "planned.beta", F32, 3, P)                                   \
@@ -199,122 +87,36 @@ __device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];
   X(land_pos, "land_pos", F32, 3, P)                                      \
   X(land_start_step, "land_start_step", I32, 0, P)
 
-#define PARAM_LEAVES(X) \
-  X(p_mass, "base.plant.mass", F32, 0)                                             \
-  X(p_inertia, "base.plant.inertia", F32, 9)                                       \
-  X(p_inertia_inv, "base.plant.inertia_inv", F32, 9)                               \
-  X(p_motor_positions, "base.plant.motor_positions", F32, 12)                      \
-  X(p_kf, "base.plant.kf", F32, 0)                                                 \
-  X(p_kt_sqr, "base.plant.kt_sqr", F32, 0)                                         \
-  X(p_motor_time_const, "base.plant.motor_time_const", F32, 0)                     \
-  X(p_motor_inertia, "base.plant.motor_inertia", F32, 0)                           \
-  X(p_motor_min_speed, "base.plant.motor_min_speed", F32, 0)                       \
-  X(p_motor_max_speed, "base.plant.motor_max_speed", F32, 0)                       \
-  X(p_lin_drag_b, "base.plant.lin_drag_b", F32, 3)                                 \
-  X(p_imu_rot_inv, "base.plant.imu_rot_inv", F32, 9)                               \
-  X(l_valid, "base.logic.valid", BOOL, 0)                                          \
-  X(l_mass, "base.logic.mass", F32, 0)                                             \
-  X(l_arm_length, "base.logic.arm_length", F32, 0)                                 \
-  X(l_prop_thrust_from_speed_sqr, "base.logic.prop_thrust_from_speed_sqr", F32, 0) \
-  X(l_prop_torque_from_thrust, "base.logic.prop_torque_from_thrust", F32, 0)       \
-  X(l_prop0_spin_dir, "base.logic.prop0_spin_dir", F32, 0)                         \
-  X(l_max_thrust_per_prop, "base.logic.max_thrust_per_prop", F32, 0)               \
-  X(l_min_thrust_per_prop, "base.logic.min_thrust_per_prop", F32, 0)               \
-  X(l_max_cmd_total_thrust, "base.logic.max_cmd_total_thrust", F32, 0)             \
-  X(l_pos_nat_freq, "base.logic.pos_nat_freq", F32, 0)                             \
-  X(l_pos_damping, "base.logic.pos_damping", F32, 0)                               \
-  X(l_att_tc_xy, "base.logic.att_tc_xy", F32, 0)                                   \
-  X(l_att_tc_z, "base.logic.att_tc_z", F32, 0)                                     \
-  X(l_angvel_tc_xy, "base.logic.angvel_tc_xy", F32, 0)                             \
-  X(l_angvel_tc_z, "base.logic.angvel_tc_z", F32, 0)                               \
-  X(l_inertia, "base.logic.inertia", F32, 9)                                       \
-  X(l_imu_rot, "base.logic.imu_rot", F32, 9)                                       \
-  X(l_batt_critical, "base.logic.batt_critical", F32, 0)                           \
-  X(l_batt_warning, "base.logic.batt_warning", F32, 0)                             \
-  X(l_onboard_period, "base.logic.onboard_period", F32, 0)                         \
-  X(l_onboard_period_us, "base.logic.onboard_period_us", I32, 0)                   \
-  X(l_acc_lp_a1, "base.logic.acc_lp.a1", F32, 0)                                   \
-  X(l_acc_lp_a2, "base.logic.acc_lp.a2", F32, 0)                                   \
-  X(l_acc_lp_b0, "base.logic.acc_lp.b0", F32, 0)                                   \
-  X(l_acc_lp_b1, "base.logic.acc_lp.b1", F32, 0)                                   \
-  X(l_acc_lp_b2, "base.logic.acc_lp.b2", F32, 0)                                   \
-  X(l_gyro_lp_a1, "base.logic.gyro_lp.a1", F32, 0)                                 \
-  X(l_gyro_lp_a2, "base.logic.gyro_lp.a2", F32, 0)                                 \
-  X(l_gyro_lp_b0, "base.logic.gyro_lp.b0", F32, 0)                                 \
-  X(l_gyro_lp_b1, "base.logic.gyro_lp.b1", F32, 0)                                 \
-  X(l_gyro_lp_b2, "base.logic.gyro_lp.b2", F32, 0)                                 \
-  X(l_temp_lp_a1, "base.logic.temp_lp.a1", F32, 0)                                 \
-  X(l_temp_lp_a2, "base.logic.temp_lp.a2", F32, 0)                                 \
-  X(l_temp_lp_b0, "base.logic.temp_lp.b0", F32, 0)                                 \
-  X(l_temp_lp_b1, "base.logic.temp_lp.b1", F32, 0)                                 \
-  X(l_temp_lp_b2, "base.logic.temp_lp.b2", F32, 0)                                 \
-  X(l_batt_lp_a1, "base.logic.batt_lp.a1", F32, 0)                                 \
-  X(l_batt_lp_a2, "base.logic.batt_lp.a2", F32, 0)                                 \
-  X(l_batt_lp_b0, "base.logic.batt_lp.b0", F32, 0)                                 \
-  X(l_batt_lp_b1, "base.logic.batt_lp.b1", F32, 0)                                 \
-  X(l_batt_lp_b2, "base.logic.batt_lp.b2", F32, 0)                                 \
-  X(l_cmd_rate_lp_coeff, "base.logic.cmd_rate_lp_coeff", F32, 0)                   \
-  X(l_loop_lp_coeff, "base.logic.loop_lp_coeff", F32, 0)                           \
-  X(c_pos_nat_freq, "base.ctrl.pos_nat_freq", F32, 0)                              \
-  X(c_pos_damping, "base.ctrl.pos_damping", F32, 0)                                \
-  X(c_att_tc_xy, "base.ctrl.att_tc_xy", F32, 0)                                    \
-  X(c_att_tc_z, "base.ctrl.att_tc_z", F32, 0)                                      \
-  X(c_min_vertical_proper_acc, "base.ctrl.min_vertical_proper_acc", F32, 0)        \
-  X(c_max_proper_acc, "base.ctrl.max_proper_acc", F32, 0)                          \
-  X(c_min_proper_acc, "base.ctrl.min_proper_acc", F32, 0)                          \
-  X(dt_us, "base.dt_us", I32, 0)                                                   \
-  X(offboard_period_us, "base.offboard_period_us", I32, 0)                         \
-  X(radio_delay_us, "base.radio_delay_us", I32, 0)                                 \
-  X(noise_scale, "base.noise_scale", F32, 0)                                       \
-  X(mocap_period_us, "base.mocap_period_us", I32, 0)                               \
-  X(est_latency_us, "base.est_latency_us", I32, 0)                                 \
-  X(start_flight_step, "start_flight_step", I32, 0)                                \
-  X(takeoff_height, "takeoff_height", F32, 0)                                      \
+#define ORCHARD_PARAM_LEAVES(X) \
+  X(start_flight_step, "start_flight_step", I32, 0)                       \
+  X(takeoff_height, "takeoff_height", F32, 0)                             \
   X(track_lookahead, "track_lookahead", F32, 0)
 // clang-format on
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// the per-thread state and parameters, generated from the tables
+// the per-vehicle state and parameters: the env's (tick.cuh) and the orchard's
 // ---------------------------------------------------------------------------
 
-typedef float F32_t;
-typedef int I32_t;
-typedef unsigned char BOOL_t;
-
-template <class T, int N>
-struct Leaf { typedef T type[N]; };
-template <class T>
-struct Leaf<T, 0> { typedef T type; };
-
-#define NUMEL(n) ((n) == 0 ? 1 : (n))
-
 struct State {
+  EnvState base;
 #define X(name, path, ty, n, rw) Leaf<ty##_t, n>::type name;
-  STATE_LEAVES(X)
+  ORCHARD_STATE_LEAVES(X)
 #undef X
 };
 
 struct Params {
+  EnvParams base;
 #define X(name, path, ty, n) Leaf<ty##_t, n>::type name;
-  PARAM_LEAVES(X)
+  ORCHARD_PARAM_LEAVES(X)
 #undef X
 };
 
-enum {
-#define X(name, path, ty, n, rw) kS_##name,
-  STATE_LEAVES(X)
-#undef X
-  kNumState
-};
-
-enum {
-#define X(name, path, ty, n) kP_##name,
-  PARAM_LEAVES(X)
-#undef X
-  kNumParam
-};
+constexpr int kNumState = kNumEnvState ORCHARD_STATE_LEAVES(COUNT_LEAF);
+constexpr int kNumParam = kNumEnvParam ORCHARD_PARAM_LEAVES(COUNT_LEAF);
+constexpr int kStateElems = kEnvStateElems ORCHARD_STATE_LEAVES(COUNT_STATE);
+constexpr int kParamElems = kEnvParamElems ORCHARD_PARAM_LEAVES(COUNT_PARAM);
 
 // the leaves' device pointers, passed to the kernel by value (~1.6 KB of
 // the 4 KB parameter space)
@@ -323,46 +125,15 @@ struct LeafPtrs {
   const void* params[kNumParam];
 };
 
-// One element of a leaf, for the warp's copies: its byte offset in State or
-// Params, its index in the leaf, the leaf's element count, the leaf, its
-// bytes per element, and where a written leaf goes (the output buffer kind,
-// and the elements of the same kind's written leaves before it).
-enum { kOutF32 = 0, kOutI32 = 1, kOutBOOL = 2, kOutNone = 3 };
-struct Elem {
-  unsigned short dst, i, numel, out_prefix;
-  unsigned char leaf, size, out;
-};
-
-template <int N>
-struct Elems {
-  Elem e[N];
-};
-
-#define IS_WRITTEN_W 1
-#define IS_WRITTEN_P 0
-#define OUT_OF_F32 kOutF32
-#define OUT_OF_I32 kOutI32
-#define OUT_OF_BOOL kOutBOOL
-#define COUNT_STATE(name, path, ty, n, rw) +NUMEL(n)
-#define COUNT_PARAM(name, path, ty, n) +NUMEL(n)
-constexpr int kStateElems = 0 STATE_LEAVES(COUNT_STATE);
-constexpr int kParamElems = 0 PARAM_LEAVES(COUNT_PARAM);
-#undef COUNT_STATE
-#undef COUNT_PARAM
-
 constexpr Elems<kStateElems> make_state_elems() {
   Elems<kStateElems> t{};
   int k = 0, leaf = 0, prefix[3] = {0, 0, 0};
-#define X(name, path, ty, n, rw)                                                              \
-  for (int i = 0; i < NUMEL(n); ++i)                                                          \
-    t.e[k++] = Elem{static_cast<unsigned short>(offsetof(State, name) + i * sizeof(ty##_t)),  \
-                    static_cast<unsigned short>(i), static_cast<unsigned short>(NUMEL(n)),    \
-                    static_cast<unsigned short>(IS_WRITTEN_##rw ? prefix[OUT_OF_##ty] : 0),   \
-                    static_cast<unsigned char>(leaf), static_cast<unsigned char>(sizeof(ty##_t)), \
-                    static_cast<unsigned char>(IS_WRITTEN_##rw ? OUT_OF_##ty : kOutNone)};    \
-  if (IS_WRITTEN_##rw) prefix[OUT_OF_##ty] += NUMEL(n);                                       \
-  ++leaf;
-  STATE_LEAVES(X)
+#define X(name, path, ty, n, rw) \
+  ADD_STATE_ELEMS(offsetof(State, base) + offsetof(EnvState, name), ty, n, rw)
+  ENV_STATE_LEAVES(X)
+#undef X
+#define X(name, path, ty, n, rw) ADD_STATE_ELEMS(offsetof(State, name), ty, n, rw)
+  ORCHARD_STATE_LEAVES(X)
 #undef X
   return t;
 }
@@ -370,14 +141,12 @@ constexpr Elems<kStateElems> make_state_elems() {
 constexpr Elems<kParamElems> make_param_elems() {
   Elems<kParamElems> t{};
   int k = 0, leaf = 0;
-#define X(name, path, ty, n)                                                                  \
-  for (int i = 0; i < NUMEL(n); ++i)                                                          \
-    t.e[k++] = Elem{static_cast<unsigned short>(offsetof(Params, name) + i * sizeof(ty##_t)), \
-                    static_cast<unsigned short>(i), static_cast<unsigned short>(NUMEL(n)), 0, \
-                    static_cast<unsigned char>(leaf), static_cast<unsigned char>(sizeof(ty##_t)), \
-                    static_cast<unsigned char>(kOutNone)};                                    \
-  ++leaf;
-  PARAM_LEAVES(X)
+#define X(name, path, ty, n) \
+  ADD_PARAM_ELEMS(offsetof(Params, base) + offsetof(EnvParams, name), ty, n)
+  ENV_PARAM_LEAVES(X)
+#undef X
+#define X(name, path, ty, n) ADD_PARAM_ELEMS(offsetof(Params, name), ty, n)
+  ORCHARD_PARAM_LEAVES(X)
 #undef X
   return t;
 }
@@ -386,1180 +155,15 @@ constexpr Elems<kParamElems> make_param_elems() {
 __device__ const Elems<kStateElems> kStateTable = make_state_elems();
 __device__ const Elems<kParamElems> kParamTable = make_param_elems();
 
-// Copies element k, k + stride, ... of row b of the leaves `src` into the
-// struct at `dst`, eight elements a round, so each thread keeps eight loads
-// in flight.
-template <int N>
-__device__ void copy_in(char* dst, const void* const* src, const Elems<N>& table, int b, int k,
-                        int stride) {
-#pragma unroll 8
-  for (; k < N; k += stride) {
-    const Elem el = table.e[k];
-    const char* p = static_cast<const char*>(src[el.leaf]) +
-                    (static_cast<int64_t>(b) * el.numel + el.i) * el.size;
-    if (el.size == 4)
-      *reinterpret_cast<int*>(dst + el.dst) = __ldg(reinterpret_cast<const int*>(p));
-    else
-      dst[el.dst] = static_cast<char>(__ldg(reinterpret_cast<const unsigned char*>(p)));
-  }
-}
-
 // ---------------------------------------------------------------------------
-// small vectors; int32 arithmetic that wraps as torch's does
+// offboard/controller.py: run_tracking (zero yaw)
 // ---------------------------------------------------------------------------
 
-struct f3 { float x, y, z; };
-struct f4 { float w, x, y, z; };
-struct m3 { float a[9]; };  // row-major
-
-__device__ __forceinline__ f3 ld3(const float* p) { return f3{p[0], p[1], p[2]}; }
-__device__ __forceinline__ void st3(float* p, f3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
-__device__ __forceinline__ f4 ld4(const float* p) { return f4{p[0], p[1], p[2], p[3]}; }
-__device__ __forceinline__ void st4(float* p, f4 q) { p[0] = q.w; p[1] = q.x; p[2] = q.y; p[3] = q.z; }
-__device__ __forceinline__ m3 ldm(const float* p) {
-  m3 m;
-  for (int i = 0; i < 9; ++i) m.a[i] = p[i];
-  return m;
-}
-
-__device__ __forceinline__ f3 add(f3 a, f3 b) { return f3{a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ f3 sub(f3 a, f3 b) { return f3{a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ f3 mul(f3 a, f3 b) { return f3{a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ f3 scl(f3 a, float s) { return f3{a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ f3 dvs(f3 a, float s) { return f3{a.x / s, a.y / s, a.z / s}; }
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
-}
-
-// torch.minimum / maximum / clamp propagate NaN (fminf/fmaxf do not)
-__device__ __forceinline__ float tmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (a < b ? a : b);
-}
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (a > b ? a : b);
-}
-__device__ __forceinline__ float tclamp(float x, float lo, float hi) { return tmin(tmax(x, lo), hi); }
-__device__ __forceinline__ float tsign(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : (isnan(x) ? NAN : 0.0f));
-}
-
-// ---------------------------------------------------------------------------
-// ops/fmath.py: dot3, norm3, cross; ipow in JAX integer_pow's order
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float dot3(f3 a, f3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ float norm3(f3 a) { return sqrtf(dot3(a, a)); }
-__device__ __forceinline__ f3 cross(f3 a, f3 b) {
-  return f3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ float ipow2(float x) { return x * x; }
-__device__ __forceinline__ float ipow3(float x) { return x * (x * x); }
-__device__ __forceinline__ float ipow4(float x) { float x2 = x * x; return x2 * x2; }
-__device__ __forceinline__ float ipow5(float x) { float x2 = x * x; return x * (x2 * x2); }
-
-// ---------------------------------------------------------------------------
-// ops/trig.py: Cephes single-precision atan / asin / acos, term for term
-// ---------------------------------------------------------------------------
-
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kPio2 = 1.5707963267948966f;
-constexpr float kPio4 = 0.7853981633974483f;
-constexpr float kTan3Pio8 = 2.414213562373095f;
-constexpr float kTanPio8 = 0.4142135623730950f;
-
-__device__ float atan_c(float x) {
-  float sign = tsign(x);
-  float a = fabsf(x);
-  bool big = a > kTan3Pio8;
-  bool mid = (a > kTanPio8) && !big;
-  float safe_a = a == 0.0f ? 1.0f : a;
-  float xr = big ? -(1.0f / safe_a) : (mid ? (a - 1.0f) / (a + 1.0f) : a);
-  float y0 = big ? kPio2 : (mid ? kPio4 : 0.0f);
-  float z = xr * xr;
-  float p = ((((8.05374449538e-2f * z - 1.38776856032e-1f) * z + 1.99777106478e-1f) * z
-              - 3.33329491539e-1f) * z) * xr + xr;
-  return sign * (y0 + p);
-}
-
-__device__ float atan2_c(float y, float x) {
-  float safe_x = x == 0.0f ? 1.0f : x;
-  float base = atan_c(y / safe_x);
-  float corr = y < 0.0f ? -kPi : kPi;
-  float out = x < 0.0f ? base + corr : base;
-  float pio2 = y > 0.0f ? kPio2 : -kPio2;
-  if (x == 0.0f && y != 0.0f) out = pio2;
-  if (x == 0.0f && y == 0.0f) out = 0.0f;
-  return out;
-}
-
-__device__ float asin_core(float a) {
-  bool gt_half = a > 0.5f;
-  float z = gt_half ? 0.5f * (1.0f - a) : a * a;
-  float xr = gt_half ? sqrtf(z) : a;
-  float p = (((((4.2163199048e-2f * z + 2.4181311049e-2f) * z + 4.5470025998e-2f) * z
-               + 7.4953002686e-2f) * z + 1.6666752422e-1f) * z) * xr + xr;
-  return gt_half ? kPio2 - 2.0f * p : p;
-}
-
-__device__ float asin_c(float x) {
-  float a = fabsf(x);
-  float out = tsign(x) * asin_core(tmin(a, 1.0f));
-  return a > 1.0f ? NAN : out;
-}
-
-__device__ float acos_c(float x) {
-  float a = fabsf(x);
-  float flank = 2.0f * asin_core(sqrtf(tmax(0.5f * (1.0f - a), 0.0f)));
-  float out = x < -0.5f ? kPi - flank : (x > 0.5f ? flank : kPio2 - asin_c(x));
-  return a > 1.0f ? NAN : out;
-}
-
-// ---------------------------------------------------------------------------
-// ops/lin3.py and ops/rotation.py (w-first quaternions)
-// ---------------------------------------------------------------------------
-
-constexpr float kMinAngle = 4.84813681e-6f;
-
-__device__ __forceinline__ f3 mv3(const m3& m, f3 v) {
-  return f3{m.a[0] * v.x + m.a[1] * v.y + m.a[2] * v.z,
-            m.a[3] * v.x + m.a[4] * v.y + m.a[5] * v.z,
-            m.a[6] * v.x + m.a[7] * v.y + m.a[8] * v.z};
-}
-
-__device__ __forceinline__ f3 mv3t(const m3& m, f3 v) {
-  return f3{m.a[0] * v.x + m.a[3] * v.y + m.a[6] * v.z,
-            m.a[1] * v.x + m.a[4] * v.y + m.a[7] * v.z,
-            m.a[2] * v.x + m.a[5] * v.y + m.a[8] * v.z};
-}
-
-__device__ __forceinline__ f4 qidentity() { return f4{1.0f, 0.0f, 0.0f, 0.0f}; }
-__device__ __forceinline__ f4 qinv(f4 q) { return f4{q.w, -q.x, -q.y, -q.z}; }
-
-__device__ __forceinline__ f4 qmul(f4 q2, f4 q1) {
-  return f4{q1.w * q2.w - q1.x * q2.x - q1.y * q2.y - q1.z * q2.z,
-            q1.x * q2.w + q1.w * q2.x + q1.z * q2.y - q1.y * q2.z,
-            q1.y * q2.w - q1.z * q2.x + q1.w * q2.y + q1.x * q2.z,
-            q1.z * q2.w + q1.y * q2.x - q1.x * q2.y + q1.w * q2.z};
-}
-
-__device__ __forceinline__ f4 from_axis_angle(f3 u, float angle) {
-  float half = angle * 0.5f;
-  float s = sinf(half);
-  return f4{cosf(half), s * u.x, s * u.y, s * u.z};
-}
-
-__device__ f4 from_rotation_vector(f3 rv) {
-  float theta = norm3(rv);
-  bool small = theta < kMinAngle;
-  float safe = small ? 1.0f : theta;
-  f4 q = from_axis_angle(dvs(rv, safe), safe);
-  return small ? qidentity() : q;
-}
-
-__device__ __forceinline__ m3 to_matrix(f4 q) {
-  float w = q.w, x = q.x, y = q.y, z = q.z;
-  float r0 = w * w, r1 = x * x, r2 = y * y, r3 = z * z;
-  m3 m;
-  m.a[0] = r0 + r1 - r2 - r3;
-  m.a[1] = 2.0f * (x * y - w * z);
-  m.a[2] = 2.0f * (x * z + w * y);
-  m.a[3] = 2.0f * (x * y + w * z);
-  m.a[4] = r0 - r1 + r2 - r3;
-  m.a[5] = 2.0f * (y * z - w * x);
-  m.a[6] = 2.0f * (x * z - w * y);
-  m.a[7] = 2.0f * (y * z + w * x);
-  m.a[8] = r0 - r1 - r2 + r3;
-  return m;
-}
-
-__device__ __forceinline__ f3 rotate(f4 q, f3 v) { return mv3(to_matrix(q), v); }
-__device__ __forceinline__ f3 rotate_back(f4 q, f3 v) { return mv3t(to_matrix(q), v); }
-
-__device__ f3 to_rotation_vector(f4 q) {
-  float sign = q.w > 0.0f ? 1.0f : -1.0f;
-  f3 n = f3{sign * q.x, sign * q.y, sign * q.z};
-  float norm = norm3(n);
-  float angle = asin_c(tclamp(norm, 0.0f, 1.0f)) * 2.0f;
-  bool small = angle < kMinAngle;
-  float safe_norm = small ? 1.0f : norm;
-  return small ? f3{0.0f, 0.0f, 0.0f} : scl(n, angle / safe_norm);
-}
-
-__device__ __forceinline__ float get_angle(f4 q) {
-  return 2.0f * acos_c(tclamp(fabsf(q.w), 0.0f, 1.0f));
-}
-
-__device__ void to_euler_ypr(f4 q, float* yaw, float* pitch, float* roll) {
-  float w = q.w, x = q.x, y = q.y, z = q.z;
-  *yaw = atan2_c(2.0f * x * y + 2.0f * w * z, x * x + w * w - z * z - y * y);
-  *pitch = -asin_c(tclamp(2.0f * x * z - 2.0f * w * y, -1.0f, 1.0f));
-  *roll = atan2_c(2.0f * y * z + 2.0f * w * x, z * z - y * y - x * x + w * w);
-}
-
-__device__ f4 from_euler_ypr(float y, float p, float r) {
-  float cy = cosf(0.5f * y), sy = sinf(0.5f * y);
-  float cp = cosf(0.5f * p), sp = sinf(0.5f * p);
-  float cr = cosf(0.5f * r), sr = sinf(0.5f * r);
-  return f4{cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
-            cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr};
-}
-
-// ---------------------------------------------------------------------------
-// ops/filters.py: lp2_apply with the reference's add-tree
-// ---------------------------------------------------------------------------
-
-struct Lp2c { float a1, a2, b0, b1, b2; };
-
-__device__ __forceinline__ float lp2_apply(const Lp2c& c, float* xm0, float* xm1, float* ym0,
-                                           float* ym1, float x) {
-  float out = c.b2 * x + (c.b0 * *xm0 + c.b1 * *xm1);
-  out = out + (-(c.a1 * *ym0) - c.a2 * *ym1);
-  *xm0 = *xm1;
-  *xm1 = x;
-  *ym0 = *ym1;
-  *ym1 = out;
-  return out;
-}
-
-// ---------------------------------------------------------------------------
-// models/plant.py: step and imu_measurements
-// ---------------------------------------------------------------------------
-
-constexpr float kGravZ = -9.81f;
-__constant__ float kSpin[4] = {1.0f, -1.0f, 1.0f, -1.0f};
-
-// Advances the plant leaves of S in place; returns acc_imu (world frame,
-// gravity included, z zeroed on ground contact).
-__device__ f3 plant_step(const Params& P, State& S, const float* motor_cmds, float dt) {
-  const f3 grav = f3{0.0f, 0.0f, kGravZ};
-  const f3 pos = ld3(S.plant_pos), vel = ld3(S.plant_vel), angvel = ld3(S.plant_angvel);
-  const f4 att = ld4(S.plant_att);
-
-  // motors
-  bool tc_zero = P.p_motor_time_const == 0.0f;
-  float c = tc_zero ? 0.0f : expf(-dt / (tc_zero ? 1.0f : P.p_motor_time_const));
-  float new_speeds[4], w_abs_w[4], thrusts[4], tz[4];
-  for (int i = 0; i < 4; ++i) {
-    float cmd = tmax(motor_cmds[i], 0.0f);
-    float ns = c * S.plant_motor_speeds[i] + (1.0f - c) * cmd;
-    ns = tmin(tmax(ns, P.p_motor_min_speed), P.p_motor_max_speed);
-    float dspeed = (ns - S.plant_motor_speeds[i]) / dt;
-    new_speeds[i] = ns;
-    w_abs_w[i] = ns * fabsf(ns);
-    thrusts[i] = P.p_kf * w_abs_w[i];
-    float tz_aero = -P.p_kt_sqr * w_abs_w[i] * kSpin[i];
-    float tz_react = -dspeed * P.p_motor_inertia * kSpin[i];
-    tz[i] = tz_aero + tz_react;
-  }
-
-  // torque: thrust moment + aero drag + rotor acceleration reaction
-  f3 total_force_b = f3{0.0f, 0.0f, 0.0f}, total_torque_b = f3{0.0f, 0.0f, 0.0f};
-  float h_motor_z = 0.0f;
-  for (int i = 0; i < 4; ++i) {
-    f3 force = f3{0.0f, 0.0f, thrusts[i]};
-    f3 torque = cross(ld3(P.p_motor_positions + 3 * i), force);
-    torque = add(torque, f3{0.0f, 0.0f, tz[i]});
-    total_force_b = i == 0 ? force : add(total_force_b, force);
-    total_torque_b = i == 0 ? torque : add(total_torque_b, torque);
-    float h = new_speeds[i] * P.p_motor_inertia * kSpin[i];
-    h_motor_z = i == 0 ? h : h_motor_z + h;
-  }
-
-  // rigid body
-  const m3 J = ldm(P.p_inertia), Jinv = ldm(P.p_inertia_inv);
-  f3 ang_mom = add(mv3(J, angvel), f3{h_motor_z * 0.0f, h_motor_z * 0.0f, h_motor_z * 1.0f});
-  f3 ang_acc = mv3(Jinv, sub(total_torque_b, cross(angvel, ang_mom)));
-
-  f3 vel_b = rotate_back(att, vel);
-  total_force_b = sub(total_force_b, mul(ld3(P.p_lin_drag_b), vel_b));
-  f3 acc = add(grav, dvs(rotate(att, total_force_b), P.p_mass));
-
-  f3 new_pos = add(add(pos, scl(vel, dt)), scl(scl(scl(acc, 0.5f), dt), dt));
-  f3 new_vel = add(vel, scl(acc, dt));
-  f4 new_att = qmul(att, from_rotation_vector(scl(angvel, dt)));
-  f3 new_angvel = add(angvel, scl(ang_acc, dt));
-
-  // ground contact
-  bool grounded = (new_pos.z <= 0.0f) && (new_vel.z < 0.0f);
-  f3 acc_imu = acc;
-  if (grounded) {
-    new_pos.z = 0.0f;
-    new_vel.z = 0.0f;
-    acc_imu.z = 0.0f;
-    new_angvel = f3{0.0f, 0.0f, 0.0f};
-  }
-  st3(S.plant_pos, new_pos);
-  st3(S.plant_vel, new_vel);
-  st4(S.plant_att, new_att);
-  st3(S.plant_angvel, new_angvel);
-  for (int i = 0; i < 4; ++i) S.plant_motor_speeds[i] = new_speeds[i];
-  return acc_imu;
-}
-
-// ---------------------------------------------------------------------------
-// models/mixer.py and models/controllers.py
-// ---------------------------------------------------------------------------
-
-__device__ void motor_forces(const Params& P, float total_thrust, f3 torque, float* f) {
-  const float S[4][3] = {{-1.0f, -1.0f, -1.0f}, {-1.0f, 1.0f, 1.0f},
-                         {1.0f, 1.0f, -1.0f}, {1.0f, -1.0f, 1.0f}};
-  float d = P.l_arm_length / 1.4142135623730951f;
-  float kt = P.l_prop0_spin_dir * P.l_prop_torque_from_thrust;
-  float des_f = tmin(total_thrust, P.l_max_cmd_total_thrust);
-  float t0 = torque.x / d, t1 = torque.y / d, t2 = torque.z / kt;
-  for (int i = 0; i < 4; ++i) {
-    float v = (S[i][0] * t0 + S[i][1] * t1 + S[i][2] * t2 + des_f) / 4.0f;
-    f[i] = tmin(tmax(v, P.l_min_thrust_per_prop), P.l_max_thrust_per_prop);
-  }
-}
-
-__device__ void speeds_from_forces(const Params& P, const float* forces, const float* corr,
-                                   float* w) {
-  for (int i = 0; i < 4; ++i) {
-    bool pos = forces[i] > 0.0f;
-    float s = sqrtf((pos ? forces[i] : 1.0f) / (corr[i] * P.l_prop_thrust_from_speed_sqr));
-    w[i] = pos ? s : 0.0f;
-  }
-}
-
-__device__ __forceinline__ f3 position_control(float nat_freq, float damping, f3 est_pos,
-                                               f3 est_vel, f3 des_pos, f3 des_vel) {
-  // (des_pos - est_pos) w^2 + (des_vel - est_vel) 2 w d + des_acc (zero)
-  f3 a = scl(scl(sub(des_pos, est_pos), nat_freq), nat_freq);
-  f3 b = scl(scl(scl(sub(des_vel, est_vel), 2.0f), nat_freq), damping);
-  return add(add(a, b), f3{0.0f, 0.0f, 0.0f});
-}
-
-__device__ f3 attitude_control(float tc_xy, float tc_z, f4 des_att, f4 est_att) {
-  const f3 e3 = f3{0.0f, 0.0f, 1.0f};
-  f4 err_att = qmul(qinv(des_att), est_att);
-  f3 des_rot_vec = to_rotation_vector(err_att);
-  f3 e_b = rotate_back(err_att, e3);
-  f3 red_ax = cross(e_b, e3);
-  float red_angle = acos_c(tclamp(e_b.x * e3.x + e_b.y * e3.y + e_b.z * e3.z, -1.0f, 1.0f));
-  float n = norm3(red_ax);
-  bool small = n < 1e-12f;
-  red_ax = small ? f3{0.0f, 0.0f, 0.0f} : dvs(red_ax, small ? 1.0f : n);
-  float k3 = 1.0f / tc_z;
-  float k12 = 1.0f / tc_xy;
-  return sub(scl(des_rot_vec, -k3), scl(red_ax, (k12 - k3) * red_angle));
-}
-
-__device__ f3 angvel_control(float tc_xy, float tc_z, const m3& J, f3 des, f3 est) {
-  f3 err = sub(des, est);
-  f3 dacc = f3{err.x / tc_xy, err.y / tc_xy, err.z / tc_z};
-  f3 nonlin = cross(est, mv3(J, est));
-  return add(mv3(J, dacc), nonlin);
-}
-
-__device__ f4 thrust_dir_to_attitude(f3 thrust_dir) {
-  const f3 e3 = f3{0.0f, 0.0f, 1.0f};
-  float angle = acos_c(tclamp(thrust_dir.x * e3.x + thrust_dir.y * e3.y + thrust_dir.z * e3.z,
-                              -1.0f, 1.0f));
-  f3 ax = cross(e3, thrust_dir);
-  float n = norm3(ax);
-  bool small = n < 1e-6f;
-  f4 q = from_rotation_vector(scl(ax, angle / (small ? 1.0f : n)));
-  return small ? qidentity() : q;
-}
-
-// ---------------------------------------------------------------------------
-// models/ekf.py: predict and cov_predict_block on the 9x9 covariance
-// ---------------------------------------------------------------------------
-
-// 3x3 blocks of the row-major 9x9 covariance
-__device__ __forceinline__ m3 blk(const float* P, int r, int c) {
-  m3 m;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) m.a[3 * i + j] = P[9 * (3 * r + i) + 3 * c + j];
-  return m;
-}
-__device__ __forceinline__ void put_blk(float* P, int r, int c, const m3& m) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) P[9 * (3 * r + i) + 3 * c + j] = m.a[3 * i + j];
-}
-__device__ __forceinline__ m3 tr(const m3& m) {
-  m3 t;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) t.a[3 * i + j] = m.a[3 * j + i];
-  return t;
-}
-__device__ __forceinline__ m3 madd(const m3& a, const m3& b) {
-  m3 m;
-  for (int i = 0; i < 9; ++i) m.a[i] = a.a[i] + b.a[i];
-  return m;
-}
-__device__ __forceinline__ m3 mscl(const m3& a, float s) {
-  m3 m;
-  for (int i = 0; i < 9; ++i) m.a[i] = s * a.a[i];
-  return m;
-}
-// _mm3: the inner axis summed left to right
-__device__ __forceinline__ m3 mm3(const m3& M, const m3& N) {
-  m3 m;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      m.a[3 * i + j] = M.a[3 * i] * N.a[j] + M.a[3 * i + 1] * N.a[3 + j] + M.a[3 * i + 2] * N.a[6 + j];
-  return m;
-}
-// _skew_mul: skew(g) @ M, each column c of M -> c x g
-__device__ __forceinline__ m3 skew_mul(f3 g, const m3& M) {
-  m3 m;
-  for (int c = 0; c < 3; ++c) {
-    f3 col = cross(f3{M.a[c], M.a[3 + c], M.a[6 + c]}, g);
-    m.a[c] = col.x;
-    m.a[3 + c] = col.y;
-    m.a[6 + c] = col.z;
-  }
-  return m;
-}
-// M @ D^T for D = I + skew(g): each row r of M -> r + r x g
-__device__ __forceinline__ m3 mDt(const m3& M, f3 g) { return madd(M, tr(skew_mul(g, tr(M)))); }
-
-__device__ void cov_predict_block(float* P, float dt, const m3& A, f3 g, float q_vel,
-                                  float q_att) {
-  m3 P11 = blk(P, 0, 0), P12 = blk(P, 0, 1), P13 = blk(P, 0, 2);
-  m3 P22 = blk(P, 1, 1), P23 = blk(P, 1, 2), P33 = blk(P, 2, 2);
-
-  m3 FP11 = madd(P11, mscl(tr(P12), dt));
-  m3 FP12 = madd(P12, mscl(P22, dt));
-  m3 FP13 = madd(P13, mscl(P23, dt));
-  m3 FP22 = madd(P22, mm3(A, tr(P23)));
-  m3 FP23 = madd(P23, mm3(A, P33));
-  m3 DP33 = madd(P33, skew_mul(g, P33));
-
-  m3 At = tr(A);
-  m3 N11 = madd(FP11, mscl(FP12, dt));
-  m3 N12 = madd(FP12, mm3(FP13, At));
-  m3 N13 = mDt(FP13, g);
-  m3 N22 = madd(FP22, mm3(FP23, At));
-  m3 N23 = mDt(FP23, g);
-  m3 N33 = mDt(DP33, g);
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      N22.a[3 * i + j] = N22.a[3 * i + j] + q_vel * (i == j ? 1.0f : 0.0f);
-      N33.a[3 * i + j] = N33.a[3 * i + j] + q_att * (i == j ? 1.0f : 0.0f);
-    }
-  put_blk(P, 0, 0, N11);
-  put_blk(P, 0, 1, N12);
-  put_blk(P, 0, 2, N13);
-  put_blk(P, 1, 0, tr(N12));
-  put_blk(P, 1, 1, N22);
-  put_blk(P, 1, 2, N23);
-  put_blk(P, 2, 0, tr(N13));
-  put_blk(P, 2, 1, tr(N23));
-  put_blk(P, 2, 2, N33);
-}
-
-__device__ f4 gravity_align_correction(f4 att, f3 meas_acc, float gain) {
-  f3 exp_acc = rotate_back(att, f3{0.0f, 0.0f, 1.0f});
-  float norm = norm3(meas_acc);
-  f3 acc_unit = dvs(meas_acc, norm < 1e-12f ? 1.0f : norm);
-  f3 ax = cross(acc_unit, exp_acc);
-  float n = norm3(ax);
-  bool big = n > 1e-6f;
-  ax = big ? dvs(ax, n) : f3{1.0f, 0.0f, 0.0f};
-  float angle = acos_c(tclamp(dot3(exp_acc, acc_unit), -1.0f, 1.0f));
-  return qmul(att, from_axis_angle(ax, gain * angle));
-}
-
-// One prediction step on the kf_* leaves of S (the phase the lifecycle
-// flags select: A first IMU sample, B complementary, C full EKF).
-__device__ void ekf_predict(State& S, f3 gyro, f3 acc, float dt) {
-  if (!S.kf_imu_init) {  // phase A: reset + gravity-aligned attitude
-    const float std_att_perp = static_cast<float>(10.0 * 3.14159265358979323846 / 180.0);
-    const float std_att_grav = static_cast<float>(30.0 * 3.14159265358979323846 / 180.0);
-    const float stds[9] = {3.0f, 3.0f, 3.0f, 3.0f, 3.0f, 3.0f,
-                           std_att_perp, std_att_perp, std_att_grav};
-    st3(S.kf_pos, f3{0.0f, 0.0f, 0.0f});
-    st3(S.kf_vel, f3{0.0f, 0.0f, 0.0f});
-    st4(S.kf_att, gravity_align_correction(qidentity(), acc, 1.0f));
-    st3(S.kf_angvel, f3{0.0f, 0.0f, 0.0f});
-    for (int i = 0; i < 81; ++i) S.kf_cov[i] = 0.0f;
-    for (int i = 0; i < 9; ++i) S.kf_cov[10 * i] = stds[i] * stds[i];
-    S.kf_imu_init = 1;
-    S.kf_uwb_init = 0;
-    st3(S.kf_last_att_corr, f3{0.0f, 0.0f, 0.0f});
-    S.kf_num_rejected_seq = 0;
-    S.kf_num_resets = wadd(S.kf_num_resets, 1);
-    return;
-  }
-  const f4 att = ld4(S.kf_att);
-  if (!S.kf_uwb_init) {  // phase B: complementary attitude
-    f4 attB = qmul(att, from_rotation_vector(scl(gyro, dt)));
-    st4(S.kf_att, gravity_align_correction(attB, acc, dt / 4.0f));
-    st3(S.kf_angvel, gyro);
-    return;
-  }
-  // phase C: full EKF prediction
-  const f3 pos = ld3(S.kf_pos), vel = ld3(S.kf_vel);
-  f3 acc_w = add(rotate(att, acc), f3{0.0f, 0.0f, kGravZ});
-  st3(S.kf_pos, add(pos, scl(vel, dt)));
-  st3(S.kf_vel, add(vel, scl(acc_w, dt)));
-  st4(S.kf_att, qmul(att, from_rotation_vector(scl(gyro, dt))));
-  st3(S.kf_angvel, gyro);
-
-  m3 R = to_matrix(att);
-  float ax = acc.x, ay = acc.y, az = acc.z;
-  m3 dva;  // d(vel)/d(att) = dt * R [a]_x
-  for (int i = 0; i < 3; ++i) {
-    float r0 = R.a[3 * i], r1 = R.a[3 * i + 1], r2 = R.a[3 * i + 2];
-    dva.a[3 * i] = dt * (ay * r2 - az * r1);
-    dva.a[3 * i + 1] = dt * (-ax * r2 + az * r0);
-    dva.a[3 * i + 2] = dt * (ax * r1 - ay * r0);
-  }
-  f3 g = add(scl(gyro, dt), dvs(ld3(S.kf_last_att_corr), 2.0f));
-  SECTION_BEGIN(kSecCovPredict)
-  cov_predict_block(S.kf_cov, dt, dva, g, 25.0f * dt * dt, 0.01f * dt * dt);
-  SECTION_END(kSecCovPredict)
-  st3(S.kf_last_att_corr, f3{0.0f, 0.0f, 0.0f});
-}
-
-// ---------------------------------------------------------------------------
-// io/radio.py: the wire codec
-// ---------------------------------------------------------------------------
-
-constexpr int kTypeEmergencyKill = 2, kTypePositionCmd = 3, kTypeExternalAccCmd = 4,
-              kTypeExternalRatesCmd = 5, kTypeIdleCmd = 6;
-constexpr int kFlagCalibrateMotors = 0x01, kFlagDisableSafetyChecks = 0x02;
-constexpr int kNumFields = 10;
-__constant__ float kLimRates[10] = {35.0f, 35.0f, 35.0f, 35.0f, 35.0f,
-                                 35.0f, 35.0f, 35.0f, 35.0f, 35.0f};
-__constant__ float kLimPos[10] = {20.0f, 20.0f, 20.0f, 10.0f, 10.0f,
-                               10.0f, 30.0f, 30.0f, 30.0f, 1.0f};
-__constant__ float kLimAcc[10] = {30.0f, 30.0f, 30.0f, 35.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
-
-// encodeToRadioByte; the code truncates toward zero like .to(torch.int32)
-__device__ __forceinline__ int encode_field(float val, float limit) {
-  bool in_range = (val > -limit) && (val < limit);
-  if (in_range) return static_cast<int>(val * 32768.0f / limit + 0.5f) + 32768;
-  return val >= limit ? 65535 : 0;
-}
-
-__device__ __forceinline__ float decode_field(int code, float limit) {
-  return limit * (static_cast<float>(code) - 32768.0f) / 32768.0f;
-}
-
-__device__ void decode_message(int msg_type, const int* fields, float* out) {
-  for (int i = 0; i < kNumFields; ++i) {
-    float limit = msg_type == kTypePositionCmd        ? kLimPos[i]
-                  : msg_type == kTypeExternalRatesCmd ? kLimRates[i]
-                  : msg_type == kTypeExternalAccCmd   ? kLimAcc[i]
-                                                      : 1.0f;
-    out[i] = decode_field(fields[i], limit);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// models/logic.py: logic_step (no UWB in this configuration)
-// ---------------------------------------------------------------------------
-
-constexpr int FS_UNINITIALIZED = 0, FS_IDLE = 1, FS_FULLY_AUTONOMOUS = 2, FS_PANIC = 3,
-              FS_KILLED = 4, FS_EXTERNAL_ACCELERATION_CONTROL = 5,
-              FS_EXTERNAL_RATES_CONTROL = 6;
-constexpr int kUsSat = 100000000;
-constexpr float kRadioCmdPeriod = 0.02f;
-
-__device__ __forceinline__ int advance_timer(int us, int period_us) {
-  return min(wadd(us, period_us), kUsSat);
-}
-
-// gyro, acc: the raw IMU readings; the radio message popped this tick.
-__device__ void logic_step(const Params& P, State& S, f3 gyro, f3 acc, bool radio_new,
-                           int radio_type_in, int radio_flags_in, const int* radio_fields) {
-  const int per_us = P.l_onboard_period_us;
-  const m3 imu_rot = ldm(P.l_imu_rot);
-  const Lp2c gyro_c{P.l_gyro_lp_a1, P.l_gyro_lp_a2, P.l_gyro_lp_b0, P.l_gyro_lp_b1, P.l_gyro_lp_b2};
-  const Lp2c acc_c{P.l_acc_lp_a1, P.l_acc_lp_a2, P.l_acc_lp_b0, P.l_acc_lp_b1, P.l_acc_lp_b2};
-  const Lp2c temp_c{P.l_temp_lp_a1, P.l_temp_lp_a2, P.l_temp_lp_b0, P.l_temp_lp_b1, P.l_temp_lp_b2};
-  const Lp2c batt_c{P.l_batt_lp_a1, P.l_batt_lp_a2, P.l_batt_lp_b0, P.l_batt_lp_b1, P.l_batt_lp_b2};
-  const float batt_voltage = P.l_batt_critical * 1.2f;
-
-  // sensor ingestion
-  f3 gyro_raw = mv3(imu_rot, gyro);
-  f3 gyro_in = sub(gyro_raw, ld3(S.gyro_bias));
-  const float gin[3] = {gyro_in.x, gyro_in.y, gyro_in.z};
-  f3 acc_raw = mv3(imu_rot, acc);
-  const float ain[3] = {acc_raw.x, acc_raw.y, acc_raw.z};
-  for (int i = 0; i < 3; ++i) {
-    lp2_apply(gyro_c, &S.gyro_lp_xm0[i], &S.gyro_lp_xm1[i], &S.gyro_lp_ym0[i],
-              &S.gyro_lp_ym1[i], gin[i]);
-    lp2_apply(acc_c, &S.acc_lp_xm0[i], &S.acc_lp_xm1[i], &S.acc_lp_ym0[i], &S.acc_lp_ym1[i],
-              ain[i]);
-  }
-  lp2_apply(temp_c, &S.temp_lp_xm0, &S.temp_lp_xm1, &S.temp_lp_ym0, &S.temp_lp_ym1, 25.0f);
-  lp2_apply(batt_c, &S.batt_lp_xm0, &S.batt_lp_xm1, &S.batt_lp_ym0, &S.batt_lp_ym1,
-            batt_voltage);
-
-  // radio delivery: decoded floats + cmd-rate monitor
-  int us_since_radio = advance_timer(S.us_since_radio, per_us);
-  float cmd_dt = static_cast<float>(us_since_radio) * 1e-6f;
-  if (radio_new) {
-    float c = P.l_cmd_rate_lp_coeff;
-    S.cmd_rate_lpdt = c * S.cmd_rate_lpdt + (1.0f - c) * cmd_dt;
-    decode_message(radio_type_in, radio_fields, S.radio_floats);
-    S.radio_type = radio_type_in;
-    S.radio_flags = radio_flags_in;
-    us_since_radio = 0;
-  }
-  S.radio_count = wadd(S.radio_count, radio_new ? 1 : 0);
-  S.us_since_radio = us_since_radio;
-  S.us_since_uwb = advance_timer(S.us_since_uwb, per_us);
-  bool radio_pending = S.radio_new || radio_new;
-
-  // Run()
-  S.cycle_count = wadd(S.cycle_count, 1);
-  S.loop_lpdt = P.l_loop_lp_coeff * S.loop_lpdt + (1.0f - P.l_loop_lp_coeff) * P.l_onboard_period;
-  f3 gyro_f = ld3(S.gyro_lp_ym1);
-  f3 acc_f = ld3(S.acc_lp_ym1);
-
-  // UpdateEstimator (no range update)
-  int prev_resets = S.last_check_num_resets;
-  SECTION_BEGIN(kSecEkfPredict)
-  ekf_predict(S, gyro_f, acc_f, P.l_onboard_period);
-  SECTION_END(kSecEkfPredict)
-  if (S.gyro_cal_enabled) {
-    st3(S.gyro_cal_accum, add(ld3(S.gyro_cal_accum), gyro_raw));
-    S.gyro_cal_count = wadd(S.gyro_cal_count, 1);
-  }
-
-  // ParseIncomingCommunications
-  int fs = S.fs;
-  bool sticky = (fs == FS_PANIC) || (fs == FS_KILLED);
-  bool take = radio_pending && !sticky;
-  int radio_type = S.radio_type, radio_flags = S.radio_flags;
-  bool is_kill = take && radio_type == kTypeEmergencyKill;
-  if (is_kill) fs = FS_KILLED;
-  int panic_reason = (is_kill && S.panic_reason == 0) ? 7 : S.panic_reason;
-  if (take && radio_type == kTypePositionCmd) fs = FS_FULLY_AUTONOMOUS;
-  if (take && radio_type == kTypeExternalAccCmd) fs = FS_EXTERNAL_ACCELERATION_CONTROL;
-  if (take && radio_type == kTypeExternalRatesCmd) fs = FS_EXTERNAL_RATES_CONTROL;
-  if (take && radio_type == kTypeIdleCmd) fs = FS_IDLE;
-
-  // UpdateWarnings
-  float batt_filt = S.batt_lp_ym1;
-  int warnings = S.warnings;
-  if (batt_filt <= P.l_batt_warning) warnings |= 0x01;
-  if (fabsf(S.cmd_rate_lpdt - kRadioCmdPeriod) > static_cast<float>(0.1 * 0.02)) warnings |= 0x02;
-  if (static_cast<float>(us_since_radio) * 1e-6f > static_cast<float>(3 * 0.02)) warnings |= 0x10;
-  if (fabsf(S.loop_lpdt - P.l_onboard_period) > 0.05f * P.l_onboard_period) warnings |= 0x08;
-  bool was_reset = S.kf_num_resets != prev_resets;
-  S.us_since_est_reset = was_reset ? 0 : advance_timer(S.us_since_est_reset, per_us);
-  if (S.us_since_est_reset < 20000) warnings |= 0x04;
-  S.warnings = warnings;
-
-  // CheckPanicReasons (later rules override earlier ones)
-  const f3 e3 = f3{0.0f, 0.0f, 1.0f};
-  const f3 est_pos = ld3(S.kf_pos), est_vel = ld3(S.kf_vel), est_angvel = ld3(S.kf_angvel);
-  const f4 est_att = ld4(S.kf_att);
-  bool motors_running = false;
-  for (int i = 0; i < 4; ++i) motors_running = motors_running || S.des_motor_speeds[i] > 0.0f;
-  bool checks_on = (radio_flags & kFlagDisableSafetyChecks) == 0;
-  int unsafe = 0;
-  if (est_pos.z < -2.0f && checks_on) unsafe = 1;
-  if (S.us_since_uwb > 1500000 && fs == FS_FULLY_AUTONOMOUS) unsafe = 2;
-  if (rotate(est_att, e3).z < 0.0f && checks_on) unsafe = 3;
-  if (us_since_radio > 1500000) unsafe = 4;
-  if (batt_filt <= P.l_batt_critical) unsafe = 5;
-  if (!motors_running) unsafe = 0;
-  bool in_critical = fs == FS_FULLY_AUTONOMOUS || fs == FS_EXTERNAL_ACCELERATION_CONTROL ||
-                     fs == FS_EXTERNAL_RATES_CONTROL;
-  bool go_panic = unsafe != 0 && in_critical && fs != FS_PANIC;
-  if (go_panic) {
-    panic_reason = unsafe;
-    fs = FS_PANIC;
-  }
-  S.fs = fs;
-  S.panic_reason = panic_reason;
-  S.debug[0] = S.temp_lp_ym1;
-
-  // controllers: the branch the flight state selects
-  const m3 J = ldm(P.l_inertia);
-  const f3 g_vec = f3{0.0f, 0.0f, 9.81f};
-  const f3 zero3 = f3{0.0f, 0.0f, 0.0f};
-  const float* rf = S.radio_floats;
-  float forces[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  bool acc_cutoff = rf[2] < static_cast<float>(-9.81 / 2);
-  if (fs == FS_FULLY_AUTONOMOUS) {
-    f3 des_acc = position_control(P.l_pos_nat_freq, P.l_pos_damping, est_pos, est_vel,
-                                  ld3(rf), zero3);
-    f3 proper_acc = add(des_acc, g_vec);
-    float norm_pa = norm3(proper_acc);
-    f3 thrust_dir = dvs(proper_acc, norm_pa < 1e-12f ? 1.0f : norm_pa);
-    float corr_sat = tmax(rotate(est_att, e3).z, 1.0f);
-    f3 angvel_auto = attitude_control(P.l_att_tc_xy, P.l_att_tc_z,
-                                      thrust_dir_to_attitude(thrust_dir), est_att);
-    f3 torque_auto = angvel_control(P.l_angvel_tc_xy, P.l_angvel_tc_z, J, angvel_auto, est_angvel);
-    motor_forces(P, norm_pa / corr_sat * P.l_mass, torque_auto, forces);
-  } else if (fs == FS_EXTERNAL_ACCELERATION_CONTROL && !acc_cutoff) {
-    f3 pa2 = add(ld3(rf), g_vec);
-    float thrust_acc = norm3(pa2);
-    f3 dir2 = dvs(pa2, thrust_acc < 1e-12f ? 1.0f : thrust_acc);
-    float yaw, pitch, roll;
-    to_euler_ypr(est_att, &yaw, &pitch, &roll);
-    f4 att_no_yaw = from_euler_ypr(0.0f, pitch, roll);
-    f3 angvel2 = attitude_control(P.l_att_tc_xy, P.l_att_tc_z, thrust_dir_to_attitude(dir2),
-                                  att_no_yaw);
-    angvel2.z = rf[3];
-    f3 torque2 = angvel_control(P.l_angvel_tc_xy, P.l_angvel_tc_z, J, angvel2, est_angvel);
-    motor_forces(P, thrust_acc * P.l_mass, torque2, forces);
-  } else if (fs == FS_EXTERNAL_RATES_CONTROL) {
-    f3 torque3 = angvel_control(P.l_angvel_tc_xy, P.l_angvel_tc_z, J, ld3(rf + 1), est_angvel);
-    motor_forces(P, rf[0] * P.l_mass, torque3, forces);
-  }
-  float speeds[4];
-  speeds_from_forces(P, forces, S.prop_cal_factors, speeds);
-  bool zero_out = fs == FS_IDLE || fs == FS_PANIC || fs == FS_KILLED || fs == FS_UNINITIALIZED ||
-                  (fs == FS_EXTERNAL_ACCELERATION_CONTROL && acc_cutoff);
-  if (zero_out)
-    for (int i = 0; i < 4; ++i) speeds[i] = forces[i] = 0.0f;
-
-  // motor test mode overrides the state machine
-  if (S.test_motors_on) {
-    f3 torque_test = angvel_control(P.l_angvel_tc_xy, P.l_angvel_tc_z, J, zero3, est_angvel);
-    motor_forces(P, S.test_motors_frac * 9.81f * P.l_mass, torque_test, forces);
-    speeds_from_forces(P, forces, S.prop_cal_factors, speeds);
-  }
-
-  // propeller calibration
-  bool in_rates = fs == FS_EXTERNAL_RATES_CONTROL;
-  bool cal_flag = in_rates && (radio_flags & kFlagCalibrateMotors) != 0;
-  bool starting = cal_flag && !S.prop_cal_running;
-  int count = starting ? 0 : S.prop_cal_count;
-  if (starting)
-    for (int i = 0; i < 4; ++i) S.prop_cal_accum[i] = 0.0f;
-  if (cal_flag) {
-    for (int i = 0; i < 4; ++i)
-      S.prop_cal_accum[i] = S.prop_cal_accum[i] + P.l_prop_thrust_from_speed_sqr * speeds[i] * speeds[i];
-    count = wadd(count, 1);
-  }
-  bool finishing = in_rates && !cal_flag && S.prop_cal_running;
-  bool done = finishing && count >= 750;
-  if (done) {
-    float m = P.l_mass * 9.81f / 4.0f;
-    for (int i = 0; i < 4; ++i) {
-      float accum = S.prop_cal_accum[i];
-      S.prop_cal_factors[i] = tclamp(static_cast<float>(count) * m / (accum != 0.0f ? accum : 1.0f),
-                                     0.7f, static_cast<float>(1.0 / 0.7));
-    }
-  }
-  S.prop_cal_running = cal_flag ? 1 : (finishing ? 0 : S.prop_cal_running);
-  S.prop_cal_count = count;
-  S.should_write_params = S.should_write_params || done;
-
-  for (int i = 0; i < 4; ++i) {
-    S.des_motor_speeds[i] = speeds[i];
-    S.des_motor_forces[i] = forces[i];
-  }
-  st3(S.gyro_raw, gyro_raw);
-  S.radio_new = 0;
-  S.last_check_num_resets = S.kf_num_resets;
-  S.batt_voltage = batt_voltage;
-  S.batt_current = -1.0f;
-}
-
-// ---------------------------------------------------------------------------
-// sim/delayline.py: the radio ring (push, pop_due)
-// ---------------------------------------------------------------------------
-
-constexpr int kRingCap = 32;
-
-__device__ void ring_push(State& S, int type, int flags, const int* fields, int step,
-                          bool do_push) {
-  int slot = (S.ring_head + S.ring_count) % kRingCap;
-  bool can = do_push && S.ring_count < kRingCap;
-  if (!can) return;
-  S.ring_types[slot] = type;
-  S.ring_flags[slot] = flags;
-  for (int i = 0; i < kNumFields; ++i) S.ring_fields[kNumFields * slot + i] = fields[i];
-  S.ring_send_step[slot] = step;
-  S.ring_count = S.ring_count + 1;
-}
-
-// Returns whether the front message is due (its delay elapsed) and copies
-// it out; the plain version reads the front slot by a one-hot sum, which is
-// zero for a head outside the ring.
-__device__ bool ring_pop_due(State& S, int step, int dt_us, int delay_us, int* type, int* flags,
-                             int* fields) {
-  int h = S.ring_head;
-  bool valid = h >= 0 && h < kRingCap;
-  bool has = S.ring_count > 0;
-  int front_send = valid ? S.ring_send_step[h] : 0;
-  bool due = has && wmul(wsub(step, front_send), dt_us) > delay_us;
-  *type = valid ? S.ring_types[h] : 0;
-  *flags = valid ? S.ring_flags[h] : 0;
-  for (int i = 0; i < kNumFields; ++i) fields[i] = valid ? S.ring_fields[kNumFields * h + i] : 0;
-  if (due) {
-    S.ring_head = (h + 1) % kRingCap;
-    S.ring_count = S.ring_count - 1;
-  }
-  return due;
-}
-
-// ---------------------------------------------------------------------------
-// offboard/estimators.py: the mocap estimator and its prediction pipe
-// ---------------------------------------------------------------------------
-
-constexpr int kPipeCap = 8;
-constexpr int kMaxConsecutiveReject = 10;
-constexpr float kMeasRejectDist = 6.0f;
-constexpr float kProcStdPos = static_cast<float>(1.0 * 9.81);
-constexpr float kProcStdAtt = 200.0f;
-
-// the mocap estimate, without the pipe
-struct Mocap {
-  f3 pos, vel, angvel;
-  f4 att;
-  float vp[3], va[3];  // (0,0), (0,1), (1,1) of the symmetric 2x2 variances
-};
-
-struct PipeView {  // the pipe in logical (push) order
-  int act[kPipeCap];
-  f3 acc[kPipeCap], angvel[kPipeCap];
-  bool ballistic[kPipeCap];
-};
-
-__device__ void pipe_ordered(const State& S, PipeView& v) {
-  for (int i = 0; i < kPipeCap; ++i) {
-    int src = (S.pipe_head + i) % kPipeCap;
-    v.act[i] = i < S.pipe_count ? S.pipe_active_us[src] : (1 << 30);
-    v.acc[i] = ld3(S.pipe_acc + 3 * src);
-    v.angvel[i] = ld3(S.pipe_angvel + 3 * src);
-    v.ballistic[i] = S.pipe_ballistic[src] != 0;
-  }
-}
-
-__device__ void pipe_push(State& S, int now_us, int delay_us, f3 acc, f3 angvel, bool do_push) {
-  if (!do_push) return;
-  if (S.pipe_count >= kPipeCap) {  // evict the oldest
-    S.pipe_head = (S.pipe_head + 1) % kPipeCap;
-    S.pipe_count = S.pipe_count - 1;
-  }
-  int slot = (S.pipe_head + S.pipe_count) % kPipeCap;
-  S.pipe_active_us[slot] = wadd(now_us, delay_us);
-  st3(S.pipe_acc + 3 * slot, acc);
-  st3(S.pipe_angvel + 3 * slot, angvel);
-  S.pipe_ballistic[slot] = 0;
-  S.pipe_count = S.pipe_count + 1;
-}
-
-__device__ void pipe_clear_expired(State& S, int t_us) {
-  PipeView v;
-  pipe_ordered(S, v);
-  int advance = 0;
-  for (int i = 1; i < kPipeCap; ++i)
-    if (i < S.pipe_count && v.act[i] <= t_us) advance = i;
-  S.pipe_head = (S.pipe_head + advance) % kPipeCap;
-  S.pipe_count = S.pipe_count - advance;
-}
-
-__device__ __forceinline__ void step_var(float* p, float proc, float dt) {
-  // the reference puts sigma, not sigma^2, in Q (kept bug-compatible)
-  float n00 = p[0] + dt * (p[1] + p[1]) + (dt * dt) * p[2] + ipow4(dt) * proc / 4.0f;
-  float n01 = p[1] + dt * p[2];
-  float n11 = p[2] + ipow2(dt) * proc;
-  p[0] = n00;
-  p[1] = n01;
-  p[2] = n11;
-}
-
-__device__ __forceinline__ Mocap mocap_of(const State& S) {
-  Mocap m;
-  m.pos = ld3(S.mc_pos);
-  m.vel = ld3(S.mc_vel);
-  m.att = ld4(S.mc_att);
-  m.angvel = ld3(S.mc_angvel);
-  m.vp[0] = S.mc_var_pos[0], m.vp[1] = S.mc_var_pos[1], m.vp[2] = S.mc_var_pos[3];
-  m.va[0] = S.mc_var_att[0], m.va[1] = S.mc_var_att[1], m.va[2] = S.mc_var_att[3];
-  return m;
-}
-
-// The replay's segments: one per pipe slot, and the final open one.
-constexpr int kSegs = kPipeCap + 1;
-
-// a segment's decay of the angular velocity toward its command
-__device__ __forceinline__ float segment_decay(bool ballistic, float dt) {
-  return ballistic ? 1.0f : expf(-dt / 0.04f);
-}
-
-// A vehicle leader's requests to its helper lanes, in shared memory:
-// segment i is lane i + 1's. op: kDecay, kRotation or both (bits), or
-// kDone.
-enum { kDone = 0, kDecay = 1, kRotation = 2 };
-struct WarpWork {
-  int op;
-  float dt[kSegs];
-  f3 w[kSegs];
-  bool ballistic[kSegs];
-  float decay[kSegs];
-  f4 rot[kSegs];
-};
-
-// Segment i's share of a request: its decay c = segment_decay(ballistic,
-// dt) and/or its rotation from_rotation_vector(w dt).
-__device__ __forceinline__ void segment_work(int op, bool ballistic, float dt, f3 w, float* c,
-                                             f4* rot) {
-  if (op & kDecay) *c = segment_decay(ballistic, dt);
-  if (op & kRotation) *rot = from_rotation_vector(scl(w, dt));
-}
-
-// The lanes that help one vehicle's thread with the replay's per-segment
-// work: lanes 1..kSegs of its warp, or none (work null: the thread does the
-// work itself, as in a one-thread-per-vehicle kernel).
-struct Helpers {
-  WarpWork* work;
-
-  // segment_work(op, ...) for every segment: c[i] and/or rot[i]
-  __device__ void segments(int op, const bool* ballistic, const float* dt, const f3* w, float* c,
-                           f4* rot) const {
-    if (!work) {
-      for (int i = 0; i < kSegs; ++i) segment_work(op, ballistic[i], dt[i], w[i], c + i, rot + i);
-      return;
-    }
-    for (int i = 0; i < kSegs; ++i) {
-      work->ballistic[i] = ballistic[i];
-      work->dt[i] = dt[i];
-      work->w[i] = w[i];
-    }
-    work->op = op;
-    __syncwarp();  // the helpers compute between these two barriers (help())
-    __syncwarp();
-    for (int i = 0; i < kSegs; ++i) {
-      if (op & kDecay) c[i] = work->decay[i];
-      if (op & kRotation) rot[i] = work->rot[i];
-    }
-  }
-  // ends the helpers' loop; the leader calls it once, after its last tick
-  __device__ void release() const {
-    if (!work) return;
-    work->op = kDone;
-    __syncwarp();
-  }
-};
-
-// A helper lane's loop: its segment of each request, until released.
-__device__ void help(WarpWork& work, int lane) {
-  const int i = lane - 1;
-  for (;;) {
-    __syncwarp();
-    const int op = work.op;
-    if (op == kDone) return;
-    if (i < kSegs)
-      segment_work(op, work.ballistic[i], work.dt[i], work.w[i], &work.decay[i], &work.rot[i]);
-    __syncwarp();
-  }
-}
-
-// _replay: integrate the command stream from t0 to t1 over the pipe's
-// slots and the final open segment; frozen: the prediction flavor (start
-// velocity v0 and angvel w0 held). The plain version is one loop that
-// integrates a piecewise-constant-command segment per slot. Here the loop's
-// integer walk first lays out the segments (length, command); the helpers
-// compute each segment's decay and rotation; then the segments are chained
-// in order with the plain loop's operations.
-__device__ Mocap replay(const State& S, int t0_us, int t1_us, bool update_variance,
-                        bool frozen, const Helpers& hp) {
-  Mocap m = mocap_of(S);
-  const f3 v0 = m.vel, w0 = m.angvel;
-  PipeView v;
-  pipe_ordered(S, v);
-  float dt[kSegs];
-  f3 acc[kSegs], cmd[kSegs];
-  bool ball[kSegs];
-  int t = max(t0_us, 0);
-  int has = 0, a_cur = 0;
-  f3 cur_acc = f3{0.0f, 0.0f, 0.0f}, cur_angvel = f3{0.0f, 0.0f, 0.0f};
-  bool cur_ball = true;
-  for (int i = 0; i < kSegs; ++i) {
-    int dt_us;
-    if (i < kPipeCap) {
-      int remaining = max(wsub(t1_us, t), 0);
-      int window = has != 0 ? wsub(v.act[i], a_cur) : (1 << 30);
-      dt_us = v.act[i] <= t ? 0 : min(remaining, window);
-    } else {  // final segment to t1 (the newest message's window is unbounded)
-      dt_us = max(wsub(t1_us, t), 0);
-    }
-    dt[i] = static_cast<float>(dt_us) * 1e-6f;
-    acc[i] = cur_acc;
-    cmd[i] = cur_angvel;
-    ball[i] = cur_ball;
-    t = wadd(t, dt_us);
-    if (i < kPipeCap && v.act[i] <= t) {
-      cur_acc = v.acc[i];
-      cur_angvel = v.angvel[i];
-      cur_ball = v.ballistic[i];
-      a_cur = v.act[i];
-      has = 1;
-    }
-  }
-  float c[kSegs];
-  f3 w[kSegs];  // the angular velocity each segment's attitude turns by
-  f4 rot[kSegs];
-  for (int i = 0; i < kSegs; ++i) w[i] = w0;
-  if (frozen) {  // w0 throughout: decays and rotations in one request
-    hp.segments(kDecay | kRotation, ball, dt, w, c, rot);
-  } else {  // each segment turns by the angular velocity the decays leave it
-    hp.segments(kDecay, ball, dt, w, c, rot);
-    f3 angvel = m.angvel;
-    for (int i = 0; i < kSegs; ++i) {
-      w[i] = angvel;
-      angvel = add(scl(angvel, c[i]), scl(cmd[i], 1.0f - c[i]));
-    }
-    hp.segments(kRotation, ball, dt, w, c, rot);
-  }
-  for (int i = 0; i < kSegs; ++i) {
-    if (frozen) m.pos = add(add(m.pos, scl(v0, dt[i])), scl(acc[i], dt[i] * dt[i] * 0.5f));
-    else m.pos = add(m.pos, scl(m.vel, dt[i]));
-    m.att = qmul(m.att, rot[i]);
-    m.vel = add(m.vel, scl(acc[i], dt[i]));
-    m.angvel = add(scl(m.angvel, c[i]), scl(cmd[i], 1.0f - c[i]));
-    if (update_variance) {
-      step_var(m.vp, kProcStdPos, dt[i]);
-      step_var(m.va, kProcStdAtt, dt[i]);
-    }
-  }
-  return m;
-}
-
-__device__ __forceinline__ void mocap_store(State& S, const Mocap& m) {
-  st3(S.mc_pos, m.pos);
-  st3(S.mc_vel, m.vel);
-  st4(S.mc_att, m.att);
-  st3(S.mc_angvel, m.angvel);
-}
-
-// UpdateWithMeasurement: replay the pipe to now, 6-sigma gate, 2x2 KF
-// corrections, force-accept + reset after 10 straight rejections
-__device__ void mocap_update(State& S, int now_us, f3 meas_pos, f4 meas_att, int dt_advance_us,
-                             const Helpers& hp) {
-  const float meas_var_pos = static_cast<float>(0.02 * 0.02);
-  const float meas_var_att = static_cast<float>((5.0 * 3.14159265358979323846 / 180.0) *
-                                                (5.0 * 3.14159265358979323846 / 180.0));
-  if (!S.mc_initialized) {
-    S.mc_initialized = 1;
-    st3(S.mc_pos, meas_pos);
-    st3(S.mc_vel, f3{0.0f, 0.0f, 0.0f});
-    st4(S.mc_att, meas_att);
-    st3(S.mc_angvel, f3{0.0f, 0.0f, 0.0f});
-    const float vp0[4] = {25.0f, 0.0f, 0.0f, 25.0f}, va0[4] = {1.0f, 0.0f, 0.0f, 400.0f};
-    for (int i = 0; i < 4; ++i) {
-      S.mc_var_pos[i] = vp0[i];
-      S.mc_var_att[i] = va0[i];
-    }
-    S.mc_us_since_good_meas = 0;
-    return;
-  }
-  SECTION_BEGIN(kSecReplayUpdate)
-  Mocap r = replay(S, S.mc_estimate_us, now_us, true, false, hp);
-  SECTION_END(kSecReplayUpdate)
-
-  float innov_pos = r.vp[0] + meas_var_pos;
-  float innov_att = r.va[0] + meas_var_att;
-  float dist_pos = norm3(sub(meas_pos, r.pos)) / sqrtf(3.0f * innov_pos);
-  float dist_att = get_angle(qmul(qinv(meas_att), r.att)) / sqrtf(innov_att);
-  bool should_reject = dist_pos > kMeasRejectDist || dist_att > kMeasRejectDist;
-  bool force_accept = S.mc_num_rejected_consec >= kMaxConsecutiveReject;
-  bool reject = should_reject && !force_accept;
-
-  // variances as full 2x2 (row-major), replayed ones symmetric
-  float vpr[4] = {r.vp[0], r.vp[1], r.vp[1], r.vp[2]};
-  float var[4] = {r.va[0], r.va[1], r.va[1], r.va[2]};
-  float vp_f[4], va_f[4];
-  Mocap out = r;
-  if (reject) {
-    for (int i = 0; i < 4; ++i) {
-      vp_f[i] = vpr[i];
-      va_f[i] = var[i];
-    }
-  } else {
-    // force-accept zeroes the state and resets the variance before the update
-    const f3 z3 = f3{0.0f, 0.0f, 0.0f};
-    f3 pos_u = force_accept ? z3 : r.pos, vel_u = force_accept ? z3 : r.vel;
-    f4 att_u = force_accept ? qidentity() : r.att;
-    f3 angvel_u = force_accept ? z3 : r.angvel;
-    const float vp0[4] = {25.0f, 0.0f, 0.0f, 25.0f}, va0[4] = {1.0f, 0.0f, 0.0f, 400.0f};
-    float vpu[4], vau[4];
-    for (int i = 0; i < 4; ++i) {
-      vpu[i] = force_accept ? vp0[i] : vpr[i];
-      vau[i] = force_accept ? va0[i] : var[i];
-    }
-    float dp = vpu[0] + meas_var_pos, da = vau[0] + meas_var_att;
-    float gp0 = vpu[0] / dp, gp1 = vpu[2] / dp;
-    float ga0 = vau[0] / da, ga1 = vau[2] / da;
-
-    f3 err_pos = sub(meas_pos, pos_u);
-    out.pos = add(pos_u, scl(err_pos, gp0));
-    out.vel = add(vel_u, scl(err_pos, gp1));
-    f3 err_att = to_rotation_vector(qmul(qinv(att_u), meas_att));
-    out.att = qmul(att_u, from_rotation_vector(scl(err_att, ga0)));
-    out.angvel = add(angvel_u, scl(err_att, ga1));
-
-    // (I - K e0^T) V
-    const float ikp[4] = {1.0f - gp0 * 1.0f, 0.0f - gp0 * 0.0f, 0.0f - gp1 * 1.0f,
-                          1.0f - gp1 * 0.0f};
-    const float ika[4] = {1.0f - ga0 * 1.0f, 0.0f - ga0 * 0.0f, 0.0f - ga1 * 1.0f,
-                          1.0f - ga1 * 0.0f};
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j) {
-        vp_f[2 * i + j] = ikp[2 * i] * vpu[j] + ikp[2 * i + 1] * vpu[2 + j];
-        va_f[2 * i + j] = ika[2 * i] * vau[j] + ika[2 * i + 1] * vau[2 + j];
-      }
-  }
-  mocap_store(S, out);
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      S.mc_var_pos[2 * i + j] = 0.5f * (vp_f[2 * i + j] + vp_f[2 * j + i]);
-      S.mc_var_att[2 * i + j] = 0.5f * (va_f[2 * i + j] + va_f[2 * j + i]);
-    }
-  // force-accept calls Reset(): the next measurement re-initializes
-  S.mc_initialized = force_accept ? 0 : 1;
-  S.mc_estimate_us = now_us;
-  S.mc_us_since_good_meas =
-      reject ? min(wadd(S.mc_us_since_good_meas, dt_advance_us), 1 << 30) : 0;
-  S.mc_num_rejected = wadd(S.mc_num_rejected, reject ? 1 : 0);
-  S.mc_num_rejected_consec = reject ? wadd(S.mc_num_rejected_consec, 1) : 0;
-  pipe_clear_expired(S, now_us);
-}
-
-// GetPrediction: forward-simulate the latency (estimate at now + latency)
-__device__ __forceinline__ Mocap mocap_get_prediction(const State& S, int now_us, int latency_us,
-                                                     const Helpers& hp) {
-  return replay(S, S.mc_estimate_us, wadd(now_us, latency_us), false, true, hp);
-}
-
-// ---------------------------------------------------------------------------
-// offboard/controller.py: run and run_tracking (zero yaw)
-// ---------------------------------------------------------------------------
-
-__device__ void offboard_run(const Params& P, f3 cur_pos, f3 cur_vel, f4 cur_att, f3 des_pos,
-                             f3 des_vel, f3* cmd_angvel, float* cmd_thrust) {
-  const f3 e3 = f3{0.0f, 0.0f, 1.0f};
-  f3 cmd_acc = position_control(P.c_pos_nat_freq, P.c_pos_damping, cur_pos, cur_vel, des_pos,
-                                des_vel);
-  f3 proper = add(cmd_acc, f3{0.0f, 0.0f, 9.81f});
-  float norm = norm3(proper);
-  if (norm > P.c_max_proper_acc) proper = scl(proper, P.c_max_proper_acc / norm);
-  proper.z = tmax(proper.z, P.c_min_vertical_proper_acc);
-  norm = norm3(proper);
-  f3 thrust_dir = dvs(proper, norm < 1e-12f ? 1.0f : norm);
-  float thrust = norm * dot3(rotate(cur_att, e3), thrust_dir);
-  *cmd_thrust = tmax(thrust, P.c_min_proper_acc);
-  *cmd_angvel = attitude_control(P.c_att_tc_xy, P.c_att_tc_z, thrust_dir_to_attitude(thrust_dir),
-                                 cur_att);
-}
-
-__device__ void offboard_run_tracking(const Params& P, f3 cur_pos, f3 cur_vel, f4 cur_att,
+__device__ void offboard_run_tracking(const EnvParams& P, f3 cur_pos, f3 cur_vel, f4 cur_att,
                                       f3 ref_pos, f3 ref_vel, f3 ref_acc, float ref_thrust,
                                       f3 ref_angvel, f3* cmd_angvel, float* cmd_thrust) {
   f3 acc_err = position_control(P.c_pos_nat_freq, P.c_pos_damping, cur_pos, cur_vel, ref_pos,
-                                ref_vel);
+                                ref_vel, f3{0.0f, 0.0f, 0.0f});
   *cmd_thrust = ref_thrust + dot3(acc_err, rotate(cur_att, f3{0.0f, 0.0f, 1.0f}));
   f3 total = add(add(ref_acc, acc_err), f3{0.0f, 0.0f, 9.81f});
   float norm = norm3(total);
@@ -1630,60 +234,11 @@ __device__ f3 traj_omega(const Traj& tr, float t, float dt, f3 grav) {
 }
 
 // ---------------------------------------------------------------------------
-// sim/env.py and sim/orchard_env.py: one 2 ms tick
+// sim/orchard_env.py: one 2 ms tick
 // ---------------------------------------------------------------------------
 
 constexpr int MSTAGE_CRUISE = 0, MSTAGE_LANDING = 1, MSTAGE_COMPLETE = 2;
 constexpr float kLandingSpeed = 0.5f, kLandingBlendTime = 2.0f;
-
-// physics_tick with the mocap estimator; returns the estimator's
-// prediction and now_us (master time after this tick)
-__device__ Mocap physics_tick(const Params& P, State& S, const float* noise, int* now_us,
-                              const Helpers& hp) {
-  const f3 grav = f3{0.0f, 0.0f, kGravZ};
-  const m3 imu_rot_inv = ldm(P.p_imu_rot_inv);
-  float dt = static_cast<float>(P.dt_us) * 1e-6f;
-
-  // physics_phase_a: radio delivery, plant, IMU
-  int mtype, mflags, mfields[kNumFields];
-  bool delivered = ring_pop_due(S, S.step, P.dt_us, P.radio_delay_us, &mtype, &mflags, mfields);
-  float motor_cmds[4];
-  for (int i = 0; i < 4; ++i) motor_cmds[i] = S.des_motor_speeds[i];
-  SECTION_BEGIN(kSecPlant)
-  f3 acc_imu = plant_step(P, S, motor_cmds, dt);
-  SECTION_END(kSecPlant)
-  f3 angvel = ld3(S.plant_angvel);
-  f4 att = ld4(S.plant_att);
-  f3 gyro_true = mv3(imu_rot_inv, angvel);
-  f3 acc_true = mv3(imu_rot_inv, rotate_back(att, sub(acc_imu, grav)));
-  f3 gyro_meas = add(gyro_true, scl(ld3(noise), 0.1f));
-  f3 acc_meas = add(acc_true, scl(ld3(noise + 3), 0.2f));
-  gyro_meas = add(gyro_true, scl(sub(gyro_meas, gyro_true), P.noise_scale));
-  acc_meas = add(acc_true, scl(sub(acc_meas, acc_true), P.noise_scale));
-
-  // onboard logic tick (constant battery)
-  SECTION_BEGIN(kSecLogic)
-  logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields);
-  SECTION_END(kSecLogic)
-
-  *now_us = wmul(wadd(S.step, 1), P.dt_us);
-
-  // 200 Hz mocap measurement -> estimator update
-  int mocap_acc = wadd(S.mocap_acc_us, P.dt_us);
-  bool mfire = mocap_acc > P.mocap_period_us;
-  if (mfire) {
-    mocap_acc = wsub(mocap_acc, P.mocap_period_us);
-    SECTION_BEGIN(kSecMocapUpdate)
-    mocap_update(S, *now_us, ld3(S.plant_pos), att, P.mocap_period_us, hp);
-    SECTION_END(kSecMocapUpdate)
-  }
-  S.mocap_acc_us = mocap_acc;
-  S.gps_acc_us = wadd(S.gps_acc_us, P.dt_us);
-  SECTION_BEGIN(kSecPrediction)
-  const Mocap pred = mocap_get_prediction(S, *now_us, P.est_latency_us, hp);
-  SECTION_END(kSecPrediction)
-  return pred;
-}
 
 // _tracking_refs: receding-horizon reference state at sim step
 __device__ void tracking_refs(const Params& P, const State& S, int step, f3* ref_pos,
@@ -1692,7 +247,7 @@ __device__ void tracking_refs(const Params& P, const State& S, int step, f3* ref
           ld3(S.pl_v0),    ld3(S.pl_p0),   S.pl_tf};
   const f3 zero3 = f3{0.0f, 0.0f, 0.0f};
   const f3 grav_cam = ld3(S.pl_grav_cam);
-  float t = static_cast<float>(wsub(step, S.pl_start_step)) * (static_cast<float>(P.dt_us) * 1e-6f);
+  float t = static_cast<float>(wsub(step, S.pl_start_step)) * (static_cast<float>(P.base.dt_us) * 1e-6f);
   bool running = t < tr.tf;
   float t_eval = running ? tmin(t + P.track_lookahead, tr.tf) : tr.tf;
   f3 pos_c = traj_position(tr, t_eval);
@@ -1718,14 +273,16 @@ __device__ void tracking_refs(const Params& P, const State& S, int step, f3* ref
 // _sim_tick: one tick with tracking/takeoff offboard control; noise: the
 // tick's (gyro (3,), acc (3,)) unit normals
 __device__ void sim_tick(const Params& P, State& S, const float* noise, const Helpers& hp) {
-  const int step = S.step;  // the tick's step, before physics
+  const f3 zero3 = f3{0.0f, 0.0f, 0.0f};
+  EnvState& E = S.base;
+  const int step = E.step;  // the tick's step, before physics
   int now_us;
-  Mocap est = physics_tick(P, S, noise, &now_us, hp);
+  Mocap est = physics_tick(P.base, E, noise, zero3, zero3, true, true, &now_us, hp);
 
   // offboard loop cadence
-  int acc_us = wadd(S.offboard_acc_us, P.dt_us);
-  bool fire = acc_us > P.offboard_period_us;
-  if (fire) acc_us = wsub(acc_us, P.offboard_period_us);
+  int acc_us = wadd(E.offboard_acc_us, P.base.dt_us);
+  bool fire = acc_us > P.base.offboard_period_us;
+  if (fire) acc_us = wsub(acc_us, P.base.offboard_period_us);
   bool in_flight = step >= P.start_flight_step;
 
   // takeoff / no-plan hover target, or the landing descent (0.5 m/s with a
@@ -1733,7 +290,7 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise, const He
   f3 hover_pos = in_flight ? f3{0.0f, 0.0f, 2.0f} : f3{0.0f, 0.0f, P.takeoff_height};
   bool landing = S.mstage == MSTAGE_LANDING;
   float t_land = static_cast<float>(max(wsub(step, S.land_start_step), 0)) *
-                 (static_cast<float>(P.dt_us) * 1e-6f);
+                 (static_cast<float>(P.base.dt_us) * 1e-6f);
   float frac_ld = tclamp(t_land / kLandingBlendTime, 0.0f, 1.0f);
   const f3 descend = f3{0.0f, 0.0f, -kLandingSpeed};
   f3 pos_land = add(ld3(S.land_pos), scl(descend, frac_ld * t_land));
@@ -1755,10 +312,11 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise, const He
     f3 ref_pos, ref_vel, ref_acc, ref_angvel_w;
     float ref_thrust;
     tracking_refs(P, S, step, &ref_pos, &ref_vel, &ref_acc, &ref_thrust, &ref_angvel_w);
-    offboard_run_tracking(P, est.pos, est.vel, est.att, ref_pos, ref_vel, ref_acc, ref_thrust,
+    offboard_run_tracking(P.base, est.pos, est.vel, est.att, ref_pos, ref_vel, ref_acc, ref_thrust,
                           rotate_back(est.att, ref_angvel_w), &cmd_angvel, &cmd_thrust);
   } else {
-    offboard_run(P, est.pos, est.vel, est.att, hover_pos, hover_vel, &cmd_angvel, &cmd_thrust);
+    offboard_run(P.base, est.pos, est.vel, est.att, hover_pos, hover_vel, zero3, 0.0f,
+                 &cmd_angvel, &cmd_thrust);
   }
   SECTION_END(kSecOffboard)
 
@@ -1771,18 +329,18 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise, const He
     fields[2] = encode_field(cmd_angvel.y, kLimRates[2]);
     fields[3] = encode_field(cmd_angvel.z, kLimRates[3]);
   }
-  ring_push(S, idle ? kTypeIdleCmd : kTypeExternalRatesCmd, 0, fields, step, fire);
+  ring_push(E, idle ? kTypeIdleCmd : kTypeExternalRatesCmd, 0, fields, step, fire);
 
   // latency-compensation feedback into the estimator pipe
   f3 pred_acc = add(scl(rotate(est.att, f3{0.0f, 0.0f, 1.0f}), cmd_thrust),
                     f3{0.0f, 0.0f, kGravZ});
-  pipe_push(S, now_us, P.est_latency_us, pred_acc, cmd_angvel, fire);
+  pipe_push(E, now_us, P.base.est_latency_us, pred_acc, cmd_angvel, fire);
 
-  S.offboard_acc_us = acc_us;
-  S.step = wadd(step, 1);
+  E.offboard_acc_us = acc_us;
+  E.step = wadd(step, 1);
   if (fire) {
-    S.last_cmd_thrust = cmd_thrust;
-    st3(S.last_cmd_angvel, cmd_angvel);
+    E.last_cmd_thrust = cmd_thrust;
+    st3(E.last_cmd_angvel, cmd_angvel);
   }
   S.mstage = mstage;
 }
@@ -1793,22 +351,6 @@ __device__ void sim_tick(const Params& P, State& S, const float* noise, const He
 
 constexpr int kVehicles = 4;  // vehicles (warps) per block
 constexpr int kThreads = 32 * kVehicles;
-
-// Writes the W leaves of row b of `src` to the three flat output buffers,
-// leaf-major by dtype in table order, [B, numel] per leaf; element k, k +
-// stride, ... of the state table.
-__device__ void copy_out(const char* src, float* out_f, int* out_i, unsigned char* out_b, int B,
-                         int b, int k, int stride) {
-#pragma unroll 8
-  for (; k < kStateElems; k += stride) {
-    const Elem el = kStateTable.e[k];
-    if (el.out == kOutNone) continue;
-    const int64_t o = static_cast<int64_t>(B) * el.out_prefix + static_cast<int64_t>(b) * el.numel + el.i;
-    if (el.out == kOutF32) out_f[o] = *reinterpret_cast<const float*>(src + el.dst);
-    else if (el.out == kOutI32) out_i[o] = *reinterpret_cast<const int*>(src + el.dst);
-    else out_b[o] = static_cast<unsigned char>(src[el.dst]);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__ LeafPtrs ptrs,
                                                          const float* __restrict__ noise,
@@ -1839,7 +381,8 @@ __global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__
     help(work[warp], lane);
   }
   __syncwarp();
-  copy_out(reinterpret_cast<const char*>(&S), out_f, out_i, out_b, B, b, lane, 32);
+  copy_out(reinterpret_cast<const char*>(&S), kStateTable, out_f, out_i, out_b, B, b, lane,
+           32);
 }
 
 }  // namespace

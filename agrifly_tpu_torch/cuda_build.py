@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C interface. On first
-use `load(name)` compiles it with nvcc for Hopper (sm_90a) into
+Each kernel is one `csrc/<name>.cu` file with a plain C interface (the
+tick kernels share the device functions of `csrc/tick.cuh`). On first use
+`load(name)` compiles it with nvcc for Hopper (sm_90a) into
 `agrifly_tpu_torch/_build/lib<name>.so` and opens it with ctypes. A library
-newer than its source is reused. `load(name, defines)` builds a variant of
-the same source with those macros defined (`lib<name>-<DEFINE>.so`).
+newer than its source and every `csrc/*.cuh` header is reused.
+`load(name, defines)` builds a variant of the same source with those
+macros defined (`lib<name>-<DEFINE>.so`).
 
 The flags keep float32 arithmetic IEEE-exact: no fast math, and
 `-fmad=false` so nvcc does not contract a*b+c into one rounding. The plain
@@ -19,10 +21,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
@@ -65,7 +71,8 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     defined), built on first use."""
     src = CSRC / f"{name}.cu"
     lib = BUILD / f"lib{'-'.join((name, *defines))}.so"
-    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if not lib.exists() or lib.stat().st_mtime < newest:
         _compile(src, lib, defines)
     return ctypes.CDLL(str(lib))
 
@@ -74,3 +81,44 @@ def check(status: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {status}")
+
+
+class LeafSpec(NamedTuple):
+    path: tuple  # field names from the state or parameter NamedTuple
+    dtype: torch.dtype
+    numel: int  # 0 for a 0-d tensor
+    written: bool  # the kernel writes it (W); else it passes through (P)
+
+
+_DTYPES = {"F32": torch.float32, "I32": torch.int32, "BOOL": torch.bool}
+_ENTRY = re.compile(r'X\(\s*\w+,\s*"([\w.]+)",\s*(F32|I32|BOOL),\s*(\d+)\s*(?:,\s*([WP])\s*)?\)')
+
+
+def leaf_rows(source: str, prefix: tuple = ()):
+    """(state leaves, parameter leaves) that the X-macro tables of
+    `csrc/<source>` declare, in order: a state row names W or P, a
+    parameter row neither. prefix: field names put before every path."""
+    state, params = [], []
+    for path, ty, n, rw in _ENTRY.findall((CSRC / source).read_text()):
+        spec = LeafSpec(prefix + tuple(path.split(".")), _DTYPES[ty], int(n), rw == "W")
+        (state if rw else params).append(spec)
+    return state, params
+
+
+def check_leaves(specs, leaves, device, what, B, source):
+    """Every leaf as `source` declares it; B: a leading axis on every leaf
+    (a 0-d leaf becomes (B,), an n-element one (B, ...) with B n elements),
+    None for unbatched leaves."""
+    if len(leaves) != len(specs):
+        raise ValueError(f"{what}: {len(leaves)} leaves, {source} declares {len(specs)}")
+    lead = 0 if B is None else 1
+    for spec, t in zip(specs, leaves):
+        if ((B is not None and (t.dim() == 0 or t.shape[0] != B)) or t.dtype != spec.dtype
+                or t.device != device or not t.is_contiguous()
+                or (t.dim() == lead) != (spec.numel == 0)
+                or t.numel() != (B or 1) * max(spec.numel, 1)):
+            rows = "" if B is None else f"a leading {B} (the noise's B) and "
+            raise ValueError(
+                f"{what} leaf {'.'.join(spec.path)}: {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous: {t.is_contiguous()}); {source} takes {spec.dtype}, "
+                f"{rows}{spec.numel} elements, on {device}")

@@ -65,6 +65,17 @@ def make_rates_command(thrust, ang_vel):
             const(0, dev, torch.int32), fields)
 
 
+def make_position_command(des_pos, des_vel, des_acc):
+    """Position command: fields 0:3 = des_pos, 3:6 = des_vel, 6:9 = des_acc
+    (the JAX package's `make_position_command`); the tenth field stays a
+    raw 0. Returns (type, flags, fields) as int32 tensors."""
+    dev = des_pos.device
+    vals = torch.cat([des_pos, des_vel, des_acc])
+    codes = encode_field(vals, const(_LIM_POS[:9], dev))
+    fields = torch.cat([codes, torch.zeros(NUM_FIELDS - 9, dtype=torch.int32, device=dev)])
+    return (const(TYPE_POSITION_CMD, dev, torch.int32), const(0, dev, torch.int32), fields)
+
+
 def make_idle_command(device):
     return (const(TYPE_IDLE_CMD, device, torch.int32), const(0, device, torch.int32),
             const((0,) * NUM_FIELDS, device, torch.int32))

@@ -81,10 +81,11 @@ def init_state(pos=(0.0, 0.0, 0.0), device=None) -> PlantState:
                       angvel=z3, motor_speeds=torch.zeros(4, dtype=torch.float32, device=device))
 
 
-def step(p: PlantParams, s: PlantState, motor_cmds, dt):
-    """Advance the plant by dt (a 0-d float32 tensor) with no external force
-    or torque. Returns (new_state, acc_world_for_imu): the world-frame
-    acceleration including gravity, z zeroed on ground contact."""
+def step(p: PlantParams, s: PlantState, motor_cmds, ext_force, ext_torque, dt):
+    """Advance the plant by dt (a 0-d float32 tensor) under the world-frame
+    (3,) ext_force [N] and ext_torque [N m]. Returns (new_state,
+    acc_world_for_imu): the world-frame acceleration including gravity, z
+    zeroed on ground contact."""
     dev = s.pos.device
     grav = const(GRAVITY, dev)
     spin = const(MOTOR_SPIN_SIGNS, dev)
@@ -114,13 +115,14 @@ def step(p: PlantParams, s: PlantState, motor_cmds, dt):
     h_motor_z = (new_speeds * p.motor_inertia * spin).sum()
 
     # rigid body
+    total_torque_b = total_torque_b + rot.rotate_back(s.att, ext_torque)
     e3 = const((0.0, 0.0, 1.0), dev)
     ang_mom = lin3.mv3(p.inertia, s.angvel) + h_motor_z * e3
     ang_acc = lin3.mv3(p.inertia_inv, total_torque_b - lin3.cross_rows(s.angvel, ang_mom))
 
     vel_b = rot.rotate_back(s.att, s.vel)
     total_force_b = total_force_b - p.lin_drag_b * vel_b
-    acc = grav + rot.rotate(s.att, total_force_b) / p.mass
+    acc = grav + (rot.rotate(s.att, total_force_b) + ext_force) / p.mass
 
     new_pos = s.pos + s.vel * dt + 0.5 * acc * dt * dt
     new_vel = s.vel + acc * dt

@@ -2,8 +2,8 @@
 
 Port of `agrifly_tpu/offboard/controller.py`
 (Offboard/QuadcopterController.cpp): `run` flies to a setpoint, and
-`run_tracking` follows a trajectory reference. Both are memoryless and
-return body-rate and thrust commands.
+`run_tracking` follows a trajectory reference (zero yaw). Both are
+memoryless and return body-rate and thrust commands.
 """
 
 from __future__ import annotations
@@ -41,13 +41,15 @@ def make_params(v, min_vertical_proper_acc=0.5 * 9.81, max_proper_acc=20.0,
     )
 
 
-def run(p: OffboardCtrlParams, cur_pos, cur_vel, cur_att, des_pos, des_vel):
-    """Full feedback to a position setpoint with zero yaw. Returns
-    (cmd_angvel, cmd_thrust)."""
+def run(p: OffboardCtrlParams, cur_pos, cur_vel, cur_att, des_pos, des_vel, des_acc=None,
+        des_yaw=0.0):
+    """Full feedback to a position setpoint with acceleration feed-forward
+    des_acc (None: zero) and yaw des_yaw [rad]. Returns (cmd_angvel,
+    cmd_thrust)."""
     dev = cur_pos.device
     e3 = const((0.0, 0.0, 1.0), dev)
     cmd_acc = controllers.position_control(
-        p.pos_nat_freq, p.pos_damping, cur_pos, cur_vel, des_pos, des_vel)
+        p.pos_nat_freq, p.pos_damping, cur_pos, cur_vel, des_pos, des_vel, des_acc)
     proper = cmd_acc + const((0.0, 0.0, 9.81), dev)
 
     norm = norm3(proper)
@@ -60,9 +62,12 @@ def run(p: OffboardCtrlParams, cur_pos, cur_vel, cur_att, des_pos, des_vel):
     cmd_thrust = norm * dot3(rot.rotate(cur_att, e3), thrust_dir)
     cmd_thrust = torch.maximum(cmd_thrust, p.min_proper_acc)
 
-    # the JAX package composes with the yaw rotation of des_yaw = 0, an
-    # exact product with the identity
-    cmd_att = controllers.thrust_dir_to_attitude(thrust_dir)
+    # the yaw rotation composed as the JAX package does (des_yaw = 0 gives
+    # the identity, an exact product)
+    yaw = torch.as_tensor(des_yaw, dtype=torch.float32, device=dev)
+    zero = torch.zeros_like(yaw)
+    cmd_att = rot.qmul(controllers.thrust_dir_to_attitude(thrust_dir),
+                       rot.from_rotation_vector(torch.stack([zero, zero, yaw], dim=-1)))
     cmd_angvel = controllers.attitude_control(p.att_tc_xy, p.att_tc_z, cmd_att, cur_att)
     return cmd_angvel, cmd_thrust
 

@@ -13,44 +13,33 @@ The kernel reads each state and parameter leaf through its own device
 pointer (the warp's lanes copy a vehicle's leaves into shared memory
 together) and writes the leaves the ticks change into three flat buffers
 (float32, int32, bool); the returned leaves are views into them, and the
-leaves the ticks never write are the input tensors. `frame.cu` declares
-the leaves it reads, in order, in two X-macro tables; `leaf_table()`
-parses them and every call is checked against them.
+leaves the ticks never write are the input tensors. `tick.cuh` (the env's
+leaves, under `base`) and `frame.cu` (the orchard's) declare the leaves it
+reads, in order, in X-macro tables; `leaf_table()` parses them and every
+call is checked against them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import re
-from typing import NamedTuple
 
 import torch
 
 from agrifly_tpu_torch import convert, cuda_build
 
-_DTYPES = {"F32": torch.float32, "I32": torch.int32, "BOOL": torch.bool}
-_ENTRY = re.compile(r'X\(\s*\w+,\s*"([\w.]+)",\s*(F32|I32|BOOL),\s*(\d+)\s*(?:,\s*([WP])\s*)?\)')
+_DTYPES = cuda_build._DTYPES
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-class LeafSpec(NamedTuple):
-    path: tuple  # field names from OrchardEnvState / OrchardEnvParams
-    dtype: torch.dtype
-    numel: int  # 0 for a 0-d tensor
-    written: bool  # the kernel writes it (W); else it passes through (P)
-
-
 @functools.lru_cache(maxsize=None)
 def leaf_table():
-    """(state leaves, parameter leaves) as `frame.cu` declares them."""
-    text = (cuda_build.CSRC / "frame.cu").read_text()
-    state, params = [], []
-    for path, ty, n, rw in _ENTRY.findall(text):
-        spec = LeafSpec(tuple(path.split(".")), _DTYPES[ty], int(n), rw == "W")
-        (state if rw else params).append(spec)
-    return tuple(state), tuple(params)
+    """(state leaves, parameter leaves) as `frame.cu` declares them: the
+    env's leaves of `tick.cuh` under `base`, then the orchard's own."""
+    env_state, env_params = cuda_build.leaf_rows("tick.cuh", ("base",))
+    state, params = cuda_build.leaf_rows("frame.cu")
+    return tuple(env_state + state), tuple(env_params + params)
 
 
 def param_leaves(params):
@@ -61,19 +50,8 @@ def param_leaves(params):
 
 def _check(specs, leaves, device, what, B=None):
     """Every leaf as frame.cu declares it; B: a leading vehicle axis on
-    every leaf (a 0-d leaf becomes (B,), an n-element one (B, ...) with
-    B n elements), None for one vehicle's unbatched leaves."""
-    if len(leaves) != len(specs):
-        raise ValueError(f"{what}: {len(leaves)} leaves, frame.cu declares {len(specs)}")
-    for spec, t in zip(specs, leaves):
-        row = t if B is None else (t[0] if t.dim() > 0 and t.shape[0] == B else None)
-        if (row is None or t.dtype != spec.dtype or t.device != device or not t.is_contiguous()
-                or (row.dim() == 0) != (spec.numel == 0) or row.numel() != max(spec.numel, 1)):
-            lead = "" if B is None else f"a leading {B} (the noise's B) and "
-            raise ValueError(
-                f"{what} leaf {'.'.join(spec.path)}: {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous: {t.is_contiguous()}); frame.cu takes {spec.dtype}, "
-                f"{lead}{spec.numel} elements, on {device}")
+    every leaf, None for one vehicle's unbatched leaves."""
+    cuda_build.check_leaves(specs, leaves, device, what, B, "frame.cu")
 
 
 def _launch(leaves, pleaves, noise):

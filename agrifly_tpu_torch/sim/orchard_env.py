@@ -218,7 +218,8 @@ def _sim_tick(params: OrchardEnvParams, s: OrchardEnvState, noise) -> OrchardEnv
     base = s.base
     p = params.base
     dev = base.step.device
-    half = env_mod.physics_tick(base, p, (noise[0], noise[1]))
+    zero3 = const((0.0, 0.0, 0.0), dev)  # no wind
+    half = env_mod.physics_tick(base, p, zero3, zero3, True, noise=noise)
     est_pos, est_vel, est_att, _ = half["est"]
 
     # offboard loop cadence

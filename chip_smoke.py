@@ -45,7 +45,15 @@ oracle. It then flies:
   procedural, imported, imported, procedural), then one vehicle for 50
   frames and 16 in lanes for 20, every frame launching the strip-culled
   mesh kernel once and the procedural raycaster never; then one batch
-  render of the fleet's poses through the window mesh kernel.
+  render of the fleet's poses through the window mesh kernel;
+- `sim/env`'s fleet physics rollout (K5, `csrc/rollout.cu`) at bench.py's
+  shape: 4096 envs x 250 steps per `env.rollout_fast` call, hover, IMU
+  noise drawn inside each call, with the true state and with the mocap
+  estimator, 8 timed calls each (steps/s); K5 held against the plain
+  (vmapped) rollout on the card (all 4096 envs with the true state, 64 with
+  the estimator; 25 steps by the tick criteria, 250 by JAX's rollout_fast
+  terms) and on the CPU from mid-flight, its device time, and the plain
+  rollout's rate.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -72,10 +80,11 @@ MESH_FRAMES, MESH_FLEET_FRAMES = 50, 20  # the imported-world flights
 TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
-KERNELS = ("raycast", "inflate", "frame", "meshscene")  # one library per csrc/<name>.cu
+KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout")  # one library per csrc/<name>.cu
 DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_cluster_kernel",
                   "inflate_grouped_kernel", "frame_kernel",
-                  "meshscene_strips_kernel", "meshscene_window_kernel")
+                  "meshscene_strips_kernel", "meshscene_window_kernel",
+                  "rollout_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
 # attitude at these positions; the harnesses' start state and goal.
@@ -941,20 +950,21 @@ def tick_states(params):
             "complete": land(orchard_env.MSTAGE_COMPLETE, step)}
 
 
-def compare_ticks(got, ref, where):
+def compare_ticks(got, ref, where, env=("base",)):
     """The tick criteria: discrete leaves equal, float leaves within
     1e-3 (|ref| + 1e-3), the commanded body rates within the controller's
     1e-2 rad/s command floor (+ 1e-3 |ref|) and their wire codes within 10
-    codes. Returns the worst float leaf's ratio to its bound."""
+    codes. env: the path of the env state in the trees (() for an
+    `env.EnvState`). Returns the worst float leaf's ratio to its bound."""
     import torch
 
     from agrifly_tpu_torch import convert
 
-    commands = {("base", "last_cmd_angvel"), ("base", "mocap", "pipe", "angvel")}
+    commands = {env + ("last_cmd_angvel",), env + ("mocap", "pipe", "angvel")}
     worst = 0.0
     for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(ref)):
         a, b = a.cpu(), b.cpu()
-        if path == ("base", "ring", "fields"):
+        if path == env + ("ring", "fields"):
             _check(int((a - b).abs().max()) <= 10, f"wire codes differ ({where}): {path}")
         elif not a.is_floating_point():
             _check(torch.equal(a, b), f"discrete leaf differs ({where}): {path}")
@@ -1479,6 +1489,222 @@ def check_ticks_against_cpu(state, dev, start_flight_time):
     return p_dev, noise.to(dev), worst
 
 
+# The env rollout (K5, csrc/rollout.cu) at bench.py's shape: envs, steps per
+# call, timed calls; hover at (0, 0, 1.5) with the reference IMU noise.
+ENVS, ENV_STEPS, ENV_CALLS = 4096, 250, 8
+ENV_HOVER = (0.0, 0.0, 1.5)
+ENV_CHECK_ENVS, ENV_CHECK_STEPS = 64, 25  # the mocap subset held against the plain rollout
+ENV_CPU_ENVS = 8  # envs held against the plain rollout on the CPU from mid-flight
+ENV_PLAIN_STEPS = 4  # steps of the plain vmapped rollout timed at ENVS envs with the estimator
+# csrc/tick.cuh and rollout.cu, float operations per env and tick, counted
+# where bench.py's ticks run them: the plant (~300), IMU (~60), the onboard
+# logic with its complementary attitude and rates branch (~1100), the
+# offboard controller on one tick in five (~500 / 5); with the mocap
+# estimator also its update (replay of 9 segments and the 2x2 filters,
+# ~1700) on two ticks in five and its prediction replay (~1100) on one.
+ENV_TICK_OPS = {False: 1600, True: 2500}
+
+
+def env_bytes(leaves, pleaves, cmd, noise, new_leaves, traj):
+    """Bytes a rollout call must move: every state, parameter, command and
+    noise byte read once, the written state leaves and the trajectory
+    written once."""
+    written = [t for t, old in zip(new_leaves, leaves) if t is not old]
+    return nbytes(*leaves, *pleaves, *cmd, noise, *written, *traj)
+
+
+def compare_traj(got, ref, where):
+    """StepOutputs trajectories: discrete leaves equal, float leaves within
+    1e-3 (|ref| + 1e-3). Returns (worst ratio, max abs difference)."""
+    import torch
+
+    worst = err = 0.0
+    for name, a, b in zip(got._fields, got, ref):
+        a, b = a.cpu(), b.cpu()
+        if not a.is_floating_point():
+            _check(torch.equal(a, b), f"trajectory {name} differs ({where})")
+            continue
+        d = (a.double() - b.double()).abs()
+        ratio = float((d / (1e-3 * (b.double().abs() + 1e-3))).max())
+        _check(ratio <= 1.0, f"trajectory {name} off ({where}): {ratio:.3g} x bound")
+        worst, err = max(worst, ratio), max(err, float(d.max()))
+    return worst, err
+
+
+def max_abs_err(got, ref):
+    from agrifly_tpu_torch import convert
+
+    return max(float((a.cpu().double() - b.cpu().double()).abs().max())
+               for (_, a), (_, b) in zip(convert.leaves(got), convert.leaves(ref))
+               if a.is_floating_point())
+
+
+def env_subset(tree, rows):
+    from agrifly_tpu_torch.sim import env
+
+    return env._tree_map(lambda t: t[rows].contiguous(), tree)
+
+
+def check_env_against_plain(p, s0, cmd, noise, mode):
+    """K5 against the plain rollout (vmapped) on the card, from the start:
+    the first ENV_CHECK_STEPS steps by the tick criteria, then all
+    ENV_STEPS steps by JAX's own rollout_fast terms (flight state and panic
+    reason equal at every step, final position within 0.05 m). Returns
+    (worst ratio, max abs error of the float leaves after ENV_CHECK_STEPS
+    steps, the kernel's state then, the plain rollout's seconds for all
+    ENV_STEPS steps)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    n = ENV_CHECK_STEPS
+    got, got_traj = cuda_rollout.rollout(p, s0, cmd, noise[:, :n].contiguous(), mode)
+    env.rollout_plain(p, s0, cmd, noise[:, :1], mode)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :n], mode)
+    ref_end, ref_traj_end = env.rollout_plain(p, ref, cmd, noise[:, n:], mode)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    where = f"K5 vs plain, use_estimator={mode}, {n} steps"
+    worst = compare_ticks(got, ref, where, env=())
+    worst_traj, err_traj = compare_traj(got_traj, ref_traj, where)
+    err = max(max_abs_err(got, ref), err_traj)
+    full, full_traj = cuda_rollout.rollout(p, s0, cmd, noise, mode)
+    torch.cuda.synchronize()
+    for name in ("flight_state", "panic_reason"):
+        want = torch.cat([getattr(ref_traj, name), getattr(ref_traj_end, name)], dim=1)
+        _check(torch.equal(getattr(full_traj, name), want),
+               f"K5 vs plain, use_estimator={mode}: {name} differs over {ENV_STEPS} steps")
+    dpos = float((full.plant.pos - ref_end.plant.pos).abs().max())
+    _check(dpos <= 0.05, f"K5 vs plain, use_estimator={mode}: final position {dpos:.3g} m apart")
+    B = s0.step.shape[0]
+    print(f"env_rollout use_estimator={mode}, {B} envs, kernel vs plain on the card: {n} steps "
+          f"discrete leaves equal, worst float leaf {max(worst, worst_traj):.4g} x bound, max abs "
+          f"err {err:.3g}; {ENV_STEPS} steps flight state and panic equal, final position "
+          f"{dpos:.3g} m apart; fs {sorted(set(full.logic.fs.tolist()))}; the plain (vmapped "
+          f"torch) rollout {B * ENV_STEPS / plain_s:.1f} steps/s ({1e3 * plain_s / ENV_STEPS:.3f} "
+          f"ms per step over {ENV_STEPS})")
+    return max(worst, worst_traj), err, got, plain_s
+
+
+def check_env_against_cpu(p, state, cmd, mode, dev):
+    """From a mid-flight state (nonzero step, warm cadence accumulators):
+    K5 on the card against the plain rollout on the CPU, same noise, tick
+    criteria."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    noise = torch.randn((ENV_CPU_ENVS, ENV_CHECK_STEPS, 2, 3),
+                        generator=torch.Generator().manual_seed(SEED + 6))
+    s = env_subset(state, slice(0, ENV_CPU_ENVS))
+    got, got_traj = cuda_rollout.rollout(p, s, cmd, noise.to(dev), mode)
+    p_cpu, s_cpu = to_device(p, "cpu"), to_device(s, "cpu")
+    ref, ref_traj = cuda_rollout.rollout(p_cpu, s_cpu, to_device(cmd, "cpu"), noise, mode)
+    where = f"K5 on the card vs plain on the CPU, use_estimator={mode}"
+    worst = max(compare_ticks(got, ref, where, env=()), compare_traj(got_traj, ref_traj, where)[0])
+    print(f"env_rollout use_estimator={mode} from step {int(s.step[0])} (mocap_acc "
+          f"{int(s.mocap_acc_us[0])}, offboard_acc {int(s.offboard_acc_us[0])} us), "
+          f"{ENV_CPU_ENVS} envs x {ENV_CHECK_STEPS} steps, kernel on the card vs plain on the CPU:"
+          f" discrete leaves equal, worst float leaf {worst:.4g} x bound")
+    return worst
+
+
+def check_env_rollout(dev):
+    """K5, the env rollout kernel: held against the plain rollout on the
+    card and on the CPU in both estimator modes, its device time,
+    then bench.py's workload through env.rollout_fast (4096 envs x 250
+    steps, noise drawn inside each timed call), whose launches it counts,
+    and the plain vmapped rollout's rate at 4096 envs. Returns the kernel's
+    line (at bench.py's shape, use_estimator=False) and its launches."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    t_phase = time.perf_counter()
+    p = env.make_params(noise_scale=1.0, device=dev)
+    s0 = env.init_state_fleet(p, torch.zeros((ENVS, 3), device=dev))
+    cmd = env.hover_command(ENV_HOVER, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # the true state on all ENVS envs (bench.py's call: its plain time is
+    # the kernel line's), the mocap estimator on ENV_CHECK_ENVS of them
+    noise = torch.randn((ENVS, ENV_STEPS, 2, 3), generator=gen, device=dev)
+    worst = err = 0.0
+    for mode, s, nz in ((False, s0, noise),
+                        (True, env_subset(s0, slice(0, ENV_CHECK_ENVS)),
+                         noise[:ENV_CHECK_ENVS].contiguous())):
+        w, e, mid, plain_s = check_env_against_plain(p, s, cmd, nz, mode)
+        worst, err = max(worst, w), max(err, e)
+        worst = max(worst, check_env_against_cpu(p, mid, cmd, mode, dev))
+        if not mode:
+            plain_ms = 1e3 * plain_s
+
+    # the device time per call at bench.py's shape (bare launch)
+    leaves, _ = convert.flatten_tensors(s0)
+    pleaves = cuda_rollout.param_leaves(p)
+    cmd_b = [t.contiguous() for t in env._fleet_command(cmd, ENVS)]
+    dev_us = {mode: device_us(lambda: cuda_rollout._launch(leaves, pleaves, cmd_b, noise, mode,
+                                                           "rates"), reps=3)
+              for mode in (False, True)}
+    print(f"env_rollout device time per call, {ENVS} envs x {ENV_STEPS} steps (bare launch): "
+          + "; ".join(f"use_estimator={m} {us_text(v)}" for m, v in dev_us.items()))
+
+    # bench.py's workload: its launches are counted from here
+    cuda_rollout.rollout.launches = 0
+    rates, ms = {}, {}
+    for mode in (False, True):
+        def call():
+            return env.rollout_fast(p, s0, cmd, ENV_STEPS, use_estimator=mode, gen=gen)
+
+        final, traj = call()
+        torch.cuda.synchronize()
+        t0, host = time.perf_counter(), 0.0
+        for _ in range(ENV_CALLS):
+            t1 = time.perf_counter()
+            final, traj = call()
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        rates[mode] = ENVS * ENV_STEPS * ENV_CALLS / elapsed
+        _check(tuple(traj.pos.shape) == (ENVS, ENV_STEPS, 3)
+               and bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(final.plant.pos).all()),
+               f"env_rollout use_estimator={mode}: misshaped or non-finite trajectory")
+        _check(bool((final.logic.panic_reason == 0).all())
+               and bool((final.step == ENV_STEPS).all()),
+               f"env_rollout use_estimator={mode}: a panic, or the step did not advance")
+        ms[mode] = 1e3 * elapsed / ENV_CALLS
+        print(f"env_rollout bench.py workload, use_estimator={mode}: {rates[mode]:.1f} "
+              f"physics+logic steps/s at {ENVS} envs x {ENV_STEPS} steps ({ENV_CALLS} timed calls "
+              f"of {ms[mode]:.3f} ms, the noise drawn inside; the host returns from a call in "
+              f"{1e3 * host / ENV_CALLS:.3f} ms), final z mean "
+              f"{float(final.plant.pos[:, 2].mean()):.4f} m")
+    launches = cuda_rollout.rollout.launches
+    _check(launches == 2 * (ENV_CALLS + 1), f"env_rollout launched {launches} times")
+
+    # the plain vmapped rollout with the mocap estimator at bench.py's width
+    t0 = time.perf_counter()
+    env.rollout_plain(p, s0, cmd, noise[:, :ENV_PLAIN_STEPS], True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print(f"env_rollout plain (vmapped torch) use_estimator=True: "
+          f"{ENVS * ENV_PLAIN_STEPS / plain_s:.1f} steps/s at {ENVS} envs "
+          f"({1e3 * plain_s / ENV_PLAIN_STEPS:.3f} ms per step over {ENV_PLAIN_STEPS})")
+
+    # the kernel's line: bench.py's call (use_estimator=False), wrapper time
+    # and the plain version's on the same inputs (check_env_against_plain)
+    new, traj = cuda_rollout._launch(leaves, pleaves, cmd_b, noise, False, "rates")
+    k_ms = cuda_ms(lambda: cuda_rollout.rollout(p, s0, cmd, noise, False), reps=5, warmup=1)
+    res = result(err, k_ms, plain_ms, env_bytes(leaves, pleaves, cmd_b, noise, new, traj),
+                 ENVS * ENV_STEPS * ENV_TICK_OPS[False])
+    print(f"env_rollout {ENVS} envs x {ENV_STEPS} steps: kernel {k_ms:.4f} ms (device "
+          f"{us_text(dev_us[False])}), bound {res['bound_ms']:.6f} ms "
+          f"({res['bound_by']}); worst float leaf {worst:.4g} x bound; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def build_kernels():
     """Build the kernel libraries, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1492,7 +1718,7 @@ def build_kernels():
         timed.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
-    for name in ("raycast", "meshscene", "inflate"):
+    for name in ("raycast", "meshscene", "inflate", "frame", "rollout"):
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
 
 
@@ -1500,7 +1726,9 @@ def build_kernels():
 PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
                "meshscene": {"meshscene_strips_kernel": "K4", "meshscene_window_kernel": "K4w"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
-                           "inflate_grouped_kernel": "K2g"}}
+                           "inflate_grouped_kernel": "K2g"},
+               "frame": {"frame_kernel": "K3"},
+               "rollout": {"rollout_kernel": "K5"}}
 
 
 def ptxas_report(lib, log):
@@ -1535,7 +1763,7 @@ def main() -> int:
         from agrifly_tpu_torch import cuda_build  # noqa: F401
         from agrifly_tpu_torch.planner import cuda_inflate  # noqa: F401
         from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast  # noqa: F401
-        from agrifly_tpu_torch.sim import cuda_frame  # noqa: F401
+        from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the port is not here: {exc}", file=sys.stderr)
         return 1
@@ -1568,6 +1796,7 @@ def main() -> int:
                           plain_warmup=0)
         time_big_fleet(dev)
         mesh_launches, _, window_launches = fly_mesh(dev, state)
+        k5, k5_launches = check_env_rollout(dev)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
@@ -1602,6 +1831,9 @@ def main() -> int:
         {"name": "inflate_grouped", "route": "cuda", "source": source("inflate"),
          "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174 (_kernel_grouped:559)",
          "launches": k2g_launches, **k2g},
+        {"name": "env_rollout", "route": "cuda", "source": source("rollout"),
+         "replaces": "agrifly_tpu/sim/env.py:214 (rollout_fast; jnp, no pallas_call)",
+         "launches": k5_launches, **k5},
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -31,8 +31,9 @@ FLOAT_FLOOR = 1e-3
 # for the same reason. Leaves that hold those commands, and the
 # wire codes that quantize them (35/32768 per code), are held to that floor.
 COMMAND_FLOOR = 1e-2
-COMMAND_LEAVES = {("base", "last_cmd_angvel"), ("base", "mocap", "pipe", "angvel")}
-WIRE_LEAVES = {("base", "ring", "fields")}
+COMMAND_LEAVES = {("base", "last_cmd_angvel"), ("base", "mocap", "pipe", "angvel"),
+                  ("last_cmd_angvel",), ("mocap", "pipe", "angvel")}  # orchard, env paths
+WIRE_LEAVES = {("base", "ring", "fields"), ("ring", "fields")}
 WIRE_MAX_CODES = int(np.ceil(COMMAND_FLOOR / (35.0 / 32768.0)))
 
 

@@ -32,7 +32,7 @@ from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
 from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
-from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout, env, orchard_env
 from chip_smoke import RAY_SCENES  # the default orchard, the make_params limit, a loose scene
 
 
@@ -446,3 +446,99 @@ def test_grouped_inflate_refused_launch_raises(cuda):  # noqa: F811
     with pytest.raises(RuntimeError, match="inflate_grouped_launch"):
         cuda_inflate._launch_grouped(img, rows, 9)
     assert cuda_inflate.inflate_pyramids.grouped_launches == before
+
+
+def _env_case(device, B, seed):
+    """A fleet of B envs spread apart, a command with every term on and a
+    per-env setpoint, and 50 ticks of IMU noise."""
+    g = torch.Generator().manual_seed(seed)
+    p = env.make_params(device=device)
+    pos = torch.rand((B, 3), generator=g) * torch.tensor([4.0, 4.0, 0.0])
+    s0 = env.init_state_fleet(p, pos.to(device))
+    cmd = env.Command(des_pos=(pos + torch.tensor([0.2, -0.1, 1.2])).to(device),
+                      des_vel=torch.tensor([0.05, 0.0, -0.02], device=device),
+                      des_acc=torch.tensor([0.1, -0.05, 0.2], device=device),
+                      des_yaw=(torch.rand(B, generator=g) - 0.5).to(device),
+                      ext_force=torch.tensor([0.01, -0.02, 0.005], device=device),
+                      ext_torque=torch.tensor([2e-5, -1e-5, 3e-5], device=device))
+    return p, s0, cmd, torch.randn((B, 50, 2, 3), generator=g).to(device)
+
+
+def _compare_env(got, ref, traj, ref_traj):
+    leaves, rebuild = convert.flatten_tensors(ref)
+    compare_state(got, rebuild([t.cpu() for t in leaves]))
+    for name, a, b in zip(env.StepOutputs._fields, traj, ref_traj):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            bound = 1e-3 * (b.double().abs() + 1e-3)
+            assert float(((a.double() - b.double()).abs() / bound).max()) <= 1.0, name
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctrl_mode", ["rates", "position", "idle"])
+@pytest.mark.parametrize("use_estimator", [False, True])
+def test_env_rollout_kernel_matches_plain(cuda, use_estimator, ctrl_mode):  # noqa: F811
+    """K5 against the plain rollout on the card in both estimator modes
+    and every ctrl_mode: 25 ticks from the start, then 25 from the
+    kernel's mid-flight state (nonzero step, warm cadences), B = 37 (not a
+    multiple of a block's 32 envs), one launch each, tick criteria."""
+    p, s0, cmd, noise = _env_case(cuda, 37, 3)
+    before = cuda_rollout.rollout.launches
+    got, traj = cuda_rollout.rollout(p, s0, cmd, noise[:, :25], use_estimator, ctrl_mode)
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :25], use_estimator, ctrl_mode)
+    torch.cuda.synchronize()
+    assert cuda_rollout.rollout.launches == before + 1
+    _compare_env(got, ref, traj, ref_traj)
+    mid, ref_mid = got, ref
+    got, traj = cuda_rollout.rollout(p, mid, cmd, noise[:, 25:], use_estimator, ctrl_mode)
+    ref, ref_traj = env.rollout_plain(p, ref_mid, cmd, noise[:, 25:], use_estimator, ctrl_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.step.cpu(), torch.full((37,), 50, dtype=torch.int32))
+    _compare_env(got, ref, traj, ref_traj)
+
+
+@pytest.mark.cuda
+def test_env_rollout_one_env_and_the_entry_points(cuda):  # noqa: F811
+    """One env (no leading B) through env.rollout and rollout_fast on the
+    card: the kernel, equal to the plain rollout; rollout_sampled (the true
+    state) keeps every 5th output of a rollout's launch."""
+    p, _, _, noise = _env_case(cuda, 1, 4)
+    s0 = env.init_state(p)
+    cmd = env.hover_command((0.0, 0.0, 1.0), device=cuda)
+    before = cuda_rollout.rollout.launches
+    got, traj = env.rollout(p, s0, cmd, 50, True, noise=noise[0])
+    fast, fast_traj = env.rollout_fast(p, s0, cmd, 50, True, noise=noise[0])
+    _, sampled = env.rollout_sampled(p, s0, cmd, 50, 5, noise=noise[0])
+    _, true_traj = env.rollout(p, s0, cmd, 50, noise=noise[0])
+    assert cuda_rollout.rollout.launches == before + 4
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[0], True)
+    torch.cuda.synchronize()
+    assert traj.pos.shape == (50, 3) and got.step.shape == ()
+    _compare_env(got, ref, traj, ref_traj)
+    _compare_env(fast, ref, fast_traj, ref_traj)
+    assert torch.equal(sampled.pos, true_traj.pos[4::5])
+
+
+@pytest.mark.cuda
+def test_env_rollout_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noqa: F811
+    """tick.cuh's leaf table holds every call: a wrong dtype, a wrong
+    leading B, a CPU tensor among CUDA ones; nothing falls back."""
+    p, s0, cmd, noise = _env_case(cuda, 4, 5)
+    noise = noise[:, :5].contiguous()
+    before = cuda_rollout.rollout.launches
+    cases = [
+        (s0._replace(step=s0.step.to(torch.int64)), cmd, noise, p, "step"),
+        (s0._replace(plant=s0.plant._replace(pos=s0.plant.pos[:3])), cmd, noise, p, "plant.pos"),
+        (s0, cmd, noise[:3], p, "noise"),
+        (s0, cmd, noise.double(), p, "noise"),
+        (s0._replace(mocap_acc_us=s0.mocap_acc_us.cpu()), cmd, noise, p, "mocap_acc_us"),
+        (s0, cmd._replace(des_pos=cmd.des_pos.cpu()), noise, p, "des_pos"),
+        (s0, cmd._replace(des_yaw=torch.zeros(3, device=cuda)), noise, p, "des_yaw"),
+        (s0, cmd, noise, p._replace(dt_us=p.dt_us.cpu()), "dt_us"),
+    ]
+    for s, c, n, pp, what in cases:
+        with pytest.raises(ValueError, match=what):
+            cuda_rollout.rollout(pp, s, c, n)
+    assert cuda_rollout.rollout.launches == before
