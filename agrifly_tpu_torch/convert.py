@@ -109,16 +109,33 @@ def leaves(tree, prefix=()):
 def flatten_tensors(tree):
     """(tensor leaves, rebuild) for a NamedTuple tree; rebuild(new_leaves)
     returns the same tree with its tensors replaced in order."""
-    flat = []
+    flat, plan = [], []  # plan: the tree in post-order, None for a tensor
 
     def walk(node):
         if isinstance(node, torch.Tensor):
             flat.append(node)
-            return lambda it: next(it)
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            parts = [walk(v) for v in node]
-            return lambda it: type(node)(*(p(it) for p in parts))
-        return lambda it: node
+            plan.append(None)
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for v in node:
+                walk(v)
+            plan.append((type(node)._make, len(node)))
+        else:
+            plan.append((node,))
 
-    build = walk(tree)
-    return flat, lambda new: build(iter(new))
+    walk(tree)
+
+    def rebuild(new):
+        leaves, stack = iter(new), []
+        for op in plan:
+            if op is None:
+                stack.append(next(leaves))
+            elif len(op) == 1:
+                stack.append(op[0])
+            else:
+                make, n = op
+                node = make(stack[-n:])
+                del stack[-n:]
+                stack.append(node)
+        return stack[0]
+
+    return flat, rebuild

@@ -47,7 +47,7 @@
 // and reset by frame_sections_read. Without the define they are empty.
 enum Section {
   kSecTicks, kSecPlant, kSecLogic, kSecEkfPredict, kSecCovPredict, kSecMocapUpdate,
-  kSecReplayUpdate, kSecPrediction, kSecOffboard, kNumSections
+  kSecReplayUpdate, kSecPrediction, kSecOffboard, kSecRadio, kSecImu, kNumSections
 };
 #ifdef FRAME_SECTIONS
 __device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];

@@ -16,36 +16,113 @@
 // the controller: nothing reads them there.
 //
 // What bounds it on the card: each env's serial chain of dependent float
-// operations, ~250 ticks of it per call; the bytes (state in and out, the
-// noise block, the trajectory) and the operations are far below the chain's
-// latency at any B. So one thread runs one env's chain (Helpers empty), 32
-// envs (one warp) a block: 4096 envs are 128 blocks, about one warp per SM.
-// Each env's EnvState lives in shared memory at an odd-word stride (a warp's
-// 32 threads touch 32 distinct banks), the block's EnvParams beside them.
-// frame.cu's layout (a warp per env, lane 0 running the chain and lanes 1-9
-// the mocap replay's segments) puts ~31 warps' chains on a SM and ran 2.8x
-// (true state) and 1.9x (mocap) slower at bench.py's shape (PERF.md).
+// operations, 250 ticks of it per call at bench.py's shape (~11k cycles a
+// tick with the true state: logic ~4.7k, plant ~1.8k, the offboard
+// controller ~6k on one tick in five; chip_smoke.py's rollout_sections);
+// the bytes (state in and out, the noise block, the trajectory) and the
+// operations are far below the chain's latency at any B. So the design keeps
+// everything but the chain off it:
+//   - a group of G lanes per env (a template parameter: 1, 2, 4 or 8), 32
+//     envs a block (32 G threads), so 4096 envs are 128 blocks, one a SM.
+//     The group's lanes run the env's chain in lockstep on the one copy of
+//     its state, and the mocap replay's nine segments (each one's expf and
+//     rotation) are split over them (tick.cuh's Lanes<G>): each lane
+//     computes its segments with the serial operations and __shfl_sync
+//     hands every segment to every lane, so every G gives G = 1's values bit
+//     for bit, and G = 1 is the chain of a thread per env. Every lane writes
+//     the same values to the state, and outside the split the group branches
+//     only together, so its lanes run each instruction together. Splitting
+//     the plant's four motors, the mixer's four propellers, the four motor
+//     speeds and the radio's ten fields the same way made the tick slower
+//     (the shuffles cost more than the divides they spread) and was dropped;
+//   - the env's EnvState stays in shared memory at an odd-word stride (the
+//     envs of a warp touch distinct banks); the block's states are copied in
+//     and the written leaves out by all its threads, the envs of a leaf
+//     element on consecutive threads. A private copy per lane went to local
+//     memory whole (3.4 KB a thread) and was slower;
+//   - the EnvParams are the kernel's argument (__grid_constant__): the
+//     chain reads them from the constant bank, no store can alias them, and
+//     the compiler keeps what depends on them alone out of the tick loop;
+//   - the trajectory and the noise go through shared memory a chunk of
+//     kChunk steps at a time: the warp sends for the next chunk's noise
+//     (cp.async) before the chunk's ticks, each tick stages its row, and
+//     after the chunk the warp writes each env's contiguous (chunk, k) span
+//     of every trajectory leaf with consecutive lanes on consecutive words.
 //
-// The leaves are tick.cuh's tables (EnvState, EnvParams). The command is
-// per env ((B, ...) leaves), the noise (B, n_steps, 2, 3) unit normals
-// (gyro, then acc), the trajectory (B, n_steps, ...) per StepOutputs leaf.
+// The leaves are tick.cuh's tables (EnvState, EnvParams). A command leaf is
+// per env ((B, ...)) or shared (read through a stride of 0); the noise is
+// (B, n_steps, 2, 3) unit normals (gyro, then acc). One float buffer holds
+// the written float state leaves and then the float trajectory leaves, one
+// int32 buffer the written int32 state leaves, the int32 trajectory leaves
+// and then the written bool leaves' bytes; in each, the written leaves are
+// ordered by element count (make_state_elems).
+
+// Section timers, compiled only with -DROLLOUT_SECTIONS (chip_smoke.py's
+// rollout_sections builds that variant): clock64() cycles and runs of each
+// Section of the tick chain on block 0's thread 0 (env 0's lane 0), read and
+// reset by env_rollout_sections_read. Without the define they are empty.
+enum Section {
+  kSecTicks, kSecRadio, kSecPlant, kSecImu, kSecLogic, kSecEkfPredict, kSecCovPredict,
+  kSecMocapUpdate, kSecReplayUpdate, kSecPrediction, kSecOffboard, kSecStore, kSecNoise,
+  kNumSections
+};
+#ifdef ROLLOUT_SECTIONS
+// summed in shared memory during the launch (a global add would put its
+// load's latency on the chain), added to g_sec / g_cnt at its end
+__device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];
+__shared__ unsigned long long s_sec[kNumSections], s_cnt[kNumSections];
+#define SECTION_BEGIN(k) const long long section_start_##k = clock64();
+#define SECTION_END(k)                                  \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {            \
+    s_sec[k] += clock64() - section_start_##k;          \
+    s_cnt[k] += 1;                                      \
+  }
+#define SECTIONS_START()                                \
+  if (threadIdx.x == 0)                                 \
+    for (int k = 0; k < kNumSections; ++k) s_sec[k] = s_cnt[k] = 0;
+#define SECTIONS_FINISH()                               \
+  if (blockIdx.x == 0 && threadIdx.x == 0)              \
+    for (int k = 0; k < kNumSections; ++k) {            \
+      g_sec[k] += s_sec[k];                             \
+      g_cnt[k] += s_cnt[k];                             \
+    }
+#else
+#define SECTION_BEGIN(k)
+#define SECTION_END(k)
+#define SECTIONS_START()
+#define SECTIONS_FINISH()
+#endif
+
+#include <cuda_pipeline.h>
 
 #include "tick.cuh"
 
 namespace {
 
-// the leaves' device pointers, passed to the kernel by value
+// the state leaves' device pointers, passed to the kernel by value
 struct LeafPtrs {
   const void* state[kNumEnvState];
-  const void* params[kNumEnvParam];
 };
 
+// The state's elements. A written leaf's place in its output buffer: the
+// written leaves of a kind ordered by element count, table order among
+// equals, so that the wrapper makes each run of equal counts with one view.
 constexpr Elems<kEnvStateElems> make_state_elems() {
   Elems<kEnvStateElems> t{};
   int k = 0, leaf = 0, prefix[3] = {0, 0, 0};
 #define X(name, path, ty, n, rw) ADD_STATE_ELEMS(offsetof(EnvState, name), ty, n, rw)
   ENV_STATE_LEAVES(X)
 #undef X
+  int first[kNumEnvState] = {}, start[kNumEnvState] = {};  // each leaf's first element
+  for (int q = 0; q < kEnvStateElems; ++q)
+    if (t.e[q].i == 0) first[t.e[q].leaf] = q;
+  for (int a = 0; a < kNumEnvState; ++a)
+    for (int b = 0; b < kNumEnvState; ++b) {
+      const Elem ea = t.e[first[a]], eb = t.e[first[b]];
+      if (eb.out == ea.out && (eb.numel < ea.numel || (eb.numel == ea.numel && b < a)))
+        start[a] += eb.numel;
+    }
+  for (int q = 0; q < kEnvStateElems; ++q) t.e[q].out_prefix = start[t.e[q].leaf];
   return t;
 }
 
@@ -59,11 +136,28 @@ constexpr Elems<kEnvParamElems> make_param_elems() {
 }
 
 __device__ const Elems<kEnvStateElems> kStateTable = make_state_elems();
-__device__ const Elems<kEnvParamElems> kParamTable = make_param_elems();
+constexpr Elems<kEnvParamElems> kParamTable = make_param_elems();  // read on the host
 
-// sim/env.py Command: (B, 3) leaves but des_yaw (B,)
+// elements per env of the written state leaves, by output kind (kOutF32,
+// kOutI32, kOutBOOL)
+struct OutElems {
+  int of[3];
+};
+constexpr OutElems written_elems() {
+  OutElems w{};
+#define X(name, path, ty, n, rw) \
+  if (IS_WRITTEN_##rw) w.of[OUT_OF_##ty] += NUMEL(n);
+  ENV_STATE_LEAVES(X)
+#undef X
+  return w;
+}
+constexpr OutElems kWritten = written_elems();
+
+// sim/env.py Command: (3,) leaves but des_yaw (); stride: the floats between
+// two envs' rows of a leaf, 0 for a leaf the envs share
 struct CmdPtrs {
-  const float *des_pos, *des_vel, *des_acc, *des_yaw, *ext_force, *ext_torque;
+  const float* leaf[6];  // des_pos, des_vel, des_acc, des_yaw, ext_force, ext_torque
+  int stride[6];
 };
 struct Cmd {
   f3 des_pos, des_vel, des_acc;
@@ -71,23 +165,90 @@ struct Cmd {
   f3 ext_force, ext_torque;
 };
 
-// sim/env.py StepOutputs: (B, n_steps, ...) each
-struct TrajPtrs {
-  float *pos, *vel, *att, *angvel, *motor_speeds;
-  int *flight_state, *panic_reason, *warnings;
+__device__ Cmd load_cmd(const CmdPtrs& c, int b) {
+  const float* p[6];
+  for (int k = 0; k < 6; ++k) p[k] = c.leaf[k] + static_cast<int64_t>(c.stride[k]) * b;
+  return Cmd{ld3(p[0]), ld3(p[1]), ld3(p[2]), *p[3], ld3(p[4]), ld3(p[5])};
+}
+
+// sim/env.py StepOutputs: (B, n_steps, width) each, the float leaves (pos,
+// vel, att, angvel, motor_speeds) then the int32 ones (flight_state,
+// panic_reason, warnings)
+constexpr int kTrajLeaves = 8, kTrajFloatLeaves = 5;
+__host__ __device__ constexpr int traj_width(int leaf) {  // 3, 3, 4, 3, 4, 1, 1, 1
+  return leaf >= kTrajFloatLeaves ? 1 : (leaf == 2 || leaf == 4 ? 4 : 3);
+}
+struct Outs {
+  float* f;  // written float state leaves, [B, numel] each in table order
+  int* i;
+  unsigned char* b;
+  void* traj[kTrajLeaves];
 };
 
 enum { kCtrlRates = 0, kCtrlPosition = 1, kCtrlIdle = 2 };
 
-__device__ Cmd load_cmd(const CmdPtrs& c, int b) {
-  return Cmd{ld3(c.des_pos + 3 * b), ld3(c.des_vel + 3 * b), ld3(c.des_acc + 3 * b),
-             c.des_yaw[b], ld3(c.ext_force + 3 * b), ld3(c.ext_torque + 3 * b)};
+// ---------------------------------------------------------------------------
+// shared memory: the block's envs' EnvStates and each env's staging (two
+// chunks' noise, then its trajectory rows, leaf by leaf)
+// ---------------------------------------------------------------------------
+
+constexpr int kEnvs = 32;   // envs a block
+constexpr int kChunk = 16;  // steps staged at a time
+constexpr int kNoiseWords = 6 * kChunk;  // a chunk's noise; two buffers
+__host__ __device__ constexpr int stage_offset(int leaf) {  // a trajectory leaf's staging words
+  int off = 2 * kNoiseWords;
+  for (int l = 0; l < leaf; ++l) off += kChunk * traj_width(l);
+  return off;
 }
+constexpr int kStageStride = stage_offset(kTrajLeaves) | 1;  // words, odd
+constexpr int kStateStride = 4 * (((sizeof(EnvState) + 3) / 4) | 1);  // bytes, odd words
+constexpr int kSmem = kEnvs * kStateStride + kEnvs * kStageStride * 4;
+static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+
+// The state elements of a block's nb envs (element k of env e is q = k *
+// kEnvs + e: the envs of a leaf element on consecutive threads), thread t of
+// T, eight in flight: into the states at `base` / out to the flat buffers.
+__device__ void copy_states_in(char* base, const void* const* src, int b0, int nb, int t, int T) {
+#pragma unroll 8
+  for (int q = t; q < kEnvStateElems * kEnvs; q += T) {
+    const int k = q / kEnvs, e = q % kEnvs;
+    if (e >= nb) continue;
+    const Elem el = kStateTable.e[k];
+    const char* p = static_cast<const char*>(src[el.leaf]) +
+                    (static_cast<int64_t>(b0 + e) * el.numel + el.i) * el.size;
+    char* dst = base + e * kStateStride + el.dst;
+    if (el.size == 4)
+      *reinterpret_cast<int*>(dst) = __ldg(reinterpret_cast<const int*>(p));
+    else
+      *dst = static_cast<char>(__ldg(reinterpret_cast<const unsigned char*>(p)));
+  }
+}
+
+__device__ void copy_states_out(const char* base, const Outs& out, int B, int b0, int nb, int t,
+                                int T) {
+#pragma unroll 8
+  for (int q = t; q < kEnvStateElems * kEnvs; q += T) {
+    const int k = q / kEnvs, e = q % kEnvs;
+    const Elem el = kStateTable.e[k];
+    if (e >= nb || el.out == kOutNone) continue;
+    const char* src = base + e * kStateStride + el.dst;
+    const int64_t o = static_cast<int64_t>(B) * el.out_prefix +
+                      static_cast<int64_t>(b0 + e) * el.numel + el.i;
+    if (el.out == kOutF32) out.f[o] = *reinterpret_cast<const float*>(src);
+    else if (el.out == kOutI32) out.i[o] = *reinterpret_cast<const int*>(src);
+    else out.b[o] = static_cast<unsigned char>(*src);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the tick and the steps
+// ---------------------------------------------------------------------------
 
 // env.step: physics_tick, then _offboard_and_finish. mocap: the mocap
 // estimator (use_estimator=True), else the true state; ctrl: kCtrl*.
+template <class H>
 __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const float* noise,
-                         bool mocap, int ctrl, const Helpers& hp) {
+                         bool mocap, int ctrl, const H& hp) {
   const int step = S.step;  // the tick's step, before physics
   int acc_us = wadd(S.offboard_acc_us, P.dt_us);
   const bool fire = acc_us > P.offboard_period_us;
@@ -97,6 +258,7 @@ __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const fl
   const Mocap est = physics_tick(P, S, noise, c.ext_force, c.ext_torque, mocap, fire, &now_us,
                                  hp);
   if (fire) {
+    SECTION_BEGIN(kSecOffboard)
     f3 cmd_angvel;
     float cmd_thrust;
     offboard_run(P, est.pos, est.vel, est.att, c.des_pos, c.des_vel, c.des_acc, c.des_yaw,
@@ -122,92 +284,196 @@ __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const fl
     }
     S.last_cmd_thrust = cmd_thrust;
     st3(S.last_cmd_angvel, cmd_angvel);
+    SECTION_END(kSecOffboard)
   }
   S.offboard_acc_us = acc_us;
   S.step = wadd(step, 1);
 }
 
-__device__ void run_steps(const EnvParams& P, EnvState& S, const Cmd& c, const float* noise,
-                          const TrajPtrs& tr, int b, int n_steps, bool mocap, int ctrl,
-                          const Helpers& hp) {
-  const float* nz = noise + static_cast<int64_t>(b) * n_steps * 6;
-  for (int k = 0; k < n_steps; ++k) {
-    env_step(P, S, c, nz + 6 * k, mocap, ctrl, hp);
-    const int64_t row = static_cast<int64_t>(b) * n_steps + k;
-    for (int i = 0; i < 3; ++i) {
-      tr.pos[3 * row + i] = S.plant_pos[i];
-      tr.vel[3 * row + i] = S.plant_vel[i];
-      tr.angvel[3 * row + i] = S.plant_angvel[i];
+// step k's trajectory row into the staging
+__device__ __forceinline__ void stage_row(const EnvState& S, float* stage, int k) {
+  for (int i = 0; i < 3; ++i) {
+    stage[stage_offset(0) + 3 * k + i] = S.plant_pos[i];
+    stage[stage_offset(1) + 3 * k + i] = S.plant_vel[i];
+    stage[stage_offset(3) + 3 * k + i] = S.plant_angvel[i];
+  }
+  for (int i = 0; i < 4; ++i) {
+    stage[stage_offset(2) + 4 * k + i] = S.plant_att[i];
+    stage[stage_offset(4) + 4 * k + i] = S.plant_motor_speeds[i];
+  }
+  int* ints = reinterpret_cast<int*>(stage);
+  ints[stage_offset(5) + k] = S.fs;
+  ints[stage_offset(6) + k] = S.panic_reason;
+  ints[stage_offset(7) + k] = S.warnings;
+}
+
+// The warp's envs (block envs we0 .. we0 + nw - 1, staged at `stages`):
+// their noise rows k0 .. k0 + len - 1 into noise buffer `buf` of the
+// staging by asynchronous copies (committed as one group, waited for before
+// the chunk's first tick), and their staged trajectory rows out; each env's
+// span is contiguous in device memory, and the warp's 32 lanes take
+// consecutive words of it.
+__device__ void prefetch_noise(const float* __restrict__ noise, float* stages, int64_t row0,
+                               int n_steps, int we0, int nw, int k0, int len, int buf,
+                               int lane) {
+  for (int s = 0; s < nw; ++s) {
+    const float* src = noise + 6 * (row0 + static_cast<int64_t>(we0 + s) * n_steps + k0);
+    float* dst = stages + (we0 + s) * kStageStride + buf * kNoiseWords;
+    for (int j = lane; j < 6 * len; j += 32) __pipeline_memcpy_async(dst + j, src + j, 4);
+  }
+  __pipeline_commit();
+}
+
+__device__ void write_rows(const Outs& out, const float* stages, int64_t row0, int n_steps,
+                           int we0, int nw, int k0, int len, int lane) {
+  for (int s = 0; s < nw; ++s) {
+    const int64_t row = row0 + static_cast<int64_t>(we0 + s) * n_steps + k0;
+    const float* src = stages + (we0 + s) * kStageStride;
+#pragma unroll
+    for (int l = 0; l < kTrajLeaves; ++l) {  // leaf l's span (k0 .. k0 + len) x width
+      float* dst = static_cast<float*>(out.traj[l]) + traj_width(l) * row;  // int leaves: bits
+#pragma unroll
+      for (int j = lane; j < traj_width(l) * kChunk; j += 32)
+        if (j < traj_width(l) * len) dst[j] = src[stage_offset(l) + j];
     }
-    for (int i = 0; i < 4; ++i) {
-      tr.att[4 * row + i] = S.plant_att[i];
-      tr.motor_speeds[4 * row + i] = S.plant_motor_speeds[i];
-    }
-    tr.flight_state[row] = S.fs;
-    tr.panic_reason[row] = S.panic_reason;
-    tr.warnings[row] = S.warnings;
   }
 }
 
-struct Outs {
-  float* f;
-  int* i;
-  unsigned char* b;
-};
-
-constexpr int kEnvsPerBlock = 32;
-constexpr int kStateStride = 4 * (((sizeof(EnvState) + 3) / 4) | 1);  // odd words
-constexpr int kParamsBytes = (sizeof(EnvParams) + 15) / 16 * 16;
-constexpr int kSmem = kParamsBytes + kEnvsPerBlock * kStateStride;
-
-__global__ void __launch_bounds__(kEnvsPerBlock)
-    rollout_kernel(const __grid_constant__ LeafPtrs ptrs, const CmdPtrs cmd,
-                   const float* __restrict__ noise, const Outs out, const TrajPtrs tr, int B,
+template <int G>
+__global__ void __launch_bounds__(kEnvs * G)
+    rollout_kernel(const __grid_constant__ EnvParams P, const __grid_constant__ LeafPtrs ptrs,
+                   const CmdPtrs cmd, const float* __restrict__ noise, const Outs out, int B,
                    int n_steps, int mocap, int ctrl) {
+  constexpr int T = kEnvs * G;
   extern __shared__ __align__(16) char smem[];
-  copy_in(smem, ptrs.params, kParamTable, 0, threadIdx.x, kEnvsPerBlock);
+  char* states = smem;
+  float* stages = reinterpret_cast<float*>(states + kEnvs * kStateStride);
+  const int b0 = blockIdx.x * kEnvs, nb = min(kEnvs, B - b0);
+  SECTIONS_START()
+  copy_states_in(states, ptrs.state, b0, nb, threadIdx.x, T);
   __syncthreads();
-  const int b = blockIdx.x * kEnvsPerBlock + threadIdx.x;
-  if (b >= B) return;  // no barrier of the block follows
-  char* mine = smem + kParamsBytes + threadIdx.x * kStateStride;
-  copy_in(mine, ptrs.state, kStateTable, b, 0, 1);
-  const EnvParams& P = *reinterpret_cast<const EnvParams*>(smem);
-  EnvState& S = *reinterpret_cast<EnvState*>(mine);
-  run_steps(P, S, load_cmd(cmd, b), noise, tr, b, n_steps, mocap != 0, ctrl, Helpers{nullptr});
-  copy_out(mine, kStateTable, out.f, out.i, out.b, B, b, 0, 1);
+
+  // env e's group; the warp's envs we0 .. we0 + nw - 1
+  const int e = threadIdx.x / G, lane = threadIdx.x & 31;
+  const int we0 = (threadIdx.x / 32) * (32 / G), nw = max(0, min(32 / G, nb - we0));
+  const bool active = e < nb;
+  const Lanes<G> hp{static_cast<int>(threadIdx.x % G),
+                    G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1))};
+  EnvState& S = *reinterpret_cast<EnvState*>(states + e * kStateStride);
+  const Cmd c = load_cmd(cmd, b0 + min(e, nb - 1));
+  float* stage = stages + e * kStageStride;
+  const int64_t row0 = static_cast<int64_t>(b0) * n_steps;
+  prefetch_noise(noise, stages, row0, n_steps, we0, nw, 0, min(kChunk, n_steps), 0, lane);
+  SECTION_BEGIN(kSecTicks)
+  for (int k0 = 0, buf = 0; k0 < n_steps; k0 += kChunk, buf ^= 1) {
+    const int len = min(kChunk, n_steps - k0);
+    SECTION_BEGIN(kSecNoise)  // this chunk's noise has landed; the next one's is sent for
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    if (k0 + kChunk < n_steps)
+      prefetch_noise(noise, stages, row0, n_steps, we0, nw, k0 + kChunk,
+                     min(kChunk, n_steps - k0 - kChunk), buf ^ 1, lane);
+    SECTION_END(kSecNoise)
+    const float* nz = stage + buf * kNoiseWords;
+    if (active)
+      for (int k = 0; k < len; ++k) {
+        env_step(P, S, c, nz + 6 * k, mocap != 0, ctrl, hp);
+        SECTION_BEGIN(kSecStore)
+        stage_row(S, stage, k);
+        SECTION_END(kSecStore)
+      }
+    __syncwarp();
+    SECTION_BEGIN(kSecStore)
+    write_rows(out, stages, row0, n_steps, we0, nw, k0, len, lane);
+    __syncwarp();  // the next chunk reuses the staging
+    SECTION_END(kSecStore)
+  }
+  SECTION_END(kSecTicks)
+  __syncthreads();
+  copy_states_out(states, out, B, b0, nb, threadIdx.x, T);
+  SECTIONS_FINISH()
+}
+
+template <int G>
+cudaError_t launch(const EnvParams& P, const LeafPtrs& ptrs, const CmdPtrs& c, const float* noise,
+                   const Outs& o, int B, int n_steps, int mocap, int ctrl, cudaStream_t stream) {
+  cudaError_t e =
+      cudaFuncSetAttribute(rollout_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  rollout_kernel<G><<<(B + kEnvs - 1) / kEnvs, kEnvs * G, kSmem, stream>>>(P, ptrs, c, noise, o,
+                                                                          B, n_steps, mocap, ctrl);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// state, params: the device pointers of the leaves, in tick.cuh's table order
+// state: the state leaves' device pointers, params: the parameter leaves'
+// HOST pointers (copies the caller keeps), each in tick.cuh's table order
 // (host arrays of its state and parameter leaf counts); cmd: 6 pointers
-// (des_pos (B, 3), des_vel, des_acc, des_yaw (B,), ext_force, ext_torque);
-// noise: (B, n_steps, 2, 3) float32; out_f / out_i / out_b: the W state
-// leaves by dtype, in table order, [B, numel] each; traj_f: 5 pointers (pos
-// (B, n_steps, 3), vel, att (.., 4), angvel, motor_speeds (.., 4)), traj_i: 3
-// (flight_state (B, n_steps), panic_reason, warnings). mocap: 0 true state, 1
-// mocap estimator; ctrl: 0 rates, 1 position, 2 idle. Returns the
+// (des_pos (B, 3) or (3,), des_vel, des_acc, des_yaw (B,) or (), ext_force,
+// ext_torque) and cmd_stride their 6 strides between envs (3 or 1 per env, 0
+// shared); noise: (B, n_steps, 2, 3) float32; out_f: B x (the written float
+// leaves' elements), [B, numel] a leaf ordered by numel (make_state_elems),
+// then pos (B, n_steps, 3), vel, att (.., 4), angvel, motor_speeds (.., 4);
+// out_i: B x (the written int32 leaves' elements) as out_f's, then
+// flight_state (B, n_steps), panic_reason, warnings, then B x (the written
+// bool leaves' elements) bytes as out_f's. mocap: 0 true state, 1
+// mocap estimator; ctrl: 0 rates, 1 position, 2 idle; group: lanes per env
+// (1, 2, 4 or 8). The parameters go to the kernel by value. Returns the
 // cudaError_t of the launch.
 extern "C" int env_rollout_launch(const void* const* state, const void* const* params,
-                                  const float* const* cmd, const float* noise, float* out_f,
-                                  int* out_i, unsigned char* out_b, float* const* traj_f,
-                                  int* const* traj_i, int B, int n_steps, int mocap, int ctrl,
-                                  void* stream) {
+                                  const float* const* cmd, const int* cmd_stride,
+                                  const float* noise, float* out_f, int* out_i, int B,
+                                  int n_steps, int mocap, int ctrl, int group, void* stream) {
   if (B < 0 || n_steps < 0 || ctrl < kCtrlRates || ctrl > kCtrlIdle || mocap < 0 || mocap > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (group != 1 && group != 2 && group != 4 && group != 8)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   LeafPtrs ptrs;
   for (int i = 0; i < kNumEnvState; ++i) ptrs.state[i] = state[i];
-  for (int i = 0; i < kNumEnvParam; ++i) ptrs.params[i] = params[i];
-  const CmdPtrs c{cmd[0], cmd[1], cmd[2], cmd[3], cmd[4], cmd[5]};
-  const TrajPtrs t{traj_f[0], traj_f[1], traj_f[2], traj_f[3], traj_f[4],
-                   traj_i[0], traj_i[1], traj_i[2]};
-  const Outs o{out_f, out_i, out_b};
-  cudaError_t e =
-      cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rollout_kernel<<<(B + kEnvsPerBlock - 1) / kEnvsPerBlock, kEnvsPerBlock, kSmem,
-                   static_cast<cudaStream_t>(stream)>>>(ptrs, c, noise, o, t, B, n_steps, mocap,
-                                                        ctrl);
-  return static_cast<int>(cudaGetLastError());
+  EnvParams P;
+  for (const Elem& el : kParamTable.e)  // the table's copy, on the host
+    memcpy(reinterpret_cast<char*>(&P) + el.dst,
+           static_cast<const char*>(params[el.leaf]) + el.i * el.size, el.size);
+  CmdPtrs c;
+  for (int k = 0; k < 6; ++k) {
+    c.leaf[k] = cmd[k];
+    c.stride[k] = cmd_stride[k];
+  }
+  const int64_t rows = static_cast<int64_t>(B) * n_steps;
+  Outs o;
+  o.f = out_f;
+  o.i = out_i;
+  float* tf = out_f + static_cast<int64_t>(B) * kWritten.of[kOutF32];
+  int* ti = out_i + static_cast<int64_t>(B) * kWritten.of[kOutI32];
+  for (int l = 0; l < kTrajLeaves; ++l) {
+    if (l < kTrajFloatLeaves) {
+      o.traj[l] = tf;
+      tf += rows * traj_width(l);
+    } else {
+      o.traj[l] = ti;
+      ti += rows;
+    }
+  }
+  o.b = reinterpret_cast<unsigned char*>(ti);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = group == 1   ? launch<1>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
+                  : group == 2 ? launch<2>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
+                  : group == 4 ? launch<4>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
+                               : launch<8>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s);
+  return static_cast<int>(e);
 }
+
+#ifdef ROLLOUT_SECTIONS
+// sec, cnt: kNumSections cycles and runs each, summed since the last read;
+// resets them. Returns the cudaError_t of the copies.
+extern "C" int env_rollout_sections_read(unsigned long long* sec, unsigned long long* cnt) {
+  unsigned long long zero[kNumSections] = {0};
+  cudaError_t e = cudaMemcpyFromSymbol(sec, g_sec, sizeof(g_sec));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(cnt, g_cnt, sizeof(g_cnt));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_sec, zero, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_cnt, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+#endif

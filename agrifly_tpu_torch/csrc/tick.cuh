@@ -16,8 +16,17 @@
 // leaves pass through (the wrappers return the input tensors). The paths
 // are relative to EnvState / EnvParams; frame.cu nests them under `base`.
 //
-// An including file may define SECTION_BEGIN / SECTION_END (frame.cu's
-// clock64 section timers) before the include; otherwise they are empty.
+// An including file may define SECTION_BEGIN / SECTION_END (the clock64
+// section timers of frame.cu and rollout.cu, over their Section enums)
+// before the include; otherwise they are empty.
+//
+// The mocap replay's nine segments (each one's decay and rotation) are
+// independent, and the functions on the way to them take a helper object
+// `hp` that spreads them over lanes: K3's Helpers (lane 0 runs the chain;
+// lanes 1-9 wait in help() for the segments) or K5's Lanes<G> (a group of G
+// lanes runs one vehicle's chain in lockstep and splits the segments over
+// its lanes). Every lane computes its segments with the serial loop's
+// operations, so a split changes no value.
 
 #pragma once
 
@@ -371,6 +380,63 @@ __device__ __forceinline__ float tclamp(float x, float lo, float hi) { return tm
 __device__ __forceinline__ float tsign(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : (isnan(x) ? NAN : 0.0f));
 }
+
+// ---------------------------------------------------------------------------
+// work split over lanes: out[i] = f(i) for i < N
+// ---------------------------------------------------------------------------
+
+// a[i] for an i known only at run time, by selects: a register array indexed
+// at run time would go to local memory
+template <int N, class T>
+__device__ __forceinline__ T pick(const T* a, int i) {
+  T v = a[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j)
+    if (i == j) v = a[j];
+  return v;
+}
+
+// v from lane `src` of the group (`width` lanes, `mask` its lanes in the
+// warp), one 32-bit word at a time: T is a float, an int or a struct of them
+template <class T>
+__device__ __forceinline__ T shfl_group(unsigned mask, T v, int src, int width) {
+  static_assert(sizeof(T) % 4 == 0, "shfl_group moves 32-bit words");
+  int w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(T) / 4); ++k)
+    w[k] = __shfl_sync(mask, w[k], src, width);
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
+// A group of G lanes (G divides 32; consecutive lanes of a warp) that runs
+// one vehicle's tick chain in lockstep: every lane holds the same values, so
+// a branch is taken by the whole group, and at a split lane l computes items
+// l, l + G, ... and every lane then reads each item from the lane that
+// computed it. G = 1 is the serial chain.
+template <int G>
+struct Lanes {
+  int lane;       // this thread's lane in its group
+  unsigned mask;  // the group's lanes in the warp
+
+  template <int N, class T, class F>
+  __device__ __forceinline__ void map(T (&out)[N], F f) const {
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = f(i);
+    } else {
+#pragma unroll
+      for (int r = 0; r < (N + G - 1) / G; ++r) {
+        T v{};
+        if (r * G + lane < N) v = f(r * G + lane);
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          if (r * G + j < N) out[r * G + j] = shfl_group(mask, v, j, G);
+      }
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // ops/fmath.py: dot3, norm3, cross; ipow in JAX integer_pow's order
@@ -1235,19 +1301,14 @@ __device__ __forceinline__ void segment_work(int op, bool ballistic, float dt, f
   if (op & kRotation) *rot = from_rotation_vector(scl(w, dt));
 }
 
-// The lanes that help one vehicle's thread with the replay's per-segment
-// work: lanes 1..kSegs of its warp, or none (work null: the thread does the
-// work itself, as in a one-thread-per-vehicle kernel).
+// K3's layout: the lanes 1..kSegs of a vehicle's warp help its leader (lane
+// 0) with the replay's per-segment work.
 struct Helpers {
   WarpWork* work;
 
   // segment_work(op, ...) for every segment: c[i] and/or rot[i]
   __device__ void segments(int op, const bool* ballistic, const float* dt, const f3* w, float* c,
                            f4* rot) const {
-    if (!work) {
-      for (int i = 0; i < kSegs; ++i) segment_work(op, ballistic[i], dt[i], w[i], c + i, rot + i);
-      return;
-    }
     for (int i = 0; i < kSegs; ++i) {
       work->ballistic[i] = ballistic[i];
       work->dt[i] = dt[i];
@@ -1263,7 +1324,6 @@ struct Helpers {
   }
   // ends the helpers' loop; the leader calls it once, after its last tick
   __device__ void release() const {
-    if (!work) return;
     work->op = kDone;
     __syncwarp();
   }
@@ -1282,6 +1342,30 @@ __device__ void help(WarpWork& work, int lane) {
   }
 }
 
+// a segment's share of a request, as one value for the lanes' exchange
+struct SegmentOut { float c; f4 rot; };
+
+// Lanes<G>'s form of Helpers::segments: segment i on lane i % G
+template <int G>
+__device__ __forceinline__ void segments(const Lanes<G>& hp, int op, const bool* ballistic,
+                                         const float* dt, const f3* w, float* c, f4* rot) {
+  SegmentOut out[kSegs];
+  hp.map(out, [&](int i) {
+    SegmentOut o{1.0f, qidentity()};
+    segment_work(op, pick<kSegs>(ballistic, i), pick<kSegs>(dt, i), pick<kSegs>(w, i), &o.c,
+                 &o.rot);
+    return o;
+  });
+  for (int i = 0; i < kSegs; ++i) {
+    if (op & kDecay) c[i] = out[i].c;
+    if (op & kRotation) rot[i] = out[i].rot;
+  }
+}
+__device__ __forceinline__ void segments(const Helpers& hp, int op, const bool* ballistic,
+                                         const float* dt, const f3* w, float* c, f4* rot) {
+  hp.segments(op, ballistic, dt, w, c, rot);
+}
+
 // _replay: integrate the command stream from t0 to t1 over the pipe's
 // slots and the final open segment; frozen: the prediction flavor (start
 // velocity v0 and angvel w0 held). The plain version is one loop that
@@ -1289,8 +1373,9 @@ __device__ void help(WarpWork& work, int lane) {
 // integer walk first lays out the segments (length, command); the helpers
 // compute each segment's decay and rotation; then the segments are chained
 // in order with the plain loop's operations.
+template <class H>
 __device__ Mocap replay(const EnvState& S, int t0_us, int t1_us, bool update_variance,
-                        bool frozen, const Helpers& hp) {
+                        bool frozen, const H& hp) {
   Mocap m = mocap_of(S);
   const f3 v0 = m.vel, w0 = m.angvel;
   PipeView v;
@@ -1329,15 +1414,15 @@ __device__ Mocap replay(const EnvState& S, int t0_us, int t1_us, bool update_var
   f4 rot[kSegs];
   for (int i = 0; i < kSegs; ++i) w[i] = w0;
   if (frozen) {  // w0 throughout: decays and rotations in one request
-    hp.segments(kDecay | kRotation, ball, dt, w, c, rot);
+    segments(hp, kDecay | kRotation, ball, dt, w, c, rot);
   } else {  // each segment turns by the angular velocity the decays leave it
-    hp.segments(kDecay, ball, dt, w, c, rot);
+    segments(hp, kDecay, ball, dt, w, c, rot);
     f3 angvel = m.angvel;
     for (int i = 0; i < kSegs; ++i) {
       w[i] = angvel;
       angvel = add(scl(angvel, c[i]), scl(cmd[i], 1.0f - c[i]));
     }
-    hp.segments(kRotation, ball, dt, w, c, rot);
+    segments(hp, kRotation, ball, dt, w, c, rot);
   }
   for (int i = 0; i < kSegs; ++i) {
     if (frozen) m.pos = add(add(m.pos, scl(v0, dt[i])), scl(acc[i], dt[i] * dt[i] * 0.5f));
@@ -1362,8 +1447,9 @@ __device__ __forceinline__ void mocap_store(EnvState& S, const Mocap& m) {
 
 // UpdateWithMeasurement: replay the pipe to now, 6-sigma gate, 2x2 KF
 // corrections, force-accept + reset after 10 straight rejections
+template <class H>
 __device__ void mocap_update(EnvState& S, int now_us, f3 meas_pos, f4 meas_att, int dt_advance_us,
-                             const Helpers& hp) {
+                             const H& hp) {
   const float meas_var_pos = static_cast<float>(0.02 * 0.02);
   const float meas_var_att = static_cast<float>((5.0 * 3.14159265358979323846 / 180.0) *
                                                 (5.0 * 3.14159265358979323846 / 180.0));
@@ -1454,8 +1540,9 @@ __device__ void mocap_update(EnvState& S, int now_us, f3 meas_pos, f4 meas_att, 
 }
 
 // GetPrediction: forward-simulate the latency (estimate at now + latency)
+template <class H>
 __device__ __forceinline__ Mocap mocap_get_prediction(const EnvState& S, int now_us, int latency_us,
-                                                     const Helpers& hp) {
+                                                     const H& hp) {
   return replay(S, S.mc_estimate_us, wadd(now_us, latency_us), false, true, hp);
 }
 
@@ -1492,21 +1579,25 @@ __device__ void offboard_run(const EnvParams& P, f3 cur_pos, f3 cur_vel, f4 cur_
 // estimate (a tick whose offboard loop does not fire never reads it; the
 // mocap prediction has no side effect). Returns the estimate (pos, vel, att,
 // angvel; zeros without predict) and now_us (master time after this tick).
+template <class H>
 __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* noise,
                               f3 ext_force, f3 ext_torque, bool mocap, bool predict,
-                              int* now_us, const Helpers& hp) {
+                              int* now_us, const H& hp) {
   const f3 grav = f3{0.0f, 0.0f, kGravZ};
   const m3 imu_rot_inv = ldm(P.p_imu_rot_inv);
   float dt = static_cast<float>(P.dt_us) * 1e-6f;
 
   // physics_phase_a: radio delivery, plant, IMU
   int mtype, mflags, mfields[kNumFields];
+  SECTION_BEGIN(kSecRadio)
   bool delivered = ring_pop_due(S, S.step, P.dt_us, P.radio_delay_us, &mtype, &mflags, mfields);
+  SECTION_END(kSecRadio)
   float motor_cmds[4];
   for (int i = 0; i < 4; ++i) motor_cmds[i] = S.des_motor_speeds[i];
   SECTION_BEGIN(kSecPlant)
   f3 acc_imu = plant_step(P, S, motor_cmds, dt, ext_force, ext_torque);
   SECTION_END(kSecPlant)
+  SECTION_BEGIN(kSecImu)
   f3 angvel = ld3(S.plant_angvel);
   f4 att = ld4(S.plant_att);
   f3 gyro_true = mv3(imu_rot_inv, angvel);
@@ -1515,6 +1606,7 @@ __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* nois
   f3 acc_meas = add(acc_true, scl(ld3(noise + 3), 0.2f));
   gyro_meas = add(gyro_true, scl(sub(gyro_meas, gyro_true), P.noise_scale));
   acc_meas = add(acc_true, scl(sub(acc_meas, acc_true), P.noise_scale));
+  SECTION_END(kSecImu)
 
   // onboard logic tick (constant battery)
   SECTION_BEGIN(kSecLogic)

@@ -7,22 +7,32 @@ launch advances B envs (a leading B on every state leaf, or one env)
 through the noise block's n_steps ticks of `env.step` and writes the final
 state and the (B, n_steps, ...) `StepOutputs` trajectory. The kernel takes
 each tick's cadences from the accumulators, as `env.rollout` does, so it
-serves `env.rollout` and `env.rollout_fast` alike. On CPU tensors it runs
-the plain version: `env.rollout_plain`, with `env.fast_flags` for
-`rollout_fast`.
+serves `env.rollout` and `env.rollout_fast` alike. A group of `GROUP` lanes
+runs each env (the kernel is built for each of `GROUPS`, and every group
+size gives the same values bit for bit). On CPU tensors it runs the plain
+version:
+`env.rollout_plain`, with `env.fast_flags` for `rollout_fast`.
 
 The kernel reads each state and parameter leaf through its own device
-pointer and writes the state leaves a rollout changes into three flat
-buffers (float32, int32, bool); the returned leaves are views into them,
-and the leaves it never writes (the GPS-IMU estimator's) are the input
-tensors. `tick.cuh` declares the leaves in two X-macro tables; every call
-is checked against them.
+pointer, and a command leaf shared by the fleet through a stride of 0. It
+writes the state leaves a rollout changes and the trajectory into two flat
+buffers (float32; int32 with the bool leaves' bytes at its end); the
+returned leaves are views into them, and the leaves it never writes (the
+GPS-IMU estimator's) are the input tensors. `tick.cuh` declares the leaves
+in two X-macro tables, and every call is held to them: a state or parameter
+tree is checked in full the first time, and later calls with the same tree
+(the last one accepted) compare only each leaf's version counter and data
+pointer, which an in-place change of shape, dtype or layout, or a
+rebinding to other memory moves (a new tensor makes a new tree). The
+pointer tables are built once per accepted tree.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import operator
+from typing import NamedTuple
 
 import torch
 
@@ -30,7 +40,12 @@ from agrifly_tpu_torch import convert, cuda_build
 from agrifly_tpu_torch.sim import env as env_mod
 
 CTRL = {"rates": 0, "position": 1, "idle": 2}
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+GROUPS = (1, 2, 4, 8)  # lanes per env that rollout.cu is built for
+GROUP = 8  # the default: the fastest measured at bench.py's shape (PERF.md)
+TRAJ_WIDTHS = (3, 3, 4, 3, 4)  # the float trajectory leaves' last axis; then 3 int32 leaves
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_version = operator.attrgetter("_version")
+_data_ptr = torch.Tensor.data_ptr
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,43 +69,140 @@ def _launcher():
 
 
 @functools.lru_cache(maxsize=None)
-def _written_sizes(B):
-    """Elements of each written leaf for B envs, by dtype, in table order."""
+def _runs():
+    """The written state leaves of each dtype as rollout.cu lays them out in
+    its output buffer: ordered by elements per env (table order among
+    equals), in runs [(elements per env, [leaf indices])]; and each
+    buffer's elements per env."""
     specs, _ = leaf_table()
-    return {ty: [B * max(s.numel, 1) for s in specs if s.written and s.dtype == ty]
-            for ty in cuda_build._DTYPES.values()}
+    runs = {}
+    for ty in cuda_build._DTYPES.values():
+        rows = sorted((max(s.numel, 1), i) for i, s in enumerate(specs)
+                      if s.written and s.dtype == ty)
+        runs[ty] = [(n, [i for m, i in rows if m == n]) for n in sorted({n for n, _ in rows})]
+    return runs, {ty: sum(n * len(idx) for n, idx in r) for ty, r in runs.items()}
 
 
-def _launch(leaves, pleaves, cmd, noise, mocap, ctrl):
-    """Run the kernel on B envs (cmd leaves (B, ...), noise (B, n_steps,
-    2, 3)); returns (the new state's leaves, the trajectory's leaves)."""
-    fn = _launcher()
-    specs, _ = leaf_table()
-    dev = noise.device
+class _Accepted(NamedTuple):
+    """A tree whose leaves passed the full check: the tree (kept, so its
+    leaves' ids are not reused), its leaves, rebuild, and each leaf's
+    version counter and data pointer then; `table`: the ctypes pointer
+    array the launch takes (for the parameters, of `host`, the leaves'
+    copies in host memory, which the launch packs into the kernel's
+    argument); `reshape`: for a state, {B: the written leaves (index,
+    shape) that the output runs do not shape}, filled at its first launch.
+    `versions` is None for a tree with an inference tensor."""
+    tree: object
+    leaves: list
+    rebuild: object
+    versions: list
+    ptrs: list
+    device: torch.device
+    table: object
+    host: list
+    reshape: dict
+
+
+_accepted = {"state": None, "params": None}  # the last accepted tree of each
+
+
+def _pointer_table(ptrs):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _versions(leaves):
+    """Each leaf's version counter, or None where a leaf keeps none (an
+    inference tensor, such as the plain rollout's outputs): such a tree is
+    checked in full at every call."""
+    try:
+        return list(map(_version, leaves))
+    except RuntimeError:
+        return None
+
+
+def _accept(kind, tree, device, check):
+    """The accepted entry of `tree` ("state" or "params"): the last one if
+    it is the same tree on the same device and its leaves have not moved,
+    else the tree checked in full by check(leaves) (which raises); a new
+    parameter entry copies the leaves to the host (a device sync, once per
+    parameter tree and after any in-place change to it)."""
+    entry = _accepted[kind]
+    if (entry is not None and entry.versions is not None and entry.tree is tree
+            and entry.device == device and _versions(entry.leaves) == entry.versions
+            and list(map(_data_ptr, entry.leaves)) == entry.ptrs):
+        return entry
+    leaves, rebuild = convert.flatten_tensors(tree)
+    check(leaves)
+    ptrs = list(map(_data_ptr, leaves))
+    host = [t.cpu() for t in leaves] if kind == "params" else []
+    entry = _Accepted(tree, leaves, rebuild, _versions(leaves), ptrs, device,
+                      _pointer_table(list(map(_data_ptr, host)) if host else ptrs), host, {})
+    _accepted[kind] = entry
+    return entry
+
+
+def _command(cmd, B, device):
+    """The command's six leaves (float32, contiguous) and their strides
+    between envs: 0 for a leaf the fleet shares, else its row length."""
+    n = 1 if B is None else B
+    leaves, strides = [], []
+    for name, t, base in zip(env_mod.Command._fields, cmd, env_mod._BASE_DIMS):
+        t = torch.as_tensor(t, dtype=torch.float32)
+        per_env = B is not None and t.dim() == base + 1 and t.shape[0] == n
+        if (t.device != device or tuple(t.shape[per_env:]) != (3,) * base
+                or (t.dim() != base and not per_env)):
+            raise ValueError(f"command leaf {name}: {t.dtype} {tuple(t.shape)} on {t.device}; "
+                             f"rollout.cu takes float32 ({'' if B is None else f'{B}, '}"
+                             f"{'3' * base}) or a shared ({'3' * base}) on {device}")
+        leaves.append(t.contiguous())
+        strides.append(3 ** base if per_env else 0)
+    return leaves, strides
+
+
+def _launch(state, params, cmd, noise, mocap, ctrl, group=None, launcher=None):
+    """Run the kernel on B envs (`state`, `params`: accepted entries with a
+    leading B on every state leaf, or one env with none; `cmd`: `_command`'s
+    leaves and strides; noise (B, n_steps, 2, 3)) with `group` lanes per env
+    (GROUP by default; chip_smoke.py and the card tests run every one of
+    GROUPS) through `launcher` (the default build's env_rollout_launch, or
+    another build's); returns (the new state's leaves, the trajectory's
+    leaves)."""
+    group = GROUP if group is None else group
+    fn = launcher or _launcher()
+    runs, per_env = _runs()
     B, n = noise.shape[:2]
-    sizes = _written_sizes(B)
-    bufs = {ty: torch.empty(sum(n_), dtype=ty, device=dev) for ty, n_ in sizes.items()}
-    traj_f = [torch.empty((B, n, k), dtype=torch.float32, device=dev) for k in (3, 3, 4, 3, 4)]
-    traj_i = [torch.empty((B, n), dtype=torch.int32, device=dev) for _ in range(3)]
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
+    dev = noise.device
+    rows = B * n
+    f_state, i_state = B * per_env[torch.float32], B * per_env[torch.int32]
+    f_buf = torch.empty(f_state + rows * sum(TRAJ_WIDTHS), dtype=torch.float32, device=dev)
+    i_words = i_state + 3 * rows
+    i_buf = torch.empty(i_words + (B * per_env[torch.bool] + 3) // 4, dtype=torch.int32,
+                        device=dev)
+    cmd_leaves, cmd_strides = cmd
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
-    status = fn(ptrs(leaves), ptrs(pleaves), ptrs(cmd), noise.data_ptr(),
-                bufs[torch.float32].data_ptr(), bufs[torch.int32].data_ptr(),
-                bufs[torch.bool].data_ptr(), ptrs(traj_f), ptrs(traj_i), B, n, int(mocap),
-                CTRL[ctrl], stream)
+    status = fn(state.table, params.table, _pointer_table(list(map(_data_ptr, cmd_leaves))),
+                (ctypes.c_int * 6)(*cmd_strides), noise.data_ptr(), f_buf.data_ptr(),
+                i_buf.data_ptr(), B, n, int(mocap), CTRL[ctrl], group, stream)
     cuda_build.check(status, "env_rollout_launch")
     rollout.launches += 1
-    parts = {ty: iter(bufs[ty].split(n_)) for ty, n_ in sizes.items()}
-    new = [next(parts[s.dtype]).view(t.shape) if s.written else t for s, t in zip(specs, leaves)]
-    return new, traj_f + traj_i
 
-
-def _check_command(cmd, B, device):
-    for name, t, base in zip(env_mod.Command._fields, cmd, env_mod._BASE_DIMS):
-        if (t.dtype != torch.float32 or t.device != device or not t.is_contiguous()
-                or tuple(t.shape[1:]) != (3,) * base or t.shape[0] != B):
-            raise ValueError(f"command leaf {name}: {t.dtype} {tuple(t.shape)} on {t.device}; "
-                             f"rollout.cu takes float32 ({B}{', 3' * base}) on {device}")
+    f_part, *traj_f = f_buf.split([f_state] + [rows * w for w in TRAJ_WIDTHS])
+    i_part, *traj_i, _ = i_buf.split([i_state] + [rows] * 3 + [i_buf.numel() - i_words])
+    b_part = i_buf.view(torch.uint8)[4 * i_words:4 * i_words + B * per_env[torch.bool]]
+    new = list(state.leaves)  # the leaves it never writes are the inputs
+    for ty, part in ((torch.float32, f_part), (torch.int32, i_part),
+                     (torch.bool, b_part.view(torch.bool))):
+        for (k, idx), run in zip(runs[ty], part.split([B * k * len(idx) for k, idx in runs[ty]])):
+            for i, t in zip(idx, run.view((len(idx), B, k) if k > 1 else (len(idx), B)).unbind()):
+                new[i] = t
+    if B not in state.reshape:
+        state.reshape[B] = [(i, old.shape) for i, (t, old) in enumerate(zip(new, state.leaves))
+                            if t is not old and t.shape != old.shape]
+    for i, shape in state.reshape[B]:
+        new[i] = new[i].view(shape)
+    traj = ([t.view(B, n, w) for t, w in zip(traj_f, TRAJ_WIDTHS)]
+            + [t.view(B, n) for t in traj_i])
+    return new, traj
 
 
 def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", fast=False,
@@ -110,29 +222,22 @@ def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", f
             or noise.dtype != torch.float32 or (B is not None and noise.shape[0] != B)):
         raise ValueError(f"need {'' if B is None else f'({B}, '}n_steps, 2, 3) float32 noise, "
                          f"got {tuple(noise.shape)} {noise.dtype}")
-    leaves, rebuild = convert.flatten_tensors(state)
-    pleaves = param_leaves(params)
     state_specs, param_specs = leaf_table()
     device = noise.device
-    cuda_build.check_leaves(state_specs, leaves, device, "state", B, "tick.cuh")
-    cuda_build.check_leaves(param_specs, pleaves, device, "params", None, "tick.cuh")
+    s_entry = _accept("state", state, device, lambda leaves: cuda_build.check_leaves(
+        state_specs, leaves, device, "state", B, "tick.cuh"))
+    p_entry = _accept("params", params, device, lambda leaves: cuda_build.check_leaves(
+        param_specs, leaves, device, "params", None, "tick.cuh"))
     if not noise.is_cuda:
         flags = env_mod.fast_flags(params, state, noise.shape[-3], entry_phase) if fast else None
         return env_mod.rollout_plain(params, state, cmd, noise, use_estimator, ctrl_mode, flags)
 
-    n = 1 if B is None else B
-    cmd_b = env_mod._fleet_command(cmd, n)
-    cmd_b = [t.contiguous() for t in cmd_b]
-    _check_command(cmd_b, n, device)
-    rows = leaves if B is not None else [t[None] for t in leaves]
     noise = noise.contiguous()
-    new, traj = _launch(rows, pleaves, cmd_b, noise if B is not None else noise[None],
-                        mode == "mocap", ctrl_mode)
+    new, traj = _launch(s_entry, p_entry, _command(cmd, B, device),
+                        noise if B is not None else noise[None], mode == "mocap", ctrl_mode)
     if B is None:
-        new = [t.view(old.shape) if t is not old_row else old
-               for t, old, old_row in zip(new, leaves, rows)]
         traj = [t[0] for t in traj]
-    return rebuild(new), env_mod.StepOutputs(*traj)
+    return s_entry.rebuild(new), env_mod.StepOutputs(*traj)
 
 
 rollout.launches = 0  # kernel launches since the last reset

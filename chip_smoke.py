@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernel libraries from `agrifly_tpu_torch/csrc`
-(one nvcc each, in parallel) and holds each kernel against its plain
+It builds the five CUDA kernel libraries from `agrifly_tpu_torch/csrc`
+and the section-timed variants of `frame.cu` and `rollout.cu` (one nvcc
+each, all in parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 bit for bit (one image and 16 in one launch, on the default orchard, a
 scene at `make_params`' limit and one whose second canopy spheres leave
@@ -49,11 +50,15 @@ oracle. It then flies:
 - `sim/env`'s fleet physics rollout (K5, `csrc/rollout.cu`) at bench.py's
   shape: 4096 envs x 250 steps per `env.rollout_fast` call, hover, IMU
   noise drawn inside each call, with the true state and with the mocap
-  estimator, 8 timed calls each (steps/s); K5 held against the plain
-  (vmapped) rollout on the card (all 4096 envs with the true state, 64 with
-  the estimator; 25 steps by the tick criteria, 250 by JAX's rollout_fast
-  terms) and on the CPU from mid-flight, its device time, and the plain
-  rollout's rate.
+  estimator, 8 timed calls each (steps/s, and the host's time to return
+  from a call, split by the wrapper's steps); K5 with 2, 4 and 8 lanes per
+  env held bit for bit against 1 lane (all 4096 envs with the true state,
+  64 with the estimator, 250 steps), the default held against the plain
+  (vmapped) rollout on the card (25 steps by the tick criteria, 250 by
+  JAX's rollout_fast terms) and on the CPU from mid-flight; the device time
+  of every lane count at 1, 64 and 4096 envs in both modes, and with 0
+  steps; clock64() timers around the tick's sections in a variant of
+  `csrc/rollout.cu` built beside the kernels; and the plain rollout's rate.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -136,6 +141,12 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def max_sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0])
 
 
 def card_line() -> str:
@@ -1099,7 +1110,7 @@ def tick_split(dev):
 # csrc/frame.cu's Section enum, in order: the statements its clock64() timers
 # enclose in the FRAME_SECTIONS build
 SECTIONS = ("ticks", "plant", "logic", "ekf_predict", "cov_predict", "mocap_update",
-            "replay (update)", "prediction", "offboard")
+            "replay (update)", "prediction", "offboard", "radio", "imu")
 SECTION_LAUNCHES = 20  # timed 16-tick launches, after one warm-up
 TIMED_FRAME = ("frame", ("FRAME_SECTIONS",))  # cuda_build.load's arguments for the timed build
 
@@ -1145,9 +1156,7 @@ def frame_sections(dev):
     torch.cuda.synchronize()
     cuda_build.check(lib.frame_sections_read(sec, cnt), "frame_sections_read")
     ticks = SECTION_LAUNCHES * 16
-    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                "--format=csv,noheader,nounits"], capture_output=True,
-                               text=True, timeout=60, check=True).stdout.split()[0])
+    mhz = max_sm_mhz()
     chain_ms = sec[0] / SECTION_LAUNCHES / (mhz * 1e3)
     print(f"frame_ticks section timers (tracking state, cycles per tick over {ticks} ticks): "
           + ", ".join(f"{name} {sec[k] / ticks:.0f} (runs {cnt[k]})"
@@ -1496,6 +1505,7 @@ ENV_HOVER = (0.0, 0.0, 1.5)
 ENV_CHECK_ENVS, ENV_CHECK_STEPS = 64, 25  # the mocap subset held against the plain rollout
 ENV_CPU_ENVS = 8  # envs held against the plain rollout on the CPU from mid-flight
 ENV_PLAIN_STEPS = 4  # steps of the plain vmapped rollout timed at ENVS envs with the estimator
+ENV_TIMED_ENVS = (1, ENV_CHECK_ENVS, ENVS)  # K5's device time at each G for these B
 # csrc/tick.cuh and rollout.cu, float operations per env and tick, counted
 # where bench.py's ticks run them: the plant (~300), IMU (~60), the onboard
 # logic with its complementary attitude and rates branch (~1100), the
@@ -1503,6 +1513,12 @@ ENV_PLAIN_STEPS = 4  # steps of the plain vmapped rollout timed at ENVS envs wit
 # estimator also its update (replay of 9 segments and the 2x2 filters,
 # ~1700) on two ticks in five and its prediction replay (~1100) on one.
 ENV_TICK_OPS = {False: 1600, True: 2500}
+# rollout.cu's Section enum, in order: the statements its clock64() timers
+# enclose in the ROLLOUT_SECTIONS build
+ROLLOUT_SECTIONS = ("ticks", "radio", "plant", "imu", "logic", "ekf_predict", "cov_predict",
+                    "mocap_update", "replay (update)", "prediction", "offboard", "store", "noise")
+TIMED_ROLLOUT = ("rollout", ("ROLLOUT_SECTIONS",))  # cuda_build.load's arguments
+ROLLOUT_SECTION_LAUNCHES = 3  # timed launches of ENV_STEPS steps, after one warm-up
 
 
 def env_bytes(leaves, pleaves, cmd, noise, new_leaves, traj):
@@ -1545,14 +1561,163 @@ def env_subset(tree, rows):
     return env._tree_map(lambda t: t[rows].contiguous(), tree)
 
 
+def env_launcher(p, s, cmd, noise, mode, group, launcher=None):
+    """A bare launch of K5 (the wrapper's checks done once, up front) on
+    state s with `group` lanes per env: returns fn() -> (new leaves, traj)."""
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    specs, pspecs = cuda_rollout.leaf_table()
+    B, dev = env._fleet_size(s), noise.device
+    s_entry = cuda_rollout._accept("state", s, dev, lambda leaves: cuda_build.check_leaves(
+        specs, leaves, dev, "state", B, "tick.cuh"))
+    p_entry = cuda_rollout._accept("params", p, dev, lambda leaves: cuda_build.check_leaves(
+        pspecs, leaves, dev, "params", None, "tick.cuh"))
+    rows = cuda_rollout._command(cmd, B, dev)
+    return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, "rates", group,
+                                        launcher)
+
+
+def check_env_groups(p, s0, cmd, noise):
+    """K5 at every built G against G = 1 on the same inputs, bit for bit,
+    in both estimator modes over ENV_STEPS steps: all ENVS envs with the
+    true state, ENV_CHECK_ENVS with the estimator; state and trajectory."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    specs, _ = cuda_rollout.leaf_table()
+    names = [".".join(spec.path) for spec in specs] + list(env.StepOutputs._fields)
+    for mode, n_envs in ((False, ENVS), (True, ENV_CHECK_ENVS)):
+        s, nz = env_subset(s0, slice(0, n_envs)), noise[:n_envs].contiguous()
+        ref_state, ref_traj = env_launcher(p, s, cmd, nz, mode, 1)()
+        for group in cuda_rollout.GROUPS[1:]:
+            state, traj = env_launcher(p, s, cmd, nz, mode, group)()
+            for name, a, b in zip(names, state + traj, ref_state + ref_traj):
+                _check(torch.equal(a, b), f"K5 G={group} vs G=1, use_estimator={mode}: "
+                       f"{name} differs")
+        torch.cuda.synchronize()
+        print(f"env_rollout use_estimator={mode}, {n_envs} envs x {ENV_STEPS} steps: K5 at G = "
+              f"{', '.join(map(str, cuda_rollout.GROUPS[1:]))} bit-equal to G = 1 (every state "
+              f"and trajectory leaf)")
+
+
+def env_group_times(p, s0, cmd, noise):
+    """K5's device time per call (device_us, bare launch) at every G, for B
+    = ENV_TIMED_ENVS envs x ENV_STEPS steps, both estimator modes; and at
+    ENVS envs with 0 steps (the state's copies in and out alone). Returns
+    {(B, mode, G): us}."""
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    out = {}
+    empty = noise[:, :0].contiguous()
+    copies = {g: device_us(env_launcher(p, s0, cmd, empty, False, g), reps=3)
+              for g in cuda_rollout.GROUPS}
+    print(f"env_rollout device time per call, {ENVS} envs x 0 steps (the state copied in and "
+          "out; bare launch): " + "; ".join(f"G={g} {us_text(v)}" for g, v in copies.items()))
+    for B in ENV_TIMED_ENVS:
+        s, nz = env_subset(s0, slice(0, B)), noise[:B].contiguous()
+        for mode in (False, True):
+            for group in cuda_rollout.GROUPS:
+                out[B, mode, group] = device_us(env_launcher(p, s, cmd, nz, mode, group), reps=3)
+            print(f"env_rollout device time per call, {B} envs x {ENV_STEPS} steps, use_estimator="
+                  f"{mode} (bare launch): " + "; ".join(
+                      f"G={g} {us_text(out[B, mode, g])}" for g in cuda_rollout.GROUPS))
+    return out
+
+
+def rollout_sections(p, s0, cmd, noise, groups):
+    """Cycles per tick of each section of K5's tick chain (env 0's lane 0,
+    ROLLOUT_SECTION_LAUNCHES launches of ENV_STEPS steps) from rollout.cu's
+    ROLLOUT_SECTIONS build, at each G in `groups`, both estimator modes, at
+    1 and ENVS envs; and the measured chain time (the ticks' cycles per
+    launch over the card's maximum SM clock)."""
+    import ctypes
+
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    lib = cuda_build.load(*TIMED_ROLLOUT)
+    fn = lib.env_rollout_launch
+    fn.argtypes, fn.restype = cuda_rollout._ARGTYPES, ctypes.c_int
+    mhz = max_sm_mhz()
+    n = len(ROLLOUT_SECTIONS)
+    sec, cnt = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
+    ticks = ROLLOUT_SECTION_LAUNCHES * ENV_STEPS
+    for B in (1, ENVS):
+        s, nz = env_subset(s0, slice(0, B)), noise[:B].contiguous()
+        for mode in (False, True):
+            for group in groups:
+                launch = env_launcher(p, s, cmd, nz, mode, group, fn)
+                launch()
+                torch.cuda.synchronize()
+                lib.env_rollout_sections_read(sec, cnt)
+                for _ in range(ROLLOUT_SECTION_LAUNCHES):
+                    launch()
+                torch.cuda.synchronize()
+                cuda_build.check(lib.env_rollout_sections_read(sec, cnt),
+                                 "env_rollout_sections_read")
+                print(f"env_rollout section timers, {B} envs, use_estimator={mode}, G={group} "
+                      f"(env 0, cycles per tick over {ticks} ticks): " + ", ".join(
+                          f"{name} {sec[k] / ticks:.0f} (runs {cnt[k]})"
+                          for k, name in enumerate(ROLLOUT_SECTIONS))
+                      + f"; measured chain time {sec[0] / ROLLOUT_SECTION_LAUNCHES:.0f} cycles "
+                        f"per call = {sec[0] / ROLLOUT_SECTION_LAUNCHES / (mhz * 1e3):.6f} ms at "
+                        f"the {mhz:.0f} MHz maximum SM clock")
+
+
+def wrapper_split(p, s0, cmd, gen, reps=ENV_CALLS):
+    """The host's time for each step of a bench.py call (env.rollout_fast,
+    true state), each step timed alone over `reps` runs (as many as
+    bench.py's timed calls, each run's result kept, as its loop keeps them):
+    the noise draw, the two cached leaf checks, the command, the launch
+    (buffers and the ctypes call) with the output views, and the tree's
+    rebuild. Returns {step: ms}."""
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    specs, pspecs = cuda_rollout.leaf_table()
+    dev = s0.step.device
+    steps = {
+        "noise": lambda: torch.randn((ENVS, ENV_STEPS, 2, 3), generator=gen, device=dev),
+        "state check": lambda: cuda_rollout._accept("state", s0, dev, lambda leaves: (
+            cuda_build.check_leaves(specs, leaves, dev, "state", ENVS, "tick.cuh"))),
+        "params check": lambda: cuda_rollout._accept("params", p, dev, lambda leaves: (
+            cuda_build.check_leaves(pspecs, leaves, dev, "params", None, "tick.cuh"))),
+        "command": lambda: cuda_rollout._command(cmd, ENVS, dev),
+    }
+    noise = steps["noise"]()
+    s_entry, p_entry, rows = steps["state check"](), steps["params check"](), steps["command"]()
+    steps["launch and views"] = lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, False,
+                                                             "rates")
+    new = steps["launch and views"]()[0]
+    steps["rebuild"] = lambda: s_entry.rebuild(new)
+    out = {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = [fn() for _ in range(reps)]
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        del kept
+    print("env_rollout wrapper's host time per step of a call (ms, each alone over "
+          f"{reps} runs): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f"; sum {sum(out.values()):.4f}")
+    return out
+
+
 def check_env_against_plain(p, s0, cmd, noise, mode):
-    """K5 against the plain rollout (vmapped) on the card, from the start:
-    the first ENV_CHECK_STEPS steps by the tick criteria, then all
-    ENV_STEPS steps by JAX's own rollout_fast terms (flight state and panic
-    reason equal at every step, final position within 0.05 m). Returns
-    (worst ratio, max abs error of the float leaves after ENV_CHECK_STEPS
-    steps, the kernel's state then, the plain rollout's seconds for all
-    ENV_STEPS steps)."""
+    """K5 (the default G) against the plain rollout (vmapped) on the card,
+    from the start: the first ENV_CHECK_STEPS steps by the tick criteria,
+    then all ENV_STEPS steps by JAX's own rollout_fast terms (flight state
+    and panic reason equal at every step, final position within 0.05 m).
+    Returns (worst ratio, max abs error of the float leaves after
+    ENV_CHECK_STEPS steps, the kernel's state then, the plain rollout's
+    seconds for all ENV_STEPS steps)."""
     import torch
 
     from agrifly_tpu_torch.sim import cuda_rollout, env
@@ -1579,12 +1744,12 @@ def check_env_against_plain(p, s0, cmd, noise, mode):
     dpos = float((full.plant.pos - ref_end.plant.pos).abs().max())
     _check(dpos <= 0.05, f"K5 vs plain, use_estimator={mode}: final position {dpos:.3g} m apart")
     B = s0.step.shape[0]
-    print(f"env_rollout use_estimator={mode}, {B} envs, kernel vs plain on the card: {n} steps "
-          f"discrete leaves equal, worst float leaf {max(worst, worst_traj):.4g} x bound, max abs "
-          f"err {err:.3g}; {ENV_STEPS} steps flight state and panic equal, final position "
-          f"{dpos:.3g} m apart; fs {sorted(set(full.logic.fs.tolist()))}; the plain (vmapped "
-          f"torch) rollout {B * ENV_STEPS / plain_s:.1f} steps/s ({1e3 * plain_s / ENV_STEPS:.3f} "
-          f"ms per step over {ENV_STEPS})")
+    print(f"env_rollout use_estimator={mode}, {B} envs, kernel (G={cuda_rollout.GROUP}) vs plain on "
+          f"the card: {n} steps discrete leaves equal, worst float leaf {max(worst, worst_traj):.4g}"
+          f" x bound, max abs err {err:.3g}; {ENV_STEPS} steps flight state and panic equal, final "
+          f"position {dpos:.3g} m apart; fs {sorted(set(full.logic.fs.tolist()))}; the plain "
+          f"(vmapped torch) rollout {B * ENV_STEPS / plain_s:.1f} steps/s "
+          f"({1e3 * plain_s / ENV_STEPS:.3f} ms per step over {ENV_STEPS})")
     return max(worst, worst_traj), err, got, plain_s
 
 
@@ -1594,7 +1759,7 @@ def check_env_against_cpu(p, state, cmd, mode, dev):
     criteria."""
     import torch
 
-    from agrifly_tpu_torch.sim import cuda_rollout, env
+    from agrifly_tpu_torch.sim import cuda_rollout
 
     noise = torch.randn((ENV_CPU_ENVS, ENV_CHECK_STEPS, 2, 3),
                         generator=torch.Generator().manual_seed(SEED + 6))
@@ -1612,12 +1777,14 @@ def check_env_against_cpu(p, state, cmd, mode, dev):
 
 
 def check_env_rollout(dev):
-    """K5, the env rollout kernel: held against the plain rollout on the
-    card and on the CPU in both estimator modes, its device time,
-    then bench.py's workload through env.rollout_fast (4096 envs x 250
-    steps, noise drawn inside each timed call), whose launches it counts,
-    and the plain vmapped rollout's rate at 4096 envs. Returns the kernel's
-    line (at bench.py's shape, use_estimator=False) and its launches."""
+    """K5, the env rollout kernel: every built G bit-equal to G = 1, the
+    default G held against the plain rollout on the card and on the CPU in
+    both estimator modes, the device time of every G at B = 1, 64 and 4096,
+    the section timers, then bench.py's workload through env.rollout_fast
+    (4096 envs x 250 steps, noise drawn inside each timed call, the host's
+    time to return from a call), whose launches it counts, and the plain
+    vmapped rollout's rate at 4096 envs. Returns the kernel's line (at
+    bench.py's shape, use_estimator=False) and its launches."""
     import torch
 
     from agrifly_tpu_torch import convert
@@ -1631,6 +1798,7 @@ def check_env_rollout(dev):
     # the true state on all ENVS envs (bench.py's call: its plain time is
     # the kernel line's), the mocap estimator on ENV_CHECK_ENVS of them
     noise = torch.randn((ENVS, ENV_STEPS, 2, 3), generator=gen, device=dev)
+    check_env_groups(p, s0, cmd, noise)
     worst = err = 0.0
     for mode, s, nz in ((False, s0, noise),
                         (True, env_subset(s0, slice(0, ENV_CHECK_ENVS)),
@@ -1641,19 +1809,17 @@ def check_env_rollout(dev):
         if not mode:
             plain_ms = 1e3 * plain_s
 
-    # the device time per call at bench.py's shape (bare launch)
-    leaves, _ = convert.flatten_tensors(s0)
-    pleaves = cuda_rollout.param_leaves(p)
-    cmd_b = [t.contiguous() for t in env._fleet_command(cmd, ENVS)]
-    dev_us = {mode: device_us(lambda: cuda_rollout._launch(leaves, pleaves, cmd_b, noise, mode,
-                                                           "rates"), reps=3)
-              for mode in (False, True)}
-    print(f"env_rollout device time per call, {ENVS} envs x {ENV_STEPS} steps (bare launch): "
-          + "; ".join(f"use_estimator={m} {us_text(v)}" for m, v in dev_us.items()))
+    dev_us = env_group_times(p, s0, cmd, noise)
+    fastest = min(cuda_rollout.GROUPS, key=lambda g: dev_us[ENVS, False, g])
+    print(f"env_rollout fastest G at {ENVS} envs with the true state: G={fastest} "
+          f"({us_text(dev_us[ENVS, False, fastest])}); the default: G={cuda_rollout.GROUP} "
+          f"({us_text(dev_us[ENVS, False, cuda_rollout.GROUP])})")
+    rollout_sections(p, s0, cmd, noise, cuda_rollout.GROUPS)
 
+    wrapper_split(p, s0, cmd, gen)
     # bench.py's workload: its launches are counted from here
     cuda_rollout.rollout.launches = 0
-    rates, ms = {}, {}
+    rates, ms, host_ms = {}, {}, {}
     for mode in (False, True):
         def call():
             return env.rollout_fast(p, s0, cmd, ENV_STEPS, use_estimator=mode, gen=gen)
@@ -1674,12 +1840,12 @@ def check_env_rollout(dev):
         _check(bool((final.logic.panic_reason == 0).all())
                and bool((final.step == ENV_STEPS).all()),
                f"env_rollout use_estimator={mode}: a panic, or the step did not advance")
-        ms[mode] = 1e3 * elapsed / ENV_CALLS
+        ms[mode], host_ms[mode] = 1e3 * elapsed / ENV_CALLS, 1e3 * host / ENV_CALLS
         print(f"env_rollout bench.py workload, use_estimator={mode}: {rates[mode]:.1f} "
               f"physics+logic steps/s at {ENVS} envs x {ENV_STEPS} steps ({ENV_CALLS} timed calls "
               f"of {ms[mode]:.3f} ms, the noise drawn inside; the host returns from a call in "
-              f"{1e3 * host / ENV_CALLS:.3f} ms), final z mean "
-              f"{float(final.plant.pos[:, 2].mean()):.4f} m")
+              f"{host_ms[mode]:.3f} ms, K5's device time {us_text(dev_us[ENVS, mode, cuda_rollout.GROUP])}),"
+              f" final z mean {float(final.plant.pos[:, 2].mean()):.4f} m")
     launches = cuda_rollout.rollout.launches
     _check(launches == 2 * (ENV_CALLS + 1), f"env_rollout launched {launches} times")
 
@@ -1692,15 +1858,28 @@ def check_env_rollout(dev):
           f"{ENVS * ENV_PLAIN_STEPS / plain_s:.1f} steps/s at {ENVS} envs "
           f"({1e3 * plain_s / ENV_PLAIN_STEPS:.3f} ms per step over {ENV_PLAIN_STEPS})")
 
-    # the kernel's line: bench.py's call (use_estimator=False), wrapper time
-    # and the plain version's on the same inputs (check_env_against_plain)
-    new, traj = cuda_rollout._launch(leaves, pleaves, cmd_b, noise, False, "rates")
-    k_ms = cuda_ms(lambda: cuda_rollout.rollout(p, s0, cmd, noise, False), reps=5, warmup=1)
-    res = result(err, k_ms, plain_ms, env_bytes(leaves, pleaves, cmd_b, noise, new, traj),
-                 ENVS * ENV_STEPS * ENV_TICK_OPS[False])
-    print(f"env_rollout {ENVS} envs x {ENV_STEPS} steps: kernel {k_ms:.4f} ms (device "
-          f"{us_text(dev_us[False])}), bound {res['bound_ms']:.6f} ms "
-          f"({res['bound_by']}); worst float leaf {worst:.4g} x bound; phase "
+    # K5's rows at 1 and ENVS envs in both modes: the wrapper's time (CUDA
+    # events around env_rollout's call) and the bound from the call's
+    # inputs; the kernel's line is bench.py's call (use_estimator=False)
+    # with the plain version's time on the same inputs (check_env_against_plain)
+    rows = {}
+    for B in (1, ENVS):
+        s, nz = env_subset(s0, slice(0, B)), noise[:B].contiguous()
+        leaves, pleaves = convert.flatten_tensors(s)[0], cuda_rollout.param_leaves(p)
+        cmd_leaves = cuda_rollout._command(cmd, B, noise.device)[0]
+        for mode in (False, True):
+            new, traj = env_launcher(p, s, cmd, nz, mode, cuda_rollout.GROUP)()
+            w_ms = cuda_ms(lambda: cuda_rollout.rollout(p, s, cmd, nz, mode), reps=5, warmup=1)
+            rows[B, mode] = dict(result(err, w_ms, None,
+                                        env_bytes(leaves, pleaves, cmd_leaves, nz, new, traj),
+                                        B * ENV_STEPS * ENV_TICK_OPS[mode]))
+            r = rows[B, mode]
+            print(f"env_rollout {B} envs x {ENV_STEPS} steps, use_estimator={mode} "
+                  f"(G={cuda_rollout.GROUP}): wrapper {w_ms:.4f} ms, device "
+                  f"{us_text(dev_us[B, mode, cuda_rollout.GROUP])}, bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']})")
+    res = dict(rows[ENVS, False], plain_ms=plain_ms)
+    print(f"env_rollout: worst float leaf {worst:.4g} x bound; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return res, launches
 
@@ -1712,10 +1891,11 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
-        timed = pool.submit(cuda_build.load, *TIMED_FRAME)
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
+        timed = [pool.submit(cuda_build.load, *variant) for variant in (TIMED_FRAME, TIMED_ROLLOUT)]
         list(pool.map(cuda_build.load, KERNELS))
-        timed.result()
+        for variant in timed:
+            variant.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
     for name in ("raycast", "meshscene", "inflate", "frame", "rollout"):
@@ -1728,7 +1908,7 @@ PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
                            "inflate_grouped_kernel": "K2g"},
                "frame": {"frame_kernel": "K3"},
-               "rollout": {"rollout_kernel": "K5"}}
+               "rollout": {"rollout_kernel": "K5"}}  # K5 G=g: its template instance for g lanes
 
 
 def ptxas_report(lib, log):
@@ -1739,9 +1919,10 @@ def ptxas_report(lib, log):
     names = PTXAS_NAMES[lib]
     kernels, name = [], None
     for line in log.splitlines():
-        entry = re.search("(" + "|".join(names) + r")(\d+)?", line)
+        entry = re.search("(" + "|".join(names) + r")(ILi)?(\d+)?", line)
         if "Compiling entry function" in line and entry:
-            name = names[entry.group(1)] + (entry.group(2) or "")
+            name = names[entry.group(1)] + (f" G={entry.group(3)}" if entry.group(2)
+                                              else entry.group(3) or "")
         elif name and "spill" in line:
             spill = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             kernels.append([name, ", ".join(f"{b} B spill {k}" for b, k in spill)])

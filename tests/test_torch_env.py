@@ -397,3 +397,94 @@ def test_rollout_checks_its_inputs():
     assert cuda_rollout.rollout.launches == before  # CPU tensors: the plain version
     assert traj.pos.shape == (2, 5, 3) and torch.equal(out.step, torch.tensor([5, 5],
                                                                               dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper: its cached leaf check and the shared command
+# ---------------------------------------------------------------------------
+
+def _rotate_layout(t):
+    """The same shape and values, not contiguous any more (in place)."""
+    strides = list(reversed(torch.empty(tuple(reversed(t.shape))).stride()))
+    t.as_strided_(t.shape, strides)
+
+
+# each changes a (3, 3) leaf after a first accepted call: in place, or (a
+# tensor cannot move to another device in place) in a copy of its tree
+_LEAF_CHANGES = {
+    "dtype": lambda t: setattr(t, "data", t.data.to(torch.float64)),
+    "shape": lambda t: t.resize_(t.numel() + 1),
+    "layout": _rotate_layout,
+    "device": lambda t: t.to("meta"),
+}
+
+
+@pytest.mark.parametrize("change", sorted(_LEAF_CHANGES))
+@pytest.mark.parametrize("tree", ["state", "params"])
+def test_rollout_cached_check_refuses_a_leaf_changed_after_a_call(tree, change, monkeypatch):
+    """A call with the same trees as the last accepted one skips the full
+    leaf check; a leaf whose dtype, shape, layout or device changed since
+    then is still refused, and nothing runs."""
+    p = T.make_params(device="cpu")
+    s = T.init_state_fleet(p, torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.5, 0.2], [1.0, 0.0, 0.1]]))
+    cmd = T.hover_command(device="cpu")
+    noise = torch.zeros(3, 1, 2, 3)
+    checks = []
+    real_check = cuda_rollout.cuda_build.check_leaves
+    monkeypatch.setattr(cuda_rollout.cuda_build, "check_leaves",
+                        lambda specs, *a: checks.append(a[2]) or real_check(specs, *a))
+    cuda_rollout.rollout(p, s, cmd, noise)
+    cuda_rollout.rollout(p, s, cmd, noise)
+    assert checks == ["state", "params"]  # the second call: the cached signatures
+    moved = _LEAF_CHANGES[change](s.plant.vel if tree == "state" else p.plant.inertia)
+    if moved is not None and tree == "state":
+        s = s._replace(plant=s.plant._replace(vel=moved))
+    elif moved is not None:
+        p = p._replace(plant=p.plant._replace(inertia=moved))
+    before = cuda_rollout.rollout.launches
+    with pytest.raises(ValueError, match="plant.vel" if tree == "state" else "plant.inertia"):
+        cuda_rollout.rollout(p, s, cmd, noise)
+    assert checks[-1] == tree and cuda_rollout.rollout.launches == before
+
+
+def test_shared_command_equals_its_per_env_expansion():
+    """A command leaf the fleet shares and its per-env expansion give the
+    same rollout; the kernel reads the shared leaf in place through a stride
+    of 0 and the expanded one row by row."""
+    p = T.make_params(device="cpu")
+    s = _fleet(p, 2)
+    cmd = T.Command(des_pos=torch.tensor([[0.2, -0.1, 1.0], [0.6, 0.4, 1.2]]),
+                    des_vel=torch.tensor([0.05, 0.0, -0.02]),
+                    des_acc=torch.tensor([0.1, -0.05, 0.2]), des_yaw=torch.tensor(0.3),
+                    ext_force=torch.tensor([0.01, -0.02, 0.005]),
+                    ext_torque=torch.tensor([2e-5, -1e-5, 3e-5]))
+    expanded = T.Command(*(t if t.dim() > base else t.expand((2,) + t.shape).contiguous()
+                           for t, base in zip(cmd, T._BASE_DIMS)))
+    noise = torch.randn(2, 6, 2, 3, generator=torch.Generator().manual_seed(4))
+    got, traj = T.rollout(p, s, cmd, 6, noise=noise)
+    ref, ref_traj = T.rollout(p, s, expanded, 6, noise=noise)
+    _same(got, ref)
+    _same(traj, ref_traj)
+    leaves, strides = cuda_rollout._command(cmd, 2, torch.device("cpu"))
+    assert strides == [3, 0, 0, 0, 0, 0]
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(leaves[1:], cmd[1:]))
+    assert cuda_rollout._command(expanded, 2, torch.device("cpu"))[1] == [3, 3, 3, 1, 3, 3]
+
+
+def test_rollout_takes_inference_tensors_and_checks_them_every_call(monkeypatch):
+    """The plain rollout's outputs are inference tensors, which keep no
+    version counter: a state made of them is taken, and checked in full at
+    every call, since an in-place change to it could not be seen."""
+    p = T.make_params(device="cpu")
+    cmd = T.hover_command(device="cpu")
+    noise = torch.zeros(2, 1, 2, 3)
+    s, _ = cuda_rollout.rollout(p, _fleet(p), cmd, noise)
+    assert s.step.is_inference()
+    checks = []
+    real_check = cuda_rollout.cuda_build.check_leaves
+    monkeypatch.setattr(cuda_rollout.cuda_build, "check_leaves",
+                        lambda specs, *a: checks.append(a[2]) or real_check(specs, *a))
+    for _ in range(2):
+        out, _ = cuda_rollout.rollout(p, s, cmd, noise)
+    assert checks.count("state") == 2 and torch.equal(out.step, torch.tensor([2, 2],
+                                                                             dtype=torch.int32))

@@ -476,27 +476,68 @@ def _compare_env(got, ref, traj, ref_traj):
             assert torch.equal(a, b), name
 
 
+def _equal_env(got, ref, traj, ref_traj):
+    for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(ref)):
+        assert torch.equal(a, b), path
+    for name, a, b in zip(env.StepOutputs._fields, traj, ref_traj):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", cuda_rollout.GROUPS)
 @pytest.mark.parametrize("ctrl_mode", ["rates", "position", "idle"])
 @pytest.mark.parametrize("use_estimator", [False, True])
-def test_env_rollout_kernel_matches_plain(cuda, use_estimator, ctrl_mode):  # noqa: F811
-    """K5 against the plain rollout on the card in both estimator modes
-    and every ctrl_mode: 25 ticks from the start, then 25 from the
-    kernel's mid-flight state (nonzero step, warm cadences), B = 37 (not a
-    multiple of a block's 32 envs), one launch each, tick criteria."""
+def test_env_rollout_kernel_matches_plain(cuda, use_estimator, ctrl_mode, group,  # noqa: F811
+                                          monkeypatch):
+    """K5 with `group` lanes per env against the plain rollout on the card
+    in both estimator modes and every ctrl_mode: 25 ticks from the start,
+    then 25 from the kernel's mid-flight state (nonzero step, warm
+    cadences), B = 37 (not a multiple of a block's 32 envs), one launch
+    each, tick criteria; and bit for bit equal to one lane per env."""
     p, s0, cmd, noise = _env_case(cuda, 37, 3)
+
+    def run(state, nz, lanes):
+        monkeypatch.setattr(cuda_rollout, "GROUP", lanes)
+        return cuda_rollout.rollout(p, state, cmd, nz, use_estimator, ctrl_mode)
+
     before = cuda_rollout.rollout.launches
-    got, traj = cuda_rollout.rollout(p, s0, cmd, noise[:, :25], use_estimator, ctrl_mode)
+    got, traj = run(s0, noise[:, :25], group)
     ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :25], use_estimator, ctrl_mode)
     torch.cuda.synchronize()
     assert cuda_rollout.rollout.launches == before + 1
     _compare_env(got, ref, traj, ref_traj)
+    one, one_traj = run(s0, noise[:, :25], 1)
+    _equal_env(got, one, traj, one_traj)
     mid, ref_mid = got, ref
-    got, traj = cuda_rollout.rollout(p, mid, cmd, noise[:, 25:], use_estimator, ctrl_mode)
+    got, traj = run(mid, noise[:, 25:], group)
     ref, ref_traj = env.rollout_plain(p, ref_mid, cmd, noise[:, 25:], use_estimator, ctrl_mode)
     torch.cuda.synchronize()
     assert torch.equal(got.step.cpu(), torch.full((37,), 50, dtype=torch.int32))
     _compare_env(got, ref, traj, ref_traj)
+    one, one_traj = run(mid, noise[:, 25:], 1)
+    _equal_env(got, one, traj, one_traj)
+
+
+@pytest.mark.cuda
+def test_env_rollout_shared_command_equals_its_per_env_expansion(cuda):  # noqa: F811
+    """The kernel reads a shared command leaf through a stride of 0: the
+    same rollout as the leaf expanded to every env, bit for bit."""
+    p, s0, cmd, noise = _env_case(cuda, 37, 6)
+    expanded = env.Command(*(t if t.dim() > base else t.expand((37,) + t.shape).contiguous()
+                             for t, base in zip(cmd, env._BASE_DIMS)))
+    got = cuda_rollout.rollout(p, s0, cmd, noise, True)
+    ref = cuda_rollout.rollout(p, s0, expanded, noise, True)
+    torch.cuda.synchronize()
+    _equal_env(got[0], ref[0], got[1], ref[1])
+
+
+def test_rollout_section_names_match_the_kernel_source():
+    """chip_smoke.py's K5 section names follow rollout.cu's Section enum."""
+    from chip_smoke import ROLLOUT_SECTIONS
+
+    body = re.search(r"enum Section \{([^}]*)\}", (CSRC / "rollout.cu").read_text()).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kNumSections" and len(names) - 1 == len(ROLLOUT_SECTIONS)
 
 
 @pytest.mark.cuda
@@ -541,4 +582,10 @@ def test_env_rollout_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noq
     for s, c, n, pp, what in cases:
         with pytest.raises(ValueError, match=what):
             cuda_rollout.rollout(pp, s, c, n)
+    # the launch refuses a group it was not built for: the wrapper raises
+    entries = [cuda_rollout._accept(kind, tree, noise.device, lambda leaves: None)
+               for kind, tree in (("state", s0), ("params", p))]
+    with pytest.raises(RuntimeError, match="env_rollout_launch"):
+        cuda_rollout._launch(*entries, cuda_rollout._command(cmd, 4, noise.device), noise, False,
+                             "rates", group=3)
     assert cuda_rollout.rollout.launches == before
