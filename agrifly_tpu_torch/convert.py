@@ -5,11 +5,13 @@
 arrays (for instance `jax.tree_util.tree_map(np.asarray, state)`), into the
 port's NamedTuples on a device; `env_params_from_numpy`,
 `env_state_from_numpy` and `command_from_numpy` do the same for `sim/env`'s
-`EnvParams`, `EnvState` and `Command` (UWB raises: not ported yet). Fields
+`EnvParams`, `EnvState` (their UWB network included) and `Command`. Fields
 are matched by name, following the port's annotations: a `torch.Tensor`
 field becomes a tensor of the same dtype, an `int`/`float`/`bool` field a
-python number, a NamedTuple field recurses. Fields the port does not have
-(the PRNG key, UWB, the imported-world mesh, `use_pallas`) are dropped.
+python number, a NamedTuple field recurses, an Optional one stays None
+where the tree's is. Fields the port does not have (the PRNG keys, the
+env's and the UWB network's, the imported-world mesh, `use_pallas`) are
+dropped.
 This module imports no jax.
 """
 
@@ -68,25 +70,18 @@ def state_from_numpy(tree, device=None):
     return from_numpy(OrchardEnvState, tree, device)
 
 
-def _no_uwb(tree, what):
-    if getattr(tree, "uwb", None) is not None:
-        raise NotImplementedError(f"{what}: UWB is not ported yet (ROADMAP Queue 1 item 3)")
-
-
 def env_params_from_numpy(tree, device=None):
     """The port's env.EnvParams from the JAX package's, as numpy leaves."""
     from agrifly_tpu_torch.sim.env import EnvParams
 
-    _no_uwb(tree, "env_params_from_numpy")
     return from_numpy(EnvParams, tree, device)
 
 
 def env_state_from_numpy(tree, device=None):
     """The port's env.EnvState from the JAX package's, as numpy leaves (a
-    vmapped state keeps its leading B); the PRNG key is dropped."""
+    vmapped state keeps its leading B); the PRNG keys are dropped."""
     from agrifly_tpu_torch.sim.env import EnvState
 
-    _no_uwb(tree, "env_state_from_numpy")
     return from_numpy(EnvState, tree, device)
 
 

@@ -1,9 +1,12 @@
 // K5, the env rollout: one launch advances B envs through n_steps 2 ms ticks
 // of sim/env's step (radio delivery, plant with an external force and
-// torque, IMU, onboard logic, the true state or the 200 Hz mocap estimator,
+// torque, IMU, onboard logic, the offboard estimator: the true state, the
+// 200 Hz mocap estimator or the GPS-IMU estimator with its 100 Hz GPS fix,
 // the 100 Hz offboard controller and its rates, position or idle command
 // into the radio delay line), writing the StepOutputs trajectory and the
-// final state.
+// final state. Built with TICK_UWB (tick.cuh), it is the UWB variant: each
+// tick also steps the env's ranging network on its four draws, and the
+// onboard EKF takes the ranges.
 //
 // Replaces agrifly_tpu/sim/env.py rollout_fast (:214) under vmap, the
 // workload bench.py times: jnp under jit, vmap and scan, which reaches no
@@ -51,11 +54,12 @@
 //
 // The leaves are tick.cuh's tables (EnvState, EnvParams). A command leaf is
 // per env ((B, ...)) or shared (read through a stride of 0); the noise is
-// (B, n_steps, 2, 3) unit normals (gyro, then acc). One float buffer holds
-// the written float state leaves and then the float trajectory leaves, one
-// int32 buffer the written int32 state leaves, the int32 trajectory leaves
-// and then the written bool leaves' bytes; in each, the written leaves are
-// ordered by element count (make_state_elems).
+// (B, n_steps, 2, 3) unit normals (gyro, then acc), and the UWB variant's
+// draws (B, n_steps, 4). The kernel writes every state leaf: one float
+// buffer holds the float state leaves and then the float trajectory leaves,
+// one int32 buffer the int32 state leaves, the int32 trajectory leaves and
+// then the bool leaves' bytes; in each, the leaves are ordered by element
+// count (make_state_elems).
 
 // Section timers, compiled only with -DROLLOUT_SECTIONS (chip_smoke.py's
 // rollout_sections builds that variant): clock64() cycles and runs of each
@@ -104,14 +108,14 @@ struct LeafPtrs {
   const void* state[kNumEnvState];
 };
 
-// The state's elements. A written leaf's place in its output buffer: the
-// written leaves of a kind ordered by element count, table order among
+// The state's elements, every leaf written. A leaf's place in its output
+// buffer: the leaves of a kind ordered by element count, table order among
 // equals, so that the wrapper makes each run of equal counts with one view.
 constexpr Elems<kEnvStateElems> make_state_elems() {
   Elems<kEnvStateElems> t{};
   int k = 0, leaf = 0, prefix[3] = {0, 0, 0};
-#define X(name, path, ty, n, rw) ADD_STATE_ELEMS(offsetof(EnvState, name), ty, n, rw)
-  ENV_STATE_LEAVES(X)
+#define X(name, path, ty, n, rw) ADD_STATE_ELEMS(offsetof(EnvState, name), ty, n, W)
+  ENV_STATE_ALL(X)
 #undef X
   int first[kNumEnvState] = {}, start[kNumEnvState] = {};  // each leaf's first element
   for (int q = 0; q < kEnvStateElems; ++q)
@@ -130,7 +134,7 @@ constexpr Elems<kEnvParamElems> make_param_elems() {
   Elems<kEnvParamElems> t{};
   int k = 0, leaf = 0;
 #define X(name, path, ty, n) ADD_PARAM_ELEMS(offsetof(EnvParams, name), ty, n)
-  ENV_PARAM_LEAVES(X)
+  ENV_PARAM_ALL(X)
 #undef X
   return t;
 }
@@ -138,16 +142,15 @@ constexpr Elems<kEnvParamElems> make_param_elems() {
 __device__ const Elems<kEnvStateElems> kStateTable = make_state_elems();
 constexpr Elems<kEnvParamElems> kParamTable = make_param_elems();  // read on the host
 
-// elements per env of the written state leaves, by output kind (kOutF32,
-// kOutI32, kOutBOOL)
+// elements per env of the state leaves, by output kind (kOutF32, kOutI32,
+// kOutBOOL)
 struct OutElems {
   int of[3];
 };
 constexpr OutElems written_elems() {
   OutElems w{};
-#define X(name, path, ty, n, rw) \
-  if (IS_WRITTEN_##rw) w.of[OUT_OF_##ty] += NUMEL(n);
-  ENV_STATE_LEAVES(X)
+#define X(name, path, ty, n, rw) w.of[OUT_OF_##ty] += NUMEL(n);
+  ENV_STATE_ALL(X)
 #undef X
   return w;
 }
@@ -189,12 +192,18 @@ enum { kCtrlRates = 0, kCtrlPosition = 1, kCtrlIdle = 2 };
 
 // ---------------------------------------------------------------------------
 // shared memory: the block's envs' EnvStates and each env's staging (two
-// chunks' noise, then its trajectory rows, leaf by leaf)
+// chunks' noise and UWB draws, then its trajectory rows, leaf by leaf)
 // ---------------------------------------------------------------------------
 
 constexpr int kEnvs = 32;   // envs a block
 constexpr int kChunk = 16;  // steps staged at a time
-constexpr int kNoiseWords = 6 * kChunk;  // a chunk's noise; two buffers
+#ifdef TICK_UWB
+constexpr int kDrawWords = 4;  // a step's UWB draws
+#else
+constexpr int kDrawWords = 0;
+#endif
+// a chunk's noise, then its draws; two buffers
+constexpr int kNoiseWords = (6 + kDrawWords) * kChunk;
 __host__ __device__ constexpr int stage_offset(int leaf) {  // a trajectory leaf's staging words
   int off = 2 * kNoiseWords;
   for (int l = 0; l < leaf; ++l) off += kChunk * traj_width(l);
@@ -244,25 +253,25 @@ __device__ void copy_states_out(const char* base, const Outs& out, int B, int b0
 // the tick and the steps
 // ---------------------------------------------------------------------------
 
-// env.step: physics_tick, then _offboard_and_finish. mocap: the mocap
-// estimator (use_estimator=True), else the true state; ctrl: kCtrl*.
+// env.step: physics_tick, then _offboard_and_finish. est: kEst* (tick.cuh);
+// ctrl: kCtrl*; draws: the tick's UWB draws (the UWB variant).
 template <class H>
 __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const float* noise,
-                         bool mocap, int ctrl, const H& hp) {
+                         const float* draws, int est, int ctrl, const H& hp) {
   const int step = S.step;  // the tick's step, before physics
   int acc_us = wadd(S.offboard_acc_us, P.dt_us);
   const bool fire = acc_us > P.offboard_period_us;
   if (fire) acc_us = wsub(acc_us, P.offboard_period_us);
 
   int now_us;
-  const Mocap est = physics_tick(P, S, noise, c.ext_force, c.ext_torque, mocap, fire, &now_us,
-                                 hp);
+  const Mocap est_out = physics_tick(P, S, noise, c.ext_force, c.ext_torque, est, fire, &now_us,
+                                     hp, draws);
   if (fire) {
     SECTION_BEGIN(kSecOffboard)
     f3 cmd_angvel;
     float cmd_thrust;
-    offboard_run(P, est.pos, est.vel, est.att, c.des_pos, c.des_vel, c.des_acc, c.des_yaw,
-                 &cmd_angvel, &cmd_thrust);
+    offboard_run(P, est_out.pos, est_out.vel, est_out.att, c.des_pos, c.des_vel, c.des_acc,
+                 c.des_yaw, &cmd_angvel, &cmd_thrust);
     int type = kTypeIdleCmd, fields[kNumFields] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
     if (ctrl == kCtrlRates) {
       type = kTypeExternalRatesCmd;
@@ -277,8 +286,8 @@ __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const fl
       for (int i = 0; i < 9; ++i) fields[i] = encode_field(vals[i], kLimPos[i]);
     }
     ring_push(S, type, 0, fields, step, true);
-    if (mocap) {  // the command enters the prediction pipe
-      f3 pred_acc = add(scl(rotate(est.att, f3{0.0f, 0.0f, 1.0f}), cmd_thrust),
+    if (est == kEstMocap) {  // the command enters the prediction pipe
+      f3 pred_acc = add(scl(rotate(est_out.att, f3{0.0f, 0.0f, 1.0f}), cmd_thrust),
                         f3{0.0f, 0.0f, kGravZ});
       pipe_push(S, now_us, P.est_latency_us, pred_acc, cmd_angvel, true);
     }
@@ -308,18 +317,22 @@ __device__ __forceinline__ void stage_row(const EnvState& S, float* stage, int k
 }
 
 // The warp's envs (block envs we0 .. we0 + nw - 1, staged at `stages`):
-// their noise rows k0 .. k0 + len - 1 into noise buffer `buf` of the
-// staging by asynchronous copies (committed as one group, waited for before
-// the chunk's first tick), and their staged trajectory rows out; each env's
-// span is contiguous in device memory, and the warp's 32 lanes take
+// their noise (and UWB draw) rows k0 .. k0 + len - 1 into noise buffer `buf`
+// of the staging by asynchronous copies (committed as one group, waited for
+// before the chunk's first tick), and their staged trajectory rows out; each
+// env's span is contiguous in device memory, and the warp's 32 lanes take
 // consecutive words of it.
-__device__ void prefetch_noise(const float* __restrict__ noise, float* stages, int64_t row0,
-                               int n_steps, int we0, int nw, int k0, int len, int buf,
-                               int lane) {
+__device__ void prefetch_noise(const float* __restrict__ noise, const float* __restrict__ draws,
+                               float* stages, int64_t row0, int n_steps, int we0, int nw, int k0,
+                               int len, int buf, int lane) {
   for (int s = 0; s < nw; ++s) {
-    const float* src = noise + 6 * (row0 + static_cast<int64_t>(we0 + s) * n_steps + k0);
+    const int64_t row = row0 + static_cast<int64_t>(we0 + s) * n_steps + k0;
+    const float* src = noise + 6 * row;
     float* dst = stages + (we0 + s) * kStageStride + buf * kNoiseWords;
     for (int j = lane; j < 6 * len; j += 32) __pipeline_memcpy_async(dst + j, src + j, 4);
+    if (kDrawWords > 0)
+      for (int j = lane; j < kDrawWords * len; j += 32)
+        __pipeline_memcpy_async(dst + 6 * kChunk + j, draws + kDrawWords * row + j, 4);
   }
   __pipeline_commit();
 }
@@ -342,8 +355,9 @@ __device__ void write_rows(const Outs& out, const float* stages, int64_t row0, i
 template <int G>
 __global__ void __launch_bounds__(kEnvs * G)
     rollout_kernel(const __grid_constant__ EnvParams P, const __grid_constant__ LeafPtrs ptrs,
-                   const CmdPtrs cmd, const float* __restrict__ noise, const Outs out, int B,
-                   int n_steps, int mocap, int ctrl) {
+                   const CmdPtrs cmd, const float* __restrict__ noise,
+                   const float* __restrict__ draws, const Outs out, int B, int n_steps, int est,
+                   int ctrl) {
   constexpr int T = kEnvs * G;
   extern __shared__ __align__(16) char smem[];
   char* states = smem;
@@ -363,7 +377,7 @@ __global__ void __launch_bounds__(kEnvs * G)
   const Cmd c = load_cmd(cmd, b0 + min(e, nb - 1));
   float* stage = stages + e * kStageStride;
   const int64_t row0 = static_cast<int64_t>(b0) * n_steps;
-  prefetch_noise(noise, stages, row0, n_steps, we0, nw, 0, min(kChunk, n_steps), 0, lane);
+  prefetch_noise(noise, draws, stages, row0, n_steps, we0, nw, 0, min(kChunk, n_steps), 0, lane);
   SECTION_BEGIN(kSecTicks)
   for (int k0 = 0, buf = 0; k0 < n_steps; k0 += kChunk, buf ^= 1) {
     const int len = min(kChunk, n_steps - k0);
@@ -371,13 +385,13 @@ __global__ void __launch_bounds__(kEnvs * G)
     __pipeline_wait_prior(0);
     __syncwarp();
     if (k0 + kChunk < n_steps)
-      prefetch_noise(noise, stages, row0, n_steps, we0, nw, k0 + kChunk,
+      prefetch_noise(noise, draws, stages, row0, n_steps, we0, nw, k0 + kChunk,
                      min(kChunk, n_steps - k0 - kChunk), buf ^ 1, lane);
     SECTION_END(kSecNoise)
     const float* nz = stage + buf * kNoiseWords;
     if (active)
       for (int k = 0; k < len; ++k) {
-        env_step(P, S, c, nz + 6 * k, mocap != 0, ctrl, hp);
+        env_step(P, S, c, nz + 6 * k, nz + 6 * kChunk + kDrawWords * k, est, ctrl, hp);
         SECTION_BEGIN(kSecStore)
         stage_row(S, stage, k);
         SECTION_END(kSecStore)
@@ -396,12 +410,13 @@ __global__ void __launch_bounds__(kEnvs * G)
 
 template <int G>
 cudaError_t launch(const EnvParams& P, const LeafPtrs& ptrs, const CmdPtrs& c, const float* noise,
-                   const Outs& o, int B, int n_steps, int mocap, int ctrl, cudaStream_t stream) {
+                   const float* draws, const Outs& o, int B, int n_steps, int est, int ctrl,
+                   cudaStream_t stream) {
   cudaError_t e =
       cudaFuncSetAttribute(rollout_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
-  rollout_kernel<G><<<(B + kEnvs - 1) / kEnvs, kEnvs * G, kSmem, stream>>>(P, ptrs, c, noise, o,
-                                                                          B, n_steps, mocap, ctrl);
+  rollout_kernel<G><<<(B + kEnvs - 1) / kEnvs, kEnvs * G, kSmem, stream>>>(
+      P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl);
   return cudaGetLastError();
 }
 
@@ -412,20 +427,23 @@ cudaError_t launch(const EnvParams& P, const LeafPtrs& ptrs, const CmdPtrs& c, c
 // (host arrays of its state and parameter leaf counts); cmd: 6 pointers
 // (des_pos (B, 3) or (3,), des_vel, des_acc, des_yaw (B,) or (), ext_force,
 // ext_torque) and cmd_stride their 6 strides between envs (3 or 1 per env, 0
-// shared); noise: (B, n_steps, 2, 3) float32; out_f: B x (the written float
-// leaves' elements), [B, numel] a leaf ordered by numel (make_state_elems),
-// then pos (B, n_steps, 3), vel, att (.., 4), angvel, motor_speeds (.., 4);
-// out_i: B x (the written int32 leaves' elements) as out_f's, then
-// flight_state (B, n_steps), panic_reason, warnings, then B x (the written
-// bool leaves' elements) bytes as out_f's. mocap: 0 true state, 1
-// mocap estimator; ctrl: 0 rates, 1 position, 2 idle; group: lanes per env
-// (1, 2, 4 or 8). The parameters go to the kernel by value. Returns the
-// cudaError_t of the launch.
+// shared); noise: (B, n_steps, 2, 3) float32; draws: the UWB variant's
+// (B, n_steps, 4) float32 (else unread); out_f: B x (the float leaves'
+// elements), [B, numel] a leaf ordered by numel (make_state_elems), then pos
+// (B, n_steps, 3), vel, att (.., 4), angvel, motor_speeds (.., 4); out_i: B x
+// (the int32 leaves' elements) as out_f's, then flight_state (B, n_steps),
+// panic_reason, warnings, then B x (the bool leaves' elements) bytes as
+// out_f's. est: 0 true state, 1 mocap estimator, 2 GPS-IMU estimator; ctrl:
+// 0 rates, 1 position, 2 idle; group: lanes per env (1, 2, 4 or 8). The
+// parameters go to the kernel by value. Returns the cudaError_t of the
+// launch.
 extern "C" int env_rollout_launch(const void* const* state, const void* const* params,
                                   const float* const* cmd, const int* cmd_stride,
-                                  const float* noise, float* out_f, int* out_i, int B,
-                                  int n_steps, int mocap, int ctrl, int group, void* stream) {
-  if (B < 0 || n_steps < 0 || ctrl < kCtrlRates || ctrl > kCtrlIdle || mocap < 0 || mocap > 1)
+                                  const float* noise, const float* draws, float* out_f,
+                                  int* out_i, int B, int n_steps, int est, int ctrl, int group,
+                                  void* stream) {
+  if (B < 0 || n_steps < 0 || ctrl < kCtrlRates || ctrl > kCtrlIdle || est < kEstTrue ||
+      est > kEstGpsimu || (kDrawWords > 0 && draws == nullptr && B > 0 && n_steps > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (group != 1 && group != 2 && group != 4 && group != 8)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -458,10 +476,10 @@ extern "C" int env_rollout_launch(const void* const* state, const void* const* p
   }
   o.b = reinterpret_cast<unsigned char*>(ti);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = group == 1   ? launch<1>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
-                  : group == 2 ? launch<2>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
-                  : group == 4 ? launch<4>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s)
-                               : launch<8>(P, ptrs, c, noise, o, B, n_steps, mocap, ctrl, s);
+  cudaError_t e = group == 1   ? launch<1>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
+                  : group == 2 ? launch<2>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
+                  : group == 4 ? launch<4>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
+                               : launch<8>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s);
   return static_cast<int>(e);
 }
 

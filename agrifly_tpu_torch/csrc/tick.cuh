@@ -1,6 +1,7 @@
 // The device functions of one 2 ms tick of sim/env, shared by the tick
 // kernels: frame.cu (K3/K3b, the orchard frame's 16 ticks) and rollout.cu
-// (K5, the env rollout). Each section mirrors the torch module of
+// (K5, the env rollout, in every estimator mode: the true state, mocap, or
+// the GPS-IMU estimator). Each section mirrors the torch module of
 // agrifly_tpu_torch it is named after, with the same float32 operations in
 // the same order (the build flags of cuda_build.py: -fmad=false, no fast
 // math, IEEE division and sqrtf). The Cephes polynomials of ops/trig.py
@@ -15,6 +16,11 @@
 // the EnvParams leaves the tick reads. W state leaves are written back; P
 // leaves pass through (the wrappers return the input tensors). The paths
 // are relative to EnvState / EnvParams; frame.cu nests them under `base`.
+//
+// UWB is a variant of the build: with TICK_UWB defined, EnvState and
+// EnvParams also hold the ENV_UWB_* tables' leaves (the ranging network's
+// state and parameters), and the tick steps the network on its four draws
+// and runs the onboard EKF's range update. frame.cu builds without it.
 //
 // An including file may define SECTION_BEGIN / SECTION_END (the clock64
 // section timers of frame.cu and rollout.cu, over their Section enums)
@@ -207,6 +213,9 @@
   X(l_batt_lp_b2, "logic.batt_lp.b2", F32, 0)                             \
   X(l_cmd_rate_lp_coeff, "logic.cmd_rate_lp_coeff", F32, 0)               \
   X(l_loop_lp_coeff, "logic.loop_lp_coeff", F32, 0)                       \
+  X(l_target_positions, "logic.target_positions", F32, 96)               \
+  X(l_target_ids, "logic.target_ids", I32, 32)                            \
+  X(l_num_targets, "logic.num_targets", I32, 0)                           \
   X(c_pos_nat_freq, "ctrl.pos_nat_freq", F32, 0)                          \
   X(c_pos_damping, "ctrl.pos_damping", F32, 0)                            \
   X(c_att_tc_xy, "ctrl.att_tc_xy", F32, 0)                                \
@@ -220,7 +229,35 @@
   X(noise_scale, "noise_scale", F32, 0)                                   \
   X(mocap_period_us, "mocap_period_us", I32, 0)                           \
   X(est_latency_us, "est_latency_us", I32, 0)
+
+// The UWB variant's leaves (sim/uwb.py's UwbState and UwbParams, after the
+// others in EnvState / EnvParams), in the struct only where TICK_UWB is
+// defined. The radio table is padded to kMaxRadios (the vehicle and up to 32
+// anchors) on the host.
+#define ENV_UWB_STATE_LEAVES(X) \
+  X(uwb_acc_us, "uwb.acc_us", I32, 0, W)                                  \
+  X(uwb_pending, "uwb.pending", BOOL, 0, W)                               \
+  X(uwb_requester_id, "uwb.requester_id", I32, 0, W)                      \
+  X(uwb_responder_id, "uwb.responder_id", I32, 0, W)
+
+#define ENV_UWB_PARAM_LEAVES(X) \
+  X(u_comm_period_us, "uwb.comm_period_us", I32, 0)                       \
+  X(u_noise_std, "uwb.noise_std", F32, 0)                                 \
+  X(u_outlier_prob, "uwb.outlier_prob", F32, 0)                           \
+  X(u_outlier_std, "uwb.outlier_std", F32, 0)                             \
+  X(u_radio_ids, "uwb.radio_ids", I32, 33)                                \
+  X(u_num_radios, "uwb.num_radios", I32, 0)                               \
+  X(u_failure_prob, "uwb.failure_prob", F32, 0)                           \
+  X(u_max_range, "uwb.max_range", F32, 0)
 // clang-format on
+
+#ifdef TICK_UWB
+#define ENV_STATE_ALL(X) ENV_STATE_LEAVES(X) ENV_UWB_STATE_LEAVES(X)
+#define ENV_PARAM_ALL(X) ENV_PARAM_LEAVES(X) ENV_UWB_PARAM_LEAVES(X)
+#else
+#define ENV_STATE_ALL(X) ENV_STATE_LEAVES(X)
+#define ENV_PARAM_ALL(X) ENV_PARAM_LEAVES(X)
+#endif
 
 namespace {
 
@@ -241,23 +278,23 @@ struct Leaf<T, 0> { typedef T type; };
 
 struct EnvState {
 #define X(name, path, ty, n, rw) Leaf<ty##_t, n>::type name;
-  ENV_STATE_LEAVES(X)
+  ENV_STATE_ALL(X)
 #undef X
 };
 
 struct EnvParams {
 #define X(name, path, ty, n) Leaf<ty##_t, n>::type name;
-  ENV_PARAM_LEAVES(X)
+  ENV_PARAM_ALL(X)
 #undef X
 };
 
 #define COUNT_LEAF(...) +1
 #define COUNT_STATE(name, path, ty, n, rw) +NUMEL(n)
 #define COUNT_PARAM(name, path, ty, n) +NUMEL(n)
-constexpr int kNumEnvState = 0 ENV_STATE_LEAVES(COUNT_LEAF);
-constexpr int kNumEnvParam = 0 ENV_PARAM_LEAVES(COUNT_LEAF);
-constexpr int kEnvStateElems = 0 ENV_STATE_LEAVES(COUNT_STATE);
-constexpr int kEnvParamElems = 0 ENV_PARAM_LEAVES(COUNT_PARAM);
+constexpr int kNumEnvState = 0 ENV_STATE_ALL(COUNT_LEAF);
+constexpr int kNumEnvParam = 0 ENV_PARAM_ALL(COUNT_LEAF);
+constexpr int kEnvStateElems = 0 ENV_STATE_ALL(COUNT_STATE);
+constexpr int kEnvParamElems = 0 ENV_PARAM_ALL(COUNT_PARAM);
 
 // One element of a leaf, for the copies between the leaves in device memory
 // and a kernel's State and Params structs: its byte offset in the struct,
@@ -525,6 +562,24 @@ __device__ __forceinline__ f3 mv3t(const m3& m, f3 v) {
   return f3{m.a[0] * v.x + m.a[3] * v.y + m.a[6] * v.z,
             m.a[1] * v.x + m.a[4] * v.y + m.a[7] * v.z,
             m.a[2] * v.x + m.a[5] * v.y + m.a[8] * v.z};
+}
+
+// det3 by the first row's cofactors; inv3: the adjugate times 1 / det
+__device__ __forceinline__ float det3(const m3& m) {
+  const float* q = m.a;
+  return q[0] * (q[4] * q[8] - q[5] * q[7]) - q[1] * (q[3] * q[8] - q[5] * q[6]) +
+         q[2] * (q[3] * q[7] - q[4] * q[6]);
+}
+__device__ m3 inv3(const m3& m) {
+  const float a = m.a[0], b = m.a[1], c = m.a[2], d = m.a[3], e = m.a[4], f = m.a[5],
+              g = m.a[6], h = m.a[7], i = m.a[8];
+  const float inv_det = 1.0f / det3(m);
+  const float cof[9] = {e * i - f * h, c * h - b * i, b * f - c * e,
+                        f * g - d * i, a * i - c * g, c * d - a * f,
+                        d * h - e * g, b * g - a * h, a * e - b * d};
+  m3 r;
+  for (int k = 0; k < 9; ++k) r.a[k] = cof[k] * inv_det;
+  return r;
 }
 
 __device__ __forceinline__ f4 qidentity() { return f4{1.0f, 0.0f, 0.0f, 0.0f}; }
@@ -861,41 +916,68 @@ __device__ f4 gravity_align_correction(f4 att, f3 meas_acc, float gain) {
   return qmul(att, from_axis_angle(ax, gain * angle));
 }
 
-// One prediction step on the kf_* leaves of S (the phase the lifecycle
-// flags select: A first IMU sample, B complementary, C full EKF).
-__device__ void ekf_predict(EnvState& S, f3 gyro, f3 acc, float dt) {
-  if (!S.kf_imu_init) {  // phase A: reset + gravity-aligned attitude
-    const float std_att_perp = static_cast<float>(10.0 * 3.14159265358979323846 / 180.0);
-    const float std_att_grav = static_cast<float>(30.0 * 3.14159265358979323846 / 180.0);
-    const float stds[9] = {3.0f, 3.0f, 3.0f, 3.0f, 3.0f, 3.0f,
-                           std_att_perp, std_att_perp, std_att_grav};
-    st3(S.kf_pos, f3{0.0f, 0.0f, 0.0f});
-    st3(S.kf_vel, f3{0.0f, 0.0f, 0.0f});
-    st4(S.kf_att, gravity_align_correction(qidentity(), acc, 1.0f));
-    st3(S.kf_angvel, f3{0.0f, 0.0f, 0.0f});
-    for (int i = 0; i < 81; ++i) S.kf_cov[i] = 0.0f;
-    for (int i = 0; i < 9; ++i) S.kf_cov[10 * i] = stds[i] * stds[i];
-    S.kf_imu_init = 1;
-    S.kf_uwb_init = 0;
-    st3(S.kf_last_att_corr, f3{0.0f, 0.0f, 0.0f});
-    S.kf_num_rejected_seq = 0;
-    S.kf_num_resets = wadd(S.kf_num_resets, 1);
+// An EKF's leaves in the state: the onboard filter's kf_* (EKF_OF(S, kf_)) or
+// the offboard GPS-IMU estimator's gps_* (EKF_OF(S, gps_)).
+struct Ekf {
+  float *pos, *vel, *att, *angvel, *cov;
+  unsigned char *imu_init, *uwb_init;
+  float* last_att_corr;
+  int *num_rejected, *num_rejected_seq, *num_resets;
+};
+#define EKF_OF(S, p)                                                                       \
+  Ekf{S.p##pos, S.p##vel, S.p##att, S.p##angvel, S.p##cov, &S.p##imu_init, &S.p##uwb_init, \
+      S.p##last_att_corr, &S.p##num_rejected, &S.p##num_rejected_seq, &S.p##num_resets}
+
+// ekf.init_state's leaves (the filter's initial standard deviations: the
+// onboard filter's, or with kGps the GPS-IMU estimator's) over k, keeping
+// its reset and rejection counts (ekf._reset without the count)
+template <bool kGps>
+__device__ void ekf_fresh(const Ekf& k) {
+  const float std_att_perp = static_cast<float>(10.0 * 3.14159265358979323846 / 180.0);
+  const float std_att_grav =
+      kGps ? std_att_perp : static_cast<float>(30.0 * 3.14159265358979323846 / 180.0);
+  const float stds[9] = {3.0f, 3.0f, 3.0f, 3.0f, 3.0f, 3.0f,
+                         std_att_perp, std_att_perp, std_att_grav};
+  st3(k.pos, f3{0.0f, 0.0f, 0.0f});
+  st3(k.vel, f3{0.0f, 0.0f, 0.0f});
+  st4(k.att, qidentity());
+  st3(k.angvel, f3{0.0f, 0.0f, 0.0f});
+  for (int i = 0; i < 81; ++i) k.cov[i] = 0.0f;
+  for (int i = 0; i < 9; ++i) k.cov[10 * i] = stds[i] * stds[i];
+  *k.imu_init = 0;
+  *k.uwb_init = 0;
+  st3(k.last_att_corr, f3{0.0f, 0.0f, 0.0f});
+  *k.num_rejected_seq = 0;
+}
+
+// One prediction step (the phase the lifecycle flags select: A first IMU
+// sample, B complementary, C full EKF). kGps: the GPS-IMU estimator's
+// (gpsimu_predict: its initial deviations, and uwb_init set at the reset, so
+// no phase B); else the onboard filter's.
+template <bool kGps>
+__device__ void ekf_predict(const Ekf& k, f3 gyro, f3 acc, float dt) {
+  if (!*k.imu_init) {  // phase A: reset + gravity-aligned attitude
+    ekf_fresh<kGps>(k);
+    st4(k.att, gravity_align_correction(qidentity(), acc, 1.0f));
+    *k.imu_init = 1;
+    *k.uwb_init = kGps ? 1 : 0;
+    *k.num_resets = wadd(*k.num_resets, 1);
     return;
   }
-  const f4 att = ld4(S.kf_att);
-  if (!S.kf_uwb_init) {  // phase B: complementary attitude
+  const f4 att = ld4(k.att);
+  if (!*k.uwb_init) {  // phase B: complementary attitude
     f4 attB = qmul(att, from_rotation_vector(scl(gyro, dt)));
-    st4(S.kf_att, gravity_align_correction(attB, acc, dt / 4.0f));
-    st3(S.kf_angvel, gyro);
+    st4(k.att, gravity_align_correction(attB, acc, dt / 4.0f));
+    st3(k.angvel, gyro);
     return;
   }
   // phase C: full EKF prediction
-  const f3 pos = ld3(S.kf_pos), vel = ld3(S.kf_vel);
+  const f3 pos = ld3(k.pos), vel = ld3(k.vel);
   f3 acc_w = add(rotate(att, acc), f3{0.0f, 0.0f, kGravZ});
-  st3(S.kf_pos, add(pos, scl(vel, dt)));
-  st3(S.kf_vel, add(vel, scl(acc_w, dt)));
-  st4(S.kf_att, qmul(att, from_rotation_vector(scl(gyro, dt))));
-  st3(S.kf_angvel, gyro);
+  st3(k.pos, add(pos, scl(vel, dt)));
+  st3(k.vel, add(vel, scl(acc_w, dt)));
+  st4(k.att, qmul(att, from_rotation_vector(scl(gyro, dt))));
+  st3(k.angvel, gyro);
 
   m3 R = to_matrix(att);
   float ax = acc.x, ay = acc.y, az = acc.z;
@@ -906,11 +988,116 @@ __device__ void ekf_predict(EnvState& S, f3 gyro, f3 acc, float dt) {
     dva.a[3 * i + 1] = dt * (-ax * r2 + az * r0);
     dva.a[3 * i + 2] = dt * (ax * r1 - ay * r0);
   }
-  f3 g = add(scl(gyro, dt), dvs(ld3(S.kf_last_att_corr), 2.0f));
+  f3 g = add(scl(gyro, dt), dvs(ld3(k.last_att_corr), 2.0f));
   SECTION_BEGIN(kSecCovPredict)
-  cov_predict_block(S.kf_cov, dt, dva, g, 25.0f * dt * dt, 0.01f * dt * dt);
+  cov_predict_block(k.cov, dt, dva, g, 25.0f * dt * dt, 0.01f * dt * dt);
   SECTION_END(kSecCovPredict)
-  st3(S.kf_last_att_corr, f3{0.0f, 0.0f, 0.0f});
+  st3(k.last_att_corr, f3{0.0f, 0.0f, 0.0f});
+}
+
+#ifdef TICK_UWB
+// update_range: the scalar UWB range update with 3-sigma Mahalanobis gating
+// and a hard reset after 5 rejections in a row; the covariance symmetrized
+// by copying its lower triangle up. Every sum runs left to right over all
+// nine terms, as the plain version's.
+__device__ void ekf_update_range(const Ekf& k, f3 target, float meas_range, bool apply) {
+  apply = apply && *k.imu_init && isfinite(meas_range);
+  if (!apply) return;
+  *k.uwb_init = 1;  // set before gating (cpp:252)
+  f3 diff = sub(ld3(k.pos), target);
+  float expected = norm3(diff);
+  f3 h = dvs(diff, expected < 1e-12f ? 1.0f : expected);
+  const float H[9] = {h.x, h.y, h.z, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float pht[9];
+  for (int i = 0; i < 9; ++i) {
+    float a = k.cov[9 * i] * H[0];
+    for (int j = 1; j < 9; ++j) a = a + k.cov[9 * i + j] * H[j];
+    pht[i] = a;
+  }
+  float innov_cov = H[0] * pht[0];
+  for (int j = 1; j < 9; ++j) innov_cov = innov_cov + H[j] * pht[j];
+  innov_cov = innov_cov + static_cast<float>(0.14 * 0.14);
+  float innov = meas_range - expected;
+  bool reject = innov * innov / innov_cov > 9.0f;
+  if (!reject) {
+    float L[9], dx[9];
+    for (int i = 0; i < 9; ++i) {
+      L[i] = pht[i] / innov_cov;
+      dx[i] = L[i] * innov;
+    }
+    st3(k.pos, add(ld3(k.pos), f3{dx[0], dx[1], dx[2]}));
+    st3(k.vel, add(ld3(k.vel), f3{dx[3], dx[4], dx[5]}));
+    const f3 att_corr = f3{dx[6], dx[7], dx[8]};
+    st4(k.att, qmul(ld4(k.att), from_rotation_vector(att_corr)));
+    st3(k.last_att_corr, att_corr);
+    *k.num_rejected_seq = 0;
+    for (int i = 0; i < 9; ++i)  // the lower triangle, then copied up
+      for (int j = 0; j <= i; ++j) k.cov[9 * i + j] = k.cov[9 * i + j] - L[i] * pht[j];
+    for (int i = 0; i < 9; ++i)
+      for (int j = 0; j < 9; ++j)
+        k.cov[9 * i + j] = j <= i ? k.cov[9 * i + j] + 0.0f : 0.0f + k.cov[9 * j + i];
+    return;
+  }
+  *k.num_rejected = wadd(*k.num_rejected, 1);
+  const int nseq = wadd(*k.num_rejected_seq, 1);
+  *k.num_rejected_seq = nseq;
+  if (nseq >= 5) {  // hard reset
+    ekf_fresh<false>(k);
+    *k.num_resets = wadd(*k.num_resets, 1);
+  }
+}
+#endif
+
+// gps_position_update (the GPS fix, applied): the 3-D position update with
+// H = [I3 0 0]; a singular or non-finite innovation covariance adopts the
+// measurement and resets the variance, and so does the first fix of a filter
+// that has had no IMU sample. Every product sums its inner axis left to
+// right.
+__device__ void gps_position_update(const Ekf& k, f3 meas_pos) {
+  const float* P = k.cov;
+  m3 S;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) S.a[3 * i + j] = P[9 * i + j] + 0.0625f * (i == j ? 1.0f : 0.0f);
+  bool finite = true;
+  for (int i = 0; i < 9; ++i) finite = finite && isfinite(S.a[i]);
+  bool bad = fabsf(det3(S)) < 1e-10f || !finite;
+  if (!bad && *k.imu_init) {
+    const m3 Si = inv3(S);
+    float L[27], dx[9], cn[81];
+    const f3 e = sub(meas_pos, ld3(k.pos));
+    for (int i = 0; i < 9; ++i) {
+      for (int j = 0; j < 3; ++j)
+        L[3 * i + j] = P[9 * i] * Si.a[j] + P[9 * i + 1] * Si.a[3 + j] + P[9 * i + 2] * Si.a[6 + j];
+      dx[i] = L[3 * i] * e.x + L[3 * i + 1] * e.y + L[3 * i + 2] * e.z;
+    }
+    for (int i = 0; i < 9; ++i)
+      for (int j = 0; j < 9; ++j)
+        cn[9 * i + j] = P[9 * i + j] - (L[3 * i] * P[j] + L[3 * i + 1] * P[9 + j] +
+                                        L[3 * i + 2] * P[18 + j]);
+    for (int i = 0; i < 9; ++i)
+      for (int j = 0; j < 9; ++j) k.cov[9 * i + j] = 0.5f * (cn[9 * i + j] + cn[9 * j + i]);
+    st3(k.pos, add(ld3(k.pos), f3{dx[0], dx[1], dx[2]}));
+    st3(k.vel, add(ld3(k.vel), f3{dx[3], dx[4], dx[5]}));
+    const f3 att_corr = f3{dx[6], dx[7], dx[8]};
+    st4(k.att, qmul(ld4(k.att), from_rotation_vector(att_corr)));
+    st3(k.last_att_corr, att_corr);
+    *k.uwb_init = 1;
+    return;
+  }
+  // the bailout, or the first fix
+  const float s10 = static_cast<float>(10.0 * 3.14159265358979323846 / 180.0);
+  const float stds[9] = {3.0f, 3.0f, 3.0f, 3.0f, 3.0f, 3.0f, s10, s10, s10};
+  st3(k.pos, meas_pos);
+  st3(k.vel, f3{0.0f, 0.0f, 0.0f});
+  st4(k.att, qidentity());
+  st3(k.angvel, f3{0.0f, 0.0f, 0.0f});
+  for (int i = 0; i < 81; ++i) k.cov[i] = 0.0f;
+  for (int i = 0; i < 9; ++i) k.cov[10 * i] = stds[i] * stds[i];
+  st3(k.last_att_corr, f3{0.0f, 0.0f, 0.0f});
+  if (!*k.imu_init) {
+    *k.imu_init = 1;
+    *k.uwb_init = 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -949,7 +1136,7 @@ __device__ void decode_message(int msg_type, const int* fields, float* out) {
 }
 
 // ---------------------------------------------------------------------------
-// models/logic.py: logic_step (no UWB in this configuration)
+// models/logic.py: logic_step (the range update in the UWB variant)
 // ---------------------------------------------------------------------------
 
 constexpr int FS_UNINITIALIZED = 0, FS_IDLE = 1, FS_FULLY_AUTONOMOUS = 2, FS_PANIC = 3,
@@ -962,9 +1149,25 @@ __device__ __forceinline__ int advance_timer(int us, int period_us) {
   return min(wadd(us, period_us), kUsSat);
 }
 
-// gyro, acc: the raw IMU readings; the radio message popped this tick.
+#ifdef TICK_UWB
+// a broadcast of the ranging network this tick (sim/uwb.py's
+// UwbMeasurement; the requester is not read)
+struct UwbMeas {
+  bool valid;
+  float range;
+  int responder_id;
+  bool failure;
+};
+#define UWB_MEAS_ARG , const UwbMeas& uwb
+#else
+#define UWB_MEAS_ARG
+#endif
+
+// gyro, acc: the raw IMU readings; the radio message popped this tick; in
+// the UWB variant, the network's broadcast.
 __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, bool radio_new,
-                           int radio_type_in, int radio_flags_in, const int* radio_fields) {
+                           int radio_type_in, int radio_flags_in,
+                           const int* radio_fields UWB_MEAS_ARG) {
   const int per_us = P.l_onboard_period_us;
   const m3 imu_rot = ldm(P.l_imu_rot);
   const Lp2c gyro_c{P.l_gyro_lp_a1, P.l_gyro_lp_a2, P.l_gyro_lp_b0, P.l_gyro_lp_b1, P.l_gyro_lp_b2};
@@ -1003,6 +1206,9 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
   S.radio_count = wadd(S.radio_count, radio_new ? 1 : 0);
   S.us_since_radio = us_since_radio;
   S.us_since_uwb = advance_timer(S.us_since_uwb, per_us);
+#ifdef TICK_UWB
+  if (uwb.valid) S.us_since_uwb = 0;
+#endif
   bool radio_pending = S.radio_new || radio_new;
 
   // Run()
@@ -1011,15 +1217,32 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
   f3 gyro_f = ld3(S.gyro_lp_ym1);
   f3 acc_f = ld3(S.acc_lp_ym1);
 
-  // UpdateEstimator (no range update)
+  // UpdateEstimator
   int prev_resets = S.last_check_num_resets;
   SECTION_BEGIN(kSecEkfPredict)
-  ekf_predict(S, gyro_f, acc_f, P.l_onboard_period);
+  ekf_predict<false>(EKF_OF(S, kf_), gyro_f, acc_f, P.l_onboard_period);
   SECTION_END(kSecEkfPredict)
   if (S.gyro_cal_enabled) {
     st3(S.gyro_cal_accum, add(ld3(S.gyro_cal_accum), gyro_raw));
     S.gyro_cal_count = wadd(S.gyro_cal_count, 1);
   }
+#ifdef TICK_UWB
+  {  // the range update, to the anchor the responder id names
+    const bool success = uwb.valid && !uwb.failure;
+    f3 target = f3{0.0f, 0.0f, 0.0f};
+    bool known = false;
+    for (int t = 0; t < 32; ++t) {  // the matching rows summed in order
+      const bool match = P.l_target_ids[t] == uwb.responder_id && t < P.l_num_targets;
+      const f3 row = match ? ld3(P.l_target_positions + 3 * t) : f3{0.0f, 0.0f, 0.0f};
+      target = t == 0 ? row : add(target, row);
+      known = known || match;
+    }
+    ekf_update_range(EKF_OF(S, kf_), target, uwb.range, success && known);
+    S.uwb_meas_count = wadd(S.uwb_meas_count, success ? 1 : 0);
+    if (uwb.valid && P.l_num_targets > 0)
+      S.next_target_idx = wadd(S.next_target_idx, 1) % max(P.l_num_targets, 1);
+  }
+#endif
 
   // ParseIncomingCommunications
   int fs = S.fs;
@@ -1573,16 +1796,70 @@ __device__ void offboard_run(const EnvParams& P, f3 cur_pos, f3 cur_vel, f4 cur_
 // sim/env.py: the physics half of one tick
 // ---------------------------------------------------------------------------
 
+#ifdef TICK_UWB
+constexpr int kMaxRadios = 33;  // the vehicle and up to 32 anchors
+
+// sim/uwb.py step for the env's network (the vehicle is radio 0 and ranges
+// to its next target, the anchors are radios 1.. at the target table's
+// positions); draws: the tick's u_outlier, n_outlier, n_noise, u_fail.
+__device__ UwbMeas uwb_step(const EnvParams& P, EnvState& S, const float* draws) {
+  const int ti = min(max(S.next_target_idx, 0), 31);
+  const int my_target = P.l_num_targets > 0 ? P.l_target_ids[ti] : 0;
+  const int acc = min(wadd(S.uwb_acc_us, P.dt_us), 100000000);
+  const bool due = acc >= P.u_comm_period_us;
+
+  // phase 1: the vehicle latches a transaction with its target
+  const bool any_wants = 0 < P.u_num_radios && my_target != 0;
+  const int latch_req = any_wants ? P.u_radio_ids[0] : 0;
+  const int latch_res = any_wants ? my_target : 0;
+
+  // phase 2: complete the pending one
+  int req = -1, res = -1;
+  for (int r = 0; r < kMaxRadios; ++r) {
+    const bool used = r < P.u_num_radios;
+    if (req < 0 && used && P.u_radio_ids[r] == S.uwb_requester_id) req = r;
+    if (res < 0 && used && P.u_radio_ids[r] == S.uwb_responder_id) res = r;
+  }
+  const bool have_both = req >= 0 && res >= 0;
+  req = max(req, 0);
+  res = max(res, 0);
+  const f3 req_pos = req == 0 ? ld3(S.plant_pos) : ld3(P.l_target_positions + 3 * (req - 1));
+  const f3 res_pos = res == 0 ? ld3(S.plant_pos) : ld3(P.l_target_positions + 3 * (res - 1));
+  const float true_range = norm3(sub(req_pos, res_pos));
+  const float outlier_range = draws[1] * P.u_outlier_std;
+  const float noisy_range = true_range + draws[2] * P.u_noise_std;
+  const float meas_range = draws[0] < P.u_outlier_prob ? outlier_range : noisy_range;
+  const bool failed = draws[3] < P.u_failure_prob;
+
+  const bool pending = S.uwb_pending;
+  const bool complete = due && pending && have_both && true_range <= P.u_max_range;
+  const bool finish = due && pending;
+  const bool latch = due && !pending;
+  const UwbMeas m{complete, complete && !failed ? meas_range : 0.0f,
+                  complete ? S.uwb_responder_id : 0, complete && failed};
+  S.uwb_acc_us = latch ? 0 : acc;
+  S.uwb_pending = latch ? any_wants : (pending && !finish);
+  S.uwb_requester_id = latch ? latch_req : (finish ? 0 : S.uwb_requester_id);
+  S.uwb_responder_id = latch ? latch_res : (finish ? 0 : S.uwb_responder_id);
+  return m;
+}
+#endif
+
+// the offboard estimator modes (sim/env.py use_estimator False, True,
+// "gpsimu")
+enum { kEstTrue = 0, kEstMocap = 1, kEstGpsimu = 2 };
+
 // physics_tick: radio delivery, plant (under ext_force and ext_torque), IMU,
-// onboard logic and the estimator update of one tick. mocap: the
-// 200 Hz mocap estimator, else the true plant state. predict: compute the
-// estimate (a tick whose offboard loop does not fire never reads it; the
-// mocap prediction has no side effect). Returns the estimate (pos, vel, att,
-// angvel; zeros without predict) and now_us (master time after this tick).
+// in the UWB variant the ranging network (on the tick's draws), onboard
+// logic and the estimator update of one tick. est: kEst*. predict: compute
+// the estimate (a tick whose offboard loop does not fire never reads it;
+// the mocap prediction has no side effect). Returns the estimate (pos, vel,
+// att, angvel; zeros without predict) and now_us (master time after this
+// tick).
 template <class H>
 __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* noise,
-                              f3 ext_force, f3 ext_torque, bool mocap, bool predict,
-                              int* now_us, const H& hp) {
+                              f3 ext_force, f3 ext_torque, int est, bool predict,
+                              int* now_us, const H& hp, const float* draws = nullptr) {
   const f3 grav = f3{0.0f, 0.0f, kGravZ};
   const m3 imu_rot_inv = ldm(P.p_imu_rot_inv);
   float dt = static_cast<float>(P.dt_us) * 1e-6f;
@@ -1610,35 +1887,56 @@ __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* nois
 
   // onboard logic tick (constant battery)
   SECTION_BEGIN(kSecLogic)
+#ifdef TICK_UWB
+  const UwbMeas uwb = uwb_step(P, S, draws);
+  logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields, uwb);
+#else
   logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields);
+#endif
   SECTION_END(kSecLogic)
 
   *now_us = wmul(wadd(S.step, 1), P.dt_us);
 
-  // 200 Hz mocap measurement -> estimator update; the accumulator of a mode
+  // 200 Hz mocap measurement -> estimator update; the IMU prediction and
+  // the 100 Hz GPS fix of the GPS-IMU estimator; the accumulator of a mode
   // that does not run grows on
   int mocap_acc = wadd(S.mocap_acc_us, P.dt_us);
-  if (mocap && mocap_acc > P.mocap_period_us) {
+  if (est == kEstMocap && mocap_acc > P.mocap_period_us) {
     mocap_acc = wsub(mocap_acc, P.mocap_period_us);
     SECTION_BEGIN(kSecMocapUpdate)
     mocap_update(S, *now_us, ld3(S.plant_pos), att, P.mocap_period_us, hp);
     SECTION_END(kSecMocapUpdate)
   }
   S.mocap_acc_us = mocap_acc;
-  S.gps_acc_us = wadd(S.gps_acc_us, P.dt_us);
-  Mocap est{};
-  if (!predict) return est;
-  if (mocap) {
-    SECTION_BEGIN(kSecPrediction)
-    est = mocap_get_prediction(S, *now_us, P.est_latency_us, hp);
-    SECTION_END(kSecPrediction)
-    return est;
+  int gps_acc = wadd(S.gps_acc_us, P.dt_us);
+  if (est == kEstGpsimu) {
+    ekf_predict<true>(EKF_OF(S, gps_), gyro_meas, acc_meas, dt);
+    if (gps_acc > 10000) {
+      gps_acc = wsub(gps_acc, 10000);
+      gps_position_update(EKF_OF(S, gps_), ld3(S.plant_pos));
+    }
   }
-  est.pos = ld3(S.plant_pos);
-  est.vel = ld3(S.plant_vel);
-  est.att = att;
-  est.angvel = angvel;
-  return est;
+  S.gps_acc_us = gps_acc;
+  Mocap est_out{};
+  if (!predict) return est_out;
+  if (est == kEstMocap) {
+    SECTION_BEGIN(kSecPrediction)
+    est_out = mocap_get_prediction(S, *now_us, P.est_latency_us, hp);
+    SECTION_END(kSecPrediction)
+    return est_out;
+  }
+  if (est == kEstGpsimu) {
+    est_out.pos = ld3(S.gps_pos);
+    est_out.vel = ld3(S.gps_vel);
+    est_out.att = ld4(S.gps_att);
+    est_out.angvel = ld3(S.gps_angvel);
+    return est_out;
+  }
+  est_out.pos = ld3(S.plant_pos);
+  est_out.vel = ld3(S.plant_vel);
+  est_out.att = att;
+  est_out.angvel = angvel;
+  return est_out;
 }
 
 }  // namespace

@@ -91,17 +91,24 @@ class LeafSpec(NamedTuple):
 
 
 _DTYPES = {"F32": torch.float32, "I32": torch.int32, "BOOL": torch.bool}
+_TABLE = re.compile(r"#define (\w+)\(X\)((?:[^\n]*\\\n)*[^\n]*)")
 _ENTRY = re.compile(r'X\(\s*\w+,\s*"([\w.]+)",\s*(F32|I32|BOOL),\s*(\d+)\s*(?:,\s*([WP])\s*)?\)')
 
 
-def leaf_rows(source: str, prefix: tuple = ()):
+def leaf_rows(source: str, prefix: tuple = (), uwb: bool = False):
     """(state leaves, parameter leaves) that the X-macro tables of
     `csrc/<source>` declare, in order: a state row names W or P, a
-    parameter row neither. prefix: field names put before every path."""
+    parameter row neither. prefix: field names put before every path.
+    uwb: also the rows of the tables whose names hold UWB (the UWB
+    variant's leaves; tick.cuh's ENV_UWB_* tables)."""
     state, params = [], []
-    for path, ty, n, rw in _ENTRY.findall((CSRC / source).read_text()):
-        spec = LeafSpec(prefix + tuple(path.split(".")), _DTYPES[ty], int(n), rw == "W")
-        (state if rw else params).append(spec)
+    src = (CSRC / source).read_text()
+    for name, body in _TABLE.findall(src):
+        if "UWB" in name and not uwb:
+            continue
+        for path, ty, n, rw in _ENTRY.findall(body):
+            spec = LeafSpec(prefix + tuple(path.split(".")), _DTYPES[ty], int(n), rw == "W")
+            (state if rw else params).append(spec)
     return state, params
 
 

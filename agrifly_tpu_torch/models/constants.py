@@ -192,3 +192,29 @@ def vehicle_params(quad_type: int) -> VehicleParams:
         low_battery_threshold=1 * _PER_CELL_LOW_VOLTAGE,
         lin_drag_coeff_b=(0.0, 0.0, 0.0),
     )
+
+
+# vehicle-ID -> type map (QuadcopterConstants.hpp:297-332)
+_ID_TO_TYPE = {}
+for _i in (3, 4, 10):
+    _ID_TO_TYPE[_i] = QC_TYPE_CF_STANDARD
+for _i in (2, 5, 6, 7, 9, 12, 15, 17):
+    _ID_TO_TYPE[_i] = QC_TYPE_CF_BIGMOTORSPROPS
+for _i in (13, 14, 18, 19):
+    _ID_TO_TYPE[_i] = QC_TYPE_CF_LARGEQUAD
+for _i in (1, 16, 20, 21, 22, 24, 26):
+    _ID_TO_TYPE[_i] = QC_TYPE_CF_MINIQUAD
+
+
+def vehicle_type_from_id(vehicle_id: int) -> int:
+    return _ID_TO_TYPE.get(int(vehicle_id), QC_TYPE_INVALID)
+
+
+TYPE_NAMES = {
+    QC_TYPE_INVALID: "QC_TYPE_INVALID",
+    QC_TYPE_CF_STANDARD: "QC_TYPE_CF_STANDARD",
+    QC_TYPE_CF_BIGMOTORSPROPS: "QC_TYPE_CF_BIGMOTORSPROPS",
+    QC_TYPE_CF_FEEDTHROUGH: "QC_TYPE_CF_FEEDTHROUGH",
+    QC_TYPE_CF_LARGEQUAD: "QC_TYPE_CF_LARGEQUAD",
+    QC_TYPE_CF_MINIQUAD: "QC_TYPE_CF_MINIQUAD",
+}

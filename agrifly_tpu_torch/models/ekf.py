@@ -1,11 +1,13 @@
 """Onboard 9-state EKF (pos, vel, attitude-correction rotation vector).
 
-Port of the prediction half of `agrifly_tpu/models/ekf.py`
-(KalmanFilter6DOF.cpp): accelerometer-aligned attitude init on the first
-Predict, complementary attitude until the first UWB fix, then the full EKF
-mean and block-sparse covariance propagation. The three lifecycle phases
-are all computed and selected with `where`. The slice flies without UWB,
-so the range update is not ported.
+Port of `agrifly_tpu/models/ekf.py` (KalmanFilter6DOF.cpp):
+accelerometer-aligned attitude init on the first Predict, complementary
+attitude until the first UWB fix, then the full EKF mean and block-sparse
+covariance propagation; the scalar UWB range update with 3-sigma
+Mahalanobis gating, a hard reset after 5 sequential rejections, and the
+covariance symmetrized by copying its lower triangle up. The lifecycle
+phases and the update's branches are all computed and selected with
+`where`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ INIT_STD_ATT_PERP = 10.0 * math.pi / 180.0
 INIT_STD_ATT_GRAV = 30.0 * math.pi / 180.0
 NOISE_STD_ACC = 5.0
 NOISE_STD_GYRO = 0.1
+NOISE_STD_RANGE = 0.14
+OUTLIER_STAT_DIST = 3.0
+MAX_SEQ_REJECT = 5
 
 
 class EkfState(NamedTuple):
@@ -44,15 +49,20 @@ class EkfState(NamedTuple):
     num_resets: torch.Tensor  # int32
 
 
+INIT_STD = (INIT_STD_POS,) * 3 + (INIT_STD_VEL,) * 3 + (
+    INIT_STD_ATT_PERP, INIT_STD_ATT_PERP, INIT_STD_ATT_GRAV)
+
+
 def _diag_cov(stds, device):
     d = torch.tensor(stds, dtype=torch.float32, device=device)
-    return torch.diag(d * d)
+    return lin3.diag_from(d * d)
 
 
-def init_state(device=None, init_std=None) -> EkfState:
-    if init_std is None:
-        init_std = ([INIT_STD_POS] * 3 + [INIT_STD_VEL] * 3
-                    + [INIT_STD_ATT_PERP, INIT_STD_ATT_PERP, INIT_STD_ATT_GRAV])
+def _init_cov(device=None):
+    return _diag_cov(INIT_STD, device)
+
+
+def init_state(device=None, init_std=INIT_STD) -> EkfState:
     z3 = torch.zeros(3, dtype=torch.float32, device=device)
     i0 = torch.zeros((), dtype=torch.int32, device=device)
     f = torch.zeros((), dtype=torch.bool, device=device)
@@ -62,9 +72,16 @@ def init_state(device=None, init_std=None) -> EkfState:
                     num_resets=i0)
 
 
+def _reset(s: EkfState) -> EkfState:
+    """A fresh filter that keeps the reset and rejection counts."""
+    return init_state(s.pos.device)._replace(num_resets=s.num_resets + 1,
+                                              num_rejected=s.num_rejected)
+
+
 def _mm3(M, N):
-    """3x3 matmul as a broadcast-sum over the inner axis."""
-    return (M[..., :, :, None] * N[..., None, :, :]).sum(-2)
+    """3x3 matmul, the inner axis summed left to right."""
+    return (M[..., :, 0:1] * N[..., 0:1, :] + M[..., :, 1:2] * N[..., 1:2, :]
+            + M[..., :, 2:3] * N[..., 2:3, :])
 
 
 def _skew_mul(g, M):
@@ -120,13 +137,19 @@ def _select(cond, a: EkfState, b: EkfState) -> EkfState:
     return EkfState(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
-def predict(s: EkfState, gyro, acc, dt) -> EkfState:
+def predict(s: EkfState, gyro, acc, dt, *, noise_std_acc=NOISE_STD_ACC,
+            noise_std_gyro=NOISE_STD_GYRO, init_cov_diag=None,
+            uwb_init_at_reset=False) -> EkfState:
     """One prediction step (dt a 0-d float32 tensor); blends the three
-    lifecycle phases with selects."""
+    lifecycle phases with selects. The keywords let the offboard GPS-IMU
+    estimator reuse it: its noise, its initial standard deviations, and no
+    complementary phase (uwb_init set at the reset)."""
     # phase A: first-ever IMU sample -> reset + gravity-aligned attitude
-    fresh = init_state(s.pos.device)
-    sA = fresh._replace(num_resets=s.num_resets + 1, num_rejected=s.num_rejected,
-                        imu_init=torch.ones_like(s.imu_init))
+    sA = _reset(s)._replace(imu_init=torch.ones_like(s.imu_init))
+    if init_cov_diag is not None:
+        sA = sA._replace(cov=_diag_cov(init_cov_diag, s.pos.device))
+    if uwb_init_at_reset:
+        sA = sA._replace(uwb_init=torch.ones_like(s.uwb_init))
     sA = sA._replace(att=_gravity_align_correction(sA.att, acc))
 
     # phase B: complementary attitude until the first UWB fix
@@ -148,8 +171,53 @@ def predict(s: EkfState, gyro, acc, dt) -> EkfState:
                             ax * R[:, 1] - ay * R[:, 0]], dim=-1)
     g = gyro * dt + s.last_att_corr / 2.0
     covC = cov_predict_block(s.cov, dt, dva, g,
-                             NOISE_STD_ACC ** 2 * dt * dt, NOISE_STD_GYRO ** 2 * dt * dt)
+                             noise_std_acc ** 2 * dt * dt, noise_std_gyro ** 2 * dt * dt)
     sC = s._replace(pos=posC, vel=velC, att=attC, angvel=gyro, cov=covC,
                     last_att_corr=torch.zeros_like(s.last_att_corr))
 
     return _select(s.imu_init, _select(s.uwb_init, sC, sB), sA)
+
+
+def _sum_terms(terms):
+    """The terms added left to right."""
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def update_range(s: EkfState, target_pos, meas_range, apply) -> EkfState:
+    """Scalar UWB range update with Mahalanobis gating (cpp:243-309);
+    where `apply` (a bool tensor) is False the state passes through."""
+    apply = apply & s.imu_init & torch.isfinite(meas_range)
+    # the reference marks UWB as initialized before gating (cpp:252), so even
+    # a rejected measurement flips the filter into full-EKF mode
+    s = s._replace(uwb_init=s.uwb_init | apply)
+
+    diff = s.pos - target_pos
+    expected = norm3(diff)
+    h = diff / torch.where(expected < 1e-12, torch.ones_like(expected), expected)
+    H = torch.cat([h, torch.zeros(6, dtype=h.dtype, device=h.device)])  # dR/dpos
+    PHt = _sum_terms([s.cov[..., :, j] * H[j] for j in range(9)])
+    innov_cov = _sum_terms([H[j] * PHt[j] for j in range(9)]) + NOISE_STD_RANGE ** 2
+    L = PHt / innov_cov
+    innov = meas_range - expected
+    reject = innov * innov / innov_cov > OUTLIER_STAT_DIST ** 2
+
+    # accepted: the mean and the rank-1 covariance update, symmetrized by
+    # copying the lower triangle up
+    dx = L * innov
+    att_corr = dx[6:9]
+    cov_new = s.cov - L[:, None] * PHt[None, :]
+    cov_new = torch.tril(cov_new) + torch.tril(cov_new, -1).transpose(-1, -2)
+    s_acc = s._replace(pos=s.pos + dx[0:3], vel=s.vel + dx[3:6],
+                       att=rot.qmul(s.att, rot.from_rotation_vector(att_corr)),
+                       last_att_corr=att_corr, cov=cov_new,
+                       num_rejected_seq=torch.zeros_like(s.num_rejected_seq))
+
+    # rejected: count, and hard-reset after MAX_SEQ_REJECT in a row
+    nseq = s.num_rejected_seq + 1
+    s_rej = s._replace(num_rejected=s.num_rejected + 1, num_rejected_seq=nseq)
+    s_rej = _select(nseq >= MAX_SEQ_REJECT, _reset(s_rej), s_rej)
+
+    return _select(apply, _select(reject, s_rej, s_acc), s)

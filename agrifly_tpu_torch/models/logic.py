@@ -3,8 +3,11 @@
 Port of `agrifly_tpu/models/logic.py` (QuadcopterLogic.{hpp,cpp}): the
 500 Hz onboard loop as `logic_step(params, state, inputs) -> (state,
 motor_cmds)` over a NamedTuple state. Every controller branch is computed
-and the flight state selects one, as in the JAX package. The slice flies
-without UWB ranging, so the range update is not ported.
+and the flight state selects one, as in the JAX package. With UWB ranging
+(anchors installed by `with_ranging_targets`, a measurement in the inputs)
+each tick also runs the EKF's range update; inputs whose `uwb_new` is the
+python `False` (`null_inputs`, the default) leave the update out of the
+tick, as the JAX package leaves it out of its trace.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from agrifly_tpu_torch.io import radio
@@ -85,6 +89,10 @@ class LogicParams(NamedTuple):
     batt_lp: filters.Lp2Coeffs
     cmd_rate_lp_coeff: torch.Tensor
     loop_lp_coeff: torch.Tensor
+    # UWB ranging targets
+    target_positions: torch.Tensor  # (MAX_RANGING_TARGETS, 3)
+    target_ids: torch.Tensor  # (MAX_RANGING_TARGETS,) int32
+    num_targets: torch.Tensor  # int32
 
 
 class LogicState(NamedTuple):
@@ -140,6 +148,24 @@ class LogicInputs(NamedTuple):
     radio_type: torch.Tensor  # int32
     radio_flags: torch.Tensor  # int32
     radio_fields: torch.Tensor  # (10,) int32 wire codes
+    # a UWB range measurement: a python False uwb_new means none this tick
+    # (the range update is left out), a bool tensor a measurement or not
+    uwb_new: object = False
+    uwb_range: object = 0.0  # f32 [m]
+    uwb_responder_id: object = 0  # int32
+    uwb_failure: object = False  # bool: the transaction was reported failed
+
+
+def null_inputs(device=None) -> LogicInputs:
+    """Inputs with no sensor reading, no radio message and no UWB."""
+    z3 = torch.zeros(3, dtype=torch.float32, device=device)
+    i0 = torch.zeros((), dtype=torch.int32, device=device)
+    return LogicInputs(
+        gyro=z3, acc=z3, temperature=torch.full((), 25.0, device=device),
+        batt_voltage=torch.zeros((), device=device),
+        batt_current=torch.full((), -1.0, device=device),
+        radio_new=torch.zeros((), dtype=torch.bool, device=device), radio_type=i0,
+        radio_flags=i0, radio_fields=torch.zeros(10, dtype=torch.int32, device=device))
 
 
 def make_params(v, onboard_period=1.0 / 500.0, device=None) -> LogicParams:
@@ -176,7 +202,25 @@ def make_params(v, onboard_period=1.0 / 500.0, device=None) -> LogicParams:
         batt_lp=filters.lp2_coeffs(onboard_period, 0.5 * 2 * math.pi, device),
         cmd_rate_lp_coeff=f32(math.exp(-RADIO_CMD_PERIOD * 1.0)),
         loop_lp_coeff=f32(math.exp(-onboard_period * 50.0)),
+        target_positions=torch.zeros((MAX_RANGING_TARGETS, 3), dtype=torch.float32,
+                                     device=device),
+        target_ids=torch.zeros(MAX_RANGING_TARGETS, dtype=torch.int32, device=device),
+        num_targets=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def with_ranging_targets(p: LogicParams, ids, positions) -> LogicParams:
+    """Install UWB anchor targets (AddRangingTargetId): ids (n,), positions
+    (n, 3), n <= MAX_RANGING_TARGETS."""
+    n = len(ids)
+    dev = p.mass.device
+    tpos = np.zeros((MAX_RANGING_TARGETS, 3), np.float32)
+    tids = np.zeros((MAX_RANGING_TARGETS,), np.int32)
+    tpos[:n] = np.asarray(positions, np.float32)
+    tids[:n] = np.asarray(ids, np.int32)
+    return p._replace(target_positions=torch.from_numpy(tpos).to(dev),
+                      target_ids=torch.from_numpy(tids).to(dev),
+                      num_targets=torch.tensor(n, dtype=torch.int32, device=dev))
 
 
 def init_state(p: LogicParams) -> LogicState:
@@ -215,6 +259,18 @@ def _advance_timer(us, period_us):
     return torch.clamp(us + period_us, max=_US_SAT)
 
 
+def _lookup_target(p: LogicParams, responder_id):
+    """(anchor position, known) for a responder id: the matching rows of
+    the target table summed in order."""
+    idx = torch.arange(MAX_RANGING_TARGETS, device=p.target_ids.device)
+    match = (p.target_ids == responder_id) & (idx < p.num_targets)
+    rows = torch.where(match[:, None], p.target_positions, 0.0)
+    pos = rows[0]
+    for k in range(1, MAX_RANGING_TARGETS):
+        pos = pos + rows[k]
+    return pos, torch.any(match)
+
+
 def _bits(cond, bit):
     """int32 `bit` where cond, else 0."""
     return cond.to(torch.int32) * bit
@@ -246,6 +302,9 @@ def logic_step(p: LogicParams, s: LogicState, u: LogicInputs):
     radio_count = s.radio_count + u.radio_new.to(torch.int32)
     us_since_radio = torch.where(u.radio_new, torch.zeros_like(us_since_radio), us_since_radio)
     us_since_uwb = _advance_timer(s.us_since_uwb, per_us)
+    uwb_static_off = isinstance(u.uwb_new, bool) and not u.uwb_new
+    if not uwb_static_off:
+        us_since_uwb = torch.where(u.uwb_new, torch.zeros_like(us_since_uwb), us_since_uwb)
     radio_pending = s.radio_new | u.radio_new
 
     # Run()
@@ -254,11 +313,20 @@ def logic_step(p: LogicParams, s: LogicState, u: LogicInputs):
     gyro_f = filters.lp2_value(gyro_lp)
     acc_f = filters.lp2_value(acc_lp)
 
-    # UpdateEstimator (no UWB in this configuration: no range update)
+    # UpdateEstimator
     kf = ekf.predict(s.kf, gyro_f, acc_f, p.onboard_period)
     cal_on = s.gyro_cal_enabled
     gyro_cal_accum = torch.where(cal_on, s.gyro_cal_accum + gyro_raw, s.gyro_cal_accum)
     gyro_cal_count = s.gyro_cal_count + cal_on.to(torch.int32)
+    uwb_meas_count, next_target_idx = s.uwb_meas_count, s.next_target_idx
+    if not uwb_static_off:  # the range update
+        uwb_success = u.uwb_new & ~u.uwb_failure
+        target_pos, target_known = _lookup_target(p, u.uwb_responder_id)
+        kf = ekf.update_range(kf, target_pos, u.uwb_range, uwb_success & target_known)
+        uwb_meas_count = uwb_meas_count + uwb_success.to(torch.int32)
+        next_target_idx = torch.where(
+            u.uwb_new & (p.num_targets > 0),
+            (next_target_idx + 1) % torch.clamp(p.num_targets, min=1), next_target_idx)
 
     # ParseIncomingCommunications
     sticky = (s.fs == FS_PANIC) | (s.fs == FS_KILLED)
@@ -389,6 +457,7 @@ def logic_step(p: LogicParams, s: LogicState, u: LogicInputs):
         radio_new=torch.zeros_like(radio_pending),
         radio_type=radio_type, radio_flags=radio_flags, radio_floats=radio_floats,
         radio_count=radio_count, us_since_radio=us_since_radio, us_since_uwb=us_since_uwb,
+        next_target_idx=next_target_idx, uwb_meas_count=uwb_meas_count,
         cmd_rate_lpdt=cmd_rate_lpdt, loop_lpdt=loop_lpdt,
         us_since_est_reset=us_since_est_reset, last_check_num_resets=kf.num_resets,
         warnings=warnings, panic_reason=panic_reason,

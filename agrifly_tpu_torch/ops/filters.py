@@ -1,9 +1,11 @@
-"""Second-order IIR low-pass filter as carried functional state.
+"""Discrete IIR low-pass filters as carried functional state.
 
-Port of the `lp2` part of `agrifly_tpu/ops/filters.py` (the onboard IMU,
-temperature and battery filters). The coefficients are computed in numpy
-float32 exactly as the JAX package does, and `lp2_apply` keeps the
-reference's add-tree (LowPassFilterSecondOrder.hpp:54-58).
+Port of `agrifly_tpu/ops/filters.py`. First order (`lp1`): y = c*y_prev +
+(1-c)*x with c = exp(-dt*wc) (LowPassFilterFirstOrder.hpp), in that
+operation order. Second order (`lp2`, the onboard IMU, temperature and
+battery filters): the coefficients are computed in numpy float32 exactly as
+the JAX package does, and `lp2_apply` keeps the reference's add-tree
+(LowPassFilterSecondOrder.hpp:54-58).
 """
 
 from __future__ import annotations
@@ -13,6 +15,23 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class Lp1State(NamedTuple):
+    y: torch.Tensor
+    coeff: torch.Tensor  # 0-d
+
+
+def lp1_init(sampling_period, cutoff_rad_s, init_value, device=None) -> Lp1State:
+    c = math.exp(-float(sampling_period) * float(cutoff_rad_s))
+    return Lp1State(y=torch.as_tensor(init_value, dtype=torch.float32, device=device),
+                    coeff=torch.tensor(c, dtype=torch.float32, device=device))
+
+
+def lp1_apply(state: Lp1State, x):
+    c = state.coeff
+    y = torch.where(c <= 0.0, x, c * state.y + (1.0 - c) * x)
+    return Lp1State(y=y, coeff=c), y
 
 
 class Lp2State(NamedTuple):

@@ -1,9 +1,10 @@
-"""Branch-free closed-form cubic / quartic real-root solvers.
+"""Branch-free closed-form quadratic / cubic / quartic real-root solvers.
 
 Port of `agrifly_tpu/ops/rootfind.py` (RootFinder.hpp:60-177): fixed-size
 root tensors plus boolean validity masks, so every candidate of a batch is
 solved at once.
 
+  solve_quadratic(a, b, c)   solves a x^2 + b x + c = 0 (linear if a ~ 0)
   solve_cubic(a, b, c)       solves x^3 + a x^2 + b x + c = 0
   solve_quartic(a, b, c, d)  solves x^4 + a x^3 + b x^2 + c x + d = 0
 """
@@ -135,4 +136,24 @@ def solve_quartic(a, b, c, d):
     roots = torch.stack([(-p1 + sqDa) * 0.5, (-p1 - sqDa) * 0.5,
                          (-p2 + sqDb) * 0.5, (-p2 - sqDb) * 0.5], dim=-1)
     valid = torch.stack([va, va, vb, vb], dim=-1)
+    return roots, valid
+
+
+def solve_quadratic(a, b, c):
+    """Real roots of a x^2 + b x + c (|a| < 1e-12: the linear fallback).
+    Returns (roots, valid), (..., 2) each."""
+    lin = torch.abs(a) < 1e-12
+    # quadratic branch
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0.0
+    sq = _safe_sqrt(disc)
+    a_safe = torch.where(lin, torch.ones_like(a), a)
+    r0 = (-b + sq) / (2.0 * a_safe)
+    r1 = (-b - sq) / (2.0 * a_safe)
+    # linear branch: b x + c = 0
+    tiny_b = torch.abs(b) < 1e-12
+    rl = -c / torch.where(tiny_b, torch.ones_like(b), b)
+    lin_valid = lin & ~tiny_b
+    roots = torch.stack([torch.where(lin, rl, r0), torch.where(lin, rl, r1)], dim=-1)
+    valid = torch.stack([torch.where(lin, lin_valid, has), ~lin & has], dim=-1)
     return roots, valid

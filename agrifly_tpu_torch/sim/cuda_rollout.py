@@ -5,21 +5,23 @@ The counterpart of the JAX package's `jax.vmap` of `sim/env.py::rollout_fast`
 `bench.py` times. `rollout` runs `csrc/rollout.cu` on CUDA tensors: one
 launch advances B envs (a leading B on every state leaf, or one env)
 through the noise block's n_steps ticks of `env.step` and writes the final
-state and the (B, n_steps, ...) `StepOutputs` trajectory. The kernel takes
-each tick's cadences from the accumulators, as `env.rollout` does, so it
-serves `env.rollout` and `env.rollout_fast` alike. A group of `GROUP` lanes
+state and the (B, n_steps, ...) `StepOutputs` trajectory, in every
+estimator mode (the launch takes it as `EST`'s int). The kernel takes each
+tick's cadences from the accumulators, as `env.rollout` does, so it serves
+`env.rollout` and `env.rollout_fast` alike. UWB is a variant of the build:
+a state with a `uwb` leaf (params built by `env.with_uwb_anchors`) runs
+`rollout.cu` built with TICK_UWB, which also steps the ranging network on
+the UWB draws and runs the onboard range update. A group of `GROUP` lanes
 runs each env (the kernel is built for each of `GROUPS`, and every group
 size gives the same values bit for bit). On CPU tensors it runs the plain
-version:
-`env.rollout_plain`, with `env.fast_flags` for `rollout_fast`.
+version: `env.rollout_plain`, with `env.fast_flags` for `rollout_fast`.
 
 The kernel reads each state and parameter leaf through its own device
 pointer, and a command leaf shared by the fleet through a stride of 0. It
-writes the state leaves a rollout changes and the trajectory into two flat
-buffers (float32; int32 with the bool leaves' bytes at its end); the
-returned leaves are views into them, and the leaves it never writes (the
-GPS-IMU estimator's) are the input tensors. `tick.cuh` declares the leaves
-in two X-macro tables, and every call is held to them: a state or parameter
+writes every state leaf and the trajectory into two flat buffers (float32;
+int32 with the bool leaves' bytes at its end); the returned leaves are
+views into them. `tick.cuh` declares the leaves in X-macro tables (the UWB
+variant's in two more), and every call is held to them: a state or parameter
 tree is checked in full the first time, and later calls with the same tree
 (the last one accepted) compare only each leaf's version counter and data
 pointer, which an in-place change of shape, dtype or layout, or a
@@ -38,43 +40,63 @@ import torch
 
 from agrifly_tpu_torch import convert, cuda_build
 from agrifly_tpu_torch.sim import env as env_mod
+from agrifly_tpu_torch.sim import uwb as uwb_mod
 
 CTRL = {"rates": 0, "position": 1, "idle": 2}
+EST = {"true": 0, "mocap": 1, "gpsimu": 2}  # env._est_mode's name -> the launch's est
+UWB_DEFINES = ("TICK_UWB",)  # the build of the UWB variant
+MAX_RADIOS = 33  # tick.cuh's radio table: the vehicle and up to 32 anchors
 GROUPS = (1, 2, 4, 8)  # lanes per env that rollout.cu is built for
 GROUP = 8  # the default: the fastest measured at bench.py's shape (PERF.md)
 TRAJ_WIDTHS = (3, 3, 4, 3, 4)  # the float trajectory leaves' last axis; then 3 int32 leaves
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _version = operator.attrgetter("_version")
 _data_ptr = torch.Tensor.data_ptr
 
 
 @functools.lru_cache(maxsize=None)
-def leaf_table():
-    """(state leaves, parameter leaves) as `tick.cuh` declares them."""
-    state, params = cuda_build.leaf_rows("tick.cuh")
-    return tuple(state), tuple(params)
+def leaf_table(uwb=False):
+    """(state leaves, parameter leaves) as `tick.cuh` declares them (with
+    uwb, the UWB variant's). The kernel writes every state leaf."""
+    state, params = cuda_build.leaf_rows("tick.cuh", uwb=uwb)
+    return tuple(s._replace(written=True) for s in state), tuple(params)
 
 
 def param_leaves(params):
-    """The parameter tensors the kernel reads, in its table's order."""
-    return convert.flatten_tensors(params)[0]
+    """The parameter tensors the kernel reads, in its table's order (a UWB
+    radio table padded to MAX_RADIOS)."""
+    return _kernel_params(convert.flatten_tensors(params)[0], params.uwb is not None)
+
+
+def _kernel_params(leaves, uwb):
+    """The parameter leaves as the kernel's table has them: the UWB radio
+    table (the leaf after the first four of the UWB parameters, which come
+    last) padded with unused slots to MAX_RADIOS."""
+    if not uwb:
+        return leaves
+    leaves = list(leaves)
+    k = len(leaves) - len(uwb_mod.UwbParams._fields) + uwb_mod.UwbParams._fields.index("radio_ids")
+    ids = leaves[k]
+    if ids.dim() == 1 and ids.numel() < MAX_RADIOS:
+        leaves[k] = torch.cat([ids, ids.new_zeros(MAX_RADIOS - ids.numel())])
+    return leaves
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = cuda_build.load("rollout").env_rollout_launch
+def _launcher(uwb=False):
+    fn = cuda_build.load("rollout", UWB_DEFINES if uwb else ()).env_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _runs():
-    """The written state leaves of each dtype as rollout.cu lays them out in
-    its output buffer: ordered by elements per env (table order among
-    equals), in runs [(elements per env, [leaf indices])]; and each
-    buffer's elements per env."""
-    specs, _ = leaf_table()
+def _runs(uwb=False):
+    """The state leaves of each dtype as rollout.cu lays them out in its
+    output buffer: ordered by elements per env (table order among equals),
+    in runs [(elements per env, [leaf indices])]; and each buffer's
+    elements per env."""
+    specs, _ = leaf_table(uwb)
     runs = {}
     for ty in cuda_build._DTYPES.values():
         rows = sorted((max(s.numel, 1), i) for i, s in enumerate(specs)
@@ -103,7 +125,7 @@ class _Accepted(NamedTuple):
     reshape: dict
 
 
-_accepted = {"state": None, "params": None}  # the last accepted tree of each
+_accepted = {}  # the last accepted tree of each kind
 
 
 def _pointer_table(ptrs):
@@ -124,17 +146,19 @@ def _accept(kind, tree, device, check):
     """The accepted entry of `tree` ("state" or "params"): the last one if
     it is the same tree on the same device and its leaves have not moved,
     else the tree checked in full by check(leaves) (which raises); a new
-    parameter entry copies the leaves to the host (a device sync, once per
-    parameter tree and after any in-place change to it)."""
-    entry = _accepted[kind]
+    parameter entry copies the leaves, as the kernel's table has them
+    (`_kernel_params`), to the host (a device sync, once per parameter tree
+    and after any in-place change to it)."""
+    entry = _accepted.get(kind)
     if (entry is not None and entry.versions is not None and entry.tree is tree
             and entry.device == device and _versions(entry.leaves) == entry.versions
             and list(map(_data_ptr, entry.leaves)) == entry.ptrs):
         return entry
     leaves, rebuild = convert.flatten_tensors(tree)
-    check(leaves)
+    kernel_leaves = _kernel_params(leaves, tree.uwb is not None) if kind == "params" else leaves
+    check(kernel_leaves)
     ptrs = list(map(_data_ptr, leaves))
-    host = [t.cpu() for t in leaves] if kind == "params" else []
+    host = [t.cpu() for t in kernel_leaves] if kind == "params" else []
     entry = _Accepted(tree, leaves, rebuild, _versions(leaves), ptrs, device,
                       _pointer_table(list(map(_data_ptr, host)) if host else ptrs), host, {})
     _accepted[kind] = entry
@@ -159,17 +183,19 @@ def _command(cmd, B, device):
     return leaves, strides
 
 
-def _launch(state, params, cmd, noise, mocap, ctrl, group=None, launcher=None):
+def _launch(state, params, cmd, noise, est, ctrl, group=None, launcher=None, draws=None):
     """Run the kernel on B envs (`state`, `params`: accepted entries with a
     leading B on every state leaf, or one env with none; `cmd`: `_command`'s
-    leaves and strides; noise (B, n_steps, 2, 3)) with `group` lanes per env
-    (GROUP by default; chip_smoke.py and the card tests run every one of
-    GROUPS) through `launcher` (the default build's env_rollout_launch, or
-    another build's); returns (the new state's leaves, the trajectory's
-    leaves)."""
+    leaves and strides; noise (B, n_steps, 2, 3); est: a use_estimator; draws:
+    the UWB variant's (B, n_steps, 4), None for the other build) with
+    `group` lanes per env (GROUP by default; chip_smoke.py and the card
+    tests run every one of GROUPS) through `launcher` (the variant's default
+    build's env_rollout_launch, or another build's); returns (the new
+    state's leaves, the trajectory's leaves)."""
     group = GROUP if group is None else group
-    fn = launcher or _launcher()
-    runs, per_env = _runs()
+    uwb = draws is not None
+    fn = launcher or _launcher(uwb)
+    runs, per_env = _runs(uwb)
     B, n = noise.shape[:2]
     dev = noise.device
     rows = B * n
@@ -181,15 +207,17 @@ def _launch(state, params, cmd, noise, mocap, ctrl, group=None, launcher=None):
     cmd_leaves, cmd_strides = cmd
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
     status = fn(state.table, params.table, _pointer_table(list(map(_data_ptr, cmd_leaves))),
-                (ctypes.c_int * 6)(*cmd_strides), noise.data_ptr(), f_buf.data_ptr(),
-                i_buf.data_ptr(), B, n, int(mocap), CTRL[ctrl], group, stream)
+                (ctypes.c_int * 6)(*cmd_strides), noise.data_ptr(),
+                None if draws is None else draws.data_ptr(), f_buf.data_ptr(),
+                i_buf.data_ptr(), B, n, EST[env_mod._est_mode(est)], CTRL[ctrl], group,
+                stream)
     cuda_build.check(status, "env_rollout_launch")
     rollout.launches += 1
 
     f_part, *traj_f = f_buf.split([f_state] + [rows * w for w in TRAJ_WIDTHS])
     i_part, *traj_i, _ = i_buf.split([i_state] + [rows] * 3 + [i_buf.numel() - i_words])
     b_part = i_buf.view(torch.uint8)[4 * i_words:4 * i_words + B * per_env[torch.bool]]
-    new = list(state.leaves)  # the leaves it never writes are the inputs
+    new = list(state.leaves)
     for ty, part in ((torch.float32, f_part), (torch.int32, i_part),
                      (torch.bool, b_part.view(torch.bool))):
         for (k, idx), run in zip(runs[ty], part.split([B * k * len(idx) for k, idx in runs[ty]])):
@@ -206,23 +234,29 @@ def _launch(state, params, cmd, noise, mocap, ctrl, group=None, launcher=None):
 
 
 def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", fast=False,
-            entry_phase=None):
+            entry_phase=None, uwb_draws=None):
     """Advance `state` (an `env.EnvState`, one env or a fleet of B) by the
     ticks of `noise` ((n_steps, 2, 3), a fleet (B, n_steps, 2, 3), float32
     unit normals: gyro, acc) under the command `cmd` (leaves shared or with
-    a leading B). Returns (state, traj) as `env.rollout` does.
+    a leading B); with anchors, `uwb_draws` ((..., n_steps, 4) float32) are
+    the network's draws. Returns (state, traj) as `env.rollout` does.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version (fast: `rollout_fast`'s, with entry_phase). Every call is
     checked against tick.cuh's leaf tables."""
-    mode = env_mod._check_modes(use_estimator, ctrl_mode)
+    env_mod._check_modes(use_estimator, ctrl_mode)
     B = env_mod._fleet_size(state)
     n_dims = 3 if B is None else 4
     if (noise.dim() != n_dims or tuple(noise.shape[-2:]) != (2, 3)
             or noise.dtype != torch.float32 or (B is not None and noise.shape[0] != B)):
         raise ValueError(f"need {'' if B is None else f'({B}, '}n_steps, 2, 3) float32 noise, "
                          f"got {tuple(noise.shape)} {noise.dtype}")
-    state_specs, param_specs = leaf_table()
+    uwb = params.uwb is not None
+    if uwb != (state.uwb is not None):
+        raise ValueError("UWB: the params have a network and the state none, or the reverse "
+                         "(make the state with env.init_state of the params)")
+    draws = env_mod._check_draws(params, uwb_draws, noise.shape[:-2] + (uwb_mod.N_DRAWS,))
+    state_specs, param_specs = leaf_table(uwb)
     device = noise.device
     s_entry = _accept("state", state, device, lambda leaves: cuda_build.check_leaves(
         state_specs, leaves, device, "state", B, "tick.cuh"))
@@ -230,11 +264,16 @@ def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", f
         param_specs, leaves, device, "params", None, "tick.cuh"))
     if not noise.is_cuda:
         flags = env_mod.fast_flags(params, state, noise.shape[-3], entry_phase) if fast else None
-        return env_mod.rollout_plain(params, state, cmd, noise, use_estimator, ctrl_mode, flags)
+        return env_mod.rollout_plain(params, state, cmd, noise, use_estimator, ctrl_mode, flags,
+                                     draws)
 
     noise = noise.contiguous()
+    if draws is not None:
+        draws = draws.to(device).contiguous()
+        draws = draws if B is not None else draws[None]
     new, traj = _launch(s_entry, p_entry, _command(cmd, B, device),
-                        noise if B is not None else noise[None], mode == "mocap", ctrl_mode)
+                        noise if B is not None else noise[None], use_estimator, ctrl_mode,
+                        draws=draws)
     if B is None:
         traj = [t[0] for t in traj]
     return s_entry.rebuild(new), env_mod.StepOutputs(*traj)

@@ -3,10 +3,14 @@ control, one 2 ms `step`, and the fleet rollouts.
 
 Port of `agrifly_tpu/sim/env.py`. `step(params, state, cmd)` advances one
 tick: radio delivery, the 6-DOF plant (with an external force and torque),
-IMU fabrication, the onboard logic, the estimator (the true plant state,
-`use_estimator=False`, or the 200 Hz mocap estimator, `True`) and the 100 Hz
-offboard controller, whose command (`ctrl_mode` "rates", "position" or
-"idle") enters the 30 ms radio delay line. Periodic subsystems run on
+IMU fabrication, the UWB ranging network (with anchors, `with_uwb_anchors`),
+the onboard logic, the offboard estimator (the true plant state,
+`use_estimator=False` or `"true"`; the 200 Hz mocap estimator, `True` or
+`"mocap"`; or the GPS-IMU estimator with a 100 Hz GPS fix, `"gpsimu"`)
+and the 100 Hz offboard controller, whose command (`ctrl_mode` "rates",
+"position" or "idle") enters the 30 ms radio delay line. With anchors and
+"position" commands the vehicle flies the onboard-UWB configuration: its
+EKF localises from the ranges. Periodic subsystems run on
 integer-microsecond accumulators with the reference's `> period, then
 subtract` rule. `rollout`, `rollout_fast` and `rollout_sampled` advance a
 state, or a fleet of B states (a leading B on every leaf, as the JAX
@@ -15,18 +19,17 @@ of the hand-written kernel `csrc/rollout.cu` (`sim/cuda_rollout.py`), on CPU
 tensors tick by tick in plain torch (`rollout_plain`, vmapped over a fleet).
 
 Randomness: the port's `EnvState` has no PRNG key. `step` takes the tick's
-IMU unit normals `noise` (2, 3) (gyro, then acc); the rollouts take a
-pre-drawn (..., n_steps, 2, 3) block or a `torch.Generator` that draws it on
-the state's device.
-
-Not here yet (ROADMAP Queue 1 item 3): the GPS-IMU estimator
-(`use_estimator="gpsimu"`) and UWB ranging (`with_uwb_anchors`, a UWB
-override); each raises NotImplementedError.
+IMU unit normals `noise` (2, 3) (gyro, then acc) and, with anchors, the UWB
+network's four draws `uwb_draws` (4,) (`sim/uwb.py`); the rollouts take
+pre-drawn (..., n_steps, 2, 3) and (..., n_steps, 4) blocks or a
+`torch.Generator` that draws them on the state's device (the IMU noise
+first).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,9 +45,11 @@ from agrifly_tpu_torch.ops import lin3
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.ops.fmath import const
 from agrifly_tpu_torch.sim import delayline
+from agrifly_tpu_torch.sim import uwb as uwb_mod
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 3: estimator, UWB and mission variants)"
 CTRL_MODES = ("rates", "position", "idle")
+EST_MODES = ("true", "mocap", "gpsimu")  # use_estimator's modes; False / True name the first two
+GPS_PERIOD_US = 10000  # the GPS fix's period (100 Hz)
 
 
 class EnvParams(NamedTuple):
@@ -57,6 +62,7 @@ class EnvParams(NamedTuple):
     noise_scale: torch.Tensor  # f32: 1.0 = reference IMU noise, 0.0 = off
     mocap_period_us: torch.Tensor  # int32 (5000 = 200 Hz demo)
     est_latency_us: torch.Tensor  # int32: latency GetPrediction compensates
+    uwb: Optional[uwb_mod.UwbParams] = None  # anchors for onboard navigation
 
 
 class Command(NamedTuple):
@@ -72,8 +78,8 @@ class Command(NamedTuple):
 
 
 class EnvState(NamedTuple):
-    """The JAX package's EnvState without its PRNG key (randomness comes
-    from a torch.Generator or injected draws) and without UWB."""
+    """The JAX package's EnvState without its PRNG keys (randomness comes
+    from a torch.Generator or injected draws)."""
 
     plant: plant_mod.PlantState
     logic: onboard.LogicState
@@ -84,8 +90,9 @@ class EnvState(NamedTuple):
     last_cmd_angvel: torch.Tensor  # (3,)
     mocap: estimators.MocapEstState
     mocap_acc_us: torch.Tensor  # int32 periodic accumulator
-    gpsimu: ekf.EkfState  # offboard GPS-IMU estimator (carried, unused here)
-    gps_acc_us: torch.Tensor  # int32 periodic accumulator
+    gpsimu: ekf.EkfState  # offboard GPS-IMU estimator
+    gps_acc_us: torch.Tensor  # int32 periodic accumulator (100 Hz GPS)
+    uwb: Optional[uwb_mod.UwbState] = None
 
 
 class StepOutputs(NamedTuple):
@@ -120,9 +127,19 @@ def make_params(vehicle_type: int = qconst.QC_TYPE_CF_MINIQUAD, dt: float = 1.0 
     )
 
 
-def with_uwb_anchors(params: EnvParams, *args, **kwargs) -> EnvParams:
-    """UWB-based onboard navigation: not in the port yet."""
-    raise NotImplementedError(f"env.with_uwb_anchors: {NOT_PORTED}")
+def with_uwb_anchors(params: EnvParams, anchor_ids, anchor_positions, vehicle_id=1,
+                     comm_period=0.01, noise_std=0.0, outlier_prob=0.0, outlier_std=0.0,
+                     failure_prob=0.0, max_range=math.inf) -> EnvParams:
+    """UWB-based onboard navigation: the anchors go into the onboard
+    logic's ranging-target table, and the network's radio table is the
+    vehicle (row 0), then the anchors."""
+    dev = params.dt_us.device
+    logic_p = onboard.with_ranging_targets(params.logic, anchor_ids, anchor_positions)
+    uwb_p = uwb_mod.make_params([vehicle_id] + list(anchor_ids), comm_period=comm_period,
+                                noise_std=noise_std, outlier_prob=outlier_prob,
+                                outlier_std=outlier_std, failure_prob=failure_prob,
+                                max_range=max_range, device=dev)
+    return params._replace(logic=logic_p, uwb=uwb_p)
 
 
 def hover_command(des_pos=(0.0, 0.0, 1.5), device="cuda") -> Command:
@@ -149,10 +166,13 @@ def init_state(params: EnvParams, pos=(0.0, 0.0, 0.0)) -> EnvState:
         last_cmd_angvel=torch.zeros(3, dtype=torch.float32, device=dev),
         mocap=estimators.mocap_init(dev), mocap_acc_us=i0,
         gpsimu=estimators.gpsimu_init(dev), gps_acc_us=i0,
+        uwb=None if params.uwb is None else uwb_mod.init_state(dev),
     )
 
 
 def _tree_map(fn, tree):
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     return type(tree)(*(_tree_map(fn, x) for x in tree))
@@ -169,10 +189,11 @@ def init_state_fleet(params: EnvParams, positions) -> EnvState:
 
 
 def _est_mode(use_estimator):
-    mode = {False: "true", True: "mocap"}.get(use_estimator, use_estimator)
-    if mode == "gpsimu":
-        raise NotImplementedError(f"use_estimator='gpsimu': {NOT_PORTED}")
-    if mode not in ("true", "mocap"):
+    """The mode's name: False is "true", True is "mocap" (as in the JAX
+    package); the names themselves are accepted too."""
+    mode = ("mocap" if use_estimator else "true") if isinstance(use_estimator, bool) \
+        else use_estimator
+    if not isinstance(mode, str) or mode not in EST_MODES:
         raise ValueError(f"unknown use_estimator {use_estimator!r}")
     return mode
 
@@ -209,31 +230,53 @@ def physics_phase_a(s: EnvState, params: EnvParams, ext_force, ext_torque, noise
 
 def physics_tick(s: EnvState, params: EnvParams, ext_force, ext_torque, use_estimator,
                  uwb_override=None, static_mocap_fire=None, static_gps_fire=None,
-                 noise=None):
-    """Radio delivery, plant, IMU, onboard logic and the estimator update
-    of one tick (the JAX package's steps 1-5a). use_estimator: False (the
-    true state) or True (the 200 Hz mocap estimator). static_mocap_fire /
-    static_gps_fire: python bools where the cadence is known in advance
-    (rollout_fast), None for the accumulator's decision; a statically
-    silent offboard tick skips the prediction. Returns a dict with the
+                 noise=None, uwb_draws=None):
+    """Radio delivery, plant, IMU, UWB, onboard logic and the estimator
+    update of one tick (the JAX package's steps 1-5a). use_estimator: False /
+    "true" (the true state), True / "mocap" (the 200 Hz mocap estimator) or "gpsimu" (the
+    GPS-IMU estimator: an IMU prediction every tick, a GPS fix every 10 ms).
+    uwb_override: (new, range, responder_id, failure) from a network
+    stepped outside, in place of the params' own; uwb_draws: the tick's four
+    draws for the params' network. static_mocap_fire / static_gps_fire:
+    python bools where the cadence is known in advance (rollout_fast), None
+    for the accumulators' decisions; a statically silent offboard tick skips
+    the prediction (and a silent GPS tick the fix). Returns a dict with the
     partial new state and the estimate `est` = (pos, vel, att, angvel)."""
     est_mode = _est_mode(use_estimator)
-    if uwb_override is not None:
-        raise NotImplementedError(f"physics_tick(uwb_override=...): {NOT_PORTED}")
     if noise is None:
         raise ValueError("physics_tick needs the tick's IMU noise (the port has no PRNG key)")
     a = physics_phase_a(s, params, ext_force, ext_torque, noise)
     new_plant = a["plant"]
     dev = new_plant.pos.device
 
+    # the UWB ranging network, where anchors are configured; without one the
+    # python False leaves the range update out of the logic's tick
+    uwb_state = s.uwb
+    uwb_in = {}
+    if uwb_override is not None:
+        uwb_in = dict(zip(("uwb_new", "uwb_range", "uwb_responder_id", "uwb_failure"),
+                          uwb_override))
+    elif params.uwb is not None:
+        if uwb_draws is None:
+            raise ValueError("physics_tick with anchors needs the tick's UWB draws (4,)")
+        n_radios = params.uwb.radio_ids.shape[0]
+        positions = torch.cat([new_plant.pos[None, :],
+                               params.logic.target_positions[: n_radios - 1]], dim=0)
+        my_target = torch.where(params.logic.num_targets > 0,
+                                params.logic.target_ids[s.logic.next_target_idx],
+                                torch.zeros_like(params.logic.num_targets))
+        next_ids = torch.where(torch.arange(n_radios, device=dev) == 0, my_target,
+                               torch.zeros_like(my_target))
+        uwb_state, meas = uwb_mod.step(params.uwb, uwb_state, positions, next_ids,
+                                       params.dt_us, uwb_draws)
+        uwb_in = dict(uwb_new=meas.valid, uwb_range=meas.range,
+                      uwb_responder_id=meas.responder_id, uwb_failure=meas.failure)
+
     # onboard logic tick (constant battery)
-    inputs = onboard.LogicInputs(
-        gyro=a["gyro_meas"], acc=a["acc_meas"],
-        temperature=torch.full((), 25.0, device=dev),
-        batt_voltage=params.logic.batt_critical * 1.2,
-        batt_current=torch.full((), -1.0, device=dev),
+    inputs = onboard.null_inputs(dev)._replace(
+        gyro=a["gyro_meas"], acc=a["acc_meas"], batt_voltage=params.logic.batt_critical * 1.2,
         radio_new=a["delivered"], radio_type=a["mtype"], radio_flags=a["mflags"],
-        radio_fields=a["mfields"])
+        radio_fields=a["mfields"], **uwb_in)
     new_logic, _ = onboard.logic_step(params.logic, s.logic, inputs)
 
     now_us = (s.step + 1) * params.dt_us  # master time after this tick
@@ -251,6 +294,19 @@ def physics_tick(s: EnvState, params: EnvParams, ext_force, ext_torque, use_esti
         else:
             mocap_acc = mocap_acc - params.mocap_period_us
             mocap = mocap_upd
+    gpsimu = s.gpsimu
+    gps_acc = s.gps_acc_us + params.dt_us
+    if est_mode == "gpsimu":
+        gpsimu = estimators.gpsimu_predict(gpsimu, a["acc_meas"], a["gyro_meas"],
+                                           params.dt_us.to(torch.float32) * 1e-6)
+        if static_gps_fire is None:
+            gfire = gps_acc > GPS_PERIOD_US
+            gps_acc = torch.where(gfire, gps_acc - GPS_PERIOD_US, gps_acc)
+        elif static_gps_fire:
+            gfire = torch.ones((), dtype=torch.bool, device=dev)
+            gps_acc = gps_acc - GPS_PERIOD_US
+        if static_gps_fire is not False:
+            gpsimu = estimators.gps_position_update(gpsimu, new_plant.pos, gfire)
 
     if static_gps_fire is False:
         # statically silent offboard tick: the estimate is never consumed
@@ -258,13 +314,14 @@ def physics_tick(s: EnvState, params: EnvParams, ext_force, ext_torque, use_esti
         est = (z3, z3, rot.identity(dev), z3)
     elif est_mode == "mocap":
         est = estimators.mocap_get_prediction(mocap, now_us, params.est_latency_us)
+    elif est_mode == "gpsimu":
+        est = (gpsimu.pos, gpsimu.vel, gpsimu.att, gpsimu.angvel)
     else:
         est = (new_plant.pos, new_plant.vel, new_plant.att, new_plant.angvel)
 
     return dict(
-        plant=new_plant, logic=new_logic, ring=a["ring"], mocap=mocap,
-        mocap_acc_us=mocap_acc, gpsimu=s.gpsimu, gps_acc_us=s.gps_acc_us + params.dt_us,
-        now_us=now_us, est=est,
+        plant=new_plant, logic=new_logic, ring=a["ring"], uwb=uwb_state, mocap=mocap,
+        mocap_acc_us=mocap_acc, gpsimu=gpsimu, gps_acc_us=gps_acc, now_us=now_us, est=est,
     )
 
 
@@ -327,15 +384,15 @@ def _offboard_and_finish(params: EnvParams, s: EnvState, cmd: Command, half,
         plant=new_plant, logic=new_logic, ring=ring, offboard_acc_us=acc_us, step=s.step + 1,
         last_cmd_thrust=last_thrust, last_cmd_angvel=last_angvel,
         mocap=mocap, mocap_acc_us=half["mocap_acc_us"], gpsimu=half["gpsimu"],
-        gps_acc_us=half["gps_acc_us"])
+        gps_acc_us=half["gps_acc_us"], uwb=half["uwb"])
     return new_state, _outputs(new_plant, new_logic)
 
 
-def _step_one(params, s, cmd, noise, use_estimator, ctrl_mode, mocap_fire=None,
+def _step_one(params, s, cmd, noise, draws, use_estimator, ctrl_mode, mocap_fire=None,
               offboard_fire=None):
     half = physics_tick(s, params, cmd.ext_force, cmd.ext_torque, use_estimator,
                         static_mocap_fire=mocap_fire, static_gps_fire=offboard_fire,
-                        noise=noise)
+                        noise=noise, uwb_draws=draws)
     return _offboard_and_finish(params, s, cmd, half, use_estimator, ctrl_mode,
                                 static_fire=offboard_fire)
 
@@ -364,40 +421,67 @@ def _fleet_command(cmd: Command, B) -> Command:
 
 
 def _stepper(params, use_estimator, ctrl_mode, B, mocap_fire=None, offboard_fire=None):
-    """fn(state, cmd, noise) -> (state, outputs) for one tick; vmapped over
-    the fleet axis when B is not None."""
-    def one(s, c, n):
-        return _step_one(params, s, c, n, use_estimator, ctrl_mode, mocap_fire, offboard_fire)
+    """fn(state, cmd, noise, uwb_draws) -> (state, outputs) for one tick;
+    vmapped over the fleet axis when B is not None."""
+    def one(s, c, n, d):
+        return _step_one(params, s, c, n, d, use_estimator, ctrl_mode, mocap_fire,
+                         offboard_fire)
 
-    return one if B is None else torch.func.vmap(one)
+    if B is None:
+        return one
+    # the fleet axis on every tensor of the state (a tree without a UWB
+    # network holds a None), on the command, the noise and the UWB draws
+    dims = EnvState(*(0,) * (len(EnvState._fields) - 1), uwb=None if params.uwb is None else 0)
+    return torch.func.vmap(one, in_dims=(dims, 0, 0, None if params.uwb is None else 0),
+                           out_dims=(dims, 0))
+
+
+def _check_draws(params: EnvParams, uwb_draws, shape):
+    """The UWB draws: a float32 tensor of `shape` where the params have a
+    network, None where they have none."""
+    if params.uwb is None:
+        if uwb_draws is not None:
+            raise ValueError("UWB draws given, but the params have no UWB network")
+        return None
+    if uwb_draws is None:
+        raise ValueError("the params have a UWB network: pass its draws (uwb_draws)")
+    if tuple(uwb_draws.shape) != tuple(shape) or uwb_draws.dtype != torch.float32:
+        raise ValueError(f"need {tuple(shape)} float32 UWB draws, got "
+                         f"{tuple(uwb_draws.shape)} {uwb_draws.dtype}")
+    return uwb_draws
 
 
 def step(params: EnvParams, s: EnvState, cmd: Command, use_estimator=False,
-         ctrl_mode: str = "rates", noise=None):
+         ctrl_mode: str = "rates", noise=None, uwb_draws=None):
     """Advance one 2 ms tick. Returns (new_state, outputs).
 
     use_estimator: False = offboard control sees the true plant state
     (config #1); True = the demo's estimation chain (config #2): perfect
     mocap measurements at 200 Hz -> MocapStateEstimator with delayed-command
     replay -> GetPrediction(latency) feeds the controller, and each command
-    enters the prediction pipe. noise: the tick's IMU unit normals (2, 3)
-    (a fleet: (B, 2, 3), a leading B on every state leaf)."""
+    enters the prediction pipe; "gpsimu" = the GPS-IMU estimator, its GPS
+    fix at 100 Hz, feeds the controller. noise: the tick's IMU unit normals
+    (2, 3) (a fleet: (B, 2, 3), a leading B on every state leaf);
+    uwb_draws: with anchors, the network's draws (4,) (a fleet: (B, 4))."""
     _check_modes(use_estimator, ctrl_mode)
     if noise is None:
         raise ValueError("step needs the tick's IMU noise (the port has no PRNG key)")
     B = _fleet_size(s)
-    return _stepper(params, use_estimator, ctrl_mode, B)(s, _fleet_command(cmd, B), noise)
+    draws = _check_draws(params, uwb_draws, noise.shape[:-2] + (uwb_mod.N_DRAWS,))
+    return _stepper(params, use_estimator, ctrl_mode, B)(s, _fleet_command(cmd, B), noise,
+                                                          draws)
 
 
 def step_static(params: EnvParams, s: EnvState, cmd: Command, use_estimator, ctrl_mode: str,
-                mocap_fire: bool, offboard_fire: bool, noise=None):
+                mocap_fire: bool, offboard_fire: bool, noise=None, uwb_draws=None):
     """One tick with statically known cadence decisions (see rollout_fast)."""
     _check_modes(use_estimator, ctrl_mode)
     if noise is None:
         raise ValueError("step_static needs the tick's IMU noise")
     B = _fleet_size(s)
+    draws = _check_draws(params, uwb_draws, noise.shape[:-2] + (uwb_mod.N_DRAWS,))
     fn = _stepper(params, use_estimator, ctrl_mode, B, bool(mocap_fire), bool(offboard_fire))
-    return fn(s, _fleet_command(cmd, B), noise)
+    return fn(s, _fleet_command(cmd, B), noise, draws)
 
 
 def _cadence_patterns(n=40, dt=2000, mocap=5000, offboard=10000, macc0=0, oacc0=0):
@@ -440,16 +524,22 @@ def fast_flags(params: EnvParams, state: EnvState, n_steps: int, entry_phase=Non
     return list(zip(mpat, opat))
 
 
-def _noise_block(state: EnvState, n_steps: int, noise, gen):
+def _noise_blocks(params: EnvParams, state: EnvState, n_steps: int, noise, gen, uwb_draws):
+    """The IMU noise block (..., n_steps, 2, 3) and, with anchors, the UWB
+    draws (..., n_steps, 4): as given, or drawn from gen (the noise first;
+    the draws' uniforms by torch.rand, their normals by torch.randn)."""
     lead = tuple(state.step.shape)
+    dev = state.step.device
     if noise is None:
         if gen is None:
             raise ValueError("pass the IMU noise block or a torch.Generator (gen)")
-        noise = torch.randn(lead + (n_steps, 2, 3), generator=gen, device=state.step.device)
+        noise = torch.randn(lead + (n_steps, 2, 3), generator=gen, device=dev)
     if tuple(noise.shape) != lead + (n_steps, 2, 3) or noise.dtype != torch.float32:
         raise ValueError(f"need {lead + (n_steps, 2, 3)} float32 noise, got "
                          f"{tuple(noise.shape)} {noise.dtype}")
-    return noise
+    if params.uwb is not None and uwb_draws is None and gen is not None:
+        uwb_draws = uwb_mod.draw(lead + (n_steps,), gen, dev)
+    return noise, _check_draws(params, uwb_draws, lead + (n_steps, uwb_mod.N_DRAWS))
 
 
 def _stack_outputs(outs, B) -> StepOutputs:
@@ -457,9 +547,10 @@ def _stack_outputs(outs, B) -> StepOutputs:
 
 
 def rollout_plain(params: EnvParams, state: EnvState, cmd: Command, noise,
-                  use_estimator=False, ctrl_mode: str = "rates", flags=None):
+                  use_estimator=False, ctrl_mode: str = "rates", flags=None, uwb_draws=None):
     """`step` scanned over noise's n_steps ticks in plain torch, on any
-    device; a fleet vmaps each tick. flags: per-tick (mocap_fire,
+    device; a fleet vmaps each tick. uwb_draws: (..., n_steps, 4) with
+    anchors, else None. flags: per-tick (mocap_fire,
     offboard_fire) python bools (`fast_flags`), None for the accumulators'
     decisions. Returns (state, traj), traj's leaves (n_steps, ...) or
     (B, n_steps, ...): inference tensors (it runs under
@@ -475,28 +566,31 @@ def rollout_plain(params: EnvParams, state: EnvState, cmd: Command, noise,
             key = (None, None) if flags is None else flags[k]
             if key not in steppers:
                 steppers[key] = _stepper(params, use_estimator, ctrl_mode, B, *key)
-            state, out = steppers[key](state, cmd, noise[..., k, :, :])
+            draws = None if uwb_draws is None else uwb_draws[..., k, :]
+            state, out = steppers[key](state, cmd, noise[..., k, :, :], draws)
             outs.append(out)
         # vmap may hand back leaves whose fleet axis is not the outermost in memory
         return _tree_map(torch.Tensor.contiguous, state), _stack_outputs(outs, B)
 
 
 def rollout(params: EnvParams, state: EnvState, cmd: Command, n_steps: int,
-            use_estimator=False, ctrl_mode: str = "rates", noise=None, gen=None):
+            use_estimator=False, ctrl_mode: str = "rates", noise=None, gen=None,
+            uwb_draws=None):
     """`step` scanned n_steps times with a fixed command. state: one vehicle
     or a fleet (a leading B on every leaf; cmd leaves shared or with a
-    leading B). noise: (..., n_steps, 2, 3), or drawn from gen. CUDA
-    tensors: one launch of the rollout kernel; CPU tensors: plain torch.
-    Returns (state, traj)."""
+    leading B). noise: (..., n_steps, 2, 3) and, with anchors, uwb_draws
+    (..., n_steps, 4), or both drawn from gen. CUDA tensors: one launch of
+    the rollout kernel; CPU tensors: plain torch. Returns (state, traj)."""
     from agrifly_tpu_torch.sim import cuda_rollout
 
-    noise = _noise_block(state, n_steps, noise, gen)
-    return cuda_rollout.rollout(params, state, cmd, noise, use_estimator, ctrl_mode)
+    noise, draws = _noise_blocks(params, state, n_steps, noise, gen, uwb_draws)
+    return cuda_rollout.rollout(params, state, cmd, noise, use_estimator, ctrl_mode,
+                                uwb_draws=draws)
 
 
 def rollout_fast(params: EnvParams, state: EnvState, cmd: Command, n_steps: int,
                  use_estimator=False, ctrl_mode: str = "rates", entry_phase=None,
-                 noise=None, gen=None):
+                 noise=None, gen=None, uwb_draws=None):
     """The cadence-specialized rollout, held to `rollout`'s results. On CPU
     tensors each tick's estimator and offboard cadence is fixed in advance
     (`fast_flags`), so a silent tick skips the measurement update, the
@@ -504,21 +598,24 @@ def rollout_fast(params: EnvParams, state: EnvState, cmd: Command, n_steps: int,
     the caller's entry_phase, the (mocap_acc_us, offboard_acc_us) the whole
     fleet shares) and the default cadences, and falls back to the plain
     `rollout` otherwise. On CUDA tensors the rollout kernel runs, which
-    decides the cadences from the accumulators on its own."""
+    decides the cadences from the accumulators on its own (the GPS fix's
+    too, by the `> 10 ms, then subtract` rule). noise, uwb_draws, gen: as
+    `rollout` takes them."""
     from agrifly_tpu_torch.sim import cuda_rollout
 
-    noise = _noise_block(state, n_steps, noise, gen)
+    noise, draws = _noise_blocks(params, state, n_steps, noise, gen, uwb_draws)
     return cuda_rollout.rollout(params, state, cmd, noise, use_estimator, ctrl_mode,
-                                fast=True, entry_phase=entry_phase)
+                                fast=True, entry_phase=entry_phase, uwb_draws=draws)
 
 
 def rollout_sampled(params: EnvParams, state: EnvState, cmd: Command, n_steps: int,
-                    sample_every: int, noise=None, gen=None):
+                    sample_every: int, noise=None, gen=None, uwb_draws=None):
     """`rollout` over (n_steps // sample_every) * sample_every ticks keeping
-    every sample_every-th output (the JAX package's default modes). noise:
-    (..., that many ticks, 2, 3), or drawn from gen."""
+    every sample_every-th output (the JAX package's default modes: the
+    true state, rates commands). noise: (..., that many ticks, 2, 3) and,
+    with anchors, uwb_draws (..., that many ticks, 4), or drawn from gen."""
     n = (n_steps // sample_every) * sample_every
-    final, traj = rollout(params, state, cmd, n, noise=noise, gen=gen)
+    final, traj = rollout(params, state, cmd, n, noise=noise, gen=gen, uwb_draws=uwb_draws)
     axis = 0 if _fleet_size(state) is None else 1
     keep = torch.arange(sample_every - 1, n, sample_every, device=state.step.device)
     return final, StepOutputs(*(x.index_select(axis, keep) for x in traj))

@@ -1519,6 +1519,27 @@ ROLLOUT_SECTIONS = ("ticks", "radio", "plant", "imu", "logic", "ekf_predict", "c
                     "mocap_update", "replay (update)", "prediction", "offboard", "store", "noise")
 TIMED_ROLLOUT = ("rollout", ("ROLLOUT_SECTIONS",))  # cuda_build.load's arguments
 ROLLOUT_SECTION_LAUNCHES = 3  # timed launches of ENV_STEPS steps, after one warm-up
+UWB_ROLLOUT = ("rollout", ("TICK_UWB",))  # K5's UWB variant
+# The estimator and UWB modes of K5, each at ENVS envs x ENV_STEPS steps:
+# "gpsimu" is benchmarks/bench_estimators.py's third call (hover at
+# (0, 0, 1.2), the GPS-IMU estimator, rates commands); "uwb" is
+# tests/test_uwb.py's onboard-UWB configuration (four anchors, 0.05 m range
+# noise, a 10 ms network period, position commands to hover at
+# (0.5, -0.5, 1.5), the true state offboard).
+ENV_MODES = {"gpsimu": dict(hover=(0.0, 0.0, 1.2), use_estimator="gpsimu", ctrl="rates"),
+             "uwb": dict(hover=(0.5, -0.5, 1.5), use_estimator=False, ctrl="position")}
+UWB_ANCHOR_IDS = (101, 102, 103, 104)
+UWB_ANCHOR_POS = ((-3.0, -3.0, 0.1), (3.0, -3.0, 0.2), (3.0, 3.0, 2.0), (-3.0, 3.0, 1.5))
+UWB_FLIGHT_ENVS, UWB_FLIGHT_STEPS, UWB_SILENCE_STEPS = 64, 5000, 1000  # tests/test_uwb.py's
+# float operations per env and tick, estimated as ENV_TICK_OPS is (rounded
+# counts read off the source, not a tally of executed operations): the true
+# state's 1600, and with the GPS-IMU estimator its full EKF prediction every
+# tick (the covariance's 3x3 block products ~500, the mean ~100) and the GPS
+# fix on one tick in five (~700 / 5); with UWB the network (~100), the
+# onboard EKF's full prediction (~600) and the range update on one tick in
+# six (~400 / 6), and the onboard position loop (~400) in place of the rates
+# branch
+ENV_MODE_TICK_OPS = {"gpsimu": 2350, "uwb": 2750}
 
 
 def env_bytes(leaves, pleaves, cmd, noise, new_leaves, traj):
@@ -1561,45 +1582,104 @@ def env_subset(tree, rows):
     return env._tree_map(lambda t: t[rows].contiguous(), tree)
 
 
-def env_launcher(p, s, cmd, noise, mode, group, launcher=None):
+def env_launcher(p, s, cmd, noise, mode, group, launcher=None, ctrl="rates", draws=None):
     """A bare launch of K5 (the wrapper's checks done once, up front) on
-    state s with `group` lanes per env: returns fn() -> (new leaves, traj)."""
+    state s with `group` lanes per env (with draws: the UWB variant):
+    returns fn() -> (new leaves, traj)."""
     from agrifly_tpu_torch import cuda_build
     from agrifly_tpu_torch.sim import cuda_rollout, env
 
-    specs, pspecs = cuda_rollout.leaf_table()
+    specs, pspecs = cuda_rollout.leaf_table(draws is not None)
     B, dev = env._fleet_size(s), noise.device
     s_entry = cuda_rollout._accept("state", s, dev, lambda leaves: cuda_build.check_leaves(
         specs, leaves, dev, "state", B, "tick.cuh"))
     p_entry = cuda_rollout._accept("params", p, dev, lambda leaves: cuda_build.check_leaves(
         pspecs, leaves, dev, "params", None, "tick.cuh"))
     rows = cuda_rollout._command(cmd, B, dev)
-    return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, "rates", group,
-                                        launcher)
+    return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, ctrl, group,
+                                        launcher, draws)
+
+
+def k5_groups_equal(launch, names, what):
+    """K5 at every built G against G = 1 on the same inputs, bit for bit:
+    launch(group) -> (state leaves, trajectory leaves), named `names`."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    ref_state, ref_traj = launch(1)
+    for group in cuda_rollout.GROUPS[1:]:
+        state, traj = launch(group)
+        for name, a, b in zip(names, state + traj, ref_state + ref_traj):
+            _check(torch.equal(a, b), f"K5 G={group} vs G=1, {what}: {name} differs")
+    torch.cuda.synchronize()
+    print(f"env_rollout {what}: K5 at G = {', '.join(map(str, cuda_rollout.GROUPS[1:]))} "
+          "bit-equal to G = 1 (every state and trajectory leaf)")
+
+
+def bench_calls(call, what, dev_us, drawn="the noise"):
+    """A bench.py call timed: one warm-up, then ENV_CALLS calls of call()
+    (ENVS envs x ENV_STEPS steps each) on the host's clock around a
+    synchronised loop; checks the result's shape, finiteness, steps and that
+    nothing panicked. Returns steps/s."""
+    import torch
+
+    final, traj = call()
+    torch.cuda.synchronize()
+    t0, host = time.perf_counter(), 0.0
+    for _ in range(ENV_CALLS):
+        t1 = time.perf_counter()
+        final, traj = call()
+        host += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    _check(tuple(traj.pos.shape) == (ENVS, ENV_STEPS, 3)
+           and bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(final.plant.pos).all()),
+           f"env_rollout {what}: misshaped or non-finite trajectory")
+    _check(bool((final.logic.panic_reason == 0).all()) and bool((final.step == ENV_STEPS).all()),
+           f"env_rollout {what}: a panic, or the step did not advance")
+    rate = ENVS * ENV_STEPS * ENV_CALLS / elapsed
+    print(f"env_rollout {what}: {rate:.1f} physics+logic steps/s at {ENVS} envs x {ENV_STEPS} "
+          f"steps ({ENV_CALLS} timed calls of {1e3 * elapsed / ENV_CALLS:.3f} ms, {drawn} drawn "
+          f"inside; the host returns from a call in {1e3 * host / ENV_CALLS:.3f} ms, K5's device "
+          f"time {us_text(dev_us)}), final z mean {float(final.plant.pos[:, 2].mean()):.4f} m")
+    return rate
+
+
+def k5_row(p, s, cmd, nz, mode, ctrl, draws, err, plain_ms, ops, dev_us, what):
+    """K5's row for state s: the wrapper's ms (CUDA events around
+    cuda_rollout.rollout), the bound from the call's inputs (every state,
+    parameter, command, noise and draw byte read and the state and
+    trajectory written once; `ops` operations)."""
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    B = s.step.shape[0]
+    leaves, pleaves = convert.flatten_tensors(s)[0], cuda_rollout.param_leaves(p)
+    cmd_leaves = cuda_rollout._command(cmd, B, nz.device)[0]
+    new, traj = env_launcher(p, s, cmd, nz, mode, cuda_rollout.GROUP, ctrl=ctrl, draws=draws)()
+    w_ms = cuda_ms(lambda: cuda_rollout.rollout(p, s, cmd, nz, mode, ctrl, uwb_draws=draws),
+                   reps=5, warmup=1)
+    n_bytes = env_bytes(leaves, pleaves, cmd_leaves, nz, new, traj)
+    r = result(err, w_ms, plain_ms, n_bytes + (0 if draws is None else nbytes(draws)), ops)
+    print(f"env_rollout {B} envs x {ENV_STEPS} steps, {what} (G={cuda_rollout.GROUP}): wrapper "
+          f"{w_ms:.4f} ms, device {us_text(dev_us)}, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']})")
+    return r
 
 
 def check_env_groups(p, s0, cmd, noise):
     """K5 at every built G against G = 1 on the same inputs, bit for bit,
     in both estimator modes over ENV_STEPS steps: all ENVS envs with the
     true state, ENV_CHECK_ENVS with the estimator; state and trajectory."""
-    import torch
-
     from agrifly_tpu_torch.sim import cuda_rollout, env
 
     specs, _ = cuda_rollout.leaf_table()
     names = [".".join(spec.path) for spec in specs] + list(env.StepOutputs._fields)
     for mode, n_envs in ((False, ENVS), (True, ENV_CHECK_ENVS)):
         s, nz = env_subset(s0, slice(0, n_envs)), noise[:n_envs].contiguous()
-        ref_state, ref_traj = env_launcher(p, s, cmd, nz, mode, 1)()
-        for group in cuda_rollout.GROUPS[1:]:
-            state, traj = env_launcher(p, s, cmd, nz, mode, group)()
-            for name, a, b in zip(names, state + traj, ref_state + ref_traj):
-                _check(torch.equal(a, b), f"K5 G={group} vs G=1, use_estimator={mode}: "
-                       f"{name} differs")
-        torch.cuda.synchronize()
-        print(f"env_rollout use_estimator={mode}, {n_envs} envs x {ENV_STEPS} steps: K5 at G = "
-              f"{', '.join(map(str, cuda_rollout.GROUPS[1:]))} bit-equal to G = 1 (every state "
-              f"and trajectory leaf)")
+        k5_groups_equal(lambda g: env_launcher(p, s, cmd, nz, mode, g)(), names,
+                        f"use_estimator={mode}, {n_envs} envs x {ENV_STEPS} steps")
 
 
 def env_group_times(p, s0, cmd, noise):
@@ -1710,32 +1790,37 @@ def wrapper_split(p, s0, cmd, gen, reps=ENV_CALLS):
     return out
 
 
-def check_env_against_plain(p, s0, cmd, noise, mode):
+def check_env_against_plain(p, s0, cmd, noise, mode, ctrl="rates", draws=None):
     """K5 (the default G) against the plain rollout (vmapped) on the card,
     from the start: the first ENV_CHECK_STEPS steps by the tick criteria,
     then all ENV_STEPS steps by JAX's own rollout_fast terms (flight state
     and panic reason equal at every step, final position within 0.05 m).
-    Returns (worst ratio, max abs error of the float leaves after
-    ENV_CHECK_STEPS steps, the kernel's state then, the plain rollout's
-    seconds for all ENV_STEPS steps)."""
+    draws: the UWB draws, with anchors. Returns (worst ratio, max abs error
+    of the float leaves after ENV_CHECK_STEPS steps, the kernel's state
+    then, the plain rollout's seconds for all ENV_STEPS steps)."""
     import torch
 
     from agrifly_tpu_torch.sim import cuda_rollout, env
 
     n = ENV_CHECK_STEPS
-    got, got_traj = cuda_rollout.rollout(p, s0, cmd, noise[:, :n].contiguous(), mode)
-    env.rollout_plain(p, s0, cmd, noise[:, :1], mode)  # warm-up
+    head = (lambda t: None) if draws is None else (lambda t: t[:, :n].contiguous())
+    tail = (lambda t: None) if draws is None else (lambda t: t[:, n:].contiguous())
+    got, got_traj = cuda_rollout.rollout(p, s0, cmd, noise[:, :n].contiguous(), mode, ctrl,
+                                         uwb_draws=head(draws))
+    env.rollout_plain(p, s0, cmd, noise[:, :1], mode, ctrl,
+                      uwb_draws=None if draws is None else draws[:, :1])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :n], mode)
-    ref_end, ref_traj_end = env.rollout_plain(p, ref, cmd, noise[:, n:], mode)
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :n], mode, ctrl, uwb_draws=head(draws))
+    ref_end, ref_traj_end = env.rollout_plain(p, ref, cmd, noise[:, n:], mode, ctrl,
+                                              uwb_draws=tail(draws))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    where = f"K5 vs plain, use_estimator={mode}, {n} steps"
+    where = f"K5 vs plain, use_estimator={mode}, {ctrl}, {n} steps"
     worst = compare_ticks(got, ref, where, env=())
     worst_traj, err_traj = compare_traj(got_traj, ref_traj, where)
     err = max(max_abs_err(got, ref), err_traj)
-    full, full_traj = cuda_rollout.rollout(p, s0, cmd, noise, mode)
+    full, full_traj = cuda_rollout.rollout(p, s0, cmd, noise, mode, ctrl, uwb_draws=draws)
     torch.cuda.synchronize()
     for name in ("flight_state", "panic_reason"):
         want = torch.cat([getattr(ref_traj, name), getattr(ref_traj_end, name)], dim=1)
@@ -1744,7 +1829,8 @@ def check_env_against_plain(p, s0, cmd, noise, mode):
     dpos = float((full.plant.pos - ref_end.plant.pos).abs().max())
     _check(dpos <= 0.05, f"K5 vs plain, use_estimator={mode}: final position {dpos:.3g} m apart")
     B = s0.step.shape[0]
-    print(f"env_rollout use_estimator={mode}, {B} envs, kernel (G={cuda_rollout.GROUP}) vs plain on "
+    print(f"env_rollout use_estimator={mode}{'' if draws is None else ', UWB'}, {ctrl}, {B} envs, "
+          f"kernel (G={cuda_rollout.GROUP}) vs plain on "
           f"the card: {n} steps discrete leaves equal, worst float leaf {max(worst, worst_traj):.4g}"
           f" x bound, max abs err {err:.3g}; {ENV_STEPS} steps flight state and panic equal, final "
           f"position {dpos:.3g} m apart; fs {sorted(set(full.logic.fs.tolist()))}; the plain "
@@ -1753,23 +1839,27 @@ def check_env_against_plain(p, s0, cmd, noise, mode):
     return max(worst, worst_traj), err, got, plain_s
 
 
-def check_env_against_cpu(p, state, cmd, mode, dev):
+def check_env_against_cpu(p, state, cmd, mode, dev, ctrl="rates"):
     """From a mid-flight state (nonzero step, warm cadence accumulators):
-    K5 on the card against the plain rollout on the CPU, same noise, tick
-    criteria."""
+    K5 on the card against the plain rollout on the CPU, same noise (and,
+    with anchors, UWB draws), tick criteria (compare_ticks)."""
     import torch
 
-    from agrifly_tpu_torch.sim import cuda_rollout
+    from agrifly_tpu_torch.sim import cuda_rollout, uwb
 
-    noise = torch.randn((ENV_CPU_ENVS, ENV_CHECK_STEPS, 2, 3),
-                        generator=torch.Generator().manual_seed(SEED + 6))
+    gen = torch.Generator().manual_seed(SEED + 6)
+    noise = torch.randn((ENV_CPU_ENVS, ENV_CHECK_STEPS, 2, 3), generator=gen)
+    draws = None if p.uwb is None else uwb.draw((ENV_CPU_ENVS, ENV_CHECK_STEPS), gen)
     s = env_subset(state, slice(0, ENV_CPU_ENVS))
-    got, got_traj = cuda_rollout.rollout(p, s, cmd, noise.to(dev), mode)
+    got, got_traj = cuda_rollout.rollout(p, s, cmd, noise.to(dev), mode, ctrl,
+                                         uwb_draws=None if draws is None else draws.to(dev))
     p_cpu, s_cpu = to_device(p, "cpu"), to_device(s, "cpu")
-    ref, ref_traj = cuda_rollout.rollout(p_cpu, s_cpu, to_device(cmd, "cpu"), noise, mode)
-    where = f"K5 on the card vs plain on the CPU, use_estimator={mode}"
+    ref, ref_traj = cuda_rollout.rollout(p_cpu, s_cpu, to_device(cmd, "cpu"), noise, mode, ctrl,
+                                         uwb_draws=draws)
+    where = f"K5 on the card vs plain on the CPU, use_estimator={mode}, {ctrl}"
     worst = max(compare_ticks(got, ref, where, env=()), compare_traj(got_traj, ref_traj, where)[0])
-    print(f"env_rollout use_estimator={mode} from step {int(s.step[0])} (mocap_acc "
+    print(f"env_rollout use_estimator={mode}{'' if draws is None else ', UWB'}, {ctrl} from step "
+          f"{int(s.step[0])} (mocap_acc "
           f"{int(s.mocap_acc_us[0])}, offboard_acc {int(s.offboard_acc_us[0])} us), "
           f"{ENV_CPU_ENVS} envs x {ENV_CHECK_STEPS} steps, kernel on the card vs plain on the CPU:"
           f" discrete leaves equal, worst float leaf {worst:.4g} x bound")
@@ -1787,7 +1877,6 @@ def check_env_rollout(dev):
     bench.py's shape, use_estimator=False) and its launches."""
     import torch
 
-    from agrifly_tpu_torch import convert
     from agrifly_tpu_torch.sim import cuda_rollout, env
 
     t_phase = time.perf_counter()
@@ -1819,33 +1908,10 @@ def check_env_rollout(dev):
     wrapper_split(p, s0, cmd, gen)
     # bench.py's workload: its launches are counted from here
     cuda_rollout.rollout.launches = 0
-    rates, ms, host_ms = {}, {}, {}
     for mode in (False, True):
-        def call():
-            return env.rollout_fast(p, s0, cmd, ENV_STEPS, use_estimator=mode, gen=gen)
-
-        final, traj = call()
-        torch.cuda.synchronize()
-        t0, host = time.perf_counter(), 0.0
-        for _ in range(ENV_CALLS):
-            t1 = time.perf_counter()
-            final, traj = call()
-            host += time.perf_counter() - t1
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        rates[mode] = ENVS * ENV_STEPS * ENV_CALLS / elapsed
-        _check(tuple(traj.pos.shape) == (ENVS, ENV_STEPS, 3)
-               and bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(final.plant.pos).all()),
-               f"env_rollout use_estimator={mode}: misshaped or non-finite trajectory")
-        _check(bool((final.logic.panic_reason == 0).all())
-               and bool((final.step == ENV_STEPS).all()),
-               f"env_rollout use_estimator={mode}: a panic, or the step did not advance")
-        ms[mode], host_ms[mode] = 1e3 * elapsed / ENV_CALLS, 1e3 * host / ENV_CALLS
-        print(f"env_rollout bench.py workload, use_estimator={mode}: {rates[mode]:.1f} "
-              f"physics+logic steps/s at {ENVS} envs x {ENV_STEPS} steps ({ENV_CALLS} timed calls "
-              f"of {ms[mode]:.3f} ms, the noise drawn inside; the host returns from a call in "
-              f"{host_ms[mode]:.3f} ms, K5's device time {us_text(dev_us[ENVS, mode, cuda_rollout.GROUP])}),"
-              f" final z mean {float(final.plant.pos[:, 2].mean()):.4f} m")
+        bench_calls(lambda: env.rollout_fast(p, s0, cmd, ENV_STEPS, use_estimator=mode, gen=gen),
+                    f"bench.py workload, use_estimator={mode}",
+                    dev_us[ENVS, mode, cuda_rollout.GROUP])
     launches = cuda_rollout.rollout.launches
     _check(launches == 2 * (ENV_CALLS + 1), f"env_rollout launched {launches} times")
 
@@ -1858,30 +1924,156 @@ def check_env_rollout(dev):
           f"{ENVS * ENV_PLAIN_STEPS / plain_s:.1f} steps/s at {ENVS} envs "
           f"({1e3 * plain_s / ENV_PLAIN_STEPS:.3f} ms per step over {ENV_PLAIN_STEPS})")
 
-    # K5's rows at 1 and ENVS envs in both modes: the wrapper's time (CUDA
-    # events around env_rollout's call) and the bound from the call's
-    # inputs; the kernel's line is bench.py's call (use_estimator=False)
-    # with the plain version's time on the same inputs (check_env_against_plain)
-    rows = {}
-    for B in (1, ENVS):
-        s, nz = env_subset(s0, slice(0, B)), noise[:B].contiguous()
-        leaves, pleaves = convert.flatten_tensors(s)[0], cuda_rollout.param_leaves(p)
-        cmd_leaves = cuda_rollout._command(cmd, B, noise.device)[0]
-        for mode in (False, True):
-            new, traj = env_launcher(p, s, cmd, nz, mode, cuda_rollout.GROUP)()
-            w_ms = cuda_ms(lambda: cuda_rollout.rollout(p, s, cmd, nz, mode), reps=5, warmup=1)
-            rows[B, mode] = dict(result(err, w_ms, None,
-                                        env_bytes(leaves, pleaves, cmd_leaves, nz, new, traj),
-                                        B * ENV_STEPS * ENV_TICK_OPS[mode]))
-            r = rows[B, mode]
-            print(f"env_rollout {B} envs x {ENV_STEPS} steps, use_estimator={mode} "
-                  f"(G={cuda_rollout.GROUP}): wrapper {w_ms:.4f} ms, device "
-                  f"{us_text(dev_us[B, mode, cuda_rollout.GROUP])}, bound {r['bound_ms']:.6f} ms "
-                  f"({r['bound_by']})")
+    # K5's rows at 1 and ENVS envs in both modes; the kernel's line is
+    # bench.py's call (use_estimator=False) with the plain version's time on
+    # the same inputs (check_env_against_plain)
+    rows = {(B, mode): k5_row(p, env_subset(s0, slice(0, B)), cmd, noise[:B].contiguous(), mode,
+                              "rates", None, err, None, B * ENV_STEPS * ENV_TICK_OPS[mode],
+                              dev_us[B, mode, cuda_rollout.GROUP], f"use_estimator={mode}")
+            for B in (1, ENVS) for mode in (False, True)}
     res = dict(rows[ENVS, False], plain_ms=plain_ms)
     print(f"env_rollout: worst float leaf {worst:.4g} x bound; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return res, launches
+
+
+def env_mode_case(dev, name, B):
+    """(params, state, command) of ENV_MODES[name] for B envs at rest at the
+    origin (the network's anchors with "uwb")."""
+    import torch
+
+    from agrifly_tpu_torch.sim import env
+
+    p = env.make_params(noise_scale=1.0, device=dev)
+    if name == "uwb":
+        p = env.with_uwb_anchors(p, UWB_ANCHOR_IDS, UWB_ANCHOR_POS, noise_std=0.05,
+                                 comm_period=0.01)
+    return (p, env.init_state_fleet(p, torch.zeros((B, 3), device=dev)),
+            env.hover_command(ENV_MODES[name]["hover"], device=dev))
+
+
+def check_uwb_flight(dev, gen):
+    """tests/test_uwb.py's onboard-UWB flight through K5: UWB_FLIGHT_STEPS
+    ticks at UWB_FLIGHT_ENVS envs in one env.rollout call, each env held to
+    the test's assertions (fully autonomous, no panic, the EKF past its
+    complementary phase, over 100 ranges taken, the estimate within 0.5 m of
+    the truth and the truth within 0.5 m of the setpoint); then the anchors
+    fall silent (max_range 0.01 m) and UWB_SILENCE_STEPS ticks later every
+    env has panicked with PANIC_UWB_TIMEOUT."""
+    import torch
+
+    from agrifly_tpu_torch.models import logic
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    p, s0, cmd = env_mode_case(dev, "uwb", UWB_FLIGHT_ENVS)
+    before = cuda_rollout.rollout.launches
+    final, traj = env.rollout(p, s0, cmd, UWB_FLIGHT_STEPS, False, "position", gen=gen)
+    sp = torch.tensor(ENV_MODES["uwb"]["hover"], device=dev)
+    est_err = (final.logic.kf.pos - final.plant.pos).norm(dim=1)
+    sp_err = (final.plant.pos - sp).norm(dim=1)
+    _check(bool((final.logic.fs == logic.FS_FULLY_AUTONOMOUS).all())
+           and bool((final.logic.panic_reason == logic.PANIC_NO_PANIC).all()),
+           f"UWB flight: flight states {sorted(set(final.logic.fs.tolist()))}, panic reasons "
+           f"{sorted(set(final.logic.panic_reason.tolist()))}")
+    _check(bool(final.logic.kf.uwb_init.all()) and bool((final.logic.uwb_meas_count > 100).all()),
+           f"UWB flight: uwb_init {final.logic.kf.uwb_init.float().mean():.3f}, fewest ranges "
+           f"{int(final.logic.uwb_meas_count.min())}")
+    _check(float(est_err.max()) < 0.5 and float(sp_err.max()) < 0.5,
+           f"UWB flight: estimate {float(est_err.max()):.3f} m from the truth, truth "
+           f"{float(sp_err.max()):.3f} m from the setpoint")
+    dead = env.with_uwb_anchors(p, UWB_ANCHOR_IDS, UWB_ANCHOR_POS, noise_std=0.05,
+                                comm_period=0.01, max_range=0.01)
+    silent, _ = env.rollout(dead, final, cmd, UWB_SILENCE_STEPS, False, "position", gen=gen)
+    _check(bool((silent.logic.fs == logic.FS_PANIC).all())
+           and bool((silent.logic.panic_reason == logic.PANIC_UWB_TIMEOUT).all()),
+           f"UWB silence: flight states {sorted(set(silent.logic.fs.tolist()))}, panic reasons "
+           f"{sorted(set(silent.logic.panic_reason.tolist()))}")
+    launches = cuda_rollout.rollout.launches - before
+    print(f"env_rollout UWB flight (tests/test_uwb.py's), {UWB_FLIGHT_ENVS} envs x "
+          f"{UWB_FLIGHT_STEPS} steps through K5: every env fully autonomous, no panic, uwb_init, "
+          f"ranges {int(final.logic.uwb_meas_count.min())}..{int(final.logic.uwb_meas_count.max())}"
+          f", estimate within {float(est_err.max()):.4f} m of the truth, truth within "
+          f"{float(sp_err.max()):.4f} m of the setpoint; then {UWB_SILENCE_STEPS} steps with the "
+          f"anchors silent: every env PANIC_UWB_TIMEOUT ({launches} launches)")
+
+
+def check_env_modes(dev):
+    """K5 in its estimator and UWB modes (ENV_MODES), each at bench.py's shape
+    (ENVS envs x ENV_STEPS steps): every G bit-equal to G = 1; the default G
+    against the plain rollout on the card (ENV_CHECK_ENVS envs) and on the
+    CPU from mid-flight; the device time of every G at B = 1, 64 and ENVS;
+    the bench call through env.rollout_fast (ENV_CALLS timed calls, the
+    noise and UWB draws drawn inside; steps/s and the host's return time),
+    its launches counted from 0; K5's rows at 1 and ENVS envs (wrapper ms,
+    device time, bound) and the plain vmapped rollout's ms a step at ENVS
+    envs. Then the onboard-UWB flight and its silence (check_uwb_flight).
+    The new modes are held to the tick criteria against the plain rollout
+    on the card and on the CPU."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, env, uwb
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for name, mode in ENV_MODES.items():
+        est, ctrl = mode["use_estimator"], mode["ctrl"]
+        p, s0, cmd = env_mode_case(dev, name, ENVS)
+        noise = torch.randn((ENVS, ENV_STEPS, 2, 3), generator=gen, device=dev)
+        draws = uwb.draw((ENVS, ENV_STEPS), gen, dev) if name == "uwb" else None
+
+        def launcher(B, group, n=ENV_STEPS):
+            sub = lambda t: None if t is None else t[:B, :n].contiguous()  # noqa: E731
+            return env_launcher(p, env_subset(s0, slice(0, B)), cmd, sub(noise), est, group,
+                                ctrl=ctrl, draws=sub(draws))
+
+        specs, _ = cuda_rollout.leaf_table(draws is not None)
+        k5_groups_equal(lambda g: launcher(ENVS, g)(),
+                        [".".join(spec.path) for spec in specs] + list(env.StepOutputs._fields),
+                        f"{name}, {ENVS} envs x {ENV_STEPS} steps")
+
+        sub = env_subset(s0, slice(0, ENV_CHECK_ENVS))
+        worst, err, mid, _ = check_env_against_plain(
+            p, sub, cmd, noise[:ENV_CHECK_ENVS].contiguous(), est, ctrl,
+            None if draws is None else draws[:ENV_CHECK_ENVS].contiguous())
+        worst_cpu = check_env_against_cpu(p, mid, cmd, est, dev, ctrl)
+
+        dev_us = {(B, g): device_us(launcher(B, g), reps=3)
+                  for B in ENV_TIMED_ENVS for g in cuda_rollout.GROUPS}
+        for B in ENV_TIMED_ENVS:
+            print(f"env_rollout device time per call, {B} envs x {ENV_STEPS} steps, {name} "
+                  "(bare launch): " + "; ".join(f"G={g} {us_text(dev_us[B, g])}"
+                                                for g in cuda_rollout.GROUPS))
+
+        # the bench call, its launches counted from 0
+        cuda_rollout.rollout.launches = 0
+        bench_calls(lambda: env.rollout_fast(p, s0, cmd, ENV_STEPS, use_estimator=est,
+                                             ctrl_mode=ctrl, gen=gen),
+                    f"{name} bench call", dev_us[ENVS, cuda_rollout.GROUP],
+                    "the noise" if draws is None else "the noise and UWB draws")
+        launches = cuda_rollout.rollout.launches
+        _check(launches == ENV_CALLS + 1, f"env_rollout {name}: {launches} launches")
+        print(f"env_rollout {name} bench call: {launches} launches of K5 in "
+              f"{ENV_CALLS + 1} calls")
+
+        # the plain vmapped rollout at ENVS envs (after a warm-up pass), and
+        # K5's rows
+        for _ in range(2):
+            t0 = time.perf_counter()
+            env.rollout_plain(p, s0, cmd, noise[:, :ENV_PLAIN_STEPS], est, ctrl,
+                              uwb_draws=None if draws is None else draws[:, :ENV_PLAIN_STEPS])
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0) / ENV_PLAIN_STEPS
+        print(f"env_rollout plain (vmapped torch) {name}: {plain_ms:.3f} ms per step at {ENVS} "
+              f"envs (over {ENV_PLAIN_STEPS}); worst float leaf {max(worst, worst_cpu):.4g} x "
+              f"bound, max abs err {err:.3g}")
+        for B in (1, ENVS):
+            k5_row(
+                p, env_subset(s0, slice(0, B)), cmd, noise[:B].contiguous(), est, ctrl,
+                None if draws is None else draws[:B].contiguous(), err,
+                plain_ms * ENV_STEPS if B == ENVS else None,
+                B * ENV_STEPS * ENV_MODE_TICK_OPS[name], dev_us[B, cuda_rollout.GROUP], name)
+    check_uwb_flight(dev, gen)
+    print(f"env_rollout modes (gpsimu, uwb): phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def build_kernels():
@@ -1891,8 +2083,9 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
-        timed = [pool.submit(cuda_build.load, *variant) for variant in (TIMED_FRAME, TIMED_ROLLOUT)]
+    with ThreadPoolExecutor(len(KERNELS) + 3) as pool:
+        timed = [pool.submit(cuda_build.load, *variant)
+                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT)]
         list(pool.map(cuda_build.load, KERNELS))
         for variant in timed:
             variant.result()
@@ -1900,6 +2093,8 @@ def build_kernels():
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
     for name in ("raycast", "meshscene", "inflate", "frame", "rollout"):
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
+    print(ptxas_report("rollout", cuda_build.build_logs.get("rollout-TICK_UWB", ""),
+                       "rollout.cu -DTICK_UWB"))
 
 
 # kernel entry names in ptxas's report -> short names
@@ -1911,7 +2106,7 @@ PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
                "rollout": {"rollout_kernel": "K5"}}  # K5 G=g: its template instance for g lanes
 
 
-def ptxas_report(lib, log):
+def ptxas_report(lib, log, label=None):
     """One line from ptxas's -v report of a library's kernels: registers,
     shared memory and spill bytes of each."""
     import re
@@ -1929,7 +2124,7 @@ def ptxas_report(lib, log):
         elif name and "Used" in line:
             kernels[-1].append(line.split(":", 1)[1].strip())
             name = None
-    return f"ptxas ({lib}.cu): " + ("; ".join(f"{k} {u} ({sp})" for k, sp, u in
+    return f"ptxas ({label or lib + '.cu'}): " + ("; ".join(f"{k} {u} ({sp})" for k, sp, u in
                                                (r for r in kernels if len(r) == 3))
                                      or "not rebuilt in this process")
 
@@ -1978,6 +2173,7 @@ def main() -> int:
         time_big_fleet(dev)
         mesh_launches, _, window_launches = fly_mesh(dev, state)
         k5, k5_launches = check_env_rollout(dev)
+        check_env_modes(dev)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1

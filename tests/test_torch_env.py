@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from _torch_parity import (COMMAND_FLOOR, FLOAT_FLOOR, FLOAT_REL,  # noqa: F401 (one thread)
-                           compare_state)
+                           NO_FMA_FLAGS, compare_state)
 from agrifly_tpu.io import radio as jradio
 from agrifly_tpu.models import constants as jconst
 from agrifly_tpu.models import logic as jlogic
@@ -195,21 +195,36 @@ def test_position_command_matches_jax():
         assert int(tfields[9]) == 0
 
 
-def test_estimator_and_uwb_variants_raise():
+def test_modes_are_checked_and_uwb_params_convert():
+    """An unknown estimator or ctrl_mode raises; the JAX package's UWB
+    network converts (its key dropped), radio table and target table as
+    they are."""
     p = T.make_params(device="cpu")
     s = T.init_state(p)
     cmd = T.hover_command(device="cpu")
     noise = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.step(p, s, cmd, "gpsimu", noise=noise)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.with_uwb_anchors(p, [1], [[0.0, 0.0, 0.0]])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.physics_tick(s, p, None, None, False, uwb_override=(True, 1.0, 1, False), noise=noise)
+    for bad in ("kalman", 2, None, [True]):
+        with pytest.raises(ValueError, match="use_estimator"):
+            T.step(p, s, cmd, bad, noise=noise)
+    # the JAX package's spellings: False / "true", True / "mocap", "gpsimu"
+    for same, name in ((False, "true"), (True, "mocap")):
+        for got, ref in zip(T.step(p, s, cmd, name, noise=noise),
+                            T.step(p, s, cmd, same, noise=noise)):
+            for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(ref)):
+                assert torch.equal(a, b), (name, path)
+        assert cuda_rollout.EST[T._est_mode(same)] == cuda_rollout.EST[name]
+    assert [T._est_mode(m) for m in (False, "true", True, "mocap", "gpsimu")] == [
+        "true", "true", "mocap", "mocap", "gpsimu"]
     with pytest.raises(ValueError, match="ctrl_mode"):
-        T.step(p, s, cmd, False, "hover", noise=noise)
-    with pytest.raises(NotImplementedError, match="UWB"):
-        convert.env_params_from_numpy(_np(J.with_uwb_anchors(_jparams(), [7], [[1.0, 0, 0]])))
+        T.step(p, s, cmd, "gpsimu", "hover", noise=noise)
+    jp = J.with_uwb_anchors(_jparams(), [7, 9], [[1.0, 0, 0], [0, 2.0, 1.0]], noise_std=0.1)
+    tp = convert.env_params_from_numpy(_np(jp), "cpu")
+    ref = T.with_uwb_anchors(T.make_params(device="cpu"), [7, 9], [[1.0, 0, 0], [0, 2.0, 1.0]],
+                             noise_std=0.1)
+    for (path, a), (_, b) in zip(convert.leaves(tp), convert.leaves(ref)):
+        assert torch.equal(a, b), path
+    ts = convert.env_state_from_numpy(_np(J.init_state(jp, jax.random.PRNGKey(0))), "cpu")
+    assert ts.uwb is not None and not hasattr(ts.uwb, "key")
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +258,66 @@ def _jax_runs(use_estimator):
     return (_np(s0), _np(final), _np(traj)), (None if sampled is None else _np(sampled))
 
 
-@pytest.mark.parametrize("use_estimator", [False, True])
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
 def test_rollout_of_a_fleet_matches_jax(use_estimator):
     """N steps of three envs (vmapped in both packages), every term of the
-    command on; the rebuilt key chain ends where the JAX rollout's does."""
+    command on; the rebuilt key chain ends where the JAX rollout's does.
+    With the GPS-IMU estimator the accelerometer filter's leaves are held to
+    the closed loop's floor (tests/_torch_parity.py)."""
     s0, ref, ref_traj = _jax_fleet_run(use_estimator)
     noise, last_keys = _jax_draws(s0.key, N)
     np.testing.assert_array_equal(last_keys, ref.key)
     got, traj = T.rollout(_tparams(), convert.env_state_from_numpy(s0, "cpu"),
                           convert.command_from_numpy(_np(_jcommand()), "cpu"), N,
                           use_estimator, noise=_t(noise))
-    compare_state(got, ref)
+    compare_state(got, ref, closed_loop=use_estimator == "gpsimu")
     _compare_traj(traj, ref_traj)
     assert (ref_traj.flight_state[:, -1] == jlogic.FS_EXTERNAL_RATES_CONTROL).all()
+
+
+# the witness's JAX side: (noise, start, final, traj) of the GPS-IMU fleet run
+_NO_FMA_RUN = """
+import pickle
+import sys
+sys.path[:0] = sys.argv[2:]
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import test_torch_env as te
+run = te._jax_fleet_run("gpsimu")
+with open(sys.argv[1], "wb") as f:
+    pickle.dump((te._jax_draws(run[0].key, te.N)[0],) + run, f)
+"""
+
+
+def test_gpsimu_fleet_without_fma_matches_jax(tmp_path):
+    """The witness for the closed loop's floor: the GPS-IMU fleet run of
+    test_rollout_of_a_fleet_matches_jax, its JAX side (the draws too)
+    compiled in a process of its own without FMA instructions, so that
+    XLA:CPU contracts no multiply-add, as the port rounds; then every leaf
+    meets the tick criteria."""
+    import os
+    import pathlib
+    import pickle
+    import subprocess
+    import sys
+
+    out = tmp_path / "run.pkl"
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {NO_FMA_FLAGS}".strip())
+    run = subprocess.Popen([sys.executable, "-c", _NO_FMA_RUN, str(out), str(here),
+                            str(here.parent)], env=env)
+    try:
+        p, cmd = _tparams(), convert.command_from_numpy(_np(_jcommand()), "cpu")  # meanwhile
+        assert run.wait(timeout=120) == 0
+    finally:
+        run.kill()
+    noise, s0, ref, ref_traj = pickle.loads(out.read_bytes())
+    got, traj = T.rollout(p, convert.env_state_from_numpy(s0, "cpu"), cmd, N, "gpsimu",
+                          noise=_t(noise))
+    compare_state(got, ref)
+    _compare_traj(traj, ref_traj)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,7 +341,7 @@ def _jax_ctrl_modes(use_estimator):
 
 
 @pytest.mark.parametrize("ctrl_mode", CTRL)
-@pytest.mark.parametrize("use_estimator", [False, True])
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
 def test_step_matches_jax(use_estimator, ctrl_mode):
     """`step` ten times from a warm state (step 60) in each (estimator,
     ctrl_mode) pair against ten steps of the JAX package's step."""
@@ -327,7 +389,7 @@ def _same(a, b):
         assert torch.equal(x, y), path
 
 
-@pytest.mark.parametrize("use_estimator", [False, True])
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
 def test_rollout_fast_equals_rollout_and_resumes_mid_flight(use_estimator):
     """The cadence-specialized plain rollout skips the silent ticks' work
     and gives `rollout`'s results: from the start, and resumed mid-flight
@@ -356,7 +418,7 @@ def test_rollout_fast_equals_rollout_and_resumes_mid_flight(use_estimator):
         macc, oacc = macc + 2000, oacc + 2000
         assert o == (oacc > 10000)
         oacc -= 10000 * o
-        if use_estimator:  # the true state's mocap accumulator never wraps
+        if use_estimator is True:  # without mocap the mocap accumulator never wraps
             assert m == (macc > 5000)
             macc -= 5000 * m
     got, got_traj = T.rollout_fast(p, mid, cmd, 11, use_estimator, entry_phase=phase,

@@ -15,6 +15,7 @@ and its entry point builds on the card unless the caller asks for the CPU.
 
 import ast
 import dataclasses
+import types
 from pathlib import Path
 
 import jax
@@ -167,6 +168,13 @@ def test_vehicle_constants_equal_the_jax_package(quad_type):
     np.testing.assert_array_equal(mine.inertia_matrix, theirs.inertia_matrix)
     assert mine.prop_torque_from_speed_sqr == theirs.prop_torque_from_speed_sqr
     assert tconst.QC_TYPE_CF_MINIQUAD == jconst.QC_TYPE_CF_MINIQUAD
+    # the module's public names are the JAX package's, and so are its maps
+    public = lambda m: {n for n, v in vars(m).items()  # noqa: E731
+                        if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert public(tconst) == public(jconst)
+    assert tconst.TYPE_NAMES == jconst.TYPE_NAMES
+    assert ([tconst.vehicle_type_from_id(i) for i in range(30)]
+            == [jconst.vehicle_type_from_id(i) for i in range(30)])
 
 
 def test_make_params_builds_on_the_card_or_raises(monkeypatch):

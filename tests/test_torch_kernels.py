@@ -486,11 +486,11 @@ def _equal_env(got, ref, traj, ref_traj):
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", cuda_rollout.GROUPS)
 @pytest.mark.parametrize("ctrl_mode", ["rates", "position", "idle"])
-@pytest.mark.parametrize("use_estimator", [False, True])
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
 def test_env_rollout_kernel_matches_plain(cuda, use_estimator, ctrl_mode, group,  # noqa: F811
                                           monkeypatch):
     """K5 with `group` lanes per env against the plain rollout on the card
-    in both estimator modes and every ctrl_mode: 25 ticks from the start,
+    in every estimator mode and every ctrl_mode: 25 ticks from the start,
     then 25 from the kernel's mid-flight state (nonzero step, warm
     cadences), B = 37 (not a multiple of a block's 32 envs), one launch
     each, tick criteria; and bit for bit equal to one lane per env."""
@@ -516,6 +516,50 @@ def test_env_rollout_kernel_matches_plain(cuda, use_estimator, ctrl_mode, group,
     _compare_env(got, ref, traj, ref_traj)
     one, one_traj = run(mid, noise[:, 25:], 1)
     _equal_env(got, one, traj, one_traj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", cuda_rollout.GROUPS)
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
+def test_env_rollout_uwb_kernel_matches_plain(cuda, use_estimator, group,  # noqa: F811
+                                              monkeypatch):
+    """K5's UWB variant (rollout.cu built with TICK_UWB) in every estimator
+    mode, position commands (the onboard-UWB configuration), a network
+    with noise, outliers and reported failures: 25 ticks from the start and
+    25 from mid-flight, B = 37, one launch each, against the plain rollout
+    on the card by the tick criteria, and bit for bit equal to one lane per
+    env."""
+    from agrifly_tpu_torch.sim import uwb
+
+    p, s0, cmd, noise = _env_case(cuda, 37, 7)
+    p = env.with_uwb_anchors(p, [101, 102, 103, 104],
+                             [[-3.0, -3.0, 0.1], [3.0, -3.0, 0.2], [3.0, 3.0, 2.0], [-3.0, 3.0, 1.5]],
+                             noise_std=0.05, outlier_prob=0.1, outlier_std=2.0, failure_prob=0.05)
+    s0 = env.init_state_fleet(p, s0.plant.pos)
+    draws = uwb.draw((37, 50), torch.Generator().manual_seed(8)).to(cuda)
+
+    def run(state, k0, lanes):
+        monkeypatch.setattr(cuda_rollout, "GROUP", lanes)
+        return cuda_rollout.rollout(p, state, cmd, noise[:, k0:k0 + 25], use_estimator, "position",
+                                    uwb_draws=draws[:, k0:k0 + 25])
+
+    before = cuda_rollout.rollout.launches
+    got, traj = run(s0, 0, group)
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :25], use_estimator, "position",
+                                      uwb_draws=draws[:, :25])
+    torch.cuda.synchronize()
+    assert cuda_rollout.rollout.launches == before + 1
+    _compare_env(got, ref, traj, ref_traj)
+    one, one_traj = run(s0, 0, 1)
+    _equal_env(got, one, traj, one_traj)
+    got2, traj2 = run(got, 25, group)
+    ref2, ref_traj2 = env.rollout_plain(p, ref, cmd, noise[:, 25:], use_estimator, "position",
+                                        uwb_draws=draws[:, 25:])
+    torch.cuda.synchronize()
+    _compare_env(got2, ref2, traj2, ref_traj2)
+    one, one_traj = run(got, 25, 1)
+    _equal_env(got2, one, traj2, one_traj)
+    assert int(got2.logic.uwb_meas_count.sum()) > 0
 
 
 @pytest.mark.cuda
@@ -588,4 +632,8 @@ def test_env_rollout_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noq
     with pytest.raises(RuntimeError, match="env_rollout_launch"):
         cuda_rollout._launch(*entries, cuda_rollout._command(cmd, 4, noise.device), noise, False,
                              "rates", group=3)
+    # the UWB variant's launch refuses a call without its draws
+    with pytest.raises(RuntimeError, match="env_rollout_launch"):
+        cuda_rollout._launch(*entries, cuda_rollout._command(cmd, 4, noise.device), noise, False,
+                             "rates", launcher=cuda_rollout._launcher(True))
     assert cuda_rollout.rollout.launches == before

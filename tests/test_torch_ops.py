@@ -173,3 +173,73 @@ def test_solve_quartic_roots_and_masks():
     v = np.asarray(vj)
     assert v[:1000].all() and v[1000:].sum() == 2 * 1000
     assert_ulp(rg.numpy()[v], np.asarray(rj)[v], scale=_scale(*coeffs, k=4)[v], n=QUARTIC_ULP)
+
+
+def test_poly_matches_jax():
+    """ops/poly: Horner evaluation and its derivatives, in the JAX package's
+    operation order (bit-equal), and against numpy's polyval."""
+    from agrifly_tpu.ops import poly as jp
+    from agrifly_tpu_torch.ops import poly as tp
+
+    rng = np.random.default_rng(7)
+    c = rng.standard_normal((4, 6, 3)).astype(np.float32)
+    t = rng.uniform(-2, 2, 4).astype(np.float32)
+    for name in ("polyval", "position", "velocity", "acceleration", "jerk"):
+        got = getattr(tp, name)(_t(c), _t(t)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(getattr(jp, name)(jnp.asarray(c), jnp.asarray(t))))
+    np.testing.assert_array_equal(tp.deriv_coeffs(_t(c)).numpy(), np.asarray(jp.deriv_coeffs(jnp.asarray(c))))
+    np.testing.assert_array_equal(tp.axis_polyval(_t(c[..., 0]), _t(t)).numpy(),
+                                  np.asarray(jp.axis_polyval(jnp.asarray(c[..., 0]), jnp.asarray(t))))
+    expect = np.stack([np.polyval(c[0, :, i].astype(np.float64), float(t[0])) for i in range(3)])
+    np.testing.assert_allclose(tp.polyval(_t(c[0]), float(t[0])).numpy(), expect, rtol=1e-5, atol=1e-5)
+
+
+def test_lp1_filter_matches_jax():
+    """The first-order low-pass, c*y + (1-c)*x, bit-equal over 100 samples;
+    c <= 0 passes the input through."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((100, 3)).astype(np.float32)
+    js, ts = jf.lp1_init(0.002, 1.0, np.zeros(3, np.float32)), tf.lp1_init(0.002, 1.0, np.zeros(3))
+    assert ts.coeff.item() == float(js.coeff)
+    for row in x:
+        js, jo = jf.lp1_apply(js, jnp.asarray(row))
+        ts, to = tf.lp1_apply(ts, _t(row))
+        np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    _, through = tf.lp1_apply(tf.lp1_init(0.002, 0.0, torch.ones(3))._replace(coeff=torch.tensor(0.0)),
+                              _t(x[0]))
+    np.testing.assert_array_equal(through.numpy(), x[0])
+
+
+def test_solve_quadratic_roots_and_masks():
+    """Quadratics with two, one (double) and no real roots, and the linear
+    fallback (|a| < 1e-12) with and without a root: masks exact, roots within
+    ROOT_ULP of the coefficient scale."""
+    rng = np.random.default_rng(9)
+    n = 500
+    a = rng.uniform(-3, 3, n)
+    b = rng.uniform(-3, 3, n)
+    c = rng.uniform(-3, 3, n)
+    a[:50] = 0.0  # linear
+    b[:10] = 0.0  # no root at all
+    b[50:60] = 2.0 * np.sqrt(np.abs(a[50:60] * c[50:60])) * np.sign(a[50:60])
+    c[50:60] = np.abs(c[50:60]) * np.sign(a[50:60])  # double roots
+    a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    rg, vg = trf.solve_quadratic(_t(a), _t(b), _t(c))
+    rj, vj = jrf.solve_quadratic(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
+    np.testing.assert_array_equal(vg.numpy(), np.asarray(vj))
+    v = np.asarray(vj)
+    assert v[:50, 0].sum() == 40 and not v[:50, 1].any()
+    assert_ulp(rg.numpy()[v], np.asarray(rj)[v], scale=_scale(a, b, c, k=2)[v], n=ROOT_ULP)
+
+
+def test_lin3_det_inv_columns_diag():
+    rng = np.random.default_rng(10)
+    m = rng.standard_normal((500, 3, 3)).astype(np.float32)
+    c = rng.standard_normal((3, 500)).astype(np.float32)
+    np.testing.assert_array_equal(tl.det3(_t(m)).numpy(), np.asarray(jl.det3(jnp.asarray(m))))
+    np.testing.assert_array_equal(tl.inv3(_t(m)).numpy(), np.asarray(jl.inv3(jnp.asarray(m))))
+    np.testing.assert_array_equal(tl.assemble_cols3(*map(_t, c)).numpy(),
+                                  np.asarray(jl.assemble_cols3(*map(jnp.asarray, c))))
+    np.testing.assert_array_equal(tl.diag_from(_t(c.T)).numpy(), np.asarray(jl.diag_from(jnp.asarray(c.T))))
+    np.testing.assert_allclose(np.einsum("nij,njk->nik", tl.inv3(_t(m)).numpy(), m),
+                               np.broadcast_to(np.eye(3), m.shape), atol=2e-3)
