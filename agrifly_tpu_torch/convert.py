@@ -5,13 +5,16 @@
 arrays (for instance `jax.tree_util.tree_map(np.asarray, state)`), into the
 port's NamedTuples on a device; `env_params_from_numpy`,
 `env_state_from_numpy` and `command_from_numpy` do the same for `sim/env`'s
-`EnvParams`, `EnvState` (their UWB network included) and `Command`. Fields
+`EnvParams`, `EnvState` (their UWB network included) and `Command`;
+`fleet_*` and `uwb_fleet_*` for `sim/fleet_env`'s fleets, and `MODULE_TREES`
+names the small modules' params and states (`sim/mission`,
+`offboard/safetynet`, `sim/aruco`) for `module_from_numpy`. Fields
 are matched by name, following the port's annotations: a `torch.Tensor`
 field becomes a tensor of the same dtype, an `int`/`float`/`bool` field a
 python number, a NamedTuple field recurses, an Optional one stays None
 where the tree's is. Fields the port does not have (the PRNG keys, the
-env's and the UWB network's, the imported-world mesh, `use_pallas`) are
-dropped.
+env's, the fleets' and the UWB network's, the imported-world mesh,
+`use_pallas`) are dropped.
 This module imports no jax.
 """
 
@@ -90,6 +93,57 @@ def command_from_numpy(tree, device=None):
     from agrifly_tpu_torch.sim.env import Command
 
     return from_numpy(Command, tree, device)
+
+
+def fleet_params_from_numpy(tree, device=None):
+    """The port's fleet_env.FleetParams from the JAX package's."""
+    from agrifly_tpu_torch.sim.fleet_env import FleetParams
+
+    return from_numpy(FleetParams, tree, device)
+
+
+def fleet_state_from_numpy(tree, device=None):
+    """The port's fleet_env.FleetState from the JAX package's (the keys
+    dropped)."""
+    from agrifly_tpu_torch.sim.fleet_env import FleetState
+
+    return from_numpy(FleetState, tree, device)
+
+
+def uwb_fleet_params_from_numpy(tree, device=None):
+    """The port's fleet_env.UwbFleetParams from the JAX package's."""
+    from agrifly_tpu_torch.sim.fleet_env import UwbFleetParams
+
+    return from_numpy(UwbFleetParams, tree, device)
+
+
+def uwb_fleet_state_from_numpy(tree, device=None):
+    """The port's fleet_env.UwbFleetState from the JAX package's (the keys
+    dropped)."""
+    from agrifly_tpu_torch.sim.fleet_env import UwbFleetState
+
+    return from_numpy(UwbFleetState, tree, device)
+
+
+# the small modules' trees: name -> (port module, NamedTuple class name)
+MODULE_TREES = {
+    "mission_params": ("sim.mission", "MissionParams"),
+    "mission_state": ("sim.mission", "MissionState"),
+    "safetynet_params": ("offboard.safetynet", "SafetyNetParams"),
+    "safetynet_state": ("offboard.safetynet", "SafetyState"),
+    "aruco_params": ("sim.aruco", "ArucoParams"),
+    "aruco_state": ("sim.aruco", "ArucoState"),
+}
+
+
+def module_from_numpy(name, tree, device=None):
+    """The port's tree `name` (a key of MODULE_TREES) from the JAX package's
+    tree of the same class, as numpy leaves."""
+    import importlib
+
+    module, cls = MODULE_TREES[name]
+    return from_numpy(getattr(importlib.import_module(f"agrifly_tpu_torch.{module}"), cls),
+                      tree, device)
 
 
 def leaves(tree, prefix=()):

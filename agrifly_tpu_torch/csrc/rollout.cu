@@ -6,7 +6,11 @@
 // into the radio delay line), writing the StepOutputs trajectory and the
 // final state. Built with TICK_UWB (tick.cuh), it is the UWB variant: each
 // tick also steps the env's ranging network on its four draws, and the
-// onboard EKF takes the ranges.
+// onboard EKF takes the ranges. Built with TICK_WIND, it is sim/fleet_env's
+// wind fleet (fleet_rollout): each env also carries its gust velocity, and
+// each tick first advances the gust process on its three normals
+// (tick.cuh's wind_force) and flies under the force it gives; the builds
+// without TICK_WIND compile that code out.
 //
 // Replaces agrifly_tpu/sim/env.py rollout_fast (:214) under vmap, the
 // workload bench.py times: jnp under jit, vmap and scan, which reaches no
@@ -54,8 +58,9 @@
 //
 // The leaves are tick.cuh's tables (EnvState, EnvParams). A command leaf is
 // per env ((B, ...)) or shared (read through a stride of 0); the noise is
-// (B, n_steps, 2, 3) unit normals (gyro, then acc), and the UWB variant's
-// draws (B, n_steps, 4). The kernel writes every state leaf: one float
+// (B, n_steps, 2, 3) unit normals (gyro, then acc); the draws (B, n_steps,
+// kDrawWords) are the UWB variant's four network draws, the wind variant's
+// three gust normals, or both in that order. The kernel writes every state leaf: one float
 // buffer holds the float state leaves and then the float trajectory leaves,
 // one int32 buffer the int32 state leaves, the int32 trajectory leaves and
 // then the bool leaves' bytes; in each, the leaves are ordered by element
@@ -156,16 +161,11 @@ constexpr OutElems written_elems() {
 }
 constexpr OutElems kWritten = written_elems();
 
-// sim/env.py Command: (3,) leaves but des_yaw (); stride: the floats between
-// two envs' rows of a leaf, 0 for a leaf the envs share
+// sim/env.py Command (tick.cuh's Cmd): (3,) leaves but des_yaw (); stride:
+// the floats between two envs' rows of a leaf, 0 for a leaf the envs share
 struct CmdPtrs {
   const float* leaf[6];  // des_pos, des_vel, des_acc, des_yaw, ext_force, ext_torque
   int stride[6];
-};
-struct Cmd {
-  f3 des_pos, des_vel, des_acc;
-  float des_yaw;
-  f3 ext_force, ext_torque;
 };
 
 __device__ Cmd load_cmd(const CmdPtrs& c, int b) {
@@ -188,20 +188,24 @@ struct Outs {
   void* traj[kTrajLeaves];
 };
 
-enum { kCtrlRates = 0, kCtrlPosition = 1, kCtrlIdle = 2 };
-
 // ---------------------------------------------------------------------------
 // shared memory: the block's envs' EnvStates and each env's staging (two
-// chunks' noise and UWB draws, then its trajectory rows, leaf by leaf)
+// chunks' noise and draws, then its trajectory rows, leaf by leaf)
 // ---------------------------------------------------------------------------
 
 constexpr int kEnvs = 32;   // envs a block
 constexpr int kChunk = 16;  // steps staged at a time
 #ifdef TICK_UWB
-constexpr int kDrawWords = 4;  // a step's UWB draws
+constexpr int kUwbDrawWords = 4;  // a step's UWB draws
 #else
-constexpr int kDrawWords = 0;
+constexpr int kUwbDrawWords = 0;
 #endif
+#ifdef TICK_WIND
+constexpr int kWindDrawWords = 3;  // a step's gust normals, after the UWB draws
+#else
+constexpr int kWindDrawWords = 0;
+#endif
+constexpr int kDrawWords = kUwbDrawWords + kWindDrawWords;
 // a chunk's noise, then its draws; two buffers
 constexpr int kNoiseWords = (6 + kDrawWords) * kChunk;
 __host__ __device__ constexpr int stage_offset(int leaf) {  // a trajectory leaf's staging words
@@ -253,8 +257,9 @@ __device__ void copy_states_out(const char* base, const Outs& out, int B, int b0
 // the tick and the steps
 // ---------------------------------------------------------------------------
 
-// env.step: physics_tick, then _offboard_and_finish. est: kEst* (tick.cuh);
-// ctrl: kCtrl*; draws: the tick's UWB draws (the UWB variant).
+// env.step: physics_tick, then _offboard_and_finish (tick.cuh). est: kEst*;
+// ctrl: kCtrl*; draws: the tick's draws (kDrawWords). The wind variant
+// flies under wind_force's force in place of the command's.
 template <class H>
 __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const float* noise,
                          const float* draws, int est, int ctrl, const H& hp) {
@@ -262,41 +267,16 @@ __device__ void env_step(const EnvParams& P, EnvState& S, const Cmd& c, const fl
   int acc_us = wadd(S.offboard_acc_us, P.dt_us);
   const bool fire = acc_us > P.offboard_period_us;
   if (fire) acc_us = wsub(acc_us, P.offboard_period_us);
+#ifdef TICK_WIND
+  const f3 ext_force = wind_force(P, S, draws + kUwbDrawWords);
+#else
+  const f3 ext_force = c.ext_force;
+#endif
 
   int now_us;
-  const Mocap est_out = physics_tick(P, S, noise, c.ext_force, c.ext_torque, est, fire, &now_us,
+  const Mocap est_out = physics_tick(P, S, noise, ext_force, c.ext_torque, est, fire, &now_us,
                                      hp, draws);
-  if (fire) {
-    SECTION_BEGIN(kSecOffboard)
-    f3 cmd_angvel;
-    float cmd_thrust;
-    offboard_run(P, est_out.pos, est_out.vel, est_out.att, c.des_pos, c.des_vel, c.des_acc,
-                 c.des_yaw, &cmd_angvel, &cmd_thrust);
-    int type = kTypeIdleCmd, fields[kNumFields] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-    if (ctrl == kCtrlRates) {
-      type = kTypeExternalRatesCmd;
-      fields[0] = encode_field(cmd_thrust, kLimRates[0]);
-      fields[1] = encode_field(cmd_angvel.x, kLimRates[1]);
-      fields[2] = encode_field(cmd_angvel.y, kLimRates[2]);
-      fields[3] = encode_field(cmd_angvel.z, kLimRates[3]);
-    } else if (ctrl == kCtrlPosition) {  // forward the setpoint; zero acceleration
-      type = kTypePositionCmd;
-      const float vals[9] = {c.des_pos.x, c.des_pos.y, c.des_pos.z, c.des_vel.x, c.des_vel.y,
-                             c.des_vel.z, 0.0f, 0.0f, 0.0f};
-      for (int i = 0; i < 9; ++i) fields[i] = encode_field(vals[i], kLimPos[i]);
-    }
-    ring_push(S, type, 0, fields, step, true);
-    if (est == kEstMocap) {  // the command enters the prediction pipe
-      f3 pred_acc = add(scl(rotate(est_out.att, f3{0.0f, 0.0f, 1.0f}), cmd_thrust),
-                        f3{0.0f, 0.0f, kGravZ});
-      pipe_push(S, now_us, P.est_latency_us, pred_acc, cmd_angvel, true);
-    }
-    S.last_cmd_thrust = cmd_thrust;
-    st3(S.last_cmd_angvel, cmd_angvel);
-    SECTION_END(kSecOffboard)
-  }
-  S.offboard_acc_us = acc_us;
-  S.step = wadd(step, 1);
+  offboard_finish(P, S, c, est_out, fire, acc_us, step, now_us, est, ctrl);
 }
 
 // step k's trajectory row into the staging
@@ -427,8 +407,8 @@ cudaError_t launch(const EnvParams& P, const LeafPtrs& ptrs, const CmdPtrs& c, c
 // (host arrays of its state and parameter leaf counts); cmd: 6 pointers
 // (des_pos (B, 3) or (3,), des_vel, des_acc, des_yaw (B,) or (), ext_force,
 // ext_torque) and cmd_stride their 6 strides between envs (3 or 1 per env, 0
-// shared); noise: (B, n_steps, 2, 3) float32; draws: the UWB variant's
-// (B, n_steps, 4) float32 (else unread); out_f: B x (the float leaves'
+// shared); noise: (B, n_steps, 2, 3) float32; draws: (B, n_steps,
+// kDrawWords) float32 in the UWB and wind variants (else unread); out_f: B x (the float leaves'
 // elements), [B, numel] a leaf ordered by numel (make_state_elems), then pos
 // (B, n_steps, 3), vel, att (.., 4), angvel, motor_speeds (.., 4); out_i: B x
 // (the int32 leaves' elements) as out_f's, then flight_state (B, n_steps),

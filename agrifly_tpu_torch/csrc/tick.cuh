@@ -20,7 +20,14 @@
 // UWB is a variant of the build: with TICK_UWB defined, EnvState and
 // EnvParams also hold the ENV_UWB_* tables' leaves (the ranging network's
 // state and parameters), and the tick steps the network on its four draws
-// and runs the onboard EKF's range update. frame.cu builds without it.
+// and runs the onboard EKF's range update. TICK_RANGING alone is the
+// onboard half of it (the logic's range update, its 32-target lookup and the
+// us_since_uwb reset) for a vehicle whose network is stepped outside
+// (fleet_uwb.cu's shared network); TICK_UWB implies it. Wind is another
+// variant: with TICK_WIND defined, EnvState holds the ENV_WIND_* state leaf
+// (sim/fleet_env.py's per-vehicle gust velocity) and EnvParams its
+// WindParams, and wind_force runs the gust process in front of the tick.
+// frame.cu builds with none of them.
 //
 // An including file may define SECTION_BEGIN / SECTION_END (the clock64
 // section timers of frame.cu and rollout.cu, over their Section enums)
@@ -249,15 +256,40 @@
   X(u_num_radios, "uwb.num_radios", I32, 0)                               \
   X(u_failure_prob, "uwb.failure_prob", F32, 0)                           \
   X(u_max_range, "uwb.max_range", F32, 0)
+
+// The wind variant's leaves (sim/fleet_env.py's FleetState.wind_vel and
+// WindParams; paths relative to FleetState / FleetParams), after the
+// others, in the struct only where TICK_WIND is defined.
+#define ENV_WIND_STATE_LEAVES(X) \
+  X(wind_vel, "wind_vel", F32, 3, W)
+
+#define ENV_WIND_PARAM_LEAVES(X) \
+  X(w_mean, "wind.mean", F32, 3)                                          \
+  X(w_gust_std, "wind.gust_std", F32, 0)                                  \
+  X(w_gust_tau, "wind.gust_tau", F32, 0)                                  \
+  X(w_force_gain, "wind.force_gain", F32, 0)
 // clang-format on
 
-#ifdef TICK_UWB
-#define ENV_STATE_ALL(X) ENV_STATE_LEAVES(X) ENV_UWB_STATE_LEAVES(X)
-#define ENV_PARAM_ALL(X) ENV_PARAM_LEAVES(X) ENV_UWB_PARAM_LEAVES(X)
-#else
-#define ENV_STATE_ALL(X) ENV_STATE_LEAVES(X)
-#define ENV_PARAM_ALL(X) ENV_PARAM_LEAVES(X)
+#if defined(TICK_UWB) && !defined(TICK_RANGING)
+#define TICK_RANGING
 #endif
+
+#ifdef TICK_UWB
+#define ENV_UWB_STATE_PART(X) ENV_UWB_STATE_LEAVES(X)
+#define ENV_UWB_PARAM_PART(X) ENV_UWB_PARAM_LEAVES(X)
+#else
+#define ENV_UWB_STATE_PART(X)
+#define ENV_UWB_PARAM_PART(X)
+#endif
+#ifdef TICK_WIND
+#define ENV_WIND_STATE_PART(X) ENV_WIND_STATE_LEAVES(X)
+#define ENV_WIND_PARAM_PART(X) ENV_WIND_PARAM_LEAVES(X)
+#else
+#define ENV_WIND_STATE_PART(X)
+#define ENV_WIND_PARAM_PART(X)
+#endif
+#define ENV_STATE_ALL(X) ENV_STATE_LEAVES(X) ENV_UWB_STATE_PART(X) ENV_WIND_STATE_PART(X)
+#define ENV_PARAM_ALL(X) ENV_PARAM_LEAVES(X) ENV_UWB_PARAM_PART(X) ENV_WIND_PARAM_PART(X)
 
 namespace {
 
@@ -995,7 +1027,7 @@ __device__ void ekf_predict(const Ekf& k, f3 gyro, f3 acc, float dt) {
   st3(k.last_att_corr, f3{0.0f, 0.0f, 0.0f});
 }
 
-#ifdef TICK_UWB
+#ifdef TICK_RANGING
 // update_range: the scalar UWB range update with 3-sigma Mahalanobis gating
 // and a hard reset after 5 rejections in a row; the covariance symmetrized
 // by copying its lower triangle up. Every sum runs left to right over all
@@ -1149,7 +1181,7 @@ __device__ __forceinline__ int advance_timer(int us, int period_us) {
   return min(wadd(us, period_us), kUsSat);
 }
 
-#ifdef TICK_UWB
+#ifdef TICK_RANGING
 // a broadcast of the ranging network this tick (sim/uwb.py's
 // UwbMeasurement; the requester is not read)
 struct UwbMeas {
@@ -1206,7 +1238,7 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
   S.radio_count = wadd(S.radio_count, radio_new ? 1 : 0);
   S.us_since_radio = us_since_radio;
   S.us_since_uwb = advance_timer(S.us_since_uwb, per_us);
-#ifdef TICK_UWB
+#ifdef TICK_RANGING
   if (uwb.valid) S.us_since_uwb = 0;
 #endif
   bool radio_pending = S.radio_new || radio_new;
@@ -1226,7 +1258,7 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
     st3(S.gyro_cal_accum, add(ld3(S.gyro_cal_accum), gyro_raw));
     S.gyro_cal_count = wadd(S.gyro_cal_count, 1);
   }
-#ifdef TICK_UWB
+#ifdef TICK_RANGING
   {  // the range update, to the anchor the responder id names
     const bool success = uwb.valid && !uwb.failure;
     f3 target = f3{0.0f, 0.0f, 0.0f};
@@ -1796,8 +1828,11 @@ __device__ void offboard_run(const EnvParams& P, f3 cur_pos, f3 cur_vel, f4 cur_
 // sim/env.py: the physics half of one tick
 // ---------------------------------------------------------------------------
 
+// a ranging network's radio table: the env's vehicle and up to 32 anchors
+// (K5's UWB variant), or a fleet's vehicles and anchors (fleet_uwb.cu)
+constexpr int kMaxRadios = 33;
+
 #ifdef TICK_UWB
-constexpr int kMaxRadios = 33;  // the vehicle and up to 32 anchors
 
 // sim/uwb.py step for the env's network (the vehicle is radio 0 and ranges
 // to its next target, the anchors are radios 1.. at the target table's
@@ -1849,25 +1884,23 @@ __device__ UwbMeas uwb_step(const EnvParams& P, EnvState& S, const float* draws)
 // "gpsimu")
 enum { kEstTrue = 0, kEstMocap = 1, kEstGpsimu = 2 };
 
-// physics_tick: radio delivery, plant (under ext_force and ext_torque), IMU,
-// in the UWB variant the ranging network (on the tick's draws), onboard
-// logic and the estimator update of one tick. est: kEst*. predict: compute
-// the estimate (a tick whose offboard loop does not fire never reads it;
-// the mocap prediction has no side effect). Returns the estimate (pos, vel,
-// att, angvel; zeros without predict) and now_us (master time after this
-// tick).
-template <class H>
-__device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* noise,
-                              f3 ext_force, f3 ext_torque, int est, bool predict,
-                              int* now_us, const H& hp, const float* draws = nullptr) {
+// physics_phase_a: radio delivery, plant (under ext_force and ext_torque)
+// and IMU of one tick, on the tick's noise (gyro, then acc unit normals).
+struct PhaseA {
+  bool delivered;
+  int mtype, mflags, mfields[kNumFields];
+  f3 gyro_meas, acc_meas;
+};
+
+__device__ PhaseA physics_phase_a(const EnvParams& P, EnvState& S, const float* noise,
+                                  f3 ext_force, f3 ext_torque) {
   const f3 grav = f3{0.0f, 0.0f, kGravZ};
   const m3 imu_rot_inv = ldm(P.p_imu_rot_inv);
   float dt = static_cast<float>(P.dt_us) * 1e-6f;
-
-  // physics_phase_a: radio delivery, plant, IMU
-  int mtype, mflags, mfields[kNumFields];
+  PhaseA a;
   SECTION_BEGIN(kSecRadio)
-  bool delivered = ring_pop_due(S, S.step, P.dt_us, P.radio_delay_us, &mtype, &mflags, mfields);
+  a.delivered = ring_pop_due(S, S.step, P.dt_us, P.radio_delay_us, &a.mtype, &a.mflags,
+                             a.mfields);
   SECTION_END(kSecRadio)
   float motor_cmds[4];
   for (int i = 0; i < 4; ++i) motor_cmds[i] = S.des_motor_speeds[i];
@@ -1881,17 +1914,32 @@ __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* nois
   f3 acc_true = mv3(imu_rot_inv, rotate_back(att, sub(acc_imu, grav)));
   f3 gyro_meas = add(gyro_true, scl(ld3(noise), 0.1f));
   f3 acc_meas = add(acc_true, scl(ld3(noise + 3), 0.2f));
-  gyro_meas = add(gyro_true, scl(sub(gyro_meas, gyro_true), P.noise_scale));
-  acc_meas = add(acc_true, scl(sub(acc_meas, acc_true), P.noise_scale));
+  a.gyro_meas = add(gyro_true, scl(sub(gyro_meas, gyro_true), P.noise_scale));
+  a.acc_meas = add(acc_true, scl(sub(acc_meas, acc_true), P.noise_scale));
   SECTION_END(kSecImu)
+  return a;
+}
+
+// The rest of physics_tick after phase A (and, in the UWB variants, after
+// the network): onboard logic (with the broadcast `uwb`, where ranging is
+// built) and the estimator update. est: kEst*. predict: compute the
+// estimate (a tick whose offboard loop does not fire never reads it; the
+// mocap prediction has no side effect). Returns the estimate (pos, vel,
+// att, angvel; zeros without predict) and now_us (master time after this
+// tick).
+template <class H>
+__device__ Mocap physics_finish(const EnvParams& P, EnvState& S, const PhaseA& a, int est,
+                                bool predict, int* now_us, const H& hp UWB_MEAS_ARG) {
+  float dt = static_cast<float>(P.dt_us) * 1e-6f;
+  const f3 angvel = ld3(S.plant_angvel);
+  const f4 att = ld4(S.plant_att);
 
   // onboard logic tick (constant battery)
   SECTION_BEGIN(kSecLogic)
-#ifdef TICK_UWB
-  const UwbMeas uwb = uwb_step(P, S, draws);
-  logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields, uwb);
+#ifdef TICK_RANGING
+  logic_step(P, S, a.gyro_meas, a.acc_meas, a.delivered, a.mtype, a.mflags, a.mfields, uwb);
 #else
-  logic_step(P, S, gyro_meas, acc_meas, delivered, mtype, mflags, mfields);
+  logic_step(P, S, a.gyro_meas, a.acc_meas, a.delivered, a.mtype, a.mflags, a.mfields);
 #endif
   SECTION_END(kSecLogic)
 
@@ -1910,7 +1958,7 @@ __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* nois
   S.mocap_acc_us = mocap_acc;
   int gps_acc = wadd(S.gps_acc_us, P.dt_us);
   if (est == kEstGpsimu) {
-    ekf_predict<true>(EKF_OF(S, gps_), gyro_meas, acc_meas, dt);
+    ekf_predict<true>(EKF_OF(S, gps_), a.gyro_meas, a.acc_meas, dt);
     if (gps_acc > 10000) {
       gps_acc = wsub(gps_acc, 10000);
       gps_position_update(EKF_OF(S, gps_), ld3(S.plant_pos));
@@ -1938,5 +1986,93 @@ __device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* nois
   est_out.angvel = angvel;
   return est_out;
 }
+
+#if defined(TICK_UWB) || !defined(TICK_RANGING)
+// physics_tick: phase A, in the UWB variant the env's ranging network (on
+// the tick's draws), then physics_finish. (A build with TICK_RANGING alone
+// steps its network outside and calls the two halves itself.)
+template <class H>
+__device__ Mocap physics_tick(const EnvParams& P, EnvState& S, const float* noise,
+                              f3 ext_force, f3 ext_torque, int est, bool predict,
+                              int* now_us, const H& hp, const float* draws = nullptr) {
+  const PhaseA a = physics_phase_a(P, S, noise, ext_force, ext_torque);
+#ifdef TICK_UWB
+  const UwbMeas uwb = uwb_step(P, S, draws);
+  return physics_finish(P, S, a, est, predict, now_us, hp, uwb);
+#else
+  return physics_finish(P, S, a, est, predict, now_us, hp);
+#endif
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// sim/env.py: _offboard_and_finish, the 100 Hz offboard loop of one tick
+// ---------------------------------------------------------------------------
+
+// sim/env.py Command, one env's row
+struct Cmd {
+  f3 des_pos, des_vel, des_acc;
+  float des_yaw;
+  f3 ext_force, ext_torque;
+};
+
+enum { kCtrlRates = 0, kCtrlPosition = 1, kCtrlIdle = 2 };
+
+// The offboard loop after physics_tick: where it fires, control on the
+// estimate est_out, the ctrl (kCtrl*) command into the radio ring and, with
+// the mocap estimator, into its prediction pipe; then the offboard
+// accumulator (acc_us, already advanced) and the step. step: the tick's
+// step before physics.
+__device__ void offboard_finish(const EnvParams& P, EnvState& S, const Cmd& c,
+                                const Mocap& est_out, bool fire, int acc_us, int step,
+                                int now_us, int est, int ctrl) {
+  if (fire) {
+    SECTION_BEGIN(kSecOffboard)
+    f3 cmd_angvel;
+    float cmd_thrust;
+    offboard_run(P, est_out.pos, est_out.vel, est_out.att, c.des_pos, c.des_vel, c.des_acc,
+                 c.des_yaw, &cmd_angvel, &cmd_thrust);
+    int type = kTypeIdleCmd, fields[kNumFields] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+    if (ctrl == kCtrlRates) {
+      type = kTypeExternalRatesCmd;
+      fields[0] = encode_field(cmd_thrust, kLimRates[0]);
+      fields[1] = encode_field(cmd_angvel.x, kLimRates[1]);
+      fields[2] = encode_field(cmd_angvel.y, kLimRates[2]);
+      fields[3] = encode_field(cmd_angvel.z, kLimRates[3]);
+    } else if (ctrl == kCtrlPosition) {  // forward the setpoint; zero acceleration
+      type = kTypePositionCmd;
+      const float vals[9] = {c.des_pos.x, c.des_pos.y, c.des_pos.z, c.des_vel.x, c.des_vel.y,
+                             c.des_vel.z, 0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < 9; ++i) fields[i] = encode_field(vals[i], kLimPos[i]);
+    }
+    ring_push(S, type, 0, fields, step, true);
+    if (est == kEstMocap) {  // the command enters the prediction pipe
+      f3 pred_acc = add(scl(rotate(est_out.att, f3{0.0f, 0.0f, 1.0f}), cmd_thrust),
+                        f3{0.0f, 0.0f, kGravZ});
+      pipe_push(S, now_us, P.est_latency_us, pred_acc, cmd_angvel, true);
+    }
+    S.last_cmd_thrust = cmd_thrust;
+    st3(S.last_cmd_angvel, cmd_angvel);
+    SECTION_END(kSecOffboard)
+  }
+  S.offboard_acc_us = acc_us;
+  S.step = wadd(step, 1);
+}
+
+#ifdef TICK_WIND
+// sim/fleet_env.py's gust process for one vehicle and tick, in front of the
+// tick: wind_vel <- wind_vel + dt / tau (mean - wind_vel) + (sqrt(2 dt /
+// tau) sigma) n on the tick's three unit normals `gust`; returns the
+// force gain (wind_vel - the plant's velocity before the tick).
+__device__ f3 wind_force(const EnvParams& P, EnvState& S, const float* gust) {
+  const float dt = static_cast<float>(P.dt_us) * 1e-6f;
+  const float pull = dt / P.w_gust_tau;
+  const float kick = sqrtf(2.0f * dt / P.w_gust_tau) * P.w_gust_std;
+  const f3 w = ld3(S.wind_vel);
+  const f3 w_new = add(add(w, scl(sub(ld3(P.w_mean), w), pull)), scl(ld3(gust), kick));
+  st3(S.wind_vel, w_new);
+  return scl(sub(w_new, ld3(S.plant_vel)), P.w_force_gain);
+}
+#endif
 
 }  // namespace

@@ -95,16 +95,16 @@ _TABLE = re.compile(r"#define (\w+)\(X\)((?:[^\n]*\\\n)*[^\n]*)")
 _ENTRY = re.compile(r'X\(\s*\w+,\s*"([\w.]+)",\s*(F32|I32|BOOL),\s*(\d+)\s*(?:,\s*([WP])\s*)?\)')
 
 
-def leaf_rows(source: str, prefix: tuple = (), uwb: bool = False):
+def leaf_rows(source: str, prefix: tuple = (), uwb: bool = False, wind: bool = False):
     """(state leaves, parameter leaves) that the X-macro tables of
     `csrc/<source>` declare, in order: a state row names W or P, a
     parameter row neither. prefix: field names put before every path.
-    uwb: also the rows of the tables whose names hold UWB (the UWB
-    variant's leaves; tick.cuh's ENV_UWB_* tables)."""
+    uwb / wind: also the rows of the tables whose names hold UWB / WIND
+    (the variants' leaves; tick.cuh's ENV_UWB_* and ENV_WIND_* tables)."""
     state, params = [], []
     src = (CSRC / source).read_text()
     for name, body in _TABLE.findall(src):
-        if "UWB" in name and not uwb:
+        if ("UWB" in name and not uwb) or ("WIND" in name and not wind):
             continue
         for path, ty, n, rw in _ENTRY.findall(body):
             spec = LeafSpec(prefix + tuple(path.split(".")), _DTYPES[ty], int(n), rw == "W")

@@ -76,8 +76,17 @@ def make_position_command(des_pos, des_vel, des_acc):
     return (const(TYPE_POSITION_CMD, dev, torch.int32), const(0, dev, torch.int32), fields)
 
 
-def make_idle_command(device):
-    return (const(TYPE_IDLE_CMD, device, torch.int32), const(0, device, torch.int32),
+def make_kill_command(device=None, flags=0):
+    """Emergency kill: no fields (RadioTypes.hpp). Returns (type, flags,
+    fields) as int32 tensors on `device`."""
+    return (const(TYPE_EMERGENCY_KILL, device, torch.int32), const(flags, device, torch.int32),
+            const((0,) * NUM_FIELDS, device, torch.int32))
+
+
+def make_idle_command(device=None, flags=0):
+    """Idle: motors off, no fields. Returns (type, flags, fields) as int32
+    tensors on `device`."""
+    return (const(TYPE_IDLE_CMD, device, torch.int32), const(flags, device, torch.int32),
             const((0,) * NUM_FIELDS, device, torch.int32))
 
 

@@ -54,13 +54,15 @@ def _check(specs, leaves, device, what, B=None):
     cuda_build.check_leaves(specs, leaves, device, what, B, "frame.cu")
 
 
-def _launch(leaves, pleaves, noise):
-    """Run the kernel on B vehicles (noise (B, ticks, 2, 3)); returns the
-    new state's leaves."""
-    lib = cuda_build.load("frame")
-    fn = lib.frame_ticks_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+def _launch(leaves, pleaves, noise, launcher=None):
+    """Run the kernel on B vehicles (noise (B, ticks, 2, 3)) through
+    `launcher` (frame.cu's frame_ticks_launch by default, or another build's
+    with the same C interface); returns the new state's leaves."""
+    fn = launcher
+    if fn is None:
+        fn = cuda_build.load("frame").frame_ticks_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     specs, _ = leaf_table()
     dev = noise.device
     B = noise.shape[0]

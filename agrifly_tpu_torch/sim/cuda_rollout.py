@@ -15,6 +15,11 @@ the UWB draws and runs the onboard range update. A group of `GROUP` lanes
 runs each env (the kernel is built for each of `GROUPS`, and every group
 size gives the same values bit for bit). On CPU tensors it runs the plain
 version: `env.rollout_plain`, with `env.fast_flags` for `rollout_fast`.
+Wind is another build variant: `fleet_rollout` runs `sim/fleet_env`'s wind
+fleet (`fleet_env.fleet_rollout`) through `rollout.cu` built with
+TICK_WIND, which carries each vehicle's gust velocity and runs the gust
+process and its force in front of every tick (on CPU tensors,
+`fleet_env.fleet_rollout_plain`).
 
 The kernel reads each state and parameter leaf through its own device
 pointer, and a command leaf shared by the fleet through a stride of 0. It
@@ -45,6 +50,7 @@ from agrifly_tpu_torch.sim import uwb as uwb_mod
 CTRL = {"rates": 0, "position": 1, "idle": 2}
 EST = {"true": 0, "mocap": 1, "gpsimu": 2}  # env._est_mode's name -> the launch's est
 UWB_DEFINES = ("TICK_UWB",)  # the build of the UWB variant
+WIND_DEFINES = ("TICK_WIND",)  # the build of the wind fleet
 MAX_RADIOS = 33  # tick.cuh's radio table: the vehicle and up to 32 anchors
 GROUPS = (1, 2, 4, 8)  # lanes per env that rollout.cu is built for
 GROUP = 8  # the default: the fastest measured at bench.py's shape (PERF.md)
@@ -55,17 +61,24 @@ _data_ptr = torch.Tensor.data_ptr
 
 
 @functools.lru_cache(maxsize=None)
-def leaf_table(uwb=False):
+def leaf_table(uwb=False, wind=False):
     """(state leaves, parameter leaves) as `tick.cuh` declares them (with
-    uwb, the UWB variant's). The kernel writes every state leaf."""
-    state, params = cuda_build.leaf_rows("tick.cuh", uwb=uwb)
+    uwb, the UWB variant's; with wind, the wind fleet's). The kernel writes
+    every state leaf."""
+    state, params = cuda_build.leaf_rows("tick.cuh", uwb=uwb, wind=wind)
     return tuple(s._replace(written=True) for s in state), tuple(params)
+
+
+def _has_uwb(params):
+    """The tree is an `env.EnvParams` with a UWB network (a wind fleet's
+    `FleetParams` has none)."""
+    return getattr(params, "uwb", None) is not None
 
 
 def param_leaves(params):
     """The parameter tensors the kernel reads, in its table's order (a UWB
     radio table padded to MAX_RADIOS)."""
-    return _kernel_params(convert.flatten_tensors(params)[0], params.uwb is not None)
+    return _kernel_params(convert.flatten_tensors(params)[0], _has_uwb(params))
 
 
 def _kernel_params(leaves, uwb):
@@ -83,20 +96,21 @@ def _kernel_params(leaves, uwb):
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(uwb=False):
-    fn = cuda_build.load("rollout", UWB_DEFINES if uwb else ()).env_rollout_launch
+def _launcher(uwb=False, wind=False):
+    fn = cuda_build.load("rollout", (UWB_DEFINES if uwb else ())
+                         + (WIND_DEFINES if wind else ())).env_rollout_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _runs(uwb=False):
+def _runs(uwb=False, wind=False):
     """The state leaves of each dtype as rollout.cu lays them out in its
     output buffer: ordered by elements per env (table order among equals),
     in runs [(elements per env, [leaf indices])]; and each buffer's
     elements per env."""
-    specs, _ = leaf_table(uwb)
+    specs, _ = leaf_table(uwb, wind)
     runs = {}
     for ty in cuda_build._DTYPES.values():
         rows = sorted((max(s.numel, 1), i) for i, s in enumerate(specs)
@@ -155,7 +169,7 @@ def _accept(kind, tree, device, check):
             and list(map(_data_ptr, entry.leaves)) == entry.ptrs):
         return entry
     leaves, rebuild = convert.flatten_tensors(tree)
-    kernel_leaves = _kernel_params(leaves, tree.uwb is not None) if kind == "params" else leaves
+    kernel_leaves = _kernel_params(leaves, _has_uwb(tree)) if kind == "params" else leaves
     check(kernel_leaves)
     ptrs = list(map(_data_ptr, leaves))
     host = [t.cpu() for t in kernel_leaves] if kind == "params" else []
@@ -183,19 +197,21 @@ def _command(cmd, B, device):
     return leaves, strides
 
 
-def _launch(state, params, cmd, noise, est, ctrl, group=None, launcher=None, draws=None):
+def _launch(state, params, cmd, noise, est, ctrl, group=None, launcher=None, draws=None,
+            wind=False):
     """Run the kernel on B envs (`state`, `params`: accepted entries with a
     leading B on every state leaf, or one env with none; `cmd`: `_command`'s
     leaves and strides; noise (B, n_steps, 2, 3); est: a use_estimator; draws:
-    the UWB variant's (B, n_steps, 4), None for the other build) with
+    the UWB variant's (B, n_steps, 4), with wind the wind build's gust
+    normals (B, n_steps, 3), None for the other build) with
     `group` lanes per env (GROUP by default; chip_smoke.py and the card
     tests run every one of GROUPS) through `launcher` (the variant's default
     build's env_rollout_launch, or another build's); returns (the new
     state's leaves, the trajectory's leaves)."""
     group = GROUP if group is None else group
-    uwb = draws is not None
-    fn = launcher or _launcher(uwb)
-    runs, per_env = _runs(uwb)
+    uwb = draws is not None and not wind
+    fn = launcher or _launcher(uwb, wind)
+    runs, per_env = _runs(uwb, wind)
     B, n = noise.shape[:2]
     dev = noise.device
     rows = B * n
@@ -212,7 +228,7 @@ def _launch(state, params, cmd, noise, est, ctrl, group=None, launcher=None, dra
                 i_buf.data_ptr(), B, n, EST[env_mod._est_mode(est)], CTRL[ctrl], group,
                 stream)
     cuda_build.check(status, "env_rollout_launch")
-    rollout.launches += 1
+    (fleet_rollout if wind else rollout).launches += 1
 
     f_part, *traj_f = f_buf.split([f_state] + [rows * w for w in TRAJ_WIDTHS])
     i_part, *traj_i, _ = i_buf.split([i_state] + [rows] * 3 + [i_buf.numel() - i_words])
@@ -279,4 +295,49 @@ def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", f
     return s_entry.rebuild(new), env_mod.StepOutputs(*traj)
 
 
-rollout.launches = 0  # kernel launches since the last reset
+rollout.launches = 0  # kernel launches since the last reset (the env builds')
+
+
+def fleet_rollout(params, state, des_pos, noise, wind_noise, use_estimator=True):
+    """Advance a wind fleet (`fleet_env.FleetParams`, `FleetState` of N
+    vehicles) by the ticks of `noise` ((N, n_steps, 2, 3) float32) under
+    the gust normals `wind_noise` ((n_steps, N, 3)), rates commands to the
+    setpoints des_pos ((N, 3) or a shared (3,)). Returns the final state.
+
+    CUDA tensors launch K5's wind build (or raise): one launch, counted in
+    `fleet_rollout.launches`; CPU tensors take
+    `fleet_env.fleet_rollout_plain`. Every call is checked against
+    tick.cuh's leaf tables."""
+    from agrifly_tpu_torch.sim import fleet_env
+
+    env_mod._check_modes(use_estimator, "rates")
+    if params.base.uwb is not None or state.envs.uwb is not None:
+        raise ValueError("a wind fleet's vehicles carry no UWB network of their own")
+    B = state.wind_vel.shape[0]
+    if (noise.dim() != 4 or tuple(noise.shape[-2:]) != (2, 3) or noise.shape[0] != B
+            or noise.dtype != torch.float32):
+        raise ValueError(f"need ({B}, n_steps, 2, 3) float32 noise, got "
+                         f"{tuple(noise.shape)} {noise.dtype}")
+    n = noise.shape[1]
+    if tuple(wind_noise.shape) != (n, B, 3) or wind_noise.dtype != torch.float32:
+        raise ValueError(f"need ({n}, {B}, 3) float32 gust normals, got "
+                         f"{tuple(wind_noise.shape)} {wind_noise.dtype}")
+    state_specs, param_specs = leaf_table(wind=True)
+    device = noise.device
+    s_entry = _accept("state", state, device, lambda leaves: cuda_build.check_leaves(
+        state_specs, leaves, device, "state", B, "tick.cuh"))
+    p_entry = _accept("params", params, device, lambda leaves: cuda_build.check_leaves(
+        param_specs, leaves, device, "params", None, "tick.cuh"))
+    if not noise.is_cuda:
+        return fleet_env.fleet_rollout_plain(params, state, des_pos, noise, wind_noise,
+                                             use_estimator)
+    z3 = torch.zeros(3, dtype=torch.float32, device=device)
+    cmd = env_mod.Command(des_pos=torch.as_tensor(des_pos, dtype=torch.float32), des_vel=z3,
+                          des_acc=z3, des_yaw=z3[0], ext_force=z3, ext_torque=z3)
+    gusts = wind_noise.to(device).transpose(0, 1).contiguous()
+    new, _ = _launch(s_entry, p_entry, _command(cmd, B, device), noise.contiguous(),
+                     use_estimator, "rates", draws=gusts, wind=True)
+    return s_entry.rebuild(new)
+
+
+fleet_rollout.launches = 0  # the wind build's launches since the last reset

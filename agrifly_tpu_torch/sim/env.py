@@ -229,7 +229,7 @@ def physics_phase_a(s: EnvState, params: EnvParams, ext_force, ext_torque, noise
 
 
 def physics_tick(s: EnvState, params: EnvParams, ext_force, ext_torque, use_estimator,
-                 uwb_override=None, static_mocap_fire=None, static_gps_fire=None,
+                 uwb_override=None, phase_a=None, static_mocap_fire=None, static_gps_fire=None,
                  noise=None, uwb_draws=None):
     """Radio delivery, plant, IMU, UWB, onboard logic and the estimator
     update of one tick (the JAX package's steps 1-5a). use_estimator: False /
@@ -237,15 +237,18 @@ def physics_tick(s: EnvState, params: EnvParams, ext_force, ext_torque, use_esti
     GPS-IMU estimator: an IMU prediction every tick, a GPS fix every 10 ms).
     uwb_override: (new, range, responder_id, failure) from a network
     stepped outside, in place of the params' own; uwb_draws: the tick's four
-    draws for the params' network. static_mocap_fire / static_gps_fire:
+    draws for the params' network. phase_a: a `physics_phase_a` result
+    computed outside (a fleet moves every plant before its shared network
+    steps), in place of computing it from `noise`. static_mocap_fire / static_gps_fire:
     python bools where the cadence is known in advance (rollout_fast), None
     for the accumulators' decisions; a statically silent offboard tick skips
     the prediction (and a silent GPS tick the fix). Returns a dict with the
     partial new state and the estimate `est` = (pos, vel, att, angvel)."""
     est_mode = _est_mode(use_estimator)
-    if noise is None:
+    if phase_a is None and noise is None:
         raise ValueError("physics_tick needs the tick's IMU noise (the port has no PRNG key)")
-    a = physics_phase_a(s, params, ext_force, ext_torque, noise)
+    a = phase_a if phase_a is not None else physics_phase_a(s, params, ext_force, ext_torque,
+                                                            noise)
     new_plant = a["plant"]
     dev = new_plant.pos.device
 

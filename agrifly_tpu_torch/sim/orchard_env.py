@@ -55,11 +55,9 @@ from agrifly_tpu_torch.sim import env as env_mod
 
 GRAV_W = (0.0, 0.0, -9.81)
 
-# mission constants of agrifly_tpu/sim/mission.py
-MAX_WAYPOINTS = 16
-WAYPOINT_RADIUS = 1.0  # [m]
-LANDING_SPEED = 0.5  # [m/s]
-LANDING_BLEND_TIME = 2.0  # [s]
+# the mission constants the orchard profile shares with sim/mission.py
+from agrifly_tpu_torch.sim.mission import (LANDING_BLEND_TIME, LANDING_SPEED,  # noqa: E402
+                                           MAX_WAYPOINTS, WAYPOINT_RADIUS)
 
 # mission sub-stages of the orchard profile
 MSTAGE_CRUISE = 0

@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernel libraries from `agrifly_tpu_torch/csrc`
-and the section-timed variants of `frame.cu` and `rollout.cu` (one nvcc
-each, all in parallel) and holds each kernel against its plain
+It builds the six CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
+the section-timed variants of `frame.cu` and `rollout.cu` and the UWB and
+wind builds of `rollout.cu` (one nvcc each, all in parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 bit for bit (one image and 16 in one launch, on the default orchard, a
 scene at `make_params`' limit and one whose second canopy spheres leave
@@ -58,7 +58,22 @@ oracle. It then flies:
   JAX's rollout_fast terms) and on the CPU from mid-flight; the device time
   of every lane count at 1, 64 and 4096 envs in both modes, and with 0
   steps; clock64() timers around the tick's sections in a variant of
-  `csrc/rollout.cu` built beside the kernels; and the plain rollout's rate.
+  `csrc/rollout.cu` built beside the kernels; and the plain rollout's rate;
+  then the GPS-IMU estimator and the onboard-UWB build at the same shape;
+- `sim/fleet_env`'s fleets (config #5): the wind fleet through K5's
+  `-DTICK_WIND` build (every lane count bit-equal to one lane, calm wind
+  bit-equal to K5, against the plain rollout on the card, the formation
+  and drift flights of tests/test_fleet_and_bridge.py, and `fleet_rollout`
+  at 4096 vehicles x 250 steps in both estimator modes, K5-wind's device
+  time beside K5's in turns), and the shared-UWB fleet through K6
+  (`csrc/fleet_uwb.cu`: against the plain version, that test's 7500-tick
+  three-vehicle flight, its device time a tick at 3 and 28 vehicles); and
+  `sim/mission` with the small modules on the card against the CPU.
+
+With `--parent DIR` (a checkout of the parent commit) it also holds K3 and
+K5 in every mode bit for bit against the parent's kernels, built from DIR
+and called through this tree's wrappers where the parent declares the same
+C interface, and times both in turns.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -85,11 +100,12 @@ MESH_FRAMES, MESH_FLEET_FRAMES = 50, 20  # the imported-world flights
 TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
-KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout")  # one library per csrc/<name>.cu
+KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
+           "fleet_uwb")  # one library per csrc/<name>.cu
 DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_cluster_kernel",
                   "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel",
-                  "rollout_kernel")
+                  "rollout_kernel", "fleet_uwb_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
 # attitude at these positions; the harnesses' start state and goal.
@@ -991,6 +1007,27 @@ def compare_ticks(got, ref, where, env=("base",)):
     return worst
 
 
+def tick_reading(got, ref, env=("base",)):
+    """The tick criteria as a reading, not a gate: (the worst float leaf's
+    ratio to compare_ticks' bound, the discrete leaves that differ, the
+    wire codes' largest difference)."""
+    from agrifly_tpu_torch import convert
+
+    commands = {env + ("last_cmd_angvel",), env + ("mocap", "pipe", "angvel")}
+    worst, differ, codes = 0.0, 0, 0
+    for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(ref)):
+        a, b = a.cpu(), b.cpu()
+        if path == env + ("ring", "fields"):
+            codes = max(codes, int((a - b).abs().max()))
+        elif not a.is_floating_point():
+            differ += int(not bool((a == b).all()))
+        else:
+            d = (a.double() - b.double()).abs()
+            scale = 1e-2 if path in commands else 1e-3 * 1e-3
+            worst = max(worst, float((d / (scale + 1e-3 * b.double().abs())).max()))
+    return worst, differ, codes
+
+
 def to_device(tree, dev):
     from agrifly_tpu_torch import convert
 
@@ -1828,6 +1865,10 @@ def check_env_against_plain(p, s0, cmd, noise, mode, ctrl="rates", draws=None):
                f"K5 vs plain, use_estimator={mode}: {name} differs over {ENV_STEPS} steps")
     dpos = float((full.plant.pos - ref_end.plant.pos).abs().max())
     _check(dpos <= 0.05, f"K5 vs plain, use_estimator={mode}: final position {dpos:.3g} m apart")
+    r250 = tick_reading(full, ref_end, env=())
+    print(f"env_rollout use_estimator={mode}, {ctrl}: after {ENV_STEPS} steps (a reading, not a "
+          f"gate) worst float leaf {r250[0]:.4g} x the tick bound, {r250[1]} discrete leaves "
+          f"differ, wire codes {r250[2]} apart")
     B = s0.step.shape[0]
     print(f"env_rollout use_estimator={mode}{'' if draws is None else ', UWB'}, {ctrl}, {B} envs, "
           f"kernel (G={cuda_rollout.GROUP}) vs plain on "
@@ -2076,6 +2117,579 @@ def check_env_modes(dev):
     print(f"env_rollout modes (gpsimu, uwb): phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# sim/fleet_env (config #5). The wind fleet (K5's -DTICK_WIND build):
+# tests/test_fleet_and_bridge.py's formation (4 vehicles 2 m apart, mean wind
+# (2, 0, 0), gusts 1.0 m/s, gain 0.02, 3000 steps, the mocap estimator) and
+# its windy drift (no IMU noise; calm against mean 8 m/s, gain 0.05; one
+# vehicle, 2500 steps); the kernel held at FLEET_CHECK_ENVS x ENV_STEPS
+# against the plain rollout on the card, and bench.py's shape (ENVS x
+# ENV_STEPS) timed in both estimator modes. FLEET_TICK_OPS: ENV_TICK_OPS
+# and the gust process and its force (~20 operations a tick).
+FLEET_N, FLEET_STEPS, DRIFT_STEPS = 4, 3000, 2500
+FLEET_CHECK_ENVS = 64
+FLEET_WIND = dict(mean=(2.0, 0.0, 0.0), gust_std=1.0, gust_tau=2.0, force_gain=0.02)
+FLEET_TICK_OPS = {False: ENV_TICK_OPS[False] + 20, True: ENV_TICK_OPS[True] + 20}
+WIND_ROLLOUT = ("rollout", ("TICK_WIND",))  # K5's wind build
+# The shared-UWB fleet (K6, csrc/fleet_uwb.cu): tests/test_fleet_and_bridge.py's
+# three vehicles 1.5 m apart, five anchors, a 5 ms network period, 0.05 m
+# range noise; 1500 idle ticks, then 6000 with position commands. Held
+# against the plain version over UWB_CHECK_TICKS with a gusty wind (mean
+# (1, 0, 0), 0.5 m/s, gain 0.01) so the wind code runs too; timed at N = 3
+# and at the radio cap (28 vehicles and 5 anchors, 33 radios).
+UWB_FLEET_IDS = (101, 102, 103, 104, 105)
+UWB_FLEET_POS = ((-5.0, -4.0, 0.1), (6.0, -4.0, 3.0), (6.0, 6.0, 0.2), (-5.0, 6.0, 3.0),
+                 (0.5, 1.0, 4.0))
+UWB_FLEET_DES = ((0.0, 0.0, 1.5), (0.5, 1.5, 1.5), (1.0, 3.0, 1.5))
+UWB_IDLE, UWB_FLY, UWB_CHECK_TICKS, UWB_TIMED_TICKS, UWB_CAP = 1500, 6000, 100, 1000, 28
+# K6's float operations per vehicle and tick: the UWB configuration's
+# ENV_MODE_TICK_OPS without the per-env network, the gusts (~20); and the
+# network's scan of 33 radios (~150) once a tick
+K6_VEHICLE_OPS, K6_NETWORK_OPS = ENV_MODE_TICK_OPS["uwb"] - 100 + 20, 150
+
+
+def fleet_case(dev, n, wind=FLEET_WIND, noise_scale=1.0, spacing=2.0):
+    """(params, state) of a wind fleet of n vehicles on a line."""
+    from agrifly_tpu_torch.sim import env, fleet_env
+
+    p = fleet_env.FleetParams(env.make_params(noise_scale=noise_scale, device=dev),
+                              fleet_env.make_wind(**wind, device=dev))
+    return p, fleet_env.init_fleet(p, n, spacing=spacing)
+
+
+def fleet_des(n, dev):
+    import torch
+
+    return torch.tensor([[0.0, 2.0 * i, 1.5] for i in range(n)], device=dev)
+
+
+def wind_launcher(p, s, des, noise, gusts, mode, group, launcher=None):
+    """A bare launch of K5's wind build on fleet s (gusts (n, B, 3)):
+    returns fn() -> (new leaves, traj)."""
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    specs, pspecs = cuda_rollout.leaf_table(wind=True)
+    B, dev = s.wind_vel.shape[0], noise.device
+    s_entry = cuda_rollout._accept("state", s, dev, lambda leaves: cuda_build.check_leaves(
+        specs, leaves, dev, "state", B, "tick.cuh"))
+    p_entry = cuda_rollout._accept("params", p, dev, lambda leaves: cuda_build.check_leaves(
+        pspecs, leaves, dev, "params", None, "tick.cuh"))
+    z3 = torch.zeros(3, device=dev)
+    rows = cuda_rollout._command(env.Command(des, z3, z3, z3[0], z3, z3), B, dev)
+    draws = gusts.transpose(0, 1).contiguous()
+    return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, "rates", group,
+                                        launcher, draws, wind=True)
+
+
+def fleet_draws(B, n, gen, dev):
+    import torch
+
+    return (torch.randn((B, n, 2, 3), generator=gen, device=dev),
+            torch.randn((n, B, 3), generator=gen, device=dev))
+
+
+def check_wind_kernel(dev, gen):
+    """K5's wind build: every G bit-equal to G = 1 (ENVS x ENV_STEPS, both
+    estimator modes); calm wind (sigma 0, gain 0) bit-equal to K5 without
+    TICK_WIND on the same inputs; the default G against the plain rollout on
+    the card (FLEET_CHECK_ENVS x ENV_STEPS, tick criteria, both modes).
+    Returns (worst ratio, max abs err, plain ms of the mocap check)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, env, fleet_env
+
+    p, s0 = fleet_case(dev, ENVS)
+    des = fleet_des(ENVS, dev)
+    noise, gusts = fleet_draws(ENVS, ENV_STEPS, gen, dev)
+    specs, _ = cuda_rollout.leaf_table(wind=True)
+    names = [".".join(spec.path) for spec in specs] + list(env.StepOutputs._fields)
+    for mode in (False, True):
+        k5_groups_equal(lambda g: wind_launcher(p, s0, des, noise, gusts, mode, g)(), names,
+                        f"wind fleet, use_estimator={mode}, {ENVS} envs x {ENV_STEPS} steps")
+
+    # calm wind against K5 without TICK_WIND: the env leaves and the
+    # trajectory equal, the gusts still at rest
+    calm, c0 = fleet_case(dev, ENVS, wind=dict(mean=(0.0, 0.0, 0.0), gust_std=0.0, gust_tau=2.0,
+                                               force_gain=0.0))
+    z3 = torch.zeros(3, device=dev)
+    for mode in (False, True):
+        w_state, w_traj = wind_launcher(calm, c0, des, noise, gusts, mode, cuda_rollout.GROUP)()
+        e_state, e_traj = env_launcher(calm.base, c0.envs, env.Command(des, z3, z3, z3[0], z3, z3),
+                                       noise, mode, cuda_rollout.GROUP)()
+        for a, b in zip(w_state[:-1] + w_traj, e_state + e_traj):
+            _check(torch.equal(a, b), f"calm wind vs K5, use_estimator={mode}: a leaf differs")
+        _check(not bool(w_state[-1].any()), "calm wind: the gusts moved")
+    torch.cuda.synchronize()
+    print(f"env_rollout wind build: calm wind (sigma 0, gain 0) bit-equal to K5 without TICK_WIND "
+          f"at {ENVS} envs x {ENV_STEPS} steps, both estimator modes")
+
+    # against the plain rollout, as K5's check_env_against_plain holds K5:
+    # the first ENV_CHECK_STEPS steps by the tick criteria, all ENV_STEPS by
+    # JAX's rollout_fast terms (flight state and panic equal, final
+    # position within 0.05 m), with the tick criteria's reading there
+    worst = err = 0.0
+    plain_ms = None
+    sub, n = slice(0, FLEET_CHECK_ENVS), ENV_CHECK_STEPS
+    s = fleet_env.FleetState(env_subset(s0.envs, sub), s0.wind_vel[sub].contiguous())
+    nz, gs = noise[sub].contiguous(), gusts[:, sub].contiguous()
+    for mode in (True, False):
+        where = f"K5 wind vs plain, use_estimator={mode}"
+        head = (nz[:, :n].contiguous(), gs[:n].contiguous())
+        got = fleet_env.fleet_rollout(p, s, des[sub], n, mode, *head)[0]
+        ref = fleet_env.fleet_rollout_plain(p, s, des[sub], *head, mode)
+        w = compare_ticks(got, ref, f"{where}, {n} steps", env=("envs",))
+        e = max_abs_err(got, ref)
+        worst, err = max(worst, w), max(err, e)
+        full = fleet_env.fleet_rollout(p, s, des[sub], ENV_STEPS, mode, noise=nz, wind_noise=gs)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_end = fleet_env.fleet_rollout_plain(p, s, des[sub], nz, gs, mode)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        plain_ms = ms if mode else plain_ms
+        for name in ("fs", "panic_reason"):
+            _check(torch.equal(getattr(full.envs.logic, name), getattr(ref_end.envs.logic, name)),
+                   f"{where}: {name} differs after {ENV_STEPS} steps")
+        dpos = float((full.envs.plant.pos - ref_end.envs.plant.pos).abs().max())
+        _check(dpos <= 0.05, f"{where}: final position {dpos:.3g} m apart")
+        r250 = tick_reading(full, ref_end, env=("envs",))
+        print(f"env_rollout wind build vs plain on the card, use_estimator={mode}, "
+              f"{FLEET_CHECK_ENVS} envs: {n} steps discrete leaves equal, worst float leaf "
+              f"{w:.4g} x bound, max abs err {e:.3g}; {ENV_STEPS} steps flight state and panic "
+              f"equal, final position {dpos:.3g} m apart, the tick criteria's reading "
+              f"{r250[0]:.4g} x bound ({r250[1]} discrete leaves differ, wire codes {r250[2]} "
+              f"apart); the plain rollout {ms:.1f} ms ({ms / ENV_STEPS:.3f} ms a step)")
+    return worst, err, plain_ms
+
+
+def fleet_flights(dev, gen):
+    """tests/test_fleet_and_bridge.py's formation under wind (FLEET_N x
+    FLEET_STEPS through fleet_rollout: every vehicle within 0.4 m of its
+    setpoint, no panic, the gusts moved) and its windy drift (x apart by
+    more than 0.02 m after DRIFT_STEPS)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import fleet_env
+
+    p, s = fleet_case(dev, FLEET_N)
+    des = fleet_des(FLEET_N, dev)
+    t0 = time.perf_counter()
+    final, _ = fleet_env.fleet_rollout(p, s, des, FLEET_STEPS, gen=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = (final.envs.plant.pos - des).norm(dim=1)
+    moved = float((final.wind_vel - torch.tensor(FLEET_WIND["mean"], device=dev)).abs().max())
+    _check(bool((err < 0.4).all()) and bool((final.envs.logic.panic_reason == 0).all())
+           and moved > 1e-3, f"formation: errors {err.tolist()}, panic "
+           f"{final.envs.logic.panic_reason.tolist()}, gusts moved {moved:.3g}")
+    x = []
+    for wind in (dict(mean=(0.0, 0.0, 0.0), gust_std=0.0, gust_tau=2.0, force_gain=0.0),
+                 dict(mean=(8.0, 0.0, 0.0), gust_std=0.0, gust_tau=2.0, force_gain=0.05)):
+        pw, sw = fleet_case(dev, 1, wind=wind, noise_scale=0.0)
+        f, _ = fleet_env.fleet_rollout(pw, sw, torch.tensor([[0.0, 0.0, 1.5]], device=dev),
+                                       DRIFT_STEPS, gen=gen)
+        x.append(float(f.envs.plant.pos[0, 0]))
+    _check(abs(x[1] - x[0]) > 0.02, f"windy drift: x {x}")
+    print(f"fleet_env formation under wind, {FLEET_N} vehicles x {FLEET_STEPS} steps in one "
+          f"call ({1e3 * wall:.1f} ms): every error < 0.4 m (max {float(err.max()):.4f}), no "
+          f"panic, gusts moved {moved:.3f} m/s; windy drift over {DRIFT_STEPS} steps: x calm "
+          f"{x[0]:.4f} m, windy {x[1]:.4f} m")
+
+
+def check_fleet_wind(dev):
+    """sim/fleet_env's wind fleet on the card (K5's -DTICK_WIND build):
+    check_wind_kernel, fleet_flights, then bench.py's shape through
+    fleet_rollout (ENVS vehicles x ENV_STEPS steps, ENV_CALLS timed calls
+    per estimator mode, the draws drawn inside) with its launches counted
+    from 0, and K5-wind's device time beside K5's in the same call on the
+    same inputs. Returns the kernel's line and its launches."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_rollout, env, fleet_env
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst, err, plain_ms = check_wind_kernel(dev, gen)
+    fleet_flights(dev, gen)
+
+    p, s0 = fleet_case(dev, ENVS)
+    des = fleet_des(ENVS, dev)
+    noise, gusts = fleet_draws(ENVS, ENV_STEPS, gen, dev)
+    z3 = torch.zeros(3, device=dev)
+    cmd = env.Command(des, z3, z3, z3[0], z3, z3)
+    dev_us = {}
+    for mode in (False, True):  # in turns: K5, K5-wind, K5-wind, K5
+        k5 = env_launcher(p.base, s0.envs, cmd, noise, mode, cuda_rollout.GROUP)
+        k5w = wind_launcher(p, s0, des, noise, gusts, mode, cuda_rollout.GROUP)
+        t = [device_us(fn, reps=3) for fn in (k5, k5w, k5w, k5)]
+        dev_us[mode] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        print(f"env_rollout device time per call, {ENVS} envs x {ENV_STEPS} steps, use_estimator="
+              f"{mode}, in turns: K5 {us_text(t[0])}, K5-wind {us_text(t[1])}, K5-wind "
+              f"{us_text(t[2])}, K5 {us_text(t[3])} (K5-wind / K5 "
+              f"{dev_us[mode][1] / dev_us[mode][0]:.4f})")
+
+    # the main path: fleet_rollout at bench.py's shape, launches from 0
+    fleet_rollout_launches = 0
+    for mode in (True, False):
+        cuda_rollout.fleet_rollout.launches = 0
+        final, _ = fleet_env.fleet_rollout(p, s0, des, ENV_STEPS, mode, gen=gen)
+        torch.cuda.synchronize()
+        t0, host = time.perf_counter(), 0.0
+        for _ in range(ENV_CALLS):
+            t1 = time.perf_counter()
+            final, _ = fleet_env.fleet_rollout(p, s0, des, ENV_STEPS, mode, gen=gen)
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = cuda_rollout.fleet_rollout.launches
+        _check(launches == ENV_CALLS + 1, f"fleet_rollout: {launches} launches")
+        fleet_rollout_launches += launches
+        _check(bool(torch.isfinite(final.envs.plant.pos).all())
+               and bool((final.envs.step == ENV_STEPS).all())
+               and bool((final.envs.logic.panic_reason == 0).all()),
+               f"fleet_rollout use_estimator={mode}: non-finite, a panic, or steps")
+        print(f"fleet_rollout use_estimator={mode}: "
+              f"{ENVS * ENV_STEPS * ENV_CALLS / elapsed:.1f} steps/s at {ENVS} vehicles x "
+              f"{ENV_STEPS} steps ({ENV_CALLS} timed calls of {1e3 * elapsed / ENV_CALLS:.3f} ms, "
+              f"the noise and gust normals drawn inside; the host returns from a call in "
+              f"{1e3 * host / ENV_CALLS:.3f} ms; K5-wind's device time "
+              f"{us_text(dev_us[mode][1])}); {launches} launches of K5-wind in {ENV_CALLS + 1} "
+              f"calls; final z mean {float(final.envs.plant.pos[:, 2].mean()):.4f} m")
+
+    # the bound at bench.py's shape
+    for mode in (False, True):
+        new, traj = wind_launcher(p, s0, des, noise, gusts, mode, cuda_rollout.GROUP)()
+        n_bytes = env_bytes(convert.flatten_tensors(s0)[0], cuda_rollout.param_leaves(p), [des],
+                            noise, new, traj) + nbytes(gusts)
+        r = result(0.0, 0.0, None, n_bytes, ENVS * ENV_STEPS * FLEET_TICK_OPS[mode])
+        print(f"env_rollout wind build, {ENVS} vehicles x {ENV_STEPS} steps, use_estimator={mode}:"
+              f" bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+    # the kernel's line: the default mode (mocap) at FLEET_CHECK_ENVS, where
+    # the plain rollout was timed, and its bound
+    sub = slice(0, FLEET_CHECK_ENVS)
+    s = fleet_env.FleetState(env_subset(s0.envs, sub), s0.wind_vel[sub].contiguous())
+    nz, gs = noise[sub].contiguous(), gusts[:, sub].contiguous()
+    ms = cuda_ms(lambda: fleet_env.fleet_rollout(p, s, des[sub], ENV_STEPS, True, noise=nz,
+                                                 wind_noise=gs), reps=5, warmup=1)
+    leaves, pleaves = convert.flatten_tensors(s)[0], cuda_rollout.param_leaves(p)
+    launch = wind_launcher(p, s, des[sub], nz, gs, True, cuda_rollout.GROUP)
+    new, traj = launch()
+    n_bytes = env_bytes(leaves, pleaves, [des[sub]], nz, new, traj) + nbytes(gs)
+    res = result(err, ms, plain_ms, n_bytes, FLEET_CHECK_ENVS * ENV_STEPS * FLEET_TICK_OPS[True])
+    print(f"env_rollout wind build, {FLEET_CHECK_ENVS} vehicles x {ENV_STEPS} steps, mocap: "
+          f"wrapper {ms:.4f} ms, device {us_text(device_us(launch, reps=3))}, plain "
+          f"{plain_ms:.1f} ms, bound {res['bound_ms']:.6f} ms "
+          f"({res['bound_by']}); worst float leaf {worst:.4g} x bound; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return res, fleet_rollout_launches
+
+
+def uwb_fleet_case(dev, n, wind=None):
+    """(params, state, setpoints) of the shared-UWB fleet of n vehicles with
+    UWB_FLEET_IDS' anchors (setpoints UWB_FLEET_DES, or a line for n > 3)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import fleet_env
+
+    w = None if wind is None else fleet_env.make_wind(**wind, device=dev)
+    p = fleet_env.make_uwb_fleet_params(n, UWB_FLEET_IDS, UWB_FLEET_POS, wind=w,
+                                        comm_period=0.005, noise_std=0.05, noise_scale=1.0,
+                                        device=dev)
+    des = (torch.tensor(UWB_FLEET_DES, device=dev) if n == 3 else
+           torch.tensor([[0.5 * (i % 4), 1.5 * (i // 4), 1.5] for i in range(n)], device=dev))
+    return p, fleet_env.init_uwb_fleet(p, spacing=1.5), des
+
+
+def uwb_draws(n, steps, gen, dev):
+    import torch
+
+    from agrifly_tpu_torch.sim import uwb
+
+    return (torch.randn((n, steps, 2, 3), generator=gen, device=dev),
+            torch.randn((steps, n, 3), generator=gen, device=dev), uwb.draw((steps,), gen, dev))
+
+
+def check_fleet_uwb(dev):
+    """K6, the shared-UWB fleet kernel: against the plain version on the
+    card over UWB_CHECK_TICKS (idle, then position, a gusty wind; the
+    network's state and latch_start equal, floats by the tick criteria);
+    every G bit-equal to G = 1; tests/test_fleet_and_bridge.py's flight
+    (UWB_IDLE idle + UWB_FLY position ticks, two uwb_fleet_rollout calls,
+    its launches counted from 0) held to that test's assertions; K6's µs
+    per tick at N = 3 and at the radio cap. Returns the kernel's line and
+    its launches."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_rollout, fleet_env
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    p, s, des = uwb_fleet_case(dev, 3, wind=dict(mean=(1.0, 0.0, 0.0), gust_std=0.5,
+                                                 gust_tau=2.0, force_gain=0.01))
+    worst = err = 0.0
+    for ctrl in ("idle", "position"):
+        draws = uwb_draws(3, UWB_CHECK_TICKS, gen, dev)
+        case = (p, s, des, draws)
+        got = fleet_env.uwb_fleet_rollout(p, s, des, UWB_CHECK_TICKS, ctrl, *draws)[0]
+        for g in cuda_rollout.GROUPS:
+            other = cuda_fleet_uwb.rollout(p, s, des, *draws, ctrl, group=g)
+            for (path, a), (_, b) in zip(convert.leaves(other), convert.leaves(got)):
+                _check(torch.equal(a, b), f"K6 G={g} vs G={cuda_fleet_uwb.GROUP}: {path}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = fleet_env.uwb_fleet_rollout_plain(p, s, des, *draws, ctrl)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)  # the line's: the position check's
+        w = compare_ticks(got, ref, f"K6 vs plain, {ctrl}", env=("envs",))
+        e = max_abs_err(got, ref)
+        worst, err = max(worst, w), max(err, e)
+        print(f"fleet_uwb K6 vs plain on the card, 3 vehicles, {ctrl}, {UWB_CHECK_TICKS} ticks: "
+              f"the network ({[int(t) for t in got.uwb]}) and latch_start "
+              f"({int(got.latch_start)}) equal, discrete leaves equal, worst float leaf {w:.4g} x "
+              f"bound, max abs err {e:.3g}; ranges {got.envs.logic.uwb_meas_count.tolist()}; "
+              f"every G in {cuda_rollout.GROUPS} bit-equal")
+        s = got
+
+    # the flight, its launches counted from 0
+    p, s, des = uwb_fleet_case(dev, 3)
+    cuda_fleet_uwb.rollout.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, _ = fleet_env.uwb_fleet_rollout(p, s, des, UWB_IDLE, "idle", gen=gen)
+    final, _ = fleet_env.uwb_fleet_rollout(p, s, des, UWB_FLY, gen=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_fleet_uwb.rollout.launches
+    _check(launches == 2, f"uwb_fleet_rollout: {launches} launches")
+    pos = final.envs.plant.pos
+    e = (pos - des).norm(dim=1)
+    counts = final.envs.logic.uwb_meas_count
+    _check(bool((e < 1.0).all()) and bool((pos[:, 2] > 0.5).all())
+           and bool((final.envs.logic.panic_reason == 0).all()) and bool((counts > 100).all())
+           and bool(final.envs.logic.kf.uwb_init.all()),
+           f"UWB fleet flight: errors {e.tolist()}, z {pos[:, 2].tolist()}, panic "
+           f"{final.envs.logic.panic_reason.tolist()}, ranges {counts.tolist()}")
+    print(f"fleet_uwb flight (tests/test_fleet_and_bridge.py's), 3 vehicles, {UWB_IDLE} idle + "
+          f"{UWB_FLY} position ticks in {launches} launches of K6: {1e3 * wall:.1f} ms wall; "
+          f"errors {[round(float(x), 4) for x in e]} m, ranges {counts.tolist()}, no panic, "
+          f"uwb_init, latch_start {int(final.latch_start)}")
+
+    # µs per tick at N = 3 and at the cap, and the bound of those launches
+    us = {}
+    for n in (3, UWB_CAP):
+        pn, sn, dn = uwb_fleet_case(dev, n)
+        draws = uwb_draws(n, UWB_TIMED_TICKS, gen, dev)
+        us[n] = device_us(lambda: cuda_fleet_uwb.rollout(pn, sn, dn, *draws, "position"),
+                          reps=3) / UWB_TIMED_TICKS
+        r = result(0.0, 0.0, None, 2 * nbytes(*convert.flatten_tensors(sn)[0])
+                   + nbytes(*convert.flatten_tensors(pn)[0], dn, *draws),
+                   UWB_TIMED_TICKS * (n * K6_VEHICLE_OPS + K6_NETWORK_OPS))
+        print(f"fleet_uwb K6, {n} vehicles and 5 anchors, {UWB_TIMED_TICKS} ticks: device "
+              f"{us[n]:.3f} us a tick, bound {r['bound_ms']:.6f} ms a launch ({r['bound_by']})")
+    print(f"fleet_uwb K6 device time per tick ({UWB_TIMED_TICKS}-tick launches, position): "
+          f"N = 3 with 5 anchors {us[3]:.3f} us; N = {UWB_CAP} with 5 anchors (the cap, "
+          f"{UWB_CAP + 5} radios) {us[UWB_CAP]:.3f} us")
+
+    # the kernel's line: the position check's inputs (3 vehicles,
+    # UWB_CHECK_TICKS ticks), where the plain version was timed
+    p, s, des, draws = case
+    ms = cuda_ms(lambda: fleet_env.uwb_fleet_rollout(p, s, des, UWB_CHECK_TICKS, "position",
+                                                     *draws), reps=5, warmup=1)
+    dev_us = device_us(lambda: cuda_fleet_uwb.rollout(p, s, des, *draws, "position"), reps=3)
+    leaves = convert.flatten_tensors(s)[0]
+    n_bytes = 2 * nbytes(*leaves) + nbytes(*convert.flatten_tensors(p)[0], des, *draws)
+    res = result(err, ms, plain_ms, n_bytes,
+                 UWB_CHECK_TICKS * (3 * K6_VEHICLE_OPS + K6_NETWORK_OPS))
+    print(f"fleet_uwb K6, 3 vehicles x {UWB_CHECK_TICKS} ticks: wrapper {ms:.4f} ms, device "
+          f"{us_text(dev_us)}, plain "
+          f"{plain_ms:.1f} ms, bound {res['bound_ms']:.6f} ms ({res['bound_by']}); worst float "
+          f"leaf {worst:.4g} x bound; phase {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
+def check_mission(dev):
+    """sim/mission on the card: tests/test_mission.py's progression and
+    landing drives (50 Hz ticks on an ideal pose) on CUDA tensors, held to
+    the same drive on the CPU (discrete leaves and messages equal, floats by
+    the tick criteria); safetynet, aruco and test_trajectories once each."""
+    import torch
+
+    from agrifly_tpu_torch.models import constants as qconst
+    from agrifly_tpu_torch.offboard import controller, safetynet
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.sim import aruco, mission
+    from agrifly_tpu_torch.sim import test_trajectories as tt
+
+    t_phase = time.perf_counter()
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p = mission.make_params(desired_position=(0.0, 0.0, 2.0),
+                                waypoints=((5.0, 0.0, 2.0), (10.0, 0.0, 2.0)), device=d)
+        c = controller.make_params(qconst.vehicle_params(qconst.QC_TYPE_CF_MINIQUAD), device=d)
+        s = mission.init_state(p)
+        z3 = torch.zeros(3, device=d)
+        refs = (z3, z3, z3, torch.tensor(9.81, device=d), z3)
+        yes, no = torch.tensor(True, device=d), torch.tensor(False, device=d)
+        stages, msgs, now = [], [], 0
+        for pos, seconds in (((0.0, 0.0, 0.5), 1.1), ((0.0, 0.0, 2.0), 6.0),
+                             ((4.8, 0.0, 2.0), 0.1), ((9.8, 0.0, 2.0), 0.1),
+                             ((9.8, 0.0, 1.0), 7.0)):
+            for _ in range(int(seconds * 50)):
+                now += 20000
+                s, cmd = mission.step(p, c, s, now, torch.tensor(pos, device=d), z3,
+                                      rot.identity(d), no, refs, yes, no)
+                stages.append(s.stage)
+                msgs.append(torch.cat([cmd.msg_type[None], cmd.msg_flags[None], cmd.msg_fields]))
+        runs.append((s, torch.stack(stages).cpu(), torch.stack(msgs).cpu()))
+    (s, stages, msgs), (s_cpu, stages_cpu, msgs_cpu) = runs
+    _check(torch.equal(stages, stages_cpu) and torch.equal(msgs, msgs_cpu),
+           "mission: the card's stages or messages differ from the CPU's")
+    compare_ticks(s, s_cpu, "mission on the card vs the CPU", env=())
+    _check(int(s.stage) == mission.STAGE_COMPLETE and bool(s.ready_to_exit),
+           f"mission: ended in {mission.STAGE_NAMES[int(s.stage)]}")
+
+    sp = safetynet.lab_params(device=dev)
+    st = safetynet.update(sp, safetynet.init_state(dev), torch.tensor([10.0, 0.0, 1.0], device=dev),
+                          rot.identity(dev), torch.tensor(1000, device=dev))
+    _check(not bool(st.is_safe) and bool(st.unsafe_position), "safetynet: the geofence")
+    ap = aruco.make_params(period=0.1, noise_std_pos=0.05, device=dev)
+    a = aruco.init_state(dev)
+    fires = 0
+    for _ in range(250):
+        a = aruco.step(ap, a, torch.ones(3, device=dev), rot.identity(dev), 2000,
+                       torch.zeros(3, device=dev))
+        fires += int(a.has_new)
+    _check(fires == 4, f"aruco: {fires} measurements in 0.5 s")
+    for traj_id in range(6):
+        got = tt.evaluate(traj_id, torch.tensor(3.0, device=dev),
+                          torch.tensor([0.3, -0.2, 1.7], device=dev))
+        ref = tt.evaluate(traj_id, torch.tensor(3.0), torch.tensor([0.3, -0.2, 1.7]))
+        for x, y in zip(got, ref):
+            _check(float((x.cpu() - y).abs().max()) <= 1e-5, f"test trajectory {traj_id}")
+    print(f"mission on the card: {len(stages)} ticks through "
+          f"{' -> '.join(dict.fromkeys(mission.STAGE_NAMES[int(k)] for k in stages))}, stages "
+          f"and messages equal to the CPU's, the state within the tick criteria; safetynet, "
+          f"aruco ({fires} measurements in 0.5 s), test_trajectories 0-5 on the card; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _c_declaration(src, name):
+    """The text of `extern "C" int name(...)` in a source, whitespace folded."""
+    import re
+
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S)
+    _check(m is not None, f"{name} not found")
+    return " ".join(m.group(1).split())
+
+
+def check_parent(dev, root):
+    """This tree's K3 and K5 (true state, mocap, GPS-IMU, and the UWB build)
+    against the parent's: its frame.cu and rollout.cu (with and without
+    TICK_UWB) built from root/agrifly_tpu_torch/csrc and called through this
+    tree's wrappers, which the check allows only where the parent declares
+    the same C interface. The results bit for bit, and both device times in
+    turns (parent, this tree, this tree, parent)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from agrifly_tpu_torch import convert, cuda_build
+    from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout, orchard_env
+
+    csrc = Path(root) / "agrifly_tpu_torch" / "csrc"
+    out = Path(root) / "agrifly_tpu_torch" / "_build"
+    out.mkdir(parents=True, exist_ok=True)
+    for name, fn in (("frame", "frame_ticks_launch"), ("rollout", "env_rollout_launch")):
+        _check(_c_declaration((csrc / f"{name}.cu").read_text(), fn)
+               == _c_declaration((cuda_build.CSRC / f"{name}.cu").read_text(), fn),
+               f"the parent's {fn} has another C interface")
+    builds = {"frame": ("frame", ()), "rollout": ("rollout", ()),
+              "rollout_uwb": ("rollout", ("TICK_UWB",))}
+
+    def build(item):
+        key, (name, defines) = item
+        lib = out / f"libparent_{key}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(lib), str(csrc / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check(proc.returncode == 0, f"the parent's {name}.cu: {proc.stderr[-2000:]}")
+        return key, ctypes.CDLL(str(lib))
+
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = dict(pool.map(build, builds.items()))
+    fns = {}
+    for key, lib in libs.items():
+        fn = lib.frame_ticks_launch if key == "frame" else lib.env_rollout_launch
+        fn.argtypes = cuda_frame._ARGTYPES if key == "frame" else cuda_rollout._ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+
+    # K3: the five mission states at B = 5 and the tracking state at B = 1,
+    # 10 chained blocks of 16 ticks each
+    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p = orchard_env.OrchardEnv(p_cpu).to(dev).params
+    pleaves = cuda_frame.param_leaves(p)
+    states = tick_states(p_cpu)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    differ = total = 0
+    times = {}
+    for B, names in ((5, tuple(states)), (1, ("tracking",))):
+        fleet = to_device(orchard_env.stack_states([states[names[b % len(names)]]
+                                                    for b in range(B)]), dev)
+        mine = theirs = convert.flatten_tensors(fleet)[0]
+        for _ in range(10):
+            noise = torch.randn((B, 16, 2, 3), generator=gen, device=dev)
+            mine = cuda_frame._launch(mine, pleaves, noise)
+            theirs = cuda_frame._launch(theirs, pleaves, noise, launcher=fns["frame"])
+            for a, b in zip(mine, theirs):
+                differ += int((a != b).sum())
+                total += a.numel()
+        launches = (lambda: cuda_frame._launch(mine, pleaves, noise, launcher=fns["frame"]),
+                    lambda: cuda_frame._launch(mine, pleaves, noise))
+        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
+        times[f"K3 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    _check(differ == 0, f"K3 against the parent's: {differ} of {total} elements differ")
+    print(f"parent's K3: 10 blocks of 16 ticks at B = 5 (five states) and B = 1 (tracking): "
+          f"0 of {total} leaf elements differ")
+
+    # K5 in every mode at 1024 envs x ENV_STEPS
+    B = 1024
+    for name, mode, ctrl in (("true", False, "rates"), ("mocap", True, "rates"),
+                             ("gpsimu", "gpsimu", "rates"), ("uwb", False, "position")):
+        case = "uwb" if name == "uwb" else "gpsimu"
+        pp, s, cmd = env_mode_case(dev, case, B)
+        noise = torch.randn((B, ENV_STEPS, 2, 3), generator=gen, device=dev)
+        draws = None
+        if name == "uwb":
+            from agrifly_tpu_torch.sim import uwb
+
+            draws = uwb.draw((B, ENV_STEPS), gen, dev)
+        parent = fns["rollout_uwb" if name == "uwb" else "rollout"]
+        a_state, a_traj = env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, ctrl=ctrl,
+                                       draws=draws)()
+        b_state, b_traj = env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, parent,
+                                       ctrl=ctrl, draws=draws)()
+        for a, b in zip(a_state + a_traj, b_state + b_traj):
+            _check(torch.equal(a, b), f"K5 {name} against the parent's: a leaf differs")
+        launches = (env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, parent, ctrl=ctrl,
+                                 draws=draws),
+                    env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, ctrl=ctrl,
+                                 draws=draws))
+        t = [device_us(launches[i], reps=3) for i in (0, 1, 1, 0)]
+        times[f"K5 {name} {B} envs"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    print(f"parent's K5 at {B} envs x {ENV_STEPS} steps: true state, mocap, GPS-IMU and UWB "
+          "results bit-equal (every state and trajectory leaf)")
+    print("parent vs this tree, device time in turns (parent, this, this, parent): " + "; ".join(
+        f"{k} {v[0]:.1f} / {v[1]:.1f} us ({v[1] / v[0]:.4f})" for k, v in times.items()))
+
+
 def build_kernels():
     """Build the kernel libraries, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2083,18 +2697,19 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 3) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 4) as pool:
         timed = [pool.submit(cuda_build.load, *variant)
-                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT)]
+                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT)]
         list(pool.map(cuda_build.load, KERNELS))
         for variant in timed:
             variant.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
-    for name in ("raycast", "meshscene", "inflate", "frame", "rollout"):
+    for name in ("raycast", "meshscene", "inflate", "frame", "rollout", "fleet_uwb"):
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
-    print(ptxas_report("rollout", cuda_build.build_logs.get("rollout-TICK_UWB", ""),
-                       "rollout.cu -DTICK_UWB"))
+    for define in ("TICK_UWB", "TICK_WIND"):
+        print(ptxas_report("rollout", cuda_build.build_logs.get(f"rollout-{define}", ""),
+                           f"rollout.cu -D{define}"))
 
 
 # kernel entry names in ptxas's report -> short names
@@ -2103,7 +2718,8 @@ PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
                            "inflate_grouped_kernel": "K2g"},
                "frame": {"frame_kernel": "K3"},
-               "rollout": {"rollout_kernel": "K5"}}  # K5 G=g: its template instance for g lanes
+               "rollout": {"rollout_kernel": "K5"},  # K5 G=g: its template instance for g lanes
+               "fleet_uwb": {"fleet_uwb_kernel": "K6"}}
 
 
 def ptxas_report(lib, log, label=None):
@@ -2129,8 +2745,15 @@ def ptxas_report(lib, log, label=None):
                                      or "not rebuilt in this process")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = argv[1]
+    elif argv:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2139,7 +2762,7 @@ def main() -> int:
         from agrifly_tpu_torch import cuda_build  # noqa: F401
         from agrifly_tpu_torch.planner import cuda_inflate  # noqa: F401
         from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast  # noqa: F401
-        from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout  # noqa: F401
+        from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the port is not here: {exc}", file=sys.stderr)
         return 1
@@ -2174,6 +2797,11 @@ def main() -> int:
         mesh_launches, _, window_launches = fly_mesh(dev, state)
         k5, k5_launches = check_env_rollout(dev)
         check_env_modes(dev)
+        k5w, k5w_launches = check_fleet_wind(dev)
+        k6, k6_launches = check_fleet_uwb(dev)
+        check_mission(dev)
+        if parent is not None:
+            check_parent(dev, parent)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
@@ -2211,6 +2839,13 @@ def main() -> int:
         {"name": "env_rollout", "route": "cuda", "source": source("rollout"),
          "replaces": "agrifly_tpu/sim/env.py:214 (rollout_fast; jnp, no pallas_call)",
          "launches": k5_launches, **k5},
+        {"name": "env_rollout_wind", "route": "cuda", "source": source("rollout"),
+         "replaces": "agrifly_tpu/sim/fleet_env.py:99 (fleet_rollout; jnp, no pallas_call)",
+         "launches": k5w_launches, **k5w},
+        {"name": "fleet_uwb", "route": "cuda", "source": source("fleet_uwb"),
+         "replaces": "agrifly_tpu/sim/fleet_env.py:265 (uwb_fleet_rollout, uwb_fleet_step:184; "
+                     "jnp, no pallas_call)",
+         "launches": k6_launches, **k6},
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -2224,4 +2859,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

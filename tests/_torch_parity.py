@@ -31,9 +31,9 @@ FLOAT_FLOOR = 1e-3
 # for the same reason. Leaves that hold those commands, and the
 # wire codes that quantize them (35/32768 per code), are held to that floor.
 COMMAND_FLOOR = 1e-2
-COMMAND_LEAVES = {("base", "last_cmd_angvel"), ("base", "mocap", "pipe", "angvel"),
-                  ("last_cmd_angvel",), ("mocap", "pipe", "angvel")}  # orchard, env paths
-WIRE_LEAVES = {("base", "ring", "fields"), ("ring", "fields")}
+COMMAND_LEAVES = {(*pre, *leaf) for pre in ((), ("base",), ("envs",))
+                  for leaf in (("last_cmd_angvel",), ("mocap", "pipe", "angvel"))}
+WIRE_LEAVES = {(*pre, "ring", "fields") for pre in ((), ("base",), ("envs",))}  # env, orchard, fleet
 WIRE_MAX_CODES = int(np.ceil(COMMAND_FLOOR / (35.0 / 32768.0)))
 
 # Where the GPS-IMU estimator closes the loop from its first tick, the
@@ -146,6 +146,21 @@ def jax_uwb_draws(keys, n):
     keys = np.asarray(keys)
     out = np.asarray(jax.jit(chain)(keys.reshape(-1, 2)))
     return torch.from_numpy(out.reshape(keys.shape[:-1] + (n, 4)).astype(np.float32))
+
+
+def jax_wind_draws(key, n_steps, n_vehicles):
+    """The gust normals sim/fleet_env's fleet_step and uwb_fleet_step draw
+    over n_steps ticks from a fleet's JAX key: `split(key)` a tick, then a
+    (N, 3) normal from the second half; (n_steps, N, 3) float32, the port's
+    `wind_noise`, and the key after them."""
+    import jax
+
+    def tick(k, _):
+        k, sub = jax.random.split(k)
+        return k, jax.random.normal(sub, (n_vehicles, 3), np.float32)
+
+    key, out = jax.jit(lambda k: jax.lax.scan(tick, k, None, length=n_steps))(np.asarray(key))
+    return torch.from_numpy(np.array(out, np.float32)), np.asarray(key)
 
 
 def leaf_readings(port_state, jax_state):

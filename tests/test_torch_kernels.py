@@ -16,8 +16,12 @@ and for a fleet (one launch for B vehicles); the inflation for one image
 and for a batch of images (one launch for B x P seeds). The grouped
 inflation (K2g, S seeds per block) is held to K2 and to the plain version
 the same way, bit for bit wherever ok; the cluster form (K2c) at every
-cluster size on the edge cases. The cluster-size choice and the constants
-the wrappers share with the kernel sources are checked on the CPU too.
+cluster size on the edge cases. The env rollout (K5) in every mode and
+build, the wind fleet (K5's wind build) and the shared-UWB fleet (K6) are
+held to the tick criteria against their plain rollouts on the card, every
+lane group size bit for bit against one lane. The cluster-size choice and
+the constants the wrappers share with the kernel sources are checked on the
+CPU too.
 """
 
 import re
@@ -32,7 +36,8 @@ from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
 from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
-from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout, env, orchard_env
+from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout, env, fleet_env
+from agrifly_tpu_torch.sim import orchard_env
 from chip_smoke import RAY_SCENES  # the default orchard, the make_params limit, a loose scene
 
 
@@ -637,3 +642,132 @@ def test_env_rollout_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noq
         cuda_rollout._launch(*entries, cuda_rollout._command(cmd, 4, noise.device), noise, False,
                              "rates", launcher=cuda_rollout._launcher(True))
     assert cuda_rollout.rollout.launches == before
+
+
+def _cpu(tree):
+    leaves, rebuild = convert.flatten_tensors(tree)
+    return rebuild([t.cpu() for t in leaves])
+
+
+def test_fleet_kernel_constants_match_the_sources():
+    """K6's vehicle and radio caps and the wind build's draw words, as the
+    wrappers assume them."""
+    src = (CSRC / "fleet_uwb.cu").read_text()
+    assert _constant(src, "kMaxVehicles") == cuda_fleet_uwb.MAX_VEHICLES
+    assert _constant((CSRC / "tick.cuh").read_text(), "kMaxRadios") == cuda_fleet_uwb.MAX_RADIOS
+    assert re.search(r"constexpr int kWindDrawWords = 3;", (CSRC / "rollout.cu").read_text())
+
+
+def _wind_case(device, B, n, seed, wind=None):
+    g = torch.Generator().manual_seed(seed)
+    w = wind or dict(mean=(2.0, 0.0, 0.0), gust_std=1.0, force_gain=0.02)
+    p = fleet_env.FleetParams(env.make_params(device=device),
+                              fleet_env.make_wind(**w, device=device))
+    s0 = fleet_env.init_fleet(p, B, spacing=1.5)
+    des = (torch.rand((B, 3), generator=g) * 2.0 + torch.tensor([0.0, 0.0, 0.5])).to(device)
+    return (p, s0, des, torch.randn((B, n, 2, 3), generator=g).to(device),
+            torch.randn((n, B, 3), generator=g).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_estimator", [True, False])
+def test_fleet_rollout_wind_kernel_matches_plain(cuda, use_estimator):  # noqa: F811
+    """fleet_rollout on the card is one launch of K5's wind build, within
+    the tick criteria of the plain rollout; every group size equals one
+    lane bit for bit."""
+    p, s0, des, noise, gusts = _wind_case(cuda, 37, 40, 3)
+    before = cuda_rollout.fleet_rollout.launches
+    got, _ = fleet_env.fleet_rollout(p, s0, des, 40, use_estimator, noise=noise,
+                                     wind_noise=gusts)
+    assert cuda_rollout.fleet_rollout.launches == before + 1
+    ref = fleet_env.fleet_rollout_plain(p, s0, des, noise, gusts, use_estimator)
+    compare_state(got, _cpu(ref))
+    assert float((got.wind_vel - p.wind.mean).abs().max()) > 1e-2
+    outs = {}
+    for group in cuda_rollout.GROUPS:
+        monkey = cuda_rollout.GROUP
+        cuda_rollout.GROUP = group
+        try:
+            outs[group] = cuda_rollout.fleet_rollout(p, s0, des, noise, gusts, use_estimator)
+        finally:
+            cuda_rollout.GROUP = monkey
+    for group, out in outs.items():
+        for (path, a), (_, b) in zip(convert.leaves(out), convert.leaves(outs[1])):
+            assert torch.equal(a, b), (group, path)
+
+
+@pytest.mark.cuda
+def test_fleet_rollout_calm_wind_equals_the_env_rollout(cuda):  # noqa: F811
+    """With no wind (sigma 0, gain 0) the wind build flies the env rollout's
+    fleet bit for bit."""
+    p, s0, des, noise, gusts = _wind_case(cuda, 9, 30, 4, dict(mean=(0.0, 0.0, 0.0),
+                                                                gust_std=0.0, force_gain=0.0))
+    got, _ = fleet_env.fleet_rollout(p, s0, des, 30, noise=noise, wind_noise=gusts)
+    z3 = torch.zeros(3, device=cuda)
+    ref, _ = env.rollout(p.base, s0.envs, env.Command(des, z3, z3, z3[0], z3, z3), 30, True,
+                         noise=noise)
+    for (path, a), (_, b) in zip(convert.leaves(got.envs), convert.leaves(ref)):
+        assert torch.equal(a, b), path
+
+
+def _uwb_fleet_case(device, n_vehicles, n_anchors, n, seed, wind=True):
+    g = torch.Generator().manual_seed(seed)
+    ids = list(range(101, 101 + n_anchors))
+    pos = (torch.rand((n_anchors, 3), generator=g) * torch.tensor([10.0, 10.0, 4.0])
+           - torch.tensor([5.0, 5.0, 0.0])).tolist()
+    w = fleet_env.make_wind((1.0, 0.0, 0.0), 0.5, 2.0, 0.01, device=device) if wind else None
+    p = fleet_env.make_uwb_fleet_params(n_vehicles, ids, pos, wind=w, comm_period=0.004,
+                                        noise_std=0.05, device=device)
+    s0 = fleet_env.init_uwb_fleet(p, spacing=1.0)
+    des = (torch.rand((n_vehicles, 3), generator=g) * 2.0 + torch.tensor([0.0, 0.0, 1.0]))
+    return (p, s0, des.to(device), torch.randn((n_vehicles, n, 2, 3), generator=g).to(device),
+            torch.randn((n, n_vehicles, 3), generator=g).to(device),
+            torch.cat([torch.rand((n, 1), generator=g), torch.randn((n, 2), generator=g),
+                       torch.rand((n, 1), generator=g)], 1).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_vehicles,n_anchors", [(3, 5), (28, 5), (1, 2), (32, 1)])
+def test_fleet_uwb_kernel_matches_plain(cuda, n_vehicles, n_anchors):  # noqa: F811
+    """uwb_fleet_rollout on the card is one launch of K6: the network's state
+    and latch_start equal to the plain version's, the vehicles within the
+    tick criteria (idle, then position commands); every group size equals
+    one lane bit for bit."""
+    p, s, des, noise, gusts, draws = _uwb_fleet_case(cuda, n_vehicles, n_anchors, 60, n_vehicles)
+    for ctrl in ("idle", "position"):
+        before = cuda_fleet_uwb.rollout.launches
+        got, _ = fleet_env.uwb_fleet_rollout(p, s, des, 60, ctrl, noise, gusts, draws)
+        assert cuda_fleet_uwb.rollout.launches == before + 1
+        ref = fleet_env.uwb_fleet_rollout_plain(p, s, des, noise, gusts, draws, ctrl)
+        compare_state(got, _cpu(ref))
+        for group in cuda_rollout.GROUPS:
+            other = cuda_fleet_uwb.rollout(p, s, des, noise, gusts, draws, ctrl, group=group)
+            for (path, a), (_, b) in zip(convert.leaves(other), convert.leaves(got)):
+                assert torch.equal(a, b), (group, path)
+        s = got
+    if n_anchors:
+        assert int(s.latch_start) > 0
+
+
+@pytest.mark.cuda
+def test_fleet_uwb_refuses_what_the_kernel_does_not_take(cuda):  # noqa: F811
+    """Over the caps (33 vehicles; 30 vehicles and 4 anchors), a wrong
+    dtype, a CPU tensor among CUDA ones: a ValueError and no launch; a group
+    it was not built for: the launch refuses."""
+    before = cuda_fleet_uwb.rollout.launches
+    for n_vehicles, n_anchors in ((33, 1), (30, 4)):
+        p, s, des, noise, gusts, draws = _uwb_fleet_case(cuda, n_vehicles, n_anchors, 5, 1)
+        with pytest.raises(ValueError, match="radios"):
+            fleet_env.uwb_fleet_rollout(p, s, des, 5, "position", noise, gusts, draws)
+    p, s, des, noise, gusts, draws = _uwb_fleet_case(cuda, 3, 2, 5, 2)
+    for args in ((noise.double(), gusts, draws), (noise, gusts.cpu(), draws),
+                 (noise, gusts, draws[:4])):
+        with pytest.raises(ValueError):
+            fleet_env.uwb_fleet_rollout(p, s, des, 5, "position", *args)
+    with pytest.raises(ValueError, match="latch_start"):
+        fleet_env.uwb_fleet_rollout(p, s._replace(latch_start=s.latch_start.long()), des, 5,
+                                    "position", noise, gusts, draws)
+    assert cuda_fleet_uwb.rollout.launches == before
+    with pytest.raises(RuntimeError, match="fleet_uwb_launch"):
+        cuda_fleet_uwb.rollout(p, s, des, noise, gusts, draws, group=3)
+
