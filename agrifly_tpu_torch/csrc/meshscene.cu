@@ -41,6 +41,16 @@
 // `nvis`, where it is not null, receives each strip's count of passing rows
 // (strip_windows' n_vis).
 //
+// K4-rgb (meshscene_rgb_kernel) is a third kernel from K4's strip body.
+// It replaces no TPU kernel: the JAX package renders an imported world's
+// RGB image with jnp (agrifly_tpu/render/meshscene.py render_rgb), which
+// the card would run at eager speed. Its bytes equal meshscene.py's plain
+// strip scan's (render_rgb_strips) bit for bit, and so the plain window
+// scan's (render_rgb_window): K4's culling without the far plane (a row
+// beyond it still shades, hazed), each staged row carrying its window row
+// so that a tie on t goes to the earlier row as in the plain scans, and the
+// shading of csrc/shade.cuh in the same thread.
+//
 // What bounds it on the card: the instructions it issues. A pixel reads 7
 // camera scalars and its rows from shared memory and writes one int32, but
 // runs ~10-35 float operations per row (sphere, z-cylinder,
@@ -51,7 +61,12 @@
 // launches nothing before the kernel.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "shade.cuh"
 
 namespace {
 
@@ -107,9 +122,12 @@ __device__ __forceinline__ int row_kind(const float* q) {
   return min(max(static_cast<int>(q[0]), 0), 3);
 }
 
-// Row q (kind, p0..p8) of kind `kind` (row_kind) prepared for camera c into dst.
-__device__ __forceinline__ void prepare_row(const float* q, int kind, const Camera& c,
+// Row q (kind, p0..p8) of kind `kind` (row_kind) prepared for camera c into
+// dst; with kIndex also its window row k, in q[3].w (free in every kind).
+template <bool kIndex>
+__device__ __forceinline__ void prepare_row(const float* q, int kind, int k, const Camera& c,
                                             float4* dst) {
+  if constexpr (kIndex) dst[3].w = __int_as_float(k);
   const float* p = q + 1;
   const float ox = c.x - p[0], oy = c.y - p[1], oz = c.z - p[2];
   if (kind == 1) {
@@ -144,27 +162,57 @@ __device__ __forceinline__ Ray ray_of(const Dir& d) {
   return Ray{d.x, d.y, d.z, 4.0f * a, 2.0f * a, 4.0f * ca, 2.0f * ca, !(ca > 1e-12f)};
 }
 
+// A pixel's nearest hit so far. The depth pass keeps t alone. The RGB pass
+// also keeps the hit's window row, and takes the smaller row where two rows
+// give the same t: the rows are staged sorted by kind, while the plain
+// scans' winner is the earliest row in window order among the nearest (the
+// ground, row -1, before any row). offer reads a staged row's index from
+// its q[3].w only on that path.
+struct DepthBest {
+  float t;
+  __device__ __forceinline__ void init(float t0) { t = t0; }
+  __device__ __forceinline__ void offer(float tt, const float4*) { t = fminf(t, tt); }
+};
+
+struct RgbBest {
+  float t;
+  int row;
+  __device__ __forceinline__ void init(float t0) { t = t0, row = -1; }
+  __device__ __forceinline__ void offer(float tt, const float4* q) {
+    if (tt < t) {
+      t = tt;
+      row = __float_as_int(q[3].w);
+    } else if (tt == t) {
+      row = min(row, __float_as_int(q[3].w));
+    }
+  }
+};
+
 // Each hit test lowers `best` where the ray hits nearer; a miss (disc < 0,
 // or NaN) returns before the square root, the divides and the min, and the
 // far root is taken only where the near one is not ahead: the plain version
 // computes all, selects, and takes the min with BIG, with the same result.
-__device__ __forceinline__ void sphere_hit(const float4& s, const Ray& r, float& best) {
+// q: the staged row (RgbBest reads its index).
+template <class Best>
+__device__ __forceinline__ void sphere_hit(const float4& s, const float4* q, const Ray& r,
+                                           Best& best) {
   float bq = 2.0f * (s.x * r.dx + s.y * r.dy + s.z * r.dz);
   float disc = bq * bq - r.a4 * s.w;
   if (!(disc >= 0.0f)) return;
   float sq = sqrtf(disc);
   float t0 = (-bq - sq) / r.a2;
   if (t0 > 0.0f) {
-    best = fminf(best, t0);
+    best.offer(t0, q);
     return;
   }
   float t1 = (-bq + sq) / r.a2;
-  if (t1 > 0.0f) best = fminf(best, t1);
+  if (t1 > 0.0f) best.offer(t1, q);
 }
 
 // z-axis cylinder: s = (ox, oy, cc, z0), z1; cz the camera's height
-__device__ __forceinline__ void cylinder_hit(const float4& s, float z1, float cz, const Ray& r,
-                                             float& best) {
+template <class Best>
+__device__ __forceinline__ void cylinder_hit(const float4& s, float z1, float cz,
+                                             const float4* q, const Ray& r, Best& best) {
   if (r.vertical) return;
   float cb = 2.0f * (s.x * r.dx + s.y * r.dy);
   float disc = cb * cb - r.ca4 * s.z;
@@ -173,14 +221,15 @@ __device__ __forceinline__ void cylinder_hit(const float4& s, float z1, float cz
   float tc = (-cb - sq) / r.ca2;
   if (!(tc > 0.0f)) tc = (-cb + sq) / r.ca2;
   float z = cz + tc * r.dz;
-  if (tc > 0.0f && z >= s.w && z <= z1) best = fminf(best, tc);
+  if (tc > 0.0f && z >= s.w && z <= z1) best.offer(tc, q);
 }
 
 // Moller-Trumbore from the prepared row q[0..3]. Every return is one of the
 // plain version's conditions on a value computed as it computes it (det,
 // u, v, t), so the rejects are exact; |det| < 1e-12 skips the divide, where
 // the plain version divides by 1 and fails `ok`.
-__device__ __forceinline__ void triangle_hit(const float4* q, const Ray& r, float& best) {
+template <class Best>
+__device__ __forceinline__ void triangle_hit(const float4* q, const Ray& r, Best& best) {
   const float4 q0 = q[0], q1 = q[1], q2 = q[2];
   const float e1x = q1.w, e1y = q2.x, e1z = q2.y;
   const float e2x = q2.z, e2y = q2.w, e2z = q[3].x;
@@ -195,7 +244,7 @@ __device__ __forceinline__ void triangle_hit(const float4* q, const Ray& r, floa
   float v = (q1.x * r.dx + q1.y * r.dy + q1.z * r.dz) * inv_det;
   if (!(v >= 0.0f && u + v <= 1.0f)) return;
   float tt = q0.w * inv_det;
-  if (tt > 0.0f) best = fminf(best, tt);
+  if (tt > 0.0f) best.offer(tt, q);
 }
 
 __device__ __forceinline__ float norm3(float x, float y, float z) {
@@ -245,18 +294,20 @@ __device__ __forceinline__ bool strip_visible(const float* q, const Camera& c, f
 // This thread's two pixels of tile (strip t, column tile tx), columns x
 // and x + 16 of row y: the camera, the two rays with their own terms, and
 // their ground-plane t.
+template <class Best>
 struct Pixels {
   int x, y;
   Camera c;
   Ray r[2];
-  float best[2];
+  Best best[2];
 };
 
-__device__ __forceinline__ Pixels pixels_of(const float* __restrict__ cam_pos,
+template <class Best>
+__device__ __forceinline__ Pixels<Best> pixels_of(const float* __restrict__ cam_pos,
                                             const float* __restrict__ cam_att, int b, int t,
                                             int tx, int H, int W, float focal) {
   int tid = static_cast<int>(threadIdx.x);
-  Pixels px;
+  Pixels<Best> px;
   px.x = tx * kTileW + (tid & (kHalfW - 1));
   px.y = t * kTileH + tid / kHalfW;
   px.c = camera_of(cam_pos, cam_att, b);
@@ -271,7 +322,7 @@ __device__ __forceinline__ Pixels pixels_of(const float* __restrict__ cam_pos,
     float dz_safe = fabsf(d.z) < 1e-9f ? 1e-9f : d.z;
     float t_ground = -px.c.z / dz_safe;
     px.r[j] = ray_of(d);
-    px.best[j] = (t_ground > 0.0f && d.z != 0.0f) ? t_ground : kBig;
+    px.best[j].init((t_ground > 0.0f && d.z != 0.0f) ? t_ground : kBig);
   }
   return px;
 }
@@ -285,11 +336,12 @@ struct Staged {
   int n[3];
 };
 
-// Stages this thread's row q of kind `kind` (0: none) for camera c, at most
-// one row a thread: warp ballots and a prefix count over the warps give
-// each row its slot. Every thread of the block calls it; on return the
-// rows are in shared memory.
-__device__ __forceinline__ Staged stage_rows(const float* q, int kind, const Camera& c,
+// Stages this thread's row q (window row k) of kind `kind` (0: none) for
+// camera c, at most one row a thread: warp ballots and a prefix count over
+// the warps give each row its slot. Every thread of the block calls it; on
+// return the rows are in shared memory.
+template <bool kIndex>
+__device__ __forceinline__ Staged stage_rows(const float* q, int kind, int k, const Camera& c,
                                              float4 (*srow)[kQuads], int (*warp_rows)[kWarps]) {
   const int tid = static_cast<int>(threadIdx.x), warp = tid >> 5, lane = tid & 31;
   unsigned ballot[3];
@@ -315,7 +367,7 @@ __device__ __forceinline__ Staged stage_rows(const float* q, int kind, const Cam
     int i = kind == 1 ? at[0] + __popc(ballot[0] & below)
           : kind == 2 ? st.n[0] + at[1] + __popc(ballot[1] & below)
                       : st.n[0] + st.n[1] + at[2] + __popc(ballot[2] & below);
-    prepare_row(q, kind, c, srow[i]);
+    prepare_row<kIndex>(q, kind, k, c, srow[i]);
   }
   __syncthreads();
   return st;
@@ -323,19 +375,20 @@ __device__ __forceinline__ Staged stage_rows(const float* q, int kind, const Cam
 
 // both pixels' best over the staged rows, one loop per kind (the same for
 // every thread of the block: no switch per row)
+template <class Best>
 __device__ __forceinline__ void render_rows(float4 (*srow)[kQuads], const Staged& st,
-                                            Pixels& px) {
+                                            Pixels<Best>& px) {
   const int ns = st.n[0], nc = ns + st.n[1], nt = nc + st.n[2];
   for (int i = 0; i < ns; ++i) {
     const float4 s = srow[i][0];
-    sphere_hit(s, px.r[0], px.best[0]);
-    sphere_hit(s, px.r[1], px.best[1]);
+    sphere_hit(s, srow[i], px.r[0], px.best[0]);
+    sphere_hit(s, srow[i], px.r[1], px.best[1]);
   }
   for (int i = ns; i < nc; ++i) {
     const float4 s = srow[i][0];
     const float z1 = srow[i][1].x;
-    cylinder_hit(s, z1, px.c.z, px.r[0], px.best[0]);
-    cylinder_hit(s, z1, px.c.z, px.r[1], px.best[1]);
+    cylinder_hit(s, z1, px.c.z, srow[i], px.r[0], px.best[0]);
+    cylinder_hit(s, z1, px.c.z, srow[i], px.r[1], px.best[1]);
   }
   for (int i = nc; i < nt; ++i) {
     triangle_hit(srow[i], px.r[0], px.best[0]);
@@ -343,24 +396,94 @@ __device__ __forceinline__ void render_rows(float4 (*srow)[kQuads], const Staged
   }
 }
 
-__device__ __forceinline__ void write_codes(int* __restrict__ out, const Pixels& px, int b,
-                                            int H, int W, float scale) {
+__device__ __forceinline__ void write_codes(int* __restrict__ out, const Pixels<DepthBest>& px,
+                                            int b, int H, int W, float scale) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     int x = px.x + j * kHalfW;
     if (x < W) {
-      float code = fminf(fmaxf(floorf(px.best[j] / scale), 0.0f), 255.0f);
+      float code = fminf(fmaxf(floorf(px.best[j].t / scale), 0.0f), 255.0f);
       out[(static_cast<int64_t>(b) * H + px.y) * W + x] = static_cast<int>(code);
     }
   }
 }
 
-// K4: windows (B, K, 10); block (t * ntx + tx, b)
-__global__ void __launch_bounds__(kThreads)
-meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
-                        const float* __restrict__ windows, int* __restrict__ out,
-                        int* __restrict__ nvis, int T, int K, int H, int W, float focal,
-                        float scale, Frustum f) {
+// The smallest window row staged in this chunk (K where none is): the
+// first of each kind's run, since a run keeps window order.
+__device__ __forceinline__ int first_staged(float4 (*srow)[kQuads], const Staged& st, int K) {
+  int first = K;
+  int at = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (st.n[k] > 0) first = min(first, __float_as_int(srow[at][3].w));
+    at += st.n[k];
+  }
+  return first;
+}
+
+// The RGB pass's shading of this thread's two pixels (meshscene.py _shade):
+// the winner's hit point o + t d, its normal by kind (a sphere's radial, a
+// cylinder's radial in xy, a triangle's face normal turned toward the
+// viewer), its material from `mats`, then csrc/shade.cuh. `first`: the
+// strip's first row in window order that passed the culling (K if none).
+// Where the ground's t exceeds BIG (a ray within 1e-9 of horizontal) and no
+// row came nearer, the plain strip scan's first row wins with its BIG, and
+// so does `first` here.
+__device__ __forceinline__ void shade_pixels(const Pixels<RgbBest>& px, const float* win,
+                                             const int* __restrict__ mats, int first, int b,
+                                             int K, int H, int W, float far,
+                                             const shade::Sun& sun,
+                                             unsigned char* __restrict__ rgb) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    int x = px.x + j * kHalfW;
+    if (x >= W) continue;
+    float t = px.best[j].t;
+    int k = px.best[j].row;
+    if (kBig < t && first < K) t = kBig, k = first;
+    const Ray& r = px.r[j];
+    float nx = 0.0f, ny = 0.0f, nz = 1.0f;
+    int mat = t < kBig ? shade::kGround : shade::kSky;
+    if (k >= 0) {
+      const float* q = win + static_cast<int64_t>(k) * kRowWidth;
+      const float* p = q + 1;
+      float hx = px.c.x + t * r.dx, hy = px.c.y + t * r.dy, hz = px.c.z + t * r.dz;
+      if (q[0] == 1.0f) {
+        nx = hx - p[0], ny = hy - p[1], nz = hz - p[2];
+      } else if (q[0] == 2.0f) {
+        nx = hx - p[0], ny = hy - p[1], nz = 0.0f;
+      } else {
+        nx = p[4] * p[8] - p[5] * p[7];
+        ny = p[5] * p[6] - p[3] * p[8];
+        nz = p[3] * p[7] - p[4] * p[6];
+        if (nx * r.dx + ny * r.dy + nz * r.dz > 0.0f) nx = -nx, ny = -ny, nz = -nz;
+      }
+      float nn = sqrtf(nx * nx + ny * ny + nz * nz);
+      nn = nn < 1e-9f ? 1.0f : nn;
+      nx = nx / nn, ny = ny / nn, nz = nz / nn;
+      mat = min(max(mats[static_cast<int64_t>(b) * K + k], 0), 3);
+    }
+    shade::shade_pixel(mat, nx, ny, nz, t, far, sun,
+                       rgb + ((static_cast<int64_t>(b) * H + px.y) * W + x) * 3);
+  }
+}
+
+// The strip-culled scan of block (t * ntx + tx, b) over windows (B, K, 10):
+// K4's depth pass (out, nvis), or with kRgb the RGB pass (K4-rgb: every
+// staged row carries its window row, and the block shades its pixels into
+// rgb from mats (B, K)). `scale`: the depth pass's far / 256, the RGB
+// pass's far plane (the haze's). The RGB pass culls without the far plane
+// (its frustum's far is +inf): a row beyond it still shades, hazed.
+template <bool kRgb>
+__device__ __forceinline__ void strips_body(const float* __restrict__ cam_pos,
+                                            const float* __restrict__ cam_att,
+                                            const float* __restrict__ windows,
+                                            const int* __restrict__ mats, int* __restrict__ out,
+                                            unsigned char* __restrict__ rgb,
+                                            int* __restrict__ nvis, int T, int K, int H, int W,
+                                            float focal, float scale, const Frustum& f,
+                                            const shade::Sun& sun) {
+  using Best = std::conditional_t<kRgb, RgbBest, DepthBest>;
   __shared__ float4 srow[kChunk][kQuads];
   __shared__ int warp_rows[3][kWarps];
   int ntx = (W + kTileW - 1) / kTileW;
@@ -368,7 +491,7 @@ meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restri
   int tx = static_cast<int>(blockIdx.x) % ntx;
   int b = static_cast<int>(blockIdx.y);
   int tid = static_cast<int>(threadIdx.x);
-  Pixels px = pixels_of(cam_pos, cam_att, b, t, tx, H, W, focal);
+  Pixels<Best> px = pixels_of<Best>(cam_pos, cam_att, b, t, tx, H, W, focal);
 
   // strip t's vertical halfspaces (strip_windows' ey_min, ey_max, sy_min, sy_max)
   float ys = static_cast<float>(t * kTileH);
@@ -380,18 +503,46 @@ meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restri
 
   const float* win = windows + static_cast<int64_t>(b) * K * kRowWidth;
   int total = 0;
+  int first = K;
   // every thread reaches each barrier: the loop bounds are the block's
   for (int base = 0; base < K; base += kChunk) {
     int m = min(kChunk, K - base);
     const float* q = win + static_cast<int64_t>(base + tid) * kRowWidth;
     bool vis = tid < m && strip_visible(q, px.c, ey_min, ey_max, sy_min, sy_max, f);
     // the culling thread stages its row if it passes
-    Staged st = stage_rows(q, vis ? row_kind(q) : 0, px.c, srow, warp_rows);
+    Staged st = stage_rows<kRgb>(q, vis ? row_kind(q) : 0, base + tid, px.c, srow, warp_rows);
+    if constexpr (kRgb) {
+      if (first == K) first = first_staged(srow, st, K);
+    }
     render_rows(srow, st, px);
     if (nvis != nullptr) total += __syncthreads_count(vis);
   }
   if (nvis != nullptr && tx == 0 && tid == 0) nvis[static_cast<int64_t>(b) * T + t] = total;
-  write_codes(out, px, b, H, W, scale);
+  if constexpr (kRgb) {
+    shade_pixels(px, win, mats, first, b, K, H, W, scale, sun, rgb);
+  } else {
+    write_codes(out, px, b, H, W, scale);
+  }
+}
+
+// K4
+__global__ void __launch_bounds__(kThreads)
+meshscene_strips_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
+                        const float* __restrict__ windows, int* __restrict__ out,
+                        int* __restrict__ nvis, int T, int K, int H, int W, float focal,
+                        float scale, Frustum f) {
+  strips_body<false>(cam_pos, cam_att, windows, nullptr, out, nullptr, nvis, T, K, H, W, focal,
+                     scale, f, shade::Sun{});
+}
+
+// K4-rgb
+__global__ void __launch_bounds__(kThreads)
+meshscene_rgb_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
+                     const float* __restrict__ windows, const int* __restrict__ mats,
+                     unsigned char* __restrict__ rgb, int T, int K, int H, int W, float focal,
+                     float far, Frustum f, shade::Sun sun) {
+  strips_body<true>(cam_pos, cam_att, windows, mats, nullptr, rgb, nullptr, T, K, H, W, focal,
+                    far, f, sun);
 }
 
 // K4w: windows (B, K, 10), every row for every strip
@@ -406,13 +557,14 @@ meshscene_window_kernel(const float* __restrict__ cam_pos, const float* __restri
   int tx = static_cast<int>(blockIdx.x) % ntx;
   int b = static_cast<int>(blockIdx.y);
   int tid = static_cast<int>(threadIdx.x);
-  Pixels px = pixels_of(cam_pos, cam_att, b, t, tx, H, W, focal);
+  Pixels<DepthBest> px = pixels_of<DepthBest>(cam_pos, cam_att, b, t, tx, H, W, focal);
   const float* win = windows + static_cast<int64_t>(b) * K * kRowWidth;
   for (int base = 0; base < K; base += kChunk) {
     int m = min(kChunk, K - base);
     const float* q = win + static_cast<int64_t>(base + tid) * kRowWidth;
     // thread i stages row i of the chunk
-    Staged st = stage_rows(q, tid < m ? row_kind(q) : 0, px.c, srow, warp_rows);
+    Staged st = stage_rows<false>(q, tid < m ? row_kind(q) : 0, base + tid, px.c, srow,
+                                  warp_rows);
     render_rows(srow, st, px);
   }
   write_codes(out, px, b, H, W, scale);
@@ -449,5 +601,21 @@ extern "C" int meshscene_window_launch(const float* cam_pos, const float* cam_at
   if (B == 0) return 0;
   meshscene_window_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       cam_pos, cam_att, windows, out, K, H, W, focal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4-rgb: cam_pos, cam_att and windows as K4's; mats: (B, K) int32 material
+// ids of the window rows (raycast.MAT_*); rgb: (B, H, W, 3) uint8; far: the
+// far plane (the haze's; the culling has none); the frustum's horizontal
+// constants as K4's; sun_*: raycast.SUN, the unit sun direction.
+extern "C" int meshscene_rgb_launch(const float* cam_pos, const float* cam_att,
+                                    const float* windows, const int* mats, unsigned char* rgb,
+                                    int B, int K, int H, int W, float focal, float far,
+                                    float ex_min, float ex_max, float sx_min, float sx_max,
+                                    float sun_x, float sun_y, float sun_z, void* stream) {
+  if (B == 0) return 0;
+  meshscene_rgb_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cam_pos, cam_att, windows, mats, rgb, H / kTileH, K, H, W, focal, far,
+      Frustum{ex_min, ex_max, sx_min, sx_max, INFINITY}, shade::Sun{sun_x, sun_y, sun_z});
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,12 +31,31 @@
 //   quaternion (rotation.py::to_matrix's operations), so the wrapper
 //   launches nothing before the kernel.
 //
+// The RGB pass (K1-rgb, raycast_rgb_kernel) is a second instance of the
+// same pixel body. It replaces no TPU kernel: the JAX package renders its
+// RGB image with jnp (agrifly_tpu/render/raycast.py render_rgb), which the
+// card would run at eager speed, one launch per operation. Its bytes equal
+// agrifly_tpu_torch/render/raycast.py::render_rgb's bit for bit: the same
+// march, keeping the nearest cell's tree (strictly nearer, so the earlier
+// cell wins a tie) with its material and cell, then the normal from that
+// cell's tree and the shading of csrc/shade.cuh. It also exits early, but
+// only once no later cell can come nearer than best itself: a tree beyond
+// the far plane still shades (hazed), so the depth pass's far cap does not
+// apply, and a ray that meets nothing marches all cells. It writes a
+// pixel's three bytes from its thread: a warp's 8 x 4 tile stores four
+// runs of 24 contiguous bytes. Its bound, as K1's, is arithmetic: the
+// march, plus a winner (a compare and three selects a cell), one more tree
+// evaluation and ~3 square roots and 3 divides a pixel for the shading.
+//
 // Signed overflow is undefined in C++, so the int32 hash multiplies in
 // uint32 and reinterprets; >> stays an arithmetic shift on the signed value
 // (the JAX package and PyTorch wrap int32 the same way).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "shade.cuh"
 
 namespace {
 
@@ -94,46 +113,73 @@ __device__ __forceinline__ float sphere_hit(float ox, float oy, float oz,
   return s1 > 0.0f ? s1 : kBig;
 }
 
-// t of the first hit with the tree of cell (ix, iy), BIG for none or an
-// absent tree (whose intersections are skipped: the plain version's BIG).
-__device__ __forceinline__ float tree_hit(const Scene& sc, int ix, int iy,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz) {
+// Cell (ix, iy)'s tree: orchard.py::tree_fields' operations. tree_centre
+// computes the first three hashes, the trunk's centre and whether the tree
+// is present; tree_size the rest, from the same hashes.
+struct Tree {
+  float cx, cy, r2;  // r2: the third hash, which the second canopy sphere reuses
+  float trunk_r, trunk_h, can_r, can_h, c2x, c2y, c2z, c2r;
+};
+
+__device__ __forceinline__ bool tree_centre(const Scene& sc, int ix, int iy, Tree& t) {
   float r0 = cell_rand(ix, iy, sc.seed, 0);
   float r1 = cell_rand(ix, iy, sc.seed, 1);
-  float r2 = cell_rand(ix, iy, sc.seed, 2);
-  float cx = (static_cast<float>(ix) + 0.5f) * sc.tree_spacing + (r1 - 0.5f) * 2.0f * sc.jitter;
-  float cy = (static_cast<float>(iy) + 0.5f) * sc.row_spacing + (r2 - 0.5f) * 2.0f * sc.jitter;
-  bool present = (r0 < sc.presence) && (sqrtf(cx * cx + cy * cy) > sc.clear_radius);
-  if (!present) return kBig;
+  t.r2 = cell_rand(ix, iy, sc.seed, 2);
+  t.cx = (static_cast<float>(ix) + 0.5f) * sc.tree_spacing + (r1 - 0.5f) * 2.0f * sc.jitter;
+  t.cy = (static_cast<float>(iy) + 0.5f) * sc.row_spacing + (t.r2 - 0.5f) * 2.0f * sc.jitter;
+  return (r0 < sc.presence) && (sqrtf(t.cx * t.cx + t.cy * t.cy) > sc.clear_radius);
+}
+
+__device__ __forceinline__ void tree_size(const Scene& sc, int ix, int iy, Tree& t) {
   float r3 = cell_rand(ix, iy, sc.seed, 3);
   float r4 = cell_rand(ix, iy, sc.seed, 4);
   float size = 0.8f + 0.4f * r3;
-  float can_r = sc.canopy_radius * size;
-  float can_h = sc.canopy_height * size;
-  float trunk_r = sc.trunk_radius * size;
-  float trunk_h = sc.trunk_height * size;
+  t.can_r = sc.canopy_radius * size;
+  t.can_h = sc.canopy_height * size;
+  t.trunk_r = sc.trunk_radius * size;
+  t.trunk_h = sc.trunk_height * size;
+  t.c2x = t.cx + (r4 - 0.5f) * 0.6f;
+  t.c2y = t.cy + (t.r2 - 0.5f) * 0.6f;
+  t.c2z = t.can_h + 0.8f * t.can_r;
+  t.c2r = t.can_r * 0.7f;
+}
 
-  // trunk cylinder (a miss skips the root, as in sphere_hit)
-  float t_trunk = kBig;
-  float rx = ox - cx, ry = oy - cy;
+// the trunk cylinder's t, BIG for a miss (which skips the root, as in
+// sphere_hit)
+__device__ __forceinline__ float trunk_hit(const Tree& tr, float ox, float oy, float oz,
+                                           float dx, float dy, float dz) {
+  float rx = ox - tr.cx, ry = oy - tr.cy;
   float a = dx * dx + dy * dy;
   float b = 2.0f * (rx * dx + ry * dy);
-  float c = rx * rx + ry * ry - trunk_r * trunk_r;
+  float c = rx * rx + ry * ry - tr.trunk_r * tr.trunk_r;
   float disc = b * b - 4.0f * a * c;
   if (disc >= 0.0f && a > 1e-12f) {
     float sq = sqrtf(disc);
     float t = (-b - sq) / (2.0f * a);
     if (!(t > 0.0f)) t = (-b + sq) / (2.0f * a);
     float z = oz + t * dz;
-    if (t > 0.0f && z >= 0.0f && z <= trunk_h) t_trunk = t;
+    if (t > 0.0f && z >= 0.0f && z <= tr.trunk_h) return t;
   }
+  return kBig;
+}
 
-  float t_c1 = sphere_hit(ox, oy, oz, dx, dy, dz, cx, cy, can_h, can_r);
-  float t_c2 = sphere_hit(ox, oy, oz, dx, dy, dz,
-                          cx + (r4 - 0.5f) * 0.6f, cy + (r2 - 0.5f) * 0.6f,
-                          can_h + 0.8f * can_r, can_r * 0.7f);
-  return fminf(t_trunk, fminf(t_c1, t_c2));
+// the two canopy spheres' nearer t
+__device__ __forceinline__ float canopy_hit(const Tree& tr, float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  float t_c1 = sphere_hit(ox, oy, oz, dx, dy, dz, tr.cx, tr.cy, tr.can_h, tr.can_r);
+  float t_c2 = sphere_hit(ox, oy, oz, dx, dy, dz, tr.c2x, tr.c2y, tr.c2z, tr.c2r);
+  return fminf(t_c1, t_c2);
+}
+
+// t of the first hit with the tree of cell (ix, iy), BIG for none or an
+// absent tree (whose intersections are skipped: the plain version's BIG).
+__device__ __forceinline__ float tree_hit(const Scene& sc, int ix, int iy,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  Tree tr;
+  if (!tree_centre(sc, ix, iy, tr)) return kBig;
+  tree_size(sc, ix, iy, tr);
+  return fminf(trunk_hit(tr, ox, oy, oz, dx, dy, dz), canopy_hit(tr, ox, oy, oz, dx, dy, dz));
 }
 
 // Whether every tree lies inside its own cell, from the scene's fields:
@@ -194,11 +240,74 @@ __device__ __forceinline__ bool beyond_next_cells(float best, float far256, floa
   return in_x && in_y;
 }
 
-__global__ void __launch_bounds__(kThreads)
-raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
-               const float* __restrict__ scene_f, const int* __restrict__ seed,
-               int* __restrict__ out, int* __restrict__ cells_out, int H, int W,
-               float focal, float scale, int dda_steps) {
+// The RGB pass's march and shading tail (K1-rgb): raycast.py::render_rgb
+// in its float32 operations. Each cell's tree is a candidate with its t
+// (BIG for a miss or an absent tree) and material, and replaces the best
+// only where strictly nearer, so the earlier cell wins a tie, as in the
+// plain version's march. An absent tree's geometry is evaluated only where
+// best > BIG (a ray within 1e-9 of horizontal whose ground t exceeds BIG):
+// only then can its BIG win, and its material is read before the presence
+// mask.
+struct Winner {
+  float t;
+  int mat, ix, iy;
+};
+
+__device__ __forceinline__ void rgb_visit(const Scene& sc, int ix, int iy, float px, float py,
+                                          float pz, float dx, float dy, float dz, Winner& w) {
+  Tree tr;
+  bool present = tree_centre(sc, ix, iy, tr);
+  if (!present && !(kBig < w.t)) return;
+  tree_size(sc, ix, iy, tr);
+  float t_trunk = trunk_hit(tr, px, py, pz, dx, dy, dz);
+  float t_can = canopy_hit(tr, px, py, pz, dx, dy, dz);
+  float t = present ? fminf(t_trunk, t_can) : kBig;
+  if (t < w.t) {
+    w.t = t;
+    w.mat = t_trunk <= t_can ? shade::kTrunk : shade::kCanopy;
+    w.ix = ix;
+    w.iy = iy;
+  }
+}
+
+// The winner's unit normal: the ground's +z; the trunk's radial direction;
+// the canopy sphere's whose surface the hit point is relatively nearer.
+__device__ __forceinline__ void rgb_normal(const Scene& sc, const Winner& w, float hx, float hy,
+                                           float hz, float& nx, float& ny, float& nz) {
+  nx = 0.0f, ny = 0.0f, nz = 1.0f;
+  if (w.mat != shade::kTrunk && w.mat != shade::kCanopy) return;
+  Tree tr;
+  tree_centre(sc, w.ix, w.iy, tr);
+  tree_size(sc, w.ix, w.iy, tr);
+  if (w.mat == shade::kTrunk) {
+    float rx = hx - tr.cx, ry = hy - tr.cy;
+    float rn = sqrtf(rx * rx + ry * ry);
+    rn = rn < 1e-9f ? 1.0f : rn;
+    nx = rx / rn, ny = ry / rn, nz = 0.0f;
+    return;
+  }
+  float ax = hx - tr.cx, ay = hy - tr.cy, az = hz - tr.can_h;
+  float bx = hx - tr.c2x, by = hy - tr.c2y, bz = hz - tr.c2z;
+  float n1 = sqrtf(ax * ax + ay * ay + az * az);
+  float n2 = sqrtf(bx * bx + by * by + bz * bz);
+  bool use2 = n2 / fmaxf(tr.c2r, 1e-6f) < n1 / fmaxf(tr.can_r, 1e-6f);
+  float nn = use2 ? n2 : n1;
+  nn = nn < 1e-9f ? 1.0f : nn;
+  nx = (use2 ? bx : ax) / nn, ny = (use2 ? by : ay) / nn, nz = (use2 ? bz : az) / nn;
+}
+
+// One pixel of image bi, (x, y): the depth pass (kRgb false) writes its
+// code to out (and its cells to cells_out where given); the RGB pass its
+// three bytes to rgb.
+template <bool kRgb>
+__device__ __forceinline__ void render_pixel(const float* __restrict__ cam_pos,
+                                             const float* __restrict__ cam_att,
+                                             const float* __restrict__ scene_f,
+                                             const int* __restrict__ seed, int* __restrict__ out,
+                                             int* __restrict__ cells_out,
+                                             unsigned char* __restrict__ rgb, int H, int W,
+                                             float focal, float scale, int dda_steps,
+                                             const shade::Sun& sun) {
   int ntx = (W + kTileW - 1) / kTileW;
   int warp = static_cast<int>(threadIdx.x) >> 5, lane = static_cast<int>(threadIdx.x) & 31;
   int x = (static_cast<int>(blockIdx.x) % ntx) * kTileW + (warp & 1) * 8 + (lane & 7);
@@ -245,16 +354,25 @@ raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_
   float t_dx = fabsf(inv_dx);
   float t_dy = fabsf(inv_dy);
 
-  // the early exit's per-pixel terms
+  // the early exit's per-pixel terms. The depth pass may stop once no later
+  // cell can come nearer than min(best, 256 scale): beyond the far plane
+  // every code is 255. The RGB pass shades a tree beyond the far plane too
+  // (hazed), so it stops only once none can come nearer than best itself.
   bool exits = contained(sc);
-  float far256 = scale * 256.0f;
+  float far256 = kRgb ? INFINITY : scale * 256.0f;
   float adx = fabsf(dx) + fabsf(dy) + fabsf(dz);
   float po = 1.0f + fabsf(px) + fabsf(py) + fabsf(pz);
   float sr = sc.tree_spacing + sc.row_spacing;
 
+  Winner w{best, best < kBig ? shade::kGround : shade::kSky, 0, 0};
   int k = 0;
   while (k < dda_steps) {
-    best = fminf(best, tree_hit(sc, ix, iy, px, py, pz, dx, dy, dz));
+    if constexpr (kRgb) {
+      rgb_visit(sc, ix, iy, px, py, pz, dx, dy, dz, w);
+      best = w.t;
+    } else {
+      best = fminf(best, tree_hit(sc, ix, iy, px, py, pz, dx, dy, dz));
+    }
     ++k;
     if (exits && k < dda_steps &&
         beyond_next_cells(best, far256, px, py, dx, dy, adx, po, sr, ix, iy, step_x, step_y, sc)) {
@@ -271,9 +389,39 @@ raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_
   }
 
   int64_t idx = (static_cast<int64_t>(bi) * H + y) * W + x;
-  float code = fminf(fmaxf(floorf(best / scale), 0.0f), 255.0f);
-  out[idx] = static_cast<int>(code);
-  if (cells_out != nullptr) cells_out[idx] = k;
+  if constexpr (kRgb) {
+    float nx, ny, nz;
+    rgb_normal(sc, w, px + best * dx, py + best * dy, pz + best * dz, nx, ny, nz);
+    shade::shade_pixel(w.mat, nx, ny, nz, best, scale, sun, rgb + idx * 3);
+  } else {
+    float code = fminf(fmaxf(floorf(best / scale), 0.0f), 255.0f);
+    out[idx] = static_cast<int>(code);
+    if (cells_out != nullptr) cells_out[idx] = k;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
+               const float* __restrict__ scene_f, const int* __restrict__ seed,
+               int* __restrict__ out, int* __restrict__ cells_out, int H, int W,
+               float focal, float scale, int dda_steps) {
+  render_pixel<false>(cam_pos, cam_att, scene_f, seed, out, cells_out, nullptr, H, W, focal,
+                      scale, dda_steps, shade::Sun{});
+}
+
+// K1-rgb: `far` takes scale's place (the haze's far plane)
+__global__ void __launch_bounds__(kThreads)
+raycast_rgb_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
+                   const float* __restrict__ scene_f, const int* __restrict__ seed,
+                   unsigned char* __restrict__ rgb, int H, int W, float focal, float far,
+                   int dda_steps, shade::Sun sun) {
+  render_pixel<true>(cam_pos, cam_att, scene_f, seed, nullptr, nullptr, rgb, H, W, focal, far,
+                     dda_steps, sun);
+}
+
+dim3 grid_of(int B, int H, int W) {
+  return dim3(static_cast<unsigned>(((W + kTileW - 1) / kTileW) * ((H + kTileH - 1) / kTileH)),
+              static_cast<unsigned>(B));
 }
 
 }  // namespace
@@ -287,9 +435,20 @@ extern "C" int raycast_launch(const float* cam_pos, const float* cam_att, const 
                               const int* seed, int* out, int* cells, int B, int H, int W,
                               float focal, float scale, int dda_steps, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
-  dim3 grid(static_cast<unsigned>(((W + kTileW - 1) / kTileW) * ((H + kTileH - 1) / kTileH)),
-            static_cast<unsigned>(B));
-  raycast_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  raycast_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       cam_pos, cam_att, scene, seed, out, cells, H, W, focal, scale, dda_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-rgb: the same inputs; rgb: (B, H, W, 3) uint8; far: the far plane
+// (haze); sun_*: raycast.SUN, the unit sun direction.
+extern "C" int raycast_rgb_launch(const float* cam_pos, const float* cam_att, const float* scene,
+                                  const int* seed, unsigned char* rgb, int B, int H, int W,
+                                  float focal, float far, int dda_steps, float sun_x, float sun_y,
+                                  float sun_z, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;
+  raycast_rgb_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cam_pos, cam_att, scene, seed, rgb, H, W, focal, far, dda_steps,
+      shade::Sun{sun_x, sun_y, sun_z});
   return static_cast<int>(cudaGetLastError());
 }

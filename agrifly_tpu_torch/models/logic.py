@@ -43,6 +43,17 @@ PANIC_LOW_BATTERY = 5
 PANIC_KILLED_INTERNALLY = 6
 PANIC_KILLED_EXTERNALLY = 7
 
+PANIC_REASON_NAMES = {
+    PANIC_NO_PANIC: "NO_PANIC",
+    PANIC_ONBOARD_ESTIMATE_CRAZY: "ONBOARD_ESTIMATE_CRAZY",
+    PANIC_UWB_TIMEOUT: "UWB_TIMEOUT",
+    PANIC_UPSIDE_DOWN: "UPSIDE_DOWN",
+    PANIC_RADIO_CMD_TIMEOUT: "RADIO_CMD_TIMEOUT",
+    PANIC_LOW_BATTERY: "LOW_BATTERY",
+    PANIC_KILLED_INTERNALLY: "KILLED_INTERNALLY",
+    PANIC_KILLED_EXTERNALLY: "KILLED_EXTERNALLY",
+}
+
 # telemetry warning bits (TelemetryPacket.hpp:21-30)
 WARN_LOW_BATT = 0x01
 WARN_CMD_RATE = 0x02
@@ -470,3 +481,63 @@ def logic_step(p: LogicParams, s: LogicState, u: LogicInputs):
         debug=debug,
     )
     return new_state, speeds
+
+
+def set_gyro_calibration(s: LogicState, enable: bool) -> LogicState:
+    """Start or stop the gyro-bias calibration (QuadcopterLogic.hpp:118-146):
+    stopping a calibration that gathered samples sets the bias to their mean."""
+    enable = torch.as_tensor(enable, dtype=torch.bool, device=s.gyro_cal_enabled.device)
+    ending = s.gyro_cal_enabled & ~enable
+    n = torch.clamp(s.gyro_cal_count, min=1).to(torch.float32)
+    bias = torch.where(ending & (s.gyro_cal_count > 0), s.gyro_cal_accum / n, s.gyro_bias)
+    return s._replace(gyro_cal_enabled=enable, gyro_bias=bias)
+
+
+FS_NAMES = {
+    FS_UNINITIALIZED: "FS_UNINITIALIZED",
+    FS_IDLE: "FS_IDLE",
+    FS_FULLY_AUTONOMOUS: "FS_FULLY_AUTONOMOUS",
+    FS_PANIC: "FS_PANIC",
+    FS_KILLED: "FS_KILLED",
+    FS_EXTERNAL_ACCELERATION_CONTROL: "FS_EXTERNAL_ACCELERATION_CONTROL",
+    FS_EXTERNAL_RATES_CONTROL: "FS_EXTERNAL_RATES_CONTROL",
+}
+
+
+def format_status(p: LogicParams, s: LogicState, vehicle_id=0) -> str:
+    """Host-side debug dump of one vehicle's onboard state: the
+    PrintStatus() report (QuadcopterLogic.cpp:681-826) as a string."""
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    acc = arr(filters.lp2_value(s.acc_lp))
+    gyro = arr(filters.lp2_value(s.gyro_lp))
+    y, pch, r = (float(x) for x in rot.to_euler_ypr(s.kf.att))
+    lines = [
+        f"Quad logic status over {int(s.cycle_count)} cycles "
+        f"(avg dt = {float(s.loop_lpdt):.5f}, expected = {float(p.onboard_period):.5f})",
+        f"Vehicle id = {vehicle_id}",
+        f"\tState = {FS_NAMES.get(int(s.fs), int(s.fs))}",
+        f"\tBattery: {float(s.batt_voltage):.3f}V "
+        f"(filtered {float(filters.lp2_value(s.batt_lp)):.3f}V), {float(s.batt_current):.3f}A",
+        f"\tAccelerometer = ({acc[0]:.3f}, {acc[1]:.3f}, {acc[2]:.3f}) m/s^2",
+        f"\tRate gyro     = ({gyro[0]:.3f}, {gyro[1]:.3f}, {gyro[2]:.3f}) rad/s",
+        f"\tGyro bias     = {arr(s.gyro_bias).round(4).tolist()}",
+        f"\tEstimator: init imu={bool(s.kf.imu_init)} uwb={bool(s.kf.uwb_init)}",
+        f"\t\tpos = {arr(s.kf.pos).round(3).tolist()} m",
+        f"\t\tvel = {arr(s.kf.vel).round(3).tolist()} m/s",
+        f"\t\tatt YPR = ({y:.3f}, {pch:.3f}, {r:.3f}) rad",
+        f"\t\tangVel = {arr(s.kf.angvel).round(3).tolist()} rad/s",
+        f"\t\trejected = {int(s.kf.num_rejected)}, resets = {int(s.kf.num_resets)}",
+        f"\tUWB: meas = {int(s.uwb_meas_count)}, next target idx = {int(s.next_target_idx)}",
+        f"\tDesired motor speeds = {arr(s.des_motor_speeds).round(2).tolist()}",
+        f"\tPropeller correction = {arr(s.prop_cal_factors).round(3).tolist()}",
+        f"\tRadio: count = {int(s.radio_count)}, type = {int(s.radio_type)}, "
+        f"flags = {int(s.radio_flags)}, cmd dt = {float(s.cmd_rate_lpdt):.5f}s",
+        f"\tTelemetry sent = {int(s.tel_counter)}",
+        f"\tDebug = {arr(s.debug).round(3).tolist()}",
+        f"\tPanic = {PANIC_REASON_NAMES.get(int(s.panic_reason), int(s.panic_reason))}",
+        f"\tWarnings = {int(s.warnings):#04x}",
+    ]
+    return "\n".join(lines)

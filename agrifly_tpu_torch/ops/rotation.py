@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from agrifly_tpu_torch.ops import lin3, trig
-from agrifly_tpu_torch.ops.fmath import const, cos, norm3, sin, sqrt
+from agrifly_tpu_torch.ops.fmath import const, cos, dot3, norm3, sin, sqrt
 
 MIN_ANGLE = 4.84813681e-6  # less than one arc second
 
@@ -106,6 +106,15 @@ def to_euler_ypr(q):
     pitch = -trig.asin(torch.clamp(2 * x * z - 2 * w * y, -1.0, 1.0))
     roll = trig.atan2(2 * y * z + 2 * w * x, z * z - y * y - x * x + w * w)
     return yaw, pitch, roll
+
+
+def from_vector_part(v):
+    """Unit quaternion from its vector part, w = sqrt(1 - |v|^2) >= 0
+    (Rotation.hpp FromVectorPartOfQuaternion): the telemetry wire sends only
+    x, y, z of the attitude."""
+    w2 = 1.0 - dot3(v, v)
+    w = sqrt(torch.clamp(w2, min=0.0))
+    return torch.cat([w[..., None], v], dim=-1)
 
 
 def to_vector_part(q):

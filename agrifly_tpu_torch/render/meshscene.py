@@ -1,7 +1,6 @@
-"""Explicit (imported) scene geometry and its plain depth renderers.
+"""Explicit (imported) scene geometry and its plain renderers, depth and RGB.
 
-Port of `agrifly_tpu/render/meshscene.py` (construction, windowing and the
-depth pass). A scene is a flat table of primitive rows, three kinds:
+Port of `agrifly_tpu/render/meshscene.py`. A scene is a flat table of primitive rows, three kinds:
 
     sphere    (cx, cy, cz, r)                    canopy blobs
     cylinder  (cx, cy, z0, z1, r), axis +z       trunks, posts
@@ -20,7 +19,10 @@ strip-culled kernel (K4), both in `render/cuda_meshscene.py`: they repeat
 the kernels' float32 operations in their order (the JAX kernel's
 `_hit_branches`, not the jnp `_hit_row`), so on the card a kernel's codes
 equal its plain version's bit for bit. They divide only by tensors (see
-`ops.fmath.scalar`) for that reason.
+`ops.fmath.scalar`) for that reason. The RGB pass (`render_rgb`) tracks
+the winning window row through the same scans (`render_rgb_window`,
+`render_rgb_strips`: the plain versions of the strip-culled RGB kernel,
+K4-rgb) and shades it (`_shade`, then `raycast.shade`).
 
 Everything from the windowing on takes an optional leading vehicle axis:
 camera positions (..., 3) and attitudes (..., 4), windows (..., K, 10).
@@ -38,6 +40,7 @@ from agrifly_tpu_torch import card_or_raise
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.ops.fmath import norm3, scalar, sqrt
 from agrifly_tpu_torch.render import orchard as orch
+from agrifly_tpu_torch.render import raycast as rc
 from agrifly_tpu_torch.render.raycast import BIG, RenderConfig, camera_attitude
 
 PRIM_NONE = 0.0
@@ -47,10 +50,9 @@ PRIM_TRIANGLE = 3.0
 
 ROW_WIDTH = 10  # [type, p0..p8]
 
-# material ids of the RGB pass (agrifly_tpu/render/raycast.py MAT_*), the
-# per-primitive defaults of build_scene
-MAT_TRUNK = 2
-MAT_CANOPY = 3
+# the per-primitive material defaults of build_scene (raycast.MAT_*)
+MAT_TRUNK = rc.MAT_TRUNK
+MAT_CANOPY = rc.MAT_CANOPY
 
 
 class MeshScene(NamedTuple):
@@ -196,10 +198,13 @@ def _gather_rows(table, idx):
     return torch.gather(src, -2, idx[..., None].expand(idx.shape + table.shape[-1:]))
 
 
-def select_window(scene: MeshScene, cam_pos, reach_dist, capacity: int):
+def select_window(scene: MeshScene, cam_pos, reach_dist, capacity: int,
+                  return_order: bool = False):
     """The <= capacity primitives whose XY footprint lies within
     `reach_dist` of each camera (..., 3), nearest first; rows beyond are
-    type NONE. Returns (..., min(S, capacity), ROW_WIDTH).
+    type NONE. Returns (..., min(S, capacity), ROW_WIDTH), and with
+    return_order also the scene rows picked (..., K) and whether each is
+    within reach (..., K) (window_materials reads them).
 
     reach_dist must cover the planar far plane along the most slanted ray:
     use cfg.far * slant_factor(cfg) (render_depth does)."""
@@ -211,7 +216,20 @@ def select_window(scene: MeshScene, cam_pos, reach_dist, capacity: int):
     order = torch.argsort(key, dim=-1, stable=True)[..., :capacity]
     rows = scene.prims[order]
     ok = torch.gather(visible, -1, order)
-    return torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    window = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    return (window, order, ok) if return_order else window
+
+
+def window_materials(scene: MeshScene, window, order, ok):
+    """The material id of each window row (select_window with
+    return_order): the scene's `material` where it has one (MAT_CANOPY past
+    the rows within reach), else cylinders MAT_TRUNK and the rest
+    MAT_CANOPY. Returns (..., K) int32."""
+    if scene.material is not None:
+        mats = torch.where(ok, scene.material[order], MAT_CANOPY)
+    else:
+        mats = torch.where(window[..., 0] == PRIM_CYLINDER, MAT_TRUNK, MAT_CANOPY)
+    return mats.to(torch.int32)
 
 
 def row_bounding_spheres(window):
@@ -241,17 +259,22 @@ def row_bounding_spheres(window):
     return torch.stack([cx, cy, cz], dim=-1), r
 
 
-def strip_windows(cfg: RenderConfig, window, cam_pos, cam_att, tile_h: int):
+def strip_windows(cfg: RenderConfig, window, cam_pos, cam_att, tile_h: int,
+                  return_order: bool = False, far_clip: bool = True):
     """Per-strip compaction of a frame window for the strip-culled renderer.
 
     For each tile_h-row strip of the image, conservatively tests every
     window row's bounding sphere against the strip's ray cone (5 halfspace
     tests, a convex superset of the cone, so no possibly-hitting row is
     dropped) and compacts the passing rows to the front, in window order.
+    far_clip also drops rows wholly beyond the far plane: right for depth
+    codes (255 there anyway), wrong for the RGB pass, where a hit beyond
+    it still shades.
 
     window (..., K, ROW_WIDTH), cam_pos (..., 3), cam_att (..., 4). Returns
     (strips (..., T, K, ROW_WIDTH) with passing rows first and the rest
-    zero (type NONE), n_vis (..., T) int32)."""
+    zero (type NONE), n_vis (..., T) int32), and with return_order also
+    the window row of each compacted slot (..., T, K)."""
     K = window.shape[-2]
     T = cfg.height // tile_h
     center, radius = row_bounding_spheres(window)  # (..., K, 3), (..., K)
@@ -272,7 +295,8 @@ def strip_windows(cfg: RenderConfig, window, cam_pos, cam_att, tile_h: int):
 
     ok = radius >= 0
     ok &= ccz + radius > 0.0  # not fully behind the camera
-    ok &= ccz - radius <= cfg.far  # beyond far clips to code 255 anyway
+    if far_clip:
+        ok &= ccz - radius <= cfg.far
     ok &= (ccx - ex_min * ccz) >= -radius * math.sqrt(1.0 + ex_min * ex_min)
     ok &= (ex_max * ccz - ccx) >= -radius * math.sqrt(1.0 + ex_max * ex_max)
     # per-strip vertical halfspaces: (..., T, K)
@@ -288,7 +312,7 @@ def strip_windows(cfg: RenderConfig, window, cam_pos, cam_att, tile_h: int):
     n_vis = vis.sum(-1).to(torch.int32)
     keep = torch.arange(K, device=window.device) < n_vis[..., None]
     strips = torch.where(keep[..., None], _gather_rows(window, order), 0.0)
-    return strips, n_vis
+    return (strips, n_vis, order) if return_order else (strips, n_vis)
 
 
 # ----------------------------------------------------------------------
@@ -539,3 +563,133 @@ def render_depth_body(cfg: RenderConfig, scene: MeshScene, body_pos, body_att,
                       window_capacity: int = 192):
     """render_depth from vehicle poses (applies the depth-camera mount)."""
     return render_depth(cfg, scene, body_pos, camera_attitude(body_att), window_capacity)
+
+
+# ----------------------------------------------------------------------
+# RGB pass (the imported world's counterpart of raycast.render_rgb)
+# ----------------------------------------------------------------------
+
+
+def _strip_cull_default() -> bool:
+    """Which scan render_rgb runs by default. The JAX package picks the
+    strip-culled scan on the CPU and the plain one elsewhere; the port
+    answers as it does on the CPU (on the card both wrappers launch the
+    strip-culled kernel, since the two scans give the same image)."""
+    return True
+
+
+def _gather_window(table, idx):
+    """table (..., K, *C) rows picked per pixel by idx (..., H, W): (..., H, W, *C)."""
+    H, W = idx.shape[-2:]
+    flat = idx.reshape(idx.shape[:-2] + (H * W,))
+    if table.dim() == flat.dim():  # one value a row
+        return torch.gather(table, -1, flat).reshape(idx.shape)
+    return _gather_rows(table, flat).reshape(idx.shape + table.shape[-1:])
+
+
+def _shade(cfg: RenderConfig, cam_pos, dirs, best, row, mat_prim, hit_prim):
+    """The RGB pass's shading tail: the hit point o + best d, the winning
+    row's analytic normal by kind (a sphere's radial direction, a
+    cylinder's radial in xy, a triangle's face normal turned toward the
+    viewer), the ground's +z where no row won, its material (clamped to
+    0..3), then raycast.shade. dirs: (dx, dy, dz) and best, each (..., H, W);
+    row (..., H, W, ROW_WIDTH) the winning rows; mat_prim (..., H, W) their
+    materials; hit_prim (..., H, W) bool, else ground (or sky where best >=
+    BIG)."""
+    dx, dy, dz = dirs
+    cx, cy, cz = _camera(cam_pos, 2)
+    hx, hy, hz = cx + best * dx, cy + best * dy, cz + best * dz
+    kind = row[..., 0]
+    p = [row[..., 1 + k] for k in range(9)]
+    # a triangle's face normal e1 x e2, turned toward the viewer
+    tx = p[4] * p[8] - p[5] * p[7]
+    ty = p[5] * p[6] - p[3] * p[8]
+    tz = p[3] * p[7] - p[4] * p[6]
+    away = (tx * dx + ty * dy + tz * dz) > 0
+    tx, ty, tz = (torch.where(away, -v, v) for v in (tx, ty, tz))
+    sphere, cyl = kind == PRIM_SPHERE, kind == PRIM_CYLINDER
+    nx = torch.where(sphere | cyl, hx - p[0], tx)
+    ny = torch.where(sphere | cyl, hy - p[1], ty)
+    nz = torch.where(sphere, hz - p[2], torch.where(cyl, 0.0, tz))
+    nn = sqrt(nx * nx + ny * ny + nz * nz)
+    nn = torch.where(nn < 1e-9, 1.0, nn)
+    zero = torch.zeros_like(best)
+    normal = (torch.where(hit_prim, nx / nn, zero), torch.where(hit_prim, ny / nn, zero),
+              torch.where(hit_prim, nz / nn, zero + 1.0))
+    mat = torch.where(hit_prim, mat_prim.clamp(0, 3),
+                      torch.where(best < BIG, rc.MAT_GROUND, rc.MAT_SKY)).to(torch.int32)
+    return rc.shade(cfg, mat, normal, best)
+
+
+def render_rgb_window(cfg: RenderConfig, window, mats, cam_pos, cam_att):
+    """The plain RGB scan: every window row against every pixel, keeping
+    the nearest row (strictly nearer, so the earlier row wins a tie, and
+    the ground before any row), then `_shade`. window (..., K, ROW_WIDTH),
+    mats (..., K) int32, cam_pos (..., 3), cam_att (..., 4). Returns
+    (..., H, W, 3) uint8."""
+    dirs, best = _rays(cfg, cam_pos, cam_att)
+    cam = _camera(cam_pos, 2)
+    win = torch.full(best.shape, -1, dtype=torch.int64, device=best.device)
+    for k in range(window.shape[-2]):
+        t = _hit(window[..., k, :], cam, dirs)
+        closer = t < best
+        best = torch.where(closer, t, best)
+        win = torch.where(closer, k, win)
+    at = win.clamp(min=0)
+    return _shade(cfg, cam_pos, dirs, best, _gather_window(window, at), _gather_window(mats, at),
+                  win >= 0)
+
+
+def render_rgb_strips(cfg: RenderConfig, window, mats, cam_pos, cam_att, tile_h: int = 16):
+    """The strip-culled RGB scan (the plain version of K4-rgb): per
+    tile_h-row strip, only the window rows that `strip_windows` keeps
+    without its far clip, in window order, the nearest kept (strictly
+    nearer, as render_rgb_window), then `_shade`. The culling is
+    conservative, so the image equals render_rgb_window's. Same arguments
+    and result as render_rgb_window; H a multiple of tile_h."""
+    H, W = cfg.height, cfg.width
+    T = H // tile_h
+    strips, n_vis, order = strip_windows(cfg, window, cam_pos, cam_att, tile_h,
+                                         return_order=True, far_clip=False)
+    (dx, dy, dz), best = _rays(cfg, cam_pos, cam_att)
+    dirs = tuple(a.reshape(a.shape[:-2] + (T, tile_h, W)) for a in (dx, dy, dz))
+    best = best.reshape(best.shape[:-2] + (T, tile_h, W))
+    cam = _camera(cam_pos, 3)
+    nv = n_vis[..., None, None]
+    slot = torch.full(best.shape, -1, dtype=torch.int64, device=best.device)
+    for k in range(strips.shape[-2]):
+        t = _hit(strips[..., k, :], cam, dirs)
+        closer = (t < best) & (k < nv)
+        best = torch.where(closer, t, best)
+        slot = torch.where(closer, k, slot)
+    # compacted slot -> window row, through each strip's compaction order
+    win = torch.gather(order, -1, slot.clamp(min=0).reshape(slot.shape[:-2] + (tile_h * W,)))
+    win = win.reshape(win.shape[:-2] + (H, W))
+    hit = (slot >= 0).reshape(win.shape)
+    return _shade(cfg, cam_pos, (dx, dy, dz), best.reshape(win.shape),
+                  _gather_window(window, win), _gather_window(mats, win), hit)
+
+
+def render_rgb(cfg: RenderConfig, scene: MeshScene, cam_pos, cam_att,
+               window_capacity: int = 192, strip_cull: bool | None = None, tile_h: int = 16):
+    """Shaded RGB frames of an imported world, the counterpart of
+    render_depth: the same window (its rows' materials by
+    window_materials), the nearest row tracked through the scan, then
+    `_shade`; a baked orchard renders the same picture as the procedural
+    one. strip_cull: True the strip-culled scan, False the plain one (the
+    same image); None picks `_strip_cull_default()`. cam_pos (..., 3),
+    cam_att (..., 4). Returns (..., H, W, 3) uint8."""
+    window, order, ok = select_window(scene, cam_pos, cfg.far * slant_factor(cfg),
+                                      window_capacity, return_order=True)
+    mats = window_materials(scene, window, order, ok)
+    if strip_cull is None:
+        strip_cull = _strip_cull_default()
+    if strip_cull and cfg.height % tile_h == 0:
+        return render_rgb_strips(cfg, window, mats, cam_pos, cam_att, tile_h)
+    return render_rgb_window(cfg, window, mats, cam_pos, cam_att)
+
+
+def render_rgb_body(cfg: RenderConfig, scene: MeshScene, body_pos, body_att,
+                    window_capacity: int = 192):
+    """render_rgb from vehicle poses (applies the camera mount)."""
+    return render_rgb(cfg, scene, body_pos, camera_attitude(body_att), window_capacity)

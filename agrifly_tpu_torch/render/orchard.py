@@ -87,6 +87,17 @@ def cell_rand(ix, iy, seed, salt: int):
     return (h & 0x7FFFFF).to(torch.float32) / float(0x800000)
 
 
+class TreeGeom(NamedTuple):
+    present: torch.Tensor  # bool
+    trunk_center: torch.Tensor  # (..., 2) x, y
+    trunk_radius: torch.Tensor
+    trunk_height: torch.Tensor
+    canopy_center: torch.Tensor  # (..., 3)
+    canopy_radius: torch.Tensor
+    canopy2_center: torch.Tensor  # (..., 3) upper canopy sphere
+    canopy2_radius: torch.Tensor
+
+
 def tree_fields(p: OrchardParams, ix, iy):
     """Per-cell tree parameters as a dict of tensors shaped like ix/iy."""
     r0 = cell_rand(ix, iy, p.seed, 0)
@@ -113,4 +124,19 @@ def tree_fields(p: OrchardParams, ix, iy):
         c2y=cy + (r2 - 0.5) * 0.6,
         c2z=can_h + 0.8 * can_r,
         c2r=can_r * 0.7,
+    )
+
+
+def tree_at_cell(p: OrchardParams, ix, iy) -> TreeGeom:
+    """Tree parameters for grid cell (ix, iy), shaped like ix/iy."""
+    f = tree_fields(p, ix, iy)
+    return TreeGeom(
+        present=f["present"],
+        trunk_center=torch.stack([f["cx"], f["cy"]], dim=-1),
+        trunk_radius=f["trunk_r"],
+        trunk_height=f["trunk_h"],
+        canopy_center=torch.stack([f["cx"], f["cy"], f["can_h"]], dim=-1),
+        canopy_radius=f["can_r"],
+        canopy2_center=torch.stack([f["c2x"], f["c2y"], f["c2z"]], dim=-1),
+        canopy2_radius=f["c2r"],
     )

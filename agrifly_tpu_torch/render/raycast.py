@@ -1,14 +1,18 @@
-"""Pinhole depth renderer: per-pixel 2-D grid march over the orchard.
+"""Pinhole renderer of the orchard: per-pixel 2-D grid march, depth and RGB.
 
-Port of `render_depth`, `camera_attitude` and `DEPTH_CAM_YPR` from
-`agrifly_tpu/render/raycast.py`. `render_depth` is the plain version of the
-raycast kernel (`render/cuda_raycast.py`, `csrc/raycast.cu`): it computes
-each pixel with the same float32 operations in the same order, so on the
-card the kernel's codes equal it bit for bit. It divides only by tensors
-(see `ops.fmath.scalar`) for that reason.
+Port of `agrifly_tpu/render/raycast.py`. `render_depth` is the plain
+version of the raycast kernel and `render_rgb` that of its RGB instance
+(`render/cuda_raycast.py`, `csrc/raycast.cu`, K1 and K1-rgb): each
+computes a pixel with the same float32 operations in the same order, so on
+the card a kernel's output equals it bit for bit. They divide only by
+tensors (see `ops.fmath.scalar`) and write every dot product and norm as a
+left-to-right sum of three products for that reason.
 
 Depth is planar (distance along the optical axis); the output is the
 uint8-style code depth / (far/256), 255 = no hit within the far plane.
+The RGB image shades the same geometry: Lambertian light on each
+material's colour, a sky, and a haze toward the sky colour with distance
+(`shade`, which the imported world's RGB pass shares).
 """
 
 from __future__ import annotations
@@ -16,10 +20,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from agrifly_tpu_torch.ops import rotation as rot
-from agrifly_tpu_torch.ops.fmath import scalar, sqrt
+from agrifly_tpu_torch.ops.fmath import const, scalar, sqrt
 from agrifly_tpu_torch.render import orchard as orch
 
 # depth camera mounting (Rappids_Simulator/main.cpp:123-126)
@@ -27,6 +32,30 @@ DEPTH_CAM_YPR = (-math.pi / 2.0, 0.0, -math.pi / 2.0)
 DEPTH_CAM_Q = rot.from_euler_ypr_np(*DEPTH_CAM_YPR)  # float64 (4,)
 
 BIG = 1e9
+
+# materials of the RGB pass
+MAT_SKY = 0
+MAT_GROUND = 1
+MAT_TRUNK = 2
+MAT_CANOPY = 3
+
+# material base colours (RGB, 0..1), by material id
+COLORS = (
+    (0.62, 0.78, 0.95),  # sky
+    (0.45, 0.38, 0.25),  # orchard soil
+    (0.35, 0.22, 0.12),  # trunk bark
+    (0.18, 0.45, 0.15),  # canopy leaves
+)
+
+
+def _unit(v):
+    """v / |v| in float32, the norm's squares summed left to right."""
+    v = np.asarray(v, np.float32)
+    n = np.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    return tuple(float(c) for c in v / n)
+
+
+SUN = _unit((0.45, 0.2, 0.87))  # the unit sun direction (float32 values)
 
 
 class RenderConfig(NamedTuple):
@@ -70,8 +99,10 @@ def _sphere(o, d, cx, cy, cz, radius):
     return torch.where((disc >= 0) & (s > 0), s, BIG)
 
 
-def tree_hit(scene: orch.OrchardParams, ix, iy, o, d):
-    """t of the first hit with the tree of cell (ix, iy), BIG for none."""
+def tree_hits(scene: orch.OrchardParams, ix, iy, o, d):
+    """The tree of cell (ix, iy) (orchard.tree_fields) and the rays' t with
+    its trunk and with its nearer canopy sphere, BIG for a miss, whether
+    the tree is present or not."""
     f = orch.tree_fields(scene, ix, iy)
     ox, oy, oz = o
     dx, dy, dz = d
@@ -94,8 +125,13 @@ def tree_hit(scene: orch.OrchardParams, ix, iy, o, d):
 
     t_c1 = _sphere(o, d, f["cx"], f["cy"], f["can_h"], f["can_r"])
     t_c2 = _sphere(o, d, f["c2x"], f["c2y"], f["c2z"], f["c2r"])
-    t = torch.minimum(t_trunk, torch.minimum(t_c1, t_c2))
-    return torch.where(f["present"], t, BIG)
+    return f, t_trunk, torch.minimum(t_c1, t_c2)
+
+
+def tree_hit(scene: orch.OrchardParams, ix, iy, o, d):
+    """t of the first hit with the tree of cell (ix, iy), BIG for none."""
+    f, t_trunk, t_can = tree_hits(scene, ix, iy, o, d)
+    return torch.where(f["present"], torch.minimum(t_trunk, t_can), BIG)
 
 
 # the early exit's float margins (csrc/raycast.cu kReachRel ... kSlackLin)
@@ -105,10 +141,10 @@ _SLACK_SQRT = 2.0 ** -9
 _SLACK_LIN = 2.0 ** -18
 
 
-def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early_exit: bool):
-    """The ray set-up and the DDA over orchard cells. Returns the codes and,
-    with early_exit, which stops a pixel's march as `csrc/raycast.cu` does
-    (see `render_depth_exit`), the cells each pixel evaluated (else None)."""
+def _rays(cfg: RenderConfig, cam_pos, cam_att):
+    """Each pixel's ray: origins (ox, oy, oz) and world directions (dx, dy,
+    dz), each (..., H, W), with z = 1 in the camera frame (so the ray
+    parameter t is planar depth), and the ground plane's t (BIG for none)."""
     H, W = cfg.height, cfg.width
     dev = cam_pos.device
     focal = scalar(cfg.focal, cam_pos)
@@ -130,15 +166,41 @@ def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early
     dz_safe = torch.where(torch.abs(dz) < 1e-9, 1e-9, dz)
     t_ground = -oz / dz_safe
     best = torch.where((t_ground > 0) & (dz != 0), t_ground, BIG)
+    return (ox, oy, oz), (dx, dy, dz), best
 
-    # 2-D DDA over orchard cells in the (x, y) plane
+
+class _Dda(NamedTuple):
+    """A 2-D DDA over orchard cells in the (x, y) plane: the current cell,
+    its steps and the t of the next cell boundary in x and in y."""
+    ix: torch.Tensor
+    iy: torch.Tensor
+    step_x: torch.Tensor
+    step_y: torch.Tensor
+    next_x: torch.Tensor
+    next_y: torch.Tensor
+    t_dx: torch.Tensor
+    t_dy: torch.Tensor
+
+    def advance(self):
+        """The next cell: the neighbour across the nearer boundary."""
+        go_x = self.next_x <= self.next_y
+        return self._replace(
+            ix=torch.where(go_x, self.ix + self.step_x, self.ix),
+            iy=torch.where(go_x, self.iy, self.iy + self.step_y),
+            next_x=torch.where(go_x, self.next_x + self.t_dx, self.next_x),
+            next_y=torch.where(go_x, self.next_y, self.next_y + self.t_dy))
+
+
+def _dda(scene: orch.OrchardParams, o, d) -> _Dda:
+    ox, oy, _ = o
+    dx, dy, _ = d
     fx = ox / scene.tree_spacing
     fy = oy / scene.row_spacing
     ix = torch.floor(fx).to(torch.int32)
     iy = torch.floor(fy).to(torch.int32)
     gdx = dx / scene.tree_spacing
     gdy = dy / scene.row_spacing
-    one = torch.ones((), dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=ix.device)
     step_x = torch.where(gdx >= 0, one, -one)
     step_y = torch.where(gdy >= 0, one, -one)
     tiny_x = torch.where(gdx >= 0, 1e-9, -1e-9).to(torch.float32)
@@ -147,9 +209,17 @@ def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early
     inv_dy = 1.0 / torch.where(torch.abs(gdy) < 1e-9, tiny_y, gdy)
     next_x = (ix.to(torch.float32) + (step_x > 0).to(torch.float32) - fx) * inv_dx
     next_y = (iy.to(torch.float32) + (step_y > 0).to(torch.float32) - fy) * inv_dy
-    t_dx = torch.abs(inv_dx)
-    t_dy = torch.abs(inv_dy)
+    return _Dda(ix, iy, step_x, step_y, next_x, next_y, torch.abs(inv_dx), torch.abs(inv_dy))
 
+
+def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early_exit: bool):
+    """The ray set-up and the DDA over orchard cells. Returns the codes and,
+    with early_exit, which stops a pixel's march as `csrc/raycast.cu` does
+    (see `render_depth_exit`), the cells each pixel evaluated (else None)."""
+    o, d, best = _rays(cfg, cam_pos, cam_att)
+    (ox, oy, oz), (dx, dy, dz) = o, d
+    shape, dev = best.shape, best.device
+    g = _dda(scene, o, d)
     scale = scalar(cfg.far / 256.0, best)
     cells = None
     if early_exit:
@@ -162,9 +232,8 @@ def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early
         cells = torch.zeros(shape, dtype=torch.int32, device=dev)
 
     # one pass is exact: each tree lies inside its own cell
-    o, d = (ox, oy, oz), (dx, dy, dz)
     for k in range(cfg.dda_steps):
-        hit = torch.minimum(best, tree_hit(scene, ix, iy, o, d))
+        hit = torch.minimum(best, tree_hit(scene, g.ix, g.iy, o, d))
         if not early_exit:
             best = hit
         else:
@@ -177,16 +246,12 @@ def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early
             slack = _SLACK_SQRT * (reach * adx + sr) + _SLACK_LIN * po
             qx = ox + reach * dx
             qy = oy + reach * dy
-            bx = (ix + (step_x > 0).to(torch.int32)).to(torch.float32) * scene.tree_spacing
-            by = (iy + (step_y > 0).to(torch.int32)).to(torch.float32) * scene.row_spacing
-            in_x = torch.where(step_x > 0, qx <= bx - slack, qx >= bx + slack)
-            in_y = torch.where(step_y > 0, qy <= by - slack, qy >= by + slack)
+            bx = (g.ix + (g.step_x > 0).to(torch.int32)).to(torch.float32) * scene.tree_spacing
+            by = (g.iy + (g.step_y > 0).to(torch.int32)).to(torch.float32) * scene.row_spacing
+            in_x = torch.where(g.step_x > 0, qx <= bx - slack, qx >= bx + slack)
+            in_y = torch.where(g.step_y > 0, qy <= by - slack, qy >= by + slack)
             active = active & ~(exits & in_x & in_y)
-        go_x = next_x <= next_y
-        ix = torch.where(go_x, ix + step_x, ix)
-        iy = torch.where(go_x, iy, iy + step_y)
-        next_x = torch.where(go_x, next_x + t_dx, next_x)
-        next_y = torch.where(go_x, next_y, next_y + t_dy)
+        g = g.advance()
 
     # clip in float before the int cast: a miss is t = 1e9, whose code does
     # not fit an int32
@@ -213,3 +278,86 @@ def render_depth_exit(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam
     render_depth's, and the (..., H, W) int32 number of cells each pixel
     evaluated). The tests and chip_smoke.py use it; the frame does not."""
     return _march(cfg, scene, cam_pos, cam_att, early_exit=True)
+
+
+def render_depth_body(cfg: RenderConfig, scene: orch.OrchardParams, body_pos, body_att):
+    """render_depth from vehicle poses (applies the depth-camera mount)."""
+    return render_depth(cfg, scene, body_pos, camera_attitude(body_att))
+
+
+# =============================================================================
+# RGB rendering (the image stream beside the depth image)
+# =============================================================================
+
+
+def shade(cfg: RenderConfig, mat, normal, best):
+    """The RGB pass's colour tail, shared by both worlds (and `csrc/shade.cuh`):
+    Lambertian light 0.35 + 0.65 clip(n . SUN, 0, 1) on the material's
+    colour, the sky colour where `mat` is MAT_SKY, then a haze toward the sky
+    colour of 0.35 clip(best / far, 0, 1). mat (..., H, W) int32 in 0..3;
+    normal (nx, ny, nz), each (..., H, W), unit; best (..., H, W) planar
+    depth. Returns (..., H, W, 3) uint8, each channel clipped to [0, 255]
+    and truncated."""
+    nx, ny, nz = normal
+    lam = torch.clamp(nx * SUN[0] + ny * SUN[1] + nz * SUN[2], 0.0, 1.0)
+    light = 0.35 + 0.65 * lam
+    colors = const(COLORS, best.device)
+    sky = colors[MAT_SKY]
+    haze = (torch.clamp(best / scalar(cfg.far, best), 0.0, 1.0) * 0.35)[..., None]
+    color = torch.where((mat == MAT_SKY)[..., None], sky, colors[mat.long()] * light[..., None])
+    color = color * (1 - haze) + sky * haze
+    return torch.clamp(color * 255.0, 0.0, 255.0).to(torch.uint8)
+
+
+def render_rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
+    """Shaded RGB frames of the same geometry as the depth pass.
+
+    The march keeps the nearest cell's tree (strictly nearer, so the
+    earlier cell wins a tie), its material (trunk where the trunk's t is at
+    most the canopy's) and cell, over all `dda_steps` cells: a tree beyond
+    the far plane still shades, hazed. Normals: the ground's +z, the
+    trunk's radial direction, and the canopy sphere whose surface the hit
+    is relatively nearer. cam_pos (..., 3), cam_att (..., 4) world-from-
+    camera. Returns (..., H, W, 3) uint8."""
+    o, d, best = _rays(cfg, cam_pos, cam_att)
+    g = _dda(scene, o, d)
+    mat = torch.where(best < BIG, MAT_GROUND, MAT_SKY).to(torch.int32)
+    hix = torch.zeros_like(g.ix)
+    hiy = torch.zeros_like(g.iy)
+    for _ in range(cfg.dda_steps):
+        f, t_trunk, t_can = tree_hits(scene, g.ix, g.iy, o, d)
+        t_tree = torch.where(f["present"], torch.minimum(t_trunk, t_can), BIG)
+        closer = t_tree < best
+        best = torch.where(closer, t_tree, best)
+        mat = torch.where(closer, torch.where(t_trunk <= t_can, MAT_TRUNK, MAT_CANOPY), mat)
+        hix = torch.where(closer, g.ix, hix)
+        hiy = torch.where(closer, g.iy, hiy)
+        g = g.advance()
+
+    # hit point and the analytic normals of the winning cell's tree
+    hx, hy, hz = (oc + best * dc for oc, dc in zip(o, d))
+    f = orch.tree_fields(scene, hix, hiy)
+    rx, ry = hx - f["cx"], hy - f["cy"]
+    rn = sqrt(rx * rx + ry * ry)
+    rn = torch.where(rn < 1e-9, 1.0, rn)
+    c1 = (hx - f["cx"], hy - f["cy"], hz - f["can_h"])
+    c2 = (hx - f["c2x"], hy - f["c2y"], hz - f["c2z"])
+    n1 = sqrt(c1[0] * c1[0] + c1[1] * c1[1] + c1[2] * c1[2])
+    n2 = sqrt(c2[0] * c2[0] + c2[1] * c2[1] + c2[2] * c2[2])
+    use2 = (n2 / torch.clamp(f["c2r"], min=1e-6)) < (n1 / torch.clamp(f["can_r"], min=1e-6))
+    nn = torch.where(use2, n2, n1)
+    nn = torch.where(nn < 1e-9, 1.0, nn)
+    trunk, canopy = mat == MAT_TRUNK, mat == MAT_CANOPY
+    zero = torch.zeros_like(best)
+    normal = (torch.where(trunk, rx / rn, torch.where(canopy, torch.where(use2, c2[0], c1[0]) / nn,
+                                                      zero)),
+              torch.where(trunk, ry / rn, torch.where(canopy, torch.where(use2, c2[1], c1[1]) / nn,
+                                                      zero)),
+              torch.where(trunk, zero, torch.where(canopy, torch.where(use2, c2[2], c1[2]) / nn,
+                                                   zero + 1.0)))
+    return shade(cfg, mat, normal, best)
+
+
+def render_rgb_body(cfg: RenderConfig, scene: orch.OrchardParams, body_pos, body_att):
+    """render_rgb from vehicle poses (applies the camera mount)."""
+    return render_rgb(cfg, scene, body_pos, camera_attitude(body_att))

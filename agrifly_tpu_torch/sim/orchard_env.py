@@ -42,7 +42,7 @@ from agrifly_tpu_torch.convert import flatten_tensors
 from agrifly_tpu_torch.io import radio
 from agrifly_tpu_torch.offboard import controller as offboard_ctrl
 from agrifly_tpu_torch.offboard import estimators
-from agrifly_tpu_torch.ops import lin3
+from agrifly_tpu_torch.ops import filters, lin3
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.ops.fmath import const, norm3
 from agrifly_tpu_torch.planner import rappids
@@ -434,10 +434,13 @@ def frame_step(params: OrchardEnvParams, s: OrchardEnvState, gen=None, draws=Non
     u, noise = draws if draws is not None else draw(params, gen, s.base.step.device)
     s, plan_info = _frame_percept(params, s, u)
     s = frame_ticks(params, s, noise)
+    return s, _frame_outputs(s, plan_info)
+
+
+def _frame_outputs(s: OrchardEnvState, plan_info: dict) -> dict:
     plant = s.base.plant
-    return s, dict(pos=plant.pos, vel=plant.vel, att=plant.att,
-                   flight_state=s.base.logic.fs, panic=s.base.logic.panic_reason,
-                   **plan_info)
+    return dict(pos=plant.pos, vel=plant.vel, att=plant.att, flight_state=s.base.logic.fs,
+                panic=s.base.logic.panic_reason, **plan_info)
 
 
 def frame_step_fleet(params: OrchardEnvParams, s: OrchardEnvState, gen=None, draws=None):
@@ -461,12 +464,20 @@ def init_state_fleet(params: OrchardEnvParams, positions) -> OrchardEnvState:
     return s._replace(base=s.base._replace(plant=s.base.plant._replace(pos=pos.clone())))
 
 
+def _stack(items):
+    """Per-frame outputs stacked along a new leading axis (a NamedTuple
+    field by field)."""
+    if isinstance(items[0], tuple):
+        return type(items[0])(*(_stack([it[i] for it in items]) for i in range(len(items[0]))))
+    return torch.stack(items)
+
+
 def _fly(step, params, s, n_frames, gen):
     outs = []
     for _ in range(n_frames):
         s, out = step(params, s, gen)
         outs.append(out)
-    return s, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return s, {k: _stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def fly(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int, gen: torch.Generator):
@@ -479,6 +490,48 @@ def fly_fleet(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int,
     """n_frames of frame_step_fleet. Returns (state, outputs stacked
     (frames, B, ...))."""
     return _fly(frame_step_fleet, params, s, n_frames, gen)
+
+
+def _diag_extras(params: OrchardEnvParams, s: OrchardEnvState) -> dict:
+    """A frame's extras for a topic bridge: what it publishes beyond
+    `_frame_outputs`. The planned-trajectory subtree; the sources of the
+    telemetry packets (the LogicState fields io/telemetry.encode_from_logic
+    reads), so that the wire can be quantized from host rows; the
+    controller snapshot (the mocap prediction and the tracking references,
+    ExampleVehicleStateMachine.cpp:666-696); and the last command sent.
+    One vehicle."""
+    p = params.base
+    now_us = s.base.step * p.dt_us
+    est_pos, est_vel, est_att, _ = estimators.mocap_get_prediction(
+        s.base.mocap, now_us, p.est_latency_us)
+    ref_pos, ref_vel, ref_acc, ref_thrust, ref_angvel_w = _tracking_refs(
+        params, s.planned, s.base.step)
+    lg = s.base.logic
+    return dict(
+        step=s.base.step, planned=s.planned, plan_count=s.plan_count,
+        mstage=s.mstage, waypoint_idx=s.waypoint_idx,
+        tel_acc=filters.lp2_value(lg.acc_lp), tel_gyro=filters.lp2_value(lg.gyro_lp),
+        tel_motor_forces=lg.des_motor_forces,
+        tel_kf_pos=lg.kf.pos, tel_kf_vel=lg.kf.vel, tel_kf_att=lg.kf.att,
+        tel_batt=lg.batt_voltage, tel_debug=lg.debug, tel_warnings=lg.warnings,
+        est_pos=est_pos, est_vel=est_vel, est_att=est_att,
+        ref_pos=ref_pos, ref_vel=ref_vel, ref_acc=ref_acc, ref_thrust=ref_thrust,
+        ref_angvel_b=rot.rotate_back(est_att, ref_angvel_w),
+        last_cmd_thrust=s.base.last_cmd_thrust, last_cmd_angvel=s.base.last_cmd_angvel)
+
+
+def fly_diag(params: OrchardEnvParams, s: OrchardEnvState, n_frames: int, gen=None, draws=None):
+    """fly() with a topic bridge's outputs: each frame's row holds
+    `_frame_outputs` and `_diag_extras`, so that a bridge can fly a block of
+    frames in one call and publish every frame from the stacked rows. One
+    vehicle. draws: optional (u (n_frames, 4, N), noise (n_frames, ticks, 2,
+    3)), frame i taking (u[i], noise[i]); otherwise each frame draws from
+    `gen`. Returns (state, outputs stacked per frame)."""
+    outs = []
+    for i in range(n_frames):
+        s, out = frame_step(params, s, gen, None if draws is None else (draws[0][i], draws[1][i]))
+        outs.append(dict(out, **_diag_extras(params, s)))
+    return s, {k: _stack([o[k] for o in outs]) for k in outs[0]}
 
 
 class OrchardEnv(torch.nn.Module):
@@ -515,3 +568,6 @@ class OrchardEnv(torch.nn.Module):
 
     def fly_fleet(self, state, n_frames: int, gen: torch.Generator):
         return fly_fleet(self.params, state, n_frames, gen)
+
+    def fly_diag(self, state, n_frames: int, gen=None, draws=None):
+        return fly_diag(self.params, state, n_frames, gen, draws)

@@ -16,7 +16,10 @@ mirror's), the two imported-world (mesh) raycasters, strip-culled and
 window, bit for bit and against each other (a baked orchard and a scene of
 spheres, cylinders and OBJ triangles; 1 and 16 cameras in one launch; the
 strip-culled kernel's per-strip row counts equal to `strip_windows`'; a
-window of edge-case rows), the pyramid inflation bit for bit (one image, and 16 fleet images in one
+window of edge-case rows), the RGB instances of both raycasters bit for bit
+(K1-rgb and K4-rgb, against `raycast.render_rgb` and both plain mesh scans:
+1 and 16 cameras, a camera above the canopy whose trees all lie beyond the
+far plane, the edge rows with a pair tied on t), the pyramid inflation bit for bit (one image, and 16 fleet images in one
 launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
 (then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
@@ -47,6 +50,11 @@ oracle. It then flies:
   frames and 16 in lanes for 20, every frame launching the strip-culled
   mesh kernel once and the procedural raycaster never; then one batch
   render of the fleet's poses through the window mesh kernel;
+- what a topic bridge computes each frame, in both worlds: 20 frames of
+  `OrchardEnv.fly_diag`, each frame's pose rendered to depth and to RGB
+  (K1 and K1-rgb, or K4 and K4-rgb), its telemetry encoded on the card and
+  on the host (equal), its command encoded on the host and on the card
+  (equal); then fly and fly_diag in turns from one state;
 - `sim/env`'s fleet physics rollout (K5, `csrc/rollout.cu`) at bench.py's
   shape: 4096 envs x 250 steps per `env.rollout_fast` call, hover, IMU
   noise drawn inside each call, with the true state and with the mocap
@@ -70,8 +78,8 @@ oracle. It then flies:
   three-vehicle flight, its device time a tick at 3 and 28 vehicles); and
   `sim/mission` with the small modules on the card against the CPU.
 
-With `--parent DIR` (a checkout of the parent commit) it also holds K3 and
-K5 in every mode bit for bit against the parent's kernels, built from DIR
+With `--parent DIR` (a checkout of the parent commit) it also holds K1,
+K4, K3 and K5 in every mode bit for bit against the parent's kernels, built from DIR
 and called through this tree's wrappers where the parent declares the same
 C interface, and times both in turns.
 
@@ -102,9 +110,9 @@ MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orc
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
            "fleet_uwb")  # one library per csrc/<name>.cu
-DEVICE_KERNELS = ("raycast_kernel", "inflate_kernel", "inflate_cluster_kernel",
-                  "inflate_grouped_kernel", "frame_kernel",
-                  "meshscene_strips_kernel", "meshscene_window_kernel",
+DEVICE_KERNELS = ("raycast_kernel", "raycast_rgb_kernel", "inflate_kernel",
+                  "inflate_cluster_kernel", "inflate_grouped_kernel", "frame_kernel",
+                  "meshscene_strips_kernel", "meshscene_window_kernel", "meshscene_rgb_kernel",
                   "rollout_kernel", "fleet_uwb_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
@@ -136,6 +144,16 @@ MESH_OPS_PER_PIXEL = 41
 MESH_PREP_OPS = (3, 13, 10, 20)
 MESH_ROW_OPS = (0, 10, 9, 24)
 MESH_CULL_OPS = 70  # K4's culling of one row for one strip: bounding sphere, camera, 7 tests
+# The RGB pass (K1-rgb, K4-rgb), counted as above: per visited cell the
+# winner's compare and three selects; per pixel the winning tree's five
+# hashes and geometry, its normal (~3 square roots and 3 divides) and the
+# shading (procedural), or the winning row's normal and the shading
+# (imported, where a tested row's tie test is not counted)
+RGB_RAY_OPS_PER_CELL = 4
+RGB_RAY_SHADE_OPS = 130
+RGB_MESH_SHADE_OPS = 60
+ABOVE_CANOPY = (10.0, 3.0, 14.0)  # a level camera here meets trees only beyond the far plane
+BRIDGE_FRAMES = 20  # the fly_diag flights' frames, in each world
 
 
 def _check(cond, what):
@@ -709,14 +727,19 @@ def mixed_scene(dev, directory):
 
 
 def edge_rows(dev):
-    """A window of rows at the mesh kernels' edge cases, the same 20 rows
-    for four cameras: (windows (4, 20, 10), cam_pos (4, 3), cam_att (4, 4)).
+    """A window of rows at the mesh kernels' edge cases, the same 22 rows
+    for five cameras: (windows (5, 22, 10), cam_pos (5, 3), cam_att (5, 4)).
     Camera 0 looks straight down from z = 3, so the pixel at (W / 2, H / 2)
     of an image with even W and H has the ray (0, 0, -1): vertical against
     the cylinder below it (ca = 0), tangent to a sphere (disc = 0), and
     parallel to a zero-area and a tiny triangle (|det| < 1e-12). Camera 1
     is inside a sphere, camera 2 at z = 0 (no ground hit), camera 3 at a
-    generic pose. Kind 0 rows, zero and not, lie between the others."""
+    generic pose. Kind 0 rows, zero and not, lie between the others.
+    Camera 4 looks level along +x from the height of a sphere's centre,
+    whose z-cylinder of the same axis and radius comes earlier in the
+    window: the image's middle row (dz = 0) meets both at the same t, bit
+    for bit, and the RGB pass must keep the earlier row (the cylinder),
+    though the kernels stage spheres before cylinders."""
     import torch
 
     from agrifly_tpu_torch.ops import rotation as rot
@@ -743,15 +766,21 @@ def edge_rows(dev):
         [1, 40.0, 2.0, 0.0, 2.0],  # reaches below the ground
         [0],
         [2, 31.0, 3.5, 1.0, 1.0, 0.2],  # flat: z0 = z1
+        [2, 55.0, 0.0, 0.0, 3.0, 0.5],  # tied with the next row in camera 4's middle row
+        [1, 55.0, 0.0, 1.5, 0.5],
     ]
     window = torch.tensor([r + [0.0] * (10 - len(r)) for r in rows], dtype=torch.float32)
-    pos = torch.tensor([[0.0, 0.0, 3.0], [10.0, 0.0, 2.0], [20.0, 0.0, 0.0], [30.0, 2.0, 1.5]])
-    yaw, pitch, roll = torch.tensor([[0.0, 0.0, 0.0, 0.4], [0.0, 0.0, 0.0, 0.1],
-                                     [0.0, 0.0, 0.0, -0.05]])
+    pos = torch.tensor([[0.0, 0.0, 3.0], [10.0, 0.0, 2.0], [20.0, 0.0, 0.0], [30.0, 2.0, 1.5],
+                        [50.0, 0.0, 1.5]])
+    yaw, pitch, roll = torch.tensor([[0.0, 0.0, 0.0, 0.4, 0.0], [0.0, 0.0, 0.0, 0.1, 0.0],
+                                     [0.0, 0.0, 0.0, -0.05, 0.0]])
     body = rot.from_euler_ypr(yaw, pitch, roll)
     att = raycast.camera_attitude(body)
     att[0] = torch.tensor([0.0, 1.0, 0.0, 0.0])  # world-from-camera R = diag(1, -1, -1)
-    return window.expand(4, -1, -1).contiguous().to(dev), pos.to(dev), att.to(dev)
+    # camera z along world x, camera x along world -y, camera y along world
+    # -z, every entry of R exactly 0 or +-1
+    att[4] = torch.tensor([0.5, -0.5, 0.5, -0.5])
+    return window.expand(5, -1, -1).contiguous().to(dev), pos.to(dev), att.to(dev)
 
 
 def mesh_poses(g, B, dev):
@@ -933,6 +962,189 @@ def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
     return ({**result(0, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4,
              "batch_ms": batch_ms, "kernels_per_call": per_call},
             {**result(0, ms4w, plain4w, b4w, o4w), "launch_ms": launch4w, "device_us": dev4w})
+
+
+def ray_poses(g, B, dev):
+    """B random orchard poses from generator g, as check_raycast draws them:
+    (cam_pos (B, 3), cam_att (B, 4) world-from-camera)."""
+    import torch
+
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.render import raycast
+
+    pos = torch.stack([torch.rand(B, generator=g) * 40, torch.rand(B, generator=g) * 16 - 8,
+                       torch.rand(B, generator=g) * 3 + 0.5], dim=1).to(dev)
+    ypr = ((torch.rand(B, 3, generator=g) - 0.5) * 0.6).to(dev)
+    return pos, raycast.camera_attitude(rot.from_euler_ypr(ypr[:, 0], ypr[:, 1], ypr[:, 2]))
+
+
+def above_canopy(dev):
+    """One camera at ABOVE_CANOPY looking level along +x (the mount on an
+    identity body): every tree it meets lies beyond the far plane, so its
+    depth image is all 255 and its RGB image shows the trees hazed."""
+    import torch
+
+    from agrifly_tpu_torch.render import raycast
+
+    pos = torch.tensor([ABOVE_CANOPY], dtype=torch.float32, device=dev)
+    return pos, raycast.camera_attitude(torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev))
+
+
+def sky_bytes(cfg, dev):
+    """The RGB bytes of a pixel that meets nothing (raycast.shade of the sky)."""
+    import torch
+
+    from agrifly_tpu_torch.render import raycast
+
+    one = torch.ones((1, 1), device=dev)
+    return raycast.shade(cfg, torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                         (0 * one, 0 * one, one), one * raycast.BIG)[0, 0]
+
+
+def rgb_timings(wrapper, launch, plain, n_bytes, n_ops):
+    """Wrapper, bare launch, device and plain times of an RGB kernel, and
+    its bound."""
+    res = result(0, cuda_ms(wrapper), cuda_ms(plain, reps=3), n_bytes, n_ops)
+    return {**res, "launch_ms": cuda_ms(launch, reps=50), "device_us": device_us(launch)}
+
+
+def rgb_line(name, res):
+    return (f"{name} {res['ms']:.4f} ms (launch alone {res['launch_ms']:.4f}, device "
+            f"{us_text(res['device_us'])}), plain {res['plain_ms']:.4f}, bound "
+            f"{res['bound_ms']:.6f} ({res['bound_by']})")
+
+
+def check_rgb(dev):
+    """The RGB kernels against their plain versions at 640x480, bit for bit.
+    K1-rgb against raycast.render_rgb on check_raycast's poses (B = 1 and
+    16) on the default, limit and loose scenes, and from above the canopy
+    (trees only beyond the far plane, where K1's depth exit would stop: the
+    depth image is all 255, the RGB image is not the sky); every pixel of
+    the sky's colour has K1's depth code 255. K4-rgb (render_rgb_batch,
+    one launch) against both plain scans (render_rgb_strips,
+    render_rgb_window) on the baked orchard and the mixed scene at B = 1 and
+    16, from above the canopy (a window with rows beyond the far plane,
+    which K4's depth culling drops) and on edge_rows' window (its camera 4
+    meets two rows at the same t). Then both kernels' wrapper, launch,
+    device and plain times, and bounds. Returns the B = 1 results (K1-rgb
+    on the default orchard, K4-rgb on the baked orchard)."""
+    import tempfile
+
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
+
+    t_phase = time.perf_counter()
+    cfg = raycast.make_config(640, 480)
+    sky = sky_bytes(cfg, dev)
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    for B in (1, 16):
+        pos, cam = ray_poses(g, B, dev)
+        for name, kw in RAY_SCENES.items():
+            scene = orchard.make_params(device=dev, **kw)
+            for label, (p, c) in (("random poses", (pos, cam)),
+                                  ("above the canopy", above_canopy(dev))):
+                before = cuda_raycast.render_rgb_batch.launches
+                got = cuda_raycast.render_rgb_batch(cfg, scene, p, c)
+                _check(cuda_raycast.render_rgb_batch.launches == before + 1,
+                       "K1-rgb: not one launch")
+                _check(torch.equal(got, raycast.render_rgb(cfg, scene, p, c)),
+                       f"K1-rgb differs from render_rgb ({name} scene, {label}, B={B})")
+                depth = cuda_raycast.render_depth_batch(cfg, scene, p, c)
+                is_sky = (got == sky).all(-1)
+                _check(bool((depth[is_sky] == 255).all()),
+                       f"K1-rgb: a sky pixel with a depth code below 255 ({name}, {label})")
+                trees = int((~is_sky).sum())
+                if label == "above the canopy":
+                    _check(int(depth.min()) == 255 and trees > 1000,
+                           f"K1-rgb above the canopy: depth min {int(depth.min())}, {trees} "
+                           f"pixels not sky")
+                else:
+                    _check(torch.unique(got.reshape(-1, 3), dim=0).shape[0] > 20,
+                           f"K1-rgb rendered an empty scene ({name})")
+        scene = orchard.make_params(device=dev)
+        got = cuda_raycast.render_rgb_batch(cfg, scene, pos, cam)
+        ops = B * cfg.height * cfg.width * (
+            RAY_OPS_PER_PIXEL + (RAY_OPS_PER_CELL + RGB_RAY_OPS_PER_CELL) * cfg.dda_steps
+            + RGB_RAY_SHADE_OPS)
+        res = rgb_timings(lambda: cuda_raycast.render_rgb_batch(cfg, scene, pos, cam),
+                          lambda: cuda_raycast._launch_rgb(cfg, scene, pos, cam),
+                          lambda: raycast.render_rgb(cfg, scene, pos, cam),
+                          nbytes(pos, cam, got) + 40, ops)
+        print(f"K1-rgb B={B} 640x480: bit-equal to render_rgb on the default, limit and loose "
+              f"scenes and from above the canopy (depth all 255, hazed trees), sky pixels all "
+              f"at depth 255; " + rgb_line("K1-rgb", res))
+        out[("K1-rgb", B)] = res
+
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    g = torch.Generator().manual_seed(SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {"baked orchard": baked_orchard(dev), "mixed scene": mixed_scene(dev, tmp)}
+    for label, mesh in scenes.items():
+        for B in (1, 16):
+            pos, cam = mesh_poses(g, B, dev)
+            cases = [("random poses", pos, cam)]
+            if label == "baked orchard" and B == 1:
+                cases.append(("above the canopy", *above_canopy(dev)))
+            for case, p, c in cases:
+                windows, order, ok = meshscene.select_window(mesh, p, reach, 192,
+                                                             return_order=True)
+                mats = meshscene.window_materials(mesh, windows, order, ok)
+                before = cuda_meshscene.render_rgb_strips_batch.launches
+                got = cuda_meshscene.render_rgb_batch(cfg, mesh, p, c)
+                plain_order = cuda_meshscene.render_rgb_batch(cfg, mesh, p, c, strip_cull=False)
+                _check(cuda_meshscene.render_rgb_strips_batch.launches == before + 2,
+                       "K4-rgb: not one launch a call")
+                strips = meshscene.render_rgb_strips(cfg, windows, mats, p, c)
+                _check(torch.equal(got, strips) and torch.equal(plain_order, got),
+                       f"K4-rgb differs from render_rgb_strips ({label}, {case}, B={B})")
+                _check(torch.equal(got, meshscene.render_rgb_window(cfg, windows, mats, p, c)),
+                       f"K4-rgb differs from render_rgb_window ({label}, {case}, B={B})")
+                _check(torch.unique(got.reshape(-1, 3), dim=0).shape[0] > 20,
+                       f"K4-rgb rendered an empty scene ({label}, {case})")
+                if case == "above the canopy":
+                    _, kept = meshscene.strip_windows(cfg, windows, p, c, cuda_meshscene.TILE_H,
+                                                      far_clip=False)
+                    _, clipped = meshscene.strip_windows(cfg, windows, p, c,
+                                                         cuda_meshscene.TILE_H)
+                    beyond = int((kept - clipped).sum())
+                    _check(beyond > 0, "above the canopy: no row beyond the far plane")
+                    print(f"K4-rgb above the canopy ({label}): bit-equal to both plain scans; "
+                          f"{beyond} (strip, row) pairs beyond the far plane kept")
+            windows, order, ok = meshscene.select_window(mesh, pos, reach, 192, return_order=True)
+            mats = meshscene.window_materials(mesh, windows, order, ok)
+            strips, nvis, _ = meshscene.strip_windows(cfg, windows, pos, cam,
+                                                      cuda_meshscene.TILE_H, return_order=True,
+                                                      far_clip=False)
+            got = cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam)
+            b, o = mesh_bound(cfg, windows[..., 0], strips[..., 0], nvis,
+                              cuda_meshscene.TILE_H * cfg.width,
+                              nbytes(pos, cam, windows, mats, got),
+                              cull_rows=nvis.numel() * windows.shape[1])
+            res = rgb_timings(
+                lambda: cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam),
+                lambda: cuda_meshscene._launch_rgb(cfg, pos, cam, windows, mats),
+                lambda: meshscene.render_rgb_strips(cfg, windows, mats, pos, cam),
+                b, o + B * cfg.height * cfg.width * RGB_MESH_SHADE_OPS)
+            print(f"K4-rgb {label}, B={B} 640x480, window {windows.shape[1]} rows: bit-equal to "
+                  f"both plain scans; n_vis without the far clip mean "
+                  f"{float(nvis.float().mean()):.3f}; " + rgb_line("K4-rgb", res))
+            if label == "baked orchard":
+                out[("K4-rgb", B)] = res
+
+    windows, pos, cam = edge_rows(dev)
+    mats = torch.where(windows[..., 0] == meshscene.PRIM_CYLINDER, meshscene.MAT_TRUNK,
+                       meshscene.MAT_CANOPY).to(torch.int32)
+    got = cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam)
+    _check(torch.equal(got, meshscene.render_rgb_strips(cfg, windows, mats, pos, cam))
+           and torch.equal(got, meshscene.render_rgb_window(cfg, windows, mats, pos, cam)),
+           "K4-rgb differs from the plain scans on the edge rows")
+    print(f"K4-rgb on the edge rows ({windows.shape[1]} rows, {pos.shape[0]} cameras, a tied "
+          f"pair among them): bit-equal to both plain scans; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return tuple({k: out[(name, 1)][k] for k in keep} for name in ("K1-rgb", "K4-rgb"))
 
 
 def tick_states(params):
@@ -1202,7 +1414,8 @@ def frame_sections(dev):
             f"{chain_ms:.6f} ms at the {mhz:.0f} MHz maximum SM clock")
 
 
-RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window")
+RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window", "raycast_rgb",
+                  "meshscene_rgb")
 
 
 def reset_counts():
@@ -1211,8 +1424,10 @@ def reset_counts():
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
     cuda_raycast.render_depth_batch.launches = 0
+    cuda_raycast.render_rgb_batch.launches = 0
     cuda_meshscene.render_depth_strips_batch.launches = 0
     cuda_meshscene.render_depth_window_batch.launches = 0
+    cuda_meshscene.render_rgb_strips_batch.launches = 0
     cuda_inflate.inflate_pyramids.launches = 0
     cuda_inflate.inflate_pyramids.cluster_launches = 0
     cuda_inflate.inflate_pyramids.grouped_launches = 0
@@ -1228,6 +1443,8 @@ def read_counts():
     return {"raycast": cuda_raycast.render_depth_batch.launches,
             "meshscene_strips": cuda_meshscene.render_depth_strips_batch.launches,
             "meshscene_window": cuda_meshscene.render_depth_window_batch.launches,
+            "raycast_rgb": cuda_raycast.render_rgb_batch.launches,
+            "meshscene_rgb": cuda_meshscene.render_rgb_strips_batch.launches,
             "inflate": cuda_inflate.inflate_pyramids.launches,
             "inflate_cluster": cuda_inflate.inflate_pyramids.cluster_launches,
             "inflate_grouped": cuda_inflate.inflate_pyramids.grouped_launches,
@@ -1235,14 +1452,14 @@ def read_counts():
             "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls}
 
 
-def check_counts(launches, frames, fused, rounds, render="raycast"):
-    """Per frame, whatever the number of vehicles: one launch of the render
-    kernel (the raycaster, or K4 in an imported world) and none of the
-    other render kernels, one inflation launch (K2 or K2c) per planner
-    round, and one tick launch (fused) or one plain tick block (plain, one
-    vehicle)."""
+def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, rgb=None):
+    """Per frame, whatever the number of vehicles: `renders` launches of the
+    render kernel (the raycaster, or K4 in an imported world), one of the
+    RGB kernel `rgb` (where one is named) and none of the other render
+    kernels, one inflation launch (K2 or K2c) per planner round, and one
+    tick launch (fused) or one plain tick block (plain, one vehicle)."""
     for name in RENDER_KERNELS:
-        want = frames if name == render else 0
+        want = frames * renders if name == render else frames if name == rgb else 0
         _check(launches[name] == want,
                f"{name} launched {launches[name]} times in {frames} frames (want {want})")
     inflations = launches["inflate"] + launches["inflate_cluster"]
@@ -1453,6 +1670,115 @@ def fly_mesh(dev, state):
                                                              strip_culling=False)
                            for _ in range(5)], 5 * ms, f"5 window renders, B={FLEET}")
     return launches, fleet_launches, window_launches
+
+
+def bridge_frame(env, state, gen, mesh):
+    """One frame as a topic bridge runs it: OrchardEnv.fly_diag for the
+    frame's row; the row's pose rendered to depth and to RGB through the
+    batch wrappers; the telemetry encoded on the card (encode_from_logic of
+    the frame's logic state) and on the host (wire_quantize_np of the
+    row's sources, which must equal the card's decode); the command encoded
+    on the host (make_rates_command_np, which must equal make_rates_command's
+    codes on the card). Returns (state, row, rgb image)."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch.io import radio, telemetry
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
+
+    p = env.params
+    state, row = env.fly_diag(state, 1, gen)
+    pos, att = row["pos"], row["att"]
+    if mesh is None:
+        depth = cuda_raycast.render_depth_body_batch(p.render_cfg, p.scene, pos, att)
+        rgb = cuda_raycast.render_rgb_body_batch(p.render_cfg, p.scene, pos, att)
+    else:
+        depth = cuda_meshscene.render_depth_body_batch(p.render_cfg, mesh, pos, att)
+        rgb = cuda_meshscene.render_rgb_body_batch(p.render_cfg, mesh, pos, att)
+    pkts, _ = telemetry.encode_from_logic(state.base.logic)
+    cmd = radio.make_rates_command(row["last_cmd_thrust"][0], row["last_cmd_angvel"][0])
+    host = {k: v[0].cpu().numpy() for k, v in row.items() if isinstance(v, torch.Tensor)}
+    dec = telemetry.decode(pkts)
+    att_q = host["tel_kf_att"]
+    wire = {"accel": (host["tel_acc"], telemetry.RANGE_ACC),
+            "gyro": (host["tel_gyro"], telemetry.RANGE_GYRO),
+            "motor_forces": (host["tel_motor_forces"], telemetry.RANGE_FORCE),
+            "position": (host["tel_kf_pos"], telemetry.RANGE_POS),
+            "batt_voltage": (host["tel_batt"], telemetry.RANGE_BATT),
+            "velocity": (host["tel_kf_vel"], telemetry.RANGE_VEL),
+            "attitude": (att_q[1:] * (1.0 if att_q[0] > 0 else -1.0), telemetry.RANGE_ATT),
+            "debug": (host["tel_debug"], telemetry.RANGE_GENERIC)}
+    for name, (x, rng) in wire.items():
+        _check(np.array_equal(telemetry.wire_quantize_np(x, rng),
+                              getattr(dec, name).cpu().numpy().astype(np.float64), equal_nan=True),
+               f"bridge frame: host telemetry {name} differs from the card's decode")
+    _check(int(dec.warnings) == int(host["tel_warnings"]) and
+           int(dec.panic_reason) == int(row["panic"][0]), "bridge frame: telemetry flags differ")
+    mtype, flags, fields = radio.make_rates_command_np(host["last_cmd_thrust"],
+                                                       host["last_cmd_angvel"])
+    _check(mtype == int(cmd[0]) and flags == int(cmd[1])
+           and np.array_equal(fields, cmd[2].cpu().numpy()),
+           "bridge frame: host command codes differ from the card's")
+    _check(len(radio.fields_to_bytes(mtype, flags, fields)) == radio.RAW_PACKET_SIZE
+           and depth.shape == rgb.shape[:-1], "bridge frame: misshaped packet or images")
+    return state, row, rgb
+
+
+def fly_bridge(dev, state, mesh=None):
+    """What a topic bridge computes each frame (bridge_frame), for
+    BRIDGE_FRAMES frames in the procedural orchard or the imported world
+    `mesh`, one vehicle from `state` (mid-flight: the planner adopts plans
+    within the flight). Per frame the render kernel runs
+    twice (the frame's depth image and the bridge's), the RGB kernel once,
+    the inflation once per planner round and the tick kernel once. In the
+    procedural orchard, then TURN_FRAMES frames of fly and of fly_diag from
+    the flight's final state with the same draws, in turns (fly, fly_diag,
+    fly_diag, fly). Returns the launches of the flight."""
+    import torch
+
+    from agrifly_tpu_torch.sim import orchard_env
+
+    env = orchard_env.OrchardEnv(orchard_env.make_params(start_flight_time=1.0, mesh_scene=mesh,
+                                                         device=dev))
+    plans0 = int(state.plan_count)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    world = "procedural" if mesh is None else "imported"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    colours = []
+    for _ in range(BRIDGE_FRAMES):
+        state, row, rgb = bridge_frame(env, state, gen, mesh)
+        colours.append(torch.unique(rgb.reshape(-1, 3), dim=0).shape[0])
+    torch.cuda.synchronize()
+    frame_ms = 1e3 * (time.perf_counter() - t0) / BRIDGE_FRAMES
+    launches = read_counts()
+    depth = "raycast" if mesh is None else "meshscene_strips"
+    check_counts(launches, BRIDGE_FRAMES, True, env.params.planner_rounds + 1, depth, renders=2,
+                 rgb="raycast_rgb" if mesh is None else "meshscene_rgb")
+    plans = int(state.plan_count) - plans0
+    _check(bool(torch.isfinite(row["pos"]).all()) and int(row["panic"][0]) == 0 and plans > 0
+           and min(colours) > 20, f"bridge flight ({world}): not sane ({plans} plans adopted, "
+                                  f"colours {colours})")
+    print(f"bridge flight ({world}): {BRIDGE_FRAMES} frames of fly_diag with the depth and RGB "
+          f"images, the telemetry (card and host, equal) and the command (host and card, equal) "
+          f"each frame: {frame_ms:.3f} ms per frame; {plans} plans adopted, x = "
+          f"{float(row['pos'][0, 0]):.3f} m; colours per image {min(colours)}-{max(colours)}; "
+          f"{launches}")
+    if mesh is None:
+        times = {"fly": [], "fly_diag": []}
+        for name in ("fly", "fly_diag", "fly_diag", "fly"):
+            g = torch.Generator(device=dev).manual_seed(SEED + 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, outs = getattr(env, name)(state, TURN_FRAMES, g)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / TURN_FRAMES)
+            _check(bool(torch.isfinite(outs["pos"]).all()), f"{name} in turns: not finite")
+        print("fly and fly_diag in turns from one state (same draws, ms per frame): "
+              + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}" for k, v in times.items())
+              + f"; ratio {sum(times['fly_diag']) / sum(times['fly']):.4f}")
+    return launches
 
 
 def time_big_fleet(dev):
@@ -2588,12 +2914,13 @@ def _c_declaration(src, name):
 
 
 def check_parent(dev, root):
-    """This tree's K3 and K5 (true state, mocap, GPS-IMU, and the UWB build)
-    against the parent's: its frame.cu and rollout.cu (with and without
-    TICK_UWB) built from root/agrifly_tpu_torch/csrc and called through this
-    tree's wrappers, which the check allows only where the parent declares
-    the same C interface. The results bit for bit, and both device times in
-    turns (parent, this tree, this tree, parent)."""
+    """This tree's K1, K4, K3 and K5 (true state, mocap, GPS-IMU, and the
+    UWB build) against the parent's: its raycast.cu, meshscene.cu, frame.cu
+    and rollout.cu (with and without TICK_UWB) built from
+    root/agrifly_tpu_torch/csrc and called through this tree's wrappers,
+    which the check allows only where the parent declares the same C
+    interface. The results bit for bit, and both device times in turns
+    (parent, this tree, this tree, parent)."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
@@ -2601,16 +2928,20 @@ def check_parent(dev, root):
     import torch
 
     from agrifly_tpu_torch import convert, cuda_build
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
     from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout, orchard_env
 
     csrc = Path(root) / "agrifly_tpu_torch" / "csrc"
     out = Path(root) / "agrifly_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
-    for name, fn in (("frame", "frame_ticks_launch"), ("rollout", "env_rollout_launch")):
+    launch_names = {"raycast": "raycast_launch", "meshscene": "meshscene_strips_launch",
+                    "frame": "frame_ticks_launch", "rollout": "env_rollout_launch"}
+    for name, fn in launch_names.items():
         _check(_c_declaration((csrc / f"{name}.cu").read_text(), fn)
                == _c_declaration((cuda_build.CSRC / f"{name}.cu").read_text(), fn),
                f"the parent's {fn} has another C interface")
-    builds = {"frame": ("frame", ()), "rollout": ("rollout", ()),
+    builds = {"raycast": ("raycast", ()), "meshscene": ("meshscene", ()),
+              "frame": ("frame", ()), "rollout": ("rollout", ()),
               "rollout_uwb": ("rollout", ("TICK_UWB",))}
 
     def build(item):
@@ -2624,12 +2955,40 @@ def check_parent(dev, root):
 
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(pool.map(build, builds.items()))
+    argtypes = {"raycast": cuda_raycast._ARGTYPES["raycast_launch"],
+                "meshscene": cuda_meshscene._ARGTYPES["meshscene_strips_launch"],
+                "frame": cuda_frame._ARGTYPES}
     fns = {}
     for key, lib in libs.items():
-        fn = lib.frame_ticks_launch if key == "frame" else lib.env_rollout_launch
-        fn.argtypes = cuda_frame._ARGTYPES if key == "frame" else cuda_rollout._ARGTYPES
+        fn = getattr(lib, launch_names[key.replace("_uwb", "")])
+        fn.argtypes = argtypes.get(key, cuda_rollout._ARGTYPES)
         fn.restype = ctypes.c_int
         fns[key] = fn
+
+    # K1 and K4 (depth) at 640x480 on check_raycast's and check_meshscene's
+    # first poses (B = 1 and 16), the default orchard and the baked one
+    cfg = raycast.make_config(640, 480)
+    scene, mesh = orchard.make_params(device=dev), baked_orchard(dev)
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    g_ray, g_mesh = torch.Generator().manual_seed(SEED), torch.Generator().manual_seed(SEED + 5)
+    times = {}
+    for B in (1, 16):
+        pos, cam = ray_poses(g_ray, B, dev)
+        launches = (lambda: cuda_raycast._launch(cfg, scene, pos, cam, launcher=fns["raycast"]),
+                    lambda: cuda_raycast._launch(cfg, scene, pos, cam))
+        _check(torch.equal(launches[0](), launches[1]()), f"K1 against the parent's (B={B})")
+        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
+        times[f"K1 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        mpos, mcam = mesh_poses(g_mesh, B, dev)
+        windows = meshscene.select_window(mesh, mpos, reach, 192)
+        launches = (lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, mpos, mcam,
+                                                   windows, launcher=fns["meshscene"]),
+                    lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, mpos, mcam,
+                                                   windows))
+        _check(torch.equal(launches[0](), launches[1]()), f"K4 against the parent's (B={B})")
+        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
+        times[f"K4 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    print("parent's K1 and K4 at 640x480, B = 1 and 16: codes bit-equal")
 
     # K3: the five mission states at B = 5 and the tracking state at B = 1,
     # 10 chained blocks of 16 ticks each
@@ -2639,7 +2998,6 @@ def check_parent(dev, root):
     states = tick_states(p_cpu)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     differ = total = 0
-    times = {}
     for B, names in ((5, tuple(states)), (1, ("tracking",))):
         fleet = to_device(orchard_env.stack_states([states[names[b % len(names)]]
                                                     for b in range(B)]), dev)
@@ -2713,8 +3071,9 @@ def build_kernels():
 
 
 # kernel entry names in ptxas's report -> short names
-PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1"},
-               "meshscene": {"meshscene_strips_kernel": "K4", "meshscene_window_kernel": "K4w"},
+PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1", "raycast_rgb_kernel": "K1-rgb"},
+               "meshscene": {"meshscene_strips_kernel": "K4", "meshscene_window_kernel": "K4w",
+                             "meshscene_rgb_kernel": "K4-rgb"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
                            "inflate_grouped_kernel": "K2g"},
                "frame": {"frame_kernel": "K3"},
@@ -2775,6 +3134,7 @@ def main(argv) -> int:
         build_kernels()
         k1 = check_raycast(dev)
         k4, k4w = check_meshscene(dev)
+        k1rgb, k4rgb = check_rgb(dev)
         k2 = check_inflate(dev)
         k2b = check_inflate_batched(dev)
         k3 = check_frame_ticks(dev)
@@ -2795,6 +3155,10 @@ def main(argv) -> int:
                           plain_warmup=0)
         time_big_fleet(dev)
         mesh_launches, _, window_launches = fly_mesh(dev, state)
+        t_bridge = time.perf_counter()
+        bridge_launches = fly_bridge(dev, state)
+        mesh_bridge_launches = fly_bridge(dev, state, baked_orchard(dev))
+        print(f"bridge flights: {time.perf_counter() - t_bridge:.1f} s")
         k5, k5_launches = check_env_rollout(dev)
         check_env_modes(dev)
         k5w, k5w_launches = check_fleet_wind(dev)
@@ -2833,6 +3197,12 @@ def main(argv) -> int:
         {"name": "meshscene_window", "route": "cuda", "source": source("meshscene"),
          "replaces": "agrifly_tpu/render/pallas_meshscene.py:164",
          "launches": window_launches["meshscene_window"], **k4w},
+        {"name": "raycast_rgb", "route": "cuda", "source": source("raycast"),
+         "replaces": "agrifly_tpu/render/raycast.py:199 (render_rgb; jnp, no pallas_call)",
+         "launches": bridge_launches["raycast_rgb"], **k1rgb},
+        {"name": "meshscene_rgb", "route": "cuda", "source": source("meshscene"),
+         "replaces": "agrifly_tpu/render/meshscene.py:508 (render_rgb; jnp, no pallas_call)",
+         "launches": mesh_bridge_launches["meshscene_rgb"], **k4rgb},
         {"name": "inflate_grouped", "route": "cuda", "source": source("inflate"),
          "replaces": "agrifly_tpu/planner/pallas_inflate.py:1174 (_kernel_grouped:559)",
          "launches": k2g_launches, **k2g},

@@ -2,11 +2,16 @@
 
 The goldens `tests/golden/cpp_{hover_est,hover_truth,step_est}_v1.npz` are
 traces of the reference C++ stack (tests/test_golden_cpp.py says how they
-were made), loaded through `tests/_golden_cpp.load`. Three of its quick
-tiers run here on the port's primitives, with the same bounds:
+were made), loaded through `tests/_golden_cpp.load`. Its four quick tiers
+run here on the port's primitives, with the same bounds:
 
   plant      the port's plant stepped from the C++'s f64 state with its
              exact f32 motor commands, one tick, all three configs;
+  logic      the port's onboard logic fed the C++'s exact IMU readings and
+             radio packets for 600 ticks (`_run_logic_replay`, the port's
+             copy of `_golden_cpp.run_logic_replay`), its stages against the
+             logicdbg dump and its telemetry wire codes (io/telemetry)
+             against the C++'s packets;
   estimator  the port's MocapStateEstimator fed the C++'s exact truth poses
              and commands for 600 ticks, its internals against the estdbg
              dump;
@@ -16,11 +21,6 @@ tiers run here on the port's primitives, with the same bounds:
              noise draws, 600 ticks: trajectory, radio packets (headers
              equal, codes within a few LSB), commands.
 
-The logic tier (`test_logic_teacher_forced_quick`) compares telemetry wire
-codes, so it waits for the port of `io/telemetry` (ROADMAP Queue 1 item 5).
-The telemetry readout's state change (warnings cleared, the packet counter
-advanced; agrifly_tpu/io/telemetry.py:67-72) is mirrored in
-`_run_framework`.
 """
 
 import numpy as np
@@ -28,8 +28,7 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (one torch thread)
-from agrifly_tpu.io import radio as jradio
-from agrifly_tpu_torch.io import radio
+from agrifly_tpu_torch.io import radio, telemetry
 from agrifly_tpu_torch.models import constants as tconst
 from agrifly_tpu_torch.models import logic as onboard
 from agrifly_tpu_torch.models import plant as plant_mod
@@ -37,7 +36,8 @@ from agrifly_tpu_torch.offboard import controller as offboard_ctrl
 from agrifly_tpu_torch.offboard import estimators
 from agrifly_tpu_torch.ops import rotation as rot
 from tests import _golden_cpp as G
-from tests.test_golden_cpp import CLOSED_KW, CLOSED_TOL, EST_TOL, PLANT_TOL
+from tests.test_golden_cpp import (CLOSED_KW, CLOSED_TOL, EST_TOL, LOGIC_EXACT, LOGIC_TOL,
+                                   PLANT_TOL)
 
 DT = torch.tensor(1.0 / 500.0)
 
@@ -87,6 +87,92 @@ def test_plant_teacher_forced(config):
     # motor speeds reproduce the f64 chain bit-exactly (f32-representable)
     d = np.abs(out.motor_speeds.numpy().astype(np.float64) - speeds[ks + 1]).max()
     assert d == 0.0, f"{config}/speeds: {d:.3e}"
+
+
+def _run_logic_replay(trace, n_ticks):
+    """`_golden_cpp.run_logic_replay` on the port's logic and telemetry: the
+    C++'s exact raw f32 IMU measurements, its radio wire bytes delivered at
+    its delivery ticks and its telemetry readout cadence; every internal
+    stage at the logicdbg ticks, and the telemetry wire codes."""
+    flags = np.asarray(trace["flags"])
+    cmds = np.asarray(trace["mot_cmds"])
+    gyro = np.asarray(trace["imu_gyro"])
+    acc = np.asarray(trace["imu_acc"])
+    off_raw = np.asarray(trace["off_raw"])
+    dbg_at = {int(k): row for k, row in zip(np.asarray(trace["ldbg_k"]),
+                                            np.asarray(trace["ldbg"]))}
+    tel_at = {int(k): row for k, row in zip(np.asarray(trace["tel_k"]),
+                                            np.asarray(trace["tel_raw"]))}
+    n = min(n_ticks, len(flags))
+    logic_p = onboard.make_params(_vehicle(), onboard_period=1.0 / 500.0, device="cpu")
+    batt_v = _f32(float(logic_p.batt_critical) * 1.2)
+    no_fields = torch.zeros(10, dtype=torch.int32)
+
+    logic = onboard.init_state(logic_p)
+    pending, fi = None, 0
+    got, want, tel_got, tel_want = [], [], [], []
+    for k in range(n):
+        _, lf, _, tf, of, df = flags[k]
+        if lf:
+            mtype, mflags, fields = pending if pending is not None else (0, 0, no_fields)
+            inputs = onboard.null_inputs("cpu")._replace(
+                gyro=_f32(gyro[k]), acc=_f32(acc[k]), batt_voltage=batt_v,
+                radio_new=torch.tensor(pending is not None), radio_type=_i32(mtype),
+                radio_flags=_i32(mflags), radio_fields=torch.as_tensor(fields, dtype=torch.int32))
+            logic = onboard.logic_step(logic_p, logic, inputs)[0]
+            pending = None
+            if k in dbg_at:
+                got.append(np.concatenate([
+                    [float(logic.fs)], logic.radio_floats[:4].numpy(), logic.gyro_lp.ym1.numpy(),
+                    logic.acc_lp.ym1.numpy(), logic.gyro_bias.numpy(), logic.kf.angvel.numpy(),
+                    logic.kf.att.numpy(), logic.kf.pos.numpy(), logic.kf.vel.numpy(),
+                    logic.des_motor_speeds.numpy()]).astype(np.float64))
+                want.append(np.concatenate([dbg_at[k], cmds[k].astype(np.float64)]))
+        if tf:
+            pkts, logic = telemetry.encode_from_logic(logic)
+            if k in tel_at:
+                tel_got.append(np.concatenate([[int(pkts.packet_number)], pkts.data1.numpy(),
+                                               pkts.data2.numpy()]).astype(np.int64))
+                p1, p2 = tel_at[k][:30], tel_at[k][30:]
+                d1 = np.frombuffer(p1[2:].tobytes(), "<u2").astype(np.int64)
+                d2 = np.frombuffer(p2[2:].tobytes(), "<u2").astype(np.int64).copy()
+                # data2[12]/[13] carry panic/warnings u8s in the low byte;
+                # the high bytes are uninitialized stack in the reference
+                d2[12] &= 0xFF
+                d2[13] &= 0xFF
+                tel_want.append(np.concatenate([[int(p1[1])], d1, d2]))
+        if of:
+            _, logic = telemetry.encode_from_logic(logic)
+        if df:
+            pending = radio.bytes_to_fields(bytes(off_raw[fi]))
+            fi += 1
+    sl = {"fstate": slice(0, 1), "radio": slice(1, 5), "gyro_lp": slice(5, 8),
+          "acc_lp": slice(8, 11), "bias": slice(11, 14), "kf_angvel": slice(14, 17),
+          "kf_att": slice(17, 21), "kf_pos": slice(21, 24), "kf_vel": slice(24, 27),
+          "cmds": slice(27, 31)}
+    return np.array(got), np.array(want), sl, np.array(tel_got), np.array(tel_want)
+
+
+def test_logic_teacher_forced_quick():
+    """The JAX test's bounds: LOGIC_EXACT stages bit-exact, LOGIC_TOL for the
+    rest; telemetry packet numbers equal and codes within 32 LSB, on fewer
+    than 1% of codes apart (FMA-level low-pass deltas flip codes at bin
+    boundaries)."""
+    with torch.inference_mode():
+        got, want, sl, tg, tw = _run_logic_replay(_load("hover_est"), 600)
+    assert len(got) > 50 and len(tg) > 5
+    for name in LOGIC_EXACT:
+        d = np.abs(got[:, sl[name]] - want[:, sl[name]]).max()
+        assert d == 0.0, f"hover_est/{name} not bit-exact: {d:.3e}"
+    for name, tol in LOGIC_TOL.items():
+        d = np.abs(got[:, sl[name]] - want[:, sl[name]]).max()
+        assert d < tol, f"hover_est/{name}: {d:.3e} >= {tol}"
+    assert (tg[:, 0] == tw[:, 0]).all(), "telemetry packet numbers differ"
+    dd = np.abs(tg[:, 1:] - tw[:, 1:])
+    print(f"telemetry: {len(tg)} packet pairs, code delta max {dd.max()}, "
+          f"{(dd > 0).mean():.4f} of codes apart")
+    assert dd.max() <= 32, f"telemetry code delta {dd.max()}"
+    assert (dd > 0).mean() < 0.01, f"telemetry code mismatch fraction {(dd > 0).mean():.4f}"
 
 
 def _run_estimator_replay(trace, n_ticks):
@@ -168,9 +254,8 @@ def _run_framework(trace, mode, n_ticks, des_pos=(0.0, 0.0, 3.5), step_t_us=None
             radio_type=mtype, radio_flags=mflags, radio_fields=fields)
         return onboard.logic_step(logic_p, logic, inputs)[0]
 
-    def telem_readout(logic):  # agrifly_tpu/io/telemetry.py:67-72's state change
-        return logic._replace(tel_counter=logic.tel_counter + 1,
-                              warnings=torch.zeros_like(logic.warnings))
+    def telem_readout(logic):
+        return telemetry.encode_from_logic(logic)[1]
 
     plant = plant_mod.init_state((0.0, 0.0, 0.0), "cpu")
     logic = onboard.init_state(logic_p)
@@ -214,7 +299,7 @@ def _run_framework(trace, mode, n_ticks, des_pos=(0.0, 0.0, 3.5), step_t_us=None
             queue.append((master + G.RADIO_DELAY_US, (mtype, mflags, fields)))
             out_cmd.append((k, float(cmd_thrust), cmd_angvel.numpy().astype(np.float64)))
             out_est.append((k, est_pos.numpy().astype(np.float64)))
-            out_raw.append(jradio.fields_to_bytes(int(mtype), int(mflags), fields.numpy()))
+            out_raw.append(radio.fields_to_bytes(int(mtype), int(mflags), fields.numpy()))
         if queue and queue[0][0] <= master:
             pending = queue.pop(0)[1]
         out_truth[k] = np.concatenate([plant.pos.numpy(), plant.vel.numpy(), plant.att.numpy(),

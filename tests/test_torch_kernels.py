@@ -10,7 +10,9 @@ everywhere (and the cells its early exit evaluates, against its plain
 mirror, on a scene where the exit is barred too), the inflation's ok everywhere and its maxd and edges wherever
 ok (one image and a batch, and the shapes its early exits, search chunks
 and shrink table make risky); the mesh raycasters, strip-culled (K4, whose per-strip row counts
-equal strip_windows') and window (K4w), bit for bit and equal to each other. The fused tick block is held to the tick criteria of
+equal strip_windows') and window (K4w), bit for bit and equal to each other; their RGB instances (K1-rgb, K4-rgb) bit for bit
+against `raycast.render_rgb` and both plain mesh scans, with a camera whose
+trees all lie beyond the far plane and a pair of rows tied on t. The fused tick block is held to the tick criteria of
 tests/_torch_parity.py against the plain ticks on the card, for one vehicle
 and for a fleet (one launch for B vehicles); the inflation for one image
 and for a batch of images (one launch for B x P seeds). The grouped
@@ -363,6 +365,79 @@ def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F81
         assert torch.equal(k4, ref4) and torch.equal(k4w, ref4w) and torch.equal(k4, k4w)
         assert torch.equal(meshscene.render_depth_window_prepared(cfg, windows, pos, cam), ref4w)
         assert k4.unique().numel() > 20 and float(nvis.float().mean()) < 96
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", list(RAY_SCENES))
+@pytest.mark.parametrize("B", [1, 16])
+def test_raycast_rgb_kernel_bit_equal_to_plain(cuda, B, scene_name):  # noqa: F811
+    """K1-rgb at 640x480, one launch for B cameras and one above the canopy
+    (every tree it meets lies beyond the far plane, where K1's depth exit
+    would stop), bit-equal to render_rgb; a pixel of the sky's colour has
+    K1's depth code 255."""
+    from chip_smoke import above_canopy, sky_bytes
+
+    cfg = raycast.make_config(640, 480)
+    scene = orchard.make_params(device=cuda, **RAY_SCENES[scene_name])
+    pos, cam = _poses(B, B, cuda)
+    up_pos, up_cam = above_canopy(cuda)
+    pos, cam = torch.cat([pos, up_pos]), torch.cat([cam, up_cam])
+    before = cuda_raycast.render_rgb_batch.launches
+    got = cuda_raycast.render_rgb_batch(cfg, scene, pos, cam)
+    ref = raycast.render_rgb(cfg, scene, pos, cam)
+    depth = cuda_raycast.render_depth_batch(cfg, scene, pos, cam)
+    torch.cuda.synchronize()
+    assert cuda_raycast.render_rgb_batch.launches == before + 1
+    assert got.shape == (B + 1, 480, 640, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, ref)
+    assert torch.unique(got[:B].reshape(-1, 3), dim=0).shape[0] > 20
+    is_sky = (got == sky_bytes(cfg, cuda)).all(-1)
+    assert bool((depth[is_sky] == 255).all())
+    assert int(depth[-1].min()) == 255 and int((~is_sky[-1]).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["baked", "mixed", "edge"])
+@pytest.mark.parametrize("B", [1, 4])
+def test_mesh_rgb_kernel_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F811
+    """K4-rgb at 640x480, one launch for B cameras of random yaw and one
+    above the canopy (its window holds rows beyond the far plane), equal
+    bit for bit to render_rgb_strips and render_rgb_window, with the
+    frame's 192-row window and a 300-row one (two staged chunks); and on
+    chip_smoke.py's edge rows, all five cameras (camera 4 meets two rows at
+    the same t: the earlier row wins, though the kernel stages it later).
+    render_rgb_batch launches it whatever strip_cull says."""
+    from chip_smoke import above_canopy, baked_orchard, edge_rows, mesh_poses, mixed_scene
+
+    cfg = raycast.make_config(640, 480)
+    if scene == "edge":
+        windows, pos, cam = edge_rows(cuda)
+        cases = [(windows, torch.where(windows[..., 0] == meshscene.PRIM_CYLINDER,
+                                       meshscene.MAT_TRUNK, meshscene.MAT_CANOPY).to(torch.int32))]
+    else:
+        mesh = baked_orchard(cuda) if scene == "baked" else mixed_scene(cuda, tmp_path)
+        pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
+        up_pos, up_cam = above_canopy(cuda)
+        pos, cam = torch.cat([pos, up_pos]), torch.cat([cam, up_cam])
+        reach = cfg.far * meshscene.slant_factor(cfg)
+        cases = []
+        for capacity in (192, 300):
+            windows, order, ok = meshscene.select_window(mesh, pos, reach, capacity,
+                                                         return_order=True)
+            cases.append((windows, meshscene.window_materials(mesh, windows, order, ok)))
+        before = cuda_meshscene.render_rgb_strips_batch.launches
+        for strip_cull in (None, False):
+            got = cuda_meshscene.render_rgb_batch(cfg, mesh, pos, cam, strip_cull=strip_cull)
+            assert torch.equal(got, meshscene.render_rgb_strips(cfg, *cases[0], pos, cam))
+        assert cuda_meshscene.render_rgb_strips_batch.launches == before + 2
+    for windows, mats in cases:
+        got = cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam)
+        strips = meshscene.render_rgb_strips(cfg, windows, mats, pos, cam)
+        plain = meshscene.render_rgb_window(cfg, windows, mats, pos, cam)
+        torch.cuda.synchronize()
+        assert got.shape == (pos.shape[0], 480, 640, 3) and got.dtype == torch.uint8
+        assert torch.equal(got, strips) and torch.equal(got, plain)
+        assert torch.unique(got.reshape(-1, 3), dim=0).shape[0] > 20
 
 
 def _endpoint_seeds(params, n, seed, lead=()):

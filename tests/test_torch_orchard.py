@@ -7,6 +7,7 @@ flight cannot be compared bit for bit (plans diverge once one collision
 label flips), so it is compared on its envelope.
 """
 
+import collections
 import functools
 import subprocess
 import sys
@@ -75,6 +76,33 @@ def test_one_frame_from_mid_flight_matches_jax():
               "num_velocity_admissible", "flight_state", "panic"):
         assert int(out[k]) == int(ref_out[k]), k
     np.testing.assert_allclose(float(out["best_cost"]), float(ref_out["best_cost"]), rtol=1e-5)
+
+
+def test_fly_diag_one_frame_matches_jax():
+    """One fly_diag frame from the mid-flight state with JAX's draws
+    injected. JAX's fly_diag flies frame_step and appends _diag_extras of
+    the new state each frame (agrifly_tpu/sim/orchard_env.py:562), so the
+    file's cached frame program and a jitted _diag_extras give its row for
+    one frame without a second compile of the frame. Float leaves meet the
+    tick criteria (COMMAND_LEAVES as there), integer leaves are equal."""
+    jp, step, js = _jax()
+    _, sub, k_noise = jax.random.split(js.base.key, 3)
+    u = np.asarray(jax.random.uniform(sub, (4, KW["n_candidates"]), jnp.float32))
+    noise = np.asarray(jax.random.normal(k_noise, (16, 2, 3), jnp.float32))
+    ref_state, ref_out = step(js)
+    ref_out = dict(ref_out, **jax.jit(lambda s: J._diag_extras(jp, s))(ref_state))
+
+    tp, ts = _port(jp, js)
+    got_state, out = T.fly_diag(tp, ts, 1, draws=(torch.from_numpy(u)[None],
+                                                  torch.from_numpy(noise)[None]))
+    compare_state(got_state, ref_state)
+    assert set(out) == set(ref_out)
+    Row = collections.namedtuple("Row", sorted(out))
+    got = Row(**{k: jax.tree_util.tree_map(lambda t: t[0], v) if k == "planned" else v[0]
+                 for k, v in out.items()})
+    worst = compare_state(got, Row(**{k: ref_out[k] for k in Row._fields}))
+    print("fly_diag row, worst float leaves:", worst)
+    assert int(out["plan_count"][0]) == int(ref_out["plan_count"]) > 0
 
 
 def test_flight_envelope():
