@@ -38,10 +38,14 @@
 // agrifly_tpu_torch/render/raycast.py::render_rgb's bit for bit: the same
 // march, keeping the nearest cell's tree (strictly nearer, so the earlier
 // cell wins a tie) with its material and cell, then the normal from that
-// cell's tree and the shading of csrc/shade.cuh. It also exits early, but
-// only once no later cell can come nearer than best itself: a tree beyond
-// the far plane still shades (hazed), so the depth pass's far cap does not
-// apply, and a ray that meets nothing marches all cells. It writes a
+// cell's tree and the shading of csrc/shade.cuh. It also exits early, once
+// no later cell can come nearer than best itself: a tree beyond the far
+// plane still shades (hazed), so the depth pass's far cap does not apply.
+// In its place a ray that climbs stops once it has cleared the canopy
+// (clear_after): past a t where the ray runs above every tree top it can
+// meet no tree, so it stops where the march to that t has left the current
+// cell behind, as it does at best (a ray that points up and meets nothing
+// would otherwise march all cells). It writes a
 // pixel's three bytes from its thread: a warp's 8 x 4 tile stores four
 // runs of 24 contiguous bytes. Its bound, as K1's, is arithmetic: the
 // march, plus a winner (a compare and three selects a cell), one more tree
@@ -240,6 +244,55 @@ __device__ __forceinline__ bool beyond_next_cells(float best, float far256, floa
   return in_x && in_y;
 }
 
+// The canopy's top: every tree's trunk and both canopy spheres lie below
+// z_top = 1.2 max(|canopy_height| + 1.5 |canopy_radius|, |trunk_height|)
+// (tree_size: the first sphere's top is at most (canopy_height +
+// |canopy_radius|) size, the second's (canopy_height + 0.8 canopy_radius) size
+// + 0.7 |canopy_radius| size, the trunk's trunk_height size, and size < 1.2).
+// orchard.py::canopy_top is its plain version.
+__device__ __forceinline__ float canopy_top(const Scene& sc) {
+  return 1.2f * fmaxf(fabsf(sc.canopy_height) + 1.5f * fabsf(sc.canopy_radius),
+                      fabsf(sc.trunk_height));
+}
+
+// The clear exit's constants (see clear_after)
+constexpr float kClimb = 0.0078125f;              // 2^-7
+constexpr float kClearSqrt = 0.00390625f;         // 2^-8
+constexpr float kClearLin = 0.00000762939453125f; // 2^-17
+
+// A t past which the ray (origin p, direction d) meets no tree, for the RGB
+// pass's early exit: beyond_next_cells then stops the march once the ray
+// cannot reach the next cell before min(best, this t). INFINITY where the
+// ray does not climb steeply enough (dz <= 2^-7 (|dx| + |dy| + |dz|)), where
+// best exceeds BIG (then a later cell's BIG, a miss, would still win), or
+// where a field is NaN.
+//
+// The margins (u = 2^-24), as beyond_next_cells' for the same quadratic
+// roots. A computed hit at t with a canopy sphere is an exact hit with the
+// sphere moved by ~4u (|o| + z_top) and grown by sqrt(6u) |s| < 2^-10.7 (t
+// adx + S + R) (s the origin less the centre, |s| <= t adx + R, R below
+// half a cell), adx = |dx| + |dy| + |dz| >= |d|, and its t moves by 8u t + u
+// |s| / |d|; the sphere's top, as tree_size rounds it, lies below z_top (1 +
+// 3u). A computed trunk hit needs the rounded z = o_z + t d_z at most the
+// rounded trunk height, and that z is within 2u (po + t adx) of the exact
+// one. So no tree is met at a t where the exact z of the ray exceeds z_top +
+// slack(t), slack(t) = 2^-9 (t adx + S + R) + 2^-18 (po + z_top), po = 1 +
+// |px| + |py| + |pz|. That z less slack(t) grows with t where dz > 2^-9 adx,
+// so it holds for every t >= T, T solved from the doubled slack: z_top +
+// 2^-8 (T adx + S + R) + 2^-17 (po + z_top) = pz + T dz. With dz > 2^-7 adx
+// the divisor is at least dz / 2, so T's rounding (a few u of the terms'
+// magnitudes over the divisor) moves z(T) by less than the doubled slack's
+// excess. T < 0 (the camera already above the top) gives 0. beyond_next_cells
+// then shows every later hit to have t > min(best, T): a hit beyond best
+// leaves the winner as it is, and there is none beyond T.
+__device__ __forceinline__ float clear_after(const Scene& sc, float pz, float dz, float adx,
+                                             float po, float sr, float best) {
+  if (!(dz > kClimb * adx) || kBig < best) return INFINITY;
+  float z_top = canopy_top(sc);
+  float t = (z_top + kClearSqrt * sr + kClearLin * (po + z_top) - pz) / (dz - kClearSqrt * adx);
+  return t >= 0.0f ? t : (t < 0.0f ? 0.0f : INFINITY);
+}
+
 // The RGB pass's march and shading tail (K1-rgb): raycast.py::render_rgb
 // in its float32 operations. Each cell's tree is a candidate with its t
 // (BIG for a miss or an absent tree) and material, and replaces the best
@@ -297,8 +350,8 @@ __device__ __forceinline__ void rgb_normal(const Scene& sc, const Winner& w, flo
 }
 
 // One pixel of image bi, (x, y): the depth pass (kRgb false) writes its
-// code to out (and its cells to cells_out where given); the RGB pass its
-// three bytes to rgb.
+// code to out, the RGB pass its three bytes to rgb; both write the cells the
+// pixel evaluated to cells_out where given.
 template <bool kRgb>
 __device__ __forceinline__ void render_pixel(const float* __restrict__ cam_pos,
                                              const float* __restrict__ cam_att,
@@ -357,12 +410,13 @@ __device__ __forceinline__ void render_pixel(const float* __restrict__ cam_pos,
   // the early exit's per-pixel terms. The depth pass may stop once no later
   // cell can come nearer than min(best, 256 scale): beyond the far plane
   // every code is 255. The RGB pass shades a tree beyond the far plane too
-  // (hazed), so it stops only once none can come nearer than best itself.
+  // (hazed), so it stops once none can come nearer than best or than the t
+  // where the ray has cleared the canopy.
   bool exits = contained(sc);
-  float far256 = kRgb ? INFINITY : scale * 256.0f;
   float adx = fabsf(dx) + fabsf(dy) + fabsf(dz);
   float po = 1.0f + fabsf(px) + fabsf(py) + fabsf(pz);
   float sr = sc.tree_spacing + sc.row_spacing;
+  float far256 = kRgb ? clear_after(sc, pz, dz, adx, po, sr, best) : scale * 256.0f;
 
   Winner w{best, best < kBig ? shade::kGround : shade::kSky, 0, 0};
   int k = 0;
@@ -396,8 +450,8 @@ __device__ __forceinline__ void render_pixel(const float* __restrict__ cam_pos,
   } else {
     float code = fminf(fmaxf(floorf(best / scale), 0.0f), 255.0f);
     out[idx] = static_cast<int>(code);
-    if (cells_out != nullptr) cells_out[idx] = k;
   }
+  if (cells_out != nullptr) cells_out[idx] = k;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -413,9 +467,9 @@ raycast_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_
 __global__ void __launch_bounds__(kThreads)
 raycast_rgb_kernel(const float* __restrict__ cam_pos, const float* __restrict__ cam_att,
                    const float* __restrict__ scene_f, const int* __restrict__ seed,
-                   unsigned char* __restrict__ rgb, int H, int W, float focal, float far,
-                   int dda_steps, shade::Sun sun) {
-  render_pixel<true>(cam_pos, cam_att, scene_f, seed, nullptr, nullptr, rgb, H, W, focal, far,
+                   unsigned char* __restrict__ rgb, int* __restrict__ cells_out, int H, int W,
+                   float focal, float far, int dda_steps, shade::Sun sun) {
+  render_pixel<true>(cam_pos, cam_att, scene_f, seed, nullptr, cells_out, rgb, H, W, focal, far,
                      dda_steps, sun);
 }
 
@@ -448,7 +502,22 @@ extern "C" int raycast_rgb_launch(const float* cam_pos, const float* cam_att, co
                                   float sun_z, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
   raycast_rgb_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cam_pos, cam_att, scene, seed, rgb, H, W, focal, far, dda_steps,
+      cam_pos, cam_att, scene, seed, rgb, nullptr, H, W, focal, far, dda_steps,
+      shade::Sun{sun_x, sun_y, sun_z});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-rgb as raycast_rgb_launch, and cells: (B, H, W) int32 that receives
+// the cells each pixel evaluated (the measurement's instance; the bridge
+// frame's launches pass none)
+extern "C" int raycast_rgb_cells_launch(const float* cam_pos, const float* cam_att,
+                                        const float* scene, const int* seed, unsigned char* rgb,
+                                        int* cells, int B, int H, int W, float focal, float far,
+                                        int dda_steps, float sun_x, float sun_y, float sun_z,
+                                        void* stream) {
+  if (B == 0 || H == 0 || W == 0) return 0;
+  raycast_rgb_kernel<<<grid_of(B, H, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cam_pos, cam_att, scene, seed, rgb, cells, H, W, focal, far, dda_steps,
       shade::Sun{sun_x, sun_y, sun_z});
   return static_cast<int>(cudaGetLastError());
 }

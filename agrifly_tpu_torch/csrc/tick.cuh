@@ -1183,23 +1183,32 @@ __device__ __forceinline__ int advance_timer(int us, int period_us) {
 
 #ifdef TICK_RANGING
 // a broadcast of the ranging network this tick (sim/uwb.py's
-// UwbMeasurement; the requester is not read)
+// UwbMeasurement; the requester is not read). logic_step reads the
+// broadcast from a source `uwb` only where the range update needs it:
+// uwb.get() returns it, and uwb.used() follows the update. A UwbMeas is its
+// own source (K5's network steps before the tick's logic); K6's source
+// waits there for the fleet's network, which runs beside the logic.
 struct UwbMeas {
   bool valid;
   float range;
   int responder_id;
   bool failure;
+  __device__ __forceinline__ UwbMeas get() const { return *this; }
+  __device__ __forceinline__ void used() const {}
 };
-#define UWB_MEAS_ARG , const UwbMeas& uwb
-#else
-#define UWB_MEAS_ARG
 #endif
 
 // gyro, acc: the raw IMU readings; the radio message popped this tick; in
-// the UWB variant, the network's broadcast.
+// the ranging variants, the source of the network's broadcast.
+#ifdef TICK_RANGING
+template <class U>
 __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, bool radio_new,
-                           int radio_type_in, int radio_flags_in,
-                           const int* radio_fields UWB_MEAS_ARG) {
+                           int radio_type_in, int radio_flags_in, const int* radio_fields,
+                           const U& uwb_source) {
+#else
+__device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, bool radio_new,
+                           int radio_type_in, int radio_flags_in, const int* radio_fields) {
+#endif
   const int per_us = P.l_onboard_period_us;
   const m3 imu_rot = ldm(P.l_imu_rot);
   const Lp2c gyro_c{P.l_gyro_lp_a1, P.l_gyro_lp_a2, P.l_gyro_lp_b0, P.l_gyro_lp_b1, P.l_gyro_lp_b2};
@@ -1237,10 +1246,7 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
   }
   S.radio_count = wadd(S.radio_count, radio_new ? 1 : 0);
   S.us_since_radio = us_since_radio;
-  S.us_since_uwb = advance_timer(S.us_since_uwb, per_us);
-#ifdef TICK_RANGING
-  if (uwb.valid) S.us_since_uwb = 0;
-#endif
+  S.us_since_uwb = advance_timer(S.us_since_uwb, per_us);  // reset below on a broadcast
   bool radio_pending = S.radio_new || radio_new;
 
   // Run()
@@ -1260,6 +1266,8 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
   }
 #ifdef TICK_RANGING
   {  // the range update, to the anchor the responder id names
+    const UwbMeas uwb = uwb_source.get();
+    if (uwb.valid) S.us_since_uwb = 0;
     const bool success = uwb.valid && !uwb.failure;
     f3 target = f3{0.0f, 0.0f, 0.0f};
     bool known = false;
@@ -1273,6 +1281,7 @@ __device__ void logic_step(const EnvParams& P, EnvState& S, f3 gyro, f3 acc, boo
     S.uwb_meas_count = wadd(S.uwb_meas_count, success ? 1 : 0);
     if (uwb.valid && P.l_num_targets > 0)
       S.next_target_idx = wadd(S.next_target_idx, 1) % max(P.l_num_targets, 1);
+    uwb_source.used();
   }
 #endif
 
@@ -1920,16 +1929,21 @@ __device__ PhaseA physics_phase_a(const EnvParams& P, EnvState& S, const float* 
   return a;
 }
 
-// The rest of physics_tick after phase A (and, in the UWB variants, after
-// the network): onboard logic (with the broadcast `uwb`, where ranging is
-// built) and the estimator update. est: kEst*. predict: compute the
-// estimate (a tick whose offboard loop does not fire never reads it; the
-// mocap prediction has no side effect). Returns the estimate (pos, vel,
-// att, angvel; zeros without predict) and now_us (master time after this
-// tick).
+// The rest of physics_tick after phase A: onboard logic (with the source
+// `uwb` of the network's broadcast, where ranging is built) and the
+// estimator update. est: kEst*. predict: compute the estimate (a tick whose
+// offboard loop does not fire never reads it; the mocap prediction has no
+// side effect). Returns the estimate (pos, vel, att, angvel; zeros without
+// predict) and now_us (master time after this tick).
+#ifdef TICK_RANGING
+template <class H, class U>
+__device__ Mocap physics_finish(const EnvParams& P, EnvState& S, const PhaseA& a, int est,
+                                bool predict, int* now_us, const H& hp, const U& uwb) {
+#else
 template <class H>
 __device__ Mocap physics_finish(const EnvParams& P, EnvState& S, const PhaseA& a, int est,
-                                bool predict, int* now_us, const H& hp UWB_MEAS_ARG) {
+                                bool predict, int* now_us, const H& hp) {
+#endif
   float dt = static_cast<float>(P.dt_us) * 1e-6f;
   const f3 angvel = ld3(S.plant_angvel);
   const f4 att = ld4(S.plant_att);

@@ -22,7 +22,9 @@ from agrifly_tpu_torch.render.raycast import RenderConfig
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"raycast_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
-             "raycast_rgb_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _F, _P]}
+             "raycast_rgb_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _F, _P],
+             "raycast_rgb_cells_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F,
+                                          _F, _F, _P]}
 
 # the last scene's table, with the scene itself (so its tensors' ids are
 # not reused while the entry lives) and the tensors' versions (which an
@@ -57,6 +59,15 @@ def _function(name: str, scene: orch.OrchardParams, cam_pos: torch.Tensor):
     return fn, scene_f, seed
 
 
+def _cells_checked(cells, shape, device):
+    """cells, where given, as the kernels take it: a contiguous int32 (B, H,
+    W) tensor on the cameras' device."""
+    if cells is not None and (tuple(cells.shape) != tuple(shape) or cells.dtype != torch.int32
+                              or cells.device != device or not cells.is_contiguous()):
+        raise ValueError(f"cells must be a contiguous int32 {tuple(shape)} tensor on {device}")
+    return cells
+
+
 def _launch(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos: torch.Tensor,
             cam_att: torch.Tensor, cells: torch.Tensor | None = None,
             launcher=None) -> torch.Tensor:
@@ -68,10 +79,7 @@ def _launch(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos: torch.Tensor,
     fn = launcher or fn
     B = cam_pos.shape[0]
     out = torch.empty((B, cfg.height, cfg.width), dtype=torch.int32, device=cam_pos.device)
-    if cells is not None and (cells.shape != out.shape or cells.dtype != torch.int32
-                              or cells.device != out.device or not cells.is_contiguous()):
-        raise ValueError(f"cells must be a contiguous int32 {tuple(out.shape)} tensor on "
-                         f"{out.device}")
+    _cells_checked(cells, out.shape, out.device)
     pos, att = cam_pos.contiguous(), cam_att.contiguous()
     status = fn(pos.data_ptr(), att.data_ptr(), scene_f.data_ptr(), seed.data_ptr(),
                 out.data_ptr(), None if cells is None else cells.data_ptr(), B, cfg.height,
@@ -83,16 +91,24 @@ def _launch(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos: torch.Tensor,
 
 
 def _launch_rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos: torch.Tensor,
-                cam_att: torch.Tensor) -> torch.Tensor:
-    """One K1-rgb launch for B cameras (as _launch): (B, H, W, 3) uint8."""
-    fn, scene_f, seed = _function("raycast_rgb_launch", scene, cam_pos)
+                cam_att: torch.Tensor, cells: torch.Tensor | None = None,
+                launcher=None) -> torch.Tensor:
+    """One K1-rgb launch for B cameras (as _launch): (B, H, W, 3) uint8.
+    `cells`, a (B, H, W) int32 tensor, receives the cells each pixel
+    evaluated (raycast_rgb_cells_launch; the bridge frame passes none).
+    launcher: another build's raycast_rgb_launch with the same C interface
+    (chip_smoke.py's parent check)."""
+    name = "raycast_rgb_launch" if cells is None else "raycast_rgb_cells_launch"
+    fn, scene_f, seed = _function(name, scene, cam_pos)
+    fn = launcher or fn
     B = cam_pos.shape[0]
     out = torch.empty((B, cfg.height, cfg.width, 3), dtype=torch.uint8, device=cam_pos.device)
+    cells = () if cells is None else (_cells_checked(cells, out.shape[:-1], out.device).data_ptr(),)
     pos, att = cam_pos.contiguous(), cam_att.contiguous()
     status = fn(pos.data_ptr(), att.data_ptr(), scene_f.data_ptr(), seed.data_ptr(),
-                out.data_ptr(), B, cfg.height, cfg.width, cfg.focal, cfg.far, cfg.dda_steps,
-                *raycast.SUN, torch.cuda.current_stream(cam_pos.device).cuda_stream)
-    cuda_build.check(status, "raycast_rgb_launch")
+                out.data_ptr(), *cells, B, cfg.height, cfg.width, cfg.focal, cfg.far,
+                cfg.dda_steps, *raycast.SUN, torch.cuda.current_stream(cam_pos.device).cuda_stream)
+    cuda_build.check(status, name)
     render_rgb_batch.launches += 1
     return out
 

@@ -73,6 +73,18 @@ def contained(p: OrchardParams) -> torch.Tensor:
             & (jit + (0.3 + 0.84 * can) <= half))
 
 
+def canopy_top(p: OrchardParams) -> torch.Tensor:
+    """A height above every tree (a 0-d float32 tensor on the scene's
+    device): 1.2 max(|canopy_height| + 1.5 |canopy_radius|, |trunk_height|).
+    `tree_fields`' first canopy sphere reaches (canopy_height +
+    |canopy_radius|) size, the second (canopy_height + 0.8 canopy_radius)
+    size + 0.7 |canopy_radius| size, the trunk trunk_height size, with size
+    < 1.2. The plain version of `csrc/raycast.cu`'s `canopy_top`, in its
+    float32 operations."""
+    return 1.2 * torch.maximum(torch.abs(p.canopy_height) + 1.5 * torch.abs(p.canopy_radius),
+                               torch.abs(p.trunk_height))
+
+
 def _mix(h):
     h = h ^ (h >> 13)
     h = h * 1274126177

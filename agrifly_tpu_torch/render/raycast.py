@@ -134,11 +134,15 @@ def tree_hit(scene: orch.OrchardParams, ix, iy, o, d):
     return torch.where(f["present"], torch.minimum(t_trunk, t_can), BIG)
 
 
-# the early exit's float margins (csrc/raycast.cu kReachRel ... kSlackLin)
+# the early exit's float margins (csrc/raycast.cu kReachRel ... kSlackLin),
+# and the RGB pass's clear exit's (kClimb, kClearSqrt, kClearLin)
 _REACH_REL = 1.0 + 2.0 ** -14
 _REACH_ABS = 2.0 ** -14
 _SLACK_SQRT = 2.0 ** -9
 _SLACK_LIN = 2.0 ** -18
+_CLIMB = 2.0 ** -7
+_CLEAR_SQRT = 2.0 ** -8
+_CLEAR_LIN = 2.0 ** -17
 
 
 def _rays(cfg: RenderConfig, cam_pos, cam_att):
@@ -212,22 +216,59 @@ def _dda(scene: orch.OrchardParams, o, d) -> _Dda:
     return _Dda(ix, iy, step_x, step_y, next_x, next_y, torch.abs(inv_dx), torch.abs(inv_dy))
 
 
+class _Exit(NamedTuple):
+    """The early exit's per-pixel terms (csrc/raycast.cu render_pixel)."""
+    exits: torch.Tensor  # orchard.contained: the scene allows the exit
+    adx: torch.Tensor  # |dx| + |dy| + |dz|
+    po: torch.Tensor  # 1 + |ox| + |oy| + |oz|
+    sr: torch.Tensor  # tree_spacing + row_spacing
+
+    @classmethod
+    def of(cls, scene: orch.OrchardParams, o, d):
+        (ox, oy, oz), (dx, dy, dz) = o, d
+        return cls(orch.contained(scene), torch.abs(dx) + torch.abs(dy) + torch.abs(dz),
+                   1.0 + torch.abs(ox) + torch.abs(oy) + torch.abs(oz),
+                   scene.tree_spacing + scene.row_spacing)
+
+    def beyond_next_cells(self, scene, g: _Dda, o, d, best, cap):
+        """Where no later cell of the march can bring a hit nearer than
+        min(best, cap) (csrc/raycast.cu beyond_next_cells, its margins derived
+        there)."""
+        (ox, oy, _), (dx, dy, _) = o, d
+        lim = torch.where(best < cap, best, cap)
+        reach = lim * _REACH_REL + _REACH_ABS * self.sr
+        slack = _SLACK_SQRT * (reach * self.adx + self.sr) + _SLACK_LIN * self.po
+        qx = ox + reach * dx
+        qy = oy + reach * dy
+        bx = (g.ix + (g.step_x > 0).to(torch.int32)).to(torch.float32) * scene.tree_spacing
+        by = (g.iy + (g.step_y > 0).to(torch.int32)).to(torch.float32) * scene.row_spacing
+        in_x = torch.where(g.step_x > 0, qx <= bx - slack, qx >= bx + slack)
+        in_y = torch.where(g.step_y > 0, qy <= by - slack, qy >= by + slack)
+        return self.exits & in_x & in_y
+
+    def clear_after(self, scene, o, d, best):
+        """A t past which each ray meets no tree, inf where none is taken
+        (csrc/raycast.cu clear_after, its margins derived there)."""
+        oz, dz = o[2], d[2]
+        z_top = orch.canopy_top(scene)
+        t = ((z_top + _CLEAR_SQRT * self.sr + _CLEAR_LIN * (self.po + z_top) - oz)
+             / (dz - _CLEAR_SQRT * self.adx))
+        t = torch.where(t >= 0, t, torch.where(t < 0, 0.0, math.inf))
+        return torch.where((dz > _CLIMB * self.adx) & ~(BIG < best), t, math.inf)
+
+
 def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early_exit: bool):
     """The ray set-up and the DDA over orchard cells. Returns the codes and,
     with early_exit, which stops a pixel's march as `csrc/raycast.cu` does
     (see `render_depth_exit`), the cells each pixel evaluated (else None)."""
     o, d, best = _rays(cfg, cam_pos, cam_att)
-    (ox, oy, oz), (dx, dy, dz) = o, d
     shape, dev = best.shape, best.device
     g = _dda(scene, o, d)
     scale = scalar(cfg.far / 256.0, best)
     cells = None
     if early_exit:
-        exits = orch.contained(scene)
+        ex = _Exit.of(scene, o, d)
         far256 = scale * 256.0
-        adx = torch.abs(dx) + torch.abs(dy) + torch.abs(dz)
-        po = 1.0 + torch.abs(ox) + torch.abs(oy) + torch.abs(oz)
-        sr = scene.tree_spacing + scene.row_spacing
         active = torch.ones(shape, dtype=torch.bool, device=dev)
         cells = torch.zeros(shape, dtype=torch.int32, device=dev)
 
@@ -240,17 +281,7 @@ def _march(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early
             best = torch.where(active, hit, best)
             cells = cells + active.to(torch.int32)
         if early_exit and k + 1 < cfg.dda_steps:
-            # csrc/raycast.cu beyond_next_cells, its margins derived there
-            lim = torch.where(best < far256, best, far256)
-            reach = lim * _REACH_REL + _REACH_ABS * sr
-            slack = _SLACK_SQRT * (reach * adx + sr) + _SLACK_LIN * po
-            qx = ox + reach * dx
-            qy = oy + reach * dy
-            bx = (g.ix + (g.step_x > 0).to(torch.int32)).to(torch.float32) * scene.tree_spacing
-            by = (g.iy + (g.step_y > 0).to(torch.int32)).to(torch.float32) * scene.row_spacing
-            in_x = torch.where(g.step_x > 0, qx <= bx - slack, qx >= bx + slack)
-            in_y = torch.where(g.step_y > 0, qy <= by - slack, qy >= by + slack)
-            active = active & ~(exits & in_x & in_y)
+            active = active & ~ex.beyond_next_cells(scene, g, o, d, best, far256)
         g = g.advance()
 
     # clip in float before the int cast: a miss is t = 1e9, whose code does
@@ -319,19 +350,52 @@ def render_rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
     trunk's radial direction, and the canopy sphere whose surface the hit
     is relatively nearer. cam_pos (..., 3), cam_att (..., 4) world-from-
     camera. Returns (..., H, W, 3) uint8."""
+    return _rgb(cfg, scene, cam_pos, cam_att, None)[0]
+
+
+def render_rgb_exit(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att,
+                    clear=True):
+    """The plain mirror of the RGB kernel's traversal (K1-rgb): render_rgb
+    with the kernel's exact early exit, in its float32 operations. After
+    each cell, where `orchard.contained(scene)` holds, a pixel stops whose
+    ray can no longer reach the next cell before min(best, T), T the t past
+    which a climbing ray runs above every tree (`orchard.canopy_top`; inf
+    where the ray does not climb). clear=False leaves T out: the exit on
+    best alone, the traversal before the clear exit. Returns (images, equal
+    to render_rgb's, and the (..., H, W) int32 cells each pixel evaluated).
+    The tests and chip_smoke.py use it; the bridge frame does not."""
+    return _rgb(cfg, scene, cam_pos, cam_att, "clear" if clear else "best")[:2]
+
+
+def _rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att, early_exit):
+    """render_rgb's march and shading; early_exit None (every cell), "best"
+    or "clear" (see render_rgb_exit). Returns (images, cells or None, the
+    (..., H, W) int32 winning material of each pixel)."""
     o, d, best = _rays(cfg, cam_pos, cam_att)
     g = _dda(scene, o, d)
     mat = torch.where(best < BIG, MAT_GROUND, MAT_SKY).to(torch.int32)
     hix = torch.zeros_like(g.ix)
     hiy = torch.zeros_like(g.iy)
-    for _ in range(cfg.dda_steps):
+    active = cells = None
+    if early_exit is not None:
+        ex = _Exit.of(scene, o, d)
+        cap = (ex.clear_after(scene, o, d, best) if early_exit == "clear"
+               else torch.full_like(best, math.inf))
+        active = torch.ones(best.shape, dtype=torch.bool, device=best.device)
+        cells = torch.zeros(best.shape, dtype=torch.int32, device=best.device)
+    for k in range(cfg.dda_steps):
         f, t_trunk, t_can = tree_hits(scene, g.ix, g.iy, o, d)
         t_tree = torch.where(f["present"], torch.minimum(t_trunk, t_can), BIG)
         closer = t_tree < best
+        if active is not None:
+            closer = closer & active
+            cells = cells + active.to(torch.int32)
         best = torch.where(closer, t_tree, best)
         mat = torch.where(closer, torch.where(t_trunk <= t_can, MAT_TRUNK, MAT_CANOPY), mat)
         hix = torch.where(closer, g.ix, hix)
         hiy = torch.where(closer, g.iy, hiy)
+        if active is not None and k + 1 < cfg.dda_steps:
+            active = active & ~ex.beyond_next_cells(scene, g, o, d, best, cap)
         g = g.advance()
 
     # hit point and the analytic normals of the winning cell's tree
@@ -355,7 +419,7 @@ def render_rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
                                                       zero)),
               torch.where(trunk, zero, torch.where(canopy, torch.where(use2, c2[2], c1[2]) / nn,
                                                    zero + 1.0)))
-    return shade(cfg, mat, normal, best)
+    return shade(cfg, mat, normal, best), cells, mat
 
 
 def render_rgb_body(cfg: RenderConfig, scene: orch.OrchardParams, body_pos, body_att):

@@ -8,8 +8,8 @@ shared network through the noise block's n_steps ticks of
 `fleet_env.uwb_fleet_step` and writes the final `UwbFleetState`. A group of
 `GROUP` lanes runs each vehicle (the kernel is built for each of
 `cuda_rollout.GROUPS`, and every group size gives the same values bit for
-bit). On CPU tensors it runs the plain version,
-`fleet_env.uwb_fleet_rollout_plain`.
+bit), and one more warp steps the network beside them. On CPU tensors it
+runs the plain version, `fleet_env.uwb_fleet_rollout_plain`.
 
 The vehicles' state and parameter leaves are `tick.cuh`'s tables (built
 with TICK_RANGING and TICK_WIND: the env's leaves without a network of its
@@ -108,7 +108,7 @@ def _check(params, state, des_pos, noise, wind_noise, uwb_draws, ctrl_mode, devi
 
 
 def rollout(params, state, des_pos, noise, wind_noise, uwb_draws, ctrl_mode="position",
-            group=None):
+            group=None, launcher=None):
     """Advance a shared-UWB fleet (`fleet_env.UwbFleetParams`,
     `UwbFleetState` of N vehicles) by the ticks of `noise` ((N, n_steps, 2,
     3) float32 IMU normals), `wind_noise` ((n_steps, N, 3) gust normals)
@@ -118,7 +118,9 @@ def rollout(params, state, des_pos, noise, wind_noise, uwb_draws, ctrl_mode="pos
 
     CUDA tensors launch K6 (or raise): one launch, counted in
     `rollout.launches`; `group` picks the lanes per vehicle (GROUP by
-    default). CPU tensors take `fleet_env.uwb_fleet_rollout_plain`."""
+    default); `launcher`, another build's fleet_uwb_launch with the same C
+    interface (chip_smoke.py's section timers and parent check). CPU tensors
+    take `fleet_env.uwb_fleet_rollout_plain`."""
     from agrifly_tpu_torch.sim import fleet_env
 
     device = noise.device
@@ -135,7 +137,7 @@ def rollout(params, state, des_pos, noise, wind_noise, uwb_draws, ctrl_mode="pos
     net_out = [torch.empty_like(t) for t in net_in]
     inputs = [des_pos, noise.contiguous(), wind_noise.contiguous(), uwb_draws.contiguous()]
     stream = torch.cuda.current_stream(device).cuda_stream
-    status = _launcher()(
+    status = (launcher or _launcher())(
         _pointers(leaves_in), _pointers(leaves_out), _pointers(net_in), _pointers(net_out),
         _pointers(vehicle), _pointers(net), ids.data_ptr(), anchors.data_ptr(), N, A,
         *map(_data_ptr, inputs), noise.shape[1], CTRL[ctrl_mode],

@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the six CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
-the section-timed variants of `frame.cu` and `rollout.cu` and the UWB and
-wind builds of `rollout.cu` (one nvcc each, all in parallel) and holds each kernel against its plain
+the section-timed variants of `frame.cu`, `rollout.cu` and `fleet_uwb.cu`
+and the UWB and wind builds of `rollout.cu` (one nvcc each, all in
+parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 bit for bit (one image and 16 in one launch, on the default orchard, a
 scene at `make_params`' limit and one whose second canopy spheres leave
@@ -19,7 +20,10 @@ strip-culled kernel's per-strip row counts equal to `strip_windows`'; a
 window of edge-case rows), the RGB instances of both raycasters bit for bit
 (K1-rgb and K4-rgb, against `raycast.render_rgb` and both plain mesh scans:
 1 and 16 cameras, a camera above the canopy whose trees all lie beyond the
-far plane, the edge rows with a pair tied on t), the pyramid inflation bit for bit (one image, and 16 fleet images in one
+far plane, cameras pitched up, the edge rows with a pair tied on t; K1-rgb's
+cells per pixel equal to its plain mirror's and their mean by the pixel's
+winner, sky, ground or tree, beside the exit before its clear exit), the
+pyramid inflation bit for bit (one image, and 16 fleet images in one
 launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
 (then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
@@ -75,13 +79,17 @@ oracle. It then flies:
   at 4096 vehicles x 250 steps in both estimator modes, K5-wind's device
   time beside K5's in turns), and the shared-UWB fleet through K6
   (`csrc/fleet_uwb.cu`: against the plain version, that test's 7500-tick
-  three-vehicle flight, its device time a tick at 3 and 28 vehicles); and
+  three-vehicle flight, its device time a tick at 3 and 28 vehicles, and
+  clock64() timers around its tick's sections on a vehicle and on the
+  network's warp, in a variant built beside the kernels); and
   `sim/mission` with the small modules on the card against the CPU.
 
 With `--parent DIR` (a checkout of the parent commit) it also holds K1,
-K4, K3 and K5 in every mode bit for bit against the parent's kernels, built from DIR
-and called through this tree's wrappers where the parent declares the same
-C interface, and times both in turns.
+K4, K3, K5 in every mode, K6 (3 and 28 vehicles, every lane count, idle,
+position and rates commands, and the 7500-tick flight) and K1-rgb (the
+three scenes, above the canopy and pitched up) bit for bit against the
+parent's kernels, built from DIR and called through this tree's wrappers
+where the parent declares the same C interface, and times both in turns.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -990,6 +998,54 @@ def above_canopy(dev):
     return pos, raycast.camera_attitude(torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev))
 
 
+def up_poses(g, B, dev):
+    """B orchard poses as ray_poses draws them, but each body pitched up by
+    10-40 degrees: most of each image is sky beyond the canopy."""
+    import math
+
+    import torch
+
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.render import raycast
+
+    pos = torch.stack([torch.rand(B, generator=g) * 40, torch.rand(B, generator=g) * 16 - 8,
+                       torch.rand(B, generator=g) * 3 + 0.5], dim=1).to(dev)
+    ypr = ((torch.rand(B, 3, generator=g) - 0.5) * 0.6).to(dev)
+    pitch = -math.radians(10) - torch.rand(B, generator=g).to(dev) * math.radians(30)
+    return pos, raycast.camera_attitude(rot.from_euler_ypr(ypr[:, 0], pitch, ypr[:, 2]))
+
+
+def rgb_cells(cfg, scene, pos, cam, label):
+    """K1-rgb's cells per pixel on the cameras (its cells output), equal to
+    its plain mirror's (raycast.render_rgb_exit) with the image equal to
+    render_rgb's, and their mean by the pixel's winner (sky, ground, tree)
+    beside the mirror's traversal before the clear exit (the exit on best
+    alone). Prints a line; returns {kind: (mean before, mean now)}."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_raycast, raycast
+
+    B = pos.shape[0]
+    cells = torch.empty((B, cfg.height, cfg.width), dtype=torch.int32, device=pos.device)
+    got = cuda_raycast._launch_rgb(cfg, scene, pos, cam, cells)
+    ref, ref_cells, mat = raycast._rgb(cfg, scene, pos, cam, "clear")
+    _check(torch.equal(got, ref) and torch.equal(got, raycast.render_rgb(cfg, scene, pos, cam)),
+           f"K1-rgb differs from render_rgb ({label})")
+    _check(torch.equal(cells, ref_cells), f"K1-rgb: cells differ from the plain mirror ({label})")
+    before = raycast._rgb(cfg, scene, pos, cam, "best")[1]
+    kinds = {"sky": mat == raycast.MAT_SKY, "ground": mat == raycast.MAT_GROUND,
+             "tree": mat >= raycast.MAT_TRUNK, "all": torch.ones_like(mat, dtype=torch.bool)}
+    out = {}
+    for kind, m in kinds.items():
+        n = int(m.sum())
+        out[kind] = ((float(before[m].float().mean()), float(cells[m].float().mean())) if n
+                     else (float("nan"), float("nan")))
+    print(f"K1-rgb cells per pixel, {label} (B={B}, {cfg.width}x{cfg.height}; the exit on best "
+          f"alone -> with the clear exit, kernel = mirror): " + "; ".join(
+              f"{k} {int(kinds[k].sum())} px {a:.4f} -> {b:.4f}" for k, (a, b) in out.items()))
+    return out
+
+
 def sky_bytes(cfg, dev):
     """The RGB bytes of a pixel that meets nothing (raycast.shade of the sky)."""
     import torch
@@ -1044,7 +1100,8 @@ def check_rgb(dev):
         for name, kw in RAY_SCENES.items():
             scene = orchard.make_params(device=dev, **kw)
             for label, (p, c) in (("random poses", (pos, cam)),
-                                  ("above the canopy", above_canopy(dev))):
+                                  ("above the canopy", above_canopy(dev)),
+                                  ("pitched up", up_poses(g, B, dev))):
                 before = cuda_raycast.render_rgb_batch.launches
                 got = cuda_raycast.render_rgb_batch(cfg, scene, p, c)
                 _check(cuda_raycast.render_rgb_batch.launches == before + 1,
@@ -1064,6 +1121,10 @@ def check_rgb(dev):
                     _check(torch.unique(got.reshape(-1, 3), dim=0).shape[0] > 20,
                            f"K1-rgb rendered an empty scene ({name})")
         scene = orchard.make_params(device=dev)
+        if B > 1:
+            rgb_cells(cfg, scene, pos, cam, "random poses")
+            rgb_cells(cfg, scene, *above_canopy(dev), "above the canopy")
+            rgb_cells(cfg, scene, *up_poses(g, B, dev), "pitched up 10-40 degrees")
         got = cuda_raycast.render_rgb_batch(cfg, scene, pos, cam)
         ops = B * cfg.height * cfg.width * (
             RAY_OPS_PER_PIXEL + (RAY_OPS_PER_CELL + RGB_RAY_OPS_PER_CELL) * cfg.dda_steps
@@ -1073,8 +1134,8 @@ def check_rgb(dev):
                           lambda: raycast.render_rgb(cfg, scene, pos, cam),
                           nbytes(pos, cam, got) + 40, ops)
         print(f"K1-rgb B={B} 640x480: bit-equal to render_rgb on the default, limit and loose "
-              f"scenes and from above the canopy (depth all 255, hazed trees), sky pixels all "
-              f"at depth 255; " + rgb_line("K1-rgb", res))
+              f"scenes, from above the canopy (depth all 255, hazed trees) and pitched up, sky "
+              f"pixels all at depth 255; " + rgb_line("K1-rgb", res))
         out[("K1-rgb", B)] = res
 
     reach = cfg.far * meshscene.slant_factor(cfg)
@@ -1746,10 +1807,11 @@ def fly_bridge(dev, state, mesh=None):
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    colours = []
+    colours, poses = [], []
     for _ in range(BRIDGE_FRAMES):
         state, row, rgb = bridge_frame(env, state, gen, mesh)
         colours.append(torch.unique(rgb.reshape(-1, 3), dim=0).shape[0])
+        poses.append((row["pos"], row["att"]))
     torch.cuda.synchronize()
     frame_ms = 1e3 * (time.perf_counter() - t0) / BRIDGE_FRAMES
     launches = read_counts()
@@ -1766,6 +1828,11 @@ def fly_bridge(dev, state, mesh=None):
           f"{float(row['pos'][0, 0]):.3f} m; colours per image {min(colours)}-{max(colours)}; "
           f"{launches}")
     if mesh is None:
+        from agrifly_tpu_torch.render import raycast
+
+        pos, att = (torch.cat(x) for x in zip(*poses))
+        rgb_cells(env.params.render_cfg, env.params.scene, pos, raycast.camera_attitude(att),
+                  f"the bridge flight's {BRIDGE_FRAMES} poses")
         times = {"fly": [], "fly_diag": []}
         for name in ("fly", "fly_diag", "fly_diag", "fly"):
             g = torch.Generator(device=dev).manual_seed(SEED + 10)
@@ -2838,6 +2905,61 @@ def check_fleet_uwb(dev):
     return res, launches
 
 
+# fleet_uwb.cu's Section enum, in order (-DFLEET_SECTIONS)
+FLEET_SECTIONS = ("tick", "phase_a", "radio", "plant", "imu", "net_wait", "net_step",
+                  "net_stage", "wait_broadcast", "logic", "logic_pre", "ekf_predict",
+                  "cov_predict", "range", "rest", "offboard", "mocap_update", "replay_update",
+                  "prediction")
+TIMED_FLEET = ("fleet_uwb", ("FLEET_SECTIONS",))  # cuda_build.load's arguments
+FLEET_SECTION_LAUNCHES = 3  # timed launches of UWB_TIMED_TICKS ticks, after one warm-up
+
+
+def fleet_sections(dev):
+    """Cycles per tick of each Section of K6 (fleet_uwb.cu's FLEET_SECTIONS
+    build, clock64 timers on vehicle 0's lane 0 and on the network's
+    thread) over FLEET_SECTION_LAUNCHES launches of UWB_TIMED_TICKS position
+    ticks, at N = 3 and UWB_CAP vehicles with 5 anchors, at every G; and the
+    tick's measured time (its cycles over the card's maximum SM clock). The
+    launches are not counted in cuda_fleet_uwb.rollout.launches."""
+    import ctypes
+
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_rollout
+
+    lib = cuda_build.load(*TIMED_FLEET)
+    fn = lib.fleet_uwb_launch
+    fn.argtypes, fn.restype = cuda_fleet_uwb._ARGTYPES, ctypes.c_int
+    mhz = max_sm_mhz()
+    n = len(FLEET_SECTIONS)
+    sec, cnt = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
+    ticks = FLEET_SECTION_LAUNCHES * UWB_TIMED_TICKS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    counted = cuda_fleet_uwb.rollout.launches
+    for N in (3, UWB_CAP):
+        p, s, des = uwb_fleet_case(dev, N)
+        draws = uwb_draws(N, UWB_TIMED_TICKS, gen, dev)
+        for group in cuda_rollout.GROUPS:
+            def launch():
+                return cuda_fleet_uwb.rollout(p, s, des, *draws, "position", group=group,
+                                              launcher=fn)
+            launch()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.fleet_uwb_sections_read(sec, cnt), "fleet_uwb_sections_read")
+            for _ in range(FLEET_SECTION_LAUNCHES):
+                launch()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.fleet_uwb_sections_read(sec, cnt), "fleet_uwb_sections_read")
+            print(f"fleet_uwb section timers, {N} vehicles + 5 anchors, G={group} (cycles per "
+                  f"tick over {ticks} ticks; vehicle 0 and the network's thread): " + ", ".join(
+                      f"{name} {sec[k] / ticks:.0f} (runs {cnt[k]})"
+                      for k, name in enumerate(FLEET_SECTIONS) if cnt[k])
+                  + f"; a tick {sec[0] / ticks:.0f} cycles = {sec[0] / ticks / mhz:.3f} us at "
+                    f"the {mhz:.0f} MHz maximum SM clock")
+    cuda_fleet_uwb.rollout.launches = counted
+
+
 def check_mission(dev):
     """sim/mission on the card: tests/test_mission.py's progression and
     landing drives (50 Hz ticks on an ideal pose) on CUDA tensors, held to
@@ -2914,84 +3036,115 @@ def _c_declaration(src, name):
 
 
 def check_parent(dev, root):
-    """This tree's K1, K4, K3 and K5 (true state, mocap, GPS-IMU, and the
-    UWB build) against the parent's: its raycast.cu, meshscene.cu, frame.cu
-    and rollout.cu (with and without TICK_UWB) built from
-    root/agrifly_tpu_torch/csrc and called through this tree's wrappers,
-    which the check allows only where the parent declares the same C
-    interface. The results bit for bit, and both device times in turns
-    (parent, this tree, this tree, parent)."""
+    """This tree's K1, K4, K3, K5 (true state, mocap, GPS-IMU, and the UWB
+    build), K6 and K1-rgb against the parent's: its raycast.cu,
+    meshscene.cu, frame.cu, rollout.cu (with and without TICK_UWB) and
+    fleet_uwb.cu built from root/agrifly_tpu_torch/csrc and called through
+    this tree's wrappers, which the check allows only where the parent
+    declares the same C interface. The results bit for bit, and both device
+    times in turns (parent, this tree, this tree, parent); K6 also over
+    tests/test_fleet_and_bridge.py's flight, its wall time in turns."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     import torch
 
-    from agrifly_tpu_torch import convert, cuda_build
-    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
-    from agrifly_tpu_torch.sim import cuda_frame, cuda_rollout, orchard_env
+    from agrifly_tpu_torch import cuda_build
 
     csrc = Path(root) / "agrifly_tpu_torch" / "csrc"
     out = Path(root) / "agrifly_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
-    launch_names = {"raycast": "raycast_launch", "meshscene": "meshscene_strips_launch",
-                    "frame": "frame_ticks_launch", "rollout": "env_rollout_launch"}
-    for name, fn in launch_names.items():
+    # build key: (source, defines, the launch function held)
+    builds = {"raycast": ("raycast", (), "raycast_launch"),
+              "raycast_rgb": ("raycast", (), "raycast_rgb_launch"),
+              "meshscene": ("meshscene", (), "meshscene_strips_launch"),
+              "frame": ("frame", (), "frame_ticks_launch"),
+              "rollout": ("rollout", (), "env_rollout_launch"),
+              "rollout_uwb": ("rollout", ("TICK_UWB",), "env_rollout_launch"),
+              "fleet_uwb": ("fleet_uwb", (), "fleet_uwb_launch")}
+    for name, _, fn in builds.values():
         _check(_c_declaration((csrc / f"{name}.cu").read_text(), fn)
                == _c_declaration((cuda_build.CSRC / f"{name}.cu").read_text(), fn),
                f"the parent's {fn} has another C interface")
-    builds = {"raycast": ("raycast", ()), "meshscene": ("meshscene", ()),
-              "frame": ("frame", ()), "rollout": ("rollout", ()),
-              "rollout_uwb": ("rollout", ("TICK_UWB",))}
 
     def build(item):
-        key, (name, defines) = item
-        lib = out / f"libparent_{key}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-               str(lib), str(csrc / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _check(proc.returncode == 0, f"the parent's {name}.cu: {proc.stderr[-2000:]}")
+        key, (name, defines, _) = item
+        lib = out / f"libparent_{name}{''.join('-' + d for d in defines)}.so"
+        if not lib.exists():
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                   "-o", str(lib), str(csrc / f"{name}.cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _check(proc.returncode == 0, f"the parent's {name}.cu: {proc.stderr[-2000:]}")
         return key, ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(len(builds)) as pool:
-        libs = dict(pool.map(build, builds.items()))
-    argtypes = {"raycast": cuda_raycast._ARGTYPES["raycast_launch"],
-                "meshscene": cuda_meshscene._ARGTYPES["meshscene_strips_launch"],
-                "frame": cuda_frame._ARGTYPES}
+    sources = {}
+    for key, (name, defines, _) in builds.items():  # one nvcc per library
+        sources.setdefault((name, defines), key)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(pool.map(build, [(k, builds[k]) for k in sources.values()]))
     fns = {}
-    for key, lib in libs.items():
-        fn = getattr(lib, launch_names[key.replace("_uwb", "")])
-        fn.argtypes = argtypes.get(key, cuda_rollout._ARGTYPES)
+    for key, (name, defines, fn_name) in builds.items():
+        fn = getattr(libs[sources[(name, defines)]], fn_name)
         fn.restype = ctypes.c_int
         fns[key] = fn
+    times = {}
+    _parent_renders(dev, fns["raycast"], fns["meshscene"], times)
+    _parent_frame(dev, fns["frame"], times)
+    _parent_rollout(dev, fns["rollout"], fns["rollout_uwb"], times)
+    _parent_fleet_uwb(dev, fns["fleet_uwb"], times)
+    _parent_rgb(dev, fns["raycast_rgb"], times)
+    print("parent vs this tree, in turns (parent, this, this, parent): " + "; ".join(
+        f"{k} {v[0]:.1f} / {v[1]:.1f} {'ms' if 'flight' in k else 'us'} ({v[1] / v[0]:.4f})"
+        for k, v in times.items()))
+    return times
 
-    # K1 and K4 (depth) at 640x480 on check_raycast's and check_meshscene's
-    # first poses (B = 1 and 16), the default orchard and the baked one
+
+def _in_turns(parent, mine, reps=5):
+    """(parent's, this tree's) device µs of two launches, in turns."""
+    t = [device_us((parent, mine)[i], reps=reps) for i in (0, 1, 1, 0)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def _parent_renders(dev, raycast_fn, meshscene_fn, times):
+    """K1 and K4 (depth) at 640x480 on check_raycast's and check_meshscene's
+    first poses (B = 1 and 16), the default orchard and the baked one."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
+
+    raycast_fn.argtypes = cuda_raycast._ARGTYPES["raycast_launch"]
+    meshscene_fn.argtypes = cuda_meshscene._ARGTYPES["meshscene_strips_launch"]
     cfg = raycast.make_config(640, 480)
     scene, mesh = orchard.make_params(device=dev), baked_orchard(dev)
     reach = cfg.far * meshscene.slant_factor(cfg)
     g_ray, g_mesh = torch.Generator().manual_seed(SEED), torch.Generator().manual_seed(SEED + 5)
-    times = {}
     for B in (1, 16):
         pos, cam = ray_poses(g_ray, B, dev)
-        launches = (lambda: cuda_raycast._launch(cfg, scene, pos, cam, launcher=fns["raycast"]),
+        launches = (lambda: cuda_raycast._launch(cfg, scene, pos, cam, launcher=raycast_fn),
                     lambda: cuda_raycast._launch(cfg, scene, pos, cam))
         _check(torch.equal(launches[0](), launches[1]()), f"K1 against the parent's (B={B})")
-        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
-        times[f"K1 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        times[f"K1 B={B}"] = _in_turns(*launches)
         mpos, mcam = mesh_poses(g_mesh, B, dev)
         windows = meshscene.select_window(mesh, mpos, reach, 192)
         launches = (lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, mpos, mcam,
-                                                   windows, launcher=fns["meshscene"]),
+                                                   windows, launcher=meshscene_fn),
                     lambda: cuda_meshscene._launch("meshscene_strips_launch", cfg, mpos, mcam,
                                                    windows))
         _check(torch.equal(launches[0](), launches[1]()), f"K4 against the parent's (B={B})")
-        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
-        times[f"K4 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        times[f"K4 B={B}"] = _in_turns(*launches)
     print("parent's K1 and K4 at 640x480, B = 1 and 16: codes bit-equal")
 
-    # K3: the five mission states at B = 5 and the tracking state at B = 1,
-    # 10 chained blocks of 16 ticks each
+
+def _parent_frame(dev, parent, times):
+    """K3: the five mission states at B = 5 and the tracking state at B = 1,
+    10 chained blocks of 16 ticks each."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+
+    parent.argtypes = cuda_frame._ARGTYPES
     p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
     pleaves = cuda_frame.param_leaves(p)
@@ -3005,47 +3158,140 @@ def check_parent(dev, root):
         for _ in range(10):
             noise = torch.randn((B, 16, 2, 3), generator=gen, device=dev)
             mine = cuda_frame._launch(mine, pleaves, noise)
-            theirs = cuda_frame._launch(theirs, pleaves, noise, launcher=fns["frame"])
+            theirs = cuda_frame._launch(theirs, pleaves, noise, launcher=parent)
             for a, b in zip(mine, theirs):
                 differ += int((a != b).sum())
                 total += a.numel()
-        launches = (lambda: cuda_frame._launch(mine, pleaves, noise, launcher=fns["frame"]),
-                    lambda: cuda_frame._launch(mine, pleaves, noise))
-        t = [device_us(launches[i]) for i in (0, 1, 1, 0)]
-        times[f"K3 B={B}"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        times[f"K3 B={B}"] = _in_turns(
+            lambda: cuda_frame._launch(mine, pleaves, noise, launcher=parent),
+            lambda: cuda_frame._launch(mine, pleaves, noise))
     _check(differ == 0, f"K3 against the parent's: {differ} of {total} elements differ")
     print(f"parent's K3: 10 blocks of 16 ticks at B = 5 (five states) and B = 1 (tracking): "
           f"0 of {total} leaf elements differ")
 
-    # K5 in every mode at 1024 envs x ENV_STEPS
+
+def _parent_rollout(dev, parent, parent_uwb, times):
+    """K5 in every mode at 1024 envs x ENV_STEPS."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout, uwb
+
+    parent.argtypes = parent_uwb.argtypes = cuda_rollout._ARGTYPES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     B = 1024
     for name, mode, ctrl in (("true", False, "rates"), ("mocap", True, "rates"),
                              ("gpsimu", "gpsimu", "rates"), ("uwb", False, "position")):
-        case = "uwb" if name == "uwb" else "gpsimu"
-        pp, s, cmd = env_mode_case(dev, case, B)
+        pp, s, cmd = env_mode_case(dev, "uwb" if name == "uwb" else "gpsimu", B)
         noise = torch.randn((B, ENV_STEPS, 2, 3), generator=gen, device=dev)
-        draws = None
-        if name == "uwb":
-            from agrifly_tpu_torch.sim import uwb
-
-            draws = uwb.draw((B, ENV_STEPS), gen, dev)
-        parent = fns["rollout_uwb" if name == "uwb" else "rollout"]
-        a_state, a_traj = env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, ctrl=ctrl,
-                                       draws=draws)()
-        b_state, b_traj = env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, parent,
-                                       ctrl=ctrl, draws=draws)()
-        for a, b in zip(a_state + a_traj, b_state + b_traj):
-            _check(torch.equal(a, b), f"K5 {name} against the parent's: a leaf differs")
-        launches = (env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, parent, ctrl=ctrl,
+        draws = uwb.draw((B, ENV_STEPS), gen, dev) if name == "uwb" else None
+        fn = parent_uwb if name == "uwb" else parent
+        launches = (env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, fn, ctrl=ctrl,
                                  draws=draws),
                     env_launcher(pp, s, cmd, noise, mode, cuda_rollout.GROUP, ctrl=ctrl,
                                  draws=draws))
-        t = [device_us(launches[i], reps=3) for i in (0, 1, 1, 0)]
-        times[f"K5 {name} {B} envs"] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        b_state, b_traj = launches[0]()
+        a_state, a_traj = launches[1]()
+        for a, b in zip(a_state + a_traj, b_state + b_traj):
+            _check(torch.equal(a, b), f"K5 {name} against the parent's: a leaf differs")
+        times[f"K5 {name} {B} envs"] = _in_turns(*launches, reps=3)
     print(f"parent's K5 at {B} envs x {ENV_STEPS} steps: true state, mocap, GPS-IMU and UWB "
           "results bit-equal (every state and trajectory leaf)")
-    print("parent vs this tree, device time in turns (parent, this, this, parent): " + "; ".join(
-        f"{k} {v[0]:.1f} / {v[1]:.1f} us ({v[1] / v[0]:.4f})" for k, v in times.items()))
+
+
+def _parent_fleet_uwb(dev, parent, times):
+    """K6 at 3 and UWB_CAP vehicles with 5 anchors, every G, in the idle,
+    position and rates modes one after the other (300 ticks each, from the
+    start state, a gusty wind), bit-equal to the parent's (every leaf); its
+    device µs per tick (UWB_TIMED_TICKS position ticks) and the 1500 + 6000
+    tick flight's wall time, in turns."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_rollout
+
+    parent.argtypes = cuda_fleet_uwb._ARGTYPES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    wind = dict(mean=(1.0, 0.0, 0.0), gust_std=0.5, gust_tau=2.0, force_gain=0.01)
+    counted = cuda_fleet_uwb.rollout.launches
+    for n in (3, UWB_CAP):
+        p, s, des = uwb_fleet_case(dev, n, wind=wind)
+        for ctrl in ("idle", "position", "rates"):
+            draws = uwb_draws(n, 300, gen, dev)
+            theirs = cuda_fleet_uwb.rollout(p, s, des, *draws, ctrl, launcher=parent)
+            for g in cuda_rollout.GROUPS:
+                mine = cuda_fleet_uwb.rollout(p, s, des, *draws, ctrl, group=g)
+                for (path, a), (_, b) in zip(convert.leaves(mine), convert.leaves(theirs)):
+                    _check(torch.equal(a, b), f"K6 G={g}, {n} vehicles, {ctrl}, against the "
+                                              f"parent's: {path}")
+            s = theirs
+        _check(int(s.latch_start) > 0, f"K6 against the parent's: no range at {n} vehicles")
+        pn, sn, dn = uwb_fleet_case(dev, n)
+        draws = uwb_draws(n, UWB_TIMED_TICKS, gen, dev)
+        t = _in_turns(lambda: cuda_fleet_uwb.rollout(pn, sn, dn, *draws, launcher=parent),
+                      lambda: cuda_fleet_uwb.rollout(pn, sn, dn, *draws), reps=3)
+        times[f"K6 {n}+5 a tick"] = (t[0] / UWB_TIMED_TICKS, t[1] / UWB_TIMED_TICKS)
+    print(f"parent's K6 at 3 and {UWB_CAP} vehicles with 5 anchors: idle, position and rates "
+          f"(300 ticks each) bit-equal at every G in {cuda_rollout.GROUPS} (every leaf)")
+
+    # the flight of tests/test_fleet_and_bridge.py: two calls, its draws made first
+    p, s0, des = uwb_fleet_case(dev, 3)
+    idle, fly = uwb_draws(3, UWB_IDLE, gen, dev), uwb_draws(3, UWB_FLY, gen, dev)
+
+    def flight(launcher):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = cuda_fleet_uwb.rollout(p, s0, des, *idle, "idle", launcher=launcher)
+        s = cuda_fleet_uwb.rollout(p, s, des, *fly, "position", launcher=launcher)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), s
+
+    walls, finals = ([], []), [None, None]  # (the parent's, this tree's)
+    for i in (0, 1, 1, 0):
+        ms, finals[i] = flight(parent if i == 0 else None)
+        walls[i].append(ms)
+    for (path, a), (_, b) in zip(convert.leaves(finals[1]), convert.leaves(finals[0])):
+        _check(torch.equal(a, b), f"K6's flight against the parent's: {path}")
+    times["K6 flight wall"] = (sum(walls[0]) / 2, sum(walls[1]) / 2)
+    cuda_fleet_uwb.rollout.launches = counted
+    print(f"parent's K6 over the {UWB_IDLE} + {UWB_FLY} tick flight: every leaf bit-equal; wall "
+          f"ms parent {', '.join(f'{t:.1f}' for t in walls[0])}, this tree "
+          f"{', '.join(f'{t:.1f}' for t in walls[1])}")
+
+
+def _parent_rgb(dev, parent, times):
+    """K1-rgb at 640x480, B = 1 and 16, on the three scenes from
+    check_rgb's poses, above the canopy and pitched up, bit-equal to the
+    parent's; device µs in turns on the default orchard's poses."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_raycast, orchard, raycast
+
+    parent.argtypes = cuda_raycast._ARGTYPES["raycast_rgb_launch"]
+    cfg = raycast.make_config(640, 480)
+    g = torch.Generator().manual_seed(SEED)
+    counted = cuda_raycast.render_rgb_batch.launches
+    for B in (1, 16):
+        pos, cam = ray_poses(g, B, dev)
+        cases = (("random poses", (pos, cam)), ("above the canopy", above_canopy(dev)),
+                 ("pitched up", up_poses(g, B, dev)))
+        for name, kw in RAY_SCENES.items():
+            scene = orchard.make_params(device=dev, **kw)
+            for label, (p, c) in cases:
+                mine = cuda_raycast._launch_rgb(cfg, scene, p, c)
+                _check(torch.equal(mine, cuda_raycast._launch_rgb(cfg, scene, p, c,
+                                                                  launcher=parent)),
+                       f"K1-rgb against the parent's ({name}, {label}, B={B})")
+        scene = orchard.make_params(device=dev)
+        times[f"K1-rgb B={B}"] = _in_turns(
+            lambda: cuda_raycast._launch_rgb(cfg, scene, pos, cam, launcher=parent),
+            lambda: cuda_raycast._launch_rgb(cfg, scene, pos, cam))
+        up = up_poses(g, B, dev)
+        times[f"K1-rgb pitched up B={B}"] = _in_turns(
+            lambda: cuda_raycast._launch_rgb(cfg, scene, *up, launcher=parent),
+            lambda: cuda_raycast._launch_rgb(cfg, scene, *up))
+    cuda_raycast.render_rgb_batch.launches = counted
+    print("parent's K1-rgb at 640x480, B = 1 and 16: bit-equal on the default, limit and loose "
+          "scenes, from above the canopy and pitched up")
 
 
 def build_kernels():
@@ -3055,9 +3301,10 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 4) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 5) as pool:
         timed = [pool.submit(cuda_build.load, *variant)
-                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT)]
+                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT,
+                                 TIMED_FLEET)]
         list(pool.map(cuda_build.load, KERNELS))
         for variant in timed:
             variant.result()
@@ -3163,6 +3410,7 @@ def main(argv) -> int:
         check_env_modes(dev)
         k5w, k5w_launches = check_fleet_wind(dev)
         k6, k6_launches = check_fleet_uwb(dev)
+        fleet_sections(dev)
         check_mission(dev)
         if parent is not None:
             check_parent(dev, parent)
