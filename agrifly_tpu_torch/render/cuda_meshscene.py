@@ -13,9 +13,9 @@ torch on the tensors' device. Nothing is read back to the host.
 The RGB pass (`render_rgb_batch`) launches a third kernel of the same file,
 K4-rgb (`render_rgb_strips_batch`), which replaces no TPU kernel: the JAX
 package's RGB pass is jnp. It is K4's strip-culled scan without the far
-clip, tracking the winning window row, with the shading in the same
-thread; its bytes equal `meshscene.render_rgb_strips`', which CPU tensors
-run.
+clip, its rows staged in window order with their window row, material
+and what their shading reads, then the shading in the same thread; its
+bytes equal `meshscene.render_rgb_strips`', which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -87,10 +87,12 @@ def _launch(name: str, cfg: RenderConfig, cam_pos: torch.Tensor, cam_att: torch.
 
 
 def _launch_rgb(cfg: RenderConfig, cam_pos: torch.Tensor, cam_att: torch.Tensor,
-                windows: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+                windows: torch.Tensor, mats: torch.Tensor, launcher=None) -> torch.Tensor:
     """One K4-rgb launch on B cameras and their windows (as _launch) with the
-    rows' (B, K) int32 materials: (B, H, W, 3) uint8."""
-    fn = _function("meshscene_rgb_launch")
+    rows' (B, K) int32 materials: (B, H, W, 3) uint8. launcher: another
+    build's meshscene_rgb_launch (chip_smoke.py's parent check and section
+    timers)."""
+    fn = launcher or _function("meshscene_rgb_launch")
     B, K = windows.shape[:2]
     out = torch.empty((B, cfg.height, cfg.width, 3), dtype=torch.uint8, device=windows.device)
     pos, att, win = cam_pos.contiguous(), cam_att.contiguous(), windows.contiguous()

@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the six CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
-the section-timed variants of `frame.cu`, `rollout.cu` and `fleet_uwb.cu`
-and the UWB and wind builds of `rollout.cu` (one nvcc each, all in
+the section-timed variants of `frame.cu`, `rollout.cu`, `fleet_uwb.cu` and
+`meshscene.cu` and the UWB and wind builds of `rollout.cu` (one nvcc each, all in
 parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 bit for bit (one image and 16 in one launch, on the default orchard, a
@@ -20,9 +20,12 @@ strip-culled kernel's per-strip row counts equal to `strip_windows`'; a
 window of edge-case rows), the RGB instances of both raycasters bit for bit
 (K1-rgb and K4-rgb, against `raycast.render_rgb` and both plain mesh scans:
 1 and 16 cameras, a camera above the canopy whose trees all lie beyond the
-far plane, cameras pitched up, the edge rows with a pair tied on t; K1-rgb's
-cells per pixel equal to its plain mirror's and their mean by the pixel's
-winner, sky, ground or tree, beside the exit before its clear exit), the
+far plane, cameras pitched up, the edge rows with a pair tied on t, K4-rgb
+on a shuffled 300-row window whose rows win pixels in both staged chunks;
+K1-rgb's cells per pixel equal to its plain mirror's and their mean by the
+pixel's winner, sky, ground or tree, beside the exit before its clear exit;
+then K4's and K4-rgb's clock64() section timers, blocks per SM, waves and
+floor at K = 0), the
 pyramid inflation bit for bit (one image, and 16 fleet images in one
 launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
@@ -85,11 +88,13 @@ oracle. It then flies:
   `sim/mission` with the small modules on the card against the CPU.
 
 With `--parent DIR` (a checkout of the parent commit) it also holds K1,
-K4, K3, K5 in every mode, K6 (3 and 28 vehicles, every lane count, idle,
-position and rates commands, and the 7500-tick flight) and K1-rgb (the
-three scenes, above the canopy and pitched up) bit for bit against the
-parent's kernels, built from DIR and called through this tree's wrappers
-where the parent declares the same C interface, and times both in turns.
+K4, K4w, K3, K5 in every mode, K6 (3 and 28 vehicles, every lane count,
+idle, position and rates commands, and the 7500-tick flight), K1-rgb (the
+three scenes, above the canopy and pitched up) and K4-rgb (both worlds,
+windows of 192 and 300 rows and a shuffled one, above the canopy, the edge
+rows) bit for bit against the parent's kernels, built from
+DIR and called through this tree's wrappers where the parent declares the
+same C interface, and times both in turns.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -151,7 +156,9 @@ TICK_OPS = 20000  # csrc/frame.cu sim_tick, float operations per vehicle and tic
 MESH_OPS_PER_PIXEL = 41
 MESH_PREP_OPS = (3, 13, 10, 20)
 MESH_ROW_OPS = (0, 10, 9, 24)
-MESH_CULL_OPS = 70  # K4's culling of one row for one strip: bounding sphere, camera, 7 tests
+# K4's and K4-rgb's culling of one row (not of kind 0: the window's padding
+# returns at once) for one strip: bounding sphere, camera, 7 tests
+MESH_CULL_OPS = 70
 # The RGB pass (K1-rgb, K4-rgb), counted as above: per visited cell the
 # winner's compare and three selects; per pixel the winning tree's five
 # hashes and geometry, its normal (~3 square roots and 3 divides) and the
@@ -791,6 +798,18 @@ def edge_rows(dev):
     return window.expand(5, -1, -1).contiguous().to(dev), pos.to(dev), att.to(dev)
 
 
+def shuffled_window(windows, mats, seed=SEED):
+    """A window's rows (and their materials) in a seeded order:
+    select_window puts a window's visible rows first, so in a 300-row window
+    rows 256.. (the kernels' second staged chunk) are all kind 0; shuffled,
+    both chunks hold rows that win pixels."""
+    import torch
+
+    perm = torch.randperm(windows.shape[1], generator=torch.Generator().manual_seed(seed))
+    perm = perm.to(windows.device)
+    return windows[:, perm].contiguous(), mats[:, perm].contiguous()
+
+
 def mesh_poses(g, B, dev):
     """B cameras over the mesh rectangle at 0.5-3.5 m, random yaw, small
     pitch and roll (world-from-camera attitudes)."""
@@ -964,7 +983,8 @@ def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
     # culling of every (strip, window row)
     n_bytes = nbytes(pos, cam, windows, codes)
     b4, o4 = mesh_bound(cfg, windows[..., 0], strips[..., 0], nvis,
-                        cuda_meshscene.TILE_H * cfg.width, n_bytes, cull_rows=nvis.numel() * K)
+                        cuda_meshscene.TILE_H * cfg.width, n_bytes,
+                        cull_rows=nvis.shape[-1] * int((windows[..., 0] != 0).sum()))
     b4w, o4w = mesh_bound(cfg, windows[..., 0], windows[..., 0], windows.new_full((B,), K),
                           cfg.height * cfg.width, n_bytes)
     return ({**result(0, ms4, plain4, b4, o4), "launch_ms": launch4, "device_us": dev4,
@@ -1070,6 +1090,32 @@ def rgb_line(name, res):
             f"{res['bound_ms']:.6f} ({res['bound_by']})")
 
 
+def window_cases(cfg, pos, cam, windows, mats, label):
+    """K4-rgb on a window of more rows than a staged chunk
+    (shuffled_window's), bit-equal to both plain scans; rows of both chunks
+    win pixels (the image changes where either chunk's rows are dropped)."""
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene
+
+    ref = meshscene.render_rgb_strips(cfg, windows, mats, pos, cam)
+    _check(torch.equal(ref, meshscene.render_rgb_window(cfg, windows, mats, pos, cam)),
+           f"the plain scans differ on a shuffled window ({label})")
+    _check(torch.equal(cuda_meshscene._launch_rgb(cfg, pos, cam, windows, mats), ref),
+           f"K4-rgb differs from the plain scans on a shuffled {windows.shape[1]}-row window "
+           f"({label})")
+    won = []
+    for rows in (slice(None, 256), slice(256, None)):
+        dropped = windows.clone()
+        dropped[:, rows, 0] = 0
+        got = cuda_meshscene._launch_rgb(cfg, pos, cam, dropped, mats)
+        won.append(int((got != ref).any(-1).sum()))
+    _check(min(won) > 0, f"K4-rgb's shuffled window: pixels won by each chunk's rows {won}")
+    print(f"K4-rgb on a shuffled {windows.shape[1]}-row window ({label}): bit-equal to both "
+          f"plain scans; pixels won by rows of the first / second staged chunk {won[0]} / "
+          f"{won[1]}")
+
+
 def check_rgb(dev):
     """The RGB kernels against their plain versions at 640x480, bit for bit.
     K1-rgb against raycast.render_rgb on check_raycast's poses (B = 1 and
@@ -1152,6 +1198,10 @@ def check_rgb(dev):
                 windows, order, ok = meshscene.select_window(mesh, p, reach, 192,
                                                              return_order=True)
                 mats = meshscene.window_materials(mesh, windows, order, ok)
+                if case == "random poses":
+                    rows = meshscene.select_window(mesh, p, reach, 300, return_order=True)
+                    window_cases(cfg, p, c, *shuffled_window(
+                        rows[0], meshscene.window_materials(mesh, *rows)), f"{label}, B={B}")
                 before = cuda_meshscene.render_rgb_strips_batch.launches
                 got = cuda_meshscene.render_rgb_batch(cfg, mesh, p, c)
                 plain_order = cuda_meshscene.render_rgb_batch(cfg, mesh, p, c, strip_cull=False)
@@ -1182,7 +1232,7 @@ def check_rgb(dev):
             b, o = mesh_bound(cfg, windows[..., 0], strips[..., 0], nvis,
                               cuda_meshscene.TILE_H * cfg.width,
                               nbytes(pos, cam, windows, mats, got),
-                              cull_rows=nvis.numel() * windows.shape[1])
+                              cull_rows=nvis.shape[-1] * int((windows[..., 0] != 0).sum()))
             res = rgb_timings(
                 lambda: cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam),
                 lambda: cuda_meshscene._launch_rgb(cfg, pos, cam, windows, mats),
@@ -1206,6 +1256,95 @@ def check_rgb(dev):
           f"{time.perf_counter() - t_phase:.1f} s")
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return tuple({k: out[(name, 1)][k] for k in keep} for name in ("K1-rgb", "K4-rgb"))
+
+
+MESH_TILE_W = 32  # meshscene.cu's kTileW: a mesh kernel block's image columns
+# meshscene.cu's Section enum, in order (-DMESH_SECTIONS)
+MESH_SECTIONS = ("block", "setup", "cull", "stage", "rows", "shade", "store")
+TIMED_MESH = ("meshscene", ("MESH_SECTIONS",))  # cuda_build.load's arguments
+MESH_SECTION_LAUNCHES = 5  # timed launches, after one warm-up
+
+
+def mesh_sections(dev):
+    """K4's and K4-rgb's blocks split by section: mean cycles per block of
+    each Section of meshscene.cu's MESH_SECTIONS build (clock64 on each
+    block's thread 0, a barrier before each mark) over MESH_SECTION_LAUNCHES
+    launches at 640x480, B = 1 and 16, on the baked orchard from
+    check_meshscene's poses (window 192); ptxas's registers and spills of
+    both builds; each mesh kernel's blocks per SM and the waves of those
+    grids; and the K = 0 floor, the device time of a launch on an empty
+    window (the set-up, the ground or sky and the stores)."""
+    import ctypes
+
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene, raycast
+
+    print(ptxas_report("meshscene", cuda_build.build_logs.get("meshscene", "")))
+    print(ptxas_report("meshscene", cuda_build.build_logs.get("meshscene-MESH_SECTIONS", ""),
+                       "meshscene.cu -DMESH_SECTIONS"))
+    per_sm = (ctypes.c_int * 3)()
+    cuda_build.check(cuda_build.load("meshscene").meshscene_occupancy(per_sm),
+                     "meshscene_occupancy")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = raycast.make_config(640, 480)
+    strips = cfg.height // cuda_meshscene.TILE_H
+    blocks_at = {B: strips * (cfg.width // MESH_TILE_W) * B for B in (1, 16)}
+    print(f"mesh kernels, blocks per SM (occupancy API, {sms} SMs) and the waves of a "
+          f"{cfg.width}x{cfg.height} grid: " + ", ".join(
+              f"{name} {n} (" + ", ".join(
+                  f"B={B}: {nb / (n * sms):.3f}" for B, nb in blocks_at.items()) + ")"
+              for name, n in zip(("K4", "K4w", "K4-rgb"), per_sm)))
+
+    lib = cuda_build.load(*TIMED_MESH)
+    fns = {}
+    for name in ("meshscene_strips_launch", "meshscene_rgb_launch"):
+        fns[name] = getattr(lib, name)
+        fns[name].argtypes, fns[name].restype = cuda_meshscene._ARGTYPES[name], ctypes.c_int
+    mhz = max_sm_mhz()
+    n = len(MESH_SECTIONS)
+    sec, blocks = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * 1)()
+    mesh = baked_orchard(dev)
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    g = torch.Generator().manual_seed(SEED + 5)
+    for B in (1, 16):
+        pos, cam = mesh_poses(g, B, dev)
+        windows, order, ok = meshscene.select_window(mesh, pos, reach, 192, return_order=True)
+        mats = meshscene.window_materials(mesh, windows, order, ok)
+
+        def k4(w, fn=None):
+            return cuda_meshscene._launch("meshscene_strips_launch", cfg, pos, cam, w,
+                                          launcher=fn)
+
+        def k4rgb(w, fn=None):
+            return cuda_meshscene._launch_rgb(cfg, pos, cam, w, mats[:, :w.shape[1]],
+                                              launcher=fn)
+
+        cases = {"K4": (k4, fns["meshscene_strips_launch"]),
+                 "K4-rgb": (k4rgb, fns["meshscene_rgb_launch"])}
+        for name, (launch, timed) in cases.items():
+            _check(torch.equal(launch(windows, timed), launch(windows)),
+                   f"{name}: the MESH_SECTIONS build differs")
+            torch.cuda.synchronize()
+            cuda_build.check(lib.meshscene_sections_read(sec, blocks), "meshscene_sections_read")
+            for _ in range(MESH_SECTION_LAUNCHES):
+                launch(windows, timed)
+            torch.cuda.synchronize()
+            cuda_build.check(lib.meshscene_sections_read(sec, blocks), "meshscene_sections_read")
+            nb = blocks[0]
+            _check(nb == MESH_SECTION_LAUNCHES * blocks_at[B],
+                   f"{name}: {nb} blocks timed")
+            whole = device_us(lambda launch=launch: launch(windows))
+            floor = device_us(lambda launch=launch: launch(windows[:, :0]))
+            print(f"{name} section timers, baked orchard, B={B} 640x480, window "
+                  f"{windows.shape[1]} rows (mean cycles per block over {nb} blocks; thread 0, "
+                  f"a barrier before each mark): " + ", ".join(
+                      f"{s} {sec[k] / nb:.0f}" + (f" ({100 * sec[k] / sec[0]:.1f}%)" if k else "")
+                      for k, s in enumerate(MESH_SECTIONS))
+                  + f"; a block {sec[0] / nb / mhz:.3f} us at the {mhz:.0f} MHz maximum SM "
+                    f"clock; the normal build's device time {whole:.1f} us, at K = 0 (the "
+                    f"floor) {floor:.1f} us")
 
 
 def tick_states(params):
@@ -3036,8 +3175,8 @@ def _c_declaration(src, name):
 
 
 def check_parent(dev, root):
-    """This tree's K1, K4, K3, K5 (true state, mocap, GPS-IMU, and the UWB
-    build), K6 and K1-rgb against the parent's: its raycast.cu,
+    """This tree's K1, K4, K4w, K3, K5 (true state, mocap, GPS-IMU, and the
+    UWB build), K6, K1-rgb and K4-rgb against the parent's: its raycast.cu,
     meshscene.cu, frame.cu, rollout.cu (with and without TICK_UWB) and
     fleet_uwb.cu built from root/agrifly_tpu_torch/csrc and called through
     this tree's wrappers, which the check allows only where the parent
@@ -3059,6 +3198,8 @@ def check_parent(dev, root):
     builds = {"raycast": ("raycast", (), "raycast_launch"),
               "raycast_rgb": ("raycast", (), "raycast_rgb_launch"),
               "meshscene": ("meshscene", (), "meshscene_strips_launch"),
+              "meshscene_window": ("meshscene", (), "meshscene_window_launch"),
+              "meshscene_rgb": ("meshscene", (), "meshscene_rgb_launch"),
               "frame": ("frame", (), "frame_ticks_launch"),
               "rollout": ("rollout", (), "env_rollout_launch"),
               "rollout_uwb": ("rollout", ("TICK_UWB",), "env_rollout_launch"),
@@ -3089,11 +3230,12 @@ def check_parent(dev, root):
         fn.restype = ctypes.c_int
         fns[key] = fn
     times = {}
-    _parent_renders(dev, fns["raycast"], fns["meshscene"], times)
+    _parent_renders(dev, fns["raycast"], fns["meshscene"], fns["meshscene_window"], times)
     _parent_frame(dev, fns["frame"], times)
     _parent_rollout(dev, fns["rollout"], fns["rollout_uwb"], times)
     _parent_fleet_uwb(dev, fns["fleet_uwb"], times)
     _parent_rgb(dev, fns["raycast_rgb"], times)
+    _parent_mesh_rgb(dev, fns["meshscene_rgb"], times)
     print("parent vs this tree, in turns (parent, this, this, parent): " + "; ".join(
         f"{k} {v[0]:.1f} / {v[1]:.1f} {'ms' if 'flight' in k else 'us'} ({v[1] / v[0]:.4f})"
         for k, v in times.items()))
@@ -3106,15 +3248,17 @@ def _in_turns(parent, mine, reps=5):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
-def _parent_renders(dev, raycast_fn, meshscene_fn, times):
-    """K1 and K4 (depth) at 640x480 on check_raycast's and check_meshscene's
-    first poses (B = 1 and 16), the default orchard and the baked one."""
+def _parent_renders(dev, raycast_fn, meshscene_fn, window_fn, times):
+    """K1, K4 and K4w (depth) at 640x480 on check_raycast's and
+    check_meshscene's first poses (B = 1 and 16), the default orchard and
+    the baked one."""
     import torch
 
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
 
     raycast_fn.argtypes = cuda_raycast._ARGTYPES["raycast_launch"]
     meshscene_fn.argtypes = cuda_meshscene._ARGTYPES["meshscene_strips_launch"]
+    window_fn.argtypes = cuda_meshscene._ARGTYPES["meshscene_window_launch"]
     cfg = raycast.make_config(640, 480)
     scene, mesh = orchard.make_params(device=dev), baked_orchard(dev)
     reach = cfg.far * meshscene.slant_factor(cfg)
@@ -3133,7 +3277,13 @@ def _parent_renders(dev, raycast_fn, meshscene_fn, times):
                                                    windows))
         _check(torch.equal(launches[0](), launches[1]()), f"K4 against the parent's (B={B})")
         times[f"K4 B={B}"] = _in_turns(*launches)
-    print("parent's K1 and K4 at 640x480, B = 1 and 16: codes bit-equal")
+        launches = (lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, mpos, mcam,
+                                                   windows, launcher=window_fn),
+                    lambda: cuda_meshscene._launch("meshscene_window_launch", cfg, mpos, mcam,
+                                                   windows))
+        _check(torch.equal(launches[0](), launches[1]()), f"K4w against the parent's (B={B})")
+        times[f"K4w B={B}"] = _in_turns(*launches)
+    print("parent's K1, K4 and K4w at 640x480, B = 1 and 16: codes bit-equal")
 
 
 def _parent_frame(dev, parent, times):
@@ -3294,6 +3444,55 @@ def _parent_rgb(dev, parent, times):
           "scenes, from above the canopy and pitched up")
 
 
+def _parent_mesh_rgb(dev, parent, times):
+    """K4-rgb at 640x480 against the parent's, bit for bit: the baked
+    orchard and the mixed scene at B = 1 and 16 (check_rgb's poses) with
+    windows of 192 and 300 rows (two staged chunks), from above the canopy,
+    and on edge_rows; device µs in turns on the baked orchard at B = 1 and
+    16 (window 192)."""
+    import tempfile
+
+    import torch
+
+    from agrifly_tpu_torch.render import cuda_meshscene, meshscene, raycast
+
+    parent.argtypes = cuda_meshscene._ARGTYPES["meshscene_rgb_launch"]
+    cfg = raycast.make_config(640, 480)
+    reach = cfg.far * meshscene.slant_factor(cfg)
+    g = torch.Generator().manual_seed(SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {"baked orchard": baked_orchard(dev), "mixed scene": mixed_scene(dev, tmp)}
+    for label, mesh in scenes.items():
+        for B in (1, 16):
+            pos, cam = mesh_poses(g, B, dev)
+            cases = (("random poses", pos, cam), ("above the canopy", *above_canopy(dev)))
+            for case, p, c in cases:
+                for capacity in (192, 300, "300 shuffled"):
+                    windows, order, ok = meshscene.select_window(mesh, p, reach,
+                                                                 300 if capacity != 192 else 192,
+                                                                 return_order=True)
+                    mats = meshscene.window_materials(mesh, windows, order, ok)
+                    if capacity == "300 shuffled":
+                        windows, mats = shuffled_window(windows, mats)
+                    launches = (lambda: cuda_meshscene._launch_rgb(cfg, p, c, windows, mats,
+                                                                   launcher=parent),
+                                lambda: cuda_meshscene._launch_rgb(cfg, p, c, windows, mats))
+                    _check(torch.equal(launches[1](), launches[0]()),
+                           f"K4-rgb against the parent's ({label}, {case}, B={B}, window "
+                           f"{capacity})")
+                    if label == "baked orchard" and case == "random poses" and capacity == 192:
+                        times[f"K4-rgb B={B}"] = _in_turns(*launches)
+    windows, pos, cam = edge_rows(dev)
+    mats = torch.where(windows[..., 0] == meshscene.PRIM_CYLINDER, meshscene.MAT_TRUNK,
+                       meshscene.MAT_CANOPY).to(torch.int32)
+    _check(torch.equal(cuda_meshscene._launch_rgb(cfg, pos, cam, windows, mats),
+                       cuda_meshscene._launch_rgb(cfg, pos, cam, windows, mats, launcher=parent)),
+           "K4-rgb against the parent's (edge rows)")
+    print("parent's K4-rgb at 640x480: bit-equal on the "
+          "baked orchard and the mixed scene at B = 1 and 16, windows of 192 and 300 rows and a "
+          "shuffled 300-row one, from above the canopy, and on the edge rows")
+
+
 def build_kernels():
     """Build the kernel libraries, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3301,10 +3500,9 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 5) as pool:
-        timed = [pool.submit(cuda_build.load, *variant)
-                 for variant in (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT,
-                                 TIMED_FLEET)]
+    variants = (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT, TIMED_FLEET, TIMED_MESH)
+    with ThreadPoolExecutor(len(KERNELS) + len(variants)) as pool:
+        timed = [pool.submit(cuda_build.load, *variant) for variant in variants]
         list(pool.map(cuda_build.load, KERNELS))
         for variant in timed:
             variant.result()
@@ -3382,6 +3580,7 @@ def main(argv) -> int:
         k1 = check_raycast(dev)
         k4, k4w = check_meshscene(dev)
         k1rgb, k4rgb = check_rgb(dev)
+        mesh_sections(dev)
         k2 = check_inflate(dev)
         k2b = check_inflate_batched(dev)
         k3 = check_frame_ticks(dev)

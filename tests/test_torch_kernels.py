@@ -361,9 +361,9 @@ def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F81
     render_depth_window_prepared's and K4w's; on the baked orchard and on
     the scene of primitives and OBJ triangles that chip_smoke.py writes and
     loads, with the frame's 192-row window and a 300-row one (two staged
-    chunks), and on chip_smoke.py's window of edge-case rows (its first B
-    cameras)."""
-    from chip_smoke import baked_orchard, edge_rows, mesh_poses, mixed_scene
+    chunks), also shuffled (rows in both chunks), and on chip_smoke.py's
+    window of edge-case rows (its first B cameras)."""
+    from chip_smoke import baked_orchard, edge_rows, mesh_poses, mixed_scene, shuffled_window
 
     cfg = raycast.make_config(640, 480)
     if scene == "edge":
@@ -375,6 +375,10 @@ def test_mesh_kernels_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: F81
         reach = cfg.far * meshscene.slant_factor(cfg)
         cases = [(meshscene.select_window(mesh, pos, reach, capacity), min(capacity, mesh.count))
                  for capacity in (192, 300)]
+        # the 300-row window's visible rows all lie in its first staged chunk;
+        # shuffled, both chunks hold some
+        shuffled, _ = shuffled_window(cases[1][0], cases[1][0][..., 0].int())
+        cases.append((shuffled, cases[1][1]))
     for windows, rows in cases:
         before = (cuda_meshscene.render_depth_strips_batch.launches,
                   cuda_meshscene.render_depth_window_batch.launches)
@@ -432,11 +436,13 @@ def test_mesh_rgb_kernel_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: 
     """K4-rgb at 640x480, one launch for B cameras of random yaw and one
     above the canopy (its window holds rows beyond the far plane), equal
     bit for bit to render_rgb_strips and render_rgb_window, with the
-    frame's 192-row window and a 300-row one (two staged chunks); and on
-    chip_smoke.py's edge rows, all five cameras (camera 4 meets two rows at
-    the same t: the earlier row wins, though the kernel stages it later).
-    render_rgb_batch launches it whatever strip_cull says."""
-    from chip_smoke import above_canopy, baked_orchard, edge_rows, mesh_poses, mixed_scene
+    frame's 192-row window, a 300-row one (two staged chunks) and that one
+    shuffled, where rows of both chunks win pixels (the image changes where
+    either chunk's rows are dropped); and on chip_smoke.py's edge rows, all
+    five cameras (camera 4 meets two rows at the same t: the earlier row
+    wins). render_rgb_batch launches it whatever strip_cull says."""
+    from chip_smoke import (above_canopy, baked_orchard, edge_rows, mesh_poses, mixed_scene,
+                            shuffled_window)
 
     cfg = raycast.make_config(640, 480)
     if scene == "edge":
@@ -454,6 +460,7 @@ def test_mesh_rgb_kernel_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: 
             windows, order, ok = meshscene.select_window(mesh, pos, reach, capacity,
                                                          return_order=True)
             cases.append((windows, meshscene.window_materials(mesh, windows, order, ok)))
+        cases.append(shuffled_window(*cases[1]))
         before = cuda_meshscene.render_rgb_strips_batch.launches
         for strip_cull in (None, False):
             got = cuda_meshscene.render_rgb_batch(cfg, mesh, pos, cam, strip_cull=strip_cull)
@@ -467,6 +474,50 @@ def test_mesh_rgb_kernel_bit_equal_to_plain(cuda, scene, B, tmp_path):  # noqa: 
         assert got.shape == (pos.shape[0], 480, 640, 3) and got.dtype == torch.uint8
         assert torch.equal(got, strips) and torch.equal(got, plain)
         assert torch.unique(got.reshape(-1, 3), dim=0).shape[0] > 20
+    if scene != "edge":
+        windows, mats = cases[-1]
+        for rows in (slice(None, 256), slice(256, None)):
+            dropped = windows.clone()
+            dropped[:, rows, 0] = 0
+            assert not torch.equal(
+                cuda_meshscene.render_rgb_strips_batch(cfg, dropped, mats, pos, cam), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_mesh_rgb_kernel_ragged_width(cuda, B):  # noqa: F811
+    """K4-rgb at 600x480, a width that is not a multiple of the tile's 32
+    columns, so that the last tile of each strip is ragged: bit-equal to
+    render_rgb_strips and render_rgb_window on the baked orchard."""
+    from chip_smoke import above_canopy, baked_orchard, mesh_poses
+
+    cfg = raycast.make_config(600, 480)
+    mesh = baked_orchard(cuda)
+    pos, cam = mesh_poses(torch.Generator().manual_seed(B), B, cuda)
+    up_pos, up_cam = above_canopy(cuda)
+    pos, cam = torch.cat([pos, up_pos]), torch.cat([cam, up_cam])
+    windows, order, ok = meshscene.select_window(mesh, pos, cfg.far * meshscene.slant_factor(cfg),
+                                                 192, return_order=True)
+    mats = meshscene.window_materials(mesh, windows, order, ok)
+    strips = meshscene.render_rgb_strips(cfg, windows, mats, pos, cam)
+    assert torch.equal(strips, meshscene.render_rgb_window(cfg, windows, mats, pos, cam))
+    got = cuda_meshscene.render_rgb_strips_batch(cfg, windows, mats, pos, cam)
+    torch.cuda.synchronize()
+    assert got.shape == (B + 1, 480, 600, 3) and torch.equal(got, strips)
+
+
+def test_mesh_constants_match_the_kernel_source():
+    """cuda_meshscene's strip height, and chip_smoke.py's tile width and
+    section names, follow meshscene.cu."""
+    from chip_smoke import MESH_SECTIONS, MESH_TILE_W
+
+    src = (CSRC / "meshscene.cu").read_text()
+    assert _constant(src, "kTileH") == cuda_meshscene.TILE_H
+    assert _constant(src, "kLaneCols") * _constant(src, "kPixels") == MESH_TILE_W
+    body = re.search(r"enum Section \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kNumSections" and len(names) - 1 == len(MESH_SECTIONS)
+    assert [n[4:].lower() for n in names[:-1]] == list(MESH_SECTIONS)
 
 
 def _endpoint_seeds(params, n, seed, lead=()):
