@@ -24,7 +24,7 @@
 //     one-thread-per-vehicle kernel would (Helpers is then empty);
 //   - the replay's 9 segments are spread over lanes 1-9 (the helpers),
 //     which wait at __syncwarp for the leader's requests: each segment's
-//     decay expf and its rotation from_rotation_vector, the costly parts of
+//     decay exp and its rotation from_rotation_vector, the costly parts of
 //     a segment, one segment a lane (one request for the prediction, whose
 //     rotations need no decay; two for the measurement update); the leader
 //     then chains the segments in the plain loop's order, so every output

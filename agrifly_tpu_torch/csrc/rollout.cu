@@ -32,7 +32,7 @@
 //   - a group of G lanes per env (a template parameter: 1, 2, 4 or 8), 32
 //     envs a block (32 G threads), so 4096 envs are 128 blocks, one a SM.
 //     The group's lanes run the env's chain in lockstep on the one copy of
-//     its state, and the mocap replay's nine segments (each one's expf and
+//     its state, and the mocap replay's nine segments (each one's exp and
 //     rotation) are split over them (tick.cuh's Lanes<G>): each lane
 //     computes its segments with the serial operations and __shfl_sync
 //     hands every segment to every lane, so every G gives G = 1's values bit

@@ -4,10 +4,10 @@
 // the GPS-IMU estimator). Each section mirrors the torch module of
 // agrifly_tpu_torch it is named after, with the same float32 operations in
 // the same order (the build flags of cuda_build.py: -fmad=false, no fast
-// math, IEEE division and sqrtf). The Cephes polynomials of ops/trig.py
-// stand in for acosf/asinf/atan2f. Every branch that torch computes and
-// discards with `where` is computed here only when it is selected: the
-// result is the same.
+// math, IEEE division and sqrtf; sin, cos and exp through double, sin_r).
+// The Cephes polynomials of ops/trig.py stand in for acosf/asinf/atan2f.
+// Every branch that torch computes and discards with `where` is computed
+// here only when it is selected: the result is the same.
 //
 // The env state's and parameters' leaves are declared in two X-macro tables
 // below, the contract with the Python wrappers, which parse them
@@ -508,7 +508,8 @@ struct Lanes {
 };
 
 // ---------------------------------------------------------------------------
-// ops/fmath.py: dot3, norm3, cross; ipow in JAX integer_pow's order
+// ops/fmath.py: dot3, norm3, cross; ipow in JAX integer_pow's order; sin,
+// cos and exp correctly rounded
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float dot3(f3 a, f3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
@@ -518,6 +519,13 @@ __device__ __forceinline__ f3 cross(f3 a, f3 b) {
 }
 __device__ __forceinline__ float ipow2(float x) { return x * x; }
 __device__ __forceinline__ float ipow3(float x) { return x * (x * x); }
+// sin, cos and exp of a float evaluated in double and rounded, as ops/fmath
+// computes them on either device: CUDA's sinf, cosf and expf are within 2
+// ulp, and the attitude controller's acos of a cosine within ulps of 1 turns
+// one ulp into percent of a commanded rate.
+__device__ __forceinline__ float sin_r(float x) { return (float)sin((double)x); }
+__device__ __forceinline__ float cos_r(float x) { return (float)cos((double)x); }
+__device__ __forceinline__ float exp_r(float x) { return (float)exp((double)x); }
 __device__ __forceinline__ float ipow4(float x) { float x2 = x * x; return x2 * x2; }
 __device__ __forceinline__ float ipow5(float x) { float x2 = x * x; return x * (x2 * x2); }
 
@@ -626,8 +634,8 @@ __device__ __forceinline__ f4 qmul(f4 q2, f4 q1) {
 
 __device__ __forceinline__ f4 from_axis_angle(f3 u, float angle) {
   float half = angle * 0.5f;
-  float s = sinf(half);
-  return f4{cosf(half), s * u.x, s * u.y, s * u.z};
+  float s = sin_r(half);
+  return f4{cos_r(half), s * u.x, s * u.y, s * u.z};
 }
 
 __device__ f4 from_rotation_vector(f3 rv) {
@@ -679,9 +687,9 @@ __device__ void to_euler_ypr(f4 q, float* yaw, float* pitch, float* roll) {
 }
 
 __device__ f4 from_euler_ypr(float y, float p, float r) {
-  float cy = cosf(0.5f * y), sy = sinf(0.5f * y);
-  float cp = cosf(0.5f * p), sp = sinf(0.5f * p);
-  float cr = cosf(0.5f * r), sr = sinf(0.5f * r);
+  float cy = cos_r(0.5f * y), sy = sin_r(0.5f * y);
+  float cp = cos_r(0.5f * p), sp = sin_r(0.5f * p);
+  float cr = cos_r(0.5f * r), sr = sin_r(0.5f * r);
   return f4{cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
             cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr};
 }
@@ -721,7 +729,7 @@ __device__ f3 plant_step(const EnvParams& P, EnvState& S, const float* motor_cmd
 
   // motors
   bool tc_zero = P.p_motor_time_const == 0.0f;
-  float c = tc_zero ? 0.0f : expf(-dt / (tc_zero ? 1.0f : P.p_motor_time_const));
+  float c = tc_zero ? 0.0f : exp_r(-dt / (tc_zero ? 1.0f : P.p_motor_time_const));
   float new_speeds[4], w_abs_w[4], thrusts[4], tz[4];
   for (int i = 0; i < 4; ++i) {
     float cmd = tmax(motor_cmds[i], 0.0f);
@@ -1541,7 +1549,7 @@ constexpr int kSegs = kPipeCap + 1;
 
 // a segment's decay of the angular velocity toward its command
 __device__ __forceinline__ float segment_decay(bool ballistic, float dt) {
-  return ballistic ? 1.0f : expf(-dt / 0.04f);
+  return ballistic ? 1.0f : exp_r(-dt / 0.04f);
 }
 
 // A vehicle leader's requests to its helper lanes, in shared memory:

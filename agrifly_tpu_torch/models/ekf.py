@@ -54,7 +54,7 @@ INIT_STD = (INIT_STD_POS,) * 3 + (INIT_STD_VEL,) * 3 + (
 
 
 def _diag_cov(stds, device):
-    d = torch.tensor(stds, dtype=torch.float32, device=device)
+    d = const(tuple(stds), device)  # cached on the device: no copy from the host a tick
     return lin3.diag_from(d * d)
 
 

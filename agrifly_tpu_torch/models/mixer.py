@@ -11,7 +11,7 @@ import math
 import torch
 
 from agrifly_tpu_torch.ops import lin3
-from agrifly_tpu_torch.ops.fmath import const, sqrt
+from agrifly_tpu_torch.ops.fmath import const, scalar, sqrt
 
 # allocation signs for (tx/d, ty/d, tz/kt) per motor 0..3
 _SIGNS = ((-1.0, -1.0, -1.0), (-1.0, +1.0, +1.0), (+1.0, +1.0, -1.0), (+1.0, -1.0, +1.0))
@@ -19,7 +19,7 @@ _SIGNS = ((-1.0, -1.0, -1.0), (-1.0, +1.0, +1.0), (+1.0, +1.0, -1.0), (+1.0, -1.
 
 def motor_forces(params, total_thrust, torque):
     """Per-prop forces [N] from total thrust [N] and body torque [N m]."""
-    d = params.arm_length / math.sqrt(2.0)
+    d = params.arm_length / scalar(math.sqrt(2.0), params.arm_length)
     kt = params.prop0_spin_dir * params.prop_torque_from_thrust
     des_f = torch.minimum(total_thrust, params.max_cmd_total_thrust)
     terms = torch.stack([torque[..., 0] / d, torque[..., 1] / d, torque[..., 2] / kt], dim=-1)

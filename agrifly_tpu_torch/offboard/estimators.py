@@ -29,7 +29,7 @@ import torch
 from agrifly_tpu_torch.models import ekf as _ekf
 from agrifly_tpu_torch.ops import lin3
 from agrifly_tpu_torch.ops import rotation as rot
-from agrifly_tpu_torch.ops.fmath import const, exp, ipow, norm3, sqrt
+from agrifly_tpu_torch.ops.fmath import const, exp, ipow, norm3, scalar, sqrt
 
 PIPE_CAPACITY = 8
 MAX_CONSECUTIVE_REJECT = 10
@@ -192,7 +192,7 @@ def _integrate_segment(pos, vel, att, angvel, acc, cmd_angvel, ballistic, dt,
     flavor (frozen start velocity and angvel); None: the update replay.
     dt and ballistic have the vehicles' leading shape, the vectors one
     trailing axis more."""
-    c = torch.where(ballistic, 1.0, exp(-dt / TAU_TRACK_ANGVEL))[..., None]
+    c = torch.where(ballistic, 1.0, exp(-dt / scalar(TAU_TRACK_ANGVEL, dt)))[..., None]
     dt = dt[..., None]
     if v0 is not None:
         new_pos = pos + v0 * dt + acc * (dt * dt * 0.5)

@@ -8,9 +8,14 @@ PyTorch's CPU kernels and XLA:CPU differ in a few elementwise ops:
   CUDA's float32 square root is IEEE-exact, so CUDA tensors use it directly.
 - `x ** n` with an integer n > 3 calls `pow`; JAX's `integer_pow` multiplies
   by repeated squaring. `ipow` repeats JAX's multiplication order.
-- `torch.sin`, `cos` and `exp` on float32 CPU tensors differ from XLA's
-  in many more last bits than the correctly rounded values do; `sin`,
-  `cos` and `exp` here round a float64 evaluation on the CPU.
+- `torch.sin`, `cos` and `exp` on float32 tensors differ from XLA's in
+  many more last bits than the correctly rounded values do, on the CPU and
+  on the card alike (CUDA's `sinf`, `cosf`, `expf` are within 2 ulp); `sin`,
+  `cos` and `exp` here round a float64 evaluation on every device, so the
+  plain code gives the same float32 values on the card as on the CPU.
+- Dividing a CUDA tensor by a python number multiplies by the float32
+  reciprocal, which is not the correctly rounded quotient; the CPU divides.
+  Dividing by `scalar(value, x)` divides on the card too.
 - `jnp.cross` and `jnp.linalg.norm` on 3-vectors are fixed component
   formulas; `cross` and `norm3` write the same formulas out.
 """
@@ -30,24 +35,24 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rounded64(fn, x):
-    if x.is_cuda or x.dtype != torch.float32:
+    if x.dtype != torch.float32:
         return fn(x)
     return fn(x.double()).float()
 
 
 def sin(x: torch.Tensor) -> torch.Tensor:
-    """sin, correctly rounded on the CPU (XLA:CPU's is within an ulp of
-    that, where torch's vectorised float32 sin often is not)."""
+    """sin, correctly rounded (XLA:CPU's is within an ulp of that, where
+    torch's float32 sin often is not, on the CPU and on the card)."""
     return _rounded64(torch.sin, x)
 
 
 def cos(x: torch.Tensor) -> torch.Tensor:
-    """cos, correctly rounded on the CPU (see sin)."""
+    """cos, correctly rounded (see sin)."""
     return _rounded64(torch.cos, x)
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
-    """exp, correctly rounded on the CPU (see sin)."""
+    """exp, correctly rounded (see sin)."""
     return _rounded64(torch.exp, x)
 
 
@@ -88,7 +93,8 @@ def scalar(value, like: torch.Tensor) -> torch.Tensor:
     Dividing a CUDA tensor by a python number multiplies by its float32
     reciprocal, which is not the correctly rounded quotient; dividing by a
     device tensor is. Functions whose float32 results a CUDA kernel must
-    reproduce bit for bit divide by `scalar(...)`.
+    reproduce bit for bit, or the plain code must give on the card as on the
+    CPU, divide by `scalar(...)`.
     """
     return torch.full((), value, dtype=like.dtype, device=like.device)
 

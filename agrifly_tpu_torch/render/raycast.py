@@ -76,7 +76,7 @@ def make_config(width=640, height=480, focal=None, far=10.0, dda_steps=8) -> Ren
 
 def mount_quaternion(like: torch.Tensor) -> torch.Tensor:
     """The camera mount as a float32 quaternion on `like`'s device."""
-    return torch.tensor(DEPTH_CAM_Q, dtype=like.dtype, device=like.device)
+    return const(tuple(float(v) for v in DEPTH_CAM_Q), like.device, like.dtype)
 
 
 def camera_attitude(body_att):

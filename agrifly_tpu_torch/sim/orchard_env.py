@@ -329,6 +329,12 @@ def _where(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim())), a, b)
 
 
+def _waypoint(params: OrchardEnvParams, idx):
+    """The waypoints at idx (any leading shape), gathered on the device: a
+    0-d index tensor in [] would be read back to the host."""
+    return params.waypoints.index_select(0, idx.reshape(-1).long()).reshape(idx.shape + (3,))
+
+
 def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     """Render -> plan -> mission bookkeeping (everything before the ticks).
 
@@ -368,7 +374,7 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     # waypoint switching at the reference's 1 m radius; after the last
     # waypoint, optionally enter the landing descent
     in_flight = base.step >= params.start_flight_step
-    goal_world = params.waypoints[s.waypoint_idx.long()]
+    goal_world = _waypoint(params, s.waypoint_idx)
     at_wp = (in_flight & (s.mstage == MSTAGE_CRUISE)
              & (norm3(goal_world - est_pos) < WAYPOINT_RADIUS))
     has_next = s.waypoint_idx + 1 < params.num_waypoints
@@ -379,7 +385,7 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
         mstage = torch.where(enter_land, MSTAGE_LANDING, mstage)
         land_pos = _where(enter_land, est_pos, land_pos)
         land_start_step = torch.where(enter_land, base.step, land_start_step)
-    goal_world = params.waypoints[waypoint_idx.long()]
+    goal_world = _waypoint(params, waypoint_idx)
     goal_cam = lin3.mv3t(R_wc, goal_world - est_pos)
 
     res = rappids.plan(params.planner, depth, u, vel_cam, acc_cam, grav_cam, goal_cam,

@@ -8,6 +8,8 @@ are explicit float32/int32 arrays.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -98,6 +100,89 @@ def compare_state(port_state, jax_state, closed_loop=False):
     return worst[:5]
 
 
+# The bridges' bags against the JAX package's. A closed loop meets the tick
+# criteria for TICK_CRITERIA_TICKS ticks; later the commanded body rates (an
+# acos of a cosine within ulps of 1) part by up to the command floor and the
+# plant follows them, so the JAX package's terms for a long rollout hold
+# (tests/test_torch_env.py): integers and stamps equal, positions within
+# FINAL_POS_M. Over the whole flight the wire holds: telemetry values within
+# one code of their field's range, the command stream's codes within
+# WIRE_MAX_CODES, the commanded rates within the command floor.
+TICK_CRITERIA_TICKS = 60
+FINAL_POS_M = 0.05
+POSITION_FIELDS = ("posx", "posy", "posz", "position", "position_estimate_W",
+                   "position_reference_W", "translation")
+TEL_RANGES = {"accelerometer": (-30.0, 30.0), "rateGyro": (-35.0, 35.0),
+              "position": (-30.0, 30.0), "attitude": (-1.0, 1.0), "velocity": (-30.0, 30.0),
+              "motorForces": (0.0, 10.0), "debugVals": (-100.0, 100.0),
+              "batteryVoltage": (0.0, 15.0)}  # io/telemetry's ranges, by message field
+
+
+def bag_bound(topic, name, stamp, ref, dt=0.002):
+    """compare_bags' bound for a bridge's float against the JAX bridge's
+    (see TICK_CRITERIA_TICKS); None where the long-rollout terms check
+    nothing."""
+    if topic.startswith("telemetry") and name in TEL_RANGES:
+        lo, hi = TEL_RANGES[name]
+        return (hi - lo) / 65536.0 * (1 + 1e-6)
+    if name == "codes":  # a radio command's field codes (see compare_bags' callers)
+        return float(WIRE_MAX_CODES)
+    if name == "angular_velocity_command_B":
+        return COMMAND_FLOOR + FLOAT_REL * abs(ref)
+    if stamp > TICK_CRITERIA_TICKS * dt + 1e-9:
+        return FINAL_POS_M if name in POSITION_FIELDS else None
+    return FLOAT_REL * (abs(ref) + FLOAT_FLOOR)
+
+
+def read_bag(path):
+    """The lines of a MessageRecorder bag (JSONL)."""
+    import json
+
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def compare_bags(mine, theirs, bound_of):
+    """Two recorder bags (lists of JSON lines) line by line: the same topics
+    in the same order, the same keys, equal strings, integers and stamps;
+    each other float within bound_of(topic, field, stamp, ref) (NaN
+    equal to NaN; a bound of None leaves the value unchecked). Returns the
+    worst float ratio."""
+    assert len(mine) == len(theirs)
+    worst = 0.0
+
+    def walk(a, b, path, topic, stamp):
+        nonlocal worst
+        if isinstance(b, dict):
+            assert isinstance(a, dict) and a.keys() == b.keys(), path
+            for k in b:
+                walk(a[k], b[k], path + (k,), topic, stamp)
+        elif isinstance(b, list):
+            assert isinstance(a, list) and len(a) == len(b), path
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, path + (i,), topic, stamp)
+        elif isinstance(b, (bool, int, str)) or b is None or path[-1] == "stamp":
+            assert type(a) is type(b) and a == b, (path, a, b)
+        else:
+            assert isinstance(a, float), (path, a, b)
+            if np.isnan(b) or np.isnan(a):
+                assert np.isnan(a) and np.isnan(b), (path, a, b)
+                return
+            name = next(p for p in reversed(path) if isinstance(p, str))
+            bound = bound_of(topic, name, stamp, b)
+            if bound is None:
+                return
+            if bound:
+                worst = max(worst, abs(a - b) / bound)
+            assert abs(a - b) <= bound, (path, a, b, bound)
+
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        assert a["topic"] == b["topic"], (i, a["topic"], b["topic"])
+        stamp = b["msg"]["header"]["stamp"]
+        walk(a["msg"], b["msg"], (i, a["topic"]), a["topic"], stamp)
+    return worst
+
+
 def make_scene(W, H, n_obstacles, seed):
     """Random box obstacles on a far background (int32 depth codes): the
     scene of tests/test_pallas_inflate.py, in numpy."""
@@ -129,11 +214,58 @@ def cuda():
     return torch.device("cuda")
 
 
+TICK_DRAWS = 1500  # the longest chain of JAX tick draws a test takes (the golden flight)
+
+
+@functools.lru_cache(maxsize=None)
+def _tick_draw_chain():
+    import jax
+    import jax.numpy as jnp
+
+    def chain(key):
+        def body(k, _):
+            k, sub = jax.random.split(k)
+            k1, k2 = jax.random.split(sub)
+            return k, (k, jnp.stack([jax.random.normal(k1, (3,), jnp.float32),
+                                     jax.random.normal(k2, (3,), jnp.float32)]))
+        return jax.lax.scan(body, key, None, length=TICK_DRAWS)[1]
+    return jax.jit(jax.vmap(chain))
+
+
+def jax_tick_draws(keys, n):
+    """The IMU noise (..., n, 2, 3) the JAX package's env.step draws over n
+    ticks from each state key of `keys` (..., 2) (`key, sub = split(key)`,
+    then `k1, k2 = split(sub)`, gyro from k1 and acc from k2), and each
+    chain's key after them."""
+    keys = np.asarray(keys)
+    lead = keys.shape[:-1]
+    ks, noise = _tick_draw_chain()(keys.reshape(-1, 2))
+    noise = np.asarray(noise)[:, :n].reshape(lead + (n, 2, 3))
+    return noise, np.asarray(ks)[:, n - 1].reshape(lead + (2,))
+
+
+def jax_frame_draws(key, n, n_candidates, ticks=16):
+    """The draws of n orchard frames from the JAX state's key: each frame
+    `key, sub, k_noise = split(key, 3)`, the planner's uniform block from
+    sub and the IMU noise from k_noise. Returns u (n, 4, n_candidates),
+    noise (n, ticks, 2, 3) float32 and the key after them."""
+    import jax
+    import jax.numpy as jnp
+
+    us, noises = [], []
+    key = np.asarray(key)
+    for _ in range(n):
+        key, sub, k_noise = jax.random.split(key, 3)
+        us.append(np.asarray(jax.random.uniform(sub, (4, n_candidates), jnp.float32)))
+        noises.append(np.asarray(jax.random.normal(k_noise, (ticks, 2, 3), jnp.float32)))
+    return np.stack(us), np.stack(noises), np.asarray(key)
+
+
 def jax_uwb_draws(keys, n):
     """The draws sim/uwb.step takes over n ticks from each JAX network key of
     `keys` (..., 2): `split(key, 5)` a tick, then u_outlier, n_outlier,
     n_noise, u_fail; (..., n, 4) float32, the port's `uwb_draws`. (The IMU
-    noise of env.step: tests/test_torch_env.py's `_jax_draws`.)"""
+    noise of env.step: `jax_tick_draws`.)"""
     import jax
     import jax.numpy as jnp
 
@@ -206,7 +338,7 @@ def closed_loop_readings():
 
     print("XLA_FLAGS:", os.environ.get("XLA_FLAGS", ""))
     s0, ref, _ = te._jax_fleet_run("gpsimu")
-    noise, _ = te._jax_draws(s0.key, te.N)
+    noise, _ = jax_tick_draws(s0.key, te.N)
     got, _ = T.rollout(te._tparams(), convert.env_state_from_numpy(s0, "cpu"),
                        convert.command_from_numpy(te._np(te._jcommand()), "cpu"), te.N,
                        "gpsimu", noise=te._t(noise))

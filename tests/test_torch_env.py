@@ -3,7 +3,8 @@
 The same inputs, made with numpy or drawn by the JAX package, go through
 both packages. The JAX package draws each tick's IMU noise from the state's
 key (`key, sub = split(key)`, then `k1, k2 = split(sub)`, gyro from k1 and
-acc from k2); `_jax_draws` rebuilds that chain and the port gets its draws.
+acc from k2); `_torch_parity.jax_tick_draws` rebuilds that chain and the port
+gets its draws.
 Tolerances:
 
 - up to 60 steps, the tick criteria of tests/_torch_parity.py: discrete
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 from _torch_parity import (COMMAND_FLOOR, FLOAT_FLOOR, FLOAT_REL,  # noqa: F401 (one thread)
-                           NO_FMA_FLAGS, compare_state)
+                           NO_FMA_FLAGS, compare_state, jax_tick_draws)
 from agrifly_tpu.io import radio as jradio
 from agrifly_tpu.models import constants as jconst
 from agrifly_tpu.models import logic as jlogic
@@ -45,7 +46,6 @@ from agrifly_tpu_torch.sim import env as T
 
 B = 3  # envs of the vmapped rollouts
 N = 60  # steps held to the tick criteria
-DRAWS = 1500  # the longest chain of JAX draws a test needs (the golden, in _flights)
 CTRL = ("rates", "position", "idle")
 
 
@@ -55,28 +55,6 @@ def _np(tree):
 
 def _t(x):
     return torch.from_numpy(np.array(x))
-
-
-@functools.lru_cache(maxsize=None)
-def _draw_chain():
-    def chain(key):
-        def body(k, _):
-            k, sub = jax.random.split(k)
-            k1, k2 = jax.random.split(sub)
-            return k, (k, jnp.stack([jax.random.normal(k1, (3,), jnp.float32),
-                                     jax.random.normal(k2, (3,), jnp.float32)]))
-        return jax.lax.scan(body, key, None, length=DRAWS)[1]
-    return jax.jit(jax.vmap(chain))
-
-
-def _jax_draws(keys, n):
-    """The noise (..., n, 2, 3) the JAX package's step draws over n ticks
-    from each state key, and each chain's key after them."""
-    keys = np.asarray(keys)
-    lead = keys.shape[:-1]
-    ks, noise = _draw_chain()(keys.reshape(-1, 2))
-    noise = np.asarray(noise)[:, :n].reshape(lead + (n, 2, 3))
-    return noise, np.asarray(ks)[:, n - 1].reshape(lead + (2,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,7 +243,7 @@ def test_rollout_of_a_fleet_matches_jax(use_estimator):
     With the GPS-IMU estimator the accelerometer filter's leaves are held to
     the closed loop's floor (tests/_torch_parity.py)."""
     s0, ref, ref_traj = _jax_fleet_run(use_estimator)
-    noise, last_keys = _jax_draws(s0.key, N)
+    noise, last_keys = jax_tick_draws(s0.key, N)
     np.testing.assert_array_equal(last_keys, ref.key)
     got, traj = T.rollout(_tparams(), convert.env_state_from_numpy(s0, "cpu"),
                           convert.command_from_numpy(_np(_jcommand()), "cpu"), N,
@@ -286,7 +264,7 @@ jax.config.update("jax_enable_x64", True)
 import test_torch_env as te
 run = te._jax_fleet_run("gpsimu")
 with open(sys.argv[1], "wb") as f:
-    pickle.dump((te._jax_draws(run[0].key, te.N)[0],) + run, f)
+    pickle.dump((te.jax_tick_draws(run[0].key, te.N)[0],) + run, f)
 """
 
 
@@ -347,7 +325,7 @@ def test_step_matches_jax(use_estimator, ctrl_mode):
     ctrl_mode) pair against ten steps of the JAX package's step."""
     s, runs = _jax_ctrl_modes(use_estimator)
     ref, ref_traj = runs[CTRL.index(ctrl_mode)]
-    noise, _ = _jax_draws(s.key, 10)
+    noise, _ = jax_tick_draws(s.key, 10)
     p = _tparams()
     cmd = convert.command_from_numpy(_np(_jcommand()), "cpu")
     state = convert.env_state_from_numpy(s, "cpu")
@@ -367,7 +345,7 @@ def test_rollout_sampled_matches_jax():
     """env 0 of the fleet: 43 steps keeping every 8th (5 samples, 40 ticks)."""
     (s0, _, _), (ref, ref_traj) = _jax_runs(False)
     first = jax.tree_util.tree_map(lambda x: x[0], s0)
-    noise, _ = _jax_draws(first.key, 40)
+    noise, _ = jax_tick_draws(first.key, 40)
     got, traj = T.rollout_sampled(_tparams(), convert.env_state_from_numpy(first, "cpu"),
                                   convert.command_from_numpy(_np(_jcommand()), "cpu"), 43, 8,
                                   noise=_t(noise))

@@ -22,7 +22,8 @@ from agrifly_tpu.models import logic as jlogic
 from agrifly_tpu.sim import env as J
 from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.sim import env as T
-from test_torch_env import DRAWS, _jax_draws, _jparams, _np, _t, _tparams
+from _torch_parity import TICK_DRAWS as DRAWS, jax_tick_draws
+from test_torch_env import _jparams, _np, _t, _tparams
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,7 +90,7 @@ def test_golden_hover_trajectory_through_the_port():
     golden = np.load(Path(__file__).parent / "golden" / "hover_traj_v1.npz")
     jp = _jparams()
     s0 = _np(J.init_state(jp, jax.random.PRNGKey(1234)))
-    noise, _ = _jax_draws(s0.key, DRAWS)
+    noise, _ = jax_tick_draws(s0.key, DRAWS)
     cmd = convert.command_from_numpy(_np(J.hover_command((0.3, -0.2, 1.2))), "cpu")
     final, traj = T.rollout_fast(_tparams(), convert.env_state_from_numpy(s0, "cpu"), cmd, DRAWS,
                                  True, noise=_t(noise))

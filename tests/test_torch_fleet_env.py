@@ -5,7 +5,7 @@ stand for (the kernels run on the card: tests/test_torch_kernels.py,
 chip_smoke.py).
 
 The JAX package draws from its keys: each vehicle's IMU noise from its env
-key (`test_torch_env._jax_draws`), the gust normals from the fleet's key
+key (`_torch_parity.jax_tick_draws`), the gust normals from the fleet's key
 (`_torch_parity.jax_wind_draws`), the network's draws from its key
 (`_torch_parity.jax_uwb_draws`); the port takes them pre-drawn.
 Tolerances: the tick criteria of tests/_torch_parity.py: discrete leaves
@@ -30,7 +30,7 @@ from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_rollout
 from agrifly_tpu_torch.sim import env as T
 from agrifly_tpu_torch.sim import fleet_env as TF
 from agrifly_tpu_torch.sim import uwb as tuwb
-from test_torch_env import _jax_draws
+from _torch_parity import jax_tick_draws
 
 N_VEHICLES = 3
 WIND_TICKS = 40
@@ -72,7 +72,7 @@ def test_wind_fleet_matches_jax(use_estimator):
     """40 ticks of the wind fleet, mocap estimator and true state."""
     params, s0 = _jax_wind()
     ref = _jax_wind_run(use_estimator)
-    noise, last = _jax_draws(s0.envs.key, WIND_TICKS)
+    noise, last = jax_tick_draws(s0.envs.key, WIND_TICKS)
     np.testing.assert_array_equal(last, ref.envs.key)
     gusts, key = jax_wind_draws(s0.key, WIND_TICKS, N_VEHICLES)
     np.testing.assert_array_equal(key, ref.key)
@@ -133,7 +133,7 @@ def test_uwb_fleet_matches_jax():
     ref, _ = jax.jit(lambda s: JF.uwb_fleet_rollout(params, s, jnp.asarray(UWB_DES),
                                                     UWB_TICKS))(s0)
     ref = _np(ref)
-    noise, _ = _jax_draws(s0.envs.key, UWB_TICKS)
+    noise, _ = jax_tick_draws(s0.envs.key, UWB_TICKS)
     gusts, key = jax_wind_draws(s0.key, UWB_TICKS, N_VEHICLES)
     np.testing.assert_array_equal(key, ref.key)
     draws = jax_uwb_draws(np.asarray(s0.uwb.key)[None], UWB_TICKS)[0]

@@ -21,7 +21,8 @@ the same way, bit for bit wherever ok; the cluster form (K2c) at every
 cluster size on the edge cases. The env rollout (K5) in every mode and
 build, the wind fleet (K5's wind build) and the shared-UWB fleet (K6) are
 held to the tick criteria against their plain rollouts on the card, every
-lane group size bit for bit against one lane. The cluster-size choice and
+lane group size bit for bit against one lane; the plain rollout on the card
+is held to the tick criteria against the same plain rollout on the CPU. The cluster-size choice and
 the constants the wrappers share with the kernel sources are checked on the
 CPU too.
 """
@@ -799,9 +800,13 @@ def test_env_rollout_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noq
     assert cuda_rollout.rollout.launches == before
 
 
-def _cpu(tree):
+def _to(tree, device):
     leaves, rebuild = convert.flatten_tensors(tree)
-    return rebuild([t.cpu() for t in leaves])
+    return rebuild([t.to(device) for t in leaves])
+
+
+def _cpu(tree):
+    return _to(tree, "cpu")
 
 
 def test_fleet_kernel_constants_match_the_sources():
@@ -909,15 +914,15 @@ def test_fleet_uwb_kernel_matches_plain(cuda, n_vehicles, n_anchors):  # noqa: F
 def test_fleet_uwb_kernel_rates_mode_every_group(cuda, n_vehicles, n_anchors):  # noqa: F811
     """K6 in the rates mode after a position leg (120 ticks each), up to
     32 vehicles, where the network's warp is the block's only spare: within
-    the tick criteria of the plain version run on the CPU, every group size
-    bit-equal to the default. (The plain version run on the card drifts
-    from the kernel over this closed loop at 32 vehicles: radio_floats 7.0
-    x the tick bound, and the same for the kernel before the network's warp;
-    PERF.md, open questions.)"""
+    the tick criteria of the plain version run on the card and of the same
+    plain version run on the CPU (the plain code rounds alike on both:
+    ops/fmath), every group size bit-equal to the default."""
     p, s, des, noise, gusts, draws = _uwb_fleet_case(cuda, n_vehicles, n_anchors, 120,
                                                      n_vehicles + 7)
     s = cuda_fleet_uwb.rollout(p, s, des, noise, gusts, draws, "position")
     got = cuda_fleet_uwb.rollout(p, s, des, noise, gusts, draws, "rates")
+    on_card = fleet_env.uwb_fleet_rollout_plain(p, s, des, noise, gusts, draws, "rates")
+    compare_state(got, _cpu(on_card))
     ref = fleet_env.uwb_fleet_rollout_plain(_cpu(p), _cpu(s), des.cpu(), noise.cpu(),
                                             gusts.cpu(), draws.cpu(), "rates")
     compare_state(got, ref)
@@ -926,6 +931,125 @@ def test_fleet_uwb_kernel_rates_mode_every_group(cuda, n_vehicles, n_anchors):  
         for (path, a), (_, b) in zip(convert.leaves(other), convert.leaves(got)):
             assert torch.equal(a, b), (group, path)
     assert int(got.latch_start) > int(s.latch_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_estimator", [True, False])
+def test_plain_rollout_on_the_card_matches_the_cpu(cuda, use_estimator):  # noqa: F811
+    """env.rollout_plain on CUDA tensors against the same plain rollout on
+    the CPU: 8 envs from rest, a hover command, the closed loop over 250
+    ticks (the mocap estimator's prediction and the commands' acos on the
+    way), the tick criteria on every leaf and output. The plain code rounds
+    alike on both devices: ops/fmath's sin, cos and exp through float64 and
+    its exact division by python numbers (on the card torch multiplies by
+    the float32 reciprocal)."""
+    g = torch.Generator().manual_seed(0)
+    p = env.make_params(noise_scale=1.0, device="cpu")
+    s0 = env.init_state_fleet(p, torch.rand((8, 3), generator=g) * torch.tensor([4.0, 4.0, 0.0]))
+    cmd = env.hover_command((0.0, 0.0, 1.5), device="cpu")
+    noise = torch.randn((8, 250, 2, 3), generator=g)
+    ref, ref_traj = env.rollout_plain(p, s0, cmd, noise, use_estimator)
+    got, traj = env.rollout_plain(_to(p, cuda), _to(s0, cuda), _to(cmd, cuda), noise.to(cuda),
+                                  use_estimator)
+    torch.cuda.synchronize()
+    _compare_env(got, ref, traj, ref_traj)
+    assert float(ref.plant.pos[:, 2].min()) > 0.2  # climbing in the loop, no panic
+    assert not bool(ref.logic.panic_reason.any())
+
+
+def _bridge_launches():
+    return {"depth": cuda_raycast.render_depth_batch.launches
+            + cuda_meshscene.render_depth_strips_batch.launches,
+            "rgb": cuda_raycast.render_rgb_batch.launches
+            + cuda_meshscene.render_rgb_strips_batch.launches,
+            "inflate": cuda_inflate.inflate_pyramids.launches
+            + cuda_inflate.inflate_pyramids.cluster_launches,
+            "ticks": cuda_frame.frame_ticks.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["procedural", "imported"])
+def test_orchard_bridge_kernel_routes(cuda, world, monkeypatch):  # noqa: F811
+    """OrchardBridge on the card at 160x112, two frames in one block: each
+    frame launches the world's depth kernel twice (the planner's image and
+    the published one), the inflation once per planner round, the tick
+    kernel once and the RGB kernel once; each published depth image is the
+    millimetre image of the planner's own input, and each RGB image the
+    plain RGB render of the frame's pre-frame pose, bit for bit."""
+    from agrifly_tpu_torch.io import bridge
+    from chip_smoke import baked_orchard
+
+    mesh = baked_orchard(cuda) if world == "imported" else None
+    p = orchard_env.make_params(width=160, height=112, n_candidates=32, mesh_scene=mesh,
+                                device=cuda)
+    inputs = []
+    plan = rappids.plan
+    monkeypatch.setattr(rappids, "plan", lambda prm, depth, *a, **kw: (
+        inputs.append(depth.clone()), plan(prm, depth, *a, **kw))[1])
+    ob = bridge.OrchardBridge(p, vehicle_id=1, seed=5)
+    images = {"depth": [], "rgb": []}
+    ob.bus.subscribe("depthImage1", images["depth"].append)
+    ob.bus.subscribe("rgbImage1", images["rgb"].append)
+    pose = (ob.state.base.plant.pos.clone(), ob.state.base.plant.att.clone())
+    before = _bridge_launches()
+    ob.fly_frames_block(2)
+    torch.cuda.synchronize()
+    after = _bridge_launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "depth": 4, "rgb": 2, "inflate": 2 * (p.planner_rounds + 1), "ticks": 2}
+    poses = [pose, (torch.from_numpy(ob.last_outs["pos"][0]).to(cuda),
+                    torch.from_numpy(ob.last_outs["att"][0]).to(cuda))]
+    scale = float(p.planner.cam.depth_scale)
+    for i, (pos, att) in enumerate(poses):
+        depth = np.frombuffer(images["depth"][i].data, "<u2").reshape(112, 160)
+        want = bridge.depth_to_mm16(inputs[i][0].cpu().numpy() if inputs[i].dim() == 3
+                                    else inputs[i].cpu().numpy(), scale)
+        assert np.array_equal(depth, want), i
+        cam = raycast.camera_attitude(att)
+        plain = (raycast.render_rgb(p.render_cfg, p.scene, pos, cam) if mesh is None
+                 else meshscene.render_rgb(p.render_cfg, mesh, pos, cam))
+        rgb = np.frombuffer(images["rgb"][i].data, np.uint8).reshape(112, 160, 3)
+        assert np.array_equal(rgb, plain.cpu().numpy()), i
+
+
+@pytest.mark.cuda
+def test_sim_bridge_on_the_card_publishes_the_cpu_bag(cuda, tmp_path):  # noqa: F811
+    """SimBridge with the mocap estimator for 40 ticks on the card and on the
+    CPU from the same draws: the same bag, byte for byte (the plain tick
+    rounds alike on both devices); run_blocked on the card publishes the
+    same messages with every value but the euler angles equal."""
+    import json
+
+    from agrifly_tpu_torch.io import bridge
+
+    noise = torch.randn((40, 2, 3), generator=torch.Generator().manual_seed(9))
+    bags = {}
+    for name, dev, blocked in (("card", cuda, False), ("cpu", "cpu", False),
+                               ("blocked", cuda, True)):
+        at = [0]
+
+        def draws(n, dev=dev):
+            at[0] += n
+            return noise[at[0] - n:at[0]].to(dev)
+
+        br = bridge.SimBridge(env.make_params(noise_scale=1.0, device=dev), draws=draws)
+        rec = bridge.MessageRecorder(br.bus, str(tmp_path / f"{name}.jsonl"))
+        cmd = env.hover_command((0.0, 0.0, 1.0), device=dev)
+        br.run_blocked(40, cmd, block=7) if blocked else br.run(40, cmd)
+        rec.close()
+        bags[name] = (tmp_path / f"{name}.jsonl").read_text()
+    assert bags["card"] == bags["cpu"]
+    ypr = ("attyaw", "attpitch", "attroll", "attitudeYPR")
+    for a, b in zip(bags["blocked"].splitlines(), bags["card"].splitlines()):
+        a, b = json.loads(a), json.loads(b)
+        assert a["topic"] == b["topic"]
+        for key, va in a["msg"].items():
+            vb = b["msg"][key]
+            if key in ypr:
+                assert np.allclose(va, vb, rtol=0, atol=2e-6), key
+            else:
+                assert va == vb, key
+    assert len(bags["card"].splitlines()) == len(bags["blocked"].splitlines()) > 100
 
 
 @pytest.mark.cuda

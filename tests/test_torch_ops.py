@@ -113,6 +113,24 @@ def test_fmath_matches_reference_rounding():
     np.testing.assert_array_equal(fmath.ipow(_t(x), 4).numpy(), np.asarray(jnp.asarray(x) ** 4))
 
 
+def test_fmath_rounds_sin_cos_exp_and_divides_exactly():
+    """sin, cos and exp are the float64 values rounded to float32, and the
+    division by fmath.scalar is the correctly rounded float32 quotient (as
+    XLA divides): what the plain tick computes on the CPU, and on the card,
+    where torch's float32 sin, cos and exp and its division by a python
+    number (a multiply by the float32 reciprocal) would differ in the last
+    bits."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(20000) * 3).astype(np.float32)
+    for fn, ref in ((fmath.sin, np.sin), (fmath.cos, np.cos), (fmath.exp, np.exp)):
+        np.testing.assert_array_equal(fn(_t(x)).numpy(), ref(x.astype(np.float64)).astype(np.float32))
+    for value in (0.04, 2.0 ** 0.5, 3.0):
+        got = (_t(x) / fmath.scalar(value, _t(x))).numpy()
+        np.testing.assert_array_equal(got, x / np.float32(value))
+        np.testing.assert_array_equal(got, np.asarray(jnp.asarray(x) / value))
+        np.testing.assert_array_equal(got, (_t(x) / value).numpy())
+
+
 def _cubic_coeffs(rng, n):
     """Monic cubics: half with three distinct real roots, half with one."""
     r = rng.uniform(-3, 3, (n, 3))

@@ -6,7 +6,7 @@ override, the rollouts).
 The JAX package draws the network's randomness from its own key
 (`split(key, 5)` each tick); `_torch_parity.jax_uwb_draws` rebuilds those
 draws and the port takes them as its (4,) draw rows (and the IMU noise
-from the env's key, `test_torch_env._jax_draws`). Tolerances: discrete leaves equal; float leaves within the tick
+from the env's key, `_torch_parity.jax_tick_draws`). Tolerances: discrete leaves equal; float leaves within the tick
 criteria of tests/_torch_parity.py, except where a test states otherwise.
 """
 
@@ -28,7 +28,7 @@ from agrifly_tpu_torch.models import ekf as tekf
 from agrifly_tpu_torch.models import logic as tlogic
 from agrifly_tpu_torch.sim import env as T
 from agrifly_tpu_torch.sim import uwb as tuwb
-from test_torch_env import _jax_draws
+from _torch_parity import jax_tick_draws
 
 ANCHOR_IDS = [101, 102, 103, 104]  # tests/test_uwb.py's
 ANCHOR_POS = [[-3.0, -3.0, 0.1], [3.0, -3.0, 0.2], [3.0, 3.0, 2.0], [-3.0, 3.0, 1.5]]
@@ -41,7 +41,7 @@ def _np(tree):
 
 def _env_draws(s, n):
     """The IMU noise and the UWB draws a JAX EnvState's keys give n ticks."""
-    return torch.from_numpy(np.array(_jax_draws(s.key, n)[0])), jax_uwb_draws(s.uwb.key, n)
+    return torch.from_numpy(np.array(jax_tick_draws(s.key, n)[0])), jax_uwb_draws(s.uwb.key, n)
 
 
 def _t(x):
