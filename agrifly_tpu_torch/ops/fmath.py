@@ -16,6 +16,8 @@ PyTorch's CPU kernels and XLA:CPU differ in a few elementwise ops:
 - Dividing a CUDA tensor by a python number multiplies by the float32
   reciprocal, which is not the correctly rounded quotient; the CPU divides.
   Dividing by `scalar(value, x)` divides on the card too.
+- `x.sum(-1)` over a short axis adds in another order on the card than on
+  the CPU; `sum3` adds a trailing axis of 3 left to right, the CPU's order.
 - `jnp.cross` and `jnp.linalg.norm` on 3-vectors are fixed component
   formulas; `cross` and `norm3` write the same formulas out.
 """
@@ -87,8 +89,14 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
 
 
+def sum3(x: torch.Tensor) -> torch.Tensor:
+    """x.sum(-1) over a trailing axis of 3, left to right."""
+    return x[..., 0] + x[..., 1] + x[..., 2]
+
+
 def scalar(value, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d tensor on `like`'s device and dtype.
+    """A 0-d tensor of `value` on `like`'s device and dtype, made once per
+    (value, device, dtype): callers must not write to it.
 
     Dividing a CUDA tensor by a python number multiplies by its float32
     reciprocal, which is not the correctly rounded quotient; dividing by a
@@ -96,7 +104,12 @@ def scalar(value, like: torch.Tensor) -> torch.Tensor:
     reproduce bit for bit, or the plain code must give on the card as on the
     CPU, divide by `scalar(...)`.
     """
-    return torch.full((), value, dtype=like.dtype, device=like.device)
+    return _scalar(float(value), like.device, like.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar(value: float, device, dtype) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=None)

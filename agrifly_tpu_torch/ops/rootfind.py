@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from agrifly_tpu_torch.ops.fmath import sqrt
+from agrifly_tpu_torch.ops.fmath import scalar, sqrt
 
 _EPS = 1e-12
 _2PI = 6.283185307179586
@@ -31,10 +31,22 @@ def _f64(fn, x):
     return fn(x.double()).to(x.dtype)
 
 
+_THIRD_F32 = 0.3333333432674408  # float32(1/3): the exponent a float32 pow(x, 1/3) raises to
+
+
 def _cbrt(x):
     """Real cube root (torch has no cbrt). XLA lowers cbrt to pow(x, 1/3)
-    in float32; so does this."""
-    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    in float32; so does this on the CPU. CUDA's float32 pow is not the
+    CPU's, so on the card x ** float32(1/3) is taken in float64 and rounded
+    once: the correctly rounded value, which the CPU's float32 pow gives too
+    wherever it is itself correctly rounded (`plain_drift.py` reads how
+    often it is not)."""
+    mag = torch.abs(x)
+    if x.is_cuda:
+        mag = _f64(lambda v: torch.pow(v, _THIRD_F32), mag)
+    else:
+        mag = torch.pow(mag, 1.0 / 3.0)
+    return torch.sign(x) * mag
 
 
 def solve_cubic(a, b, c):
@@ -43,8 +55,8 @@ def solve_cubic(a, b, c):
     Returns (roots, valid): (..., 3) each. Invalid lanes hold finite
     values, never NaN."""
     a2 = a * a
-    q = (a2 - 3.0 * b) / 9.0
-    r = (a * (2.0 * a2 - 9.0 * b) + 27.0 * c) / 54.0
+    q = (a2 - 3.0 * b) / scalar(9.0, a2)
+    r = (a * (2.0 * a2 - 9.0 * b) + 27.0 * c) / scalar(54.0, a2)
     r2 = r * r
     q3 = q * q * q
     three_real = r2 < q3
@@ -53,11 +65,12 @@ def solve_cubic(a, b, c):
     q3_safe = torch.where(three_real, q3, torch.ones_like(q3))
     t = torch.clamp(r / _safe_sqrt(q3_safe), -1.0, 1.0)
     t = _f64(torch.acos, t)
-    a3 = a / 3.0
+    third = scalar(3.0, a)
+    a3 = a / third
     qq = -2.0 * _safe_sqrt(torch.clamp(q, min=0.0))
-    x0_t = qq * _f64(torch.cos, t / 3.0) - a3
-    x1_t = qq * _f64(torch.cos, (t + _2PI) / 3.0) - a3
-    x2_t = qq * _f64(torch.cos, (t - _2PI) / 3.0) - a3
+    x0_t = qq * _f64(torch.cos, t / third) - a3
+    x1_t = qq * _f64(torch.cos, (t + _2PI) / third) - a3
+    x2_t = qq * _f64(torch.cos, (t - _2PI) / third) - a3
 
     # one or two real roots (Cardano)
     disc = _safe_sqrt(torch.clamp(r2 - q3, min=0.0))

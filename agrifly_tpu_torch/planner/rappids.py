@@ -34,7 +34,7 @@ import torch
 
 from agrifly_tpu_torch import card_or_raise
 from agrifly_tpu_torch.ops import rootfind
-from agrifly_tpu_torch.ops.fmath import cross, dot3, ipow, norm3
+from agrifly_tpu_torch.ops.fmath import cross, dot3, ipow, norm3, scalar
 from agrifly_tpu_torch.planner import traj as traj_mod
 
 PIXEL_BUFFER = 2  # _pyramidSearchPixelBuffer
@@ -552,12 +552,13 @@ def monotonic_sections(tr: traj_mod.Traj):
     Returns (t1s, t2s, valid), each (*L, N, MAX_SECTIONS)."""
     # zdot(t) = v0z + a0z t + gz t^2/2 + bz t^3/6 + az t^4/24
     roots, rvalid = _quartic_or_cubic_roots(
-        tr.alpha[..., 2] / 24.0, tr.beta[..., 2] / 6.0, tr.gamma[..., 2] / 2.0,
+        tr.alpha[..., 2] / scalar(24.0, tr.alpha), tr.beta[..., 2] / scalar(6.0, tr.beta),
+        tr.gamma[..., 2] / 2.0,
         tr.a0[..., 2], tr.v0[..., 2])
     tf = tr.tf[..., None]
     interior = rvalid & (roots > 0.0) & (roots < tf)
     bnd = torch.cat([torch.zeros_like(tf), torch.where(interior, roots, tf), tf], dim=-1)
-    bnd = torch.sort(bnd, dim=-1).values  # (*L, N, 6)
+    bnd = torch.sort(bnd, dim=-1, stable=True).values  # (*L, N, 6)
     t1s, t2s = bnd[..., :-1], bnd[..., 1:]
     valid = (t2s - t1s) > 1e-6
     pad = MAX_SECTIONS - t1s.shape[-1]
@@ -571,8 +572,9 @@ def _poly_at(tr: traj_mod.Traj, axis: int, t):
     package's `_z_at` (a0 t t / 2) and collision_check (a0 t^2 / 2) do."""
     t2 = tr.a0[..., axis] * t * t if axis == 2 else tr.a0[..., axis] * ipow(t, 2)
     return (tr.p0[..., axis] + tr.v0[..., axis] * t + t2 / 2.0
-            + tr.gamma[..., axis] * ipow(t, 3) / 6.0 + tr.beta[..., axis] * ipow(t, 4) / 24.0
-            + tr.alpha[..., axis] * ipow(t, 5) / 120.0)
+            + tr.gamma[..., axis] * ipow(t, 3) / scalar(6.0, t)
+            + tr.beta[..., axis] * ipow(t, 4) / scalar(24.0, t)
+            + tr.alpha[..., axis] * ipow(t, 5) / scalar(120.0, t))
 
 
 def _deepest_collision_time(tr: traj_mod.Traj, normals, t1, t2, increasing):
@@ -584,7 +586,8 @@ def _deepest_collision_time(tr: traj_mod.Traj, normals, t1, t2, increasing):
         return normals[..., 0] * v[..., 0] + normals[..., 1] * v[..., 1] + normals[..., 2] * v[..., 2]
 
     roots, rvalid = _quartic_or_cubic_roots(
-        nd(tr.alpha) / 120.0, nd(tr.beta) / 24.0, nd(tr.gamma) / 6.0,
+        nd(tr.alpha) / scalar(120.0, t1), nd(tr.beta) / scalar(24.0, t1),
+        nd(tr.gamma) / scalar(6.0, t1),
         nd(tr.a0) / 2.0, nd(tr.v0))
     in_window = rvalid & (roots > t1[..., None, None]) & (roots < t2[..., None, None])
     any_hit = _rany(in_window)

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from agrifly_tpu_torch.ops import rootfind, trig
-from agrifly_tpu_torch.ops.fmath import cross, dot3, ipow, norm3, sqrt
+from agrifly_tpu_torch.ops.fmath import cross, dot3, ipow, norm3, scalar, sqrt, sum3
 
 # feasibility verdict codes (RapidTrajectoryGenerator.hpp:74-86)
 FEASIBLE = 0
@@ -53,32 +53,32 @@ def generate(p0, v0, a0, tf, goal_pos, goal_vel, goal_acc):
     be = (-24 * T3 * da + 168 * T2 * dv - 360 * T * dp) / T5
     ga = (3 * T4 * da - 24 * T3 * dv + 60 * T2 * dp) / T5
 
-    cost = (
-        ga * ga + be * ga * T + be * be * T2 / 3.0 + al * ga * T2 / 3.0
-        + al * be * T3 / 4.0 + al * al * T4 / 20.0
-    ).sum(-1)
+    cost = sum3(
+        ga * ga + be * ga * T + be * be * T2 / scalar(3.0, T2) + al * ga * T2 / scalar(3.0, T2)
+        + al * be * T3 / 4.0 + al * al * T4 / scalar(20.0, T4))
     return Traj(alpha=al, beta=be, gamma=ga, a0=a0, v0=v0, p0=p0, tf=tf, cost=cost)
 
 
 def position(tr: Traj, t):
     t = t[..., None]
     return (
-        tr.p0 + tr.v0 * t + tr.a0 * ipow(t, 2) / 2.0 + tr.gamma * ipow(t, 3) / 6.0
-        + tr.beta * ipow(t, 4) / 24.0 + tr.alpha * ipow(t, 5) / 120.0
+        tr.p0 + tr.v0 * t + tr.a0 * ipow(t, 2) / 2.0 + tr.gamma * ipow(t, 3) / scalar(6.0, t)
+        + tr.beta * ipow(t, 4) / scalar(24.0, t) + tr.alpha * ipow(t, 5) / scalar(120.0, t)
     )
 
 
 def velocity(tr: Traj, t):
     t = t[..., None]
     return (
-        tr.v0 + tr.a0 * t + tr.gamma * ipow(t, 2) / 2.0 + tr.beta * ipow(t, 3) / 6.0
-        + tr.alpha * ipow(t, 4) / 24.0
+        tr.v0 + tr.a0 * t + tr.gamma * ipow(t, 2) / 2.0 + tr.beta * ipow(t, 3) / scalar(6.0, t)
+        + tr.alpha * ipow(t, 4) / scalar(24.0, t)
     )
 
 
 def acceleration(tr: Traj, t):
     t = t[..., None]
-    return tr.a0 + tr.gamma * t + tr.beta * ipow(t, 2) / 2.0 + tr.alpha * ipow(t, 3) / 6.0
+    return (tr.a0 + tr.gamma * t + tr.beta * ipow(t, 2) / 2.0
+            + tr.alpha * ipow(t, 3) / scalar(6.0, t))
 
 
 def jerk(tr: Traj, t):
@@ -88,7 +88,8 @@ def jerk(tr: Traj, t):
 
 def to_poly_coeffs(tr: Traj):
     """(..., 6, 3) quintic coefficients, highest power first (GetTrajectory)."""
-    return torch.stack([tr.alpha / 120.0, tr.beta / 24.0, tr.gamma / 6.0, tr.a0 / 2.0,
+    return torch.stack([tr.alpha / scalar(120.0, tr.alpha), tr.beta / scalar(24.0, tr.beta),
+                        tr.gamma / scalar(6.0, tr.gamma), tr.a0 / 2.0,
                         tr.v0, tr.p0], dim=-2)
 
 
@@ -136,7 +137,7 @@ def _axis_minmax_acc(tr: Traj, t1, t2):
     t_1 = torch.where(has_quad, tq1, zero)
 
     def acc_at(t):
-        return tr.a0 + ga * t + be * ipow(t, 2) / 2.0 + al * ipow(t, 3) / 6.0
+        return tr.a0 + ga * t + be * ipow(t, 2) / 2.0 + al * ipow(t, 3) / scalar(6.0, t)
 
     t1b = t1[..., None]
     t2b = t2[..., None]
@@ -186,9 +187,9 @@ def _section_verdict(tr: Traj, grav, t1, t2, fmin_allowed, fmax_allowed, wmax_al
     fmin_sq_axis = torch.where(crosses_zero, torch.zeros_like(v1),
                                ipow(torch.minimum(torch.abs(v1), torch.abs(v2)), 2))
     fmax_sq_axis = ipow(torch.maximum(torch.abs(v1), torch.abs(v2)), 2)
-    fmin_sq = fmin_sq_axis.sum(-1)
-    fmax_sq = fmax_sq_axis.sum(-1)
-    jmax_sq = _axis_max_jerk_sq(tr, t1, t2).sum(-1)
+    fmin_sq = sum3(fmin_sq_axis)
+    fmax_sq = sum3(fmax_sq_axis)
+    jmax_sq = sum3(_axis_max_jerk_sq(tr, t1, t2))
 
     fmin = sqrt(fmin_sq)
     fmax = sqrt(fmax_sq)
@@ -242,7 +243,7 @@ def check_velocity_feasibility(tr: Traj, vmax, strict_degenerate: bool = True):
     bug-compatible with the reference: an axis whose acceleration cubic
     degenerates is infeasible; False takes such an axis's quadratic
     acceleration roots instead."""
-    c0 = tr.alpha / 6.0
+    c0 = tr.alpha / scalar(6.0, tr.alpha)
     c1 = tr.beta / 2.0
     c2 = tr.gamma
     c3 = tr.a0
@@ -266,8 +267,8 @@ def check_velocity_feasibility(tr: Traj, vmax, strict_degenerate: bool = True):
     v = (
         tr.v0[..., None, None, :] + tr.a0[..., None, None, :] * t
         + tr.gamma[..., None, None, :] * ipow(t, 2) / 2.0
-        + tr.beta[..., None, None, :] * ipow(t, 3) / 6.0
-        + tr.alpha[..., None, None, :] * ipow(t, 4) / 24.0
+        + tr.beta[..., None, None, :] * ipow(t, 3) / scalar(6.0, t)
+        + tr.alpha[..., None, None, :] * ipow(t, 4) / scalar(24.0, t)
     )  # (..., 3, 5, 3)
     exceeded = torch.any(torch.abs(v) >= vmax, dim=-1) & tvalid
     infeasible = torch.any(exceeded.flatten(-2), dim=-1)
@@ -283,8 +284,8 @@ def check_position_feasibility(tr: Traj, boundary_point, boundary_normal):
     n = boundary_normal / norm3(boundary_normal, keepdim=True)
 
     # velocity along the normal: a quartic in t
-    c0 = dot3(n, tr.alpha) / 24.0
-    c1 = dot3(n, tr.beta) / 6.0
+    c0 = dot3(n, tr.alpha) / scalar(24.0, tr.alpha)
+    c1 = dot3(n, tr.beta) / scalar(6.0, tr.beta)
     c2 = dot3(n, tr.gamma) / 2.0
     c3 = dot3(n, tr.a0)
     c4 = dot3(n, tr.v0)

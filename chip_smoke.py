@@ -76,6 +76,18 @@ oracle. It then flies:
   dispatched frame that makes no synchronizing call),
   ms a frame of both, fly_diag and the bridge frame in turns, and the paced
   loop at 2 frames a second with a kill;
+- the port's front doors, in this process at 640x480 with 256 candidates:
+  `demo` for 62 frames (ms a frame beside `fly`'s, and beside the same block
+  flown through `orchard_env.fly` on the demo's params), `demo --fleet 16`,
+  `demo --scene-file` on the mixed scene's primitives file with `--rgb`,
+  `--csv` and `--ckpt` (the PPM equal to the RGB kernel's image of the
+  restored final state, the CSV one row a frame, frames flown from the
+  checkpoint equal to the same frames from the saved state bit for bit),
+  `demo --teleop` (armed, killed, KILLED), `demo --record` (the bag's
+  topics) and `launch` with an operator and a bag (the JAX test's topic
+  checks, the kill once), each run's kernel launches counted; then
+  `demo --realtime` and `--realtime-orchard`, each paced at half the rate
+  the card is first measured to sustain, with rc 0 (the wire bands held);
 - `sim/env`'s fleet physics rollout (K5, `csrc/rollout.cu`) at bench.py's
   shape: 4096 envs x 250 steps per `env.rollout_fast` call, hover, IMU
   noise drawn inside each call, with the true state and with the mocap
@@ -1744,6 +1756,7 @@ def fly(dev, fused, frames, state=None, mesh=None):
     if mesh is None:
         _check(x > 1.0, f"no forward progress (x = {x:.3f} m)")
     frame_ms = 1e3 * seconds / frames
+    fly.last_ms = frame_ms
     label = f"{'fused' if fused else 'plain'} ticks" + ("" if mesh is None else
                                                          ", imported world")
     print(f"flight ({label}): {frames} frames at 640x480, 256 candidates: "
@@ -2422,6 +2435,245 @@ def check_bridge(dev, state):
     orchard_paced(dev, state)
     print(f"bridge phase: {time.perf_counter() - t0:.1f} s")
     return procedural, imported
+
+
+ENTRY_FRAMES = 62  # the demo's default path: two 31-frame blocks
+ENTRY_FLEET, ENTRY_FLEET_FRAMES = 16, 31
+ENTRY_RESUME_FRAMES = 3  # frames flown from the checkpoint and from the saved state
+ENTRY_TELEOP = "scripted:0.1:buttonStart,0.5:buttonRed"
+ENTRY_TELEOP_FRAMES = 40  # the kill lands near frame 16; the loop stops once it reads it
+ENTRY_RECORD_FRAMES = 16
+ENTRY_LAUNCH_FRAMES = 40
+ENTRY_SIM_TICKS = 125  # ticks of the paced SimBridge loop: the mocap band is +-2.5%
+ENTRY_SIM_PROBE = 20  # SimBridge ticks timed to choose the paced rate
+ENTRY_ORCHARD_QUANTA = 20  # frames of the paced orchard loop (the same band)
+ENTRY_TOPICS = ("simulator_truth1", "planner_diagnostics1", "controller_diagnostics1",
+                "mocap_output1", "telemetry1", "radio_command1")
+
+
+def _entry(label, fn, argv):
+    """One entry point in this process: fn(argv) with its standard output
+    captured; prints its lines with the `entry:` prefix and returns (its
+    result, its output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = fn(argv)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"entry:   {line}")
+    rc = res if isinstance(res, int) else res.rc
+    _check(rc == 0, f"{label}: rc {rc}")
+    print(f"entry: {label}: rc 0 in {seconds:.1f} s")
+    return res, text
+
+
+def _ms_per_frame(text, label):
+    import re
+
+    found = re.search(r"\(([0-9.]+) ms/frame\)", text)
+    _check(found is not None, f"{label}: no steady-state ms/frame line")
+    return float(found.group(1))
+
+
+def _same_tree(a, b):
+    """The leaves of two state trees equal bit for bit."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+
+    la, lb = convert.flatten_tensors(a)[0], convert.flatten_tensors(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _entry_scene(dev, directory):
+    """demo --scene-file (mixed_scene's primitives file) with --rgb, --csv
+    and --ckpt: K4 on every frame, K4-rgb for the PPM; the PPM is the RGB
+    kernel's image from the final state, the CSV one row a frame of the
+    block re-flown for it, and the checkpoint resumes bit for bit."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch import demo
+    from agrifly_tpu_torch.sim import orchard_env
+    from agrifly_tpu_torch.utils import checkpoint, simlog
+
+    mixed_scene(dev, directory)
+    ppm, csv, ckpt = (f"{directory}/final.ppm", f"{directory}/flight.csv",
+                      f"{directory}/final.pt")
+    reset_counts()
+    flight, _ = _entry("demo --scene-file --rgb --csv --ckpt", lambda a: demo.run(
+        demo.parse_args(a)), ["--frames", str(demo.FRAMES_PER_BLOCK), "--scene-file",
+                              f"{directory}/scene.txt", "--rgb", ppm, "--csv", csv,
+                              "--ckpt", ckpt])
+    launches = read_counts()
+    frames = 2 * demo.FRAMES_PER_BLOCK  # the flight and the block re-flown for the CSV
+    _check(launches["meshscene_rgb"] == 1, f"K4-rgb launched {launches['meshscene_rgb']} times "
+                                           f"for one PPM")
+    check_counts(dict(launches, meshscene_rgb=0), frames, True,
+                 flight.params.planner_rounds + 1, "meshscene_strips")
+    with open(ppm, "rb") as f:
+        data = f.read()
+    gen = torch.Generator(device=dev)
+    restored = checkpoint.restore(ckpt, flight.state, gen)
+    image = demo.final_rgb(flight.params, restored).cpu().numpy()
+    header = f"P6\n{image.shape[1]} {image.shape[0]}\n255\n".encode()
+    _check(data[:len(header)] == header and data[len(header):] == image.tobytes(),
+           "the PPM is not the RGB kernel's image from the final state")
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    _check(lines[0] == simlog.HEADER and len(lines) == 1 + demo.FRAMES_PER_BLOCK
+           and all(len(r.split(",")) == len(simlog.HEADER.split(",")) for r in lines[1:]),
+           f"the CSV has {len(lines) - 1} rows under {lines[0][:40]}...")
+    rows = np.array([[float(x) for x in r.split(",")] for r in lines[1:]])
+    _check(bool(np.isfinite(rows).all()), "non-finite CSV values")
+    _check(_same_tree(restored, flight.state), "the restored state differs from the saved one")
+    saved_gen = torch.Generator(device=dev)
+    saved_gen.set_state(flight.gen.get_state())
+    a, outs_a = orchard_env.fly(flight.params, flight.state, ENTRY_RESUME_FRAMES, saved_gen)
+    b, outs_b = orchard_env.fly(flight.params, restored, ENTRY_RESUME_FRAMES, gen)
+    _check(_same_tree(a, b) and all(torch.equal(outs_a[k], outs_b[k]) for k in outs_a),
+           "the flight from the checkpoint differs from the flight from the saved state")
+    pos = outs_b["pos"].cpu().numpy()
+    _check(np.allclose(rows[:len(pos), 1:4], pos, rtol=0, atol=1e-6),
+           "the CSV's first rows are not the frames flown from the checkpoint")
+    print(f"entry: demo --scene-file: {launches}; the PPM is K4-rgb's image of the final "
+          f"state, the CSV {demo.FRAMES_PER_BLOCK} rows, {ENTRY_RESUME_FRAMES} frames from the "
+          f"checkpoint equal to the same frames from the saved state, bit for bit")
+
+
+def _entry_paced(dev, directory, frame_ms):
+    """demo --realtime and --realtime-orchard, each paced at half the rate
+    the card is first measured to sustain; rc 0 means the wire bands held."""
+    import torch
+
+    from agrifly_tpu_torch import demo
+    from agrifly_tpu_torch.io import bridge
+    from agrifly_tpu_torch.sim import env
+
+    p = env.make_params(noise_scale=1.0, device=dev)
+    probe = bridge.SimBridge(p, vehicle_id=1)
+    hover = env.hover_command(device=dev)
+    probe.run_blocked(2, hover, block=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe.run_blocked(ENTRY_SIM_PROBE, hover, block=1)
+    torch.cuda.synchronize()
+    sustained = ENTRY_SIM_PROBE / (time.perf_counter() - t0)
+    rate = 0.5 * sustained
+    _, text = _entry("demo --realtime", demo.main, [
+        "--realtime", "--rate", f"{rate:.4f}", "--duration", f"{ENTRY_SIM_TICKS / rate:.4f}"])
+    print(f"entry: demo --realtime on {card_line()}: the card sustains {sustained:.2f} ticks/s "
+          f"(SimBridge, one tick a block); paced at {rate:.2f}: "
+          + " ".join(line for line in text.splitlines() if line.startswith("achieved")))
+    frame_hz = 0.5 * 1e3 / frame_ms
+    _, text = _entry("demo --realtime-orchard", demo.main, [
+        "--realtime-orchard", "--rate", f"{16 * frame_hz:.4f}",
+        "--duration", f"{ENTRY_ORCHARD_QUANTA / frame_hz:.4f}"])
+    print(f"entry: demo --realtime-orchard on {card_line()}: the demo's {frame_ms:.3f} ms a "
+          f"frame, paced at {frame_hz:.3f} frames/s: "
+          + " ".join(line for line in text.splitlines() if line.startswith("achieved")))
+
+
+def check_entry_points(dev, fly_ms):
+    """The port's front doors at 640x480 / 256 candidates, in this process
+    (`demo.main` / `demo.run`, `launch.main`): the default path, a fleet,
+    an imported world with --rgb / --csv / --ckpt, the teleop arm and kill,
+    the recorder, the launcher with an operator and a bag, and the paced
+    loops. Each run's kernel counts are set to 0 just before it and read
+    just after. fly_ms: `fly`'s ms a frame in this call, for the ratio."""
+    import base64
+    import tempfile
+
+    import torch
+
+    from agrifly_tpu_torch import demo, launch
+    from agrifly_tpu_torch.sim import orchard_env
+
+    t0 = time.perf_counter()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as directory:
+        reset_counts()
+        flight, text = _entry("demo", lambda a: demo.run(demo.parse_args(a)),
+                              ["--frames", str(ENTRY_FRAMES)])
+        launches = read_counts()
+        check_counts(launches, ENTRY_FRAMES, True, 3)
+        _check(sum(line.startswith("t=") for line in text.splitlines()) >= 1
+               and "flew " in text, "demo: no status lines")
+        frame_ms = _ms_per_frame(text, "demo")
+        # the same block through orchard_env.fly alone, on the demo's params
+        # and from its final state: the demo loop's own cost, apart from the
+        # configuration's (the demo plans from 5 s, `fly` above from 1 s)
+        torch.cuda.synchronize()
+        t_fly = time.perf_counter()
+        orchard_env.fly(flight.params, flight.state, demo.FRAMES_PER_BLOCK, flight.gen)
+        torch.cuda.synchronize()
+        same_ms = 1e3 * (time.perf_counter() - t_fly) / demo.FRAMES_PER_BLOCK
+        print(f"entry: demo on {card}: {frame_ms:.3f} ms a frame in steady state "
+              f"({frame_ms / fly_ms:.4f} x fly's {fly_ms:.3f}; the same block through fly "
+              f"on the demo's params after it: {same_ms:.3f} ms, {frame_ms / same_ms:.4f} x); "
+              f"{launches}")
+
+        reset_counts()
+        _, text = _entry("demo --fleet", demo.main, [
+            "--fleet", str(ENTRY_FLEET), "--frames", str(ENTRY_FLEET_FRAMES)])
+        launches = read_counts()
+        check_counts(launches, ENTRY_FLEET_FRAMES, True, 3)
+        _check(launches["inflate"] > 0, f"the fleet's inflation never took K2: {launches}")
+        print(f"entry: demo --fleet {ENTRY_FLEET} on {card}: {launches}")
+
+        _entry_scene(dev, directory)
+
+        reset_counts()
+        _, text = _entry("demo --teleop", demo.main, [
+            "--frames", str(ENTRY_TELEOP_FRAMES), "--teleop", ENTRY_TELEOP])
+        marks = [text.find(m) for m in ("ARMED", "KILL —", "KILLED_EXTERNALLY", "vehicle KILLED")]
+        _check(-1 not in marks and marks == sorted(marks),
+               f"demo --teleop: armed, killed, KILLED in that order: {marks}")
+        frames = read_counts()["frame_ticks"]
+        print(f"entry: demo --teleop: ARMED, KILL, then vehicle KILLED after {frames} frames "
+              f"({demo.TELEOP_BLOCK['cuda']} a block)")
+
+        bag = f"{directory}/demo_bag.jsonl"
+        reset_counts()
+        _entry("demo --record", demo.main, ["--frames", str(ENTRY_RECORD_FRAMES), "--record", bag])
+        launches = read_counts()
+        check_counts(launches, ENTRY_RECORD_FRAMES, True, 3)
+        lines = read_bag(bag)
+        topics = sorted({line["topic"] for line in lines})
+        _check(topics == sorted(ENTRY_TOPICS)
+               and sum(line["topic"] == "simulator_truth1" for line in lines) == ENTRY_RECORD_FRAMES,
+               f"demo --record: topics {topics}")
+        print(f"entry: demo --record: {len(lines)} messages on {topics}")
+
+        bag = f"{directory}/launch_bag.jsonl"
+        reset_counts()
+        t_launch = time.perf_counter()
+        _entry("launch", launch.main, ["--frames", str(ENTRY_LAUNCH_FRAMES), "--record", bag,
+                                       "--teleop", ENTRY_TELEOP])
+        launch_s = time.perf_counter() - t_launch
+        launches = read_counts()
+        lines = read_bag(bag)
+        topics = {line["topic"] for line in lines}
+        kill = base64.b64encode(_kill_raw()).decode("ascii")
+        kills = sum(line["topic"] == "radio_command1" and line["msg"]["raw"] == kill
+                    for line in lines)
+        flown = sum(line["topic"] == "simulator_truth1" for line in lines)
+        for t in ("simulator_truth1", "planner_diagnostics1", "controller_diagnostics1",
+                  "imageReceivedFlag1", "radio_command1"):
+            _check(t in topics, f"launch: {t} not in the bag: {sorted(topics)}")
+        _check("depthImage1" not in topics and kills == 1,
+               f"launch: depthImage1 in the bag or {kills} kills")
+        check_counts(launches, flown, True, 3, renders=2, rgb="raycast_rgb")
+        print(f"entry: launch on {card}: {flown} frames, {1e3 * launch_s / flown:.3f} ms a frame "
+              f"(set-up included), the kill once in {len(lines)} messages; {launches}")
+
+        _entry_paced(dev, directory, frame_ms)
+    print(f"entry points phase: {time.perf_counter() - t0:.1f} s")
 
 
 def time_big_fleet(dev):
@@ -4060,6 +4312,7 @@ def main(argv) -> int:
         eval_launches = evaluate(dev, eval_params, views)
         print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
         state, launches = fly(dev, fused=True, frames=FRAMES)
+        fly_ms = fly.last_ms
         fly(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         check_ticks_against_cpu(state, dev, 1.0)
         fleet_state, fleet_launches = fly_fleet(dev)
@@ -4073,6 +4326,7 @@ def main(argv) -> int:
         fly_bridge(dev, state, baked_orchard(dev))
         print(f"bridge flights: {time.perf_counter() - t_bridge:.1f} s")
         bridge_launches, mesh_bridge_launches = check_bridge(dev, state)
+        check_entry_points(dev, fly_ms)
         k5, k5_launches = check_env_rollout(dev)
         check_env_modes(dev)
         k5w, k5w_launches = check_fleet_wind(dev)

@@ -23,13 +23,29 @@ the two runs part and finds the torch operations that part them:
    float32 first, then rounded). A float64 result (ops/fmath's
    intermediates) is compared as the float32 value the port keeps of it.
 
+3. The planner. One `rappids.plan` call at the orchard default (640x480
+   depth codes of a mid-flight frame, 256 candidates): a vehicle flies
+   `--plan-frames` frames on the card, then one more frame's percept
+   (`orchard_env._frame_percept`: the render, the mocap prediction, the
+   plan and the mission's bookkeeping) runs under the same dispatch mode,
+   with the planner's uniform draws made on the host. The inputs it hands
+   `rappids.plan` are then planned again on the card and on CPU copies,
+   and the plans are read against each other: `found`, the winner's index,
+   cost and coefficients, the gates, the collision labels and the costs of
+   every candidate. The cube root alone takes another path on the card
+   (correctly rounded) than on the CPU (torch's float32 pow): how often the
+   two differ is read apart, on a million magnitudes (a reading, not a
+   gate).
+
 Run on a machine with a card, from the repository root:
 
     python3 plain_drift.py [--steps 250] [--envs 8] [--op-ticks 40]
+                           [--plan-frames 48] [--phase all|tick|plan]
 
 It exits with 1 where the plain rollout on the card leaves the tick criteria
-against the CPU run, or where an operation on the card differs from its CPU
-result, and prints `plain drift: none` otherwise.
+against the CPU run, where an operation on the card differs from its CPU
+result, or where the plan on the card is not the CPU's bit for bit, and
+prints `plain drift: none` otherwise.
 """
 
 from __future__ import annotations
@@ -278,11 +294,115 @@ def find_ops_fleet(dev, n=20):
     return found
 
 
+def plan_case(dev, frames):
+    """A vehicle at the orchard default flies `frames` frames on the card
+    (planning from 1 s); the next frame's percept runs under the op finder.
+    Returns (what rappids.plan was called with, the finder's results)."""
+    from agrifly_tpu_torch.planner import rappids
+    from agrifly_tpu_torch.sim import orchard_env
+
+    p = orchard_env.make_params(start_flight_time=1.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s, _ = orchard_env.fly(p, orchard_env.init_state(p), frames, gen)
+    u = torch.rand((4, p.n_candidates), generator=torch.Generator().manual_seed(1)).to(dev)
+    call = {}
+    real = rappids.plan
+
+    def spy(*args, **kwargs):
+        call.update(args=args, kwargs=kwargs)
+        return real(*args, **kwargs)
+
+    Compare, found, benign = op_finder()
+    rappids.plan = spy
+    try:
+        with torch.inference_mode(), Compare():
+            orchard_env._frame_percept(p, s, u)
+    finally:
+        rappids.plan = real
+    return call, found, benign
+
+
+def plan_arg(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return to(x, dev) if hasattr(x, "_fields") else x
+
+
+def differ(a, b):
+    """(elements apart, largest |difference|) of two tensors."""
+    a, b = a.cpu(), b.cpu()
+    same = (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
+    if bool(same.all()):
+        return 0, 0.0
+    d = (a.double() - b.double()).abs().nan_to_num() if a.is_floating_point() else None
+    return int((~same).sum()), 0.0 if d is None else float(d.max())
+
+
+def read_plan(dev, frames):
+    """The finder over one mid-flight frame's percept, then its plan on the
+    card against the same plan on CPU copies of its inputs. Returns (ops
+    apart, fields apart)."""
+    from agrifly_tpu_torch.planner import rappids
+
+    call, found, benign = plan_case(dev, frames)
+    print(f"operations of a mid-flight frame's percept on the card (640x480, 256 candidates, "
+          f"after {frames} frames) whose result differs from the CPU path's on the same "
+          f"inputs: {len(found)} (calls where only the raw CPU operation differs: "
+          f"{dict(benign)})")
+    for (name, site), e in found.items():
+        print(f"  {name} at {site}: {e['calls']} calls, {e['elems']} elements, max |d| "
+              f"{e['max_abs']:.3g}")
+    plans = {}
+    for d in (dev, "cpu"):
+        args = [plan_arg(a, d) for a in call["args"]]
+        kwargs = call["kwargs"]
+        params, depth, u = args[:3]
+        with torch.inference_mode():
+            res = rappids.plan(*args, **kwargs)
+            core = rappids.plan_debug(params, depth, rappids.samples_from_uniform(params, u),
+                                      *args[3:], **kwargs)
+        tr, cost, feas, vel_ok, gate, free, pyrs = core
+        plans[str(d)] = dict(
+            found=res.found, best_idx=res.best_idx, best_cost=res.best_cost,
+            num_feasible=res.num_feasible, num_velocity_admissible=res.num_velocity_admissible,
+            num_collision_free=res.num_collision_free, num_pyramids=res.num_pyramids,
+            **{f"winner.{k}": v for k, v in res.traj._asdict().items()},
+            cost=cost, feasible=feas, velocity_ok=vel_ok, gate=gate, collision_free=free,
+            **{f"pyramids.{k}": v for k, v in pyrs._asdict().items()})
+    mine, ref = plans[str(dev)], plans["cpu"]
+    apart = {k: differ(mine[k], ref[k]) for k in ref}
+    apart = {k: v for k, v in apart.items() if v[0]}
+    print(f"rappids.plan card vs CPU on the same inputs: found {bool(ref['found'])} / "
+          f"{bool(mine['found'])}, winner {int(ref['best_idx'])} / {int(mine['best_idx'])}, "
+          f"{int(ref['num_collision_free'])} / {int(mine['num_collision_free'])} free, "
+          f"{int(ref['num_pyramids'])} / {int(mine['num_pyramids'])} pyramids; fields apart: "
+          + (", ".join(f"{k} {n} elements (max |d| {m:.3g})" for k, (n, m) in apart.items())
+             or "none (bit for bit)"))
+    return len(found), len(apart)
+
+
+def read_cbrt(dev, n=1_000_000, seed=0):
+    """The one planner function whose card path is not the CPU path: the
+    cube root (`ops/rootfind._cbrt`), correctly rounded on the card, torch's
+    float32 pow on the CPU. Prints the share of n magnitudes (e**U(-20, 20))
+    where the two differ and by how many ulps at most."""
+    from agrifly_tpu_torch.ops import rootfind
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.exp(torch.rand(n, generator=g) * 40.0 - 20.0)
+    ulps = (rootfind._cbrt(x.to(dev)).cpu().view(torch.int32)
+            - rootfind._cbrt(x).view(torch.int32)).abs()
+    print(f"cube root card vs CPU on {n} magnitudes: {float((ulps != 0).float().mean()):.6f} "
+          f"of them apart, at most {int(ulps.max())} ulp")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=250)
     ap.add_argument("--envs", type=int, default=8)
     ap.add_argument("--op-ticks", type=int, default=40)
+    ap.add_argument("--plan-frames", type=int, default=48)
+    ap.add_argument("--phase", choices=("all", "tick", "plan"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("plain_drift.py needs a CUDA device", file=sys.stderr)
@@ -291,14 +411,19 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda)
-    bad = 0
-    for mode in (True, False):
-        bad += len(find_ops(dev, args.op_ticks, mode))
-    bad += len(find_ops_fleet(dev))
-    worst = max(read_env(dev, args.envs, args.steps, mode) for mode in (True, False))
-    worst = max(worst, read_uwb_fleet(dev))
+    bad, worst = 0, 0.0
+    if args.phase in ("all", "tick"):
+        for mode in (True, False):
+            bad += len(find_ops(dev, args.op_ticks, mode))
+        bad += len(find_ops_fleet(dev))
+        worst = max(read_env(dev, args.envs, args.steps, mode) for mode in (True, False))
+        worst = max(worst, read_uwb_fleet(dev))
+    if args.phase in ("all", "plan"):
+        ops, fields = read_plan(dev, args.plan_frames)
+        bad += ops + fields
+        read_cbrt(dev)
     print("plain drift:", "none" if (bad == 0 and worst <= 1.0) else
-          f"{bad} operations differ, worst leaf {worst:.4g} x the tick bound")
+          f"{bad} operations or plan fields differ, worst leaf {worst:.4g} x the tick bound")
     return 0 if (bad == 0 and worst <= 1.0) else 1
 
 

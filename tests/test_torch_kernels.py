@@ -1074,3 +1074,49 @@ def test_fleet_uwb_refuses_what_the_kernel_does_not_take(cuda):  # noqa: F811
     with pytest.raises(RuntimeError, match="fleet_uwb_launch"):
         cuda_fleet_uwb.rollout(p, s, des, noise, gusts, draws, group=3)
 
+
+
+def _plan_fields(res, core):
+    tr, cost, feas, vel_ok, gate, free, pyrs = core
+    return dict(found=res.found, best_idx=res.best_idx, best_cost=res.best_cost,
+                num_pyramids=res.num_pyramids,
+                **{f"winner.{k}": v for k, v in res.traj._asdict().items()},
+                cost=cost, feasible=feas, velocity_ok=vel_ok, gate=gate, collision_free=free,
+                **{f"candidates.{k}": v for k, v in tr._asdict().items()},
+                **{f"pyramids.{k}": v for k, v in pyrs._asdict().items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [40, 42, 43, 45])  # views in the orchard where a plan is found
+def test_plan_on_the_card_equals_the_plan_on_the_cpu(cuda, seed):  # noqa: F811
+    """rappids.plan at the orchard default (640x480, 256 candidates, two
+    rounds and a lazy one, 2x2 pooled inflation) on the card against the same
+    plan on the CPU, the same depth codes and draws: found, the winner's
+    index, cost and coefficients, every candidate's gates, collision label,
+    cost and coefficients, and the pyramids, bit for bit. The plain planner
+    rounds alike on both devices: divisions by `fmath.scalar`, sums over
+    three axes left to right, the cube root correctly rounded on the card
+    (K2c on the card and the plain inflation on the CPU are bit-equal)."""
+    p = orchard_env.make_params(device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    pos, cam = _poses(seed, 1, "cpu")
+    depth = raycast.render_depth(p.render_cfg, p.scene, pos, cam)[0]
+    u = torch.rand((4, p.n_candidates), generator=g)
+    vel = torch.tensor([0.3, -0.2, 1.5 + seed % 3]) + torch.randn(3, generator=g) * 0.2
+    acc = torch.randn(3, generator=g) * 0.5
+    grav = torch.tensor([0.0, 9.81, 0.0])
+    goal = torch.tensor([1.0, 0.0, 20.0]) + torch.randn(3, generator=g)
+    kw = dict(pyramid_capacity=p.pyramid_capacity, rounds=p.planner_rounds,
+              inflation_downsample=p.inflation_downsample)
+    out = {}
+    for dev in ("cpu", cuda):
+        prm = _to(p.planner, dev)
+        args = [t.to(dev) for t in (depth, u, vel, acc, grav, goal)]
+        res = rappids.plan(prm, *args, **kw)
+        core = rappids.plan_debug(prm, args[0], rappids.samples_from_uniform(prm, args[1]),
+                                  *args[2:], **kw)
+        out[str(dev)] = {k: v.cpu() for k, v in _plan_fields(res, core).items()}
+    ref, got = out["cpu"], out[str(cuda)]
+    apart = [k for k in ref if not torch.equal(got[k], ref[k])]
+    assert apart == [], apart
+    assert bool(ref["found"]) and int(ref["num_pyramids"]) > 4

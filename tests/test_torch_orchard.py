@@ -144,6 +144,10 @@ def test_port_imports_no_jax():
         theirs = sorted(m for m in sys.modules if m.split(".")[0] == "agrifly_tpu")
         assert theirs == [], theirs
         assert "agrifly_tpu_torch.sim.orchard_env" in names and len(names) > 30, names
+        entry = {"agrifly_tpu_torch." + m for m in (
+            "demo", "launch", "io.teleop", "io.miniros", "io.ros_adapter", "io.native",
+            "utils.checkpoint", "utils.simlog", "utils.perf")}
+        assert entry <= set(names), sorted(entry - set(names))
         print("ok", jaxy)
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
