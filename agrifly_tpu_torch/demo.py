@@ -24,7 +24,11 @@ Flags:
   --traj-file PATH  waypoint file (trajectory.txt format: 'x,y,z' lines,
                     agrifly.launch traj_file parity); lands after the last
   --land            descend + idle motors after the last waypoint
-  --mesh            not ported: the multi-device path exits with a message
+  --mesh            with --fleet N: split the fleet over the process group's
+                    devices (parallel/sharding), one process per device;
+                    a single process is a mesh of one, `torchrun
+                    --nproc-per-node=W` or the AGRIFLY_* variables
+                    (parallel/multihost) make it span W; only rank 0 prints
 
 Block sizes. On the CPU they are the JAX package's own, so scripted
 operator events land on the same frames: 4-frame teleop blocks, 1-frame
@@ -381,14 +385,24 @@ def _record(args, params, dev, w, h):
     return Flight(0, params, ob.state)
 
 
-def _status_values(s, fleet):
-    """The printed status as one small vector (one host read a line)."""
+def _status_values(s, fleet, mesh=None):
+    """The printed status as one small vector (one host read a line); on a
+    mesh, the whole fleet's: the minima, maxima and sums reduced over the
+    ranks (the vehicles step in lockstep, so every rank has the same step)."""
     if fleet == 1:
         return [s.base.step, *s.base.plant.pos.unbind(), s.base.logic.fs,
                 s.base.logic.panic_reason, s.plan_count, s.waypoint_idx, s.mstage]
     pos = s.base.plant.pos
-    return [s.base.step[0], pos[:, 0].min(), pos[:, 0].max(), pos[:, 2].min(), pos[:, 2].max(),
-            (s.base.logic.panic_reason != 0).sum(), s.plan_count.sum(), (s.mstage == 2).sum()]
+    lo = torch.stack([pos[:, 0].min(), pos[:, 2].min()])
+    hi = torch.stack([pos[:, 0].max(), pos[:, 2].max()])
+    n = torch.stack([(s.base.logic.panic_reason != 0).sum(), s.plan_count.sum(),
+                     (s.mstage == 2).sum()])
+    if mesh is not None:
+        import torch.distributed as dist
+
+        for t, op in ((lo, dist.ReduceOp.MIN), (hi, dist.ReduceOp.MAX), (n, dist.ReduceOp.SUM)):
+            dist.all_reduce(t, op=op, group=mesh.group)
+    return [s.base.step[0], lo[0], hi[0], lo[1], hi[1], *n]
 
 
 def _write_ppm(path, rgb):
@@ -431,8 +445,10 @@ def parse_args(argv=None):
                     help="fly N vehicles abreast as one batched program "
                          "(independent full perception-plan-act loops)")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the fleet over several devices: not ported "
-                         "(the multi-device path); exits with a message")
+                    help="with --fleet N: shard the fleet over the process "
+                         "group's devices, one process per device (a single "
+                         "process is a mesh of one; torchrun or the AGRIFLY_* "
+                         "variables span W); NCCL on the card, gloo on the CPU")
     ap.add_argument("--record-images", action="store_true",
                     help="with --record: also publish + record the depth/"
                          "rgb image topics (base64 in the JSONL; the "
@@ -489,13 +505,40 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _open_mesh(args):
+    """The mesh of `--mesh --fleet N`: the process group the launch
+    environment names (torchrun, the AGRIFLY_* variables), else a world of
+    one on this process's device. The demo owns either and closes it."""
+    from agrifly_tpu_torch.parallel import multihost, sharding
+
+    if multihost.initialize_from_env(cpu=args.cpu):
+        return sharding.make_mesh(torch.device("cpu") if args.cpu else None)._replace(owner=True)
+    return sharding.make_mesh(_device(args))
+
+
 def run(args) -> Flight:
-    """Fly what the parsed flags ask for; see `Flight`."""
-    if args.mesh:
-        raise SystemExit("--mesh: the multi-device path (agrifly_tpu/parallel/sharding) is "
-                         "not yet ported to agrifly_tpu_torch; fly the fleet on one card "
-                         "without --mesh")
-    dev = _device(args)
+    """Fly what the parsed flags ask for; see `Flight`. Under `--mesh
+    --fleet N` the state of the flight is this rank's rows, and only rank 0
+    prints."""
+    if not (args.mesh and args.fleet > 1):
+        return _run(args, None)
+    import contextlib
+    import os
+
+    from agrifly_tpu_torch.parallel import sharding
+
+    mesh = _open_mesh(args)
+    try:
+        if mesh.rank == 0:
+            return _run(args, mesh)
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return _run(args, mesh)
+    finally:
+        sharding.close_mesh(mesh)
+
+
+def _run(args, mesh):
+    dev = _device(args) if mesh is None else mesh.device
     if args.realtime:
         return _realtime_loop(args, dev)
 
@@ -530,12 +573,13 @@ def run(args) -> Flight:
         return _record(args, params, dev, w, h)
     if args.teleop:
         return _teleop_loop(args, params, dev)
-    return _fly_default(args, params, dev, w, h)
+    return _fly_default(args, params, dev, w, h, mesh)
 
 
-def _fly_default(args, params, dev, w, h):
+def _fly_default(args, params, dev, w, h, mesh=None):
     """The default path: FRAMES_PER_BLOCK-frame fly blocks, one status
-    vector read every READ_EVERY blocks; then --csv, --rgb and --ckpt."""
+    vector read every READ_EVERY blocks; then --csv, --rgb and --ckpt.
+    mesh: a fleet split over the mesh's ranks (`--mesh`)."""
     from agrifly_tpu_torch.models import logic as onboard
     from agrifly_tpu_torch.sim import orchard_env
 
@@ -546,11 +590,25 @@ def _fly_default(args, params, dev, w, h):
 
         def fly_block(s, g):
             return orchard_env.fly(params, s, FRAMES_PER_BLOCK, g)
+    elif mesh is not None:
+        # the vehicle axis split over the mesh (the full perception loop on
+        # every rank's rows; the draws are the whole fleet's, so the flight
+        # equals --fleet N's); the status vector is reduced over the ranks
+        from agrifly_tpu_torch.parallel import sharding
+
+        if fleet % mesh.world:
+            raise SystemExit(f"--fleet {fleet} must divide the {mesh.world}-device mesh")
+        state = sharding.init_orchard_fleet(params, mesh, fleet)
+        mesh_step = sharding.make_orchard_fleet_step(params, mesh, fleet, FRAMES_PER_BLOCK)
+
+        def fly_block(s, g):
+            return mesh_step(s, gen=g)[0], None
+        print(f"mesh: {mesh.world} devices, {fleet // mesh.world} vehicles/device")
     else:
         # one batched program, N independent vehicles abreast of each other
-        lanes = (torch.arange(fleet, dtype=torch.float32) - (fleet - 1) / 2.0) * 3.0
-        spawns = torch.stack([torch.zeros(fleet), lanes, torch.zeros(fleet)], dim=1)
-        state = orchard_env.init_state_fleet(params, spawns)
+        from agrifly_tpu_torch.parallel.sharding import lane_spawns
+
+        state = orchard_env.init_state_fleet(params, lane_spawns(fleet))
 
         # fly_fleet: one render launch, one inflation launch per planner
         # round and one tick launch a frame for all vehicles
@@ -592,14 +650,14 @@ def _fly_default(args, params, dev, w, h):
     t_wall = time.perf_counter()
     blocks = max(1, args.frames // FRAMES_PER_BLOCK)
     state, _ = fly_block(state, gen)
-    vec = _status_copy(_status_values(state, fleet))
+    vec = _status_copy(_status_values(state, fleet, mesh))
     _status_read(vec)  # the first block builds the kernels: the steady figure starts here
     t_compiled = time.perf_counter()
     prev_vec = vec
     ran = 1
     for b in range(1, blocks):
         state, _ = fly_block(state, gen)
-        vec = _status_copy(_status_values(state, fleet))
+        vec = _status_copy(_status_values(state, fleet, mesh))
         ran += 1
         if b % READ_EVERY == 0:
             panicked, done = _status(_status_read(prev_vec))
@@ -628,6 +686,9 @@ def _fly_default(args, params, dev, w, h):
                     f"{fleet} vehicles")
     print(msg)
 
+    if args.csv and mesh is not None:
+        print("--csv is not supported with --mesh (metrics-only outputs)")
+        args.csv = None
     if args.csv:
         # re-fly a block from the final state, recording its outputs; its
         # draws come from a copy of the generator, so the checkpoint's
@@ -649,15 +710,21 @@ def _fly_default(args, params, dev, w, h):
         )
         simlog.write_rollout_csv(args.csv, traj, dt=params.steps_per_frame * 0.002)
         print(f"wrote {args.csv}")
-    if args.rgb:
+    rank0 = mesh is None or mesh.rank == 0
+    if args.rgb and rank0:  # rank 0 holds vehicle 0
         rgb = final_rgb(params, state)
         _write_ppm(args.rgb, rgb)
         print(f"wrote {args.rgb} ({rgb.shape[1]}x{rgb.shape[0]} PPM)")
     if args.ckpt:
         from agrifly_tpu_torch.utils import checkpoint
 
-        kind = checkpoint.save(args.ckpt, state, gen)
-        print(f"checkpoint saved ({kind}): {args.ckpt}")
+        if mesh is not None:  # the whole fleet, saved by rank 0
+            from agrifly_tpu_torch.parallel import sharding
+
+            whole = sharding.gather_rows(state, mesh)
+        if rank0:
+            kind = checkpoint.save(args.ckpt, state if mesh is None else whole, gen)
+            print(f"checkpoint saved ({kind}): {args.ckpt}")
     return Flight(0, params, state, gen)
 
 

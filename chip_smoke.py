@@ -52,9 +52,9 @@ oracle. It then flies:
   16 vehicles; then timed fleet frames of 64 vehicles;
 - the same frame through an imported world (`make_params(mesh_scene=...)`,
   the procedural orchard baked into primitives): first in turns with the
-  procedural orchard from the single flight's final state (8 frames each,
+  procedural orchard from the single flight's final state (4 frames each,
   procedural, imported, imported, procedural), then one vehicle for 50
-  frames and 16 in lanes for 20, every frame launching the strip-culled
+  frames and 16 in lanes for 10, every frame launching the strip-culled
   mesh kernel once and the procedural raycaster never; then one batch
   render of the fleet's poses through the window mesh kernel;
 - what a topic bridge computes each frame, in both worlds: 10 frames of
@@ -88,6 +88,16 @@ oracle. It then flies:
   checks, the kill once), each run's kernel launches counted; then
   `demo --realtime` and `--realtime-orchard`, each paced at half the rate
   the card is first measured to sustain, with rc 0 (the wire bands held);
+- the multi-device path (`agrifly_tpu_torch/parallel`), a world of one over
+  NCCL on this card: the sharded fleet step at 4096 envs x 50 substeps in
+  both estimator modes (bit-equal to `env.rollout`, its metrics equal to
+  the rows' reductions), the candidate-sharded planner at 640x480 with 1024
+  candidates (bit-equal to the same call on the CPU over a gloo group), the
+  orchard fleet step of 16 vehicles x 31 frames (bit-equal to `fly_fleet`;
+  K1, K2/K2c and K3b counted); then `demo --mesh --fleet 16` against `demo
+  --fleet 16` (lines and final state) and `python -m
+  agrifly_tpu_torch.parallel.dryrun 1` (and on min(cards, 4) cards where
+  the host has two or more);
 - `sim/env`'s fleet physics rollout (K5, `csrc/rollout.cu`) at bench.py's
   shape: 4096 envs x 250 steps per `env.rollout_fast` call, hover, IMU
   noise drawn inside each call, with the true state and with the mocap
@@ -143,8 +153,8 @@ FRAMES = 80  # the default (fused) single-vehicle flight
 PLAIN_FRAMES = 5  # the fused_ticks=False flight
 FLEET, FLEET_FRAMES, BIG_FLEET = 16, 40, 64  # the fleet flight; the timed big fleet
 FLEET_START = 0.3  # [s] planning starts inside the fleet flight
-MESH_FRAMES, MESH_FLEET_FRAMES = 50, 20  # the imported-world flights
-TURN_FRAMES = 8  # frames per turn when the two worlds are flown in turns
+MESH_FRAMES, MESH_FLEET_FRAMES = 50, 10  # the imported-world flights
+TURN_FRAMES = 4  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
@@ -2442,7 +2452,7 @@ ENTRY_FLEET, ENTRY_FLEET_FRAMES = 16, 31
 ENTRY_RESUME_FRAMES = 3  # frames flown from the checkpoint and from the saved state
 ENTRY_TELEOP = "scripted:0.1:buttonStart,0.5:buttonRed"
 ENTRY_TELEOP_FRAMES = 40  # the kill lands near frame 16; the loop stops once it reads it
-ENTRY_RECORD_FRAMES = 16
+ENTRY_RECORD_FRAMES = 8
 ENTRY_LAUNCH_FRAMES = 40
 ENTRY_SIM_TICKS = 125  # ticks of the paced SimBridge loop: the mocap band is +-2.5%
 ENTRY_SIM_PROBE = 20  # SimBridge ticks timed to choose the paced rate
@@ -2451,10 +2461,10 @@ ENTRY_TOPICS = ("simulator_truth1", "planner_diagnostics1", "controller_diagnost
                 "mocap_output1", "telemetry1", "radio_command1")
 
 
-def _entry(label, fn, argv):
+def _entry(label, fn, argv, prefix="entry"):
     """One entry point in this process: fn(argv) with its standard output
-    captured; prints its lines with the `entry:` prefix and returns (its
-    result, its output)."""
+    captured; prints its lines with the `entry:` prefix (or `prefix`) and
+    returns (its result, its output)."""
     import contextlib
     import io
 
@@ -2465,10 +2475,10 @@ def _entry(label, fn, argv):
     seconds = time.perf_counter() - t0
     text = out.getvalue()
     for line in text.splitlines():
-        print(f"entry:   {line}")
+        print(f"{prefix}:   {line}")
     rc = res if isinstance(res, int) else res.rc
     _check(rc == 0, f"{label}: rc {rc}")
-    print(f"entry: {label}: rc 0 in {seconds:.1f} s")
+    print(f"{prefix}: {label}: rc 0 in {seconds:.1f} s")
     return res, text
 
 
@@ -2585,7 +2595,9 @@ def check_entry_points(dev, fly_ms):
     an imported world with --rgb / --csv / --ckpt, the teleop arm and kill,
     the recorder, the launcher with an operator and a bag, and the paced
     loops. Each run's kernel counts are set to 0 just before it and read
-    just after. fly_ms: `fly`'s ms a frame in this call, for the ratio."""
+    just after. fly_ms: `fly`'s ms a frame in this call, for the ratio.
+    Returns the `--fleet` run's (output, Flight), which `check_mesh`
+    holds `demo --mesh` against."""
     import base64
     import tempfile
 
@@ -2619,7 +2631,7 @@ def check_entry_points(dev, fly_ms):
               f"{launches}")
 
         reset_counts()
-        _, text = _entry("demo --fleet", demo.main, [
+        fleet_flight, fleet_text = _entry("demo --fleet", lambda a: demo.run(demo.parse_args(a)), [
             "--fleet", str(ENTRY_FLEET), "--frames", str(ENTRY_FLEET_FRAMES)])
         launches = read_counts()
         check_counts(launches, ENTRY_FLEET_FRAMES, True, 3)
@@ -2674,6 +2686,251 @@ def check_entry_points(dev, fly_ms):
 
         _entry_paced(dev, directory, frame_ms)
     print(f"entry points phase: {time.perf_counter() - t0:.1f} s")
+    return fleet_text, fleet_flight
+
+
+# The multi-device path (agrifly_tpu_torch/parallel): a world of one over
+# NCCL on this card; the JAX dry run's sizes for parallel.dryrun.
+PAR_ENVS, PAR_SUBSTEPS = 4096, 50  # the fleet step, both estimator modes
+PAR_CANDIDATES, PAR_CAPACITY = 1024, 32  # the candidate-sharded planner at 640x480
+PAR_FRAMES = 31  # the orchard fleet step: ENTRY_FLEET vehicles, one demo block
+PAR_DRYRUN_TIMEOUT = 300  # [s] python -m agrifly_tpu_torch.parallel.dryrun, set-up included
+PAR_MAX_WORLD = 4
+
+
+def _masked(text):
+    """A demo's lines with the wall-clock figures masked."""
+    import re
+
+    return [re.sub(r"in [0-9.]+s wall.*", "in <wall>", line) for line in text.splitlines()]
+
+
+def _mesh_fleet_step(dev, mesh, card):
+    """sharding.make_fleet_step at PAR_ENVS x PAR_SUBSTEPS in both modes:
+    every leaf bit-equal to env.rollout on the same draws, one K5 launch a
+    call, the metrics equal to the same reductions of the rows made without
+    a collective; timed in turns against env.rollout."""
+    import torch
+
+    from agrifly_tpu_torch.models import logic
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.ops.fmath import norm3
+    from agrifly_tpu_torch.parallel import sharding
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    p = env.make_params(noise_scale=1.0, device=dev)
+    s0 = sharding.init_fleet(p, mesh, PAR_ENVS)
+    cmd = env.hover_command(ENV_HOVER, device=dev)
+    noise = torch.randn((PAR_ENVS, PAR_SUBSTEPS, 2, 3),
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 20), device=dev)
+    for mode in (False, "mocap"):
+        step = sharding.make_fleet_step(p, mesh, PAR_ENVS, PAR_SUBSTEPS, mode)
+        cuda_rollout.rollout.launches = 0
+        got, m = step(s0, cmd, noise=noise)
+        torch.cuda.synchronize()
+        launches = cuda_rollout.rollout.launches
+        ref, _ = env.rollout(p, s0, cmd, PAR_SUBSTEPS, use_estimator=mode, noise=noise)
+        _check(launches == 1, f"mesh: the fleet step launched K5 {launches} times")
+        _check(_same_tree(got, ref), f"mesh: the fleet step ({mode}) differs from env.rollout")
+        inv_n = 1.0 / PAR_ENVS
+        up = torch.zeros_like(ref.plant.pos)
+        up[:, 2] = 1.0
+        host = (ref.plant.pos.sum(0) * inv_n, norm3(ref.plant.vel).sum() * inv_n,
+                (ref.logic.fs == logic.FS_PANIC).sum(dtype=torch.int32),
+                rot.rotate(ref.plant.att, up)[:, 2].min())  # as the JAX package reduces
+        _check(all(torch.equal(a, b) for a, b in zip(m, host)),
+               f"mesh: the fleet metrics ({mode}) differ from the rows' reductions: {m} {host}")
+        _check(int(m.num_panicked) == 0, f"mesh: {int(m.num_panicked)} envs panicked")
+        f64 = ref.plant.pos.double().mean(0).float()
+        t_roll = lambda: env.rollout(p, s0, cmd, PAR_SUBSTEPS, use_estimator=mode,  # noqa: E731
+                                     noise=noise)
+        t_step = lambda: step(s0, cmd, noise=noise)  # noqa: E731
+        times = [cuda_ms(fn, reps=5) for fn in (t_roll, t_step, t_step, t_roll)]
+        metrics_ms = cuda_ms(lambda: sharding.fleet_metrics(got, mesh, PAR_ENVS), reps=5)
+        print(f"mesh: fleet step, {PAR_ENVS} envs x {PAR_SUBSTEPS} substeps, "
+              f"use_estimator={mode}: every leaf bit-equal to env.rollout on the same draws, "
+              f"K5 launched {launches} time(s); the metrics equal to the rows' reductions bit for "
+              f"bit (mean_pos {m.mean_pos.tolist()}, a float64 mean {f64.tolist()}, max |d| "
+              f"{float((m.mean_pos - f64).abs().max()):.3g}; mean_speed "
+              f"{float(m.mean_speed):.6f}, max_tilt_cos {float(m.max_tilt_cos):.6f}); on {card} "
+              f"in turns, env.rollout / step / step / env.rollout: "
+              f"{' / '.join(f'{t:.4f}' for t in times)} ms a call, the metrics alone "
+              f"{metrics_ms:.4f} ms")
+
+
+def _mesh_planner(dev, mesh, state, card):
+    """sharding.make_sharded_planner at 640x480 with PAR_CANDIDATES
+    candidates and capacity PAR_CAPACITY on the depth image of `state`'s
+    pose (K1), over NCCL, bit-equal to the same call on CPU tensors over a
+    gloo subgroup; one inflation launch (K2 or K2c) a plan."""
+    import torch
+    import torch.distributed as dist
+
+    from agrifly_tpu_torch.ops import lin3
+    from agrifly_tpu_torch.ops import rotation as rot
+    from agrifly_tpu_torch.parallel import sharding
+    from agrifly_tpu_torch.render import cuda_raycast, raycast
+    from agrifly_tpu_torch.sim import orchard_env
+
+    p = orchard_env.make_params(device=dev)
+    pos, att = state.base.plant.pos.reshape(1, 3), state.base.plant.att.reshape(1, 4)
+    cam = raycast.camera_attitude(att)
+    depth = cuda_raycast.render_depth_batch(p.render_cfg, p.scene, pos, cam)[0]
+    R = rot.to_matrix(cam[0])
+    grav = lin3.mv3t(R, torch.tensor(orchard_env.GRAV_W, device=dev))
+    vel = lin3.mv3t(R, state.base.plant.vel.reshape(3))
+    goal = lin3.mv3t(R, p.waypoints[0] - pos[0])
+    u = torch.rand((4, PAR_CANDIDATES),
+                   generator=torch.Generator(device=dev).manual_seed(SEED + 21), device=dev)
+    args = (depth, u, vel, torch.zeros_like(vel), grav, goal)
+    plan = sharding.make_sharded_planner(p.planner, mesh, PAR_CANDIDATES, PAR_CAPACITY)
+    reset_counts()
+    got = plan(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    inflations = launches["inflate"] + launches["inflate_cluster"]
+    _check(inflations == 1, f"mesh: the sharded planner launched the inflation {inflations} times")
+    gloo = dist.new_group(backend="gloo")
+    cpu_mesh = sharding.Mesh(gloo, 1, 0, torch.device("cpu"))
+    p_cpu = orchard_env.make_params(device="cpu")
+    t0 = time.perf_counter()
+    ref = sharding.make_sharded_planner(p_cpu.planner, cpu_mesh, PAR_CANDIDATES,
+                                        PAR_CAPACITY)(*(a.cpu() for a in args))
+    cpu_s = time.perf_counter() - t0
+    dist.destroy_process_group(gloo)
+    _check(_same_tree(to_device(got, "cpu"), ref),
+           "mesh: the sharded planner on the card differs from the same call on the CPU")
+    _check(bool(got.found), "mesh: the sharded planner found no trajectory")
+    ms = cuda_ms(lambda: plan(*args), reps=3, warmup=1)
+    cfg = p.render_cfg
+    print(f"mesh: sharded planner at {cfg.width}x{cfg.height}, {PAR_CANDIDATES} candidates, "
+          f"capacity {PAR_CAPACITY}, on the depth image of the single flight's final pose: "
+          f"bit-equal to the same call on CPU tensors over a gloo group (found "
+          f"{bool(got.found)}, best_cost "
+          f"{float(got.best_cost):.6f}, feasible {int(got.num_feasible)}, admissible "
+          f"{int(got.num_velocity_admissible)}, free {int(got.num_collision_free)}, pyramids "
+          f"{int(got.num_pyramids)}); {launches['inflate']} K2 + {launches['inflate_cluster']} "
+          f"K2c launch a plan; {ms:.3f} ms a plan on {card} (the CPU's {1e3 * cpu_s:.1f} ms)")
+
+
+def _mesh_orchard(dev, mesh, card):
+    """sharding.make_orchard_fleet_step: ENTRY_FLEET vehicles x PAR_FRAMES
+    frames bit-equal to orchard_env.fly_fleet on the same generator, K1, the
+    inflation and K3b launched once (the inflation once a round) a fleet
+    frame, the metrics equal to the rows' reductions; both timed."""
+    import torch
+
+    from agrifly_tpu_torch.parallel import sharding
+    from agrifly_tpu_torch.sim import orchard_env
+
+    p = orchard_env.make_params(start_flight_time=FLEET_START, device=dev)
+    s0 = sharding.init_orchard_fleet(p, mesh, ENTRY_FLEET)
+    step = sharding.make_orchard_fleet_step(p, mesh, ENTRY_FLEET, PAR_FRAMES)
+    runs = {}
+    for name, fly_block in (("fly_fleet", lambda g: orchard_env.fly_fleet(p, s0, PAR_FRAMES, g)),
+                            ("mesh step", lambda g: step(s0, gen=g))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fly_block(gen)
+        torch.cuda.synchronize()
+        runs[name] = (out, 1e3 * (time.perf_counter() - t0) / PAR_FRAMES, read_counts())
+    (ref, _), ref_ms, _ = runs["fly_fleet"]
+    (got, m), ms, launches = runs["mesh step"]
+    check_counts(launches, PAR_FRAMES, True, p.planner_rounds + 1)
+    _check(_same_tree(got, ref), "mesh: the orchard fleet step differs from fly_fleet")
+    host = (ref.base.plant.pos.sum(0) * (1.0 / ENTRY_FLEET),
+            (ref.base.logic.panic_reason != 0).sum(dtype=torch.int32),
+            ref.plan_count.sum(dtype=torch.int32),
+            (ref.mstage == orchard_env.MSTAGE_COMPLETE).sum(dtype=torch.int32))
+    _check(all(torch.equal(a, b) for a, b in zip(m, host)),
+           f"mesh: the orchard metrics differ from the rows' reductions: {m} {host}")
+    _check(int(m.num_panicked) == 0 and int(m.num_plans) > 0,
+           f"mesh: orchard fleet panicked or never planned: {m}")
+    cfg = p.render_cfg
+    print(f"mesh: orchard fleet step, {ENTRY_FLEET} vehicles x {PAR_FRAMES} frames at "
+          f"{cfg.width}x{cfg.height}, {p.n_candidates} candidates: every leaf bit-equal to "
+          f"fly_fleet on the same generator; metrics "
+          f"{[round(v, 4) for v in m.mean_pos.tolist()]} m, {int(m.num_plans)} plans, "
+          f"{int(m.num_panicked)} panics; {launches}; on {card}, fly_fleet then the mesh step: "
+          f"{ref_ms:.3f} / {ms:.3f} ms per fleet frame")
+
+
+def _mesh_demo(fleet_entry):
+    """demo --mesh --fleet ENTRY_FLEET (a world of one the demo makes and
+    closes): its lines are the --fleet run's with the mesh: line, its final
+    state that run's bit for bit, its launches one fleet frame's each."""
+    from agrifly_tpu_torch import demo
+
+    fleet_text, fleet_flight = fleet_entry
+    reset_counts()
+    flight, text = _entry("demo --mesh --fleet", lambda a: demo.run(demo.parse_args(a)), [
+        "--mesh", "--fleet", str(ENTRY_FLEET), "--frames", str(ENTRY_FLEET_FRAMES)], "mesh")
+    launches = read_counts()
+    check_counts(launches, ENTRY_FLEET_FRAMES, True, 3)
+    lines = _masked(text)
+    _check(lines[0] == f"mesh: 1 devices, {ENTRY_FLEET} vehicles/device",
+           f"demo --mesh: first line {lines[0]!r}")
+    _check(lines[1:] == _masked(fleet_text), "demo --mesh: its lines are not --fleet's")
+    _check(_same_tree(flight.state, fleet_flight.state),
+           "demo --mesh: its final state differs from --fleet's")
+    print(f"mesh: demo --mesh --fleet {ENTRY_FLEET}: the --fleet run's {len(lines) - 1} lines "
+          f"(wall times aside) and its final state bit for bit; {launches}")
+
+
+def _mesh_dryrun(card):
+    """python -m agrifly_tpu_torch.parallel.dryrun on one card, and on
+    min(cards, PAR_MAX_WORLD) where the host has more than one."""
+    import torch
+
+    worlds = [1] + ([min(torch.cuda.device_count(), PAR_MAX_WORLD)]
+                    if torch.cuda.device_count() >= 2 else [])
+    for world in worlds:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "agrifly_tpu_torch.parallel.dryrun",
+                              str(world)], capture_output=True, text=True,
+                             timeout=PAR_DRYRUN_TIMEOUT)
+        _check(res.returncode == 0 and "DRYRUN OK" in res.stdout,
+               f"mesh: dryrun {world}: rc {res.returncode}\n{res.stdout[-2000:]}"
+               f"\n{res.stderr[-3000:]}")
+        ok = next(line for line in res.stdout.splitlines() if line.startswith("DRYRUN OK"))
+        print(f"mesh: python -m agrifly_tpu_torch.parallel.dryrun {world} on {card}: "
+              f"{ok} ({time.perf_counter() - t0:.1f} s, set-up included)")
+    if len(worlds) == 1:
+        print("mesh: W >= 2 did not run: this host has one card, and NCCL takes one rank a "
+              "card; W = 2 and 4 are held on the CPU over gloo (tests/test_torch_sharding.py, "
+              "tests/test_torch_multihost.py)")
+
+
+def check_mesh(dev, state, fleet_entry):
+    """The multi-device path (agrifly_tpu_torch/parallel) on the card: a
+    world of one over NCCL (make_mesh) for the fleet step, the
+    candidate-sharded planner and the orchard fleet step, its group
+    destroyed after them; then `demo --mesh --fleet` against the entry
+    points' `--fleet` run (`fleet_entry`) and the dry run in a process of
+    its own. `state`: the single flight's final state (the planner's
+    pose)."""
+    import torch.distributed as dist
+
+    from agrifly_tpu_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    card = card_line()
+    mesh = sharding.make_mesh(dev)
+    try:
+        _check(dist.get_backend() == "nccl" and mesh.world == 1 and mesh.device == dev,
+               f"mesh: {dist.get_backend()} world of {mesh.world} on {mesh.device}")
+        print(f"mesh: a world of one over NCCL on {mesh.device} ({card})")
+        _mesh_fleet_step(dev, mesh, card)
+        _mesh_planner(dev, mesh, state, card)
+        _mesh_orchard(dev, mesh, card)
+    finally:
+        sharding.close_mesh(mesh)
+    _check(not dist.is_initialized(), "mesh: the phase left its process group")
+    _mesh_demo(fleet_entry)
+    _mesh_dryrun(card)
+    print(f"mesh: phase {time.perf_counter() - t0:.1f} s")
 
 
 def time_big_fleet(dev):
@@ -4326,7 +4583,8 @@ def main(argv) -> int:
         fly_bridge(dev, state, baked_orchard(dev))
         print(f"bridge flights: {time.perf_counter() - t_bridge:.1f} s")
         bridge_launches, mesh_bridge_launches = check_bridge(dev, state)
-        check_entry_points(dev, fly_ms)
+        fleet_entry = check_entry_points(dev, fly_ms)
+        check_mesh(dev, state, fleet_entry)
         k5, k5_launches = check_env_rollout(dev)
         check_env_modes(dev)
         k5w, k5w_launches = check_fleet_wind(dev)

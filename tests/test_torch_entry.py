@@ -6,7 +6,8 @@ candidates (one JAX launch per module): the bags hold the same topics in
 the same order, the same number of each and the same stamps. Their values
 are not compared, because the two packages draw different noise. Without
 `--cpu` and with no card, both entry points raise instead of running on the
-CPU; `--mesh` (the multi-device path, not ported) exits with a message.
+CPU; `--mesh --fleet N` exits with the JAX package's message where N does
+not divide the mesh.
 """
 
 import json
@@ -80,6 +81,12 @@ def test_without_cpu_and_without_a_card_they_raise(entry, monkeypatch):
         main(["--image", "64x48", "--candidates", "16", "--frames", "1"])
 
 
-def test_mesh_exits_with_a_message():
-    with pytest.raises(SystemExit, match="multi-device path"):
+def test_mesh_exits_with_a_message(monkeypatch):
+    """A world of one made in this process stands in for three ranks."""
+    from agrifly_tpu_torch.parallel import sharding
+
+    make = sharding.make_mesh
+    monkeypatch.setattr(sharding, "make_mesh", lambda device=None: make(device)._replace(world=3))
+    with pytest.raises(SystemExit, match="--fleet 2 must divide the 3-device mesh"):
         demo.main(SMALL + ["--fleet", "2", "--mesh"])
+    assert not torch.distributed.is_initialized()

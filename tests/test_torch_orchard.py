@@ -146,7 +146,8 @@ def test_port_imports_no_jax():
         assert "agrifly_tpu_torch.sim.orchard_env" in names and len(names) > 30, names
         entry = {"agrifly_tpu_torch." + m for m in (
             "demo", "launch", "io.teleop", "io.miniros", "io.ros_adapter", "io.native",
-            "utils.checkpoint", "utils.simlog", "utils.perf")}
+            "utils.checkpoint", "utils.simlog", "utils.perf", "parallel.sharding",
+            "parallel.multihost", "parallel.dryrun")}
         assert entry <= set(names), sorted(entry - set(names))
         print("ok", jaxy)
     """)
