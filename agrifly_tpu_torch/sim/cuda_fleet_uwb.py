@@ -64,8 +64,7 @@ def _host_params(params):
     if entry is not None and entry[0] is params and entry[1] == stamp:
         return entry[2]
     vehicle = convert.flatten_tensors(params.base)[0] + convert.flatten_tensors(params.wind)[0]
-    net = [t.cpu() for t in cuda_rollout._kernel_params(
-        convert.flatten_tensors(params.uwb)[0], True)]
+    net = [t.cpu() for t in cuda_rollout.param_leaves(params.uwb)]
     copies = ([t.cpu() for t in vehicle], net,
               params.vehicle_ids.to(torch.int32).cpu().contiguous(),
               params.anchor_positions.to(torch.float32).cpu().contiguous())

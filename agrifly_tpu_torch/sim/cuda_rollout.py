@@ -18,8 +18,9 @@ version: `env.rollout_plain`, with `env.fast_flags` for `rollout_fast`.
 Wind is another build variant: `fleet_rollout` runs `sim/fleet_env`'s wind
 fleet (`fleet_env.fleet_rollout`) through `rollout.cu` built with
 TICK_WIND, which carries each vehicle's gust velocity and runs the gust
-process and its force in front of every tick (on CPU tensors,
-`fleet_env.fleet_rollout_plain`).
+process and its force in front of every tick; a wind fleet whose base has
+a UWB network runs the build with both TICK_WIND and TICK_UWB (on CPU
+tensors, `fleet_env.fleet_rollout_plain`).
 
 The kernel reads each state and parameter leaf through its own device
 pointer, and a command leaf shared by the fleet through a stride of 0. It
@@ -69,30 +70,25 @@ def leaf_table(uwb=False, wind=False):
     return tuple(s._replace(written=True) for s in state), tuple(params)
 
 
-def _has_uwb(params):
-    """The tree is an `env.EnvParams` with a UWB network (a wind fleet's
-    `FleetParams` has none)."""
-    return getattr(params, "uwb", None) is not None
-
-
 def param_leaves(params):
-    """The parameter tensors the kernel reads, in its table's order (a UWB
-    radio table padded to MAX_RADIOS)."""
-    return _kernel_params(convert.flatten_tensors(params)[0], _has_uwb(params))
+    """The parameter tensors the kernel reads, in its table's order: a UWB
+    radio table (`radio_ids`) padded with unused slots to MAX_RADIOS."""
+    return [_padded_radios(t) if path[-1] == "radio_ids" else t
+            for path, t in convert.leaves(params)]
 
 
-def _kernel_params(leaves, uwb):
-    """The parameter leaves as the kernel's table has them: the UWB radio
-    table (the leaf after the first four of the UWB parameters, which come
-    last) padded with unused slots to MAX_RADIOS."""
-    if not uwb:
-        return leaves
-    leaves = list(leaves)
-    k = len(leaves) - len(uwb_mod.UwbParams._fields) + uwb_mod.UwbParams._fields.index("radio_ids")
-    ids = leaves[k]
+def _padded_radios(ids):
     if ids.dim() == 1 and ids.numel() < MAX_RADIOS:
-        leaves[k] = torch.cat([ids, ids.new_zeros(MAX_RADIOS - ids.numel())])
-    return leaves
+        return torch.cat([ids, ids.new_zeros(MAX_RADIOS - ids.numel())])
+    return ids
+
+
+def fleet_draw_words(wind_noise, uwb_draws=None):
+    """A wind fleet's draws as K5 reads them, (N, n_steps, words): for each
+    tick the UWB draws `uwb_draws` ((N, n_steps, 4); where the base has a
+    network), then the gust normals `wind_noise` ((n_steps, N, 3))."""
+    gusts = wind_noise.transpose(0, 1)
+    return (gusts if uwb_draws is None else torch.cat([uwb_draws, gusts], dim=2)).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +157,7 @@ def _accept(kind, tree, device, check):
     it is the same tree on the same device and its leaves have not moved,
     else the tree checked in full by check(leaves) (which raises); a new
     parameter entry copies the leaves, as the kernel's table has them
-    (`_kernel_params`), to the host (a device sync, once per parameter tree
+    (`param_leaves`), to the host (a device sync, once per parameter tree
     and after any in-place change to it)."""
     entry = _accepted.get(kind)
     if (entry is not None and entry.versions is not None and entry.tree is tree
@@ -169,7 +165,7 @@ def _accept(kind, tree, device, check):
             and list(map(_data_ptr, entry.leaves)) == entry.ptrs):
         return entry
     leaves, rebuild = convert.flatten_tensors(tree)
-    kernel_leaves = _kernel_params(leaves, _has_uwb(tree)) if kind == "params" else leaves
+    kernel_leaves = param_leaves(tree) if kind == "params" else leaves
     check(kernel_leaves)
     ptrs = list(map(_data_ptr, leaves))
     host = [t.cpu() for t in kernel_leaves] if kind == "params" else []
@@ -198,18 +194,17 @@ def _command(cmd, B, device):
 
 
 def _launch(state, params, cmd, noise, est, ctrl, group=None, launcher=None, draws=None,
-            wind=False):
+            uwb=False, wind=False):
     """Run the kernel on B envs (`state`, `params`: accepted entries with a
     leading B on every state leaf, or one env with none; `cmd`: `_command`'s
     leaves and strides; noise (B, n_steps, 2, 3); est: a use_estimator; draws:
-    the UWB variant's (B, n_steps, 4), with wind the wind build's gust
-    normals (B, n_steps, 3), None for the other build) with
+    the UWB variant's (B, n_steps, 4) with uwb, the wind build's
+    `fleet_draw_words` with wind, None for the other build) with
     `group` lanes per env (GROUP by default; chip_smoke.py and the card
     tests run every one of GROUPS) through `launcher` (the variant's default
     build's env_rollout_launch, or another build's); returns (the new
     state's leaves, the trajectory's leaves)."""
     group = GROUP if group is None else group
-    uwb = draws is not None and not wind
     fn = launcher or _launcher(uwb, wind)
     runs, per_env = _runs(uwb, wind)
     B, n = noise.shape[:2]
@@ -289,7 +284,7 @@ def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", f
         draws = draws if B is not None else draws[None]
     new, traj = _launch(s_entry, p_entry, _command(cmd, B, device),
                         noise if B is not None else noise[None], use_estimator, ctrl_mode,
-                        draws=draws)
+                        draws=draws, uwb=uwb)
     if B is None:
         traj = [t[0] for t in traj]
     return s_entry.rebuild(new), env_mod.StepOutputs(*traj)
@@ -298,21 +293,27 @@ def rollout(params, state, cmd, noise, use_estimator=False, ctrl_mode="rates", f
 rollout.launches = 0  # kernel launches since the last reset (the env builds')
 
 
-def fleet_rollout(params, state, des_pos, noise, wind_noise, use_estimator=True):
+def fleet_rollout(params, state, des_pos, noise, wind_noise, use_estimator=True,
+                  uwb_draws=None):
     """Advance a wind fleet (`fleet_env.FleetParams`, `FleetState` of N
     vehicles) by the ticks of `noise` ((N, n_steps, 2, 3) float32) under
     the gust normals `wind_noise` ((n_steps, N, 3)), rates commands to the
-    setpoints des_pos ((N, 3) or a shared (3,)). Returns the final state.
+    setpoints des_pos ((N, 3) or a shared (3,)); where the base has a UWB
+    network, `uwb_draws` ((N, n_steps, 4) float32) are each vehicle's
+    network draws. Returns the final state.
 
-    CUDA tensors launch K5's wind build (or raise): one launch, counted in
+    CUDA tensors launch K5's wind build (or raise), with the network its
+    TICK_WIND + TICK_UWB build: one launch, counted in
     `fleet_rollout.launches`; CPU tensors take
     `fleet_env.fleet_rollout_plain`. Every call is checked against
     tick.cuh's leaf tables."""
     from agrifly_tpu_torch.sim import fleet_env
 
     env_mod._check_modes(use_estimator, "rates")
-    if params.base.uwb is not None or state.envs.uwb is not None:
-        raise ValueError("a wind fleet's vehicles carry no UWB network of their own")
+    uwb = params.base.uwb is not None
+    if uwb != (state.envs.uwb is not None):
+        raise ValueError("UWB: the base params have a network and the vehicles none, or the "
+                         "reverse (make the state with fleet_env.init_fleet of the params)")
     B = state.wind_vel.shape[0]
     if (noise.dim() != 4 or tuple(noise.shape[-2:]) != (2, 3) or noise.shape[0] != B
             or noise.dtype != torch.float32):
@@ -322,7 +323,8 @@ def fleet_rollout(params, state, des_pos, noise, wind_noise, use_estimator=True)
     if tuple(wind_noise.shape) != (n, B, 3) or wind_noise.dtype != torch.float32:
         raise ValueError(f"need ({n}, {B}, 3) float32 gust normals, got "
                          f"{tuple(wind_noise.shape)} {wind_noise.dtype}")
-    state_specs, param_specs = leaf_table(wind=True)
+    draws = env_mod._check_draws(params.base, uwb_draws, (B, n, uwb_mod.N_DRAWS))
+    state_specs, param_specs = leaf_table(uwb, wind=True)
     device = noise.device
     s_entry = _accept("state", state, device, lambda leaves: cuda_build.check_leaves(
         state_specs, leaves, device, "state", B, "tick.cuh"))
@@ -330,14 +332,14 @@ def fleet_rollout(params, state, des_pos, noise, wind_noise, use_estimator=True)
         param_specs, leaves, device, "params", None, "tick.cuh"))
     if not noise.is_cuda:
         return fleet_env.fleet_rollout_plain(params, state, des_pos, noise, wind_noise,
-                                             use_estimator)
+                                             use_estimator, draws)
     z3 = torch.zeros(3, dtype=torch.float32, device=device)
     cmd = env_mod.Command(des_pos=torch.as_tensor(des_pos, dtype=torch.float32), des_vel=z3,
                           des_acc=z3, des_yaw=z3[0], ext_force=z3, ext_torque=z3)
-    gusts = wind_noise.to(device).transpose(0, 1).contiguous()
+    words = fleet_draw_words(wind_noise.to(device), None if draws is None else draws.to(device))
     new, _ = _launch(s_entry, p_entry, _command(cmd, B, device), noise.contiguous(),
-                     use_estimator, "rates", draws=gusts, wind=True)
+                     use_estimator, "rates", draws=words, wind=True, uwb=uwb)
     return s_entry.rebuild(new)
 
 
-fleet_rollout.launches = 0  # the wind build's launches since the last reset
+fleet_rollout.launches = 0  # the wind builds' launches since the last reset

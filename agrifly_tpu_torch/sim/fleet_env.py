@@ -9,7 +9,10 @@ aerodynamic-style force proportional to the relative wind:
     F  = gain * (w' - v_vehicle)
 
 `fleet_step` / `fleet_rollout` fly such a fleet with `env.step` (rates
-commands to per-vehicle setpoints; the mocap estimator by default).
+commands to per-vehicle setpoints; the mocap estimator by default). Its
+base params may carry a UWB network of their own (`env.with_uwb_anchors`):
+each vehicle then ranges its own anchors on its own network state, and its
+onboard EKF fuses the ranges.
 `uwb_fleet_step` / `uwb_fleet_rollout` fly vehicles that share ONE ranging
 network with fixed anchors: every tick the plants move (phase A), the
 network steps once over the vehicles' new positions and the anchors (the
@@ -21,19 +24,21 @@ vehicles fly on their onboard UWB navigation) finish the tick.
 
 On CUDA tensors a rollout is one kernel launch: `fleet_rollout` the wind
 build of the env rollout kernel (`cuda_rollout.fleet_rollout`, K5 built
-with TICK_WIND), `uwb_fleet_rollout` the shared-network kernel
+with TICK_WIND, and with TICK_UWB too where the base has a network),
+`uwb_fleet_rollout` the shared-network kernel
 (`cuda_fleet_uwb.rollout`, K6). On CPU tensors they run the plain versions
 here, tick by tick.
 
 Randomness: the port's states have no PRNG key. A step takes the tick's
 IMU unit normals `noise` (N, 2, 3) and gust unit normals `wind_noise`
-(N, 3) (and the UWB fleet the network's four draws `uwb_draws` (4,), in
-`sim/uwb.draw`'s order); a rollout takes them pre-drawn, `noise`
-(N, n_steps, 2, 3), `wind_noise` (n_steps, N, 3) and `uwb_draws`
-(n_steps, 4), or draws them from a `torch.Generator` on the state's device
-in that order: the IMU noise, then the gust normals, then the network's
-draws. The base `EnvParams` of both fleets carry no UWB network of their
-own (the UWB fleet's network is the shared one).
+(N, 3), and the network's four draws `uwb_draws` in `sim/uwb.draw`'s
+order: (N, 4), a row per vehicle, for a wind fleet whose base has a
+network; (4,) for the UWB fleet's shared one. A rollout takes them
+pre-drawn, `noise` (N, n_steps, 2, 3), `wind_noise` (n_steps, N, 3) and
+`uwb_draws` (N, n_steps, 4) or (n_steps, 4), or draws them from a
+`torch.Generator` on the state's device in that order: the IMU noise, then
+the gust normals, then the network's draws. The UWB fleet's base params
+carry no network of their own (its network is the shared one).
 """
 
 from __future__ import annotations
@@ -77,9 +82,8 @@ class FleetState(NamedTuple):
 
 
 def _line(params: env_mod.EnvParams, n, spacing):
-    """n vehicles at rest at (0, i spacing, 0)."""
-    if params.uwb is not None:
-        raise ValueError("a fleet's base params carry no UWB network of their own")
+    """n vehicles at rest at (0, i spacing, 0) (each with its own network
+    state where the params have a UWB network)."""
     dev = params.dt_us.device
     ys = torch.arange(n, dtype=torch.float32, device=dev) * spacing
     z = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -110,17 +114,19 @@ def _fleet_command(des_pos, ext_force) -> env_mod.Command:
 
 
 def fleet_step(params: FleetParams, s: FleetState, des_pos, use_estimator=True, noise=None,
-               wind_noise=None):
+               wind_noise=None, uwb_draws=None):
     """One 2 ms tick of the whole fleet: the gusts, then `env.step` (rates
     commands) under their force. des_pos: (N, 3) per-vehicle setpoints;
     noise: the tick's IMU normals (N, 2, 3); wind_noise: its gust normals
-    (N, 3). Returns (state, outputs) with a leading vehicle axis."""
+    (N, 3); uwb_draws: where the base has a UWB network, each vehicle's
+    network draws (N, 4). Returns (state, outputs) with a leading vehicle
+    axis."""
     if noise is None or wind_noise is None:
         raise ValueError("fleet_step needs the tick's IMU noise and gust normals")
     wind_vel, ext_force = _gusts(params.base, params.wind, s.wind_vel, s.envs.plant.vel,
                                  wind_noise)
     envs, outs = env_mod.step(params.base, s.envs, _fleet_command(des_pos, ext_force),
-                              use_estimator, noise=noise)
+                              use_estimator, noise=noise, uwb_draws=uwb_draws)
     return FleetState(envs=envs, wind_vel=wind_vel), outs
 
 
@@ -142,28 +148,47 @@ def _draw(s_envs, n_steps, noise, wind_noise, gen):
     return noise, wind_noise
 
 
+def _draw_uwb(base: env_mod.EnvParams, s_envs, n_steps, uwb_draws, gen):
+    """Each vehicle's network draws (N, n_steps, 4) where the base has a UWB
+    network (as given, or drawn from gen as `env.rollout` draws them), else
+    None."""
+    n = s_envs.step.shape[0]
+    if base.uwb is not None and uwb_draws is None:
+        if gen is None:
+            raise ValueError("the base has a UWB network: pass its draws (uwb_draws) or a "
+                             "torch.Generator (gen)")
+        uwb_draws = uwb_mod.draw((n, n_steps), gen, s_envs.step.device)
+    return env_mod._check_draws(base, uwb_draws, (n, n_steps, uwb_mod.N_DRAWS))
+
+
 def fleet_rollout_plain(params: FleetParams, s: FleetState, des_pos, noise, wind_noise,
-                        use_estimator=True):
+                        use_estimator=True, uwb_draws=None):
     """`fleet_step` over noise's n_steps ticks in plain torch, on any
-    device (under torch.inference_mode). The reference for K5's wind
-    build. Returns the final state."""
+    device (under torch.inference_mode); uwb_draws (N, n_steps, 4) where
+    the base has a UWB network. The reference for K5's wind builds. Returns
+    the final state."""
     with torch.inference_mode():
         for k in range(noise.shape[1]):
-            s, _ = fleet_step(params, s, des_pos, use_estimator, noise[:, k], wind_noise[k])
+            s, _ = fleet_step(params, s, des_pos, use_estimator, noise[:, k], wind_noise[k],
+                              None if uwb_draws is None else uwb_draws[:, k])
         return env_mod._tree_map(torch.Tensor.contiguous, s)
 
 
 def fleet_rollout(params: FleetParams, s: FleetState, des_pos, n_steps: int,
-                  use_estimator=True, noise=None, wind_noise=None, gen=None):
-    """`fleet_step` scanned n_steps times. noise (N, n_steps, 2, 3) and
-    wind_noise (n_steps, N, 3), or both drawn from gen (the noise first).
-    CUDA tensors: one launch of the env rollout kernel's wind build; CPU
-    tensors: `fleet_rollout_plain`. Returns (state, None), as the JAX
-    package's scan does."""
+                  use_estimator=True, noise=None, wind_noise=None, gen=None, uwb_draws=None):
+    """`fleet_step` scanned n_steps times. noise (N, n_steps, 2, 3),
+    wind_noise (n_steps, N, 3) and, where the base has a UWB network,
+    uwb_draws (N, n_steps, 4), or drawn from gen in that order. CUDA
+    tensors: one launch of the env rollout kernel's wind build (with the
+    network, its TICK_WIND + TICK_UWB build); CPU tensors:
+    `fleet_rollout_plain`. Returns (state, None), as the JAX package's scan
+    does."""
     from agrifly_tpu_torch.sim import cuda_rollout
 
     noise, wind_noise = _draw(s.envs, n_steps, noise, wind_noise, gen)
-    return cuda_rollout.fleet_rollout(params, s, des_pos, noise, wind_noise, use_estimator), None
+    uwb_draws = _draw_uwb(params.base, s.envs, n_steps, uwb_draws, gen)
+    return cuda_rollout.fleet_rollout(params, s, des_pos, noise, wind_noise, use_estimator,
+                                      uwb_draws), None
 
 
 # =============================================================================
@@ -210,6 +235,8 @@ def make_uwb_fleet_params(n_vehicles, anchor_ids, anchor_positions, wind=None,
 
 def init_uwb_fleet(params: UwbFleetParams, spacing=2.0) -> UwbFleetState:
     """The vehicles on a line, `spacing` apart; the network idle."""
+    if params.base.uwb is not None:
+        raise ValueError("a UWB fleet's base params carry no UWB network of their own")
     n = params.vehicle_ids.shape[0]
     dev = params.vehicle_ids.device
     return UwbFleetState(envs=_line(params.base, n, spacing),

@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds the six CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
 the section-timed variants of `frame.cu`, `rollout.cu`, `fleet_uwb.cu` and
-`meshscene.cu` and the UWB and wind builds of `rollout.cu` (one nvcc each, all in
-parallel) and holds each kernel against its plain
+`meshscene.cu` and the UWB, wind and wind + UWB builds of `rollout.cu` (one nvcc
+each, all in parallel) and holds each kernel against its plain
 PyTorch version at the shapes the orchard frame gives it: the raycaster
 bit for bit (one image and 16 in one launch, on the default orchard, a
 scene at `make_params`' limit and one whose second canopy spheres leave
@@ -29,7 +29,8 @@ floor at K = 0), the
 pyramid inflation bit for bit (one image, and 16 fleet images in one
 launch), the fused 16-tick block within the tick tolerances in five
 mission states, for one vehicle and for fleets of 5 and 37 in one launch
-(then its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
+(the fleets against the plain ticks on CPU copies of their inputs; then
+its device time with 0, 1 and 16 ticks, at B = 1, 16 and 64, and
 clock64() timers around the tick chain's sections, in a variant of
 `csrc/frame.cu` built beside the kernels). The grouped
 inflation kernel (K2g, a cluster of S blocks per S seeds) is held bit for
@@ -44,7 +45,7 @@ oracle. It then flies:
 
 - the single-vehicle orchard frame (640x480 depth, 256 candidates, 16
   ticks per frame) through `OrchardEnv.fly`: 80 frames in the default
-  configuration, whose ticks are the fused kernel, and 5 frames with
+  configuration, whose ticks are the fused kernel, and 3 frames with
   `fused_ticks=False`, whose ticks are plain torch;
 - a fleet of 16 vehicles in lanes 3 m apart, 40 frames through
   `OrchardEnv.fly_fleet`, whose every frame launches the raycaster once,
@@ -52,24 +53,24 @@ oracle. It then flies:
   16 vehicles; then timed fleet frames of 64 vehicles;
 - the same frame through an imported world (`make_params(mesh_scene=...)`,
   the procedural orchard baked into primitives): first in turns with the
-  procedural orchard from the single flight's final state (4 frames each,
+  procedural orchard from the single flight's final state (2 frames each,
   procedural, imported, imported, procedural), then one vehicle for 50
   frames and 16 in lanes for 10, every frame launching the strip-culled
   mesh kernel once and the procedural raycaster never; then one batch
   render of the fleet's poses through the window mesh kernel;
-- what a topic bridge computes each frame, in both worlds: 10 frames of
+- what a topic bridge computes each frame, in both worlds: 6 frames of
   `OrchardEnv.fly_diag`, each frame's pose rendered to depth and to RGB
   (K1 and K1-rgb, or K4 and K4-rgb), its telemetry encoded on the card and
   on the host (equal), its command encoded on the host and on the card
   (equal); then fly and fly_diag in turns from one state;
-- the port's topic bridge (`io/bridge`): SimBridge for 150 ticks with the
+- the port's topic bridge (`io/bridge`): SimBridge for 120 ticks with the
   mocap estimator and a kill on radio_command1, its bag on the card held to
   the same flight's on the CPU (the tick criteria, telemetry within one
   code) and its `run_blocked` bag to its `run` bag (bit for bit but the
   euler angles, within 2e-6 rad), a dispatched block that makes no
   synchronizing call, the ticks per second of both, and the paced loop with
   device blocks; OrchardBridge at 640x480 with 256 candidates from the
-  single flight's state in both worlds, 10 frames synced and 10 pipelined
+  single flight's state in both worlds, 6 frames synced and 6 pipelined
   from the same draws (byte-equal bags, images included; every depth image
   its frame's own render; per frame the depth kernel twice, the inflation
   once per planner round, the tick kernel once and the RGB kernel once; a
@@ -77,7 +78,7 @@ oracle. It then flies:
   ms a frame of both, fly_diag and the bridge frame in turns, and the paced
   loop at 2 frames a second with a kill;
 - the port's front doors, in this process at 640x480 with 256 candidates:
-  `demo` for 62 frames (ms a frame beside `fly`'s, and beside the same block
+  `demo` for 62 frames (ms a frame beside `fly`'s, and beside 10 frames
   flown through `orchard_env.fly` on the demo's params), `demo --fleet 16`,
   `demo --scene-file` on the mixed scene's primitives file with `--rgb`,
   `--csv` and `--ckpt` (the PPM equal to the RGB kernel's image of the
@@ -106,7 +107,9 @@ oracle. It then flies:
   env held bit for bit against 1 lane (all 4096 envs with the true state,
   64 with the estimator, 250 steps), the default held against the plain
   (vmapped) rollout on the card (25 steps by the tick criteria, 250 by
-  JAX's rollout_fast terms) and on the CPU from mid-flight; the device time
+  JAX's rollout_fast terms; past its first 25 eager steps every long plain
+  rollout on the card is replayed as one CUDA graph of its eager step,
+  bit for bit the eager loop's) and on the CPU from mid-flight; the device time
   of every lane count at 1, 64 and 4096 envs in both modes, and with 0
   steps; clock64() timers around the tick's sections in a variant of
   `csrc/rollout.cu` built beside the kernels; and the plain rollout's rate;
@@ -116,7 +119,12 @@ oracle. It then flies:
   bit-equal to K5, against the plain rollout on the card, the formation
   and drift flights of tests/test_fleet_and_bridge.py, and `fleet_rollout`
   at 4096 vehicles x 250 steps in both estimator modes, K5-wind's device
-  time beside K5's in turns), and the shared-UWB fleet through K6
+  time beside K5's in turns); the wind fleet whose vehicles each carry a
+  UWB network of their own through K5's `-DTICK_UWB -DTICK_WIND` build (every
+  lane count bit-equal to one lane, `fleet_rollout` at 4096 vehicles x 250
+  steps in both estimator modes bit-equal to the plain rollout on the card
+  and, from mid-flight, against the plain rollout on the CPU; its device
+  time in turns with K5-UWB's and K5-wind's); and the shared-UWB fleet through K6
   (`csrc/fleet_uwb.cu`: against the plain version, that test's 7500-tick
   three-vehicle flight, its device time a tick at 3 and 28 vehicles, and
   clock64() timers around its tick's sections on a vehicle and on the
@@ -137,24 +145,26 @@ after; it checks that the flight went through its kernels and that its
 output is sane, and holds a 16-tick block of the kernel on the card against
 the plain block on the CPU from the flight's final state. It prints the
 card's name and power limit, build and kernel times (each kernel's device
-time from CUDA events), frame times and their split, then one JSON line with the kernels and, last, one JSON line with
+time from CUDA events), frame times and their split, each phase's wall
+seconds, then one JSON line with the kernels and, last, one JSON line with
 the device. It exits non-zero, with no result, when anything fails or
 there is no CUDA device.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import time
 
 FRAMES = 80  # the default (fused) single-vehicle flight
-PLAIN_FRAMES = 5  # the fused_ticks=False flight
+PLAIN_FRAMES = 3  # the fused_ticks=False flight
 FLEET, FLEET_FRAMES, BIG_FLEET = 16, 40, 64  # the fleet flight; the timed big fleet
 FLEET_START = 0.3  # [s] planning starts inside the fleet flight
 MESH_FRAMES, MESH_FLEET_FRAMES = 50, 10  # the imported-world flights
-TURN_FRAMES = 4  # frames per turn when the two worlds are flown in turns
+TURN_FRAMES = 2  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
@@ -204,7 +214,7 @@ RGB_RAY_OPS_PER_CELL = 4
 RGB_RAY_SHADE_OPS = 130
 RGB_MESH_SHADE_OPS = 60
 ABOVE_CANOPY = (10.0, 3.0, 14.0)  # a level camera here meets trees only beyond the far plane
-BRIDGE_FRAMES = 10  # the fly_diag flights' frames, in each world
+BRIDGE_FRAMES = 6  # the fly_diag flights' frames, in each world
 
 
 def _check(cond, what):
@@ -892,7 +902,7 @@ def kernels_per_call(fn, calls=20):
 
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1012,8 +1022,9 @@ def mesh_timings(cfg, mesh, windows, pos, cam, strips, nvis, codes):
               for name in ("meshscene_strips_launch", "meshscene_window_launch")}
     launch4, launch4w = (cuda_ms(launch[n], reps=50) for n in launch)
     dev4, dev4w = (device_us(launch[n]) for n in launch)
-    plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=3)
-    plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=3)
+    plain4 = cuda_ms(lambda: meshscene.render_strips(cfg, strips, pos, cam), reps=1, warmup=1)
+    plain4w = cuda_ms(lambda: meshscene.render_depth_window(cfg, windows, pos, cam), reps=1,
+                      warmup=1)
     # bytes: camera positions and attitudes, the windows, the codes;
     # operations: MESH_ROW_OPS per tested row and pixel, and for K4 the
     # culling of every (strip, window row)
@@ -1116,7 +1127,7 @@ def sky_bytes(cfg, dev):
 def rgb_timings(wrapper, launch, plain, n_bytes, n_ops):
     """Wrapper, bare launch, device and plain times of an RGB kernel, and
     its bound."""
-    res = result(0, cuda_ms(wrapper), cuda_ms(plain, reps=3), n_bytes, n_ops)
+    res = result(0, cuda_ms(wrapper), cuda_ms(plain, reps=1, warmup=1), n_bytes, n_ops)
     return {**res, "launch_ms": cuda_ms(launch, reps=50), "device_us": device_us(launch)}
 
 
@@ -1425,6 +1436,16 @@ def tick_states(params):
             "complete": land(orchard_env.MSTAGE_COMPLETE, step)}
 
 
+@functools.lru_cache(maxsize=1)
+def tick_case():
+    """The tick phases' CPU params (start_flight_time 0.3) and their five
+    tick_states, built once: each build runs 400 plain ticks on the CPU."""
+    from agrifly_tpu_torch.sim import orchard_env
+
+    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    return p_cpu, tick_states(p_cpu)
+
+
 def compare_ticks(got, ref, where, env=("base",)):
     """The tick criteria: discrete leaves equal, float leaves within
     1e-3 (|ref| + 1e-3), the commanded body rates within the controller's
@@ -1517,11 +1538,11 @@ def check_frame_ticks(dev):
 
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
-    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p_cpu, states = tick_case()
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
     noise = torch.randn((16, 2, 3), generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
     worst = 0.0
-    for name, s_cpu in tick_states(p_cpu).items():
+    for name, s_cpu in states.items():
         s = to_device(s_cpu, dev)
         got = cuda_frame.frame_ticks(p, s, noise)
         ref = orchard_env.frame_ticks_plain(p, s, noise)
@@ -1531,33 +1552,38 @@ def check_frame_ticks(dev):
         print(f"frame_ticks {name}: discrete leaves equal, worst float leaf {ratio:.4g} x bound "
               f"(mstage {int(s.mstage)} -> {int(got.mstage)})")
         worst = max(worst, ratio)
-    return tick_result(worst, p, s, noise)
+    return tick_result(worst, p, s, noise, plain_reps=1)
 
 
 def check_frame_ticks_batched(dev):
     """The tick kernel for a fleet (K3b): the five mission states repeated
     to B = 5 and 37 rows (37 crosses the 32-thread block), one launch each,
-    against the plain ticks of every vehicle on the card. Returns the worst
-    float leaf's ratio to its bound."""
+    against the plain ticks of every vehicle on CPU copies of the same
+    inputs, by the tick criteria (the plain fleet loops its vehicles, and a
+    vehicle's 16 plain ticks cost the CPU about a third of the card's
+    launch-bound time). Returns the worst float leaf's ratio to its
+    bound."""
     import torch
 
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
-    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p_cpu, states = tick_case()
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
-    states = list(tick_states(p_cpu).values())
+    states = list(states.values())
     worst = 0.0
     for B in (5, 37):
-        fleet = to_device(orchard_env.stack_states([states[b % 5] for b in range(B)]), dev)
-        noise = torch.randn((B, 16, 2, 3), generator=torch.Generator().manual_seed(B)).to(dev)
+        fleet_cpu = orchard_env.stack_states([states[b % 5] for b in range(B)])
+        noise_cpu = torch.randn((B, 16, 2, 3), generator=torch.Generator().manual_seed(B))
+        fleet, noise = to_device(fleet_cpu, dev), noise_cpu.to(dev)
         before = cuda_frame.frame_ticks.launches
         got = cuda_frame.frame_ticks(p, fleet, noise)
         _check(cuda_frame.frame_ticks.launches == before + 1, f"K3b B={B}: not one launch")
-        ref = orchard_env.frame_ticks_plain_fleet(p, fleet, noise)
+        ref = orchard_env.frame_ticks_plain_fleet(p_cpu, fleet_cpu, noise_cpu)
         torch.cuda.synchronize()
         _check(torch.equal(got.base.step, fleet.base.step + 16), f"K3b B={B}: steps")
         ratio = compare_ticks(got, ref, f"K3b vs plain, B={B}")
-        print(f"frame_ticks batched B={B} (one launch): discrete leaves equal, worst float leaf "
+        print(f"frame_ticks batched B={B} (one launch) vs the plain ticks on the CPU: discrete "
+              f"leaves equal, worst float leaf "
               f"{ratio:.4g} x bound; mstage {fleet.mstage[:5].tolist()} -> "
               f"{got.mstage[:5].tolist()}")
         worst = max(worst, ratio)
@@ -1575,9 +1601,8 @@ def tick_split(dev):
     from agrifly_tpu_torch import convert
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
-    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p_cpu, states = tick_case()
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
-    states = tick_states(p_cpu)
     pleaves = cuda_frame.param_leaves(p)
     out = {}
     for B, names in ((1, ("tracking",)), (16, tuple(states)), (64, tuple(states))):
@@ -1615,9 +1640,9 @@ def frame_sections(dev):
     lib = cuda_build.load(*TIMED_FRAME)
     lib.frame_ticks_launch.argtypes = cuda_frame._ARGTYPES
     lib.frame_ticks_launch.restype = ctypes.c_int
-    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p_cpu, states = tick_case()
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
-    leaves, _ = convert.flatten_tensors(to_device(tick_states(p_cpu)["tracking"], dev))
+    leaves, _ = convert.flatten_tensors(to_device(states["tracking"], dev))
     pleaves = cuda_frame.param_leaves(p)
     noise = torch.randn((1, 16, 2, 3), generator=torch.Generator().manual_seed(SEED)).to(dev)
     specs, _ = cuda_frame.leaf_table()
@@ -1709,9 +1734,9 @@ def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, r
            f"frame_ticks_plain ran {launches['frame_ticks_plain calls']} times in {frames} frames")
 
 
-def frame_split(p, state, gen, dev, label):
-    """Where a frame's time goes, from `state` (each part timed apart, so
-    the parts need not sum to the frame)."""
+def frame_split(p, state, gen, dev, label, reps=5):
+    """Where a frame's time goes, from `state` (each part timed apart over
+    `reps` calls, so the parts need not sum to the frame)."""
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, raycast
     from agrifly_tpu_torch.sim import orchard_env
 
@@ -1726,8 +1751,9 @@ def frame_split(p, state, gen, dev, label):
     else:
         render = cuda_ms(lambda: cuda_raycast.render_depth_batch(
             p.render_cfg, p.scene, pos, cam_att), reps=5)
-    percept = cuda_ms(lambda: orchard_env._frame_percept(p, state, u), reps=5)
-    ticks = cuda_ms(lambda: orchard_env.frame_ticks(p, state, noise), reps=5)
+    warmup = min(reps, 2)
+    percept = cuda_ms(lambda: orchard_env._frame_percept(p, state, u), reps=reps, warmup=warmup)
+    ticks = cuda_ms(lambda: orchard_env.frame_ticks(p, state, noise), reps=reps, warmup=warmup)
     print(f"frame split ({label}): render {render:.3f} ms, plan {percept - render:.3f} ms, "
           f"16 ticks {ticks:.3f} ms")
 
@@ -1772,7 +1798,7 @@ def fly(dev, fused, frames, state=None, mesh=None):
     print(f"flight ({label}): {frames} frames at 640x480, 256 candidates: "
           f"{frame_ms:.3f} ms/frame; {plans} plans adopted, x = {x:.3f} m, "
           f"z = {float(pos[-1, 2]):.3f} m; {launches}")
-    frame_split(env.params, state, gen, dev, label)
+    frame_split(env.params, state, gen, dev, label, reps=5 if fused else 1)
     if fused:
         profile_frame(lambda: env.frame_step(state, gen), frame_ms, f"frame ({label})")
     return state, launches
@@ -2024,13 +2050,13 @@ def fly_bridge(dev, state, mesh=None):
     return launches
 
 
-BRIDGE_TICKS = 150  # SimBridge ticks on the card and on the CPU, the mocap estimator on
+BRIDGE_TICKS = 120  # SimBridge ticks on the card and on the CPU, the mocap estimator on
 BRIDGE_KILL_TICK = 80  # the kill on radio_command1 is published after this tick
 BRIDGE_TICK_BLOCK = 7  # run_blocked's ticks a block (a divisor of neither leg)
 YPR_BOUND = 2e-6  # rad: the tick's float32 euler angles (on the card) against the
 # block path's (float64 on the host, from the same float32 quaternion)
-PHASE_FRAMES = 10  # OrchardBridge frames a flight, synced and pipelined, in each world
-PIPE_BLOCK = 5  # fly_frames_pipelined's frames a block
+PHASE_FRAMES = 6  # OrchardBridge frames a flight, synced and pipelined, in each world
+PIPE_BLOCK = 3  # fly_frames_pipelined's frames a block
 TURN_BRIDGE_FRAMES = 3  # frames per turn of fly_diag against the bridge frame
 SIM_PACED_BLOCK, SIM_PACED_QUANTA = 4, 7  # the paced SimBridge: a kill in quantum 1 lands
 ORCHARD_PACED_S, ORCHARD_PACED_HZ = 3.0, 2.0
@@ -2450,6 +2476,7 @@ def check_bridge(dev, state):
 ENTRY_FRAMES = 62  # the demo's default path: two 31-frame blocks
 ENTRY_FLEET, ENTRY_FLEET_FRAMES = 16, 31
 ENTRY_RESUME_FRAMES = 3  # frames flown from the checkpoint and from the saved state
+ENTRY_SAME_FRAMES = 10  # frames flown through fly on the demo's params, after the demo
 ENTRY_TELEOP = "scripted:0.1:buttonStart,0.5:buttonRed"
 ENTRY_TELEOP_FRAMES = 40  # the kill lands near frame 16; the loop stops once it reads it
 ENTRY_RECORD_FRAMES = 8
@@ -2617,17 +2644,18 @@ def check_entry_points(dev, fly_ms):
         _check(sum(line.startswith("t=") for line in text.splitlines()) >= 1
                and "flew " in text, "demo: no status lines")
         frame_ms = _ms_per_frame(text, "demo")
-        # the same block through orchard_env.fly alone, on the demo's params
-        # and from its final state: the demo loop's own cost, apart from the
-        # configuration's (the demo plans from 5 s, `fly` above from 1 s)
+        # ENTRY_SAME_FRAMES frames through orchard_env.fly alone, on the
+        # demo's params and from its final state: the demo loop's own cost,
+        # apart from the configuration's (the demo plans from 5 s, `fly`
+        # above from 1 s)
         torch.cuda.synchronize()
         t_fly = time.perf_counter()
-        orchard_env.fly(flight.params, flight.state, demo.FRAMES_PER_BLOCK, flight.gen)
+        orchard_env.fly(flight.params, flight.state, ENTRY_SAME_FRAMES, flight.gen)
         torch.cuda.synchronize()
-        same_ms = 1e3 * (time.perf_counter() - t_fly) / demo.FRAMES_PER_BLOCK
+        same_ms = 1e3 * (time.perf_counter() - t_fly) / ENTRY_SAME_FRAMES
         print(f"entry: demo on {card}: {frame_ms:.3f} ms a frame in steady state "
-              f"({frame_ms / fly_ms:.4f} x fly's {fly_ms:.3f}; the same block through fly "
-              f"on the demo's params after it: {same_ms:.3f} ms, {frame_ms / same_ms:.4f} x); "
+              f"({frame_ms / fly_ms:.4f} x fly's {fly_ms:.3f}; {ENTRY_SAME_FRAMES} frames through "
+              f"fly on the demo's params after it: {same_ms:.3f} ms, {frame_ms / same_ms:.4f} x); "
               f"{launches}")
 
         reset_counts()
@@ -2972,7 +3000,7 @@ def profile_frame(step, frame_ms, label):
 
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
         rows = prof.key_averages()
@@ -3112,7 +3140,7 @@ def env_launcher(p, s, cmd, noise, mode, group, launcher=None, ctrl="rates", dra
         pspecs, leaves, dev, "params", None, "tick.cuh"))
     rows = cuda_rollout._command(cmd, B, dev)
     return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, ctrl, group,
-                                        launcher, draws)
+                                        launcher, draws, uwb=draws is not None)
 
 
 def k5_groups_equal(launch, names, what):
@@ -3305,14 +3333,90 @@ def wrapper_split(p, s0, cmd, gen, reps=ENV_CALLS):
     return out
 
 
+def graphed_steps(step, state, inputs, n, outputs=True):
+    """`state, out = step(state, *inputs(k))` for k < n, as replays of one
+    CUDA graph captured from the eager step (warmed up once on its capture
+    stream): the same kernels on the same inputs, so the eager loop's
+    results bit for bit at a fraction of its host time (an eager tick is
+    some 3000 launches). The state and input buffers take the strides the
+    eager loop hands the step. inputs(k): the step's tensors for tick k
+    (None where it takes none). Returns (the final state, [out_k] where
+    `outputs`)."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+
+    leaves, rebuild = convert.flatten_tensors(state)
+    stream, graph = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        xs = [None if v is None else torch.empty_strided(v.size(), v.stride(), dtype=v.dtype,
+                                                         device=v.device) for v in inputs(0)]
+        for x, v in zip(xs, inputs(0)):
+            if x is not None:
+                x.copy_(v)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            warm = convert.flatten_tensors(step(state, *xs)[0])[0]
+        torch.cuda.current_stream().wait_stream(stream)
+        static = [torch.empty_like(w).copy_(t) for w, t in zip(warm, leaves)]
+        with torch.cuda.graph(graph, stream=stream):
+            new, out = step(rebuild(static), *xs)
+        new_leaves = convert.flatten_tensors(new)[0]
+        out_leaves, out_rebuild = convert.flatten_tensors(out)
+        outs = []
+        for k in range(n):
+            for x, v in zip(xs, inputs(k)):
+                if x is not None:
+                    x.copy_(v)
+            graph.replay()
+            if outputs:
+                outs.append(out_rebuild([t.clone() for t in out_leaves]))
+            for a, b in zip(static, new_leaves):
+                a.copy_(b)
+    return rebuild(static), outs
+
+
+def plain_rollout_graphed(p, s, cmd, noise, mode, ctrl="rates", draws=None):
+    """env.rollout_plain's (state, traj), its eager step replayed as a CUDA
+    graph (graphed_steps)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import env
+
+    B = env._fleet_size(s)
+    stepper, c = env._stepper(p, mode, ctrl, B), env._fleet_command(cmd, B)
+    state, outs = graphed_steps(
+        lambda st, nz, d: stepper(st, c, nz, d), s,
+        lambda k: (noise[..., k, :, :], None if draws is None else draws[..., k, :]),
+        noise.shape[-3])
+    return env._tree_map(torch.Tensor.contiguous, state), env._stack_outputs(outs, B)
+
+
+def plain_fleet_graphed(p, s, des, noise, gusts, mode, draws=None):
+    """fleet_env.fleet_rollout_plain's final state, its eager fleet_step
+    replayed as a CUDA graph (graphed_steps)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import env, fleet_env
+
+    state, _ = graphed_steps(
+        lambda st, nz, g, d: fleet_env.fleet_step(p, st, des, mode, nz, g, d), s,
+        lambda k: (noise[:, k], gusts[k], None if draws is None else draws[:, k]),
+        noise.shape[1], outputs=False)
+    return env._tree_map(torch.Tensor.contiguous, state)
+
+
 def check_env_against_plain(p, s0, cmd, noise, mode, ctrl="rates", draws=None):
     """K5 (the default G) against the plain rollout (vmapped) on the card,
     from the start: the first ENV_CHECK_STEPS steps by the tick criteria,
     then all ENV_STEPS steps by JAX's own rollout_fast terms (flight state
     and panic reason equal at every step, final position within 0.05 m).
-    draws: the UWB draws, with anchors. Returns (worst ratio, max abs error
-    of the float leaves after ENV_CHECK_STEPS steps, the kernel's state
-    then, the plain rollout's seconds for all ENV_STEPS steps)."""
+    The plain rollout runs its first ENV_CHECK_STEPS steps eagerly (timed)
+    and the rest as replays of a CUDA graph of its eager step
+    (plain_rollout_graphed). draws: the UWB draws, with anchors. Returns
+    (worst ratio, max abs error of the float leaves after ENV_CHECK_STEPS
+    steps, the kernel's state then, the eager plain rollout's seconds a
+    step)."""
     import torch
 
     from agrifly_tpu_torch.sim import cuda_rollout, env
@@ -3327,10 +3431,13 @@ def check_env_against_plain(p, s0, cmd, noise, mode, ctrl="rates", draws=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref, ref_traj = env.rollout_plain(p, s0, cmd, noise[:, :n], mode, ctrl, uwb_draws=head(draws))
-    ref_end, ref_traj_end = env.rollout_plain(p, ref, cmd, noise[:, n:], mode, ctrl,
-                                              uwb_draws=tail(draws))
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    step_s = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    ref_end, ref_traj_end = plain_rollout_graphed(p, ref, cmd, noise[:, n:], mode, ctrl,
+                                                  tail(draws))
+    torch.cuda.synchronize()
+    graph_s = (time.perf_counter() - t0) / (ENV_STEPS - n)
     where = f"K5 vs plain, use_estimator={mode}, {ctrl}, {n} steps"
     worst = compare_ticks(got, ref, where, env=())
     worst_traj, err_traj = compare_traj(got_traj, ref_traj, where)
@@ -3353,9 +3460,10 @@ def check_env_against_plain(p, s0, cmd, noise, mode, ctrl="rates", draws=None):
           f"the card: {n} steps discrete leaves equal, worst float leaf {max(worst, worst_traj):.4g}"
           f" x bound, max abs err {err:.3g}; {ENV_STEPS} steps flight state and panic equal, final "
           f"position {dpos:.3g} m apart; fs {sorted(set(full.logic.fs.tolist()))}; the plain "
-          f"(vmapped torch) rollout {B * ENV_STEPS / plain_s:.1f} steps/s "
-          f"({1e3 * plain_s / ENV_STEPS:.3f} ms per step over {ENV_STEPS})")
-    return max(worst, worst_traj), err, got, plain_s
+          f"(vmapped torch) rollout {B / step_s:.1f} steps/s ({1e3 * step_s:.3f} ms per step over "
+          f"its first {n}, eager; the other {ENV_STEPS - n} replayed as a CUDA graph of the eager "
+          f"step, {1e3 * graph_s:.3f} ms per step)")
+    return max(worst, worst_traj), err, got, step_s
 
 
 def check_env_against_cpu(p, state, cmd, mode, dev, ctrl="rates"):
@@ -3411,11 +3519,11 @@ def check_env_rollout(dev):
     for mode, s, nz in ((False, s0, noise),
                         (True, env_subset(s0, slice(0, ENV_CHECK_ENVS)),
                          noise[:ENV_CHECK_ENVS].contiguous())):
-        w, e, mid, plain_s = check_env_against_plain(p, s, cmd, nz, mode)
+        w, e, mid, step_s = check_env_against_plain(p, s, cmd, nz, mode)
         worst, err = max(worst, w), max(err, e)
         worst = max(worst, check_env_against_cpu(p, mid, cmd, mode, dev))
         if not mode:
-            plain_ms = 1e3 * plain_s
+            plain_ms = 1e3 * step_s * ENV_STEPS
 
     dev_us = env_group_times(p, s0, cmd, noise)
     fastest = min(cuda_rollout.GROUPS, key=lambda g: dev_us[ENVS, False, g])
@@ -3608,6 +3716,26 @@ FLEET_CHECK_ENVS = 64
 FLEET_WIND = dict(mean=(2.0, 0.0, 0.0), gust_std=1.0, gust_tau=2.0, force_gain=0.02)
 FLEET_TICK_OPS = {False: ENV_TICK_OPS[False] + 20, True: ENV_TICK_OPS[True] + 20}
 WIND_ROLLOUT = ("rollout", ("TICK_WIND",))  # K5's wind build
+# The wind fleet whose vehicles each carry a UWB network of their own (K5's
+# -DTICK_UWB -DTICK_WIND build): FLEET_WIND's gusts, and on every vehicle
+# tests/test_fleet_and_bridge.py's five anchors (UWB_FLEET_IDS), 0.05 m range
+# noise and a 5 ms network period; at bench.py's shape in both estimator
+# modes. The vehicles (each alone with its anchors) start on a line
+# WIND_UWB_SPACING apart inside the anchors' field, each holding 1.5 m above
+# its start (on FLEET_WIND's 2 m line most would range anchors kilometres
+# away, all in one direction). A few onboard EKFs, cold on the ground when
+# the ranges begin, dip below the logic's sane height and panic
+# (ONBOARD_ESTIMATE_CRAZY), as the JAX package's do on the same
+# configuration (6 and 1 of 4096 on the card, 0 and 3 in the JAX package):
+# the phase allows at most WIND_UWB_MAX_PANICS of them, for that reason only.
+# WIND_UWB_TICK_OPS: the fleet sends rates commands, so a tick is
+# ENV_TICK_OPS (the rates branch, not the UWB configuration's onboard
+# position loop) with the onboard network (~100), the onboard EKF's full
+# prediction (~600), the range update on one tick in six (~400 / 6) and the
+# gusts (~20).
+WIND_UWB_ROLLOUT = ("rollout", ("TICK_UWB", "TICK_WIND"))
+WIND_UWB_PERIOD, WIND_UWB_NOISE, WIND_UWB_SPACING = 0.005, 0.05, 1.0 / 1024
+WIND_UWB_MAX_PANICS = ENVS // 100
 # The shared-UWB fleet (K6, csrc/fleet_uwb.cu): tests/test_fleet_and_bridge.py's
 # three vehicles 1.5 m apart, five anchors, a 5 ms network period, 0.05 m
 # range noise; 1500 idle ticks, then 6000 with position commands. Held
@@ -3623,6 +3751,7 @@ UWB_IDLE, UWB_FLY, UWB_CHECK_TICKS, UWB_TIMED_TICKS, UWB_CAP = 1500, 6000, 100, 
 # ENV_MODE_TICK_OPS without the per-env network, the gusts (~20); and the
 # network's scan of 33 radios (~150) once a tick
 K6_VEHICLE_OPS, K6_NETWORK_OPS = ENV_MODE_TICK_OPS["uwb"] - 100 + 20, 150
+WIND_UWB_TICK_OPS = {m: ENV_TICK_OPS[m] + 100 + 600 + 400 // 6 + 20 for m in (False, True)}
 
 
 def fleet_case(dev, n, wind=FLEET_WIND, noise_scale=1.0, spacing=2.0):
@@ -3640,15 +3769,17 @@ def fleet_des(n, dev):
     return torch.tensor([[0.0, 2.0 * i, 1.5] for i in range(n)], device=dev)
 
 
-def wind_launcher(p, s, des, noise, gusts, mode, group, launcher=None):
-    """A bare launch of K5's wind build on fleet s (gusts (n, B, 3)):
-    returns fn() -> (new leaves, traj)."""
+def wind_launcher(p, s, des, noise, gusts, mode, group, launcher=None, draws=None):
+    """A bare launch of K5's wind build on fleet s (gusts (n, B, 3)); with
+    draws (each vehicle's UWB draws (B, n, 4)), of its TICK_UWB + TICK_WIND
+    build: returns fn() -> (new leaves, traj)."""
     import torch
 
     from agrifly_tpu_torch import cuda_build
     from agrifly_tpu_torch.sim import cuda_rollout, env
 
-    specs, pspecs = cuda_rollout.leaf_table(wind=True)
+    uwb = draws is not None
+    specs, pspecs = cuda_rollout.leaf_table(uwb, wind=True)
     B, dev = s.wind_vel.shape[0], noise.device
     s_entry = cuda_rollout._accept("state", s, dev, lambda leaves: cuda_build.check_leaves(
         specs, leaves, dev, "state", B, "tick.cuh"))
@@ -3656,9 +3787,9 @@ def wind_launcher(p, s, des, noise, gusts, mode, group, launcher=None):
         pspecs, leaves, dev, "params", None, "tick.cuh"))
     z3 = torch.zeros(3, device=dev)
     rows = cuda_rollout._command(env.Command(des, z3, z3, z3[0], z3, z3), B, dev)
-    draws = gusts.transpose(0, 1).contiguous()
+    words = cuda_rollout.fleet_draw_words(gusts, draws)
     return lambda: cuda_rollout._launch(s_entry, p_entry, rows, noise, mode, "rates", group,
-                                        launcher, draws, wind=True)
+                                        launcher, words, uwb=uwb, wind=True)
 
 
 def fleet_draws(B, n, gen, dev):
@@ -3716,16 +3847,21 @@ def check_wind_kernel(dev, gen):
         where = f"K5 wind vs plain, use_estimator={mode}"
         head = (nz[:, :n].contiguous(), gs[:n].contiguous())
         got = fleet_env.fleet_rollout(p, s, des[sub], n, mode, *head)[0]
+        full = fleet_env.fleet_rollout(p, s, des[sub], ENV_STEPS, mode, noise=nz, wind_noise=gs)[0]
+        fleet_env.fleet_rollout_plain(p, s, des[sub], nz[:, :1], gs[:1], mode)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ref = fleet_env.fleet_rollout_plain(p, s, des[sub], *head, mode)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n * ENV_STEPS
+        t0 = time.perf_counter()
+        ref_end = plain_fleet_graphed(p, ref, des[sub], nz[:, n:].contiguous(),
+                                      gs[n:].contiguous(), mode)
+        torch.cuda.synchronize()
+        graph_ms = 1e3 * (time.perf_counter() - t0) / (ENV_STEPS - n)
         w = compare_ticks(got, ref, f"{where}, {n} steps", env=("envs",))
         e = max_abs_err(got, ref)
         worst, err = max(worst, w), max(err, e)
-        full = fleet_env.fleet_rollout(p, s, des[sub], ENV_STEPS, mode, noise=nz, wind_noise=gs)[0]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref_end = fleet_env.fleet_rollout_plain(p, s, des[sub], nz, gs, mode)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
         plain_ms = ms if mode else plain_ms
         for name in ("fs", "panic_reason"):
             _check(torch.equal(getattr(full.envs.logic, name), getattr(ref_end.envs.logic, name)),
@@ -3738,7 +3874,9 @@ def check_wind_kernel(dev, gen):
               f"{w:.4g} x bound, max abs err {e:.3g}; {ENV_STEPS} steps flight state and panic "
               f"equal, final position {dpos:.3g} m apart, the tick criteria's reading "
               f"{r250[0]:.4g} x bound ({r250[1]} discrete leaves differ, wire codes {r250[2]} "
-              f"apart); the plain rollout {ms:.1f} ms ({ms / ENV_STEPS:.3f} ms a step)")
+              f"apart); the plain rollout {ms:.1f} ms ({ms / ENV_STEPS:.3f} ms a step over its "
+              f"first {n}, eager; the other {ENV_STEPS - n} replayed as a CUDA graph of the eager "
+              f"step, {graph_ms:.3f} ms a step)")
     return worst, err, plain_ms
 
 
@@ -3864,6 +4002,184 @@ def check_fleet_wind(dev):
           f"({res['bound_by']}); worst float leaf {worst:.4g} x bound; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return res, fleet_rollout_launches
+
+
+def wind_uwb_case(dev, n):
+    """(params, state, setpoints, the network-free fleet's (params, state))
+    of FLEET_WIND's fleet of n vehicles on a line WIND_UWB_SPACING apart
+    whose vehicles each range UWB_FLEET_IDS' anchors on a network of their
+    own, each holding 1.5 m above its start."""
+    import torch
+
+    from agrifly_tpu_torch.sim import env, fleet_env
+
+    free, s_free = fleet_case(dev, n, spacing=WIND_UWB_SPACING)
+    base = env.with_uwb_anchors(free.base, UWB_FLEET_IDS, UWB_FLEET_POS,
+                                comm_period=WIND_UWB_PERIOD, noise_std=WIND_UWB_NOISE)
+    p = free._replace(base=base)
+    s0 = fleet_env.init_fleet(p, n, spacing=WIND_UWB_SPACING)
+    des = s0.envs.plant.pos + torch.tensor([0.0, 0.0, 1.5], device=dev)
+    return p, s0, des, (free, s_free)
+
+
+def check_fleet_wind_uwb(dev):
+    """sim/fleet_env's wind fleet whose vehicles each carry a UWB network of
+    their own, on the card (K5's -DTICK_UWB -DTICK_WIND build), at bench.py's
+    shape (ENVS vehicles x ENV_STEPS steps) in both estimator modes: every G
+    bit-equal to G = 1; fleet_rollout (the main path: ENV_CALLS + 1 calls a
+    mode, the draws drawn inside, its launches counted from 0); fleet_rollout
+    bit-equal to fleet_rollout_plain on the card; from the kernel's final
+    state, ENV_CPU_ENVS vehicles x ENV_CHECK_STEPS steps against the plain
+    rollout on the CPU by the tick criteria; the device time in turns with
+    K5-UWB (the env rollout on the same base, state and draws) and K5-wind
+    (the network-free fleet on the same draws). Returns the kernel's line
+    (mocap, at ENVS) and its launches."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.models import logic as logic_mod
+    from agrifly_tpu_torch.sim import cuda_rollout, env, fleet_env, uwb
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    p, s0, des, (free, s_free) = wind_uwb_case(dev, ENVS)
+    noise, gusts = fleet_draws(ENVS, ENV_STEPS, gen, dev)
+    draws = uwb.draw((ENVS, ENV_STEPS), gen, dev)
+    specs, _ = cuda_rollout.leaf_table(uwb=True, wind=True)
+    names = [".".join(spec.path) for spec in specs] + list(env.StepOutputs._fields)
+    for mode in (False, True):
+        k5_groups_equal(lambda g: wind_launcher(p, s0, des, noise, gusts, mode, g,
+                                                draws=draws)(), names,
+                        f"wind fleet with onboard UWB, use_estimator={mode}, {ENVS} vehicles x "
+                        f"{ENV_STEPS} steps")
+
+    # the main path: fleet_rollout at bench.py's shape, launches from 0
+    launches = 0
+    for mode in (True, False):
+        cuda_rollout.fleet_rollout.launches = 0
+        t0, host = time.perf_counter(), 0.0
+        for _ in range(ENV_CALLS + 1):
+            t1 = time.perf_counter()
+            final, _ = fleet_env.fleet_rollout(p, s0, des, ENV_STEPS, mode, gen=gen)
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        n = cuda_rollout.fleet_rollout.launches
+        _check(n == ENV_CALLS + 1, f"fleet_rollout with onboard UWB: {n} launches")
+        launches += n
+        logic = final.envs.logic
+        faults = {"non-finite": int((~torch.isfinite(final.envs.plant.pos)).any(1).sum()),
+                  "steps": int((final.envs.step != ENV_STEPS).sum()),
+                  "no range": int((logic.uwb_meas_count == 0).sum())}
+        _check(not any(faults.values()), f"fleet_rollout with onboard UWB, use_estimator={mode}: "
+               f"vehicles at fault {faults}")
+        panics = int((logic.panic_reason != logic_mod.PANIC_NO_PANIC).sum())
+        reasons = set(logic.panic_reason.tolist()) - {logic_mod.PANIC_NO_PANIC}
+        _check(panics <= WIND_UWB_MAX_PANICS
+               and reasons <= {logic_mod.PANIC_ONBOARD_ESTIMATE_CRAZY},
+               f"fleet_rollout with onboard UWB, use_estimator={mode}: {panics} vehicles "
+               f"panicked (reasons {sorted(reasons)}), at most {WIND_UWB_MAX_PANICS} allowed, "
+               f"for ONBOARD_ESTIMATE_CRAZY only")
+        print(f"fleet_rollout with onboard UWB, use_estimator={mode}: {n} launches of "
+              f"K5-wind-UWB in {ENV_CALLS + 1} calls of {ENVS} vehicles x {ENV_STEPS} steps "
+              f"({1e3 * elapsed / (ENV_CALLS + 1):.3f} ms a call, the draws drawn inside; the host "
+              f"returns in {1e3 * host / (ENV_CALLS + 1):.3f} ms); ranges taken per vehicle "
+              f"{float(logic.uwb_meas_count.float().mean()):.2f} on average; {panics} vehicles "
+              f"panicked (reasons {sorted(set(logic.panic_reason.tolist()))})")
+
+    # against the plain rollout on the card (bit for bit: its first
+    # ENV_CHECK_STEPS steps eager and timed, the rest replayed as a CUDA
+    # graph of its eager step) and, from the kernel's final state, on the
+    # CPU (tick criteria)
+    worst, err, plain_ms, mids = 0.0, 0.0, None, {}
+    n = ENV_CHECK_STEPS
+    for mode in (True, False):
+        where = f"K5-wind-UWB vs plain on the card, use_estimator={mode}"
+        got = fleet_env.fleet_rollout(p, s0, des, ENV_STEPS, mode, noise=noise, wind_noise=gusts,
+                                      uwb_draws=draws)[0]
+        fleet_env.fleet_rollout_plain(p, s0, des, noise[:, :1], gusts[:1], mode,
+                                      draws[:, :1])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        head = fleet_env.fleet_rollout_plain(p, s0, des, noise[:, :n], gusts[:n], mode,
+                                             draws[:, :n])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n * ENV_STEPS
+        t0 = time.perf_counter()
+        ref = plain_fleet_graphed(p, head, des, noise[:, n:], gusts[n:], mode, draws[:, n:])
+        torch.cuda.synchronize()
+        graph_ms = 1e3 * (time.perf_counter() - t0) / (ENV_STEPS - n)
+        plain_ms = ms if mode else plain_ms
+        differ = [".".join(path) for (path, a), (_, b) in zip(convert.leaves(got),
+                                                               convert.leaves(ref))
+                  if not torch.equal(a, b)]
+        if differ:
+            _check(False, f"{where}: {len(differ)} leaves differ ({differ[:4]}); the tick "
+                          f"criteria's reading {tick_reading(got, ref, env=('envs',))}")
+        err = max(err, max_abs_err(got, ref))
+        mids[mode] = got
+        print(f"{where}, {ENVS} vehicles x {ENV_STEPS} steps: every leaf bit-equal; the plain "
+              f"rollout {ms:.1f} ms ({ms / ENV_STEPS:.3f} ms a step over its first {n}, eager; the "
+              f"other {ENV_STEPS - n} replayed as a CUDA graph of the eager step, "
+              f"{graph_ms:.3f} ms a step)")
+    cpu_gen = torch.Generator().manual_seed(SEED + 12)
+    c_noise = torch.randn((ENV_CPU_ENVS, ENV_CHECK_STEPS, 2, 3), generator=cpu_gen)
+    c_gusts = torch.randn((ENV_CHECK_STEPS, ENV_CPU_ENVS, 3), generator=cpu_gen)
+    c_draws = uwb.draw((ENV_CPU_ENVS, ENV_CHECK_STEPS), cpu_gen)
+    sub = slice(0, ENV_CPU_ENVS)
+    for mode, mid in mids.items():
+        s = fleet_env.FleetState(env_subset(mid.envs, sub), mid.wind_vel[sub].contiguous())
+        got = fleet_env.fleet_rollout(p, s, des[sub], ENV_CHECK_STEPS, mode,
+                                      noise=c_noise.to(dev), wind_noise=c_gusts.to(dev),
+                                      uwb_draws=c_draws.to(dev))[0]
+        ref = fleet_env.fleet_rollout(to_device(p, "cpu"), to_device(s, "cpu"), des[sub].cpu(),
+                                      ENV_CHECK_STEPS, mode, noise=c_noise, wind_noise=c_gusts,
+                                      uwb_draws=c_draws)[0]
+        w = compare_ticks(got, ref, f"K5-wind-UWB on the card vs plain on the CPU, "
+                                    f"use_estimator={mode}", env=("envs",))
+        worst = max(worst, w)
+        print(f"fleet_rollout with onboard UWB, use_estimator={mode}, from step "
+              f"{int(s.envs.step[0])}, {ENV_CPU_ENVS} vehicles x {ENV_CHECK_STEPS} steps, kernel "
+              f"on the card vs plain on the CPU: discrete leaves equal, worst float leaf "
+              f"{w:.4g} x bound")
+
+    # device times in turns on the same inputs: K5-UWB, K5-wind, K5-wind-UWB
+    # twice, K5-wind, K5-UWB
+    z3 = torch.zeros(3, device=dev)
+    cmd = env.Command(des, z3, z3, z3[0], z3, z3)
+    dev_us = {}
+    for mode in (False, True):
+        fns = {"K5-UWB": env_launcher(p.base, s0.envs, cmd, noise, mode, cuda_rollout.GROUP,
+                                      draws=draws),
+               "K5-wind": wind_launcher(free, s_free, des, noise, gusts, mode, cuda_rollout.GROUP),
+               "K5-wind-UWB": wind_launcher(p, s0, des, noise, gusts, mode, cuda_rollout.GROUP,
+                                            draws=draws)}
+        order = ["K5-UWB", "K5-wind", "K5-wind-UWB", "K5-wind-UWB", "K5-wind", "K5-UWB"]
+        t = [device_us(fns[k], reps=3) for k in order]
+        dev_us[mode] = {k: sum(v for o, v in zip(order, t) if o == k) / 2 for k in fns}
+        print(f"env_rollout device time per call, {ENVS} envs x {ENV_STEPS} steps, use_estimator="
+              f"{mode}, in turns: " + ", ".join(f"{k} {us_text(v)}" for k, v in zip(order, t))
+              + f" (K5-wind-UWB / K5-UWB {dev_us[mode]['K5-wind-UWB'] / dev_us[mode]['K5-UWB']:.4f}"
+              f", / K5-wind {dev_us[mode]['K5-wind-UWB'] / dev_us[mode]['K5-wind']:.4f})")
+
+    # the bound, and the kernel's line at bench.py's shape (mocap)
+    leaves, pleaves = convert.flatten_tensors(s0)[0], cuda_rollout.param_leaves(p)
+    rows = {}
+    for mode in (False, True):
+        new, traj = wind_launcher(p, s0, des, noise, gusts, mode, cuda_rollout.GROUP,
+                                  draws=draws)()
+        n_bytes = env_bytes(leaves, pleaves, [des], noise, new, traj) + nbytes(gusts, draws)
+        ms = cuda_ms(lambda: fleet_env.fleet_rollout(p, s0, des, ENV_STEPS, mode, noise=noise,
+                                                     wind_noise=gusts, uwb_draws=draws),
+                     reps=5, warmup=1)
+        rows[mode] = result(err, ms, plain_ms if mode else None, n_bytes,
+                            ENVS * ENV_STEPS * WIND_UWB_TICK_OPS[mode])
+        print(f"env_rollout wind + UWB build, {ENVS} vehicles x {ENV_STEPS} steps, use_estimator="
+              f"{mode}: wrapper {ms:.4f} ms, device {us_text(dev_us[mode]['K5-wind-UWB'])}, bound "
+              f"{rows[mode]['bound_ms']:.6f} ms ({rows[mode]['bound_by']})")
+    print(f"env_rollout wind + UWB build: worst float leaf {worst:.4g} x bound against the CPU; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return rows[True], launches
 
 
 def uwb_fleet_case(dev, n, wind=None):
@@ -4257,10 +4573,9 @@ def _parent_frame(dev, parent, times, exact=True):
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
     parent.argtypes = cuda_frame._ARGTYPES
-    p_cpu = orchard_env.make_params(start_flight_time=0.3, device="cpu")
+    p_cpu, states = tick_case()
     p = orchard_env.OrchardEnv(p_cpu).to(dev).params
     pleaves = cuda_frame.param_leaves(p)
-    states = tick_states(p_cpu)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     differ = total = 0
     largest = 0.0
@@ -4476,7 +4791,8 @@ def build_kernels():
     from agrifly_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    variants = (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT, TIMED_FLEET, TIMED_MESH)
+    variants = (TIMED_FRAME, TIMED_ROLLOUT, UWB_ROLLOUT, WIND_ROLLOUT, WIND_UWB_ROLLOUT,
+                TIMED_FLEET, TIMED_MESH)
     with ThreadPoolExecutor(len(KERNELS) + len(variants)) as pool:
         timed = [pool.submit(cuda_build.load, *variant) for variant in variants]
         list(pool.map(cuda_build.load, KERNELS))
@@ -4486,9 +4802,9 @@ def build_kernels():
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
     for name in ("raycast", "meshscene", "inflate", "frame", "rollout", "fleet_uwb"):
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
-    for define in ("TICK_UWB", "TICK_WIND"):
-        print(ptxas_report("rollout", cuda_build.build_logs.get(f"rollout-{define}", ""),
-                           f"rollout.cu -D{define}"))
+    for defines in (("TICK_UWB",), ("TICK_WIND",), ("TICK_UWB", "TICK_WIND")):
+        print(ptxas_report("rollout", cuda_build.build_logs.get("-".join(("rollout",) + defines), ""),
+                           "rollout.cu " + " ".join(f"-D{d}" for d in defines)))
 
 
 # kernel entry names in ptxas's report -> short names
@@ -4525,6 +4841,17 @@ def ptxas_report(lib, log, label=None):
                                      or "not rebuilt in this process")
 
 
+def _timed(seconds, fn):
+    """fn, its calls' wall time added to seconds[fn's name]."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds[fn.__name__] = seconds.get(fn.__name__, 0.0) + time.perf_counter() - t0
+    return call
+
+
 def main(argv) -> int:
     import torch
 
@@ -4549,54 +4876,59 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    seconds = {}  # wall seconds of each phase, by name
+    timed = functools.partial(_timed, seconds)
     t_start = time.perf_counter()
     try:
         print(card_line())
-        build_kernels()
-        k1 = check_raycast(dev)
-        k4, k4w = check_meshscene(dev)
-        k1rgb, k4rgb = check_rgb(dev)
-        mesh_sections(dev)
-        k2 = check_inflate(dev)
-        k2b = check_inflate_batched(dev)
-        k3 = check_frame_ticks(dev)
-        k3b_worst = check_frame_ticks_batched(dev)
-        tick_split(dev)
-        frame_sections(dev)
+        timed(build_kernels)()
+        k1 = timed(check_raycast)(dev)
+        k4, k4w = timed(check_meshscene)(dev)
+        k1rgb, k4rgb = timed(check_rgb)(dev)
+        timed(mesh_sections)(dev)
+        k2 = timed(check_inflate)(dev)
+        k2b = timed(check_inflate_batched)(dev)
+        k3 = timed(check_frame_ticks)(dev)
+        k3b_worst = timed(check_frame_ticks_batched)(dev)
+        timed(tick_split)(dev)
+        timed(frame_sections)(dev)
         t_eval = time.perf_counter()
-        eval_params, views = eval_views(dev)
-        k2g, k2_eval, k2g_launches = check_inflate_grouped(dev, eval_params, views)
-        eval_launches = evaluate(dev, eval_params, views)
+        eval_params, views = timed(eval_views)(dev)
+        k2g, k2_eval, k2g_launches = timed(check_inflate_grouped)(dev, eval_params, views)
+        eval_launches = timed(evaluate)(dev, eval_params, views)
         print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
-        state, launches = fly(dev, fused=True, frames=FRAMES)
+        state, launches = timed(fly)(dev, fused=True, frames=FRAMES)
         fly_ms = fly.last_ms
-        fly(dev, fused=False, frames=PLAIN_FRAMES, state=state)
-        check_ticks_against_cpu(state, dev, 1.0)
-        fleet_state, fleet_launches = fly_fleet(dev)
-        p_dev, noise, worst = check_ticks_against_cpu(fleet_state, dev, FLEET_START)
-        k3b = tick_result(max(k3b_worst, worst), p_dev, fleet_state, noise, plain_reps=1,
-                          plain_warmup=0)
-        time_big_fleet(dev)
-        mesh_launches, _, window_launches = fly_mesh(dev, state)
+        timed(fly)(dev, fused=False, frames=PLAIN_FRAMES, state=state)
+        timed(check_ticks_against_cpu)(state, dev, 1.0)
+        fleet_state, fleet_launches = timed(fly_fleet)(dev)
+        p_dev, noise, worst = timed(check_ticks_against_cpu)(fleet_state, dev, FLEET_START)
+        k3b = timed(tick_result)(max(k3b_worst, worst), p_dev, fleet_state, noise,
+                                 plain_reps=1, plain_warmup=0)
+        timed(time_big_fleet)(dev)
+        mesh_launches, _, window_launches = timed(fly_mesh)(dev, state)
         t_bridge = time.perf_counter()
-        fly_bridge(dev, state)
-        fly_bridge(dev, state, baked_orchard(dev))
+        timed(fly_bridge)(dev, state)
+        timed(fly_bridge)(dev, state, baked_orchard(dev))
         print(f"bridge flights: {time.perf_counter() - t_bridge:.1f} s")
-        bridge_launches, mesh_bridge_launches = check_bridge(dev, state)
-        fleet_entry = check_entry_points(dev, fly_ms)
-        check_mesh(dev, state, fleet_entry)
-        k5, k5_launches = check_env_rollout(dev)
-        check_env_modes(dev)
-        k5w, k5w_launches = check_fleet_wind(dev)
-        k6, k6_launches = check_fleet_uwb(dev)
-        fleet_sections(dev)
-        check_mission(dev)
+        bridge_launches, mesh_bridge_launches = timed(check_bridge)(dev, state)
+        fleet_entry = timed(check_entry_points)(dev, fly_ms)
+        timed(check_mesh)(dev, state, fleet_entry)
+        k5, k5_launches = timed(check_env_rollout)(dev)
+        timed(check_env_modes)(dev)
+        k5w, k5w_launches = timed(check_fleet_wind)(dev)
+        k5wu, k5wu_launches = timed(check_fleet_wind_uwb)(dev)
+        k6, k6_launches = timed(check_fleet_uwb)(dev)
+        timed(fleet_sections)(dev)
+        timed(check_mission)(dev)
         if parent is not None:
-            check_parent(dev, parent)
+            timed(check_parent)(dev, parent)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print("chip_smoke: seconds by phase: " + ", ".join(
+        f"{name} {s:.1f}" for name, s in sorted(seconds.items(), key=lambda kv: -kv[1])))
 
     source = "agrifly_tpu_torch/csrc/{}.cu".format
     kernels = [
@@ -4639,6 +4971,10 @@ def main(argv) -> int:
         {"name": "env_rollout_wind", "route": "cuda", "source": source("rollout"),
          "replaces": "agrifly_tpu/sim/fleet_env.py:99 (fleet_rollout; jnp, no pallas_call)",
          "launches": k5w_launches, **k5w},
+        {"name": "env_rollout_wind_uwb", "route": "cuda", "source": source("rollout"),
+         "replaces": "agrifly_tpu/sim/fleet_env.py:99 (fleet_rollout with base.uwb; jnp, no "
+                     "pallas_call)",
+         "launches": k5wu_launches, **k5wu},
         {"name": "fleet_uwb", "route": "cuda", "source": source("fleet_uwb"),
          "replaces": "agrifly_tpu/sim/fleet_env.py:265 (uwb_fleet_rollout, uwb_fleet_step:184; "
                      "jnp, no pallas_call)",

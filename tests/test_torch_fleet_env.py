@@ -1,13 +1,15 @@
 """sim/fleet_env in the port against the JAX package, on the CPU: the wind
-fleet (`fleet_rollout`) and the fleet sharing one UWB network
-(`uwb_fleet_rollout`), with the plain versions that K5's wind build and K6
-stand for (the kernels run on the card: tests/test_torch_kernels.py,
-chip_smoke.py).
+fleet (`fleet_rollout`), also with a UWB network on every vehicle (base
+params built by `env.with_uwb_anchors`), and the fleet sharing one UWB
+network (`uwb_fleet_rollout`), with the plain versions that K5's wind
+builds and K6 stand for (the kernels run on the card:
+tests/test_torch_kernels.py, chip_smoke.py).
 
 The JAX package draws from its keys: each vehicle's IMU noise from its env
 key (`_torch_parity.jax_tick_draws`), the gust normals from the fleet's key
-(`_torch_parity.jax_wind_draws`), the network's draws from its key
-(`_torch_parity.jax_uwb_draws`); the port takes them pre-drawn.
+(`_torch_parity.jax_wind_draws`), a network's draws from its key
+(`_torch_parity.jax_uwb_draws`; a vehicle's own network has a key of its
+own); the port takes them pre-drawn.
 Tolerances: the tick criteria of tests/_torch_parity.py: discrete leaves
 equal (flight state, panic, counters, the network's pending, ids and
 acc_us, latch_start), float leaves within 1e-3 (|ref| + 1e-3) (the gust
@@ -112,6 +114,114 @@ def test_wind_leaf_table_matches_the_fleet():
     assert [sp.path[-1] for sp in specs] == [p[-1] for p, _ in convert.leaves(s)]
     assert [sp.path for sp in pspecs[-4:]] == [p for p, _ in convert.leaves(tp)][-4:]
     assert len(pspecs) == len(list(convert.leaves(tp)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wind_uwb():
+    """(params, state) of the wind fleet of `_jax_wind` whose base carries a
+    UWB network of its own on tests/test_fleet_and_bridge.py's anchors
+    (noise_std 0.05): every vehicle ranges its own anchors."""
+    params, _ = _jax_wind()
+    base = J.with_uwb_anchors(params.base, ANCHOR_IDS, ANCHOR_POS, comm_period=0.005,
+                              noise_std=0.05)
+    params = params._replace(base=base)
+    return params, JF.init_fleet(params, N_VEHICLES, base_seed=3, spacing=2.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wind_uwb_run(use_estimator):
+    params, s0 = _jax_wind_uwb()
+    final, _ = jax.jit(lambda s: JF.fleet_rollout(params, s, jnp.asarray(_wind_des()),
+                                                  WIND_TICKS, use_estimator))(s0)
+    return _np(final)
+
+
+@pytest.mark.parametrize("use_estimator", [True, False])
+def test_wind_fleet_with_onboard_uwb_matches_jax(use_estimator):
+    """40 ticks of the wind fleet whose vehicles each range their own
+    anchors, mocap estimator and true state: every leaf, each vehicle's
+    network (pending, ids, acc_us) included, by the tick criteria."""
+    params, s0 = _jax_wind_uwb()
+    ref = _jax_wind_uwb_run(use_estimator)
+    noise, last = jax_tick_draws(s0.envs.key, WIND_TICKS)
+    np.testing.assert_array_equal(last, ref.envs.key)
+    gusts, key = jax_wind_draws(s0.key, WIND_TICKS, N_VEHICLES)
+    np.testing.assert_array_equal(key, ref.key)
+    draws = jax_uwb_draws(s0.envs.uwb.key, WIND_TICKS)
+    tp = convert.fleet_params_from_numpy(_np(params), "cpu")
+    ts = convert.fleet_state_from_numpy(_np(s0), "cpu")
+    assert tp.base.uwb.radio_ids.tolist() == [1] + ANCHOR_IDS
+    assert tuple(ts.envs.uwb.acc_us.shape) == (N_VEHICLES,)
+    got, traj = TF.fleet_rollout(tp, ts, torch.from_numpy(_wind_des()), WIND_TICKS,
+                                 use_estimator, noise=torch.from_numpy(np.array(noise)),
+                                 wind_noise=gusts, uwb_draws=draws)
+    assert traj is None
+    compare_state(got, ref)
+    assert np.abs(ref.wind_vel - [2.0, 0.0, 0.0]).max() > 1e-2  # the gusts moved
+    assert (ref.envs.logic.uwb_meas_count > 0).all()  # every vehicle took ranges
+    assert (ref.envs.logic.panic_reason == 0).all()
+
+
+def test_wind_fleet_with_onboard_uwb_draws_from_a_generator_in_order():
+    """With a network on every vehicle, init_fleet gives each its own idle
+    network state, and gen draws the IMU noise, the gust normals, then the
+    UWB draws (N, n, 4) as `env.rollout` draws them; a network-free fleet
+    draws from gen as before, and its rollout refuses UWB draws."""
+    base = T.with_uwb_anchors(T.make_params(device="cpu"), ANCHOR_IDS[:2], ANCHOR_POS[:2],
+                              comm_period=0.002, noise_std=0.05)
+    tp = TF.FleetParams(base, TF.make_wind(device="cpu"))
+    s = TF.init_fleet(tp, 2, spacing=1.5)
+    for _, t in convert.leaves(s.envs.uwb):
+        assert t.shape == (2,) and not bool(t.to(torch.int32).any())
+    des = torch.tensor([0.0, 0.0, 1.0])
+    got, _ = TF.fleet_rollout(tp, s, des, 3, gen=torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(5)
+    noise = torch.randn((2, 3, 2, 3), generator=g)
+    gusts = torch.randn((3, 2, 3), generator=g)
+    draws = tuwb.draw((2, 3), g)
+    want = s
+    for k in range(3):
+        want, _ = TF.fleet_step(tp, want, des, True, noise[:, k], gusts[k], draws[:, k])
+    for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(want)):
+        assert torch.equal(a, b), path
+    assert bool(got.envs.uwb.pending.all())  # each network latched a transaction
+    with pytest.raises(ValueError, match="uwb_draws"):
+        TF.fleet_step(tp, s, des, True, noise[:, 0], gusts[0])
+
+    free = TF.FleetParams(T.make_params(device="cpu"), TF.make_wind(device="cpu"))
+    s = TF.init_fleet(free, 2, spacing=1.5)
+    assert s.envs.uwb is None
+    got, _ = TF.fleet_rollout(free, s, des, 3, gen=torch.Generator().manual_seed(5))
+    want, _ = TF.fleet_rollout(free, s, des, 3, noise=noise, wind_noise=gusts)
+    for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(want)):
+        assert torch.equal(a, b), path
+    with pytest.raises(ValueError, match="no UWB network"):
+        TF.fleet_rollout(free, s, des, 3, noise=noise, wind_noise=gusts, uwb_draws=draws)
+
+
+def test_wind_uwb_leaf_table_matches_the_fleet():
+    """K5's TICK_WIND + TICK_UWB build reads the leaves of a wind fleet with
+    a network on every vehicle in order: the env's, its network's, then the
+    gusts; the radio table padded to MAX_RADIOS, the WindParams after it."""
+    specs, pspecs = cuda_rollout.leaf_table(uwb=True, wind=True)
+    base = T.with_uwb_anchors(T.make_params(device="cpu"), ANCHOR_IDS, ANCHOR_POS)
+    tp = TF.FleetParams(base, TF.make_wind(device="cpu"))
+    s = TF.init_fleet(tp, 2)
+    assert [sp.path[-1] for sp in specs] == [p[-1] for p, _ in convert.leaves(s)]
+    assert [sp.path[-2:] for sp in specs[-5:-1]] == [p[-2:] for p, _ in convert.leaves(s)][-5:-1]
+    pleaves = list(convert.leaves(tp))
+    assert [sp.path for sp in pspecs[-4:]] == [p for p, _ in pleaves][-4:]
+    assert [sp.path for sp in pspecs[-12:-4]] == [p[1:] for p, _ in pleaves][-12:-4]
+    assert len(pspecs) == len(pleaves)
+    kernel = cuda_rollout.param_leaves(tp)
+    radios = [sp.path for sp in pspecs].index(("uwb", "radio_ids"))
+    assert kernel[radios].tolist() == [1] + ANCHOR_IDS + [0] * (cuda_rollout.MAX_RADIOS - 6)
+    assert [t.numel() for t in kernel] == [max(sp.numel, 1) for sp in pspecs]
+    state_specs, _ = cuda_rollout.leaf_table(uwb=True, wind=True)
+    from agrifly_tpu_torch import cuda_build
+    cuda_build.check_leaves(state_specs, convert.flatten_tensors(s)[0], torch.device("cpu"),
+                            "state", 2, "tick.cuh")
+    cuda_build.check_leaves(pspecs, kernel, torch.device("cpu"), "params", None, "tick.cuh")
 
 
 @functools.lru_cache(maxsize=None)

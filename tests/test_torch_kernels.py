@@ -19,8 +19,10 @@ and for a batch of images (one launch for B x P seeds). The grouped
 inflation (K2g, S seeds per block) is held to K2 and to the plain version
 the same way, bit for bit wherever ok; the cluster form (K2c) at every
 cluster size on the edge cases. The env rollout (K5) in every mode and
-build, the wind fleet (K5's wind build) and the shared-UWB fleet (K6) are
-held to the tick criteria against their plain rollouts on the card, every
+build, the wind fleet (K5's wind build; with a UWB network on every
+vehicle its TICK_WIND + TICK_UWB build, bit for bit) and the shared-UWB
+fleet (K6) are held to the tick criteria against their plain rollouts on
+the card, every
 lane group size bit for bit against one lane; the plain rollout on the card
 is held to the tick criteria against the same plain rollout on the CPU. The cluster-size choice and
 the constants the wrappers share with the kernel sources are checked on the
@@ -39,7 +41,7 @@ from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
 from agrifly_tpu_torch.planner import cuda_inflate, rappids
 from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
-from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout, env, fleet_env
+from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout, env, fleet_env, uwb
 from agrifly_tpu_torch.sim import orchard_env
 from chip_smoke import RAY_SCENES  # the default orchard, the make_params limit, a loose scene
 
@@ -868,6 +870,69 @@ def test_fleet_rollout_calm_wind_equals_the_env_rollout(cuda):  # noqa: F811
                          noise=noise)
     for (path, a), (_, b) in zip(convert.leaves(got.envs), convert.leaves(ref)):
         assert torch.equal(a, b), path
+
+
+def test_wind_uwb_draw_words_match_the_kernel_source():
+    """K5's TICK_WIND + TICK_UWB build takes a tick's seven draw words as
+    cuda_rollout.fleet_rollout lays them out: the network's four draws
+    (sim/uwb.draw's order, read by uwb_step at draws + 0), then the three
+    gust normals (read by wind_force after them)."""
+    src = (CSRC / "rollout.cu").read_text()
+    assert re.search(r"constexpr int kUwbDrawWords = 4;", src)
+    assert "constexpr int kDrawWords = kUwbDrawWords + kWindDrawWords;" in src
+    assert "wind_force(P, S, draws + kUwbDrawWords)" in src
+    assert "uwb_step(P, S, draws)" in (CSRC / "tick.cuh").read_text()
+    assert uwb.N_DRAWS == 4
+    gusts, draws = torch.randn((5, 3, 3)), torch.randn((3, 5, 4))
+    words = cuda_rollout.fleet_draw_words(gusts, draws)
+    assert words.shape == (3, 5, 7) and words.is_contiguous()
+    assert torch.equal(words[..., :4], draws)
+    assert torch.equal(words[..., 4:], gusts.transpose(0, 1))
+    assert torch.equal(cuda_rollout.fleet_draw_words(gusts), gusts.transpose(0, 1))
+
+
+def _wind_uwb_case(device, B, n, seed):
+    """`_wind_case`'s fleet with a UWB network on every vehicle
+    (tests/test_fleet_and_bridge.py's anchors, noise_std 0.05) and each
+    vehicle's network draws (B, n, 4)."""
+    p, _, des, noise, gusts = _wind_case(device, B, n, seed)
+    p = p._replace(base=env.with_uwb_anchors(
+        p.base, [101, 102, 103, 104, 105],
+        [[-5.0, -4.0, 0.1], [6.0, -4.0, 3.0], [6.0, 6.0, 0.2], [-5.0, 6.0, 3.0], [0.5, 1.0, 4.0]],
+        comm_period=0.005, noise_std=0.05))
+    draws = uwb.draw((B, n), torch.Generator().manual_seed(seed + 1)).to(device)
+    return p, fleet_env.init_fleet(p, B, spacing=1.5), des, noise, gusts, draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_estimator", [True, False])
+def test_fleet_rollout_wind_uwb_kernel_matches_plain(cuda, use_estimator):  # noqa: F811
+    """A wind fleet whose vehicles each range their own anchors:
+    fleet_rollout on the card is one launch of K5's TICK_WIND + TICK_UWB
+    build, bit-equal to the plain rollout on the card and within the tick
+    criteria of the plain rollout on the CPU; every group size equals one
+    lane bit for bit."""
+    p, s0, des, noise, gusts, draws = _wind_uwb_case(cuda, 37, 60, 5)
+    before = cuda_rollout.fleet_rollout.launches
+    got, _ = fleet_env.fleet_rollout(p, s0, des, 60, use_estimator, noise=noise,
+                                     wind_noise=gusts, uwb_draws=draws)
+    assert cuda_rollout.fleet_rollout.launches == before + 1
+    on_card = fleet_env.fleet_rollout_plain(p, s0, des, noise, gusts, use_estimator, draws)
+    for (path, a), (_, b) in zip(convert.leaves(got), convert.leaves(on_card)):
+        assert torch.equal(a, b), path
+    ref = fleet_env.fleet_rollout_plain(_cpu(p), _cpu(s0), des.cpu(), noise.cpu(), gusts.cpu(),
+                                        use_estimator, draws.cpu())
+    compare_state(got, ref)
+    assert int(got.envs.logic.uwb_meas_count.min()) > 0
+    for group in cuda_rollout.GROUPS:
+        monkey = cuda_rollout.GROUP
+        cuda_rollout.GROUP = group
+        try:
+            other = cuda_rollout.fleet_rollout(p, s0, des, noise, gusts, use_estimator, draws)
+        finally:
+            cuda_rollout.GROUP = monkey
+        for (path, a), (_, b) in zip(convert.leaves(other), convert.leaves(got)):
+            assert torch.equal(a, b), (group, path)
 
 
 def _uwb_fleet_case(device, n_vehicles, n_anchors, n, seed, wind=True):
