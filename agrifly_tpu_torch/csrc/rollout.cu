@@ -65,6 +65,19 @@
 // one int32 buffer the int32 state leaves, the int32 trajectory leaves and
 // then the bool leaves' bytes; in each, the leaves are ordered by element
 // count (make_state_elems).
+//
+// The topic bridge's tick block (io/bridge.py SimBridge._dispatch_tick_block,
+// whose JAX counterpart is one lax.scan under jit) is another instance of the
+// same kernel, env_tick_block_launch: in place of the trajectory it writes
+// each tick's wire row (B, n_steps, kRowWords) straight to device memory from
+// the env's lane 0, after the tick and, on the ticks the fire_tel mask
+// (n_steps) selects, after the telemetry encode (tick.cuh's
+// encode_telemetry, which advances the packet counter and clears the
+// warnings, as io/telemetry.encode_from_logic does). The rows bypass shared
+// memory: staging 64 more words a step would take ~128 KB more a block.
+// The bound is the same chain; the row adds 64 stores a tick and, on a fire
+// tick, 28 codes. It is built with G = kTickBlockGroup lanes an env, in
+// the builds env.step serves for the bridge (not TICK_WIND).
 
 // Section timers, compiled only with -DROLLOUT_SECTIONS (chip_smoke.py's
 // rollout_sections builds that variant): clock64() cycles and runs of each
@@ -188,6 +201,22 @@ struct Outs {
   void* traj[kTrajLeaves];
 };
 
+// The bridge's wire row (io/bridge.py's _TB_* layout): the truth state's
+// pos, vel, att, angvel; the filtered accelerometer and gyro (acc_lp's and
+// gyro_lp's ym1); the body-frame velocity; the mocap estimate's pos, vel,
+// att, angvel; the telemetry packet number, d1 and d2 (zeros where the
+// telemetry does not fire); word offsets.
+constexpr int kRowPos = 0, kRowVel = 3, kRowAtt = 6, kRowAngvel = 10, kRowAccF = 13,
+              kRowGyroF = 16, kRowVelB = 19, kRowMocapPos = 22, kRowMocapVel = 25,
+              kRowMocapAtt = 28, kRowMocapAngvel = 32, kRowTelNum = 35, kRowTelD1 = 36,
+              kRowTelD2 = 50, kRowWords = 64;
+constexpr int kTickBlockGroup = 8;  // lanes an env in env_tick_block_launch
+
+struct WireRows {
+  float* rows;                  // (B, n_steps, kRowWords)
+  const signed char* fire_tel;  // (n_steps,): the telemetry fires after tick k
+};
+
 // ---------------------------------------------------------------------------
 // shared memory: the block's envs' EnvStates and each env's staging (two
 // chunks' noise and draws, then its trajectory rows, leaf by leaf)
@@ -296,6 +325,33 @@ __device__ __forceinline__ void stage_row(const EnvState& S, float* stage, int k
   ints[stage_offset(7) + k] = S.warnings;
 }
 
+// The tick's wire row from the state after it (and after the telemetry's
+// encode on a fire tick, whose state change it makes), to device memory
+__device__ void write_wire_row(EnvState& S, bool fire, float* row) {
+  for (int i = 0; i < 3; ++i) {
+    row[kRowPos + i] = S.plant_pos[i];
+    row[kRowVel + i] = S.plant_vel[i];
+    row[kRowAngvel + i] = S.plant_angvel[i];
+    row[kRowAccF + i] = S.acc_lp_ym1[i];
+    row[kRowGyroF + i] = S.gyro_lp_ym1[i];
+    row[kRowMocapPos + i] = S.mc_pos[i];
+    row[kRowMocapVel + i] = S.mc_vel[i];
+    row[kRowMocapAngvel + i] = S.mc_angvel[i];
+  }
+  for (int i = 0; i < 4; ++i) {
+    row[kRowAtt + i] = S.plant_att[i];
+    row[kRowMocapAtt + i] = S.mc_att[i];
+  }
+  st3(row + kRowVelB, rotate_back(ld4(S.plant_att), ld3(S.plant_vel)));
+  int number = 0, d1[kTelCodes] = {}, d2[kTelCodes] = {};
+  if (fire) encode_telemetry(S, number, d1, d2);
+  row[kRowTelNum] = static_cast<float>(number);
+  for (int i = 0; i < kTelCodes; ++i) {
+    row[kRowTelD1 + i] = static_cast<float>(d1[i]);
+    row[kRowTelD2 + i] = static_cast<float>(d2[i]);
+  }
+}
+
 // The warp's envs (block envs we0 .. we0 + nw - 1, staged at `stages`):
 // their noise (and UWB draw) rows k0 .. k0 + len - 1 into noise buffer `buf`
 // of the staging by asynchronous copies (committed as one group, waited for
@@ -332,12 +388,14 @@ __device__ void write_rows(const Outs& out, const float* stages, int64_t row0, i
   }
 }
 
-template <int G>
+// kRows: the tick block's instance (the wire rows in place of the
+// trajectory)
+template <int G, bool kRows>
 __global__ void __launch_bounds__(kEnvs * G)
     rollout_kernel(const __grid_constant__ EnvParams P, const __grid_constant__ LeafPtrs ptrs,
                    const CmdPtrs cmd, const float* __restrict__ noise,
-                   const float* __restrict__ draws, const Outs out, int B, int n_steps, int est,
-                   int ctrl) {
+                   const float* __restrict__ draws, const Outs out, const WireRows wire, int B,
+                   int n_steps, int est, int ctrl) {
   constexpr int T = kEnvs * G;
   extern __shared__ __align__(16) char smem[];
   char* states = smem;
@@ -372,13 +430,22 @@ __global__ void __launch_bounds__(kEnvs * G)
     if (active)
       for (int k = 0; k < len; ++k) {
         env_step(P, S, c, nz + 6 * k, nz + 6 * kChunk + kDrawWords * k, est, ctrl, hp);
-        SECTION_BEGIN(kSecStore)
-        stage_row(S, stage, k);
-        SECTION_END(kSecStore)
+        if constexpr (kRows) {
+          __syncwarp(hp.mask);  // the group's lanes are through the tick
+          if (hp.lane == 0)
+            write_wire_row(S, wire.fire_tel[k0 + k] != 0,
+                           wire.rows + (row0 + static_cast<int64_t>(e) * n_steps + k0 + k) *
+                                           kRowWords);
+          __syncwarp(hp.mask);  // the encode's state change, before the next tick
+        } else {
+          SECTION_BEGIN(kSecStore)
+          stage_row(S, stage, k);
+          SECTION_END(kSecStore)
+        }
       }
     __syncwarp();
     SECTION_BEGIN(kSecStore)
-    write_rows(out, stages, row0, n_steps, we0, nw, k0, len, lane);
+    if constexpr (!kRows) write_rows(out, stages, row0, n_steps, we0, nw, k0, len, lane);
     __syncwarp();  // the next chunk reuses the staging
     SECTION_END(kSecStore)
   }
@@ -388,16 +455,35 @@ __global__ void __launch_bounds__(kEnvs * G)
   SECTIONS_FINISH()
 }
 
-template <int G>
+template <int G, bool kRows>
 cudaError_t launch(const EnvParams& P, const LeafPtrs& ptrs, const CmdPtrs& c, const float* noise,
-                   const float* draws, const Outs& o, int B, int n_steps, int est, int ctrl,
-                   cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(rollout_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                   const float* draws, const Outs& o, const WireRows& w, int B, int n_steps,
+                   int est, int ctrl, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(rollout_kernel<G, kRows>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
-  rollout_kernel<G><<<(B + kEnvs - 1) / kEnvs, kEnvs * G, kSmem, stream>>>(
-      P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl);
+  rollout_kernel<G, kRows><<<(B + kEnvs - 1) / kEnvs, kEnvs * G, kSmem, stream>>>(
+      P, ptrs, c, noise, draws, o, w, B, n_steps, est, ctrl);
   return cudaGetLastError();
+}
+
+// The launch's arguments from the C interface's (see env_rollout_launch);
+// false for arguments the kernel does not take.
+bool prepare(const void* const* state, const void* const* params, const float* const* cmd,
+             const int* cmd_stride, const float* draws, int B, int n_steps, int est, int ctrl,
+             LeafPtrs& ptrs, EnvParams& P, CmdPtrs& c) {
+  if (B < 0 || n_steps < 0 || ctrl < kCtrlRates || ctrl > kCtrlIdle || est < kEstTrue ||
+      est > kEstGpsimu || (kDrawWords > 0 && draws == nullptr && B > 0 && n_steps > 0))
+    return false;
+  for (int i = 0; i < kNumEnvState; ++i) ptrs.state[i] = state[i];
+  for (const Elem& el : kParamTable.e)  // the table's copy, on the host
+    memcpy(reinterpret_cast<char*>(&P) + el.dst,
+           static_cast<const char*>(params[el.leaf]) + el.i * el.size, el.size);
+  for (int k = 0; k < 6; ++k) {
+    c.leaf[k] = cmd[k];
+    c.stride[k] = cmd_stride[k];
+  }
+  return true;
 }
 
 }  // namespace
@@ -422,23 +508,14 @@ extern "C" int env_rollout_launch(const void* const* state, const void* const* p
                                   const float* noise, const float* draws, float* out_f,
                                   int* out_i, int B, int n_steps, int est, int ctrl, int group,
                                   void* stream) {
-  if (B < 0 || n_steps < 0 || ctrl < kCtrlRates || ctrl > kCtrlIdle || est < kEstTrue ||
-      est > kEstGpsimu || (kDrawWords > 0 && draws == nullptr && B > 0 && n_steps > 0))
+  LeafPtrs ptrs;
+  EnvParams P;
+  CmdPtrs c;
+  if (!prepare(state, params, cmd, cmd_stride, draws, B, n_steps, est, ctrl, ptrs, P, c))
     return static_cast<int>(cudaErrorInvalidValue);
   if (group != 1 && group != 2 && group != 4 && group != 8)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  LeafPtrs ptrs;
-  for (int i = 0; i < kNumEnvState; ++i) ptrs.state[i] = state[i];
-  EnvParams P;
-  for (const Elem& el : kParamTable.e)  // the table's copy, on the host
-    memcpy(reinterpret_cast<char*>(&P) + el.dst,
-           static_cast<const char*>(params[el.leaf]) + el.i * el.size, el.size);
-  CmdPtrs c;
-  for (int k = 0; k < 6; ++k) {
-    c.leaf[k] = cmd[k];
-    c.stride[k] = cmd_stride[k];
-  }
   const int64_t rows = static_cast<int64_t>(B) * n_steps;
   Outs o;
   o.f = out_f;
@@ -455,13 +532,46 @@ extern "C" int env_rollout_launch(const void* const* state, const void* const* p
     }
   }
   o.b = reinterpret_cast<unsigned char*>(ti);
+  const WireRows w{nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = group == 1   ? launch<1>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
-                  : group == 2 ? launch<2>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
-                  : group == 4 ? launch<4>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s)
-                               : launch<8>(P, ptrs, c, noise, draws, o, B, n_steps, est, ctrl, s);
+  cudaError_t e =
+      group == 1   ? launch<1, false>(P, ptrs, c, noise, draws, o, w, B, n_steps, est, ctrl, s)
+      : group == 2 ? launch<2, false>(P, ptrs, c, noise, draws, o, w, B, n_steps, est, ctrl, s)
+      : group == 4 ? launch<4, false>(P, ptrs, c, noise, draws, o, w, B, n_steps, est, ctrl, s)
+                   : launch<8, false>(P, ptrs, c, noise, draws, o, w, B, n_steps, est, ctrl, s);
   return static_cast<int>(e);
 }
+
+#if !defined(TICK_WIND) && !defined(ROLLOUT_SECTIONS)
+// The topic bridge's tick block: env_rollout_launch's arguments but the
+// group (kTickBlockGroup) and the trajectory; fire_tel: (n_steps,) int8, the
+// telemetry fires after tick k where it is not 0; out_f / out_i: the state
+// leaves alone (out_i's int32 words, then the bool leaves' bytes); out_rows:
+// (B, n_steps, kRowWords) float32, the wire rows. Returns the cudaError_t of
+// the launch.
+extern "C" int env_tick_block_launch(const void* const* state, const void* const* params,
+                                     const float* const* cmd, const int* cmd_stride,
+                                     const float* noise, const float* draws,
+                                     const signed char* fire_tel, float* out_f, int* out_i,
+                                     float* out_rows, int B, int n_steps, int est, int ctrl,
+                                     void* stream) {
+  LeafPtrs ptrs;
+  EnvParams P;
+  CmdPtrs c;
+  if (!prepare(state, params, cmd, cmd_stride, draws, B, n_steps, est, ctrl, ptrs, P, c) ||
+      (B > 0 && n_steps > 0 && (fire_tel == nullptr || out_rows == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  Outs o{};
+  o.f = out_f;
+  o.i = out_i;
+  o.b = reinterpret_cast<unsigned char*>(out_i + static_cast<int64_t>(B) * kWritten.of[kOutI32]);
+  const WireRows w{out_rows, fire_tel};
+  return static_cast<int>(launch<kTickBlockGroup, true>(P, ptrs, c, noise, draws, o, w, B,
+                                                        n_steps, est, ctrl,
+                                                        static_cast<cudaStream_t>(stream)));
+}
+#endif
 
 #ifdef ROLLOUT_SECTIONS
 // sec, cnt: kNumSections cycles and runs each, summed since the last read;

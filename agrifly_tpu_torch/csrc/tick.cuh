@@ -2081,6 +2081,43 @@ __device__ void offboard_finish(const EnvParams& P, EnvState& S, const Cmd& c,
   S.step = wadd(step, 1);
 }
 
+// ---------------------------------------------------------------------------
+// io/telemetry.py: encode_from_logic (the topic bridge's telemetry packets)
+// ---------------------------------------------------------------------------
+
+constexpr int kTelCodes = 14;  // codes a packet
+
+// _encode: x over the range (a, b) to its uint16 wire code, 0 out of range
+// (encode_ones truncates toward zero like .to(torch.int32))
+__device__ __forceinline__ int tel_code(float x, float a, float b) {
+  const float t = ((x - a) / (b - a)) * 2.0f - 1.0f;
+  return (t >= -1.0f && t <= 1.0f) ? static_cast<int>(32768.0f + 32767.0f * t) : 0;
+}
+
+// Both packets of the logic's state: the packet number, d1 (acc lp, gyro
+// lp, desired motor forces, kf.pos, battery) and d2 (kf.vel, kf.att's
+// vector part, debug, panic_reason, warnings); then the logic's change as
+// the packets are sent: the counter advances and the warnings clear.
+__device__ void encode_telemetry(EnvState& S, int& number, int (&d1)[kTelCodes],
+                                 int (&d2)[kTelCodes]) {
+  const float att_sign = S.kf_att[0] > 0.0f ? 1.0f : -1.0f;  // rotation.to_vector_part
+  for (int i = 0; i < 3; ++i) {
+    d1[i] = tel_code(S.acc_lp_ym1[i], -30.0f, 30.0f);
+    d1[3 + i] = tel_code(S.gyro_lp_ym1[i], -35.0f, 35.0f);
+    d1[10 + i] = tel_code(S.kf_pos[i], -30.0f, 30.0f);
+    d2[i] = tel_code(S.kf_vel[i], -30.0f, 30.0f);
+    d2[3 + i] = tel_code(att_sign * S.kf_att[1 + i], -1.0f, 1.0f);
+  }
+  for (int i = 0; i < 4; ++i) d1[6 + i] = tel_code(S.des_motor_forces[i], 0.0f, 10.0f);
+  d1[13] = tel_code(S.batt_voltage, 0.0f, 15.0f);
+  for (int i = 0; i < 6; ++i) d2[6 + i] = tel_code(S.debug[i], -100.0f, 100.0f);
+  d2[12] = S.panic_reason;
+  d2[13] = S.warnings;
+  number = ((S.tel_counter % 256) + 256) % 256;  // torch's %: the divisor's sign
+  S.tel_counter = wadd(S.tel_counter, 1);
+  S.warnings = 0;
+}
+
 #ifdef TICK_WIND
 // sim/fleet_env.py's gust process for one vehicle and tick, in front of the
 // tick: wind_vel <- wind_vel + dt / tau (mean - wind_vel) + (sqrt(2 dt /

@@ -15,8 +15,10 @@ delay line, exactly like the node's radio-command subscriber.
 
 The sim runs where its params are: on the card (the default of
 `env.make_params` / `orchard_env.make_params`, which raise without one) or on
-the CPU (params built with `device="cpu"`). `SimBridge` runs `env.step`
-(plain torch: the step has no kernel in either package); `OrchardBridge`
+the CPU (params built with `device="cpu"`). `SimBridge.tick` runs
+`env.step` (plain torch); its blocks run `cuda_rollout.tick_block` (on the
+card one launch of the env rollout kernel's wire-row instance a block, where
+the JAX package runs one lax.scan under jit); `OrchardBridge`
 flies `orchard_env.fly_diag` (the raycast or mesh kernel, the inflation
 kernel and the tick kernel on the card) and renders its image topics through
 the same batch wrappers as the frame (the depth kernel and the RGB kernel).
@@ -29,9 +31,9 @@ same draws in the same order.
 
 A blocked dispatch (`SimBridge._dispatch_tick_block`,
 `OrchardBridge._dispatch_block`) reads nothing back to the host: it queues
-the block's work, stacks each tick's or frame's row into one float32 matrix
-on the device and starts one copy of it to pinned host memory, recording a
-CUDA event after it. The publish waits on that event, so a paced loop
+the block's work, which writes each tick's or frame's row into one float32
+matrix on the device, and starts one copy of it to pinned host memory,
+recording a CUDA event after it. The publish waits on that event, so a paced loop
 publishes block k-1 while block k computes.
 """
 
@@ -50,7 +52,7 @@ from agrifly_tpu_torch.io import radio as radio_codec
 from agrifly_tpu_torch.io import telemetry as tel_codec
 from agrifly_tpu_torch.ops import filters
 from agrifly_tpu_torch.ops import rotation as rot_ops
-from agrifly_tpu_torch.sim import delayline, env as env_mod
+from agrifly_tpu_torch.sim import cuda_rollout, delayline, env as env_mod
 
 RATE_TRUTH = 500
 RATE_MOCAP = 200
@@ -158,6 +160,15 @@ def _to_host(mat: torch.Tensor):
     event = torch.cuda.Event()
     event.record()
     return host, event
+
+
+def _to_device(mask, device):
+    """A host bool mask as an int8 tensor on `device`; on the card copied
+    from pinned memory without blocking the host."""
+    host = torch.from_numpy(np.asarray(mask, np.int8))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _host_numpy(host: torch.Tensor, event):
@@ -441,37 +452,24 @@ class SimBridge:
 
     @torch.inference_mode()
     def _dispatch_tick_block(self, n: int, cmd: env_mod.Command):
-        """Inject pending radio commands, then queue one n-tick block: the
-        SAME env.step tick() runs, n times, each tick's wire row (_TB_*
-        layout) built on the device. The telemetry encode runs on the
-        ticks the host-known fire mask selects, so the logic-state
-        mutation — packet counter advance, warnings clear — happens at
-        exactly the per-tick path's points. The (n, 64) rows start one
-        copy to the host; nothing is read back. Returns an opaque pending
-        record for _publish_tick_block (the split lets a paced loop
-        publish block k-1 while block k computes)."""
+        """Inject pending radio commands, then queue one n-tick block:
+        `cuda_rollout.tick_block`, one launch of the env rollout kernel's
+        wire-row instance on the card (its plain version, the SAME env.step
+        tick() runs, on the CPU), each tick's wire row (_TB_* layout) built
+        on the device. The telemetry encode runs on the ticks the host-known
+        fire mask selects, so the logic-state mutation — packet counter
+        advance, warnings clear — happens at exactly the per-tick path's
+        points. The (n, 64) rows start one copy to the host; nothing is
+        read back. Returns an opaque pending record for _publish_tick_block
+        (the split lets a paced loop publish block k-1 while block k
+        computes)."""
         self._inject_radio()
         fires = self._fire_schedule(n)
         noise = self._noise(n)
-        s = self.state
-        rows = []
-        zeros = torch.zeros(1 + 2 * tel_codec.NUM_CODES, device=self._dev)
-        for i in range(n):
-            s, out = env_mod.step(self.params, s, cmd, self._use_estimator, noise=noise[i])
-            trow = zeros
-            if fires["telemetry"][i]:
-                pkts, logic = tel_codec.encode_from_logic(s.logic)
-                s = s._replace(logic=logic)
-                trow = torch.cat([pkts.packet_number.reshape(1), pkts.data1,
-                                  pkts.data2]).to(torch.float32)
-            m = s.mocap
-            rows.append(torch.cat([
-                out.pos, out.vel, out.att, out.angvel,
-                filters.lp2_value(s.logic.acc_lp), filters.lp2_value(s.logic.gyro_lp),
-                rot_ops.rotate_back(out.att, out.vel),
-                m.pos, m.vel, m.att, m.angvel, trow]))
-        self.state = s
-        host, event = _to_host(torch.stack(rows))
+        self.state, rows = cuda_rollout.tick_block(
+            self.params, self.state, cmd, noise, _to_device(fires["telemetry"], self._dev),
+            self._use_estimator)
+        host, event = _to_host(rows)
         t_us0 = self.t_us
         self.t_us += n * self._dt_us
         return (n, host, event, fires, t_us0)

@@ -63,13 +63,23 @@ oracle. It then flies:
   (K1 and K1-rgb, or K4 and K4-rgb), its telemetry encoded on the card and
   on the host (equal), its command encoded on the host and on the card
   (equal); then fly and fly_diag in turns from one state;
+- SimBridge's block of ticks, one launch of the env rollout kernel's
+  wire-row instance (`cuda_rollout.tick_block`): blocks of 1, 5, 7, 40 and
+  250 ticks chained, the telemetry firing on a block's first tick, its
+  last, both and every fifth, in every estimator mode from a cold and a
+  mid-flight state and in the UWB build, bit for bit against
+  `tick_block_plain` on the card (rows and every state leaf); its device
+  time at 5, 40 and 250 ticks and the host's time a call;
 - the port's topic bridge (`io/bridge`): SimBridge for 120 ticks with the
   mocap estimator and a kill on radio_command1, its bag on the card held to
   the same flight's on the CPU (the tick criteria, telemetry within one
-  code) and its `run_blocked` bag to its `run` bag (bit for bit but the
-  euler angles, within 2e-6 rad), a dispatched block that makes no
-  synchronizing call, the ticks per second of both, and the paced loop with
-  device blocks; OrchardBridge at 640x480 with 256 candidates from the
+  code) and its `run_blocked` bag (one kernel launch a block) to its `run`
+  bag (bit for bit but the euler angles, within 2e-6 rad), a dispatched
+  block that makes no synchronizing call, the ticks per second of both,
+  and the paced loop with device blocks at the reference's 500 Hz, 5 ticks
+  a quantum, for 2 s with a kill, held to
+  `benchmarks/verify_realtime500.py`'s four criteria (the rate within
+  2.5%, under 5% of the quanta late, the mocap and telemetry bands); OrchardBridge at 640x480 with 256 candidates from the
   single flight's state in both worlds, 6 frames synced and 6 pipelined
   from the same draws (byte-equal bags, images included; every depth image
   its frame's own render; per frame the depth kernel twice, the inflation
@@ -87,8 +97,9 @@ oracle. It then flies:
   `demo --teleop` (armed, killed, KILLED), `demo --record` (the bag's
   topics) and `launch` with an operator and a bag (the JAX test's topic
   checks, the kill once), each run's kernel launches counted; then
-  `demo --realtime` and `--realtime-orchard`, each paced at half the rate
-  the card is first measured to sustain, with rc 0 (the wire bands held);
+  `demo --realtime` at its defaults (500 Hz) for 2 s, held to the same four
+  criteria, one kernel launch a quantum, and `--realtime-orchard` paced at
+  half the demo's frame rate, with rc 0 (the wire bands held);
 - the multi-device path (`agrifly_tpu_torch/parallel`), a world of one over
   NCCL on this card: the sharded fleet step at 4096 envs x 50 substeps in
   both estimator modes (bit-equal to `env.rollout`, its metrics equal to
@@ -138,7 +149,8 @@ three scenes, above the canopy and pitched up) and K4-rgb (both worlds,
 windows of 192 and 300 rows and a shuffled one, above the canopy, the edge
 rows) bit for bit against the parent's kernels, built from
 DIR and called through this tree's wrappers where the parent declares the
-same C interface, and times both in turns.
+same C interface, and times both in turns (K5 also at bench.py's shape,
+4096 envs x 250 steps, the true state and mocap, three times in turns).
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -2058,7 +2070,12 @@ YPR_BOUND = 2e-6  # rad: the tick's float32 euler angles (on the card) against t
 PHASE_FRAMES = 6  # OrchardBridge frames a flight, synced and pipelined, in each world
 PIPE_BLOCK = 3  # fly_frames_pipelined's frames a block
 TURN_BRIDGE_FRAMES = 3  # frames per turn of fly_diag against the bridge frame
-SIM_PACED_BLOCK, SIM_PACED_QUANTA = 4, 7  # the paced SimBridge: a kill in quantum 1 lands
+# the paced SimBridge at the reference's rate (a kill in quantum 1), and demo --realtime
+# at its defaults, for REALTIME_S seconds of wall time each
+SIM_PACED_HZ, SIM_PACED_BLOCK, REALTIME_S = 500.0, 5, 2.0
+# benchmarks/verify_realtime500.py's criteria: the achieved tick rate within this share of
+# the target, fewer late quanta than this share (and the mocap and telemetry bands)
+REALTIME_RATE_BAND, REALTIME_LATE_SHARE = 0.025, 0.05
 ORCHARD_PACED_S, ORCHARD_PACED_HZ = 3.0, 2.0
 TEL_RANGES = {"accelerometer": (-30.0, 30.0), "rateGyro": (-35.0, 35.0),
               "position": (-30.0, 30.0), "attitude": (-1.0, 1.0), "velocity": (-30.0, 30.0),
@@ -2204,7 +2221,7 @@ def check_sim_bridge(dev, directory):
 
     from agrifly_tpu_torch.io import bridge, messages
     from agrifly_tpu_torch.models import logic
-    from agrifly_tpu_torch.sim import env
+    from agrifly_tpu_torch.sim import cuda_rollout, env
 
     p = env.make_params(noise_scale=1.0, device=dev)
     hover = env.hover_command(device=dev)
@@ -2218,8 +2235,14 @@ def check_sim_bridge(dev, directory):
                        f"{sites}")
     noise = torch.randn((BRIDGE_TICKS, 2, 3), generator=torch.Generator().manual_seed(SEED + 12))
     card, card_s, card_fs, _ = _sim_flight(p, directory, "card", False, noise.to(dev))
+    cuda_rollout.tick_block.launches = 0
     blocked, blocked_s, blocked_fs, _ = _sim_flight(p, directory, "card_blocked", True,
                                                     noise.to(dev))
+    blocks = sum(-(-n // BRIDGE_TICK_BLOCK) for n in (BRIDGE_KILL_TICK,
+                                                      BRIDGE_TICKS - BRIDGE_KILL_TICK))
+    _check(cuda_rollout.tick_block.launches == blocks,
+           f"run_blocked launched K5's wire-row instance {cuda_rollout.tick_block.launches} times "
+           f"in {blocks} blocks")
     cpu, _, cpu_fs, _ = _sim_flight(to_device(p, "cpu"), directory, "cpu", False, noise)
     worst = bag_diff(card, cpu, tick_bound, "SimBridge on the card against the CPU")
     bag_diff(blocked, card, lambda topic, name, ref: YPR_BOUND if name in YPR_FIELDS else 0.0,
@@ -2232,15 +2255,14 @@ def check_sim_bridge(dev, directory):
           f"{len(card)} messages, a kill after tick {BRIDGE_KILL_TICK} (FS_KILLED at tick "
           f"{kill_tick} on the card and the CPU); card against CPU worst float "
           f"{worst:.4g} x its bound; run_blocked(block={BRIDGE_TICK_BLOCK}) publishes what run "
-          f"publishes (euler angles within {YPR_BOUND} rad); a dispatched block made "
-          f"{syncs} synchronizing calls")
+          f"publishes (euler angles within {YPR_BOUND} rad), one K5 launch a block ({blocks}); "
+          f"a dispatched block made {syncs} synchronizing calls")
     print(f"bridge: SimBridge on {card_line_}: run {BRIDGE_TICKS / card_s:.1f} ticks/s, "
           f"run_blocked {BRIDGE_TICKS / blocked_s:.1f} ticks/s")
 
-    # half the measured blocked rate, SIM_PACED_QUANTA quanta: the kill
-    # published in quantum 1 enters the delay line with block 2 and crosses
-    # its 30 ms (16 ticks) before the last block
-    rate = max(1.0, round(0.5 * BRIDGE_TICKS / blocked_s, 1))
+    # the reference's 500 Hz, 5-tick quanta: the kill published in quantum
+    # 1 enters the delay line with block 2 and crosses its 30 ms (16 ticks)
+    # some four quanta later
     paced = bridge.SimBridge(p, vehicle_id=1, seed=SEED + 13)
 
     def kill(b, k):
@@ -2248,19 +2270,237 @@ def check_sim_bridge(dev, directory):
             b.bus.publish("radio_command1", messages.RadioCommand(raw=_kill_raw()))
 
     t0_us = paced.t_us
-    rep = paced.run_realtime(SIM_PACED_QUANTA * SIM_PACED_BLOCK / rate, hover, rate_hz=rate,
-                             block=SIM_PACED_BLOCK, on_quantum=kill, device_blocks=True)
+    cuda_rollout.tick_block.launches = 0
+    rep = paced.run_realtime(REALTIME_S, hover, rate_hz=SIM_PACED_HZ, block=SIM_PACED_BLOCK,
+                             on_quantum=kill, device_blocks=True)
+    quanta = round(REALTIME_S * SIM_PACED_HZ / SIM_PACED_BLOCK)
     ticks = rep["ticks"] + SIM_PACED_BLOCK  # and the warm-up block's
-    _check(rep["n_quanta"] == SIM_PACED_QUANTA and rep["ticks"] == SIM_PACED_BLOCK * SIM_PACED_QUANTA
+    _check(rep["n_quanta"] == quanta and rep["ticks"] == SIM_PACED_BLOCK * quanta
            and paced.bus.counts["simulator_truth1"] == ticks
            and paced.t_us - t0_us == ticks * int(p.dt_us)
+           and cuda_rollout.tick_block.launches == quanta + 1
            and int(paced.state.logic.fs) == logic.FS_KILLED,
-           f"SimBridge.run_realtime(device_blocks=True): {rep}")
+           f"SimBridge.run_realtime(device_blocks=True): {rep}, "
+           f"{cuda_rollout.tick_block.launches} launches")
+    realtime_verdict(rep["achieved_tick_hz"], rep["target_tick_hz"], rep["late_quanta"],
+                     rep["n_quanta"], rep["bands_ok"], "SimBridge.run_realtime")
     print(f"bridge: SimBridge.run_realtime(device_blocks=True) on {card_line_}: target "
-          f"{rate:.1f} ticks/s, achieved {rep['achieved_tick_hz']:.2f}, {rep['late_quanta']} of "
-          f"{rep['n_quanta']} quanta late (max {1e3 * rep['max_late_s']:.2f} ms), bands "
-          f"{rep['bands_ok']} (a reading); the kill landed")
+          f"{SIM_PACED_HZ:.1f} ticks/s, {SIM_PACED_BLOCK} a quantum, {REALTIME_S} s: achieved "
+          f"{rep['achieved_tick_hz']:.2f}, {rep['late_quanta']} of {rep['n_quanta']} quanta late "
+          f"(max {1e3 * rep['max_late_s']:.2f} ms), topics (Hz) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rep["topic_hz"].items())
+          + f", bands {rep['bands_ok']}; verify_realtime500's criteria met; one K5 launch a "
+          f"quantum; the kill landed")
     return syncs
+
+
+def realtime_verdict(achieved, target, late, quanta, bands, what):
+    """benchmarks/verify_realtime500.py's four criteria for a paced loop:
+    the achieved tick rate within REALTIME_RATE_BAND of the target, fewer
+    than REALTIME_LATE_SHARE of its quanta late, the mocap and telemetry
+    topics' wall rates in their bands."""
+    _check(abs(achieved - target) / target < REALTIME_RATE_BAND,
+           f"{what}: {achieved:.2f} ticks/s against {target:.1f}")
+    _check(late < REALTIME_LATE_SHARE * quanta, f"{what}: {late} of {quanta} quanta late")
+    _check(bands.get("mocap", False) and bands.get("telemetry", False),
+           f"{what}: topic bands {bands}")
+
+
+# The tick block's cases: blocks of n ticks chained in this order, the
+# telemetry firing after the listed ticks (the first tick, the last, both,
+# and the bridge's every-fifth schedule, which ends on the last), in each
+# estimator mode, from a cold state and from one TICK_BLOCK_MID_TICKS into a
+# hover; and the onboard-UWB build from cold.
+TICK_BLOCKS = ((1, (0,)), (5, (4,)), (7, (0, 6)), (40, tuple(range(4, 40, 5))),
+               (250, tuple(range(4, 250, 5))))
+TICK_BLOCK_MODES = (("true", False), ("mocap", True), ("gpsimu", "gpsimu"))
+TICK_BLOCK_MID_TICKS = 613
+TICK_BLOCK_EAGER = 3  # blocks of each cold chain also held against the eager plain version
+TICK_BLOCK_TIMED = (5, 40, 250)  # block sizes K5's wire-row instance is timed at (mocap)
+TICK_BLOCK_HOST_CALLS = 200  # tick_block calls timed on the host's clock, each way
+# float operations a wire row adds to its tick (the body-frame velocity, the
+# row's conversions) and a fire tick's encode (28 codes of ~6 each)
+WIRE_ROW_OPS, TEL_ENCODE_OPS = 20, 170
+
+
+def tick_chain_masks(dev):
+    """The concatenated TICK_BLOCKS' telemetry masks (int8 on dev) and each
+    block's first tick."""
+    import torch
+
+    total = sum(n for n, _ in TICK_BLOCKS)
+    fire = torch.zeros(total, dtype=torch.int8)
+    starts, k0 = [], 0
+    for n, fires in TICK_BLOCKS:
+        fire[[k0 + f for f in fires]] = 1
+        starts.append(k0)
+        k0 += n
+    return fire.to(dev), starts
+
+
+def tick_chain_equal(p, start, cmd, noise, fire, starts, mode, ctrl, draws, what):
+    """TICK_BLOCKS from `start` (one env, or a fleet whose noise and draws
+    carry its leading B) through tick_block (one launch each) against
+    tick_block_plain's ticks as one chain, its eager step
+    (cuda_rollout.wire_tick) replayed as a CUDA graph (graphed_steps): every block's rows and the final state bit for
+    bit. Returns the kernel's final state and its launches."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    s, rows = start, []
+    before = cuda_rollout.tick_block.launches
+    for (n, _), k0 in zip(TICK_BLOCKS, starts):
+        s, r = cuda_rollout.tick_block(
+            p, s, cmd, noise[..., k0:k0 + n, :, :], fire[k0:k0 + n], mode, ctrl,
+            uwb_draws=None if draws is None else draws[..., k0:k0 + n, :])
+        rows.append(r)
+    launches = cuda_rollout.tick_block.launches - before
+    ref, ref_rows = graphed_steps(
+        lambda st, nz, f, d: cuda_rollout.wire_tick(p, st, cmd, nz, f, mode, ctrl, d), start,
+        lambda k: (noise[..., k, :, :], fire[k], None if draws is None else draws[..., k, :]),
+        fire.shape[0])
+    ref_rows = torch.stack(ref_rows, dim=-2)
+    torch.cuda.synchronize()
+    for (n, _), k0, r in zip(TICK_BLOCKS, starts, rows):
+        _check(r.shape == ref_rows.shape[:-2] + (n, cuda_rollout.ROW_WORDS)
+               and torch.equal(r, ref_rows[..., k0:k0 + n, :]),
+               f"tick_block {what}: the {n}-tick block's rows differ from the plain version's")
+    for (path, a), (_, b) in zip(convert.leaves(s), convert.leaves(ref)):
+        _check(torch.equal(a, b), f"tick_block {what}: {'.'.join(path)} differs after the blocks")
+    return s, launches
+
+
+def tick_block_host_us(p, s, cmd, noise, fire, mode):
+    """The host's µs a tick_block call (no sync inside the loop): chained
+    (each call takes the tree the last returned, which the wrapper accepts
+    again without the full leaf check), and the same with the full check
+    forced (the accepted trees dropped before each call)."""
+    import torch
+
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    def chain(forced):
+        state = s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TICK_BLOCK_HOST_CALLS):
+            if forced:
+                cuda_rollout._accepted.pop("own", None)
+                cuda_rollout._accepted.pop("state", None)
+            state = cuda_rollout.tick_block(p, state, cmd, noise, fire, mode)[0]
+        us = 1e6 * (time.perf_counter() - t0) / TICK_BLOCK_HOST_CALLS
+        torch.cuda.synchronize()
+        return us
+
+    chain(False)  # warm-up
+    return {"chained": chain(False), "full check": chain(True)}
+
+
+def check_tick_block(dev):
+    """K5's wire-row instance (cuda_rollout.tick_block, the topic bridge's
+    block of ticks) on the card: TICK_BLOCKS chained through it against
+    tick_block_plain, bit for bit (every block's rows and the final state),
+    in every estimator mode from a cold and a mid-flight state and in the
+    TICK_UWB build; the first TICK_BLOCK_EAGER blocks of each cold chain
+    also against the eager plain version. Then its device µs at
+    TICK_BLOCK_TIMED ticks (mocap, the bridge's mode), the wrapper's ms, the
+    eager plain version's ms and the bound at 5 ticks (a 10 ms quantum of
+    the 500 Hz loop), and the host's µs a call (tick_block_host_us).
+    Returns the kernel's line at 5 ticks."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.sim import cuda_rollout, env, uwb
+
+    t_phase = time.perf_counter()
+    p = env.make_params(noise_scale=1.0, device=dev)
+    cmd = env.hover_command(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    fire, starts = tick_chain_masks(dev)
+    total = fire.shape[0]
+    cold = env.init_state(p)
+    launches = 0
+    mids = {}
+    for name, mode in TICK_BLOCK_MODES:
+        mids[name] = cuda_rollout.rollout(p, cold, cmd, torch.randn(
+            (TICK_BLOCK_MID_TICKS, 2, 3), generator=gen, device=dev), mode)[0]
+        for label, start in (("cold", cold), ("mid-flight", mids[name])):
+            noise = torch.randn((total, 2, 3), generator=gen, device=dev)
+            if label == "cold":  # the first blocks against the eager plain version too
+                s_k = s_p = start
+                for (n, _), k0 in list(zip(TICK_BLOCKS, starts))[:TICK_BLOCK_EAGER]:
+                    s_k, r_k = cuda_rollout.tick_block(p, s_k, cmd, noise[k0:k0 + n],
+                                                       fire[k0:k0 + n], mode)
+                    s_p, r_p = cuda_rollout.tick_block_plain(p, s_p, cmd, noise[k0:k0 + n],
+                                                             fire[k0:k0 + n], mode)
+                    _check(torch.equal(r_k, r_p) and all(
+                        torch.equal(a, b) for (_, a), (_, b) in zip(convert.leaves(s_k),
+                                                                    convert.leaves(s_p))),
+                           f"tick_block {name}: the {n}-tick block differs from the eager "
+                           f"plain version")
+                launches += TICK_BLOCK_EAGER
+            end, n_launch = tick_chain_equal(p, start, cmd, noise, fire, starts, mode, "rates",
+                                             None, f"{name}, {label}")
+            launches += n_launch
+            _check(bool(torch.isfinite(end.plant.pos).all()) and int(end.logic.panic_reason) == 0,
+                   f"tick_block {name}, {label}: non-finite, or a panic")
+    # the UWB build as a fleet of one: the plain tick's anchor lookup indexes
+    # by a 0-d tensor (a read-back) where it is not vmapped, which a graph
+    # cannot capture
+    pu = env.with_uwb_anchors(p, UWB_ANCHOR_IDS, UWB_ANCHOR_POS, noise_std=0.05, comm_period=0.01)
+    noise = torch.randn((1, total, 2, 3), generator=gen, device=dev)
+    end, n_launch = tick_chain_equal(pu, env.init_state_fleet(pu, torch.zeros((1, 3), device=dev)),
+                                     env.hover_command(ENV_MODES["uwb"]["hover"], device=dev),
+                                     noise, fire, starts, False, "position",
+                                     uwb.draw((1, total), gen, dev), "UWB build, position")
+    launches += n_launch
+    _check(int(end.logic.uwb_meas_count.sum()) > 0, "tick_block UWB: no range was taken")
+    _check(launches == (2 * len(TICK_BLOCKS) + TICK_BLOCK_EAGER) * len(TICK_BLOCK_MODES)
+           + len(TICK_BLOCKS), f"tick_block: {launches} launches")
+    print(f"tick_block on {card_line()}: K5's wire-row instance bit-equal to tick_block_plain "
+          f"(rows and every state leaf) in blocks of {', '.join(str(n) for n, _ in TICK_BLOCKS)} "
+          f"ticks chained, the telemetry firing on a block's first tick, its last, both and every "
+          f"fifth; {', '.join(n for n, _ in TICK_BLOCK_MODES)}, from cold and from "
+          f"{TICK_BLOCK_MID_TICKS} ticks into a hover (the first {TICK_BLOCK_EAGER} blocks from "
+          f"cold also against the eager plain version); the TICK_UWB build with anchors (a fleet "
+          f"of one); one launch a block ({launches})")
+
+    mid = mids["mocap"]
+    s_entry, p_entry = cuda_rollout._accept_env(p, mid, dev, None, False)
+    cmd_rows = cuda_rollout._command(cmd, None, dev)
+    dev_us = {}
+    for n in TICK_BLOCK_TIMED:
+        nz = torch.randn((1, n, 2, 3), generator=gen, device=dev)
+        f = fire[starts[-1]:starts[-1] + n]
+        dev_us[n] = device_us(lambda: cuda_rollout._launch_rows(s_entry, p_entry, cmd_rows, nz,
+                                                                True, "rates", f), reps=5)
+    n = TICK_BLOCK_TIMED[0]
+    nz = torch.randn((n, 2, 3), generator=gen, device=dev)
+    f = fire[starts[1]:starts[1] + n]
+    w_ms = cuda_ms(lambda: cuda_rollout.tick_block(p, mid, cmd, nz, f, True), reps=10, warmup=2)
+    cuda_rollout.tick_block_plain(p, mid, cmd, nz, f, True)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        cuda_rollout.tick_block_plain(p, mid, cmd, nz, f, True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 2
+    host = tick_block_host_us(p, mid, cmd, nz, f, True)
+    new, rows = cuda_rollout._launch_rows(s_entry, p_entry, cmd_rows, nz[None], True, "rates",
+                                          f)
+    n_bytes = (env_bytes(convert.flatten_tensors(mid)[0], cuda_rollout.param_leaves(p),
+                         cmd_rows[0], nz, new, []) + nbytes(f, rows))
+    n_ops = n * (ENV_TICK_OPS[True] + WIRE_ROW_OPS) + int(f.sum()) * TEL_ENCODE_OPS
+    r = result(0.0, 1e-3 * dev_us[n], plain_ms, n_bytes, n_ops)
+    print(f"tick_block on {card_line()}: device (bare launch, mocap, G="
+          f"{cuda_rollout.TICK_BLOCK_GROUP}) " + ", ".join(f"{k} ticks {us_text(v)}" for k, v in dev_us.items())
+          + f"; at {n} ticks: wrapper {w_ms:.4f} ms (CUDA events), plain (eager, on the card) "
+          f"{plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); host us a call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return r
 
 
 class _PlannerInputs:
@@ -2481,8 +2721,6 @@ ENTRY_TELEOP = "scripted:0.1:buttonStart,0.5:buttonRed"
 ENTRY_TELEOP_FRAMES = 40  # the kill lands near frame 16; the loop stops once it reads it
 ENTRY_RECORD_FRAMES = 8
 ENTRY_LAUNCH_FRAMES = 40
-ENTRY_SIM_TICKS = 125  # ticks of the paced SimBridge loop: the mocap band is +-2.5%
-ENTRY_SIM_PROBE = 20  # SimBridge ticks timed to choose the paced rate
 ENTRY_ORCHARD_QUANTA = 20  # frames of the paced orchard loop (the same band)
 ENTRY_TOPICS = ("simulator_truth1", "planner_diagnostics1", "controller_diagnostics1",
                 "mocap_output1", "telemetry1", "radio_command1")
@@ -2583,30 +2821,43 @@ def _entry_scene(dev, directory):
           f"checkpoint equal to the same frames from the saved state, bit for bit")
 
 
-def _entry_paced(dev, directory, frame_ms):
-    """demo --realtime and --realtime-orchard, each paced at half the rate
-    the card is first measured to sustain; rc 0 means the wire bands held."""
-    import torch
+def demo_realtime():
+    """`demo --realtime` at its defaults (500 Hz, 5-tick quanta, each one
+    launch of K5's wire-row instance) for REALTIME_S, held to
+    verify_realtime500.py's four criteria. Returns the wire-row instance's
+    launches in the run (counted from 0)."""
+    import re
 
     from agrifly_tpu_torch import demo
-    from agrifly_tpu_torch.io import bridge
-    from agrifly_tpu_torch.sim import env
+    from agrifly_tpu_torch.sim import cuda_rollout
 
-    p = env.make_params(noise_scale=1.0, device=dev)
-    probe = bridge.SimBridge(p, vehicle_id=1)
-    hover = env.hover_command(device=dev)
-    probe.run_blocked(2, hover, block=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    probe.run_blocked(ENTRY_SIM_PROBE, hover, block=1)
-    torch.cuda.synchronize()
-    sustained = ENTRY_SIM_PROBE / (time.perf_counter() - t0)
-    rate = 0.5 * sustained
-    _, text = _entry("demo --realtime", demo.main, [
-        "--realtime", "--rate", f"{rate:.4f}", "--duration", f"{ENTRY_SIM_TICKS / rate:.4f}"])
-    print(f"entry: demo --realtime on {card_line()}: the card sustains {sustained:.2f} ticks/s "
-          f"(SimBridge, one tick a block); paced at {rate:.2f}: "
-          + " ".join(line for line in text.splitlines() if line.startswith("achieved")))
+    cuda_rollout.tick_block.launches = 0
+    _, text = _entry("demo --realtime", demo.main, ["--realtime", "--duration", f"{REALTIME_S}"])
+    launches = cuda_rollout.tick_block.launches
+    found = re.search(r"achieved ([0-9.]+) Hz \(target ([0-9.]+)\), late (\d+)/(\d+) quanta",
+                      text)
+    _check(found is not None and "bands OK" in text, "demo --realtime: no verdict line")
+    achieved, target = float(found.group(1)), float(found.group(2))
+    late, quanta = int(found.group(3)), int(found.group(4))
+    realtime_verdict(achieved, target, late, quanta, {"mocap": True, "telemetry": True},
+                     "demo --realtime")
+    _check(target == SIM_PACED_HZ and launches == quanta + 1,
+           f"demo --realtime: target {target}, {launches} launches in {quanta} quanta")
+    print(f"entry: demo --realtime on {card_line()} at its defaults for {REALTIME_S} s: "
+          + " ".join(line for line in text.splitlines() if line.startswith("achieved"))
+          + f"; verify_realtime500's criteria met; K5's wire-row instance {launches} launches "
+          f"({quanta} quanta and the warm-up block)")
+    return launches
+
+
+def _entry_paced(dev, directory, frame_ms):
+    """demo --realtime at its defaults (demo_realtime), and
+    --realtime-orchard paced at half the demo's measured frame rate (rc 0:
+    the wire bands held). Returns the wire-row instance's launches in the
+    demo --realtime run."""
+    from agrifly_tpu_torch import demo
+
+    launches = demo_realtime()
     frame_hz = 0.5 * 1e3 / frame_ms
     _, text = _entry("demo --realtime-orchard", demo.main, [
         "--realtime-orchard", "--rate", f"{16 * frame_hz:.4f}",
@@ -2614,6 +2865,7 @@ def _entry_paced(dev, directory, frame_ms):
     print(f"entry: demo --realtime-orchard on {card_line()}: the demo's {frame_ms:.3f} ms a "
           f"frame, paced at {frame_hz:.3f} frames/s: "
           + " ".join(line for line in text.splitlines() if line.startswith("achieved")))
+    return launches
 
 
 def check_entry_points(dev, fly_ms):
@@ -2624,7 +2876,8 @@ def check_entry_points(dev, fly_ms):
     loops. Each run's kernel counts are set to 0 just before it and read
     just after. fly_ms: `fly`'s ms a frame in this call, for the ratio.
     Returns the `--fleet` run's (output, Flight), which `check_mesh`
-    holds `demo --mesh` against."""
+    holds `demo --mesh` against, and the launches of K5's wire-row
+    instance in the `--realtime` run."""
     import base64
     import tempfile
 
@@ -2712,9 +2965,9 @@ def check_entry_points(dev, fly_ms):
         print(f"entry: launch on {card}: {flown} frames, {1e3 * launch_s / flown:.3f} ms a frame "
               f"(set-up included), the kill once in {len(lines)} messages; {launches}")
 
-        _entry_paced(dev, directory, frame_ms)
+        realtime_launches = _entry_paced(dev, directory, frame_ms)
     print(f"entry points phase: {time.perf_counter() - t0:.1f} s")
-    return fleet_text, fleet_flight
+    return (fleet_text, fleet_flight), realtime_launches
 
 
 # The multi-device path (agrifly_tpu_torch/parallel): a world of one over
@@ -4599,11 +4852,15 @@ def _parent_frame(dev, parent, times, exact=True):
           f"{verdict}")
 
 
+PARENT_K5_TURNS = 3  # _in_turns runs of K5 against the parent's at bench.py's shape
+
+
 def _parent_rollout(dev, parent, parent_uwb, times, exact=True):
-    """K5 in every mode at 1024 envs x ENV_STEPS."""
+    """K5 in every mode at 1024 envs x ENV_STEPS; and at bench.py's shape
+    (ENVS envs, the true state and mocap), PARENT_K5_TURNS times in turns."""
     import torch
 
-    from agrifly_tpu_torch.sim import cuda_rollout, uwb
+    from agrifly_tpu_torch.sim import cuda_rollout, env, uwb
 
     parent.argtypes = parent_uwb.argtypes = cuda_rollout._ARGTYPES
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -4629,6 +4886,21 @@ def _parent_rollout(dev, parent, parent_uwb, times, exact=True):
         times[f"K5 {name} {B} envs"] = _in_turns(*launches, reps=3)
     print(f"parent's K5 at {B} envs x {ENV_STEPS} steps (every state and trajectory leaf): "
           + "; ".join(verdicts))
+    # bench.py's path: ENVS envs at rest, hover at ENV_HOVER, the true state and mocap
+    p = env.make_params(noise_scale=1.0, device=dev)
+    s = env.init_state_fleet(p, torch.zeros((ENVS, 3), device=dev))
+    cmd = env.hover_command(ENV_HOVER, device=dev)
+    noise = torch.randn((ENVS, ENV_STEPS, 2, 3), generator=gen, device=dev)
+    for name, mode in (("true", False), ("mocap", True)):
+        launches = (env_launcher(p, s, cmd, noise, mode, cuda_rollout.GROUP, parent),
+                    env_launcher(p, s, cmd, noise, mode, cuda_rollout.GROUP))
+        pairs = list(zip(*(a + b for a, b in (launches[1](), launches[0]()))))
+        _check(all(torch.equal(a, b) for a, b in pairs),
+               f"K5 {name} at {ENVS} envs differs from the parent's")
+        for turn in range(PARENT_K5_TURNS):
+            times[f"K5 {name} {ENVS} envs, turn {turn}"] = _in_turns(*launches, reps=5)
+    print(f"parent's K5 at {ENVS} envs x {ENV_STEPS} steps (bench.py's path), true state and "
+          f"mocap: every state and trajectory leaf bit-equal")
 
 
 def _parent_fleet_uwb(dev, parent, times, exact=True):
@@ -4826,10 +5098,11 @@ def ptxas_report(lib, log, label=None):
     names = PTXAS_NAMES[lib]
     kernels, name = [], None
     for line in log.splitlines():
-        entry = re.search("(" + "|".join(names) + r")(ILi)?(\d+)?", line)
+        entry = re.search("(" + "|".join(names) + r")(ILi)?(\d+)?(ELb1)?", line)
         if "Compiling entry function" in line and entry:
             name = names[entry.group(1)] + (f" G={entry.group(3)}" if entry.group(2)
                                               else entry.group(3) or "")
+            name += " rows" if entry.group(4) else ""
         elif name and "spill" in line:
             spill = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             kernels.append([name, ", ".join(f"{b} B spill {k}" for b, k in spill)])
@@ -4911,8 +5184,9 @@ def main(argv) -> int:
         timed(fly_bridge)(dev, state)
         timed(fly_bridge)(dev, state, baked_orchard(dev))
         print(f"bridge flights: {time.perf_counter() - t_bridge:.1f} s")
+        k5rows = timed(check_tick_block)(dev)
         bridge_launches, mesh_bridge_launches = timed(check_bridge)(dev, state)
-        fleet_entry = timed(check_entry_points)(dev, fly_ms)
+        fleet_entry, k5rows_launches = timed(check_entry_points)(dev, fly_ms)
         timed(check_mesh)(dev, state, fleet_entry)
         k5, k5_launches = timed(check_env_rollout)(dev)
         timed(check_env_modes)(dev)
@@ -4975,6 +5249,10 @@ def main(argv) -> int:
          "replaces": "agrifly_tpu/sim/fleet_env.py:99 (fleet_rollout with base.uwb; jnp, no "
                      "pallas_call)",
          "launches": k5wu_launches, **k5wu},
+        {"name": "env_tick_block", "route": "cuda", "source": source("rollout"),
+         "replaces": "agrifly_tpu/io/bridge.py:420 (SimBridge._dispatch_tick_block; lax.scan "
+                     "under jit, no pallas_call)",
+         "launches": k5rows_launches, **k5rows},
         {"name": "fleet_uwb", "route": "cuda", "source": source("fleet_uwb"),
          "replaces": "agrifly_tpu/sim/fleet_env.py:265 (uwb_fleet_rollout, uwb_fleet_step:184; "
                      "jnp, no pallas_call)",

@@ -747,6 +747,105 @@ def test_rollout_section_names_match_the_kernel_source():
     assert names[-1] == "kNumSections" and len(names) - 1 == len(ROLLOUT_SECTIONS)
 
 
+def test_wire_row_layout_matches_the_kernel_source():
+    """io/bridge.py's _TB_* columns are rollout.cu's kRow* word offsets (the
+    tick block's wire row), in order and without gaps."""
+    from agrifly_tpu_torch.io import bridge
+
+    src = (CSRC / "rollout.cu").read_text()
+    columns = [("kRowPos", bridge._TB_POS), ("kRowVel", bridge._TB_VEL),
+               ("kRowAtt", bridge._TB_ATT), ("kRowAngvel", bridge._TB_ANGVEL),
+               ("kRowAccF", bridge._TB_ACCF), ("kRowGyroF", bridge._TB_GYROF),
+               ("kRowVelB", bridge._TB_VELB), ("kRowMocapPos", bridge._TB_MPOS),
+               ("kRowMocapVel", bridge._TB_MVEL), ("kRowMocapAtt", bridge._TB_MATT),
+               ("kRowMocapAngvel", bridge._TB_MANGVEL),
+               ("kRowTelNum", slice(bridge._TB_TELNUM, bridge._TB_TELNUM + 1)),
+               ("kRowTelD1", bridge._TB_TELD1), ("kRowTelD2", bridge._TB_TELD2)]
+    end = 0
+    for name, cols in columns:
+        assert int(re.search(rf"\b{name} = (\d+)", src).group(1)) == cols.start == end, name
+        end = cols.stop
+    words = int(re.search(r"\bkRowWords = (\d+)", src).group(1))
+    assert words == end == bridge._TB_COLS == cuda_rollout.ROW_WORDS
+    assert _constant(src, "kTickBlockGroup") == cuda_rollout.TICK_BLOCK_GROUP
+
+
+def _wire_masks(n, fires, device):
+    fire = torch.zeros(n, dtype=torch.int8)
+    fire[list(fires)] = 1
+    return fire.to(device)
+
+
+def _tick_blocks_equal(p, cmd, use_estimator, ctrl_mode, gen, device, uwb_on=False):
+    """Blocks of 1, 5, 7 and 40 ticks chained from a cold state through
+    K5's wire-row instance and through tick_block_plain on the card,
+    telemetry firing on the first tick, the last, both, and on the bridge's
+    schedule: the rows and every state leaf bit for bit, one launch a
+    block."""
+    from agrifly_tpu_torch.sim import uwb
+
+    mine = ref = env.init_state(p)
+    before = cuda_rollout.tick_block.launches
+    blocks = ((1, [0]), (5, [4]), (7, [0, 6]), (40, list(range(4, 40, 5))))
+    for n, fires in blocks:
+        noise = torch.randn((n, 2, 3), generator=gen).to(device)
+        draws = uwb.draw((n,), gen).to(device) if uwb_on else None
+        fire = _wire_masks(n, fires, device)
+        mine, rows = cuda_rollout.tick_block(p, mine, cmd, noise, fire, use_estimator, ctrl_mode,
+                                             uwb_draws=draws)
+        ref, ref_rows = cuda_rollout.tick_block_plain(p, ref, cmd, noise, fire, use_estimator,
+                                                      ctrl_mode, uwb_draws=draws)
+        torch.cuda.synchronize()
+        assert rows.shape == (n, cuda_rollout.ROW_WORDS) and torch.equal(rows, ref_rows), n
+        for (path, a), (_, b) in zip(convert.leaves(mine), convert.leaves(ref)):
+            assert torch.equal(a, b), (n, path)
+    assert cuda_rollout.tick_block.launches == before + len(blocks)
+    assert int(mine.logic.tel_counter) == sum(len(f) for _, f in blocks)
+    return mine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_estimator", [False, True, "gpsimu"])
+def test_tick_block_kernel_matches_plain(cuda, use_estimator):  # noqa: F811
+    """K5's wire-row instance (env_tick_block_launch) against
+    tick_block_plain on the card in every estimator mode, bit for bit."""
+    p = env.make_params(noise_scale=1.0, device=cuda)
+    cmd = env.hover_command((0.0, 0.0, 1.0), device=cuda)
+    _tick_blocks_equal(p, cmd, use_estimator, "rates", torch.Generator().manual_seed(11), cuda)
+
+
+@pytest.mark.cuda
+def test_tick_block_uwb_kernel_matches_plain(cuda):  # noqa: F811
+    """The TICK_UWB build's wire-row instance, with anchors, position
+    commands and the network's draws, bit for bit against tick_block_plain."""
+    p = env.with_uwb_anchors(env.make_params(noise_scale=1.0, device=cuda), [101, 102, 103, 104],
+                             [[-3.0, -3.0, 0.1], [3.0, -3.0, 0.2], [3.0, 3.0, 2.0],
+                              [-3.0, 3.0, 1.5]], noise_std=0.05)
+    cmd = env.hover_command((0.5, -0.5, 1.5), device=cuda)
+    end = _tick_blocks_equal(p, cmd, False, "position", torch.Generator().manual_seed(12), cuda,
+                             uwb_on=True)
+    assert int(end.logic.uwb_meas_count) > 0
+
+
+@pytest.mark.cuda
+def test_tick_block_wrapper_refuses_what_the_kernel_does_not_take(cuda):  # noqa: F811
+    """A mask of another length, type or device, and noise of another row
+    count or shape, raise before any launch."""
+    p = env.make_params(device=cuda)
+    s = env.init_state(p)
+    cmd = env.hover_command(device=cuda)
+    noise = torch.randn((7, 2, 3), device=cuda)
+    fire = _wire_masks(7, [0], cuda)
+    before = cuda_rollout.tick_block.launches
+    cases = [(noise, fire[:6], "mask"), (noise, fire.float(), "mask"),
+             (noise, fire.cpu(), "mask"), (noise[:6], fire, "mask"),
+             (noise[None], fire, "noise"), (noise[:, :1], fire, "noise")]
+    for nz, f, what in cases:
+        with pytest.raises(ValueError, match=what):
+            cuda_rollout.tick_block(p, s, cmd, nz, f, True)
+    assert cuda_rollout.tick_block.launches == before
+
+
 @pytest.mark.cuda
 def test_env_rollout_one_env_and_the_entry_points(cuda):  # noqa: F811
     """One env (no leading B) through env.rollout and rollout_fast on the
