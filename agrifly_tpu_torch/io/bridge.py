@@ -15,19 +15,22 @@ delay line, exactly like the node's radio-command subscriber.
 
 The sim runs where its params are: on the card (the default of
 `env.make_params` / `orchard_env.make_params`, which raise without one) or on
-the CPU (params built with `device="cpu"`). `SimBridge.tick` runs
-`env.step` (plain torch); its blocks run `cuda_rollout.tick_block` (on the
-card one launch of the env rollout kernel's wire-row instance a block, where
-the JAX package runs one lax.scan under jit); `OrchardBridge`
+the CPU (params built with `device="cpu"`). SimBridge's ticks and blocks run
+`cuda_rollout.tick_block`: on the card one launch of the env rollout
+kernel's wire-row instance a tick (`tick`) or a block, where the JAX package
+runs one jit call a tick and one lax.scan under jit a block. On the CPU
+`tick` runs `env.step` (plain torch; `tick_plain`, which is also the card
+tick's plain version) and a block `tick_block_plain`. `OrchardBridge`
 flies `orchard_env.fly_diag` (the raycast or mesh kernel, the inflation
 kernel and the tick kernel on the card) and renders its image topics through
 the same batch wrappers as the frame (the depth kernel and the RGB kernel).
 
 Randomness: the port's states carry no PRNG key. Each bridge owns a
 `torch.Generator` on the params' device, seeded from `seed`; a `draws`
-callable can supply the noise instead (the parity tests feed the JAX
-package's draws through it). The per-tick and the blocked paths consume the
-same draws in the same order.
+callable can supply the noise instead, and for an env with a UWB network a
+`uwb_draws` callable the network's draws (the parity tests feed the JAX
+package's draws through them). The per-tick and the blocked paths consume
+the same draws in the same order.
 
 A blocked dispatch (`SimBridge._dispatch_tick_block`,
 `OrchardBridge._dispatch_block`) reads nothing back to the host: it queues
@@ -53,6 +56,7 @@ from agrifly_tpu_torch.io import telemetry as tel_codec
 from agrifly_tpu_torch.ops import filters
 from agrifly_tpu_torch.ops import rotation as rot_ops
 from agrifly_tpu_torch.sim import cuda_rollout, delayline, env as env_mod
+from agrifly_tpu_torch.sim import uwb as uwb_mod
 
 RATE_TRUTH = 500
 RATE_MOCAP = 200
@@ -63,7 +67,7 @@ RATE_ESTIMATOR = 100
 RATE_ODOMETRY = 250
 RATE_CMD = 50  # offboard command stream (vehicle_monitor band 45-55 Hz)
 
-NOISE_CHUNK = 64  # ticks of IMU noise a SimBridge draws from its generator at once
+NOISE_CHUNK = 64  # ticks of draws a SimBridge takes from its generator at once
 
 # per-element (a, b) range vectors for quantizing one whole telemetry row
 # in a single wire_quantize_np call: [acc3, gyro3, forces4, pos3, batt1,
@@ -103,12 +107,32 @@ class TopicBus:
 
 def _ypr_np(q):
     """Host-numpy 3-2-1 euler (rot_ops.to_euler_ypr convention) for the
-    block row-publishing path, which publishes from host rows."""
+    row-publishing paths, which publish from host rows."""
     w, x, y, z = (float(v) for v in np.asarray(q, np.float64).reshape(-1)[:4])
     yaw = math.atan2(2 * x * y + 2 * w * z, x * x + w * w - z * z - y * y)
     pitch = -math.asin(max(-1.0, min(1.0, 2 * x * z - 2 * w * y)))
     roll = math.atan2(2 * y * z + 2 * w * x, z * z - y * y - x * x + w * w)
     return yaw, pitch, roll
+
+
+def _angles_f64(quats, vector_parts=()):
+    """SimBridge's blocks' euler angles, float64 on the host (_ypr_np):
+    (yaw, pitch, roll) of each quaternion, then of each attitude rebuilt
+    from its vector part (w >= 0)."""
+    rebuilt = [[math.sqrt(max(0.0, 1.0 - float(v @ v))), *v] for v in vector_parts]
+    return [_ypr_np(q) for q in list(quats) + rebuilt]
+
+
+def _angles_f32(quats, vector_parts=()):
+    """_angles_f64's angles as SimBridge's ticks take them: rot_ops.to_euler_ypr
+    (and rot_ops.from_vector_part) in float32 on CPU tensors, in one call,
+    so a card tick publishes the values its plain version computes on the
+    card (the plain tick rounds alike on the card and the CPU)."""
+    q = torch.tensor(np.array(quats), dtype=torch.float32).reshape(-1, 4)
+    if len(vector_parts):
+        v = torch.tensor(np.array(vector_parts), dtype=torch.float32)
+        q = torch.cat([q, rot_ops.from_vector_part(v)])
+    return torch.stack(rot_ops.to_euler_ypr(q), dim=-1).double().tolist()
 
 
 # Blocked-tick wire row layout (SimBridge._dispatch_tick_block): one f32
@@ -207,10 +231,19 @@ class SimBridge:
 
     draws: None (the bridge's generator, seeded from `seed`, draws the IMU
     noise) or a callable draws(n) that returns the next n ticks' (n, 2, 3)
-    float32 unit normals (gyro, then acc)."""
+    float32 unit normals (gyro, then acc). uwb_draws: where the params have
+    a UWB network (`env.with_uwb_anchors`), None (the generator draws them)
+    or a callable uwb_draws(n) that returns the next n ticks' (n, 4) float32
+    draws in `sim/uwb.py`'s order (u_outlier, n_outlier, n_noise, u_fail).
+
+    On the card `tick` is one launch of the env rollout kernel's wire-row
+    instance (`cuda_rollout.tick_block` over one tick) and one read of its
+    row, and it raises where the launch does; `tick_plain` is its plain
+    version (`env.step`), which `tick` runs on the CPU."""
 
     def __init__(self, params: env_mod.EnvParams, vehicle_id=1, seed=0,
-                 use_estimator=True, bus: TopicBus | None = None, draws=None):
+                 use_estimator=True, bus: TopicBus | None = None, draws=None,
+                 uwb_draws=None):
         self.params = params
         self.vehicle_id = int(vehicle_id)
         self.bus = bus if bus is not None else TopicBus()
@@ -218,8 +251,15 @@ class SimBridge:
         self._dev = params.dt_us.device
         self._dt_us = int(params.dt_us)
         self._draws = draws
+        self._uwb_draws = uwb_draws
         self._gen = torch.Generator(device=self._dev).manual_seed(int(seed))
         self._noise_buf = torch.empty((0, 2, 3), device=self._dev)
+        self._uwb_buf = torch.empty((0, uwb_mod.N_DRAWS), device=self._dev)
+        if self._dev.type == "cuda":
+            # the card tick's telemetry masks (fire / not) and its row's host copy
+            self._tick_fire = [torch.full((1,), f, dtype=torch.int8, device=self._dev)
+                               for f in (0, 1)]
+            self._tick_row = torch.empty((1, cuda_rollout.ROW_WORDS), pin_memory=True)
         self.state = env_mod.init_state(params)
         self._pending_radio: collections.deque = collections.deque()
         self._accum = {k: 0 for k in
@@ -248,17 +288,30 @@ class SimBridge:
             s = self.state
             self.state = s._replace(ring=_push_radio(s.ring, s.step, raw))
 
-    def _noise(self, n: int) -> torch.Tensor:
-        """The next n ticks' IMU unit normals (n, 2, 3), on the device. The
-        generator draws NOISE_CHUNK ticks at a time, so a tick and a block
-        take the same values in the same order."""
+    def _noise(self, n: int):
+        """The next n ticks' IMU unit normals (n, 2, 3) and, where the params
+        have a UWB network, its draws (n, 4) (else None), on the device. The
+        generator draws NOISE_CHUNK ticks at a time, the noise and then the
+        network's draws (`uwb.draw`), and the two buffers are taken in step,
+        so a tick and a block take the same values in the same order; a
+        hook's values replace the generator's."""
+        uwb = self.params.uwb is not None
+        if self._draws is None or (uwb and self._uwb_draws is None):
+            while self._noise_buf.shape[0] < n:
+                more = torch.randn((NOISE_CHUNK, 2, 3), generator=self._gen, device=self._dev)
+                self._noise_buf = torch.cat([self._noise_buf, more])
+                if uwb:
+                    more = uwb_mod.draw((NOISE_CHUNK,), self._gen, self._dev)
+                    self._uwb_buf = torch.cat([self._uwb_buf, more])
+            noise, self._noise_buf = self._noise_buf[:n], self._noise_buf[n:]
+            draws, self._uwb_buf = self._uwb_buf[:n], self._uwb_buf[n:]
         if self._draws is not None:
-            return torch.as_tensor(self._draws(n), dtype=torch.float32).to(self._dev)
-        while self._noise_buf.shape[0] < n:
-            more = torch.randn((NOISE_CHUNK, 2, 3), generator=self._gen, device=self._dev)
-            self._noise_buf = torch.cat([self._noise_buf, more])
-        out, self._noise_buf = self._noise_buf[:n], self._noise_buf[n:]
-        return out
+            noise = torch.as_tensor(self._draws(n), dtype=torch.float32).to(self._dev)
+        if not uwb:
+            return noise, None
+        if self._uwb_draws is not None:
+            draws = torch.as_tensor(self._uwb_draws(n), dtype=torch.float32).to(self._dev)
+        return noise, draws
 
     # ---- main loop ----
     def run(self, n_steps: int, cmd: env_mod.Command):
@@ -428,10 +481,9 @@ class SimBridge:
             done += b
 
     def _fire_schedule(self, n: int):
-        """Advance the cadence accumulators by n ticks on the host —
-        integer-exact mirror of tick()'s `fires` (same `> period, then
-        subtract` semantics on the same self._accum) — returning one
-        bool fire mask per topic."""
+        """Advance the cadence accumulators by n ticks on the host (each
+        topic fires on the tick its accumulator passes its period, which is
+        then subtracted), returning one bool fire mask per topic."""
         dt = self._dt_us
         out = {}
         for name, rate in (("mocap", RATE_MOCAP), ("gps", RATE_GPS),
@@ -455,7 +507,7 @@ class SimBridge:
         """Inject pending radio commands, then queue one n-tick block:
         `cuda_rollout.tick_block`, one launch of the env rollout kernel's
         wire-row instance on the card (its plain version, the SAME env.step
-        tick() runs, on the CPU), each tick's wire row (_TB_* layout) built
+        tick_plain() runs, on the CPU), each tick's wire row (_TB_* layout) built
         on the device. The telemetry encode runs on the ticks the host-known
         fire mask selects, so the logic-state mutation — packet counter
         advance, warnings clear — happens at exactly the per-tick path's
@@ -465,20 +517,22 @@ class SimBridge:
         computes)."""
         self._inject_radio()
         fires = self._fire_schedule(n)
-        noise = self._noise(n)
+        noise, draws = self._noise(n)
         self.state, rows = cuda_rollout.tick_block(
             self.params, self.state, cmd, noise, _to_device(fires["telemetry"], self._dev),
-            self._use_estimator)
+            self._use_estimator, uwb_draws=draws)
         host, event = _to_host(rows)
         t_us0 = self.t_us
         self.t_us += n * self._dt_us
         return (n, host, event, fires, t_us0)
 
-    def _publish_tick_block(self, pending):
+    def _publish_tick_block(self, pending, angles=_angles_f64):
         """Wait for a dispatched tick block's row matrix (ONE transfer) and
         publish every tick's topic set — message-for-message what n
-        calls of tick() publish, with host-side euler/telemetry decode
-        (same f32 wire arithmetic; see _ypr_np / _tel_from_codes_np)."""
+        calls of tick_plain() publish, with host-side euler/telemetry decode
+        (same f32 wire arithmetic; see _tel_from_codes_np). The euler
+        angles: `angles` (float64 for a block; the card tick's
+        _angles_f32)."""
         n, host, event, fires, t_us0 = pending
         mat = _host_numpy(host, event)
         dt_us = self._dt_us
@@ -489,7 +543,11 @@ class SimBridge:
             pos = r[_TB_POS]
             att = r[_TB_ATT]
             angvel = r[_TB_ANGVEL]
-            yaw, pitch, roll = _ypr_np(att)
+            est = [r[_TB_MATT]] if fires["estimator"][i] else []
+            tel = ([_tel_from_codes_np(r[_TB_TELD2][3:6], tel_codec.RANGE_ATT)]
+                   if fires["telemetry"][i] else [])
+            ypr = angles([att] + est, tel)
+            yaw, pitch, roll = ypr[0]
             vel = r[_TB_VEL]
             self.bus.publish(
                 f"simulator_truth{vid}",
@@ -550,13 +608,13 @@ class SimBridge:
             if fires["telemetry"][i]:
                 self._publish_telemetry_codes(
                     int(r[_TB_TELNUM]), r[_TB_TELD1].astype(np.int32),
-                    r[_TB_TELD2].astype(np.int32), t)
+                    r[_TB_TELD2].astype(np.int32), t, ypr[-1])
             if fires["estimator"][i]:
                 e_pos = r[_TB_MPOS]
                 e_vel = r[_TB_MVEL]
                 e_att = r[_TB_MATT]
                 e_av = r[_TB_MANGVEL]
-                ey, ep, er = _ypr_np(e_att)
+                ey, ep, er = ypr[1]
                 self.bus.publish(
                     f"estimator{vid}",
                     msgs.EstimatorOutput(
@@ -570,9 +628,12 @@ class SimBridge:
                     ),
                 )
 
-    def _publish_telemetry_codes(self, num, d1, d2, t):
+    def _publish_telemetry_codes(self, num, d1, d2, t, ypr):
         """One telemetry message from raw wire codes — field-for-field
-        tick()'s encode_from_logic + decode publish, decoded host-side."""
+        tick_plain()'s encode_from_logic + decode publish, decoded
+        host-side; `ypr`: the euler angles of the attitude rebuilt from the
+        wire's vector part (w >= 0), as the reference publisher takes them
+        (SyncSimulator:595-602)."""
         vid = self.vehicle_id
         accel = _tel_from_codes_np(d1[0:3], tel_codec.RANGE_ACC)
         gyro = _tel_from_codes_np(d1[3:6], tel_codec.RANGE_GYRO)
@@ -582,10 +643,6 @@ class SimBridge:
         velocity = _tel_from_codes_np(d2[0:3], tel_codec.RANGE_VEL)
         att_v = _tel_from_codes_np(d2[3:6], tel_codec.RANGE_ATT)
         debug = _tel_from_codes_np(d2[6:12], tel_codec.RANGE_GENERIC)
-        # YPR rebuilt from the wire attitude's vector part (w >= 0),
-        # exactly like the reference publisher (SyncSimulator:595-602)
-        w = float(np.sqrt(max(0.0, 1.0 - float(att_v @ att_v))))
-        ypr = _ypr_np(np.array([w, att_v[0], att_v[1], att_v[2]]))
         self.bus.publish(
             f"telemetry{vid}",
             msgs.Telemetry(
@@ -601,29 +658,46 @@ class SimBridge:
             ),
         )
 
-    def _fires(self, name, rate):
-        period = 10 ** 6 // rate
-        self._accum[name] += self._dt_us
-        if self._accum[name] > period:
-            self._accum[name] -= period
-            return True
-        return False
-
     @torch.inference_mode()
     def tick(self, cmd: env_mod.Command):
+        """One tick and its topics. On the card: the pending radio commands
+        injected, the cadences decided on the host, one launch of the wire-row
+        instance (`cuda_rollout.tick_block` over one tick; it raises where
+        the launch does), the tick's row read in one transfer (the tick's
+        one synchronizing call) into pinned memory kept for it, and the
+        topics published from the row as `tick_plain` publishes them. On
+        the CPU: `tick_plain`."""
+        if self._dev.type != "cuda":
+            return self.tick_plain(cmd)
+        self._inject_radio()
+        fires = self._fire_schedule(1)
+        noise, draws = self._noise(1)
+        self.state, rows = cuda_rollout.tick_block(
+            self.params, self.state, cmd, noise, self._tick_fire[int(fires["telemetry"][0])],
+            self._use_estimator, uwb_draws=draws)
+        self._tick_row.copy_(rows)
+        t_us0 = self.t_us
+        self.t_us += self._dt_us
+        self._publish_tick_block((1, self._tick_row, None, fires, t_us0), _angles_f32)
+
+    @torch.inference_mode()
+    def tick_plain(self, cmd: env_mod.Command):
+        """`tick`'s plain version: `env.step` (plain torch), the telemetry
+        encoded and decoded where it fires, the tick's values read back in
+        one transfer, on any device."""
         # inject externally received radio commands into the delay line
         self._inject_radio()
+        noise, draws = self._noise(1)
         self.state, out = env_mod.step(self.params, self.state, cmd, self._use_estimator,
-                                       noise=self._noise(1)[0])
+                                       noise=noise[0],
+                                       uwb_draws=None if draws is None else draws[0])
         dt_us = self._dt_us
         self.t_us += dt_us
         t = self.t_us * 1e-6
         vid = self.vehicle_id
         # the cadences are host counters: decide them first, then read the
         # tick's values back in ONE transfer
-        fire = {name: self._fires(name, rate) for name, rate in
-                (("mocap", RATE_MOCAP), ("gps", RATE_GPS), ("odometry", RATE_ODOMETRY),
-                 ("telemetry", RATE_TELEMETRY), ("estimator", RATE_ESTIMATOR))}
+        fire = {name: bool(f[0]) for name, f in self._fire_schedule(1).items()}
         logic = self.state.logic
         vals = dict(pos=out.pos, vel=out.vel, att=out.att, angvel=out.angvel,
                     ypr=torch.stack(rot_ops.to_euler_ypr(out.att)),

@@ -69,17 +69,24 @@ oracle. It then flies:
   last, both and every fifth, in every estimator mode from a cold and a
   mid-flight state and in the UWB build, bit for bit against
   `tick_block_plain` on the card (rows and every state leaf); its device
-  time at 5, 40 and 250 ticks and the host's time a call;
-- the port's topic bridge (`io/bridge`): SimBridge for 120 ticks with the
-  mocap estimator and a kill on radio_command1, its bag on the card held to
-  the same flight's on the CPU (the tick criteria, telemetry within one
-  code) and its `run_blocked` bag (one kernel launch a block) to its `run`
-  bag (bit for bit but the euler angles, within 2e-6 rad), a dispatched
-  block that makes no synchronizing call, the ticks per second of both,
-  and the paced loop with device blocks at the reference's 500 Hz, 5 ticks
-  a quantum, for 2 s with a kill, held to
-  `benchmarks/verify_realtime500.py`'s four criteria (the rate within
-  2.5%, under 5% of the quanta late, the mocap and telemetry bands); OrchardBridge at 640x480 with 256 candidates from the
+  time at 1 (also in the UWB build), 5, 40 and 250 ticks and the host's
+  time a call;
+- the port's topic bridge (`io/bridge`): SimBridge for 60 ticks with the
+  mocap estimator and a kill on radio_command1, without and with a UWB
+  network of four anchors, which ranges: `tick` (one launch of the wire-row
+  instance a tick, env.step never called) held to `tick_plain` on the card
+  bit for bit (bags and final states), its bag to the same flight's on the
+  CPU (the tick criteria, telemetry within one code) and its `run_blocked`
+  bag (one kernel launch a block) to its `run` bag (bit for bit but the
+  euler angles, within 2e-6 rad), a dispatched block that makes no
+  synchronizing call and a tick that makes one, the ticks per second of
+  run, tick_plain and run_blocked, the host's µs a tick split into the
+  wrapper, the row's copy and the publish, the paced loop with device
+  blocks at the reference's 500 Hz, 5 ticks a quantum, for 2 s with a
+  kill, held to `benchmarks/verify_realtime500.py`'s four criteria (the
+  rate within 2.5%, under 5% of the quanta late, the mocap and telemetry
+  bands), and the per-tick paced loop at the same rate (a reading);
+  OrchardBridge at 640x480 with 256 candidates from the
   single flight's state in both worlds, 6 frames synced and 6 pipelined
   from the same draws (byte-equal bags, images included; every depth image
   its frame's own render; per frame the depth kernel twice, the inflation
@@ -2062,11 +2069,12 @@ def fly_bridge(dev, state, mesh=None):
     return launches
 
 
-BRIDGE_TICKS = 120  # SimBridge ticks on the card and on the CPU, the mocap estimator on
-BRIDGE_KILL_TICK = 80  # the kill on radio_command1 is published after this tick
+BRIDGE_TICKS = 60  # SimBridge ticks a flight, the mocap estimator on, with and without UWB
+BRIDGE_KILL_TICK = 35  # the kill on radio_command1 is published after this tick
+TICK_SPLIT_TICKS = 200  # card ticks timed on the host's clock, split by step
 BRIDGE_TICK_BLOCK = 7  # run_blocked's ticks a block (a divisor of neither leg)
-YPR_BOUND = 2e-6  # rad: the tick's float32 euler angles (on the card) against the
-# block path's (float64 on the host, from the same float32 quaternion)
+YPR_BOUND = 2e-6  # rad: the tick's float32 euler angles against the block path's
+# (float64 on the host), from the same float32 quaternion
 PHASE_FRAMES = 6  # OrchardBridge frames a flight, synced and pipelined, in each world
 PIPE_BLOCK = 3  # fly_frames_pipelined's frames a block
 TURN_BRIDGE_FRAMES = 3  # frames per turn of fly_diag against the bridge frame
@@ -2145,24 +2153,31 @@ def _kill_raw():
                                                                          np.int64))
 
 
-def _sim_flight(params, directory, name, blocked, noise):
+def _hook(rows):
+    """A SimBridge draws hook serving the rows of `rows` in order."""
+    at = [0]
+
+    def take(n):
+        at[0] += n
+        return rows[at[0] - n:at[0]]
+    return take
+
+
+def _sim_flight(params, directory, name, how, noise, uwb_draws=None):
     """A SimBridge flight of BRIDGE_TICKS ticks with the mocap estimator on
-    the IMU noise `noise` (BRIDGE_TICKS, 2, 3), a kill on radio_command1
-    after BRIDGE_KILL_TICK ticks: its bag, wall seconds, the flight state
-    after each tick of the per-tick run's second leg (the final one for the
-    blocked run) and the bridge."""
+    the IMU noise `noise` (BRIDGE_TICKS, 2, 3) (and, over a UWB network,
+    its draws (BRIDGE_TICKS, 4)), a kill on radio_command1 after
+    BRIDGE_KILL_TICK ticks, flown
+    by `how`: "tick" (run, then tick), "plain" (tick_plain) or "blocked"
+    (run_blocked): its bag, wall seconds, the flight state after each tick
+    of the second leg (the final one for the blocked run) and the bridge."""
     import torch
 
     from agrifly_tpu_torch.io import bridge, messages
     from agrifly_tpu_torch.sim import env
 
-    at = [0]
-
-    def draws(n):
-        at[0] += n
-        return noise[at[0] - n:at[0]]
-
-    br = bridge.SimBridge(params, vehicle_id=1, draws=draws)
+    br = bridge.SimBridge(params, vehicle_id=1, draws=_hook(noise),
+                          uwb_draws=None if uwb_draws is None else _hook(uwb_draws))
     cmd = env.hover_command((0.0, 0.0, 1.0), device=params.dt_us.device)
     path = f"{directory}/{name}.jsonl"
     rec = bridge.MessageRecorder(br.bus, path)
@@ -2173,18 +2188,21 @@ def _sim_flight(params, directory, name, blocked, noise):
     for leg, n in enumerate((BRIDGE_KILL_TICK, BRIDGE_TICKS - BRIDGE_KILL_TICK)):
         if leg:
             br.bus.publish("radio_command1", messages.RadioCommand(raw=_kill_raw()))
-        if blocked:
+        if how == "blocked":
             br.run_blocked(n, cmd, block=BRIDGE_TICK_BLOCK)
         elif leg:
             for _ in range(n):
-                br.tick(cmd)
+                br.tick(cmd) if how == "tick" else br.tick_plain(cmd)
                 fs.append(int(br.state.logic.fs))
-        else:
+        elif how == "tick":
             br.run(n, cmd)
+        else:
+            for _ in range(n):
+                br.tick_plain(cmd)
     sync()
     wall = time.perf_counter() - t0
     rec.close()
-    if blocked:
+    if how == "blocked":
         fs.append(int(br.state.logic.fs))
     _check(br.t_us == BRIDGE_TICKS * int(params.dt_us), f"SimBridge {name}: sim time {br.t_us}")
     return read_bag(path), wall, fs, br
@@ -2210,18 +2228,141 @@ def _dispatch_syncs(fn):
     return sum(sites.values()), dict(sites), out
 
 
+def _sim_bridge_case(p, directory, label, noise, draws):
+    """One SimBridge flight (`_sim_flight`) four ways from the same draws:
+    `tick` on the card (one launch of K5's wire-row instance a tick, and
+    never env.step), `tick_plain` on the card, `run_blocked` on the card
+    (one launch a block) and `tick` on the CPU (its plain version). The
+    card's tick against tick_plain bit for bit (the bags, euler angles
+    included, and the final states), against the CPU by the tick criteria
+    (telemetry within one code), run_blocked against the card's run bit for
+    bit but the euler angles (within YPR_BOUND); the kill reaching
+    FS_KILLED on the same tick in each. Returns the card's bag, the walls of
+    the card's flights, the tick of FS_KILLED, the card-vs-CPU worst float
+    and the card tick's final state."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+    from agrifly_tpu_torch.models import logic
+    from agrifly_tpu_torch.sim import cuda_rollout, env
+
+    dev = p.dt_us.device
+    on_card = (noise.to(dev), None if draws is None else draws.to(dev))
+    steps, step = [0], env.step
+
+    def counted(*args, **kw):
+        steps[0] += 1
+        return step(*args, **kw)
+
+    env.step = counted
+    cuda_rollout.tick_block.launches = 0
+    try:
+        card, card_s, card_fs, card_br = _sim_flight(p, directory, f"{label}card", "tick",
+                                                     *on_card)
+    finally:
+        env.step = step
+    _check(cuda_rollout.tick_block.launches == BRIDGE_TICKS and steps[0] == 0,
+           f"SimBridge.tick{label}: {cuda_rollout.tick_block.launches} wire-row launches and "
+           f"{steps[0]} env.step calls in {BRIDGE_TICKS} ticks")
+    plain, plain_s, plain_fs, plain_br = _sim_flight(p, directory, f"{label}plain", "plain",
+                                                     *on_card)
+    cuda_rollout.tick_block.launches = 0
+    blocked, blocked_s, blocked_fs, _ = _sim_flight(p, directory, f"{label}blocked", "blocked",
+                                                    *on_card)
+    blocks = sum(-(-n // BRIDGE_TICK_BLOCK) for n in (BRIDGE_KILL_TICK,
+                                                      BRIDGE_TICKS - BRIDGE_KILL_TICK))
+    _check(cuda_rollout.tick_block.launches == blocks,
+           f"run_blocked{label}: {cuda_rollout.tick_block.launches} launches in {blocks} blocks")
+    cpu, _, cpu_fs, _ = _sim_flight(to_device(p, "cpu"), directory, f"{label}cpu", "tick", noise,
+                                    draws)
+    bag_diff(card, plain, lambda topic, name, ref: 0.0,
+             f"SimBridge{label} tick against tick_plain on the card")
+    for (path, a), (_, b) in zip(convert.leaves(card_br.state), convert.leaves(plain_br.state)):
+        _check(torch.equal(a, b), f"SimBridge{label} tick against tick_plain: {'.'.join(path)}")
+    worst = bag_diff(card, cpu, tick_bound, f"SimBridge{label} on the card against the CPU")
+    bag_diff(blocked, card, lambda topic, name, ref: YPR_BOUND if name in YPR_FIELDS else 0.0,
+             f"SimBridge{label} run_blocked against run on the card")
+    _check(card_fs == plain_fs == cpu_fs and card_fs[-1] == blocked_fs[-1] == logic.FS_KILLED,
+           f"SimBridge{label} kill: card {card_fs[-5:]}, plain {plain_fs[-5:]}, CPU "
+           f"{cpu_fs[-5:]}, blocked {blocked_fs}")
+    walls = {"run": card_s, "tick_plain": plain_s, "run_blocked": blocked_s}
+    return card, walls, BRIDGE_KILL_TICK + 1 + card_fs.index(logic.FS_KILLED), worst, card_br.state
+
+
+def sim_tick_split(p, hover):
+    """SimBridge.tick on the card, TICK_SPLIT_TICKS ticks through `run` from
+    a warm bridge: its ticks/s and wire-row launches a tick, and the host's
+    µs a tick split into the wrapper (`cuda_rollout.tick_block`), the row's
+    copy (its wait on the launch included), the publish, and the rest (the
+    radio queue, the cadences, the draws); the synchronizing calls of a
+    tick (one, gated) and of a tick that injects a radio command. Returns a
+    dict of them."""
+    import torch
+
+    from agrifly_tpu_torch.io import bridge, messages
+    from agrifly_tpu_torch.sim import cuda_rollout
+
+    br = bridge.SimBridge(p, vehicle_id=2, seed=SEED + 15)
+    br.run(10, hover)
+    torch.cuda.synchronize()
+    cuda_rollout.tick_block.launches = 0
+    split = dict.fromkeys(("wrapper", "copy", "publish"), 0.0)
+    ended = [0.0]
+    tick_block, publish = cuda_rollout.tick_block, br._publish_tick_block
+
+    def timed_block(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return tick_block(*args, **kw)
+        finally:
+            ended[0] = time.perf_counter()
+            split["wrapper"] += ended[0] - t
+
+    def timed_publish(*args, **kw):
+        t = time.perf_counter()
+        split["copy"] += t - ended[0]
+        publish(*args, **kw)
+        split["publish"] += time.perf_counter() - t
+
+    timed_block.launches = tick_block.launches  # _launch_rows counts on the module's name
+    cuda_rollout.tick_block, br._publish_tick_block = timed_block, timed_publish
+    try:
+        t0 = time.perf_counter()
+        br.run(TICK_SPLIT_TICKS, hover)  # a tick ends on its row's copy: nothing stays queued
+        total = time.perf_counter() - t0
+    finally:
+        tick_block.launches = timed_block.launches
+        cuda_rollout.tick_block = tick_block
+        del br._publish_tick_block
+    out = {"run_hz": TICK_SPLIT_TICKS / total,
+           "launches_a_tick": cuda_rollout.tick_block.launches / TICK_SPLIT_TICKS,
+           "us": {k: 1e6 * v / TICK_SPLIT_TICKS for k, v in split.items()}}
+    out["us"]["rest"] = 1e6 * total / TICK_SPLIT_TICKS - sum(out["us"].values())
+    out["syncs"], sites, _ = _dispatch_syncs(lambda: br.tick(hover))
+    _check(out["syncs"] == 1, f"SimBridge.tick made {out['syncs']} synchronizing calls: {sites}")
+    br.bus.publish(f"radio_command{br.vehicle_id}", messages.RadioCommand(raw=_kill_raw()))
+    _check(len(br._pending_radio) == 1, "SimBridge: the radio command was not received")
+    out["radio_syncs"], _, _ = _dispatch_syncs(lambda: br.tick(hover))
+    _check(not br._pending_radio and out["launches_a_tick"] == 1.0,
+           f"SimBridge.tick: {out}")
+    return out
+
+
 def check_sim_bridge(dev, directory):
-    """SimBridge (500 Hz topics from env.step) on the card: its bag against
-    the same flight on the CPU (the tick criteria, telemetry within one
-    code), run_blocked against run on the card (integers equal, floats bit
-    for bit but the euler angles, within YPR_BOUND), the kill reaching
-    FS_KILLED on the same tick on the card and the CPU, a dispatched block
-    that reads nothing back, and the paced loop with device blocks."""
+    """SimBridge (500 Hz topics) on the card: `tick` one launch of K5's
+    wire-row instance a tick, held to tick_plain (env.step) on the card bit
+    for bit, to the same flight on the CPU (the tick criteria, telemetry
+    within one code), run_blocked to run (bit for bit but the euler angles,
+    within YPR_BOUND), the kill reaching FS_KILLED on the same tick on each
+    (`_sim_bridge_case`), for the mocap env and over a UWB network, which
+    ranges; a dispatched block that reads nothing back; the tick's rate,
+    its host split and its one synchronizing call (`sim_tick_split`); the
+    paced loop with device blocks (gated) and per tick (a reading)."""
     import torch
 
     from agrifly_tpu_torch.io import bridge, messages
     from agrifly_tpu_torch.models import logic
-    from agrifly_tpu_torch.sim import cuda_rollout, env
+    from agrifly_tpu_torch.sim import cuda_rollout, env, uwb
 
     p = env.make_params(noise_scale=1.0, device=dev)
     hover = env.hover_command(device=dev)
@@ -2233,32 +2374,38 @@ def check_sim_bridge(dev, directory):
     warm._publish_tick_block(pending)
     _check(syncs == 0, f"SimBridge._dispatch_tick_block made {syncs} synchronizing CUDA calls: "
                        f"{sites}")
-    noise = torch.randn((BRIDGE_TICKS, 2, 3), generator=torch.Generator().manual_seed(SEED + 12))
-    card, card_s, card_fs, _ = _sim_flight(p, directory, "card", False, noise.to(dev))
-    cuda_rollout.tick_block.launches = 0
-    blocked, blocked_s, blocked_fs, _ = _sim_flight(p, directory, "card_blocked", True,
-                                                    noise.to(dev))
-    blocks = sum(-(-n // BRIDGE_TICK_BLOCK) for n in (BRIDGE_KILL_TICK,
-                                                      BRIDGE_TICKS - BRIDGE_KILL_TICK))
-    _check(cuda_rollout.tick_block.launches == blocks,
-           f"run_blocked launched K5's wire-row instance {cuda_rollout.tick_block.launches} times "
-           f"in {blocks} blocks")
-    cpu, _, cpu_fs, _ = _sim_flight(to_device(p, "cpu"), directory, "cpu", False, noise)
-    worst = bag_diff(card, cpu, tick_bound, "SimBridge on the card against the CPU")
-    bag_diff(blocked, card, lambda topic, name, ref: YPR_BOUND if name in YPR_FIELDS else 0.0,
-             "SimBridge run_blocked against run on the card")
-    _check(card_fs == cpu_fs and card_fs[-1] == blocked_fs[-1] == logic.FS_KILLED,
-           f"SimBridge kill: card {card_fs[-5:]}, CPU {cpu_fs[-5:]}, blocked {blocked_fs}")
-    kill_tick = BRIDGE_KILL_TICK + 1 + card_fs.index(logic.FS_KILLED)
+    g = torch.Generator().manual_seed(SEED + 12)
+    noise = torch.randn((BRIDGE_TICKS, 2, 3), generator=g)
+    card, walls, kill_tick, worst, _ = _sim_bridge_case(p, directory, "", noise, None)
+    pu = env.with_uwb_anchors(p, UWB_ANCHOR_IDS, UWB_ANCHOR_POS, noise_std=0.05,
+                              comm_period=0.01)
+    noise = torch.randn((BRIDGE_TICKS, 2, 3), generator=g)
+    u_card, _, u_kill_tick, u_worst, u_state = _sim_bridge_case(
+        pu, directory, " over UWB", noise, uwb.draw((BRIDGE_TICKS,), g))
+    ranges = int(u_state.logic.uwb_meas_count)
+    _check(ranges > 0, "SimBridge over UWB: the network took no range")
+    split = sim_tick_split(p, hover)
     card_line_ = card_line()
     print(f"bridge: SimBridge on {card_line_}: {BRIDGE_TICKS} ticks with the mocap estimator, "
           f"{len(card)} messages, a kill after tick {BRIDGE_KILL_TICK} (FS_KILLED at tick "
-          f"{kill_tick} on the card and the CPU); card against CPU worst float "
+          f"{kill_tick} on the card, in tick_plain and on the CPU); tick (one K5-rows launch a "
+          f"tick, no env.step) publishes what tick_plain publishes on the card, bit for bit, "
+          f"euler angles included, and ends in its state; card against CPU worst float "
           f"{worst:.4g} x its bound; run_blocked(block={BRIDGE_TICK_BLOCK}) publishes what run "
-          f"publishes (euler angles within {YPR_BOUND} rad), one K5 launch a block ({blocks}); "
-          f"a dispatched block made {syncs} synchronizing calls")
-    print(f"bridge: SimBridge on {card_line_}: run {BRIDGE_TICKS / card_s:.1f} ticks/s, "
-          f"run_blocked {BRIDGE_TICKS / blocked_s:.1f} ticks/s")
+          f"publishes (euler angles within {YPR_BOUND} rad), one K5 launch a block; a "
+          f"dispatched block made {syncs} synchronizing calls")
+    print(f"bridge: SimBridge over UWB ({len(UWB_ANCHOR_IDS)} anchors) on {card_line_}: the "
+          f"same flight, {len(u_card)} messages, {ranges} ranges taken (FS_KILLED at tick "
+          f"{u_kill_tick}); the same four comparisons held (tick = tick_plain bit for bit; card "
+          f"against CPU worst float {u_worst:.4g} x its bound; run_blocked = run but euler)")
+    print(f"bridge: SimBridge on {card_line_}: run {split['run_hz']:.1f} ticks/s over "
+          f"{TICK_SPLIT_TICKS} ticks ({BRIDGE_TICKS / walls['run']:.1f} in the flight, reading "
+          f"the flight state after each tick of its second leg), tick_plain "
+          f"{BRIDGE_TICKS / walls['tick_plain']:.1f}, run_blocked "
+          f"{BRIDGE_TICKS / walls['run_blocked']:.1f}; K5-rows launches a tick "
+          f"{split['launches_a_tick']:.3f}; synchronizing calls a tick {split['syncs']} "
+          f"({split['radio_syncs']} on a tick that injects a radio command); host us a tick: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split["us"].items()))
 
     # the reference's 500 Hz, 5-tick quanta: the kill published in quantum
     # 1 enters the delay line with block 2 and crosses its 30 ms (16 ticks)
@@ -2291,6 +2438,17 @@ def check_sim_bridge(dev, directory):
           + ", ".join(f"{k} {v:.2f}" for k, v in rep["topic_hz"].items())
           + f", bands {rep['bands_ok']}; verify_realtime500's criteria met; one K5 launch a "
           f"quantum; the kill landed")
+    cuda_rollout.tick_block.launches = 0
+    rep = bridge.SimBridge(p, vehicle_id=1, seed=SEED + 16).run_realtime(
+        REALTIME_S, hover, rate_hz=SIM_PACED_HZ, block=SIM_PACED_BLOCK, device_blocks=False)
+    _check(cuda_rollout.tick_block.launches == rep["ticks"] + 10,
+           f"SimBridge.run_realtime per tick: {cuda_rollout.tick_block.launches} launches for "
+           f"{rep['ticks']} ticks and 10 warm ones")
+    print(f"bridge: SimBridge.run_realtime(device_blocks=False) on {card_line_} (a reading, "
+          f"ungated): target {SIM_PACED_HZ:.1f} ticks/s, {SIM_PACED_BLOCK} a quantum, "
+          f"{REALTIME_S} s: achieved {rep['achieved_tick_hz']:.2f}, {rep['late_quanta']} of "
+          f"{rep['n_quanta']} quanta late (max {1e3 * rep['max_late_s']:.2f} ms), bands "
+          f"{rep['bands_ok']}; one K5 launch a tick")
     return syncs
 
 
@@ -2316,7 +2474,7 @@ TICK_BLOCKS = ((1, (0,)), (5, (4,)), (7, (0, 6)), (40, tuple(range(4, 40, 5))),
 TICK_BLOCK_MODES = (("true", False), ("mocap", True), ("gpsimu", "gpsimu"))
 TICK_BLOCK_MID_TICKS = 613
 TICK_BLOCK_EAGER = 3  # blocks of each cold chain also held against the eager plain version
-TICK_BLOCK_TIMED = (5, 40, 250)  # block sizes K5's wire-row instance is timed at (mocap)
+TICK_BLOCK_TIMED = (1, 5, 40, 250)  # block sizes K5's wire-row instance is timed at (mocap)
 TICK_BLOCK_HOST_CALLS = 200  # tick_block calls timed on the host's clock, each way
 # float operations a wire row adds to its tick (the body-frame velocity, the
 # row's conversions) and a fire tick's encode (28 codes of ~6 each)
@@ -2405,7 +2563,8 @@ def check_tick_block(dev):
     in every estimator mode from a cold and a mid-flight state and in the
     TICK_UWB build; the first TICK_BLOCK_EAGER blocks of each cold chain
     also against the eager plain version. Then its device µs at
-    TICK_BLOCK_TIMED ticks (mocap, the bridge's mode), the wrapper's ms, the
+    TICK_BLOCK_TIMED ticks (mocap, the bridge's mode; at 1 tick, SimBridge.tick's
+    launch, also in the TICK_UWB build with anchors), the wrapper's ms, the
     eager plain version's ms and the bound at 5 ticks (a 10 ms quantum of
     the 500 Hz loop), and the host's µs a call (tick_block_host_us).
     Returns the kernel's line at 5 ticks."""
@@ -2476,7 +2635,13 @@ def check_tick_block(dev):
         f = fire[starts[-1]:starts[-1] + n]
         dev_us[n] = device_us(lambda: cuda_rollout._launch_rows(s_entry, p_entry, cmd_rows, nz,
                                                                 True, "rates", f), reps=5)
-    n = TICK_BLOCK_TIMED[0]
+    su, spu = cuda_rollout._accept_env(pu, env.init_state(pu), dev, None, True)
+    nz = torch.randn((1, 1, 2, 3), generator=gen, device=dev)
+    d1 = uwb.draw((1, 1), gen, dev)
+    uwb_us = device_us(lambda: cuda_rollout._launch_rows(su, spu, cmd_rows, nz, True, "rates",
+                                                         fire[starts[-1]:starts[-1] + 1],
+                                                         draws=d1, uwb=True), reps=5)
+    n = SIM_PACED_BLOCK
     nz = torch.randn((n, 2, 3), generator=gen, device=dev)
     f = fire[starts[1]:starts[1] + n]
     w_ms = cuda_ms(lambda: cuda_rollout.tick_block(p, mid, cmd, nz, f, True), reps=10, warmup=2)
@@ -2495,8 +2660,9 @@ def check_tick_block(dev):
     n_ops = n * (ENV_TICK_OPS[True] + WIRE_ROW_OPS) + int(f.sum()) * TEL_ENCODE_OPS
     r = result(0.0, 1e-3 * dev_us[n], plain_ms, n_bytes, n_ops)
     print(f"tick_block on {card_line()}: device (bare launch, mocap, G="
-          f"{cuda_rollout.TICK_BLOCK_GROUP}) " + ", ".join(f"{k} ticks {us_text(v)}" for k, v in dev_us.items())
-          + f"; at {n} ticks: wrapper {w_ms:.4f} ms (CUDA events), plain (eager, on the card) "
+          f"{cuda_rollout.TICK_BLOCK_GROUP}) " + ", ".join(f"{k} ticks {us_text(v)}"
+                                                            for k, v in dev_us.items())
+          + f", the TICK_UWB build 1 tick {us_text(uwb_us)}; at {n} ticks: wrapper {w_ms:.4f} ms (CUDA events), plain (eager, on the card) "
           f"{plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); host us a call: "
           + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
           + f"; phase {time.perf_counter() - t_phase:.1f} s")

@@ -1217,6 +1217,54 @@ def test_sim_bridge_on_the_card_publishes_the_cpu_bag(cuda, tmp_path):  # noqa: 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("network", [False, True], ids=["mocap", "uwb"])
+def test_sim_bridge_tick_on_the_card_equals_tick_plain(cuda, tmp_path, network):  # noqa: F811
+    """SimBridge.tick on the card (one launch of K5's wire-row instance a
+    tick, the row read once) against tick_plain (env.step) on the card, 40
+    ticks with the mocap estimator, a kill after 20 and the telemetry
+    firing, with and without a UWB network: the same bag byte for byte, euler
+    angles included, the same final state leaf for leaf, one launch a
+    tick."""
+    from agrifly_tpu_torch.io import bridge, messages, radio
+    from agrifly_tpu_torch.models import logic
+
+    p = env.make_params(noise_scale=1.0, device=cuda)
+    if network:
+        p = env.with_uwb_anchors(p, [101, 102, 103, 104],
+                                 [[-3.0, -3.0, 0.1], [3.0, -3.0, 0.2], [3.0, 3.0, 2.0],
+                                  [-3.0, 3.0, 1.5]], noise_std=0.05, comm_period=0.01)
+    g = torch.Generator().manual_seed(13)
+    noise, draws = torch.randn((40, 2, 3), generator=g), uwb.draw((40,), g)
+    kill = radio.fields_to_bytes(radio.TYPE_EMERGENCY_KILL, 0, np.zeros(radio.NUM_FIELDS, np.int64))
+    bags, states = {}, {}
+    for name in ("plain", "kernel"):
+        at = [0, 0]
+
+        def take(rows, i, n):
+            at[i] += n
+            return rows[at[i] - n:at[i]]
+
+        br = bridge.SimBridge(p, draws=lambda n: take(noise, 0, n),
+                              uwb_draws=(lambda n: take(draws, 1, n)) if network else None)
+        rec = bridge.MessageRecorder(br.bus, str(tmp_path / f"{name}.jsonl"))
+        cmd = env.hover_command((0.0, 0.0, 1.0), device=cuda)
+        before = cuda_rollout.tick_block.launches
+        for k in range(40):
+            if k == 20:
+                br.bus.publish("radio_command1", messages.RadioCommand(raw=kill))
+            br.tick(cmd) if name == "kernel" else br.tick_plain(cmd)
+        launches = cuda_rollout.tick_block.launches - before
+        rec.close()
+        bags[name], states[name] = (tmp_path / f"{name}.jsonl").read_text(), br.state
+        assert launches == (40 if name == "kernel" else 0)
+    assert bags["kernel"] == bags["plain"] and bags["plain"].count('"telemetry1"') == 7
+    for (path, a), (_, b) in zip(convert.leaves(states["kernel"]), convert.leaves(states["plain"])):
+        assert torch.equal(a, b), path
+    assert int(states["kernel"].logic.fs) == logic.FS_KILLED
+    assert not network or int(states["kernel"].logic.uwb_meas_count) > 0
+
+
+@pytest.mark.cuda
 def test_fleet_uwb_refuses_what_the_kernel_does_not_take(cuda):  # noqa: F811
     """Over the caps (33 vehicles; 30 vehicles and 4 anchors), a wrong
     dtype, a CPU tensor among CUDA ones: a ValueError and no launch; a group
