@@ -272,7 +272,7 @@ def make_sharded_planner(planner_params, mesh: Mesh, n_candidates: int,
     JAX package takes a key and splits it per device), n = n_candidates /
     world, and inflates pyramid_capacity / world pyramids. The result is
     the same on every rank; best_idx is 0, as in the JAX package."""
-    from agrifly_tpu_torch.planner import rappids, traj as traj_mod
+    from agrifly_tpu_torch.planner import cuda_plan, rappids, traj as traj_mod
 
     if n_candidates % mesh.world or pyramid_capacity % mesh.world:
         raise ValueError(f"{n_candidates} candidates and capacity {pyramid_capacity} must "
@@ -287,9 +287,8 @@ def make_sharded_planner(planner_params, mesh: Mesh, n_candidates: int,
                              f"{tuple(u.shape)}")
         tr = rappids.sample_candidates(pp, u[:, cols], vel0, acc0)
         cost = rappids.exploration_cost(tr, goal_cam)
-        feas = traj_mod.check_input_feasibility(
-            tr, grav, pp.fmin, pp.fmax, pp.wmax, pp.min_section_time, static_max_tf=3.0)
-        vel_ok = traj_mod.check_velocity_feasibility(tr, pp.vmax)
+        feas, vel_ok = cuda_plan.plan_gates(tr, grav, pp.fmin, pp.fmax, pp.wmax,
+                                            pp.min_section_time, pp.vmax, static_max_tf=3.0)
         gate = feas & vel_ok
 
         epx, epy, endz = rappids.endpoint_seeds(pp, tr)

@@ -10,7 +10,11 @@ reference's anytime loop became this fixed-shape batch.
 
 Pyramid inflation runs in `build_pyramid_set`: on a CUDA tensor through
 the hand-written kernel (`planner/cuda_inflate.py`), on a CPU tensor
-through the plain batched `inflate_pyramid`.
+through the plain batched `inflate_pyramid`. The candidate pass does the
+same (`planner/cuda_plan.py`): `collision_check` is one launch of the
+collision-check kernel on CUDA tensors and `collision_check_plain` on CPU
+tensors; the planner's two gates are one launch of the gate kernel
+(`cuda_plan.plan_gates`) or the plain `traj` functions.
 
 Every function takes a leading vehicle shape L on its image and vectors:
 L = () plans for one vehicle, L = (B,) for a fleet in the same launches
@@ -596,8 +600,9 @@ def _deepest_collision_time(tr: traj_mod.Traj, normals, t1, t2, increasing):
     return any_hit, torch.where(increasing, t_inc, t_dec)
 
 
-def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled):
-    """Pyramid-partition collision check of N camera-frame candidates.
+def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled):
+    """Pyramid-partition collision check of N camera-frame candidates: the
+    plain version of the collision-check kernel (`cuda_plan.collision_check`).
 
     The JAX package runs a per-candidate while_loop (vmapped) that pops
     monotone sections from a fixed stack until none is live, one is
@@ -655,14 +660,25 @@ def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, 
         live = torch.where(upd, push[..., None], live)
 
     free = (status == 0) & ~torch.any(live, dim=-1)
+    collision_check_plain.calls += 1
     return free, fail[0], fail[1], fail[2]
+
+
+collision_check_plain.calls = 0  # calls since the last reset
+
+
+def collision_check(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled=None):
+    """`collision_check_plain`'s result for (*L, N) candidates (enabled
+    None: every candidate): on CUDA tensors one launch of the collision-check
+    kernel, on CPU tensors the plain version."""
+    from agrifly_tpu_torch.planner import cuda_plan
+
+    return cuda_plan.collision_check(params, pyrs, tr, enabled)
 
 
 def is_collision_free(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled=None):
     """(*L, N) bool: the candidates the pyramid set proves free, the first
     output of `collision_check` (enabled None: every candidate)."""
-    if enabled is None:
-        enabled = torch.ones(tr.tf.shape, dtype=torch.bool, device=tr.tf.device)
     return collision_check(params, pyrs, tr, enabled)[0]
 
 
@@ -739,16 +755,20 @@ def plan(params: PlannerParams, depth_u16, u, vel0, acc0, grav, goal_cam,
 def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
                pyramid_capacity, rounds, inflation_downsample, lazy_rounds, cost_fn=None):
     """Shared planning pipeline: candidates, gates, pyramid rounds
-    (pre-planned + lazy on-demand), collision labels."""
+    (pre-planned + lazy on-demand), collision labels. On CUDA tensors the
+    gates are one launch of the gate kernel and each collision check one
+    launch of the collision-check kernel."""
+    from agrifly_tpu_torch.planner import cuda_plan
+
     tr = candidates_from_samples(params, *samples, vel0, acc0)
     dev = tr.tf.device
     lead = tr.tf.shape[:-1]
     cost = exploration_cost(tr, goal_cam) if cost_fn is None else cost_fn(tr)
-    feas = traj_mod.check_input_feasibility(
+    feas, vel_ok = cuda_plan.plan_gates(
         tr, grav[..., None, :], params.fmin, params.fmax, params.wmax, params.min_section_time,
+        params.vmax,
         # sampler durations are U(2,3) s: identical verdicts, fewer levels
         static_max_tf=3.0)
-    vel_ok = traj_mod.check_velocity_feasibility(tr, params.vmax)
     gate = feas & vel_ok
 
     # pyramid seeds: endpoints of the cheapest gated candidates
@@ -772,8 +792,7 @@ def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
         base = pyrs if rnd > 0 else empty_pyramid_set(pyramid_capacity - per_round, dev, lead)
         pyrs = merge_pyramid_sets(base, new_pyrs)
 
-    everyone = torch.ones_like(gate)
-    collision_free, fail_px, fail_py, fail_z = collision_check(params, pyrs, tr, everyone)
+    collision_free, fail_px, fail_py, fail_z = collision_check(params, pyrs, tr)
 
     # lazy rounds (DepthImagePlanner.cpp:270-273): the cheapest gated
     # candidates that failed for lack of a covering pyramid donate their

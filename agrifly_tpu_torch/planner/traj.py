@@ -209,10 +209,12 @@ def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
     for trajectories of any batch shape; grav (3,) or broadcastable to
     their (..., 3) vectors.
 
-    True = InputFeasible. A needed section narrower than min_time_section
-    rejects (InputIndeterminable); uncertain sections recurse into the next
-    dyadic level. static_max_tf: an upper bound on every tf, which lets
-    levels that are provably too narrow reject without being evaluated."""
+    The plain version of the gate kernel (`cuda_plan.plan_gates`, which
+    the planner calls). True = InputFeasible. A needed section narrower
+    than min_time_section rejects (InputIndeterminable); uncertain sections
+    recurse into the next dyadic level. static_max_tf: an upper bound on
+    every tf, which lets levels that are provably too narrow reject without
+    being evaluated."""
     batch = tr.tf.shape
     ok = torch.ones(batch, dtype=torch.bool, device=tr.tf.device)
     needed = torch.ones(batch + (1,), dtype=torch.bool, device=tr.tf.device)
@@ -234,7 +236,11 @@ def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
             ok = ok & ~torch.any(needed & split, dim=-1)
             break
         needed = torch.repeat_interleave(needed & split & ~too_narrow, 2, dim=-1)
+    check_input_feasibility.calls += 1
     return ok
+
+
+check_input_feasibility.calls = 0  # calls since the last reset
 
 
 def check_velocity_feasibility(tr: Traj, vmax, strict_degenerate: bool = True):
@@ -242,7 +248,8 @@ def check_velocity_feasibility(tr: Traj, vmax, strict_degenerate: bool = True):
     (RapidTrajectoryGenerator.cpp:163-208). strict_degenerate=True is
     bug-compatible with the reference: an axis whose acceleration cubic
     degenerates is infeasible; False takes such an axis's quadratic
-    acceleration roots instead."""
+    acceleration roots instead. The plain version of the gate kernel
+    (`cuda_plan.plan_gates`, which the planner calls)."""
     c0 = tr.alpha / scalar(6.0, tr.alpha)
     c1 = tr.beta / 2.0
     c2 = tr.gamma
@@ -274,7 +281,11 @@ def check_velocity_feasibility(tr: Traj, vmax, strict_degenerate: bool = True):
     infeasible = torch.any(exceeded.flatten(-2), dim=-1)
     if strict_degenerate:
         infeasible = infeasible | torch.any(degenerate, dim=-1)
+    check_velocity_feasibility.calls += 1
     return ~infeasible
+
+
+check_velocity_feasibility.calls = 0  # calls since the last reset
 
 
 def check_position_feasibility(tr: Traj, boundary_point, boundary_normal):

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
+It builds the seven CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
 the section-timed variants of `frame.cu`, `rollout.cu`, `fleet_uwb.cu` and
 `meshscene.cu` and the UWB, wind and wind + UWB builds of `rollout.cu` (one nvcc
 each, all in parallel) and holds each kernel against its plain
@@ -46,7 +46,14 @@ oracle. It then flies:
 - the single-vehicle orchard frame (640x480 depth, 256 candidates, 16
   ticks per frame) through `OrchardEnv.fly`: 80 frames in the default
   configuration, whose ticks are the fused kernel, and 3 frames with
-  `fused_ticks=False`, whose ticks are plain torch;
+  `fused_ticks=False`, whose ticks are plain torch; every frame's planner
+  makes one launch of the gate kernel (K8) and two of the collision-check
+  kernel (K7, `csrc/plan.cu`), which are then held bit for bit against
+  their plain versions on the flight's frame, a fleet of 16 copies of it
+  and the evaluation's 4 x 1024 candidates (first check and lazy
+  re-check; the gates also on random and near-limit trajectories, strict
+  and not, with and without the static_max_tf cut) and timed; each frame
+  split notes the plan's parts (`plan_split`);
 - a fleet of 16 vehicles in lanes 3 m apart, 40 frames through
   `OrchardEnv.fly_fleet`, whose every frame launches the raycaster once,
   the inflation once per planner round and the tick kernel once, for all
@@ -187,11 +194,12 @@ TURN_FRAMES = 2  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
-           "fleet_uwb")  # one library per csrc/<name>.cu
+           "fleet_uwb", "plan")  # one library per csrc/<name>.cu
 DEVICE_KERNELS = ("raycast_kernel", "raycast_rgb_kernel", "inflate_kernel",
                   "inflate_cluster_kernel", "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel", "meshscene_rgb_kernel",
-                  "rollout_kernel", "fleet_uwb_kernel")
+                  "rollout_kernel", "fleet_uwb_kernel", "collision_check_kernel",
+                  "plan_gates_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
 # attitude at these positions; the harnesses' start state and goal.
@@ -232,6 +240,19 @@ MESH_CULL_OPS = 70
 RGB_RAY_OPS_PER_CELL = 4
 RGB_RAY_SHADE_OPS = 130
 RGB_MESH_SHADE_OPS = 60
+# csrc/plan.cu, float operations read off the source, each double-precision
+# acos, cos or pow counted as 20 (its polynomial): K7 per popped section
+# (two z and two x/y positions, the projection, the first pyramid's test,
+# four face quartics: five dot products, the resolvent cubic with its acos
+# and three cos, two quadratics, the window tests) and per candidate (zdot's
+# quartic, the six-bound sort); K8 per evaluated bisection section (two
+# thrusts, three axes' acceleration extrema and jerk bounds, the verdict) and
+# per candidate (the stationary times, three velocity cubics, 15 velocities)
+PLAN_POP_OPS = 950
+PLAN_CANDIDATE_OPS = 250
+GATE_SECTION_OPS = 275
+GATE_CANDIDATE_OPS = 950
+PLAN_LAZY_ROUNDS = 1  # rappids.plan's default lazy_rounds, the frame's: 1 + 1 checks a frame
 ABOVE_CANOPY = (10.0, 3.0, 14.0)  # a level camera here meets trees only beyond the far plane
 BRIDGE_FRAMES = 6  # the fly_diag flights' frames, in each world
 
@@ -755,6 +776,239 @@ def evaluate(dev, params, views):
           f"{[round(c, 4) for c in fast.best_cost.tolist()]}, oracle-free; oracle "
           f"{oracle_ms:.3f} ms per 128 candidates (one view)")
     return launches
+
+
+# The planner's candidate pass (K7, K8: csrc/plan.cu)
+
+
+def random_trajs(seed, n, device="cpu"):
+    """n trajectories (traj.Traj, p0 = 0, tf in [2, 3]) with coefficients
+    over four decades, some exactly 0 and some |alpha| at 7e-6, just above
+    the velocity cubic's 6e-6 degenerate threshold: the gates' branches."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch.planner import traj
+
+    rng = np.random.default_rng(seed)
+
+    def vec(scale):
+        x = rng.standard_normal((n, 3)) * scale * np.exp(rng.uniform(-3, 1, (n, 1)))
+        x[rng.uniform(size=(n, 3)) < 0.1] = 0.0
+        return x
+
+    al = vec(40.0)
+    al[rng.uniform(size=(n, 3)) < 0.05] = 7e-6
+    cols = [al, vec(20.0), vec(10.0), vec(5.0), vec(2.0), np.zeros((n, 3)),
+            rng.uniform(2.0, 3.0, n), np.zeros(n)]
+    return traj.Traj(*(torch.from_numpy(np.asarray(c, np.float32)).to(device) for c in cols))
+
+
+def near_limit_trajs(seed, n, device="cpu", grav=(0.0, 9.81, 0.0)):
+    """n trajectories whose thrust peaks 0.005-0.2 m/s^2 under the planner's
+    fmax = 30 (their acceleration scaled so on a 1001-point grid), tf in
+    [2.56, 3]: the input bisection narrows toward the peak over many
+    levels, and some reach the static_max_tf cut at level 8."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch.planner import traj
+
+    rng = np.random.default_rng(seed)
+    coef = [rng.standard_normal((n, 3)) * s for s in (1.0, 2.0, 3.0, 2.0)]  # alpha .. a0
+    tf = rng.uniform(2.56, 3.0, n)
+    ts = (np.linspace(0.0, 1.0, 1001)[None, :] * tf[:, None])[..., None]
+    acc = (coef[3][:, None] + coef[2][:, None] * ts + coef[1][:, None] * ts ** 2 / 2.0
+           + coef[0][:, None] * ts ** 3 / 6.0)
+    target = 30.0 - rng.uniform(0.005, 0.2, n)
+    lo, hi = np.zeros(n), np.full(n, 20.0)
+    for _ in range(30):
+        mid = (lo + hi) / 2.0
+        over = np.linalg.norm(mid[:, None, None] * acc - np.asarray(grav), axis=-1).max(-1) > target
+        lo, hi = np.where(over, lo, mid), np.where(over, mid, hi)
+    cols = [c * lo[:, None] for c in coef] + [rng.standard_normal((n, 3)), np.zeros((n, 3)), tf,
+                                              np.zeros(n)]
+    return traj.Traj(*(torch.from_numpy(np.asarray(c, np.float32)).to(device) for c in cols))
+
+
+def plan_args(p, state, u):
+    """The (args, kwargs) of the rappids.plan call that
+    orchard_env._frame_percept makes from `state` with the draws u."""
+    from agrifly_tpu_torch.planner import rappids
+    from agrifly_tpu_torch.sim import orchard_env
+
+    seen, plan = [], rappids.plan
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return plan(*args, **kw)
+
+    rappids.plan = record
+    try:
+        orchard_env._frame_percept(p, state, u)
+    finally:
+        rappids.plan = plan
+    return seen[0]
+
+
+def frame_plan_case(dev, state, p, gen):
+    """A frame's candidates, gravity and final pyramid set (plan_debug's)
+    from `state` (one vehicle or a fleet), and the lazy round's mask: the
+    gated candidates the first check fails for want of a pyramid."""
+    from agrifly_tpu_torch.planner import cuda_plan, rappids
+    from agrifly_tpu_torch.sim import orchard_env
+
+    lead = state.base.step.shape
+    u = (orchard_env.draw_fleet(p, gen, lead[0], dev)[0] if lead
+         else orchard_env.draw(p, gen, dev)[0])
+    (prm, depth, u, vel, acc, grav, goal), kw = plan_args(p, state, u)
+    tr, _, _, _, gate, _, pyrs = rappids.plan_debug(
+        prm, depth, rappids.samples_from_uniform(prm, u), vel, acc, grav, goal, **kw)
+    free, _, _, fail_z = cuda_plan.collision_check(prm, pyrs, tr)
+    return prm, tr, grav[..., None, :], pyrs, gate & ~free & (fail_z > 0)
+
+
+def _equal(got, ref):
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _check_case(prm, pyrs, tr, enabled, label):
+    """K7 against collision_check_plain on the card, bit for bit, one
+    launch; returns the pops tensor of the kernel's run."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_plan, rappids
+
+    pops = torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+    before = cuda_plan.collision_check.launches
+    got = cuda_plan.collision_check(prm, pyrs, tr, enabled, pops=pops)
+    _check(cuda_plan.collision_check.launches == before + 1, f"K7 ({label}): not one launch")
+    en = torch.ones(tr.tf.shape, dtype=torch.bool, device=tr.tf.device) if enabled is None \
+        else enabled
+    _check(_equal(got, rappids.collision_check_plain(prm, pyrs, tr, en)),
+           f"K7 differs from collision_check_plain on the card ({label})")
+    return got, pops
+
+
+def _gates_case(prm, tr, grav, label, static_max_tf=3.0, strict=True):
+    """K8 against the plain gates on the card, bit for bit, one launch;
+    returns the evaluated sections of the kernel's run."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_plan, traj
+
+    sections = torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+    before = cuda_plan.plan_gates.launches
+    got = cuda_plan.plan_gates(tr, grav, prm.fmin, prm.fmax, prm.wmax, prm.min_section_time,
+                               prm.vmax, static_max_tf=static_max_tf, strict_degenerate=strict,
+                               sections=sections)
+    _check(cuda_plan.plan_gates.launches == before + 1, f"K8 ({label}): not one launch")
+    ref = (traj.check_input_feasibility(tr, grav, prm.fmin, prm.fmax, prm.wmax,
+                                        prm.min_section_time, static_max_tf=static_max_tf),
+           traj.check_velocity_feasibility(tr, prm.vmax, strict))
+    _check(_equal(got, ref), f"K8 differs from the plain gates on the card ({label})")
+    return got, sections
+
+
+def _traj_bytes(tr, fields):
+    return sum(getattr(tr, f).numel() * 4 for f in fields)
+
+
+def check_plan_kernels(dev, state):
+    """K7 and K8 against their plain versions on the card, bit for bit, at
+    the main path's shapes: the frame's candidates (256) and pyramid set
+    from `state` (the single flight's) and from a fleet of FLEET copies of
+    it (each with its own draws), the first check and the lazy re-check; the evaluation's 4 x 1024
+    endpoint check; the gates on those candidates and on random and
+    near-limit trajectories (strict and not, with and without the
+    static_max_tf cut). Each kernel's wrapper, bare launch and device time
+    (device_us), the plain version's time and the bound. Returns the two
+    kernels' result dicts (at the single frame's shape)."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_plan, rappids, traj
+    from agrifly_tpu_torch.sim import orchard_env
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    p = orchard_env.make_params(start_flight_time=1.0, device=dev)
+    fleet = orchard_env.stack_states([state] * FLEET)  # each vehicle draws its own candidates
+    frames = {"B=1": frame_plan_case(dev, state, p, gen),
+              f"B={FLEET}": frame_plan_case(dev, fleet, p, gen)}
+    params, views = eval_views(dev)
+    vel0, acc0, grav0 = eval_state(dev)
+    tr = rappids.sample_candidates(params, eval_draws(1024, dev), vel0, acc0)
+    pyrs = rappids._endpoint_pyramids(params, views, tr, 32)
+    cases = dict(frames, **{"4x1024": (params, tr, grav0[:, None, :], pyrs, None)})
+
+    lines, out = [], {}
+    for label, (prm, tr, grav, pyrs, failed) in cases.items():
+        (free, *_), pops = _check_case(prm, pyrs, tr, None, f"{label}, first check")
+        lazy = ""
+        if failed is not None:
+            _, lazy_pops = _check_case(prm, pyrs, tr, failed, f"{label}, lazy re-check")
+            lazy = (f", lazy re-check of {int(failed.sum())} bit-equal "
+                    f"({int(lazy_pops.sum())} pops)")
+        n = tr.tf.numel()
+        k7_ms = cuda_ms(lambda: cuda_plan.collision_check(prm, pyrs, tr))
+        launch_ms = cuda_ms(lambda: cuda_plan._launch_check(prm, pyrs, tr), reps=50)
+        en = torch.ones(tr.tf.shape, dtype=torch.bool, device=dev)
+        plain_ms = cuda_ms(lambda: rappids.collision_check_plain(prm, pyrs, tr, en), reps=2,
+                           warmup=1)
+        k7_us = device_us(lambda: cuda_plan._launch_check(prm, pyrs, tr))
+        # bytes: the candidates' six vectors and tf, the pyramid set, the
+        # outputs (free and three fail floats); operations: the pops this
+        # run made and every candidate's sections
+        k7 = result(0, k7_ms, plain_ms,
+                    _traj_bytes(tr, ("alpha", "beta", "gamma", "a0", "v0", "p0", "tf"))
+                    + nbytes(*pyrs) + 13 * n,
+                    int(pops.sum()) * PLAN_POP_OPS + n * PLAN_CANDIDATE_OPS)
+        (feas, vel_ok), sections = _gates_case(prm, tr, grav, f"{label}")
+        _gates_case(prm, tr, grav, f"{label}, not strict", strict=False)
+        k8_ms = cuda_ms(lambda: cuda_plan.plan_gates(
+            tr, grav, prm.fmin, prm.fmax, prm.wmax, prm.min_section_time, prm.vmax,
+            static_max_tf=3.0))
+        k8_plain_ms = cuda_ms(lambda: traj.check_input_feasibility(
+            tr, grav, prm.fmin, prm.fmax, prm.wmax, prm.min_section_time, static_max_tf=3.0)
+            & traj.check_velocity_feasibility(tr, prm.vmax), reps=2, warmup=1)
+        def gates():
+            return cuda_plan._launch_gates(tr, grav, prm.fmin, prm.fmax, prm.wmax,
+                                           prm.min_section_time, prm.vmax, 3.0)
+
+        k8_launch_ms = cuda_ms(gates, reps=50)
+        k8_us = device_us(gates)
+        k8 = result(0, k8_ms, k8_plain_ms,
+                    _traj_bytes(tr, ("alpha", "beta", "gamma", "a0", "v0", "tf"))
+                    + nbytes(grav[..., 0, :]) + 2 * n,
+                    int(sections.sum()) * GATE_SECTION_OPS + n * GATE_CANDIDATE_OPS)
+        out[label] = (k7, k8)
+        lines.append(
+            f"{label} ({n} candidates, {int(pyrs.valid.sum())} pyramids): K7 bit-equal, free "
+            f"{int(free.sum())}, pops {int(pops.sum())} (max {int(pops.max())}){lazy}; wrapper "
+            f"{k7_ms:.4f} ms, launch {launch_ms:.4f} ms, device {us_text(k7_us)}, plain "
+            f"{plain_ms:.3f} ms, bound {k7['bound_ms']:.6f} ms ({k7['bound_by']}); K8 bit-equal "
+            f"(strict and not), feasible {int(feas.sum())}, velocity {int(vel_ok.sum())}, "
+            f"sections {int(sections.sum())} (max {int(sections.max())}); wrapper {k8_ms:.4f} ms, "
+            f"launch {k8_launch_ms:.4f} ms, device {us_text(k8_us)}, plain {k8_plain_ms:.3f} ms, "
+            f"bound {k8['bound_ms']:.6f} ms ({k8['bound_by']})")
+    # the gates' branches: degenerate axes, near-limit thrust, the cut or not
+    prm = frames["B=1"][0]
+    grav = torch.tensor([0.0, 9.81, 0.0], device=dev)
+    for name, trs in (("random", random_trajs(SEED, 4096, dev)),
+                      ("near-limit", near_limit_trajs(SEED, 4096, dev))):
+        for static_max_tf in (3.0, None):
+            for strict in (True, False):
+                (feas, vel_ok), sections = _gates_case(
+                    prm, trs, grav, f"{name}, static_max_tf={static_max_tf}, strict={strict}",
+                    static_max_tf, strict)
+        lines.append(f"K8 on 4096 {name} trajectories bit-equal (static_max_tf 3.0 / None, "
+                     f"strict and not): feasible {int(feas.sum())}, velocity "
+                     f"{int(vel_ok.sum())}, sections {int(sections.sum())} (max "
+                     f"{int(sections.max())})")
+    print("plan kernels (K7 collision check, K8 gates) against their plain versions on the "
+          "card:\n  " + "\n  ".join(lines))
+    return out["B=1"]
 
 
 def baked_orchard(dev):
@@ -1699,7 +1953,7 @@ RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window", "raycast_rg
 
 
 def reset_counts():
-    from agrifly_tpu_torch.planner import cuda_inflate
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, rappids, traj
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
@@ -1713,10 +1967,15 @@ def reset_counts():
     cuda_inflate.inflate_pyramids.grouped_launches = 0
     cuda_frame.frame_ticks.launches = 0
     orchard_env.frame_ticks_plain.calls = 0
+    cuda_plan.collision_check.launches = 0
+    cuda_plan.plan_gates.launches = 0
+    rappids.collision_check_plain.calls = 0
+    traj.check_input_feasibility.calls = 0
+    traj.check_velocity_feasibility.calls = 0
 
 
 def read_counts():
-    from agrifly_tpu_torch.planner import cuda_inflate
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, rappids, traj
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
     from agrifly_tpu_torch.sim import cuda_frame, orchard_env
 
@@ -1729,15 +1988,22 @@ def read_counts():
             "inflate_cluster": cuda_inflate.inflate_pyramids.cluster_launches,
             "inflate_grouped": cuda_inflate.inflate_pyramids.grouped_launches,
             "frame_ticks": cuda_frame.frame_ticks.launches,
-            "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls}
+            "frame_ticks_plain calls": orchard_env.frame_ticks_plain.calls,
+            "collision_check": cuda_plan.collision_check.launches,
+            "plan_gates": cuda_plan.plan_gates.launches,
+            "plain check and gates calls": (rappids.collision_check_plain.calls
+                                            + traj.check_input_feasibility.calls
+                                            + traj.check_velocity_feasibility.calls)}
 
 
 def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, rgb=None):
     """Per frame, whatever the number of vehicles: `renders` launches of the
     render kernel (the raycaster, or K4 in an imported world), one of the
     RGB kernel `rgb` (where one is named) and none of the other render
-    kernels, one inflation launch (K2 or K2c) per planner round, and one
-    tick launch (fused) or one plain tick block (plain, one vehicle)."""
+    kernels, one inflation launch (K2 or K2c) per planner round, one gate
+    launch (K8) and 1 + PLAN_LAZY_ROUNDS collision-check launches (K7) with
+    no call of their plain versions, and one tick launch (fused) or one
+    plain tick block (plain, one vehicle)."""
     for name in RENDER_KERNELS:
         want = frames * renders if name == render else frames if name == rgb else 0
         _check(launches[name] == want,
@@ -1746,6 +2012,15 @@ def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, r
     _check(inflations == rounds * frames,
            f"inflation launched {inflations} times in {frames} frames of {rounds} rounds")
     _check(launches["inflate_grouped"] == 0, "the frame launched the grouped inflation")
+    _check(launches["plan_gates"] == frames,
+           f"plan_gates launched {launches['plan_gates']} times in {frames} frames")
+    checks = (1 + PLAN_LAZY_ROUNDS) * frames
+    _check(launches["collision_check"] == checks,
+           f"collision_check launched {launches['collision_check']} times in {frames} frames "
+           f"(want {checks})")
+    _check(launches["plain check and gates calls"] == 0,
+           f"the plain collision check or gates ran {launches['plain check and gates calls']} "
+           f"times in {frames} frames on the card")
     ticks_k, ticks_p = (frames, 0) if fused else (0, frames)
     _check(launches["frame_ticks"] == ticks_k,
            f"frame_ticks launched {launches['frame_ticks']} times in {frames} frames")
@@ -1753,9 +2028,67 @@ def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, r
            f"frame_ticks_plain ran {launches['frame_ticks_plain calls']} times in {frames} frames")
 
 
+PLAN_PARTS = ("candidates", "gates", "pyramid rounds", "collision check", "lazy round",
+              "lazy re-check", "selection")
+
+
+def plan_split(p, state, u, reps=3):
+    """The frame's rappids.plan call from `state` with the draws u, split
+    at its candidate-pass calls: candidates and cost, the gates (K8), the
+    pyramid rounds, the first collision check (K7), the lazy round's seeds
+    and pyramids, its re-check (K7) and the selection. The card is
+    synchronized at every boundary and each part timed on the host's
+    clock, the mean of `reps` plans (one warm-up first); returns
+    {part: ms} and the synchronized plan's ms."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_plan, rappids
+
+    args, kw = plan_args(p, state, u)
+    marks = []
+
+    def mark(label):
+        torch.cuda.synchronize()
+        marks.append((label, time.perf_counter()))
+
+    def around(fn, before, after):
+        def call(*a, **k):
+            mark(before)
+            out = fn(*a, **k)
+            mark(after)
+            return out
+        call.launches = getattr(fn, "launches", 0)  # the wrapper counts while it stands in
+        return call
+
+    gates, check = cuda_plan.plan_gates, rappids.collision_check
+    spent = dict.fromkeys(PLAN_PARTS, 0.0)
+    total = 0.0
+    cuda_plan.plan_gates = around(gates, "candidates", "gates")
+    rappids.collision_check = around(check, "check start", "check end")
+    try:
+        for rep in range(reps + 1):
+            marks.clear()
+            mark("start")
+            rappids.plan(*args, **kw)
+            mark("selection")
+            # checks: the first ends the pyramid rounds, the second the lazy round
+            names = iter(("pyramid rounds", "collision check", "lazy round", "lazy re-check"))
+            for (_, t0), (label, t1) in zip(marks, marks[1:]):
+                part = label if label in ("candidates", "gates", "selection") else next(names)
+                if rep:
+                    spent[part] += 1e3 * (t1 - t0) / reps
+            if rep:
+                total += 1e3 * (marks[-1][1] - marks[0][1]) / reps
+    finally:
+        gates.launches = cuda_plan.plan_gates.launches
+        cuda_plan.plan_gates, rappids.collision_check = gates, check
+    return spent, total
+
+
 def frame_split(p, state, gen, dev, label, reps=5):
     """Where a frame's time goes, from `state` (each part timed apart over
-    `reps` calls, so the parts need not sum to the frame)."""
+    `reps` calls, so the parts need not sum to the frame), and the
+    planner's split (plan_split)."""
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, raycast
     from agrifly_tpu_torch.sim import orchard_env
 
@@ -1773,8 +2106,10 @@ def frame_split(p, state, gen, dev, label, reps=5):
     warmup = min(reps, 2)
     percept = cuda_ms(lambda: orchard_env._frame_percept(p, state, u), reps=reps, warmup=warmup)
     ticks = cuda_ms(lambda: orchard_env.frame_ticks(p, state, noise), reps=reps, warmup=warmup)
+    parts, total = plan_split(p, state, u, reps=min(reps, 3))
     print(f"frame split ({label}): render {render:.3f} ms, plan {percept - render:.3f} ms, "
-          f"16 ticks {ticks:.3f} ms")
+          f"16 ticks {ticks:.3f} ms; the plan synchronized at its parts {total:.3f} ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
 
 
 def fly(dev, fused, frames, state=None, mesh=None):
@@ -3237,6 +3572,9 @@ def _mesh_planner(dev, mesh, state, card):
     launches = read_counts()
     inflations = launches["inflate"] + launches["inflate_cluster"]
     _check(inflations == 1, f"mesh: the sharded planner launched the inflation {inflations} times")
+    _check(launches["collision_check"] == 1 and launches["plan_gates"] == 1
+           and launches["plain check and gates calls"] == 0,
+           f"mesh: the sharded planner's candidate pass: {launches}")
     gloo = dist.new_group(backend="gloo")
     cpu_mesh = sharding.Mesh(gloo, 1, 0, torch.device("cpu"))
     p_cpu = orchard_env.make_params(device="cpu")
@@ -3434,9 +3772,9 @@ def profile_frame(step, frame_ms, label):
         return
     ours = ", ".join(f"{name} {e.self_device_time_total / e.count:.1f} us x{e.count}"
                      for e in kernels for name in DEVICE_KERNELS if name in e.key)
-    print(f"profiled {label}: device busy {busy_ms:.3f} ms in {sum(e.count for e in kernels)} "
-          f"kernels ({100 * busy_ms / frame_ms:.2f}% of the unprofiled {frame_ms:.3f} ms); "
-          f"{ours}")
+    print(f"profiled {label}: {sum(e.count for e in kernels)} kernels, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / frame_ms:.2f}% of the unprofiled {frame_ms:.3f} "
+          f"ms); {ours}")
 
 
 def check_ticks_against_cpu(state, dev, start_flight_time):
@@ -5238,7 +5576,7 @@ def build_kernels():
             variant.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
-    for name in ("raycast", "meshscene", "inflate", "frame", "rollout", "fleet_uwb"):
+    for name in ("raycast", "meshscene", "inflate", "frame", "rollout", "fleet_uwb", "plan"):
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
     for defines in (("TICK_UWB",), ("TICK_WIND",), ("TICK_UWB", "TICK_WIND")):
         print(ptxas_report("rollout", cuda_build.build_logs.get("-".join(("rollout",) + defines), ""),
@@ -5253,7 +5591,8 @@ PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1", "raycast_rgb_kernel": "K1-rgb
                            "inflate_grouped_kernel": "K2g"},
                "frame": {"frame_kernel": "K3"},
                "rollout": {"rollout_kernel": "K5"},  # K5 G=g: its template instance for g lanes
-               "fleet_uwb": {"fleet_uwb_kernel": "K6"}}
+               "fleet_uwb": {"fleet_uwb_kernel": "K6"},
+               "plan": {"collision_check_kernel": "K7", "plan_gates_kernel": "K8"}}
 
 
 def ptxas_report(lib, log, label=None):
@@ -5306,7 +5645,7 @@ def main(argv) -> int:
         return 1
     try:
         from agrifly_tpu_torch import cuda_build  # noqa: F401
-        from agrifly_tpu_torch.planner import cuda_inflate  # noqa: F401
+        from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan  # noqa: F401
         from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast  # noqa: F401
         from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout  # noqa: F401
     except ImportError as exc:
@@ -5338,6 +5677,7 @@ def main(argv) -> int:
         print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
         state, launches = timed(fly)(dev, fused=True, frames=FRAMES)
         fly_ms = fly.last_ms
+        k7, k8 = timed(check_plan_kernels)(dev, state)
         timed(fly)(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         timed(check_ticks_against_cpu)(state, dev, 1.0)
         fleet_state, fleet_launches = timed(fly_fleet)(dev)
@@ -5423,6 +5763,14 @@ def main(argv) -> int:
          "replaces": "agrifly_tpu/sim/fleet_env.py:265 (uwb_fleet_rollout, uwb_fleet_step:184; "
                      "jnp, no pallas_call)",
          "launches": k6_launches, **k6},
+        {"name": "collision_check", "route": "cuda", "source": source("plan"),
+         "replaces": "agrifly_tpu/planner/rappids.py:738 (collision_check, a lax.while_loop "
+                     "vmapped over candidates; jnp, no pallas_call)",
+         "launches": launches["collision_check"], **k7},
+        {"name": "plan_gates", "route": "cuda", "source": source("plan"),
+         "replaces": "agrifly_tpu/planner/traj.py:264 (check_input_feasibility) and :317 "
+                     "(check_velocity_feasibility); jnp, no pallas_call",
+         "launches": launches["plan_gates"], **k8},
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

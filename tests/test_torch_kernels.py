@@ -39,7 +39,7 @@ import torch
 from _torch_parity import compare_state, cuda, gradient_scene, make_scene  # noqa: F401
 from agrifly_tpu_torch import convert
 from agrifly_tpu_torch.ops import rotation as rot
-from agrifly_tpu_torch.planner import cuda_inflate, rappids
+from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, rappids
 from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, meshscene, orchard, raycast
 from agrifly_tpu_torch.sim import cuda_fleet_uwb, cuda_frame, cuda_rollout, env, fleet_env, uwb
 from agrifly_tpu_torch.sim import orchard_env
@@ -1332,3 +1332,108 @@ def test_plan_on_the_card_equals_the_plan_on_the_cpu(cuda, seed):  # noqa: F811
     apart = [k for k in ref if not torch.equal(got[k], ref[k])]
     assert apart == [], apart
     assert bool(ref["found"]) and int(ref["num_pyramids"]) > 4
+
+
+def _plan_kernel_case(cuda, B, seed):
+    """The frame's candidate pass at the orchard default (640x480, 256
+    candidates) on B random views: the candidates, gravity and plan_debug's
+    final pyramid set, and the lazy re-check's mask (the gated candidates
+    the first check fails for want of a pyramid)."""
+    p = orchard_env.make_params(device=cuda)
+    g = torch.Generator().manual_seed(seed)
+    pos, cam = _poses(seed, B, cuda)
+    depth = cuda_raycast.render_depth_batch(p.render_cfg, p.scene, pos, cam)
+    u = torch.rand((B, 4, p.n_candidates), generator=g).to(cuda)
+    vel = (torch.tensor([0.3, -0.2, 1.5]) + torch.randn(B, 3, generator=g) * 0.2).to(cuda)
+    acc = (torch.randn(B, 3, generator=g) * 0.5).to(cuda)
+    grav = torch.tensor([0.0, 9.81, 0.0], device=cuda).expand(B, 3)
+    goal = (torch.tensor([1.0, 0.0, 20.0]) + torch.randn(B, 3, generator=g)).to(cuda)
+    tr, _, _, _, gate, _, pyrs = rappids.plan_debug(
+        p.planner, depth, rappids.samples_from_uniform(p.planner, u), vel, acc, grav, goal,
+        pyramid_capacity=p.pyramid_capacity, rounds=p.planner_rounds,
+        inflation_downsample=p.inflation_downsample)
+    free, _, _, fail_z = cuda_plan.collision_check(p.planner, pyrs, tr)
+    return p.planner, tr, grav[:, None, :], pyrs, gate & ~free & (fail_z > 0)
+
+
+def _eval_check_case(cuda):
+    """The evaluation's 4 x 1024 endpoint check (measure_collision_checking_speed's)."""
+    from chip_smoke import eval_draws, eval_state, eval_views
+
+    params, views = eval_views(cuda)
+    vel0, acc0, grav = eval_state(cuda)
+    tr = rappids.sample_candidates(params, eval_draws(1024, cuda), vel0, acc0)
+    return params, tr, grav[:, None, :], rappids._endpoint_pyramids(params, views, tr, 32)
+
+
+def _same(got, ref):
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["B=1", "B=16", "4x1024"])
+def test_collision_check_kernel_bit_equal_to_plain(cuda, shape):  # noqa: F811
+    """K7 against rappids.collision_check_plain on the card, bit for bit
+    (free and the three fail values), one launch each: the first check and
+    the lazy re-check of the candidates it failed for want of a pyramid."""
+    if shape == "4x1024":
+        prm, tr, _, pyrs = _eval_check_case(cuda)
+        free = cuda_plan.collision_check(prm, pyrs, tr)[0]
+        lazy = ~free
+    else:
+        prm, tr, _, pyrs, lazy = _plan_kernel_case(cuda, int(shape[2:]), 42)
+    everyone = torch.ones(tr.tf.shape, dtype=torch.bool, device=cuda)
+    before = cuda_plan.collision_check.launches
+    for enabled in (None, lazy):
+        got = cuda_plan.collision_check(prm, pyrs, tr, enabled)
+        ref = rappids.collision_check_plain(prm, pyrs, tr, everyone if enabled is None
+                                            else enabled)
+        assert _same(got, ref)
+    assert cuda_plan.collision_check.launches == before + 2
+    assert int(pyrs.valid.sum()) > 0 and bool(got[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+def test_plan_gates_kernel_bit_equal_to_plain(cuda, strict):  # noqa: F811
+    """K8 against traj.check_input_feasibility and check_velocity_feasibility
+    on the card, bit for bit: a fleet frame's candidates and random and
+    near-limit trajectories, with the static_max_tf cut and without."""
+    from chip_smoke import near_limit_trajs, random_trajs
+
+    from agrifly_tpu_torch.planner import traj
+
+    prm, tr, grav, _, _ = _plan_kernel_case(cuda, 16, 43)
+    g3 = torch.tensor([0.0, 9.81, 0.0], device=cuda)
+    cases = [(tr, grav), (random_trajs(1, 4096, cuda), g3), (near_limit_trajs(1, 4096, cuda), g3)]
+    before = cuda_plan.plan_gates.launches
+    for trs, gr in cases:
+        for static_max_tf in (3.0, None):
+            got = cuda_plan.plan_gates(trs, gr, prm.fmin, prm.fmax, prm.wmax,
+                                       prm.min_section_time, prm.vmax,
+                                       static_max_tf=static_max_tf, strict_degenerate=strict)
+            ref = (traj.check_input_feasibility(trs, gr, prm.fmin, prm.fmax, prm.wmax,
+                                                prm.min_section_time, static_max_tf=static_max_tf),
+                   traj.check_velocity_feasibility(trs, prm.vmax, strict))
+            assert _same(got, ref)
+            if trs is not tr:  # both verdicts occur
+                assert bool(got[0].any()) and not bool(got[0].all())
+    assert cuda_plan.plan_gates.launches == before + 6
+
+
+@pytest.mark.cuda
+def test_plan_kernels_refuse_what_they_do_not_take(cuda):  # noqa: F811
+    """A float64 or CPU tensor among the card's, or a per-candidate gravity:
+    a ValueError and no launch."""
+    prm, tr, grav, pyrs, _ = _plan_kernel_case(cuda, 1, 40)
+    k7, k8 = cuda_plan.collision_check.launches, cuda_plan.plan_gates.launches
+    with pytest.raises(ValueError):
+        cuda_plan.collision_check(prm, pyrs, tr._replace(alpha=tr.alpha.double()))
+    with pytest.raises(ValueError):
+        cuda_plan.collision_check(prm, pyrs._replace(depth=pyrs.depth.cpu()), tr)
+    with pytest.raises(ValueError):
+        cuda_plan.plan_gates(tr, grav + torch.zeros_like(tr.alpha), prm.fmin, prm.fmax,
+                             prm.wmax, prm.min_section_time, prm.vmax)
+    with pytest.raises(ValueError):
+        cuda_plan.plan_gates(tr, grav, 5.0, prm.fmax, prm.wmax, prm.min_section_time, prm.vmax)
+    assert (cuda_plan.collision_check.launches, cuda_plan.plan_gates.launches) == (k7, k8)
