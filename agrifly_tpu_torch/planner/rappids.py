@@ -600,7 +600,8 @@ def _deepest_collision_time(tr: traj_mod.Traj, normals, t1, t2, increasing):
     return any_hit, torch.where(increasing, t_inc, t_dec)
 
 
-def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled):
+def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.Traj, enabled,
+                          pops=None):
     """Pyramid-partition collision check of N camera-frame candidates: the
     plain version of the collision-check kernel (`cuda_plan.collision_check`).
 
@@ -612,7 +613,9 @@ def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.
 
     enabled: (*L, N) bool, False skips a candidate. Returns (free, fail_px,
     fail_py, fail_depth): the pixel and depth of each candidate's first
-    uncovered section's deepest point (0s when none)."""
+    uncovered section's deepest point (0s when none). pops: None, or an
+    int32 (*L, N) tensor that receives the steps in which each candidate was
+    still running (the JAX package's loop's pops, the kernel's count)."""
     t1s, t2s, valid = monotonic_sections(tr)
     live = valid & enabled[..., None]
     dev = tr.tf.device
@@ -622,8 +625,11 @@ def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.
     slot_iota = torch.arange(MAX_SECTIONS, device=dev)
     two = torch.full_like(status, 2)
 
+    count = torch.zeros_like(status) if pops is not None else None
     for _ in range(MAX_CHECK_ITERS):
         running = torch.any(live, dim=-1) & (status == 0)
+        if count is not None:
+            count = count + running.to(torch.int32)
         # pop the first live section (order only affects pyramid reuse)
         oh = slot_iota == torch.argmax(live.to(torch.int8), dim=-1, keepdim=True)
         t1 = torch.where(oh, t1s, 0.0).sum(-1)
@@ -660,6 +666,8 @@ def collision_check_plain(params: PlannerParams, pyrs: PyramidSet, tr: traj_mod.
         live = torch.where(upd, push[..., None], live)
 
     free = (status == 0) & ~torch.any(live, dim=-1)
+    if count is not None:
+        pops.copy_(count)
     collision_check_plain.calls += 1
     return free, fail[0], fail[1], fail[2]
 

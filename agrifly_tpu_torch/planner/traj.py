@@ -204,7 +204,7 @@ def _section_verdict(tr: Traj, grav, t1, t2, fmin_allowed, fmax_allowed, wmax_al
 
 def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
                             wmax_allowed=20.0, min_time_section=0.02,
-                            max_depth=9, static_max_tf=None):
+                            max_depth=9, static_max_tf=None, sections=None):
     """Interval-bisection proof that thrust in [fmin, fmax] and |w| <= wmax,
     for trajectories of any batch shape; grav (3,) or broadcastable to
     their (..., 3) vectors.
@@ -214,14 +214,19 @@ def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
     than min_time_section rejects (InputIndeterminable); uncertain sections
     recurse into the next dyadic level. static_max_tf: an upper bound on
     every tf, which lets levels that are provably too narrow reject without
-    being evaluated."""
+    being evaluated. sections: None, or an int32 tensor of the batch shape
+    that receives the sections a depth-first walk evaluates before it stops
+    (the kernel's count; `_depth_first_sections`)."""
     batch = tr.tf.shape
     ok = torch.ones(batch, dtype=torch.bool, device=tr.tf.device)
     needed = torch.ones(batch + (1,), dtype=torch.bool, device=tr.tf.device)
+    walk = [] if sections is not None else None
     for level in range(max_depth + 1):
         n = 1 << level
         if static_max_tf is not None and static_max_tf / n < min_time_section:
             ok = ok & ~torch.any(needed, dim=-1)
+            if walk is not None:
+                walk.append((level, torch.zeros_like(needed), torch.zeros_like(needed), needed))
             break
         idx = torch.arange(n, dtype=torch.float32, device=tr.tf.device)
         t1 = tr.tf[..., None] * (idx / n)
@@ -232,12 +237,41 @@ def check_input_feasibility(tr: Traj, grav, fmin_allowed=5.0, fmax_allowed=30.0,
         _, infeas, split = _section_verdict(
             tr_b, grav[..., None, :], t1, t2, fmin_allowed, fmax_allowed, wmax_allowed)
         ok = ok & ~torch.any(needed & (too_narrow | infeas), dim=-1)
+        if walk is not None:
+            evaluated = needed & ~too_narrow
+            rejects = infeas | split if level == max_depth else infeas
+            walk.append((level, evaluated, evaluated & rejects, needed & too_narrow))
         if level == max_depth:
             ok = ok & ~torch.any(needed & split, dim=-1)
             break
         needed = torch.repeat_interleave(needed & split & ~too_narrow, 2, dim=-1)
+    if walk is not None:
+        sections.copy_(_depth_first_sections(walk, max_depth))
     check_input_feasibility.calls += 1
     return ok
+
+
+def _depth_first_sections(walk, max_depth):
+    """The sections a depth-first walk of the dyadic tree evaluates, from the
+    level sweep's record: walk holds, per level, (level, evaluated, counted
+    rejects, uncounted rejects), each (..., 2^level). The walk visits the
+    evaluated sections in preorder and stops at the first reject, counting
+    it where it was evaluated (a hard verdict or a split at the last level),
+    not where it was too narrow or cut. Preorder sorts (idx 2^(D - level),
+    level), D = max_depth."""
+    first, keys = None, []
+    for level, evaluated, counted, uncounted in walk:
+        key = (torch.arange(evaluated.shape[-1], device=evaluated.device) << (max_depth - level)) \
+            * (max_depth + 2) + level
+        keys.append(key)
+        big = torch.iinfo(torch.int64).max
+        k = torch.where(counted | uncounted, key, big).amin(-1)
+        first = k if first is None else torch.minimum(first, k)
+    count, counted_first = 0, torch.zeros_like(first, dtype=torch.bool)
+    for (_, evaluated, counted, _), key in zip(walk, keys):
+        count = count + (evaluated & (key < first[..., None])).sum(-1)
+        counted_first = counted_first | (counted & (key == first[..., None])).any(-1)
+    return (count + counted_first.to(count.dtype)).to(torch.int32)
 
 
 check_input_feasibility.calls = 0  # calls since the last reset

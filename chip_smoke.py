@@ -831,6 +831,174 @@ def near_limit_trajs(seed, n, device="cpu", grav=(0.0, 9.81, 0.0)):
     return traj.Traj(*(torch.from_numpy(np.asarray(c, np.float32)).to(device) for c in cols))
 
 
+def strip_pyramids(cam, capacity=80, depth=10.0):
+    """Narrow full-height pyramids every W / 80 px, each 7 W / 160 px wide,
+    their base at `depth` m, padded to `capacity` slots with unused ones
+    (77 strips at any width): a section that sweeps across the image is
+    covered a few pixels a pop, and the search needs three 32-pyramid
+    ballots."""
+    import torch
+
+    from agrifly_tpu_torch.planner import rappids
+
+    W, H, dev = cam.width, cam.height, cam.focal.device
+    u = W / 160.0
+    left = torch.arange(0.0, W - 7.0 * u, 2.0 * u, device=dev)[:77]
+    K = left.numel()
+    d = torch.full((K,), depth, device=dev)
+    bounds, normals = rappids._pyramid_from_edges(
+        cam, left + 7.0 * u, torch.full((K,), 2.0 * u, device=dev), left,
+        torch.full((K,), H - 2.0 * u, device=dev), d)
+    pad = rappids.empty_pyramid_set(capacity - K, dev)
+    return rappids.PyramidSet(*(torch.cat([a, b]) for a, b in zip(
+        (d, bounds, normals, torch.ones(K, dtype=torch.bool, device=dev)), pad)))
+
+
+def wavy_trajs(seed, n, device="cpu"):
+    """n trajectories (p0 = 0, tf in [2, 3]) whose zdot has four simple roots
+    in (0.2 tf, tf): five monotone sections each, and a lateral drift of up to
+    2 m/s. Against `strip_pyramids` a section takes from one pop to more
+    than the budget: some candidates spend most of the 24 pops in early
+    sections and run out in a later one, and some are covered in several
+    pops and then uncovered in a later section."""
+    import numpy as np
+    import torch
+
+    from agrifly_tpu_torch.planner import traj
+
+    rng = np.random.default_rng(seed)
+    tf = rng.uniform(2.0, 3.0, n)
+    # zdot's roots, one in each fifth of (0.2 tf, tf), at least 0.04 tf apart
+    r = (0.2 + 0.2 * np.arange(4) + rng.uniform(0.02, 0.18, (n, 4))) * tf[:, None]
+    sc = rng.uniform(0.5, 2.0, n)
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+    e2 = sum(r[:, i] * r[:, j] for i, j in pairs)
+    e3 = sum(r[:, i] * r[:, j] * r[:, k] for i, j in pairs for k in range(j + 1, 4))
+    # zdot = sc (t - r1)(t - r2)(t - r3)(t - r4): alpha, beta, gamma, a0, v0 along z
+    z = np.stack([24 * sc, -6 * sc * r.sum(-1), 2 * sc * e2, -sc * e3, sc * r.prod(-1)], -1)
+    lat = rng.standard_normal((n, 5, 2)) * np.array([0.5, 1.0, 1.0, 1.0, 1.0])[None, :, None]
+    lat[:, 4, 0] = rng.uniform(-2.0, 2.0, n)
+    cols = [np.concatenate([lat[:, i], z[:, i:i + 1]], -1) for i in range(5)]
+    cols += [np.zeros((n, 3)), tf, np.zeros(n)]
+    return traj.Traj(*(torch.from_numpy(np.asarray(c, np.float32)).to(device) for c in cols))
+
+
+def section_chains(prm, pyrs, tr, enabled, cut=False):
+    """K7's decomposition in plain torch (one vehicle: tr (N,), pyrs
+    unbatched): each monotone section's chain run alone, all of them side by
+    side, up to MAX_CHECK_ITERS pops each, with `collision_check_plain`'s
+    operations. cut: a chain stops where its pops and those of the sections
+    before it reach the budget, as the kernel's do. Returns (pops,
+    uncovered, still live, live at the start), each (N, 5), and the fail
+    points (3, N, 5)."""
+    import torch
+
+    from agrifly_tpu_torch.planner import rappids, traj
+
+    budget = rappids.MAX_CHECK_ITERS
+    t1, t2, valid = rappids.monotonic_sections(tr)
+    t1, t2, live0 = t1[..., :5], t2[..., :5], (valid & enabled[..., None])[..., :5]
+    trb = traj.Traj(*(x[..., None, :] if x.dim() == 2 else x[..., None] for x in tr))
+    live, unc = live0.clone(), torch.zeros_like(live0)
+    pops = torch.zeros(live0.shape, dtype=torch.int32, device=live0.device)
+    fail = torch.zeros((3,) + live0.shape, device=live0.device)
+    for _ in range(budget):
+        active = live & ~unc
+        if cut:
+            active = active & (torch.cumsum(pops, -1) < budget)
+        z1, z2 = rappids._poly_at(trb, 2, t1), rappids._poly_at(trb, 2, t2)
+        inc = z1 < z2
+        skip = (z1 < prm.min_check_dist) & (z2 < prm.min_check_dist)
+        deep_t, deep_z = torch.where(inc, t2, t1), torch.maximum(z1, z2)
+        px, py = rappids.project(prm.cam, torch.stack(
+            [rappids._poly_at(trb, 0, deep_t), rappids._poly_at(trb, 1, deep_t), deep_z], -1))
+        found, pidx = rappids.find_containing_pyramid(pyrs, px, py, deep_z)
+        hit, t_col = rappids._deepest_collision_time(trb, pyrs.normals[pidx], t1, t2, inc)
+        new_t1, new_t2 = torch.where(inc, t1, t_col), torch.where(inc, t_col, t2)
+        keep = ~skip & found & hit & ((new_t2 - new_t1) > 1e-6)
+        newly = active & ~skip & ~found
+        fail = torch.where(newly, torch.stack([px, py, deep_z]), fail)
+        unc = unc | newly
+        live = torch.where(active & ~newly, keep, live)
+        t1, t2 = torch.where(active & keep, new_t1, t1), torch.where(active & keep, new_t2, t2)
+        pops = pops + active.to(torch.int32)
+    return pops, unc, live & ~unc, live0, fail
+
+
+def replay(chains):
+    """The sequential loop's (free, fail_px, fail_py, fail_depth, pops) from
+    `section_chains`: the sections in order with a running sum of pops; the
+    budget spent inside a section gives free False, no fail point and
+    MAX_CHECK_ITERS pops, a section uncovered within it its fail point, and
+    the sections after either are thrown away."""
+    import torch
+
+    from agrifly_tpu_torch.planner import rappids
+
+    budget = rappids.MAX_CHECK_ITERS
+    pops, unc, still, live0, fail = chains
+    it = torch.zeros_like(pops[..., 0])
+    free = torch.ones_like(unc[..., 0])
+    done = torch.zeros_like(free)
+    out = torch.zeros_like(fail[..., 0])
+    for j in range(pops.shape[-1]):
+        n = pops[..., j]
+        over = ~done & ((it + n > budget) | ((it + n == budget) & still[..., j]))
+        it, free, done = torch.where(over, budget, it), free & ~over, done | over
+        it = torch.where(done, it, it + n)
+        u = ~done & unc[..., j]
+        free, out, done = free & ~u, torch.where(u, fail[..., j], out), done | u
+        end = ~done & (it == budget)
+        free = torch.where(end, ~live0[..., j + 1:].any(-1), free)
+        done = done | end
+    return free, out[0], out[1], out[2], it
+
+
+def chain_patterns(chains):
+    """How many candidates show each adversarial pattern of `section_chains`
+    (uncut): five live sections; the budget spent inside a section after
+    earlier ones took at least 12 pops; a section uncovered within the
+    budget after earlier ones were covered in at least 2 pops."""
+    import torch
+
+    from agrifly_tpu_torch.planner import rappids
+
+    budget = rappids.MAX_CHECK_ITERS
+    pops, unc, _, live0, _ = chains
+    before = torch.cumsum(pops, -1) - pops
+    clean = torch.cumsum(unc.to(torch.int32), -1) - unc.to(torch.int32) == 0  # none before
+    spent = clean & (before >= 12) & (before < budget) & (before + pops > budget)
+    late = clean & unc & (before >= 2) & (before + pops <= budget)
+    late[..., 0] = False
+    return {"five live sections": int((live0.sum(-1) == 5).sum()),
+            "budget spent early": int(spent[..., 1:].any(-1).sum()),
+            "uncovered late": int(late.any(-1).sum())}
+
+
+def adversarial_checks(prm, dev):
+    """K7's adversarial sets at prm's camera, each against `strip_pyramids`
+    (P = 80, three ballot chunks): "iteration cap" (sampled candidates that
+    sweep across the strips), and `wavy_trajs` seeds 0 and 3, whose
+    candidates spend the budget early and are uncovered late. Returns
+    {name: (tr, pyrs)}."""
+    import torch
+
+    from agrifly_tpu_torch.planner import rappids
+
+    cam, n = prm.cam, 256
+    g = torch.Generator().manual_seed(SEED + 31)
+    W, H = cam.width, cam.height
+    samples = (torch.rand(n, generator=g) * 0.8 * W + 0.1 * W,
+               torch.rand(n, generator=g) * 0.8 * H + 0.1 * H,
+               torch.rand(n, generator=g) * 1.5 + 1.5, torch.rand(n, generator=g) + 2.0)
+    sweep = rappids.candidates_from_samples(
+        prm, *(x.to(dev) for x in samples), torch.tensor([-1.5, 0.0, 1.5], device=dev),
+        torch.zeros(3, device=dev))
+    pyrs = strip_pyramids(cam)
+    return {"iteration cap": (sweep, pyrs), "budget spent early": (wavy_trajs(0, n, dev), pyrs),
+            "uncovered late": (wavy_trajs(3, n, dev), pyrs)}
+
+
 def plan_args(p, state, u):
     """The (args, kwargs) of the rappids.plan call that
     orchard_env._frame_percept makes from `state` with the draws u."""
@@ -875,40 +1043,47 @@ def _equal(got, ref):
 
 
 def _check_case(prm, pyrs, tr, enabled, label):
-    """K7 against collision_check_plain on the card, bit for bit, one
-    launch; returns the pops tensor of the kernel's run."""
+    """K7 against collision_check_plain on the card, bit for bit, pops
+    against the plain count, one launch; returns the outputs and the pops
+    tensor of the kernel's run."""
     import torch
 
     from agrifly_tpu_torch.planner import cuda_plan, rappids
 
-    pops = torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+    pops, ref_pops = (torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+                      for _ in range(2))
     before = cuda_plan.collision_check.launches
     got = cuda_plan.collision_check(prm, pyrs, tr, enabled, pops=pops)
     _check(cuda_plan.collision_check.launches == before + 1, f"K7 ({label}): not one launch")
     en = torch.ones(tr.tf.shape, dtype=torch.bool, device=tr.tf.device) if enabled is None \
         else enabled
-    _check(_equal(got, rappids.collision_check_plain(prm, pyrs, tr, en)),
+    _check(_equal(got, rappids.collision_check_plain(prm, pyrs, tr, en, ref_pops))
+           and torch.equal(pops, ref_pops),
            f"K7 differs from collision_check_plain on the card ({label})")
     return got, pops
 
 
 def _gates_case(prm, tr, grav, label, static_max_tf=3.0, strict=True):
-    """K8 against the plain gates on the card, bit for bit, one launch;
-    returns the evaluated sections of the kernel's run."""
+    """K8 against the plain gates on the card, bit for bit, the evaluated
+    sections against the plain count, one launch; returns the masks and the
+    evaluated sections of the kernel's run."""
     import torch
 
     from agrifly_tpu_torch.planner import cuda_plan, traj
 
-    sections = torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+    sections, ref_sections = (torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+                              for _ in range(2))
     before = cuda_plan.plan_gates.launches
     got = cuda_plan.plan_gates(tr, grav, prm.fmin, prm.fmax, prm.wmax, prm.min_section_time,
                                prm.vmax, static_max_tf=static_max_tf, strict_degenerate=strict,
                                sections=sections)
     _check(cuda_plan.plan_gates.launches == before + 1, f"K8 ({label}): not one launch")
     ref = (traj.check_input_feasibility(tr, grav, prm.fmin, prm.fmax, prm.wmax,
-                                        prm.min_section_time, static_max_tf=static_max_tf),
+                                        prm.min_section_time, static_max_tf=static_max_tf,
+                                        sections=ref_sections),
            traj.check_velocity_feasibility(tr, prm.vmax, strict))
-    _check(_equal(got, ref), f"K8 differs from the plain gates on the card ({label})")
+    _check(_equal(got, ref) and torch.equal(sections, ref_sections),
+           f"K8 differs from the plain gates on the card ({label})")
     return got, sections
 
 
@@ -921,11 +1096,15 @@ def check_plan_kernels(dev, state):
     the main path's shapes: the frame's candidates (256) and pyramid set
     from `state` (the single flight's) and from a fleet of FLEET copies of
     it (each with its own draws), the first check and the lazy re-check; the evaluation's 4 x 1024
-    endpoint check; the gates on those candidates and on random and
-    near-limit trajectories (strict and not, with and without the
-    static_max_tf cut). Each kernel's wrapper, bare launch and device time
-    (device_us), the plain version's time and the bound. Returns the two
-    kernels' result dicts (at the single frame's shape)."""
+    endpoint check; the gates on those candidates and on random,
+    near-limit and wavy trajectories (strict and not, with and without the
+    static_max_tf cut); K7 on `adversarial_checks` (P = 80: the iteration
+    cap, five live sections, the budget spent early, uncovered late; the
+    patterns counted by `section_chains` must occur). Pops and sections
+    against the plain counts. Each kernel's wrapper, bare launch and device
+    time (device_us), the plain version's time and the bound. Returns the
+    two kernels' result dicts (at the single frame's shape) and the cases
+    {label: (params, candidates, gravity, pyramids, lazy mask)}."""
     import torch
 
     from agrifly_tpu_torch.planner import cuda_plan, rappids, traj
@@ -1006,9 +1185,30 @@ def check_plan_kernels(dev, state):
                      f"strict and not): feasible {int(feas.sum())}, velocity "
                      f"{int(vel_ok.sum())}, sections {int(sections.sum())} (max "
                      f"{int(sections.max())})")
+    # K7's adversarial sets at the frame's camera, and the gates on them
+    for name, (tr, pyrs) in adversarial_checks(prm, dev).items():
+        everyone = torch.ones(tr.tf.shape, dtype=torch.bool, device=dev)
+        lazy = everyone.clone()
+        lazy[::3] = False
+        (free, *_), pops = _check_case(prm, pyrs, tr, None, name)
+        _, lazy_pops = _check_case(prm, pyrs, tr, lazy, f"{name}, partial enabled")
+        counts = chain_patterns(section_chains(prm, pyrs, tr, everyone))
+        if name == "iteration cap":
+            _check(int(pops.max()) == rappids.MAX_CHECK_ITERS, "K7 iteration cap: no candidate "
+                   "reached the budget")
+        else:
+            _check(min(counts.values()) > 0, f"K7 {name}: a pattern missing, {counts}")
+        (feas, vel_ok), sections = _gates_case(prm, tr, grav, name, None)
+        k7_us = device_us(lambda: cuda_plan._launch_check(prm, pyrs, tr))
+        lines.append(
+            f"{name} (256 candidates, P = {pyrs.depth.shape[-1]}, {int(pyrs.valid.sum())} "
+            f"pyramids): K7 bit-equal, free {int(free.sum())}, pops {int(pops.sum())} (max "
+            f"{int(pops.max())}), a third disabled {int(lazy_pops.sum())} pops; {counts}; device "
+            f"{us_text(k7_us)}; K8 bit-equal, feasible {int(feas.sum())}, sections "
+            f"{int(sections.sum())}")
     print("plan kernels (K7 collision check, K8 gates) against their plain versions on the "
           "card:\n  " + "\n  ".join(lines))
-    return out["B=1"]
+    return (*out["B=1"], cases)
 
 
 def baked_orchard(dev):
@@ -5193,17 +5393,20 @@ def _c_declaration(src, name):
     return " ".join(m.group(1).split())
 
 
-def check_parent(dev, root):
+def check_parent(dev, root, plan_cases):
     """This tree's K1, K4, K4w, K3, K5 (true state, mocap, GPS-IMU, and the
-    UWB build), K6, K1-rgb and K4-rgb against the parent's: its raycast.cu,
-    meshscene.cu, frame.cu, rollout.cu (with and without TICK_UWB) and
-    fleet_uwb.cu built from root/agrifly_tpu_torch/csrc and called through
+    UWB build), K6, K1-rgb, K4-rgb, K7 and K8 against the parent's: its
+    raycast.cu, meshscene.cu, frame.cu, rollout.cu (with and without
+    TICK_UWB), fleet_uwb.cu and plan.cu built from
+    root/agrifly_tpu_torch/csrc and called through
     this tree's wrappers, which the check allows only where the parent
     declares the same C interface. The results bit for bit (K3, K5 and K6
     where the parent's tick.cuh rounds sin, cos and exp as this tree's; else
     their differing elements are a reading), and both device times in turns
     (parent, this tree, this tree, parent); K6 also over
-    tests/test_fleet_and_bridge.py's flight, its wall time in turns."""
+    tests/test_fleet_and_bridge.py's flight, its wall time in turns; K7 and
+    K8 on check_plan_kernels' cases (`plan_cases`), pops and sections
+    included."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
@@ -5224,7 +5427,9 @@ def check_parent(dev, root):
               "frame": ("frame", (), "frame_ticks_launch"),
               "rollout": ("rollout", (), "env_rollout_launch"),
               "rollout_uwb": ("rollout", ("TICK_UWB",), "env_rollout_launch"),
-              "fleet_uwb": ("fleet_uwb", (), "fleet_uwb_launch")}
+              "fleet_uwb": ("fleet_uwb", (), "fleet_uwb_launch"),
+              "plan_check": ("plan", (), "collision_check_launch"),
+              "plan_gates": ("plan", (), "plan_gates_launch")}
     for name, _, fn in builds.values():
         _check(_c_declaration((csrc / f"{name}.cu").read_text(), fn)
                == _c_declaration((cuda_build.CSRC / f"{name}.cu").read_text(), fn),
@@ -5261,10 +5466,120 @@ def check_parent(dev, root):
     _parent_fleet_uwb(dev, fns["fleet_uwb"], times, exact)
     _parent_rgb(dev, fns["raycast_rgb"], times)
     _parent_mesh_rgb(dev, fns["meshscene_rgb"], times)
+    _parent_plan(dev, fns["plan_check"], fns["plan_gates"], times, plan_cases, root,
+                 out / "libparent_plan.so")
     print("parent vs this tree, in turns (parent, this, this, parent): " + "; ".join(
         f"{k} {v[0]:.1f} / {v[1]:.1f} {'ms' if 'flight' in k else 'us'} ({v[1] / v[0]:.4f})"
         for k, v in times.items()))
     return times
+
+
+def _parent_plan(dev, check_fn, gates_fn, times, cases, root, lib_path):
+    """K7 and K8 of the parent's plan.cu against this tree's: the frame's
+    candidate pass at B = 1 and 16 x 256 (first check and lazy re-check) and
+    the evaluation's 4 x 1024, then K7 on the adversarial sets; every output
+    bit for bit, pops and sections too; device times in turns; and at the
+    three main shapes the bare launch's ms (CUDA events over 200 launches in
+    a row: the host's time where it exceeds the device's) of the parent's
+    wrapper module (root's cuda_plan.py, its own handle on the parent's
+    library) against this tree's, in turns."""
+    import ctypes
+    import importlib.util
+    import types
+    from pathlib import Path
+
+    import torch
+
+    from agrifly_tpu_torch import cuda_build
+    from agrifly_tpu_torch.planner import cuda_plan
+
+    check_fn.argtypes = cuda_plan._SIGNATURES["collision_check_launch"]
+    gates_fn.argtypes = cuda_plan._SIGNATURES["plan_gates_launch"]
+    sets = dict(cases)
+    grav = torch.tensor([0.0, 9.81, 0.0], device=dev)
+    prm0 = cases["B=1"][0]
+    for name, (tr, pyrs) in adversarial_checks(prm0, dev).items():
+        sets[name] = (prm0, tr, grav, pyrs, None)
+    for label, (prm, tr, g, pyrs, lazy) in sets.items():
+        for enabled in (None, lazy) if lazy is not None else (None,):
+            outs = []
+            for launcher in (check_fn, None):
+                pops = torch.zeros(tr.tf.shape, dtype=torch.int32, device=dev)
+                outs.append(cuda_plan._launch_check(prm, pyrs, tr, enabled, pops, launcher)
+                            + (pops,))
+            _check(_equal(*outs), f"K7 differs from the parent's ({label})")
+        gate_outs = []
+        for launcher in (gates_fn, None):
+            sections = torch.zeros(tr.tf.shape, dtype=torch.int32, device=dev)
+            gate_outs.append(cuda_plan._launch_gates(
+                tr, g, prm.fmin, prm.fmax, prm.wmax, prm.min_section_time, prm.vmax, 3.0, 9,
+                True, sections, launcher) + (sections,))
+        _check(_equal(*gate_outs), f"K8 differs from the parent's ({label})")
+        times[f"K7 {label}"] = _in_turns(
+            lambda: cuda_plan._launch_check(prm, pyrs, tr, launcher=check_fn),
+            lambda: cuda_plan._launch_check(prm, pyrs, tr))
+        times[f"K8 {label}"] = _in_turns(
+            *(lambda fn=fn: cuda_plan._launch_gates(tr, g, prm.fmin, prm.fmax, prm.wmax,
+                                                    prm.min_section_time, prm.vmax, 3.0,
+                                                    launcher=fn) for fn in (gates_fn, None)))
+    spec = importlib.util.spec_from_file_location(
+        "parent_cuda_plan", Path(root) / "agrifly_tpu_torch" / "planner" / "cuda_plan.py")
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    own = ctypes.CDLL(str(lib_path))  # its functions' argument types are the parent's
+    parent.cuda_build = types.SimpleNamespace(load=lambda name, defines=(): own,
+                                              check=cuda_build.check)
+    host = []
+    for label in ("B=1", f"B={FLEET}", "4x1024"):
+        prm, tr, g, pyrs, _ = cases[label]
+        t = [(cuda_ms(lambda: mod._launch_check(prm, pyrs, tr), reps=200),
+              cuda_ms(lambda: mod._launch_gates(tr, g, prm.fmin, prm.fmax, prm.wmax,
+                                                prm.min_section_time, prm.vmax, 3.0), reps=200))
+             for mod in (parent, cuda_plan, cuda_plan, parent)]
+        host.append(f"{label} K7 {(t[0][0] + t[3][0]) / 2:.4f} / {(t[1][0] + t[2][0]) / 2:.4f}, "
+                    f"K8 {(t[0][1] + t[3][1]) / 2:.4f} / {(t[1][1] + t[2][1]) / 2:.4f}")
+    frames = _plan_frames_in_turns(dev, parent)
+    print("parent's plan.cu: K7 and K8 bit-equal to this tree's (outputs, pops, sections) on " +
+          ", ".join(sets) + "; bare launch ms, the parent's wrapper and kernel / this tree's, in "
+          "turns: " + "; ".join(host) + f"; {PLAN_TURN_FRAMES}-frame flights (fused ticks), "
+          f"ms a frame in turns: parent {frames[0]:.3f}, this {frames[1]:.3f}, this "
+          f"{frames[2]:.3f}, parent {frames[3]:.3f}, the flights bit-equal")
+
+
+PLAN_TURN_FRAMES = 20  # the flights _plan_frames_in_turns times
+
+
+def _plan_frames_in_turns(dev, parent):
+    """The one-vehicle flight (fused ticks, from the start, the same draws)
+    with the candidate pass through the parent's `cuda_plan` module and its
+    library, then this tree's, in turns (parent, this, this, parent): ms a
+    frame of each; every flight's outputs and final state bit for bit the
+    first's."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_plan
+    from agrifly_tpu_torch.sim import orchard_env
+
+    env = orchard_env.OrchardEnv(orchard_env.make_params(start_flight_time=1.0, device=dev))
+    mine = (cuda_plan.collision_check, cuda_plan.plan_gates)
+    ms, first = [], None
+    for mod in (parent, None, None, parent):
+        cuda_plan.collision_check, cuda_plan.plan_gates = mine if mod is None else (
+            mod.collision_check, mod.plan_gates)
+        try:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, outs = env.fly(env.init_state(), PLAN_TURN_FRAMES, gen)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / PLAN_TURN_FRAMES)
+        finally:
+            cuda_plan.collision_check, cuda_plan.plan_gates = mine
+        first = (state, outs) if first is None else first
+        _check(_same_tree(state, first[0]) and outs.keys() == first[1].keys()
+               and _equal(outs.values(), first[1].values()),
+               "a flight through the parent's candidate pass differs from this tree's")
+    return ms
 
 
 def _in_turns(parent, mine, reps=5):
@@ -5677,7 +5992,7 @@ def main(argv) -> int:
         print(f"grouped inflation and evaluation phases: {time.perf_counter() - t_eval:.1f} s")
         state, launches = timed(fly)(dev, fused=True, frames=FRAMES)
         fly_ms = fly.last_ms
-        k7, k8 = timed(check_plan_kernels)(dev, state)
+        k7, k8, plan_cases = timed(check_plan_kernels)(dev, state)
         timed(fly)(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         timed(check_ticks_against_cpu)(state, dev, 1.0)
         fleet_state, fleet_launches = timed(fly_fleet)(dev)
@@ -5702,7 +6017,7 @@ def main(argv) -> int:
         timed(fleet_sections)(dev)
         timed(check_mission)(dev)
         if parent is not None:
-            timed(check_parent)(dev, parent)
+            timed(check_parent)(dev, parent, plan_cases)
     except Exception as exc:  # report and fail: no result line
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1

@@ -1370,55 +1370,89 @@ def _same(got, ref):
     return all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+def _check_equal(prm, pyrs, tr, enabled):
+    """K7 against collision_check_plain on the card, bit for bit, pops
+    against the plain count; returns the kernel's outputs and pops."""
+    pops, ref_pops = (torch.zeros(tr.tf.shape, dtype=torch.int32, device=tr.tf.device)
+                      for _ in range(2))
+    got = cuda_plan.collision_check(prm, pyrs, tr, enabled, pops=pops)
+    everyone = torch.ones(tr.tf.shape, dtype=torch.bool, device=tr.tf.device)
+    ref = rappids.collision_check_plain(prm, pyrs, tr, everyone if enabled is None else enabled,
+                                        ref_pops)
+    assert _same(got, ref) and torch.equal(pops, ref_pops)
+    return got, pops
+
+
+ADVERSARIAL = ["iteration cap", "budget spent early", "uncovered late"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["B=1", "B=16", "4x1024"])
+@pytest.mark.parametrize("shape", ["B=1", "B=16", "4x1024"] + ADVERSARIAL)
 def test_collision_check_kernel_bit_equal_to_plain(cuda, shape):  # noqa: F811
     """K7 against rappids.collision_check_plain on the card, bit for bit
-    (free and the three fail values), one launch each: the first check and
-    the lazy re-check of the candidates it failed for want of a pyramid."""
-    if shape == "4x1024":
+    (free, the three fail values and the pops), one launch each: the first
+    check and the lazy re-check of the candidates it failed for want of a
+    pyramid; and chip_smoke's adversarial sets at 640x480 against 77 strip
+    pyramids in 80 slots (three ballot chunks): candidates that reach the
+    budget, five live sections, the budget spent early, uncovered late."""
+    from chip_smoke import adversarial_checks, chain_patterns, section_chains
+
+    if shape in ADVERSARIAL:
+        prm = orchard_env.make_params(device=cuda).planner
+        tr, pyrs = adversarial_checks(prm, cuda)[shape]
+        everyone = torch.ones(tr.tf.shape, dtype=torch.bool, device=cuda)
+        lazy = everyone.clone()
+        lazy[::3] = False
+    elif shape == "4x1024":
         prm, tr, _, pyrs = _eval_check_case(cuda)
         free = cuda_plan.collision_check(prm, pyrs, tr)[0]
         lazy = ~free
     else:
         prm, tr, _, pyrs, lazy = _plan_kernel_case(cuda, int(shape[2:]), 42)
-    everyone = torch.ones(tr.tf.shape, dtype=torch.bool, device=cuda)
     before = cuda_plan.collision_check.launches
     for enabled in (None, lazy):
-        got = cuda_plan.collision_check(prm, pyrs, tr, enabled)
-        ref = rappids.collision_check_plain(prm, pyrs, tr, everyone if enabled is None
-                                            else enabled)
-        assert _same(got, ref)
+        got, pops = _check_equal(prm, pyrs, tr, enabled)
     assert cuda_plan.collision_check.launches == before + 2
     assert int(pyrs.valid.sum()) > 0 and bool(got[0].any())
+    if shape == "iteration cap":
+        assert int(pops.max()) == 24 and pyrs.depth.shape[-1] == 80
+    elif shape in ADVERSARIAL:
+        counts = chain_patterns(section_chains(prm, pyrs, tr, everyone))
+        assert min(counts.values()) > 0, counts
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strict", [True, False])
 def test_plan_gates_kernel_bit_equal_to_plain(cuda, strict):  # noqa: F811
     """K8 against traj.check_input_feasibility and check_velocity_feasibility
-    on the card, bit for bit: a fleet frame's candidates and random and
-    near-limit trajectories, with the static_max_tf cut and without."""
-    from chip_smoke import near_limit_trajs, random_trajs
+    on the card, bit for bit, the evaluated sections against the plain
+    count: a fleet frame's candidates, random, near-limit and wavy
+    trajectories, with the static_max_tf cut and without."""
+    from chip_smoke import near_limit_trajs, random_trajs, wavy_trajs
 
     from agrifly_tpu_torch.planner import traj
 
     prm, tr, grav, _, _ = _plan_kernel_case(cuda, 16, 43)
     g3 = torch.tensor([0.0, 9.81, 0.0], device=cuda)
-    cases = [(tr, grav), (random_trajs(1, 4096, cuda), g3), (near_limit_trajs(1, 4096, cuda), g3)]
+    cases = [(tr, grav), (random_trajs(1, 4096, cuda), g3), (near_limit_trajs(1, 4096, cuda), g3),
+             (wavy_trajs(0, 4096, cuda), g3)]
     before = cuda_plan.plan_gates.launches
     for trs, gr in cases:
         for static_max_tf in (3.0, None):
+            sections, ref_sections = (torch.zeros(trs.tf.shape, dtype=torch.int32, device=cuda)
+                                      for _ in range(2))
             got = cuda_plan.plan_gates(trs, gr, prm.fmin, prm.fmax, prm.wmax,
                                        prm.min_section_time, prm.vmax,
-                                       static_max_tf=static_max_tf, strict_degenerate=strict)
+                                       static_max_tf=static_max_tf, strict_degenerate=strict,
+                                       sections=sections)
             ref = (traj.check_input_feasibility(trs, gr, prm.fmin, prm.fmax, prm.wmax,
-                                                prm.min_section_time, static_max_tf=static_max_tf),
+                                                prm.min_section_time, static_max_tf=static_max_tf,
+                                                sections=ref_sections),
                    traj.check_velocity_feasibility(trs, prm.vmax, strict))
-            assert _same(got, ref)
-            if trs is not tr:  # both verdicts occur
+            assert _same(got, ref) and torch.equal(sections, ref_sections)
+            if trs is cases[1][0] or trs is cases[2][0]:  # both verdicts occur
                 assert bool(got[0].any()) and not bool(got[0].all())
-    assert cuda_plan.plan_gates.launches == before + 6
+    assert cuda_plan.plan_gates.launches == before + 8
 
 
 @pytest.mark.cuda
