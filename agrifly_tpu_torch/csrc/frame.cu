@@ -64,6 +64,21 @@ __device__ unsigned long long g_sec[kNumSections], g_cnt[kNumSections];
 
 #include "tick.cuh"
 
+// K9's arguments, passed by value from sim/cuda_percept.py (its ctypes
+// structure mirrors it); outside the anonymous namespace so the extern "C"
+// launch function keeps external linkage.
+struct HeadArgs {
+  const float* waypoints;    // (max_waypoints, 3)
+  const int* num_waypoints;  // 0-d
+  const float *focal, *cx, *cy;  // the planner's camera, 0-d
+  float mount[4];            // the camera mount quaternion (raycast.DEPTH_CAM_Q)
+  float waypoint_radius;
+  float px0, px_span, py0, py_span;  // samples_from_uniform's float32 constants
+  int max_waypoints;
+  int land;
+};
+
+
 // The orchard's state leaves after OrchardEnvState.base, and its parameter
 // leaves after OrchardEnvParams.base.
 // clang-format off
@@ -385,6 +400,156 @@ __global__ void __launch_bounds__(kThreads) frame_kernel(const __grid_constant__
            32);
 }
 
+// ---------------------------------------------------------------------------
+// K9: the orchard frame's percept head (sim/orchard_env.py percept_head_plain)
+// ---------------------------------------------------------------------------
+//
+// Replaces no pallas_call: the JAX package runs it as jnp inside the frame's
+// jit call (agrifly_tpu/sim/orchard_env.py _frame_percept:348 with
+// offboard/estimators.py:354, render/raycast.py:52 and planner/rappids.py
+// :937, :150); in eager PyTorch it was ~1.1k launches a frame. A block a
+// vehicle: the state and parameters are copied into shared memory as K3
+// copies them; thread 0 runs the mocap prediction (the serial chain,
+// Lanes<1>), the camera attitudes and frame and the waypoint and landing
+// switch; then a thread a candidate maps the uniform block to samples and
+// builds the candidate, its cost and its endpoint seed. What bounds it: the
+// prediction's chain (~10k dependent operations, a few µs), then a few
+// hundred operations a candidate.
+
+constexpr int kHeadThreads = 256;
+// the per-vehicle float fields' offsets (cuda_percept.HEAD_FIELDS), of 29
+enum { kHCamAtt = 0, kHEstPos = 4, kHCamAttEst = 7, kHVelCam = 11, kHAccCam = 14,
+       kHGravCam = 17, kHGoalWorld = 20, kHGoalCam = 23, kHLandPos = 26 };
+
+__device__ __forceinline__ f4 qnormalize(f4 q) {
+  const float n = sqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z);
+  if (n < 1e-6f) return qidentity();
+  return f4{q.w / n, q.x / n, q.y / n, q.z / n};
+}
+
+__device__ __forceinline__ f3 waypoint(const HeadArgs& a, int idx) {
+  return ld3(a.waypoints + 3 * min(max(idx, 0), a.max_waypoints - 1));
+}
+
+// field f (offset off, n elements a vehicle) of vehicle b, field-major
+__device__ __forceinline__ void put(float* out, int B, int off, int n, int b, const float* v) {
+  for (int i = 0; i < n; ++i) out[static_cast<int64_t>(B) * off + b * n + i] = v[i];
+}
+
+__global__ void __launch_bounds__(kHeadThreads)
+    percept_head_kernel(const __grid_constant__ LeafPtrs ptrs, const HeadArgs a,
+                        const float* __restrict__ u, float* __restrict__ out_f,
+                        int* __restrict__ out_i, unsigned char* __restrict__ out_b,
+                        float* __restrict__ cand, int B, int N) {
+  __shared__ Params P;
+  __shared__ State S;
+  __shared__ f3 shared_vel, shared_acc, shared_goal;
+  const int b = blockIdx.x;
+  copy_in(reinterpret_cast<char*>(&P), ptrs.params, kParamTable, 0, threadIdx.x, kHeadThreads);
+  copy_in(reinterpret_cast<char*>(&S), ptrs.state, kStateTable, b, threadIdx.x, kHeadThreads);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const EnvState& E = S.base;
+    // the estimator's view, which the planner gets (main.cpp:469,489-495)
+    const Mocap m = mocap_get_prediction(E, wmul(E.step, P.base.dt_us), P.base.est_latency_us,
+                                         Lanes<1>{0, 1u});
+    const f4 qn = qnormalize(m.att);
+    const f4 mount{a.mount[0], a.mount[1], a.mount[2], a.mount[3]};
+    const f4 cam_att = qmul(ld4(E.plant_att), mount);
+    const f4 cam_est = qmul(qn, mount);
+    const m3 R = to_matrix(cam_est);  // world-from-camera
+    const f3 grav{0.0f, 0.0f, -9.81f};
+    const f3 vel_cam = mv3t(R, m.vel);
+    const f3 acc_cam = mv3t(R, add(scl(rotate(qn, f3{0.0f, 0.0f, 1.0f}), E.last_cmd_thrust), grav));
+    const f3 grav_cam = mv3t(R, grav);
+
+    // waypoint switching at the reference's 1 m radius; after the last
+    // waypoint, optionally enter the landing descent
+    const bool in_flight = E.step >= P.start_flight_step;
+    const int idx = S.waypoint_idx;
+    const bool at_wp = in_flight && S.mstage == MSTAGE_CRUISE &&
+                       norm3(sub(waypoint(a, idx), m.pos)) < a.waypoint_radius;
+    const bool has_next = wadd(idx, 1) < *a.num_waypoints;
+    const int new_idx = (at_wp && has_next) ? wadd(idx, 1) : idx;
+    int mstage = S.mstage, land_start = S.land_start_step;
+    f3 land_pos = ld3(S.land_pos);
+    if (a.land && at_wp && !has_next) {
+      mstage = MSTAGE_LANDING;
+      land_pos = m.pos;
+      land_start = E.step;
+    }
+    const f3 goal_world = waypoint(a, new_idx);
+    const f3 goal_cam = mv3t(R, sub(goal_world, m.pos));
+
+    put(out_f, B, kHCamAtt, 4, b, &cam_att.w);
+    put(out_f, B, kHEstPos, 3, b, &m.pos.x);
+    put(out_f, B, kHCamAttEst, 4, b, &cam_est.w);
+    put(out_f, B, kHVelCam, 3, b, &vel_cam.x);
+    put(out_f, B, kHAccCam, 3, b, &acc_cam.x);
+    put(out_f, B, kHGravCam, 3, b, &grav_cam.x);
+    put(out_f, B, kHGoalWorld, 3, b, &goal_world.x);
+    put(out_f, B, kHGoalCam, 3, b, &goal_cam.x);
+    put(out_f, B, kHLandPos, 3, b, &land_pos.x);
+    out_i[b] = new_idx;
+    out_i[B + b] = mstage;
+    out_i[2 * B + b] = land_start;
+    out_b[b] = in_flight ? 1 : 0;
+    shared_vel = vel_cam;
+    shared_acc = acc_cam;
+    shared_goal = goal_cam;
+  }
+  __syncthreads();
+
+  // the candidates: samples_from_uniform, candidates_from_samples (a
+  // rest-to-rest minimum-jerk primitive from the camera origin),
+  // exploration_cost and endpoint_seeds
+  const f3 v0 = shared_vel, a0 = shared_acc, goal = shared_goal;
+  const float focal = *a.focal, cx = *a.cx, cy = *a.cy;
+  const float* ub = u + static_cast<int64_t>(b) * 4 * N;
+  const int64_t BN = static_cast<int64_t>(B) * N;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float px = a.px0 + ub[n] * a.px_span;
+    const float py = a.py0 + ub[N + n] * a.py_span;
+    const float depth = 1.5f + ub[2 * N + n] * 1.5f;
+    const float T = 2.0f + ub[3 * N + n] * 1.0f;
+    const f3 g{depth * (px - cx) / focal, depth * (py - cy) / focal, depth * 1.0f};
+    const float T2 = T * T, T3 = ipow3(T), T4 = ipow4(T), T5 = ipow5(T);
+    Traj tr;
+    tr.a0 = a0;
+    tr.v0 = v0;
+    tr.p0 = f3{0.0f, 0.0f, 0.0f};
+    tr.tf = T;
+    float jerk = 0.0f;
+    const float *pa = &a0.x, *pv = &v0.x, *pg = &g.x;
+    float *al = &tr.alpha.x, *be = &tr.beta.x, *ga = &tr.gamma.x;
+    for (int i = 0; i < 3; ++i) {
+      const float da = 0.0f - pa[i];
+      const float dv = 0.0f - pv[i] - pa[i] * T;
+      const float dp = pg[i] - 0.0f - pv[i] * T - pa[i] * 0.5f * T * T;
+      al[i] = (T2 * 60.0f * da - T * 360.0f * dv + dp * 720.0f) / T5;
+      be[i] = (T3 * -24.0f * da + T2 * 168.0f * dv - T * 360.0f * dp) / T5;
+      ga[i] = (T4 * 3.0f * da - T3 * 24.0f * dv + T2 * 60.0f * dp) / T5;
+      const float term = ga[i] * ga[i] + be[i] * ga[i] * T + be[i] * be[i] * T2 / 3.0f +
+                         al[i] * ga[i] * T2 / 3.0f + al[i] * be[i] * T3 / 4.0f +
+                         al[i] * al[i] * T4 / 20.0f;
+      jerk = i == 0 ? term : jerk + term;
+    }
+    const f3 end = traj_position(tr, T);
+    const float cost = -(norm3(goal) - norm3(sub(goal, end))) / T;
+    const float safe_z = fabsf(end.z) < 1e-9f ? 1e-9f : end.z;
+    const f3* vecs[6] = {&tr.alpha, &tr.beta, &tr.gamma, &tr.a0, &tr.v0, &tr.p0};
+    const int64_t row = static_cast<int64_t>(b) * N + n;
+    for (int f = 0; f < 6; ++f) st3(cand + f * BN * 3 + 3 * row, *vecs[f]);
+    float* sc = cand + 18 * BN + row;
+    sc[0] = T;
+    sc[BN] = jerk;
+    sc[2 * BN] = cost;
+    sc[3 * BN] = end.x * focal / safe_z + cx;
+    sc[4 * BN] = end.y * focal / safe_z + cy;
+    sc[5 * BN] = end.z;
+  }
+}
+
 }  // namespace
 
 // state, params: the device pointers of the leaves, in table order (host
@@ -400,6 +565,23 @@ extern "C" int frame_ticks_launch(const void* const* state, const void* const* p
   int blocks = (B + kVehicles - 1) / kVehicles;
   frame_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       ptrs, noise, out_f, out_i, out_b, B, n_ticks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9, the percept head: state and params as frame_ticks_launch takes them;
+// a: the waypoints, camera, mount and sampler constants; u (B, 4, N)
+// float32; out_f (29 B floats, field-major), out_i (3 B), out_b (B) and cand
+// (24 B N floats: alpha, beta, gamma, a0, v0, p0 as (B, N, 3), then tf, the
+// jerk cost, the cost, epx, epy, endz as (B, N)). Returns the cudaError_t.
+extern "C" int percept_head_launch(const void* const* state, const void* const* params,
+                                   HeadArgs a, const float* u, float* out_f, int* out_i,
+                                   unsigned char* out_b, float* cand, int B, int N,
+                                   void* stream) {
+  LeafPtrs ptrs;
+  for (int i = 0; i < kNumState; ++i) ptrs.state[i] = state[i];
+  for (int i = 0; i < kNumParam; ++i) ptrs.params[i] = params[i];
+  percept_head_kernel<<<B, kHeadThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ptrs, a, u, out_f, out_i, out_b, cand, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 

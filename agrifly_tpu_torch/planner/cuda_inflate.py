@@ -7,11 +7,14 @@ each of B images are one launch of B x P blocks (K2); with
 `seeds_per_program=S > 1` they are one launch of B x ceil(P/S) clusters of
 S blocks (K2g: a block per seed for its passes A to C, the group's corner
 sweeps split over the cluster), the seed rows padded to a multiple of S.
-The prologue (seed validity, initial rectangle, thresholds) stays in float32 torch,
-`rappids.seed_setup`, shared with the plain version; the kernels
-(`csrc/inflate.cu`) run the integer passes. Both give K2's results, seed
-for seed. On CPU tensors `inflate_pyramids` runs the plain version,
-`rappids.inflate_pyramid`, for any S.
+The prologue (seed validity, initial rectangle, thresholds) is the seed
+rows of `rappids.seed_rows` (float32 torch, shared with the plain version)
+or, on the planner's path, of the round kernels (`planner/cuda_rounds.py`),
+which `inflate_rows` inflates as they are; the kernels (`csrc/inflate.cu`)
+run the integer passes. Both give K2's results, seed for seed. On CPU
+tensors `inflate_pyramids` runs the plain version,
+`rappids.inflate_pyramid`, for any S, and `inflate_rows`
+`rappids.inflate_rows_plain`.
 """
 
 from __future__ import annotations
@@ -107,17 +110,6 @@ def _launch_grouped(img: torch.Tensor, seeds: torch.Tensor, S: int) -> torch.Ten
     return out
 
 
-def seed_rows(params: rappids.PlannerParams, x0s, y0s, min_depths, shrink_extra: int):
-    """The kernel's (*L, P, 12) int32 seed rows: `rappids.seed_setup` packed."""
-    s = rappids.seed_setup(params, x0s, y0s, min_depths, shrink_extra)
-    full = lambda v: v.to(torch.int32).expand(x0s.shape)  # noqa: E731
-    return torch.stack(
-        [s.x0, s.y0, s.min_pyr_depth, s.left0, s.right0, s.top0, s.bottom0,
-         s.ok0.to(torch.int32), full(s.edge_off), full(s.ignore), full(s.numer),
-         torch.full(x0s.shape, shrink_extra, dtype=torch.int32, device=x0s.device)],
-        dim=-1).contiguous()
-
-
 def pad_seed_rows(rows: torch.Tensor, S: int) -> torch.Tensor:
     """(*L, P, 12) seed rows padded to (*L, ceil(P/S)*S, 12) with copies of
     row 0 whose ok flag (column 7) is cleared: they fail at once in the
@@ -159,9 +151,7 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
     MAX_SEEDS_PER_PROGRAM. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version for any S."""
     S = _seeds_per_program(seeds_per_program)
-    H, W = params.cam.height, params.cam.width
-    if img.dim() < 2 or img.shape[-2:] != (H, W) or img.dtype != torch.int32:
-        raise ValueError(f"need (..., {H}, {W}) int32 images, got {tuple(img.shape)} {img.dtype}")
+    _check_images(params, img)
     lead = img.shape[:-2]
     for v in (x0s, y0s, min_depths):
         if v.dim() != len(lead) + 1 or v.shape[:-1] != lead:
@@ -170,16 +160,41 @@ def inflate_pyramids(params: rappids.PlannerParams, img, x0s, y0s, min_depths,
         return rappids.inflate_pyramid(params, img, x0s, y0s, min_depths, shrink_extra)
     if x0s.device != img.device:
         raise ValueError(f"seeds on {x0s.device}, image on {img.device}")
-    if x0s.numel() == 0:
-        z = torch.zeros(x0s.shape, dtype=torch.int32, device=img.device)
-        return z.bool(), z, z[..., None].expand(x0s.shape + (4,))
-    img = img.contiguous()
-    rows = seed_rows(params, x0s, y0s, min_depths, shrink_extra)
+    rows = rappids.seed_rows(params, x0s, y0s, min_depths, shrink_extra)
     if S == 1:
-        out = _launch(img, rows)
+        out = inflate_rows(params, img, rows)
+    elif rows.numel() == 0:
+        out = torch.zeros(rows.shape[:-1] + (8,), dtype=torch.int32, device=img.device)
     else:
+        img = img.contiguous()
         out = grouped_rows(rows, S, lambda padded: _launch_grouped(img, padded, S))
     return out[..., 0] > 0, out[..., 1], out[..., 2:6]
+
+
+def _check_images(params: rappids.PlannerParams, img):
+    H, W = params.cam.height, params.cam.width
+    if img.dim() < 2 or img.shape[-2:] != (H, W) or img.dtype != torch.int32:
+        raise ValueError(f"need (..., {H}, {W}) int32 images, got {tuple(img.shape)} {img.dtype}")
+
+
+def inflate_rows(params: rappids.PlannerParams, img, rows):
+    """Inflate the seeds packed in (*L, P, 12) int32 seed rows
+    (`rappids.seed_rows`, or the round kernels' rows) on (*L, H, W) int32
+    images: the (*L, P, 8) int32 output rows [ok, maxd, right, top, left,
+    bottom, 0, 0]. On CUDA tensors one K2 or K2c launch (`cluster_size`'s
+    choice) that reads the rows as they are, or a raise; on CPU tensors
+    `rappids.inflate_rows_plain`."""
+    _check_images(params, img)
+    if rows.shape[:-2] != img.shape[:-2] or rows.shape[-1] != 12 or rows.dtype != torch.int32:
+        raise ValueError(f"need (..., P, 12) int32 seed rows of the images' leading shape "
+                         f"{tuple(img.shape[:-2])}, got {tuple(rows.shape)} {rows.dtype}")
+    if not img.is_cuda:
+        return rappids.inflate_rows_plain(params, img, rows)
+    if rows.device != img.device:
+        raise ValueError(f"seed rows on {rows.device}, image on {img.device}")
+    if rows.numel() == 0:
+        return torch.zeros(rows.shape[:-1] + (8,), dtype=torch.int32, device=img.device)
+    return _launch(img.contiguous(), rows.contiguous())
 
 
 inflate_pyramids.launches = 0  # K2 launches since the last reset

@@ -8,9 +8,14 @@ pyramid), collision-check every candidate against the set and pick the
 cheapest free one. The JAX package's module docstring explains how the
 reference's anytime loop became this fixed-shape batch.
 
-Pyramid inflation runs in `build_pyramid_set`: on a CUDA tensor through
-the hand-written kernel (`planner/cuda_inflate.py`), on a CPU tensor
-through the plain batched `inflate_pyramid`. The candidate pass does the
+Pyramid inflation runs from seed rows (`cuda_inflate.inflate_rows`): on a
+CUDA tensor through the hand-written kernel (`planner/cuda_inflate.py`), on
+a CPU tensor through the plain batched `inflate_pyramid`. The rounds around
+it are one plain function a launch, chained by `_plan_core`: each
+pre-planned round's seeds (`round_seeds_plain`), the pyramids of an
+inflation merged into the set (`pyramid_set_plain`) and the lazy round's
+seeds (`lazy_seeds_plain`); on CUDA tensors each is one launch of a round
+kernel (`planner/cuda_rounds.py`). The candidate pass does the
 same (`planner/cuda_plan.py`): `collision_check` is one launch of the
 collision-check kernel on CUDA tensors and `collision_check_plain` on CPU
 tensors; the planner's two gates are one launch of the gate kernel
@@ -270,6 +275,20 @@ def _rany(x):
     return x.flatten(-2).any(dim=-1)
 
 
+def seed_rows(params: PlannerParams, x0s, y0s, min_depths, shrink_extra: int):
+    """The inflation kernel's (*L, P, 12) int32 seed rows: `seed_setup`
+    packed as [x0, y0, min_pyr_depth, left0, right0, top0, bottom0, ok0,
+    edge_off, ignore, numer, shrink_extra] (the last four equal on every
+    row)."""
+    s = seed_setup(params, x0s, y0s, min_depths, shrink_extra)
+    full = lambda v: v.to(torch.int32).expand(x0s.shape)  # noqa: E731
+    return torch.stack(
+        [s.x0, s.y0, s.min_pyr_depth, s.left0, s.right0, s.top0, s.bottom0,
+         s.ok0.to(torch.int32), full(s.edge_off), full(s.ignore), full(s.numer),
+         torch.full(x0s.shape, shrink_extra, dtype=torch.int32, device=x0s.device)],
+        dim=-1).contiguous()
+
+
 def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_extra: int = 0):
     """Integer inflation of P seeds (x0s, y0s, min_depths: (*L, P)) on
     (*L, H, W) int32 depth-code images, seed row l on image l: the plain
@@ -282,8 +301,26 @@ def inflate_pyramid(params: PlannerParams, img, x0s, y0s, min_depths, shrink_ext
     package's `inflate_pyramid`: each reduction is a masked min/max over
     (*L, P, H, W). shrink_extra adds a pixel margin to every shrink
     distance (the pooled-image path)."""
+    return _inflate_setup(params, img, seed_setup(params, x0s, y0s, min_depths, shrink_extra),
+                          shrink_extra)
+
+
+def inflate_rows_plain(params: PlannerParams, img, rows):
+    """`inflate_pyramid` of the seeds packed in (*L, P, 12) seed rows
+    (`seed_rows`), as the kernel's (*L, P, 8) int32 output rows [ok, maxd,
+    right, top, left, bottom, 0, 0]."""
+    c = rows.unbind(-1)
+    first = rows.reshape(-1, 12)[0] if rows.numel() else torch.zeros(12, dtype=torch.int32)
+    s = SeedSetup(*c[:7], c[7] != 0, first[8], first[9], first[10])
+    ok, maxd, edges = _inflate_setup(params, img, s, first[11])
+    z = torch.zeros_like(maxd)
+    return torch.cat([torch.stack([ok.to(torch.int32), maxd], dim=-1), edges,
+                      torch.stack([z, z], dim=-1)], dim=-1)
+
+
+def _inflate_setup(params: PlannerParams, img, s: SeedSetup, shrink_extra):
+    """`inflate_pyramid` from the seeds' integer set-up."""
     W, H = params.cam.width, params.cam.height
-    s = seed_setup(params, x0s, y0s, min_depths, shrink_extra)
     dev = img.device
     big = torch.tensor(BIG, dtype=torch.int32, device=dev)
     xs = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
@@ -434,6 +471,36 @@ def _pooled(params: PlannerParams, img, k: int):
     return pooled, cam_small
 
 
+class Work(NamedTuple):
+    """The image the pyramid rounds inflate on: the depth codes as int32, or
+    with downsample k > 1 the k x k masked-min pooled image, with its
+    camera (in `params`) and the one-pooled-pixel shrink margin."""
+
+    params: PlannerParams  # the planner's parameters with the work image's camera
+    img: torch.Tensor  # (*L, Hw, Ww) int32
+    k: int
+    shrink_extra: int
+
+
+def work_image(params: PlannerParams, depth_u16, downsample: int = 1) -> Work:
+    """The inflation's image and camera for `downsample` (made once a plan)."""
+    img = depth_u16.to(torch.int32)
+    k = int(downsample)
+    if k > 1:
+        img, cam_small = _pooled(params, img, k)
+        return Work(params._replace(cam=cam_small), img, k, 1)
+    return Work(params, img, 1, 0)
+
+
+def work_rows(work: Work, seed_px, seed_py, seed_depth):
+    """Seed rows (`seed_rows`) of full-resolution seeds (*L, P) on the work
+    image: pixels divided by k there."""
+    if work.k > 1:
+        seed_px = seed_px / work.k
+        seed_py = seed_py / work.k
+    return seed_rows(work.params, seed_px, seed_py, seed_depth, work.shrink_extra)
+
+
 def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
                       seed_depth, seed_valid, capacity, downsample: int = 1) -> PyramidSet:
     """Inflate pyramids at the seeds (*L, P) on the images (*L, H, W) and
@@ -442,32 +509,44 @@ def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
     downsample k > 1 inflates on a k x k masked-min-pooled image with a
     scaled camera and a one-pooled-pixel margin (strictly conservative);
     bounds come back in full-resolution pixels. The image's device picks
-    the inflation: CUDA runs the kernel, CPU the plain version."""
-    from agrifly_tpu_torch.planner import cuda_inflate
+    the route: on CUDA the inflation kernel and the pyramid-set kernel
+    (`cuda_rounds.pyramid_set`), on the CPU their plain versions."""
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_rounds
 
-    img = depth_u16.to(torch.int32)
-    work_params = params
-    k = int(downsample)
-    if k > 1:
-        img, cam_small = _pooled(params, img, k)
-        work_params = params._replace(cam=cam_small)
-        seed_px = seed_px / k
-        seed_py = seed_py / k
-    shrink_extra = 1 if k > 1 else 0
+    work = work_image(params, depth_u16, downsample)
+    out = cuda_inflate.inflate_rows(work.params, work.img,
+                                    work_rows(work, seed_px, seed_py, seed_depth))
+    return cuda_rounds.pyramid_set(params, work, out, seed_valid, capacity)
 
-    ok, maxd, edges = cuda_inflate.inflate_pyramids(
-        work_params, img, seed_px, seed_py, seed_depth, shrink_extra)
-    base_depth = maxd.to(torch.float32) * params.cam.depth_scale - params.plan_radius
-    e = edges.to(torch.float32)
-    bounds, normals = _pyramid_from_edges(work_params.cam, e[..., 0], e[..., 1], e[..., 2],
+
+def pyramid_set_plain(params: PlannerParams, work: Work, out, seed_valid, keep: int,
+                      base=None) -> PyramidSet:
+    """The pyramids of one inflation launch, from its (*L, P, 8) output rows
+    (`cuda_inflate.inflate_rows`) and the seeds' mask (*L, P): the base
+    depth, bounds (x k) and unit normals, the `keep` shallowest; then, with
+    a `base` set, merged into it by depth at the base's capacity (an int
+    base: an empty set of that capacity). The plain version of the
+    pyramid-set kernel (`cuda_rounds.pyramid_set`)."""
+    pyramid_set_plain.calls += 1
+    base_depth = out[..., 1].to(torch.float32) * params.cam.depth_scale - params.plan_radius
+    e = out[..., 2:6].to(torch.float32)
+    bounds, normals = _pyramid_from_edges(work.params.cam, e[..., 0], e[..., 1], e[..., 2],
                                           e[..., 3], base_depth)
-    if k > 1:
-        bounds = bounds * k
-    ok = ok & seed_valid
+    if work.k > 1:
+        bounds = bounds * work.k
+    ok = (out[..., 0] > 0) & seed_valid
     depth = torch.where(ok, base_depth, math.inf)
-    take = torch.argsort(depth, dim=-1, stable=True)[..., :capacity]
-    return PyramidSet(depth=_take(depth, take), bounds=_take(bounds, take, 1),
-                      normals=_take(normals, take, 2), valid=_take(ok, take))
+    take = torch.argsort(depth, dim=-1, stable=True)[..., :keep]
+    new = PyramidSet(depth=_take(depth, take), bounds=_take(bounds, take, 1),
+                     normals=_take(normals, take, 2), valid=_take(ok, take))
+    if base is None:
+        return new
+    if isinstance(base, int):
+        base = empty_pyramid_set(base, depth.device, depth.shape[:-1])
+    return merge_pyramid_sets(base, new)
+
+
+pyramid_set_plain.calls = 0  # calls since the last reset
 
 
 def prefilter_seeds(params: PlannerParams, depth_u16, seed_px, seed_py,
@@ -476,17 +555,19 @@ def prefilter_seeds(params: PlannerParams, depth_u16, seed_px, seed_py,
     blocker inside the initial rectangle, or a blocker within
     shrink + PIXEL_BUFFER of the seed on both axes. Never kills a seed the
     inflation would accept."""
-    img = depth_u16.to(torch.int32)
-    k = int(downsample)
-    work = params
-    if k > 1:
-        img, cam_small = _pooled(params, img, k)
-        work = params._replace(cam=cam_small)
-        seed_px = seed_px / k
-        seed_py = seed_py / k
-    s = seed_setup(work, seed_px, seed_py, seed_depth, 1 if k > 1 else 0)
-    Hd, Wd = work.cam.height, work.cam.width
-    shrink = torch.div(s.numer, torch.clamp(img, min=1), rounding_mode="floor") + (1 if k > 1 else 0)
+    return _prefilter(work_image(params, depth_u16, downsample), seed_px, seed_py, seed_depth,
+                      seed_valid)
+
+
+def _prefilter(work: Work, seed_px, seed_py, seed_depth, seed_valid):
+    """`prefilter_seeds` on the work image."""
+    img = work.img
+    if work.k > 1:
+        seed_px = seed_px / work.k
+        seed_py = seed_py / work.k
+    s = seed_setup(work.params, seed_px, seed_py, seed_depth, work.shrink_extra)
+    Hd, Wd = work.params.cam.height, work.params.cam.width
+    shrink = torch.div(s.numer, torch.clamp(img, min=1), rounding_mode="floor") + work.shrink_extra
     ys = torch.arange(Hd, device=img.device)[None, :, None]
     xs = torch.arange(Wd, device=img.device)[None, None, :]
     col = lambda v: v[..., None, None]  # noqa: E731
@@ -721,27 +802,117 @@ def _greedy_seed_dedupe(px, py, z, valid, tol_px, tol_z):
     return keep
 
 
+def gated_order(gate, cost):
+    """The candidates (*L, N) by cost, the gated ones first: the stable
+    order of where(gate, cost, inf) that seeds the pyramid rounds."""
+    return torch.argsort(torch.where(gate, cost, math.inf), dim=-1, stable=True)
+
+
+def round_seeds_plain(work: Work, gate, cost, epx, epy, endz, pyrs, rnd: int, per_round: int):
+    """Round `rnd`'s seeds: the endpoints (epx, epy, endz: (*L, N)) of the
+    gated order's candidates rnd * per_round ... (rnd + 1) * per_round - 1,
+    valid where gated and (for a round after the first, `pyrs` the set so
+    far) not already inside a pyramid. Returns (seed rows (*L, P, 12) on the
+    work image, seed mask (*L, P)). The plain version of the round-seeds
+    kernel (`cuda_rounds.round_seeds`)."""
+    round_seeds_plain.calls += 1
+    take = gated_order(gate, cost)[..., rnd * per_round:(rnd + 1) * per_round]
+    seed_valid = _take(gate, take)
+    px_t, py_t, z_t = _take(epx, take), _take(epy, take), _take(endz, take)
+    if pyrs is not None:
+        # skip seeds already covered by an existing pyramid
+        f, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
+        seed_valid = seed_valid & ~f
+    return work_rows(work, px_t, py_t, z_t), seed_valid
+
+
+round_seeds_plain.calls = 0  # calls since the last reset
+
+
+def lazy_seeds_plain(params: PlannerParams, work: Work, img, gate, free, fail_px, fail_py,
+                     fail_z, cost, pyrs: PyramidSet, per_round: int):
+    """A lazy round's seeds (DepthImagePlanner.cpp:270-273): the cheapest
+    gated candidates that failed for lack of a covering pyramid donate
+    their uncovered deepest points; 4 x per_round of them are considered,
+    the doomed prefiltered on the work image, near-identical survivors
+    deduped, and 2 x per_round inflated, the kept first. img: the full
+    (*L, H, W) int32 depth codes. Returns (seed rows (*L, 2 per_round, 12),
+    seed mask, failed (*L, N): the candidates the round re-checks). The
+    plain version of the lazy-seeds kernel (`cuda_rounds.lazy_seeds`)."""
+    lazy_seeds_plain.calls += 1
+    scale = params.cam.depth_scale
+    ignore_i = (params.true_radius / scale).to(torch.int32)
+    failed = gate & ~free & (fail_z > 0)
+    # a fail point whose own pixel is blocked shallower than the
+    # required pyramid depth can never inflate
+    pxi = torch.clamp(fail_px.to(torch.int32), 0, params.cam.width - 1)
+    pyi = torch.clamp(fail_py.to(torch.int32), 0, params.cam.height - 1)
+    seed_code = _take(img.flatten(-2), pyi.long() * params.cam.width + pxi.long())
+    minpyr_i = ((fail_z + scale + params.plan_radius) / scale).to(torch.int32)
+    seedable = failed & ((seed_code <= ignore_i) | (seed_code >= minpyr_i))
+    # consider 4x more fail points than slots; prefilter the doomed,
+    # dedupe near-identical survivors, inflate 2x per_round of them
+    take = gated_order(seedable, cost)[..., :4 * per_round]
+    px_t, py_t, z_t = _take(fail_px, take), _take(fail_py, take), _take(fail_z, take)
+    covered, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
+    seed_valid = _take(seedable, take) & ~covered
+    # one depth-code quantum deeper, so the floored pyramid base clears z
+    seed_depth = z_t + scale
+    seed_valid = _prefilter(work, px_t, py_t, seed_depth, seed_valid)
+    keep = _greedy_seed_dedupe(px_t, py_t, z_t, seed_valid,
+                               float(LAZY_DEDUPE_PX), LAZY_DEDUPE_Z_QUANTA * scale)
+    sel = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)[..., :2 * per_round]
+    return (work_rows(work, _take(px_t, sel), _take(py_t, sel), _take(seed_depth, sel)),
+            _take(keep, sel), failed)
+
+
+lazy_seeds_plain.calls = 0  # calls since the last reset
+
+
 def plan_debug(params: PlannerParams, depth_u16, samples, vel0, acc0, grav, goal_cam,
                pyramid_capacity=32, rounds=2, inflation_downsample=1, lazy_rounds=1,
                cost_fn=None):
     """Planning internals for explicit samples (px, py, depth, tf): returns
     (tr, cost, feas, vel_ok, gate, collision_free, pyrs)."""
-    return _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
-                      pyramid_capacity, rounds, inflation_downsample, lazy_rounds, cost_fn)
+    return _plan_core(params, depth_u16, candidate_pass(params, samples, vel0, acc0, goal_cam,
+                                                        cost_fn),
+                      grav, pyramid_capacity, rounds, inflation_downsample, lazy_rounds)
+
+
+class Candidates(NamedTuple):
+    """A plan's candidates (*L, N) and what the rounds read of them."""
+
+    tr: traj_mod.Traj
+    cost: torch.Tensor  # (*L, N) the plan's cost
+    epx: torch.Tensor  # (*L, N) the endpoints' pixels and depth (`endpoint_seeds`)
+    epy: torch.Tensor
+    endz: torch.Tensor
+
+
+def candidate_pass(params: PlannerParams, samples, vel0, acc0, goal_cam, cost_fn=None):
+    """The candidates of explicit samples (px, py, depth, tf), their costs
+    (cost_fn(tr), or `exploration_cost` toward goal_cam) and endpoint seeds."""
+    tr = candidates_from_samples(params, *samples, vel0, acc0)
+    cost = exploration_cost(tr, goal_cam) if cost_fn is None else cost_fn(tr)
+    return Candidates(tr, cost, *endpoint_seeds(params, tr))
 
 
 def plan(params: PlannerParams, depth_u16, u, vel0, acc0, grav, goal_cam,
          pyramid_capacity=32, rounds=2, inflation_downsample=1, lazy_rounds=1,
-         cost_fn=None):
+         cost_fn=None, candidates=None):
     """One planning call per (H, W) depth-code image of depth_u16
     (*L, H, W): sample from the (*L, 4, N) uniform block u, gate, build
     pyramids, pick the cheapest free candidate. All vectors are
     camera-frame (main.cpp:489-495), (*L, 3). cost_fn maps the candidates
-    (a Traj) to (*L, N) costs; None takes `exploration_cost(tr, goal_cam)`."""
-    n = u.shape[-1]
+    (a Traj) to (*L, N) costs; None takes `exploration_cost(tr, goal_cam)`.
+    candidates: the `Candidates` of u made already (the orchard frame's
+    percept head), in place of sampling them here."""
+    if candidates is None:
+        candidates = candidate_pass(params, samples_from_uniform(params, u), vel0, acc0,
+                                    goal_cam, cost_fn)
     tr, cost, feas, vel_ok, gate, collision_free, pyrs = _plan_core(
-        params, depth_u16, samples_from_uniform(params, u), vel0, acc0, grav,
-        goal_cam, pyramid_capacity, rounds, inflation_downsample, lazy_rounds, cost_fn)
+        params, depth_u16, candidates, grav, pyramid_capacity, rounds, inflation_downsample,
+        lazy_rounds)
     ok = gate & collision_free
     best_cost = torch.where(ok, cost, math.inf)
     best = torch.argmin(best_cost, dim=-1, keepdim=True)
@@ -752,7 +923,7 @@ def plan(params: PlannerParams, depth_u16, u, vel0, acc0, grav, goal_cam,
         best_cost=_take(best_cost, best)[..., 0],
         traj=traj_mod.Traj(*(_take(x, best, 1)[..., 0, :] if x.dim() > cost.dim()
                              else _take(x, best)[..., 0] for x in tr)),
-        num_candidates=n,
+        num_candidates=cost.shape[-1],
         num_feasible=count(feas),
         num_velocity_admissible=count(feas & vel_ok),
         num_collision_free=count(ok),
@@ -760,18 +931,16 @@ def plan(params: PlannerParams, depth_u16, u, vel0, acc0, grav, goal_cam,
     )
 
 
-def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
-               pyramid_capacity, rounds, inflation_downsample, lazy_rounds, cost_fn=None):
-    """Shared planning pipeline: candidates, gates, pyramid rounds
-    (pre-planned + lazy on-demand), collision labels. On CUDA tensors the
-    gates are one launch of the gate kernel and each collision check one
-    launch of the collision-check kernel."""
-    from agrifly_tpu_torch.planner import cuda_plan
+def _plan_core(params, depth_u16, candidates: Candidates, grav, pyramid_capacity, rounds,
+               inflation_downsample, lazy_rounds):
+    """Shared planning pipeline: gates, pyramid rounds (pre-planned + lazy
+    on-demand), collision labels. On CUDA tensors each step is a kernel
+    launch: the gates (K8), each round's seeds (K10, or K12 in a lazy
+    round), inflation (K2/K2c) and pyramid set (K11), each collision check
+    (K7); on CPU tensors their plain versions."""
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, cuda_rounds
 
-    tr = candidates_from_samples(params, *samples, vel0, acc0)
-    dev = tr.tf.device
-    lead = tr.tf.shape[:-1]
-    cost = exploration_cost(tr, goal_cam) if cost_fn is None else cost_fn(tr)
+    tr, cost, epx, epy, endz = candidates
     feas, vel_ok = cuda_plan.plan_gates(
         tr, grav[..., None, :], params.fmin, params.fmax, params.wmax, params.min_section_time,
         params.vmax,
@@ -779,62 +948,32 @@ def _plan_core(params, depth_u16, samples, vel0, acc0, grav, goal_cam,
         static_max_tf=3.0)
     gate = feas & vel_ok
 
-    # pyramid seeds: endpoints of the cheapest gated candidates
-    epx, epy, endz = endpoint_seeds(params, tr)
-    order = torch.argsort(torch.where(gate, cost, math.inf), dim=-1, stable=True)
-
+    # pyramid seeds: endpoints of the cheapest gated candidates; the
+    # inflation's image pooled once a plan
+    work = work_image(params, depth_u16, inflation_downsample)
     per_round = pyramid_capacity // (rounds + lazy_rounds)
-    pyrs = empty_pyramid_set(pyramid_capacity, dev, lead)
+    # as in the JAX package, the first round's merge sets the capacity of the
+    # set to pyramid_capacity - per_round
+    pyrs = None
     for rnd in range(rounds):
-        take = order[..., rnd * per_round:(rnd + 1) * per_round]
-        seed_valid = _take(gate, take)
-        px_t, py_t, z_t = _take(epx, take), _take(epy, take), _take(endz, take)
-        if rnd > 0:
-            # skip seeds already covered by an existing pyramid
-            f, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
-            seed_valid = seed_valid & ~f
-        new_pyrs = build_pyramid_set(params, depth_u16, px_t, py_t, z_t, seed_valid,
-                                     per_round, downsample=inflation_downsample)
-        # as in the JAX package, the first round's merge sets the capacity
-        # of the set to pyramid_capacity - per_round
-        base = pyrs if rnd > 0 else empty_pyramid_set(pyramid_capacity - per_round, dev, lead)
-        pyrs = merge_pyramid_sets(base, new_pyrs)
+        rows, seed_valid = cuda_rounds.round_seeds(work, gate, cost, epx, epy, endz, pyrs, rnd,
+                                                   per_round)
+        out = cuda_inflate.inflate_rows(work.params, work.img, rows)
+        pyrs = cuda_rounds.pyramid_set(params, work, out, seed_valid, per_round,
+                                       pyramid_capacity - per_round if pyrs is None else pyrs)
+    if pyrs is None:
+        pyrs = empty_pyramid_set(pyramid_capacity, tr.tf.device, tr.tf.shape[:-1])
 
     collision_free, fail_px, fail_py, fail_z = collision_check(params, pyrs, tr)
 
-    # lazy rounds (DepthImagePlanner.cpp:270-273): the cheapest gated
-    # candidates that failed for lack of a covering pyramid donate their
-    # uncovered deepest points as seeds; only they are re-checked
-    img_i = depth_u16.to(torch.int32)
-    scale = params.cam.depth_scale
-    ignore_i = (params.true_radius / scale).to(torch.int32)
+    # lazy rounds: only the candidates that donated fail points are re-checked
+    img = depth_u16.to(torch.int32)
     for _ in range(lazy_rounds):
-        failed = gate & ~collision_free & (fail_z > 0)
-        # a fail point whose own pixel is blocked shallower than the
-        # required pyramid depth can never inflate
-        pxi = torch.clamp(fail_px.to(torch.int32), 0, params.cam.width - 1)
-        pyi = torch.clamp(fail_py.to(torch.int32), 0, params.cam.height - 1)
-        seed_code = _take(img_i.flatten(-2), pyi.long() * params.cam.width + pxi.long())
-        minpyr_i = ((fail_z + scale + params.plan_radius) / scale).to(torch.int32)
-        seedable = failed & ((seed_code <= ignore_i) | (seed_code >= minpyr_i))
-        order2 = torch.argsort(torch.where(seedable, cost, math.inf), dim=-1, stable=True)
-        # consider 4x more fail points than slots; prefilter the doomed,
-        # dedupe near-identical survivors, inflate 2x per_round of them
-        take = order2[..., :4 * per_round]
-        px_t, py_t, z_t = _take(fail_px, take), _take(fail_py, take), _take(fail_z, take)
-        covered, _ = find_containing_pyramid(pyrs, px_t, py_t, z_t)
-        seed_valid = _take(seedable, take) & ~covered
-        # one depth-code quantum deeper, so the floored pyramid base clears z
-        seed_depth = z_t + scale
-        seed_valid = prefilter_seeds(params, depth_u16, px_t, py_t, seed_depth,
-                                     seed_valid, downsample=inflation_downsample)
-        keep = _greedy_seed_dedupe(px_t, py_t, z_t, seed_valid,
-                                   float(LAZY_DEDUPE_PX), LAZY_DEDUPE_Z_QUANTA * scale)
-        sel = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)[..., :2 * per_round]
-        new_pyrs = build_pyramid_set(params, depth_u16, _take(px_t, sel), _take(py_t, sel),
-                                     _take(seed_depth, sel), _take(keep, sel), per_round,
-                                     downsample=inflation_downsample)
-        pyrs = merge_pyramid_sets(pyrs, new_pyrs)
+        rows, seed_valid, failed = cuda_rounds.lazy_seeds(
+            params, work, img, gate, collision_free, fail_px, fail_py, fail_z, cost, pyrs,
+            per_round)
+        out = cuda_inflate.inflate_rows(work.params, work.img, rows)
+        pyrs = cuda_rounds.pyramid_set(params, work, out, seed_valid, per_round, pyrs)
         refree, fail_px2, fail_py2, fail_z2 = collision_check(params, pyrs, tr, failed)
         collision_free = torch.where(failed, refree, collision_free)
         fail_px = torch.where(failed, fail_px2, fail_px)
@@ -895,7 +1034,7 @@ def measure_plan_conservativeness(params: PlannerParams, depth_u16, u, vel0, acc
     num_collision_free), (*L,) int32."""
     from agrifly_tpu_torch.planner import oracle
 
-    tr, _, _, _, gate, collision_free, _ = _plan_core(
+    tr, _, _, _, gate, collision_free, _ = plan_debug(
         params, depth_u16, samples_from_uniform(params, u), vel0, acc0, grav, goal_cam,
         pyramid_capacity, rounds, inflation_downsample, lazy_rounds)
     free_oracle = oracle.is_collision_free_ground_truth(params, depth_u16, tr)

@@ -19,9 +19,10 @@ A fleet (`frame_step_fleet`, `fly_fleet`) is B vehicles sharing one
 `OrchardEnvParams`, with a leading B axis on every state leaf: the
 counterpart of the JAX package's `jax.vmap` over the perception, written
 as that axis. The perception code takes any leading shape, so one frame
-of a fleet launches the raycast (or mesh) kernel once for all B images, the
-inflation kernel once per planner round for all B images, and the tick
-kernel once for all B vehicles.
+of a fleet launches the percept-head kernel (`sim/cuda_percept.py`) once,
+the raycast (or mesh) kernel once for all B images, the planner's round,
+inflation and pyramid-set kernels once per planner round for all B
+images, and the tick kernel once for all B vehicles.
 
 Randomness: `frame_step` draws the planner's (4, N) uniform block and the
 (steps_per_frame, 2, 3) IMU normal block from a torch.Generator, or takes
@@ -335,34 +336,43 @@ def _waypoint(params: OrchardEnvParams, idx):
     return params.waypoints.index_select(0, idx.reshape(-1).long()).reshape(idx.shape + (3,))
 
 
-def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
-    """Render -> plan -> mission bookkeeping (everything before the ticks).
+class PerceptHead(NamedTuple):
+    """What a frame computes before its render and its plan's rounds, for a
+    leading vehicle shape L: the camera poses, the planner's camera-frame
+    inputs, the waypoint and landing switch, and the plan's candidates."""
 
-    Every state leaf carries the same leading vehicle shape L: () for one
-    vehicle, (B,) for a fleet. u: the planner's (*L, 4, n_candidates)
-    uniform block. Returns (state, plan_info)."""
+    cam_att: torch.Tensor  # (*L, 4) world-from-camera attitude of the true pose (the render's)
+    est_pos: torch.Tensor  # (*L, 3) the mocap prediction's position
+    cam_att_est: torch.Tensor  # (*L, 4) the predicted camera attitude (a plan's trajAtt)
+    vel_cam: torch.Tensor  # (*L, 3) the planner's inputs in the camera frame
+    acc_cam: torch.Tensor
+    grav_cam: torch.Tensor
+    goal_world: torch.Tensor  # (*L, 3) the waypoint after the switch
+    goal_cam: torch.Tensor
+    land_pos: torch.Tensor  # (*L, 3) the mission state after the switch
+    waypoint_idx: torch.Tensor  # (*L,) int32
+    mstage: torch.Tensor
+    land_start_step: torch.Tensor
+    in_flight: torch.Tensor  # (*L,) bool
+    candidates: rappids.Candidates  # (*L, N) the plan's candidates, costs and seeds
+
+
+def percept_head_plain(params: OrchardEnvParams, s: OrchardEnvState, u) -> PerceptHead:
+    """The frame's head as plain torch ops: the estimator's prediction
+    (main.cpp:469), the camera attitudes and frame (main.cpp:489-495), the
+    waypoint switching at the reference's 1 m radius and, after the last
+    waypoint, the landing entry; then the candidates of the (*L, 4, N)
+    uniform block u. The plain version of the percept-head kernel
+    (`sim/cuda_percept.percept_head`)."""
+    percept_head_plain.calls += 1
     base = s.base
     p = params.base
     dev = base.step.device
-    lead = base.step.shape
 
-    # the estimator's view, which the planner gets (main.cpp:469,489-495)
     est_pos, est_vel, est_att, _ = estimators.mocap_get_prediction(
         base.mocap, base.step * p.dt_us, p.est_latency_us)
     est_att_n = rot.qnormalize(est_att)
-
-    # 1. render depth frames from the *true* poses, all vehicles in one call:
-    # the imported world when there is one, else the procedural orchard
-    cam_att = raycast.camera_attitude(base.plant.att).reshape(-1, 4)
-    cfg = params.render_cfg
-    pos = base.plant.pos.reshape(-1, 3)
-    if params.mesh is not None:
-        depth = cuda_meshscene.render_depth_batch(cfg, params.mesh, pos, cam_att)
-    else:
-        depth = cuda_raycast.render_depth_batch(cfg, params.scene, pos, cam_att)
-    depth = depth.reshape(lead + (cfg.height, cfg.width))
-
-    # 2. plan in the camera frame (main.cpp:484-508)
+    cam_att = raycast.camera_attitude(base.plant.att)
     cam_att_est = raycast.camera_attitude(est_att_n)
     R_wc = rot.to_matrix(cam_att_est)  # world-from-camera
     grav = const(GRAV_W, dev)
@@ -371,8 +381,6 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
                         * base.last_cmd_thrust[..., None] + grav)
     grav_cam = lin3.mv3t(R_wc, grav)
 
-    # waypoint switching at the reference's 1 m radius; after the last
-    # waypoint, optionally enter the landing descent
     in_flight = base.step >= params.start_flight_step
     goal_world = _waypoint(params, s.waypoint_idx)
     at_wp = (in_flight & (s.mstage == MSTAGE_CRUISE)
@@ -388,12 +396,51 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
     goal_world = _waypoint(params, waypoint_idx)
     goal_cam = lin3.mv3t(R_wc, goal_world - est_pos)
 
-    res = rappids.plan(params.planner, depth, u, vel_cam, acc_cam, grav_cam, goal_cam,
+    pp = params.planner
+    candidates = rappids.candidate_pass(pp, rappids.samples_from_uniform(pp, u), vel_cam,
+                                        acc_cam, goal_cam)
+    return PerceptHead(cam_att, est_pos, cam_att_est, vel_cam, acc_cam, grav_cam, goal_world,
+                       goal_cam, land_pos, waypoint_idx, mstage, land_start_step, in_flight,
+                       candidates)
+
+
+percept_head_plain.calls = 0  # calls since the last reset
+
+
+def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
+    """Render -> plan -> mission bookkeeping (everything before the ticks).
+
+    Every state leaf carries the same leading vehicle shape L: () for one
+    vehicle, (B,) for a fleet. u: the planner's (*L, 4, n_candidates)
+    uniform block. The head (`percept_head`: the prediction, the camera
+    frame, the waypoint switch and the candidates) is one kernel launch on
+    the card, then the render and the plan's kernels. Returns (state,
+    plan_info)."""
+    from agrifly_tpu_torch.sim import cuda_percept
+
+    base = s.base
+    lead = base.step.shape
+    h = cuda_percept.percept_head(params, s, u)
+
+    # 1. render depth frames from the *true* poses, all vehicles in one call:
+    # the imported world when there is one, else the procedural orchard
+    cfg = params.render_cfg
+    pos = base.plant.pos.reshape(-1, 3)
+    cam_att = h.cam_att.reshape(-1, 4)
+    if params.mesh is not None:
+        depth = cuda_meshscene.render_depth_batch(cfg, params.mesh, pos, cam_att)
+    else:
+        depth = cuda_raycast.render_depth_batch(cfg, params.scene, pos, cam_att)
+    depth = depth.reshape(lead + (cfg.height, cfg.width))
+
+    # 2. plan in the camera frame (main.cpp:484-508)
+    res = rappids.plan(params.planner, depth, u, h.vel_cam, h.acc_cam, h.grav_cam, h.goal_cam,
                        pyramid_capacity=params.pyramid_capacity,
                        rounds=params.planner_rounds,
-                       inflation_downsample=params.inflation_downsample)
+                       inflation_downsample=params.inflation_downsample,
+                       candidates=h.candidates)
 
-    adopt = res.found & in_flight & (mstage == MSTAGE_CRUISE)
+    adopt = res.found & h.in_flight & (h.mstage == MSTAGE_CRUISE)
     old = s.planned
     pick = lambda new, prev: _where(adopt, new, prev)  # noqa: E731
     planned = PlannedTraj(
@@ -401,18 +448,18 @@ def _frame_percept(params: OrchardEnvParams, s: OrchardEnvState, u):
         beta=pick(res.traj.beta, old.beta), gamma=pick(res.traj.gamma, old.gamma),
         a0=pick(res.traj.a0, old.a0), v0=pick(res.traj.v0, old.v0),
         p0=pick(res.traj.p0, old.p0), tf=pick(res.traj.tf, old.tf),
-        att=pick(cam_att_est, old.att), offset=pick(est_pos, old.offset),
-        start_step=pick(base.step, old.start_step), grav_cam=pick(grav_cam, old.grav_cam))
+        att=pick(h.cam_att_est, old.att), offset=pick(h.est_pos, old.offset),
+        start_step=pick(base.step, old.start_step), grav_cam=pick(h.grav_cam, old.grav_cam))
 
     s = s._replace(planned=planned, plan_count=s.plan_count + adopt.to(torch.int32),
-                   frame_count=s.frame_count + 1, waypoint_idx=waypoint_idx,
-                   mstage=mstage, land_pos=land_pos, land_start_step=land_start_step)
+                   frame_count=s.frame_count + 1, waypoint_idx=h.waypoint_idx,
+                   mstage=h.mstage, land_pos=h.land_pos, land_start_step=h.land_start_step)
     plan_info = dict(
         plan_found=res.found, num_collision_free=res.num_collision_free,
         num_pyramids=res.num_pyramids, best_cost=res.best_cost,
         num_feasible=res.num_feasible, num_velocity_admissible=res.num_velocity_admissible,
-        plan_vel_cam=vel_cam, plan_acc_cam=acc_cam, plan_grav_cam=grav_cam,
-        goal_world=goal_world)
+        plan_vel_cam=h.vel_cam, plan_acc_cam=h.acc_cam, plan_grav_cam=h.grav_cam,
+        goal_world=h.goal_world)
     return s, plan_info
 
 

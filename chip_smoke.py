@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
+It builds the eight CUDA kernel libraries from `agrifly_tpu_torch/csrc`,
 the section-timed variants of `frame.cu`, `rollout.cu`, `fleet_uwb.cu` and
 `meshscene.cu` and the UWB, wind and wind + UWB builds of `rollout.cu` (one nvcc
 each, all in parallel) and holds each kernel against its plain
@@ -53,7 +53,14 @@ oracle. It then flies:
   and the evaluation's 4 x 1024 candidates (first check and lazy
   re-check; the gates also on random and near-limit trajectories, strict
   and not, with and without the static_max_tf cut) and timed; each frame
-  split notes the plan's parts (`plan_split`);
+  split notes the percept head and the plan's parts (`plan_split`); every
+  frame also makes one launch of the percept head (K9, `csrc/frame.cu`),
+  two of the round seeds (K10), three of the pyramid set (K11) and one of
+  the lazy seeds (K12, `csrc/rounds.cu`), which `check_plan_rounds` then
+  holds bit for bit against their plain versions on the flight's frame, a
+  fleet of 16 copies of it and adversarial cases (tied, -0.0, NaN and +inf
+  costs, no gated candidate, a full set, fail points on the image's
+  edges), K11 also on the evaluation's 4 x 1024 seeds, and times;
 - a fleet of 16 vehicles in lanes 3 m apart, 40 frames through
   `OrchardEnv.fly_fleet`, whose every frame launches the raycaster once,
   the inflation once per planner round and the tick kernel once, for all
@@ -112,8 +119,9 @@ oracle. It then flies:
   topics) and `launch` with an operator and a bag (the JAX test's topic
   checks, the kill once), each run's kernel launches counted; then
   `demo --realtime` at its defaults (500 Hz) for 2 s, held to the same four
-  criteria, one kernel launch a quantum, and `--realtime-orchard` paced at
-  half the demo's frame rate, with rc 0 (the wire bands held);
+  criteria, one kernel launch a quantum, and `--realtime-orchard` at its
+  default rate, the reference's real time (31.25 frames/s), with rc 0 (the
+  wire bands held) and the loop's unpaced frame beside the demo's;
 - the multi-device path (`agrifly_tpu_torch/parallel`), a world of one over
   NCCL on this card: the sharded fleet step at 4096 envs x 50 substeps in
   both estimator modes (bit-equal to `env.rollout`, its metrics equal to
@@ -164,7 +172,9 @@ windows of 192 and 300 rows and a shuffled one, above the canopy, the edge
 rows) bit for bit against the parent's kernels, built from
 DIR and called through this tree's wrappers where the parent declares the
 same C interface, and times both in turns (K5 also at bench.py's shape,
-4096 envs x 250 steps, the true state and mocap, three times in turns).
+4096 envs x 250 steps, the true state and mocap, three times in turns);
+and flies 20 frames of the parent's checkout (in a process of its own) and
+of this tree in turns, the flights bit for bit.
 
 Each flight's kernel counts are set to 0 just before it and read just
 after; it checks that the flight went through its kernels and that its
@@ -181,6 +191,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -194,12 +205,13 @@ TURN_FRAMES = 2  # frames per turn when the two worlds are flown in turns
 MESH_X, MESH_Y = (-10.0, 130.0), (-30.0, 30.0)  # the baked rectangle of the orchard [m]
 SEED = 0
 KERNELS = ("raycast", "inflate", "frame", "meshscene", "rollout",
-           "fleet_uwb", "plan")  # one library per csrc/<name>.cu
+           "fleet_uwb", "plan", "rounds")  # one library per csrc/<name>.cu
 DEVICE_KERNELS = ("raycast_kernel", "raycast_rgb_kernel", "inflate_kernel",
                   "inflate_cluster_kernel", "inflate_grouped_kernel", "frame_kernel",
                   "meshscene_strips_kernel", "meshscene_window_kernel", "meshscene_rgb_kernel",
                   "rollout_kernel", "fleet_uwb_kernel", "collision_check_kernel",
-                  "plan_gates_kernel")
+                  "plan_gates_kernel", "percept_head_kernel", "round_seeds_kernel",
+                  "pyramid_set_kernel", "lazy_seeds_kernel")
 GROUPS = (2, 4, 8)  # the K2g instances held on every case and timed (seeds per cluster)
 # The RAPPIDS evaluation views (benchmarks/bench_quality.py): identity
 # attitude at these positions; the harnesses' start state and goal.
@@ -401,7 +413,7 @@ def _inflate_case(name, prm, img, sd, extra):
     _check(err == 0, f"inflate kernel: maxd/edges differ on ok seeds ({name})")
     n_ok = int(ok.sum())
     ms = cuda_ms(lambda: cuda_inflate.inflate_pyramids(prm, img, *sd, extra))
-    rows = cuda_inflate.seed_rows(prm, *sd, extra)
+    rows = rappids.seed_rows(prm, *sd, extra)
     launch_ms = cuda_ms(lambda: cuda_inflate._launch(img, rows), reps=50)
     plain_ms = cuda_ms(lambda: rappids.inflate_pyramid(prm, img, *sd, extra), reps=3)
     # bytes: the images, the seed rows and the (.., 8) int32 output rows;
@@ -596,7 +608,7 @@ def time_grouped(label, prm, img, sd, extra, plain=False):
     the seeds that ended ok and the bytes and operations of K2's bound."""
     from agrifly_tpu_torch.planner import cuda_inflate, rappids
 
-    rows = cuda_inflate.seed_rows(prm, *sd, extra)
+    rows = rappids.seed_rows(prm, *sd, extra)
     padded = {S: cuda_inflate.pad_seed_rows(rows, S) for S in GROUPS}
     launch = {1: lambda: cuda_inflate._launch(img, rows),
               **{S: (lambda S=S: cuda_inflate._launch_grouped(img, padded[S], S)) for S in GROUPS}}
@@ -1030,6 +1042,7 @@ def frame_plan_case(dev, state, p, gen):
     u = (orchard_env.draw_fleet(p, gen, lead[0], dev)[0] if lead
          else orchard_env.draw(p, gen, dev)[0])
     (prm, depth, u, vel, acc, grav, goal), kw = plan_args(p, state, u)
+    kw.pop("candidates")  # the percept head's, the same as plan_debug's own
     tr, _, _, _, gate, _, pyrs = rappids.plan_debug(
         prm, depth, rappids.samples_from_uniform(prm, u), vel, acc, grav, goal, **kw)
     free, _, _, fail_z = cuda_plan.collision_check(prm, pyrs, tr)
@@ -1209,6 +1222,276 @@ def check_plan_kernels(dev, state):
     print("plan kernels (K7 collision check, K8 gates) against their plain versions on the "
           "card:\n  " + "\n  ".join(lines))
     return (*out["B=1"], cases)
+
+
+# The rounds' kernels' operations, read off csrc/rounds.cu and
+# csrc/frame.cu, counted as the work needs them: K9 the mocap prediction's
+# replay (~10 segments of a rotation and a decay, 9 slots) with the camera
+# frame and switch, and per candidate its samples, primitive, jerk cost,
+# endpoint and cost; a stable sort of n keys n ceil(log2 n) comparisons
+# of (key, index), a merge of two sorted lists one comparison an element;
+# K11 a seed's base depth, bounds and four unit normals; K12 a considered
+# point's set-up and containment, a pair of the dedupe's three distances,
+# a pixel's range test, a blocking pixel's shrink and a (blocking pixel,
+# valid point) pair's rectangle and box tests
+HEAD_OPS = 3000
+HEAD_CANDIDATE_OPS = 160
+COMPARE_OPS = 3
+PYRAMID_SEED_OPS = 90
+CONTAIN_OPS = 10
+DEDUPE_PAIR_OPS = 6
+PREFILTER_PIXEL_OPS = 2
+PREFILTER_SHRINK_OPS = 3
+PREFILTER_PAIR_OPS = 9
+PLAN_ROUND_KERNELS = ("percept_head", "round_seeds", "pyramid_set", "lazy_seeds")
+
+
+def sort_ops(n):
+    """The operations of a stable comparison sort of n keys."""
+    return n * math.ceil(math.log2(n)) * COMPARE_OPS if n > 1 else 0
+
+
+def _leaves_equal(got, ref):
+    """Two trees of tensors (NamedTuples) equal leaf for leaf, bit for bit
+    (NaN where NaN)."""
+    import torch
+
+    from agrifly_tpu_torch import convert
+
+    a, b = convert.flatten_tensors(got)[0], convert.flatten_tensors(ref)[0]
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                        y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for x, y in zip(a, b))
+
+
+def round_chain(prm, depth, cand, grav, capacity, rounds, k, check=None):
+    """_plan_core's rounds on the card from the candidates `cand`, through
+    the plain versions; check(name, plain output, kernel call): holds each
+    kernel against its plain version on the plain chain's inputs. Returns
+    {kernel: (plain fn, kernel fn)} of the last call of each, for timing."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, cuda_rounds, rappids
+
+    tr, cost, epx, epy, endz = cand
+    feas, vel_ok = cuda_plan.plan_gates(tr, grav[..., None, :], prm.fmin, prm.fmax, prm.wmax,
+                                        prm.min_section_time, prm.vmax, static_max_tf=3.0)
+    gate = feas & vel_ok
+    work = rappids.work_image(prm, depth, k)
+    pr = capacity // (rounds + PLAN_LAZY_ROUNDS)
+    calls, pyrs = {}, None
+    for rnd in range(rounds):
+        args = (work, gate, cost, epx, epy, endz, pyrs, rnd, pr)
+        calls["round_seeds"] = (lambda a=args: rappids.round_seeds_plain(*a),
+                                lambda a=args: cuda_rounds._launch_round(*a))
+        rows, sv = calls["round_seeds"][0]()
+        check and check(f"K10 round {rnd}", (rows, sv), calls["round_seeds"][1])
+        out = cuda_inflate.inflate_rows(work.params, work.img, rows)
+        args = (prm, work, out, sv, pr, capacity - pr if pyrs is None else pyrs)
+        calls["pyramid_set"] = (lambda a=args: rappids.pyramid_set_plain(*a),
+                                lambda a=args: cuda_rounds._launch_set(*a))
+        pyrs = calls["pyramid_set"][0]()
+        check and check(f"K11 round {rnd}", pyrs, calls["pyramid_set"][1])
+    free, fpx, fpy, fz = cuda_plan.collision_check(prm, pyrs, tr)
+    args = (prm, work, depth.to(torch.int32), gate, free, fpx, fpy, fz, cost, pyrs, pr)
+    calls["lazy_seeds"] = (lambda a=args: rappids.lazy_seeds_plain(*a),
+                           lambda a=args: cuda_rounds._launch_lazy(*a))
+    rows, sv, failed = calls["lazy_seeds"][0]()
+    check and check("K12", (rows, sv, failed), calls["lazy_seeds"][1])
+    out = cuda_inflate.inflate_rows(work.params, work.img, rows)
+    args = (prm, work, out, sv, pr, pyrs)
+    final = rappids.pyramid_set_plain(*args)
+    check and check("K11 lazy", final, lambda: cuda_rounds._launch_set(*args))
+    return calls, dict(gate=gate, work=work, pyrs=final, pr=pr, fz=fz, failed=failed)
+
+
+def _adversarial_rounds(prm, depth, cand, grav, capacity, rounds, k, check, dev):
+    """The rounds on inputs chosen to make the ranks, the containment and
+    the prefilter decide: costs quantized to 0.25 (ties), with -0.0, +inf and
+    NaN among them; no gated candidate at all (an all-invalid round); a
+    full set of shallow pyramids as the base of the merge; fail points on
+    the image's edges and beyond them."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_rounds, rappids
+
+    tr, cost, epx, epy, endz = cand
+    q = torch.round(cost * 4.0) / 4.0
+    q = torch.where(torch.arange(cost.shape[-1], device=dev) % 17 == 3, -0.0, q)
+    q = torch.where(torch.arange(cost.shape[-1], device=dev) % 29 == 5, float("nan"), q)
+    q = torch.where(torch.arange(cost.shape[-1], device=dev) % 31 == 7, float("inf"), q)
+    tied = rappids.Candidates(tr, q, epx, epy, endz)
+    round_chain(prm, depth, tied, grav, capacity, rounds, k, lambda n, r, f: check(
+        f"ties, -0, NaN, inf: {n}", r, f))
+    work = rappids.work_image(prm, depth, k)
+    pr = capacity // (rounds + PLAN_LAZY_ROUNDS)
+    none = torch.zeros(cost.shape, dtype=torch.bool, device=dev)
+    args = (work, none, cost, epx, epy, endz, None, 0, pr)
+    check("all-invalid round: K10", rappids.round_seeds_plain(*args),
+          lambda: cuda_rounds._launch_round(*args))
+    # a full set of valid pyramids, shallower than any new one, as the base
+    full = rappids.PyramidSet(
+        depth=torch.linspace(0.1, 0.5, capacity - pr, device=dev).expand(
+            cost.shape[:-1] + (capacity - pr,)).contiguous(),
+        bounds=torch.tensor([600.0, 10.0, 40.0, 470.0], device=dev).expand(
+            cost.shape[:-1] + (capacity - pr, 4)).contiguous(),
+        normals=torch.full(cost.shape[:-1] + (capacity - pr, 4, 3), 0.5, device=dev),
+        valid=torch.ones(cost.shape[:-1] + (capacity - pr,), dtype=torch.bool, device=dev))
+    rows, sv = rappids.round_seeds_plain(work, none | True, cost, epx, epy, endz, None, 0, pr)
+    out = cuda_inflate.inflate_rows(work.params, work.img, rows)
+    for label, base in (("full base", full), ("no merge", None), ("empty base", capacity)):
+        args = (prm, work, out, sv, pr, base)
+        check(f"{label}: K11", rappids.pyramid_set_plain(*args),
+              lambda a=args: cuda_rounds._launch_set(*a))
+    args = (work, none | True, cost, epx, epy, endz, full, 1, pr)
+    check("full set: K10 containment", rappids.round_seeds_plain(*args),
+          lambda: cuda_rounds._launch_round(*args))
+    # fail points on and beyond the image's edges, every candidate failed
+    W, H = prm.cam.width, prm.cam.height
+    n = torch.arange(cost.shape[-1], device=dev, dtype=torch.float32).expand(cost.shape)
+    fpx = torch.where(n % 4 == 0, 0.0, torch.where(n % 4 == 1, W - 1.0, n % W + 0.5))
+    fpy = torch.where(n % 3 == 0, -3.0, torch.where(n % 3 == 1, H + 2.0, n % H + 0.25))
+    fz = 0.5 + (n % 7) * 0.4
+    empty = rappids.empty_pyramid_set(capacity - pr, dev, cost.shape[:-1])
+    for label, pyrs in (("edges, empty set", empty), ("edges, full set", full)):
+        args = (prm, work, depth.to(torch.int32), none | True, none, fpx, fpy, fz, cost, pyrs, pr)
+        check(f"{label}: K12", rappids.lazy_seeds_plain(*args),
+              lambda a=args: cuda_rounds._launch_lazy(*a))
+
+
+def check_plan_rounds(dev, state):
+    """K9 (the percept head), K10 (a round's seeds), K11 (a pyramid set)
+    and K12 (a lazy round's seeds) against their plain versions on the card,
+    bit for bit, on the frame from `state` (the single flight's) and a
+    fleet of FLEET copies of it (each its own draws) at the orchard default
+    (640x480, 256 candidates, capacity 32, 2 + 1 rounds, 2x2 pooling): the
+    head, then every kernel on the plain chain's inputs; on the adversarial
+    cases (`_adversarial_rounds`); K11 also on the evaluation's 4 x 1024
+    endpoint seeds (no merge, the 32 shallowest). Each kernel's wrapper,
+    device time (device_us), plain time and bound at B = 1. Returns
+    {kernel: result dict}."""
+    import torch
+
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_rounds, rappids
+    from agrifly_tpu_torch.render import cuda_raycast
+    from agrifly_tpu_torch.sim import cuda_percept, orchard_env
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    p = orchard_env.make_params(start_flight_time=1.0, device=dev)
+    fleet = orchard_env.stack_states([state] * FLEET)
+    lines, held, out = [], [], {}
+
+    def check(name, ref, kernel):
+        got = kernel()
+        _check(_leaves_equal(tuple(got) if isinstance(got, tuple) else got,
+                             tuple(ref) if isinstance(ref, tuple) else ref),
+               f"{name} differs from its plain version on the card ({label})")
+        held.append(name)
+
+    for label, s in (("B=1", state), (f"B={FLEET}", fleet)):
+        lead = s.base.step.shape
+        u = (orchard_env.draw_fleet(p, gen, lead[0], dev)[0] if lead
+             else orchard_env.draw(p, gen, dev)[0])
+        head = orchard_env.percept_head_plain(p, s, u)
+        check("K9", head, lambda: cuda_percept._launch(p, s, u))
+        depth = cuda_raycast.render_depth_batch(
+            p.render_cfg, p.scene, s.base.plant.pos.reshape(-1, 3),
+            head.cam_att.reshape(-1, 4)).reshape(lead + (p.render_cfg.height, p.render_cfg.width))
+        args = (p.planner, depth, head.candidates, head.grav_cam, p.pyramid_capacity,
+                p.planner_rounds, p.inflation_downsample)
+        calls, info = round_chain(*args, check=check)
+        _adversarial_rounds(*args, check, dev)
+        n_valid = int(info["pyrs"].valid.sum())
+        lines.append(f"{label}: K9, K10 x {p.planner_rounds}, K11 x {p.planner_rounds + 1}, "
+                     f"K12 bit-equal; {int(info['failed'].sum())} failed candidates, {n_valid} "
+                     f"pyramids in the final set; adversarial cases bit-equal")
+        if label != "B=1":
+            continue
+        # times and bounds at B = 1
+        N, pr = u.shape[-1], info["pr"]
+        wk = info["work"]
+        Hw, Ww = wk.img.shape[-2:]
+        C = p.pyramid_capacity - pr
+        head_fn = lambda: cuda_percept._launch(p, s, u)  # noqa: E731
+        # K9's bytes: the uniform block, the candidates' 24 floats, the
+        # head's 40 outputs and the ~120 state and parameter values it reads
+        k9 = result(0, cuda_ms(lambda: cuda_percept.percept_head(p, s, u)),
+                    cuda_ms(lambda: orchard_env.percept_head_plain(p, s, u), reps=3, warmup=1),
+                    4 * 4 * N + 24 * 4 * N + 4 * 40 + 4 * 120,
+                    HEAD_OPS + N * HEAD_CANDIDATE_OPS)
+        set_bytes = 4 * (1 + 4 + 12) + 1
+        k10 = result(0, cuda_ms(calls["round_seeds"][1]),
+                     cuda_ms(calls["round_seeds"][0], reps=3, warmup=1),
+                     N * (1 + 16) + C * set_bytes + pr * (12 * 4 + 1),
+                     sort_ops(N) + pr * (C * CONTAIN_OPS + 40))
+        P2 = 2 * pr
+        k11 = result(0, cuda_ms(calls["pyramid_set"][1]),
+                     cuda_ms(calls["pyramid_set"][0], reps=3, warmup=1),
+                     P2 * (8 * 4 + 1) + 2 * C * set_bytes,
+                     sort_ops(P2) + P2 * PYRAMID_SEED_OPS + (C + pr) * COMPARE_OPS)
+        # K12's prefilter, for this run's valid considered points: every
+        # pixel's range test, the shrink of each pixel that blocks one of
+        # them and the two tests of each (pixel, point) pair it blocks
+        blocking = []
+        prefilter = rappids._prefilter
+
+        def counting(work, px, py, seed_depth, valid):
+            k = work.k
+            sp = rappids.seed_setup(work.params, px / k if k > 1 else px,
+                                    py / k if k > 1 else py, seed_depth, work.shrink_extra)
+            img = work.img[..., None, :, :]
+            pairs = (img > sp.ignore) & (img < sp.min_pyr_depth[..., None, None]) \
+                & valid[..., None, None]
+            blocking.append((int(pairs.any(dim=-3).sum()), int(pairs.sum())))
+            return prefilter(work, px, py, seed_depth, valid)
+
+        rappids._prefilter = counting
+        try:
+            calls["lazy_seeds"][0]()
+        finally:
+            rappids._prefilter = prefilter
+        (n_pixels, n_pairs), = blocking
+        M = min(N, 4 * pr)
+        k12 = result(0, cuda_ms(calls["lazy_seeds"][1]),
+                     cuda_ms(calls["lazy_seeds"][0], reps=3, warmup=1),
+                     N * (2 + 16 + 1) + C * set_bytes + (Hw * Ww + N) * 4 + 2 * pr * 49,
+                     sort_ops(N) + M * (C * CONTAIN_OPS + 40) + M * (M - 1) // 2 * DEDUPE_PAIR_OPS
+                     + Hw * Ww * PREFILTER_PIXEL_OPS + n_pixels * PREFILTER_SHRINK_OPS
+                     + n_pairs * PREFILTER_PAIR_OPS)
+        lines.append(f"B=1: K12's prefilter: {n_pixels} of {Hw * Ww} pixels block a valid "
+                     f"considered point, {n_pairs} (pixel, point) pairs")
+        out = {"percept_head": k9, "round_seeds": k10, "pyramid_set": k11, "lazy_seeds": k12}
+        rows = calls["round_seeds"][1]()[0]
+        inflate_ms = cuda_ms(lambda: cuda_inflate.inflate_rows(wk.params, wk.img, rows))
+        lines.append(f"B=1: the inflation's wrapper on K10's rows (inflate_rows, K2c) "
+                     f"{inflate_ms:.4f} ms")
+        dev_us = {"percept_head": device_us(head_fn)}
+        dev_us.update({name: device_us(calls[name][1]) for name in PLAN_ROUND_KERNELS[1:]})
+        lines.append("B=1 times: " + "; ".join(
+            f"{name} wrapper {r['ms']:.4f} ms, device {us_text(dev_us[name])}, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+            for name, r in out.items()))
+    # K11 on the evaluation path: 4 views x 1024 endpoint seeds, no merge
+    params, views = eval_views(dev)
+    vel0, acc0, _ = eval_state(dev)
+    tr = rappids.sample_candidates(params, eval_draws(1024, dev), vel0, acc0)
+    work = rappids.work_image(params, views, 1)
+    ones = torch.ones(tr.tf.shape, dtype=torch.bool, device=dev)
+    rows = rappids.work_rows(work, *rappids.endpoint_seeds(params, tr))
+    out_rows = cuda_inflate.inflate_rows(work.params, work.img, rows)
+    label = "4x1024"
+    args = (params, work, out_rows, ones, 32)
+    check("K11 evaluation", rappids.pyramid_set_plain(*args),
+          lambda: cuda_rounds._launch_set(*args))
+    eval_us = device_us(lambda: cuda_rounds._launch_set(*args))
+    lines.append(f"4x1024 evaluation: K11 bit-equal (the 32 shallowest of 1024), device "
+                 f"{us_text(eval_us)}")
+    print(f"plan rounds (K9 percept head, K10 round seeds, K11 pyramid set, K12 lazy seeds) "
+          f"against their plain versions on the card, {len(held)} cases bit-equal:\n  "
+          + "\n  ".join(lines))
+    return out
 
 
 def baked_orchard(dev):
@@ -1541,7 +1824,6 @@ def above_canopy(dev):
 def up_poses(g, B, dev):
     """B orchard poses as ray_poses draws them, but each body pitched up by
     10-40 degrees: most of each image is sky beyond the canopy."""
-    import math
 
     import torch
 
@@ -2153,9 +2435,9 @@ RENDER_KERNELS = ("raycast", "meshscene_strips", "meshscene_window", "raycast_rg
 
 
 def reset_counts():
-    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, rappids, traj
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, cuda_rounds, rappids, traj
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
-    from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+    from agrifly_tpu_torch.sim import cuda_frame, cuda_percept, orchard_env
 
     cuda_raycast.render_depth_batch.launches = 0
     cuda_raycast.render_rgb_batch.launches = 0
@@ -2172,12 +2454,19 @@ def reset_counts():
     rappids.collision_check_plain.calls = 0
     traj.check_input_feasibility.calls = 0
     traj.check_velocity_feasibility.calls = 0
+    cuda_percept.percept_head.launches = 0
+    cuda_rounds.round_seeds.launches = 0
+    cuda_rounds.pyramid_set.launches = 0
+    cuda_rounds.lazy_seeds.launches = 0
+    for fn in (orchard_env.percept_head_plain, rappids.round_seeds_plain,
+               rappids.pyramid_set_plain, rappids.lazy_seeds_plain):
+        fn.calls = 0
 
 
 def read_counts():
-    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, rappids, traj
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, cuda_rounds, rappids, traj
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast
-    from agrifly_tpu_torch.sim import cuda_frame, orchard_env
+    from agrifly_tpu_torch.sim import cuda_frame, cuda_percept, orchard_env
 
     return {"raycast": cuda_raycast.render_depth_batch.launches,
             "meshscene_strips": cuda_meshscene.render_depth_strips_batch.launches,
@@ -2193,17 +2482,26 @@ def read_counts():
             "plan_gates": cuda_plan.plan_gates.launches,
             "plain check and gates calls": (rappids.collision_check_plain.calls
                                             + traj.check_input_feasibility.calls
-                                            + traj.check_velocity_feasibility.calls)}
+                                            + traj.check_velocity_feasibility.calls),
+            "percept_head": cuda_percept.percept_head.launches,
+            "round_seeds": cuda_rounds.round_seeds.launches,
+            "pyramid_set": cuda_rounds.pyramid_set.launches,
+            "lazy_seeds": cuda_rounds.lazy_seeds.launches,
+            "plain head and rounds calls": sum(fn.calls for fn in (
+                orchard_env.percept_head_plain, rappids.round_seeds_plain,
+                rappids.pyramid_set_plain, rappids.lazy_seeds_plain))}
 
 
 def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, rgb=None):
     """Per frame, whatever the number of vehicles: `renders` launches of the
     render kernel (the raycaster, or K4 in an imported world), one of the
     RGB kernel `rgb` (where one is named) and none of the other render
-    kernels, one inflation launch (K2 or K2c) per planner round, one gate
-    launch (K8) and 1 + PLAN_LAZY_ROUNDS collision-check launches (K7) with
-    no call of their plain versions, and one tick launch (fused) or one
-    plain tick block (plain, one vehicle)."""
+    kernels, one percept head (K9), one inflation launch (K2 or K2c) and
+    one pyramid set (K11) per planner round, one round-seeds launch (K10)
+    per pre-planned round and one lazy-seeds launch (K12) per lazy round,
+    one gate launch (K8) and 1 + PLAN_LAZY_ROUNDS collision-check launches
+    (K7), with no call of their plain versions, and one tick launch (fused)
+    or one plain tick block (plain, one vehicle)."""
     for name in RENDER_KERNELS:
         want = frames * renders if name == render else frames if name == rgb else 0
         _check(launches[name] == want,
@@ -2221,6 +2519,14 @@ def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, r
     _check(launches["plain check and gates calls"] == 0,
            f"the plain collision check or gates ran {launches['plain check and gates calls']} "
            f"times in {frames} frames on the card")
+    want = {"percept_head": frames, "round_seeds": (rounds - PLAN_LAZY_ROUNDS) * frames,
+            "pyramid_set": rounds * frames, "lazy_seeds": PLAN_LAZY_ROUNDS * frames}
+    for name, n in want.items():
+        _check(launches[name] == n, f"{name} launched {launches[name]} times in {frames} frames "
+                                    f"(want {n})")
+    _check(launches["plain head and rounds calls"] == 0,
+           f"the plain percept head or rounds ran {launches['plain head and rounds calls']} "
+           f"times in {frames} frames on the card")
     ticks_k, ticks_p = (frames, 0) if fused else (0, frames)
     _check(launches["frame_ticks"] == ticks_k,
            f"frame_ticks launched {launches['frame_ticks']} times in {frames} frames")
@@ -2228,21 +2534,23 @@ def check_counts(launches, frames, fused, rounds, render="raycast", renders=1, r
            f"frame_ticks_plain ran {launches['frame_ticks_plain calls']} times in {frames} frames")
 
 
-PLAN_PARTS = ("candidates", "gates", "pyramid rounds", "collision check", "lazy round",
-              "lazy re-check", "selection")
+PLAN_PARTS = ("gates", "round seeds", "inflation", "pyramid sets", "collision check",
+              "lazy seeds", "lazy re-check", "glue")
 
 
 def plan_split(p, state, u, reps=3):
-    """The frame's rappids.plan call from `state` with the draws u, split
-    at its candidate-pass calls: candidates and cost, the gates (K8), the
-    pyramid rounds, the first collision check (K7), the lazy round's seeds
-    and pyramids, its re-check (K7) and the selection. The card is
-    synchronized at every boundary and each part timed on the host's
-    clock, the mean of `reps` plans (one warm-up first); returns
-    {part: ms} and the synchronized plan's ms."""
+    """The frame's rappids.plan call from `state` with the draws u (its
+    candidates the percept head's), split at its kernels' wrappers: the
+    gates (K8), the rounds' seeds (K10), the inflations (K2/K2c), the
+    pyramid sets (K11), the first collision check (K7), the lazy round's
+    seeds (K12), its re-check (K7), and the glue between them (the pooled
+    image, the lazy round's four selects, the selection). The card is
+    synchronized at every boundary and each part timed on the host's clock,
+    the mean of `reps` plans (one warm-up first); returns {part: ms} and the
+    synchronized plan's ms."""
     import torch
 
-    from agrifly_tpu_torch.planner import cuda_plan, rappids
+    from agrifly_tpu_torch.planner import cuda_inflate, cuda_plan, cuda_rounds, rappids
 
     args, kw = plan_args(p, state, u)
     marks = []
@@ -2251,37 +2559,42 @@ def plan_split(p, state, u, reps=3):
         torch.cuda.synchronize()
         marks.append((label, time.perf_counter()))
 
-    def around(fn, before, after):
+    def around(fn, part):
         def call(*a, **k):
-            mark(before)
+            mark("start")
             out = fn(*a, **k)
-            mark(after)
+            mark(part() if callable(part) else part)
             return out
         call.launches = getattr(fn, "launches", 0)  # the wrapper counts while it stands in
         return call
 
-    gates, check = cuda_plan.plan_gates, rappids.collision_check
+    checks = iter(("collision check", "lazy re-check") * (reps + 1))
+    patched = [(cuda_plan, "plan_gates", "gates"), (cuda_rounds, "round_seeds", "round seeds"),
+               (cuda_inflate, "inflate_rows", "inflation"),
+               (cuda_rounds, "pyramid_set", "pyramid sets"),
+               (cuda_rounds, "lazy_seeds", "lazy seeds"),
+               (rappids, "collision_check", lambda: next(checks))]
+    originals = [getattr(mod, name) for mod, name, _ in patched]
     spent = dict.fromkeys(PLAN_PARTS, 0.0)
     total = 0.0
-    cuda_plan.plan_gates = around(gates, "candidates", "gates")
-    rappids.collision_check = around(check, "check start", "check end")
+    for mod, name, part in patched:
+        setattr(mod, name, around(getattr(mod, name), part))
     try:
         for rep in range(reps + 1):
             marks.clear()
             mark("start")
             rappids.plan(*args, **kw)
-            mark("selection")
-            # checks: the first ends the pyramid rounds, the second the lazy round
-            names = iter(("pyramid rounds", "collision check", "lazy round", "lazy re-check"))
+            mark("start")
             for (_, t0), (label, t1) in zip(marks, marks[1:]):
-                part = label if label in ("candidates", "gates", "selection") else next(names)
                 if rep:
-                    spent[part] += 1e3 * (t1 - t0) / reps
+                    spent["glue" if label == "start" else label] += 1e3 * (t1 - t0) / reps
             if rep:
                 total += 1e3 * (marks[-1][1] - marks[0][1]) / reps
     finally:
-        gates.launches = cuda_plan.plan_gates.launches
-        cuda_plan.plan_gates, rappids.collision_check = gates, check
+        for (mod, name, _), fn in zip(patched, originals):
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
     return spent, total
 
 
@@ -2290,7 +2603,7 @@ def frame_split(p, state, gen, dev, label, reps=5):
     `reps` calls, so the parts need not sum to the frame), and the
     planner's split (plan_split)."""
     from agrifly_tpu_torch.render import cuda_meshscene, cuda_raycast, raycast
-    from agrifly_tpu_torch.sim import orchard_env
+    from agrifly_tpu_torch.sim import cuda_percept, orchard_env
 
     lead = state.base.step.shape
     u, noise = (orchard_env.draw_fleet(p, gen, lead[0], dev) if lead
@@ -2305,10 +2618,12 @@ def frame_split(p, state, gen, dev, label, reps=5):
             p.render_cfg, p.scene, pos, cam_att), reps=5)
     warmup = min(reps, 2)
     percept = cuda_ms(lambda: orchard_env._frame_percept(p, state, u), reps=reps, warmup=warmup)
+    head = cuda_ms(lambda: cuda_percept.percept_head(p, state, u), reps=reps, warmup=warmup)
     ticks = cuda_ms(lambda: orchard_env.frame_ticks(p, state, noise), reps=reps, warmup=warmup)
     parts, total = plan_split(p, state, u, reps=min(reps, 3))
-    print(f"frame split ({label}): render {render:.3f} ms, plan {percept - render:.3f} ms, "
-          f"16 ticks {ticks:.3f} ms; the plan synchronized at its parts {total:.3f} ms: "
+    print(f"frame split ({label}): percept head (K9) {head:.3f} ms, render {render:.3f} ms, "
+          f"plan and adoption {percept - render - head:.3f} ms, 16 ticks {ticks:.3f} ms; the plan "
+          f"synchronized at its parts {total:.3f} ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
 
 
@@ -3551,20 +3866,45 @@ def demo_realtime():
     return launches
 
 
+def _bridge_quantum_ms(dev, quanta=5):
+    """Host ms a frame of --realtime-orchard's loop unpaced: quanta of
+    demo.ORCHARD_QUANTUM frames through an OrchardBridge that publishes
+    no images, as the loop's are, after one warm-up quantum."""
+    import torch
+
+    from agrifly_tpu_torch import demo
+    from agrifly_tpu_torch.io import bridge
+    from agrifly_tpu_torch.sim import orchard_env
+
+    ob = bridge.OrchardBridge(orchard_env.make_params(device=dev), vehicle_id=1, seed=SEED,
+                              publish_images=False)
+    ob.fly_frames_block(demo.ORCHARD_QUANTUM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(quanta):
+        ob.fly_frames_block(demo.ORCHARD_QUANTUM)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (quanta * demo.ORCHARD_QUANTUM)
+
+
 def _entry_paced(dev, directory, frame_ms):
     """demo --realtime at its defaults (demo_realtime), and
-    --realtime-orchard paced at half the demo's measured frame rate (rc 0:
-    the wire bands held). Returns the wire-row instance's launches in the
-    demo --realtime run."""
+    --realtime-orchard at its default rate, the reference's real time
+    (500 ticks/s: 31.25 frames/s) (rc 0: the wire bands held), with the
+    loop's unpaced frame (`_bridge_quantum_ms`) beside the demo's as a
+    reading. Returns the wire-row instance's launches in the demo
+    --realtime run."""
     from agrifly_tpu_torch import demo
+    from agrifly_tpu_torch.sim import orchard_env
 
     launches = demo_realtime()
-    frame_hz = 0.5 * 1e3 / frame_ms
+    loop_ms = _bridge_quantum_ms(dev)
+    frame_hz = SIM_PACED_HZ / orchard_env.make_params(device=dev).steps_per_frame
     _, text = _entry("demo --realtime-orchard", demo.main, [
-        "--realtime-orchard", "--rate", f"{16 * frame_hz:.4f}",
-        "--duration", f"{ENTRY_ORCHARD_QUANTA / frame_hz:.4f}"])
-    print(f"entry: demo --realtime-orchard on {card_line()}: the demo's {frame_ms:.3f} ms a "
-          f"frame, paced at {frame_hz:.3f} frames/s: "
+        "--realtime-orchard", "--duration", f"{ENTRY_ORCHARD_QUANTA / frame_hz:.4f}"])
+    print(f"entry: demo --realtime-orchard on {card_line()} at its default {frame_hz:.3f} "
+          f"frames/s: the demo's {frame_ms:.3f} ms a frame, the loop's unpaced "
+          f"{loop_ms:.3f} ms: "
           + " ".join(line for line in text.splitlines() if line.startswith("achieved")))
     return launches
 
@@ -3942,6 +4282,7 @@ def time_big_fleet(dev):
     print(f"fleet of {BIG_FLEET}: {ms:.3f} ms per fleet frame (frames "
           f"{', '.join(f'{t:.3f}' for t in times)} ms; {BIG_FLEET * 32.0 / ms:.3f}x real time "
           f"in aggregate)")
+    profile_frame(lambda: env.frame_step_fleet(state, gen), ms, f"fleet frame, B={BIG_FLEET}")
 
 
 def profile_frame(step, frame_ms, label):
@@ -5538,47 +5879,84 @@ def _parent_plan(dev, check_fn, gates_fn, times, cases, root, lib_path):
              for mod in (parent, cuda_plan, cuda_plan, parent)]
         host.append(f"{label} K7 {(t[0][0] + t[3][0]) / 2:.4f} / {(t[1][0] + t[2][0]) / 2:.4f}, "
                     f"K8 {(t[0][1] + t[3][1]) / 2:.4f} / {(t[1][1] + t[2][1]) / 2:.4f}")
-    frames = _plan_frames_in_turns(dev, parent)
+    frames = _frames_in_turns(dev, root)
     print("parent's plan.cu: K7 and K8 bit-equal to this tree's (outputs, pops, sections) on " +
           ", ".join(sets) + "; bare launch ms, the parent's wrapper and kernel / this tree's, in "
-          "turns: " + "; ".join(host) + f"; {PLAN_TURN_FRAMES}-frame flights (fused ticks), "
-          f"ms a frame in turns: parent {frames[0]:.3f}, this {frames[1]:.3f}, this "
+          "turns: " + "; ".join(host) + f"; {PLAN_TURN_FRAMES}-frame flights (fused ticks, the "
+          f"parent's checkout in a process of its own), ms a frame in turns: parent {frames[0]:.3f}, this {frames[1]:.3f}, this "
           f"{frames[2]:.3f}, parent {frames[3]:.3f}, the flights bit-equal")
 
 
-PLAN_TURN_FRAMES = 20  # the flights _plan_frames_in_turns times
+PLAN_TURN_FRAMES = 20  # the flights _frames_in_turns times
+
+# The parent's one-vehicle flight, run in a process of its own from the
+# parent's checkout (its package is another version of this one): its four
+# frame kernels built together, a 2-frame warm-up, then the timed flight.
+PARENT_FLIGHT = """
+import sys, time
+from concurrent.futures import ThreadPoolExecutor
+import torch
+from agrifly_tpu_torch import convert, cuda_build
+from agrifly_tpu_torch.sim import orchard_env
+with ThreadPoolExecutor(4) as pool:
+    list(pool.map(cuda_build.load, ("raycast", "inflate", "frame", "plan")))
+dev = torch.device("cuda", 0)
+env = orchard_env.OrchardEnv(orchard_env.make_params(start_flight_time=1.0, device=dev))
+env.fly(env.init_state(), 2, torch.Generator(device=dev).manual_seed(99))
+gen = torch.Generator(device=dev).manual_seed(int(sys.argv[1]))
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+state, outs = env.fly(env.init_state(), int(sys.argv[2]), gen)
+torch.cuda.synchronize()
+ms = 1e3 * (time.perf_counter() - t0) / int(sys.argv[2])
+torch.save({"ms": ms, "state": [t.cpu() for t in convert.flatten_tensors(state)[0]],
+            "outs": {k: v.cpu() for k, v in outs.items()}}, sys.argv[3])
+"""
 
 
-def _plan_frames_in_turns(dev, parent):
-    """The one-vehicle flight (fused ticks, from the start, the same draws)
-    with the candidate pass through the parent's `cuda_plan` module and its
-    library, then this tree's, in turns (parent, this, this, parent): ms a
-    frame of each; every flight's outputs and final state bit for bit the
-    first's."""
+def _frames_in_turns(dev, root):
+    """The one-vehicle flight (fused ticks, from the start, the same draws,
+    PLAN_TURN_FRAMES frames) of the parent's checkout `root` (in a process
+    of its own) and of this tree, in turns (parent, this, this, parent): ms
+    a frame of each; every flight's outputs and final state bit for bit the
+    parent's first."""
+    import os
+    import tempfile
+
     import torch
 
-    from agrifly_tpu_torch.planner import cuda_plan
+    from agrifly_tpu_torch import convert
     from agrifly_tpu_torch.sim import orchard_env
 
     env = orchard_env.OrchardEnv(orchard_env.make_params(start_flight_time=1.0, device=dev))
-    mine = (cuda_plan.collision_check, cuda_plan.plan_gates)
+    env.fly(env.init_state(), 2, torch.Generator(device=dev).manual_seed(99))
+    penv = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     ms, first = [], None
-    for mod in (parent, None, None, parent):
-        cuda_plan.collision_check, cuda_plan.plan_gates = mine if mod is None else (
-            mod.collision_check, mod.plan_gates)
-        try:
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, outs = env.fly(env.init_state(), PLAN_TURN_FRAMES, gen)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0) / PLAN_TURN_FRAMES)
-        finally:
-            cuda_plan.collision_check, cuda_plan.plan_gates = mine
-        first = (state, outs) if first is None else first
-        _check(_same_tree(state, first[0]) and outs.keys() == first[1].keys()
-               and _equal(outs.values(), first[1].values()),
-               "a flight through the parent's candidate pass differs from this tree's")
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, who in enumerate(("parent", "this", "this", "parent")):
+            if who == "parent":
+                path = os.path.join(tmp, f"parent{turn}.pt")
+                proc = subprocess.run([sys.executable, "-c", PARENT_FLIGHT, str(SEED),
+                                       str(PLAN_TURN_FRAMES), path], cwd=root, env=penv,
+                                      capture_output=True, text=True, timeout=600)
+                _check(proc.returncode == 0, f"the parent's flight: {proc.stderr[-2000:]}")
+                run = torch.load(path)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, outs = env.fly(env.init_state(), PLAN_TURN_FRAMES, gen)
+                torch.cuda.synchronize()
+                run = {"ms": 1e3 * (time.perf_counter() - t0) / PLAN_TURN_FRAMES,
+                       "state": [t.cpu() for t in convert.flatten_tensors(state)[0]],
+                       "outs": {k: v.cpu() for k, v in outs.items()}}
+            ms.append(run["ms"])
+            first = run if first is None else first
+            _check(len(run["state"]) == len(first["state"])
+                   and all(torch.equal(a, b) for a, b in zip(run["state"], first["state"]))
+                   and run["outs"].keys() == first["outs"].keys()
+                   and all(torch.equal(run["outs"][k], first["outs"][k]) for k in run["outs"]),
+                   f"turn {turn} ({who}): the flight differs from the parent's")
     return ms
 
 
@@ -5891,7 +6269,7 @@ def build_kernels():
             variant.result()
     built = ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items())
     print(f"kernel build: {built or 'up to date'} ({time.perf_counter() - t0:.1f} s)")
-    for name in ("raycast", "meshscene", "inflate", "frame", "rollout", "fleet_uwb", "plan"):
+    for name in KERNELS:
         print(ptxas_report(name, cuda_build.build_logs.get(name, "")))
     for defines in (("TICK_UWB",), ("TICK_WIND",), ("TICK_UWB", "TICK_WIND")):
         print(ptxas_report("rollout", cuda_build.build_logs.get("-".join(("rollout",) + defines), ""),
@@ -5904,10 +6282,12 @@ PTXAS_NAMES = {"raycast": {"raycast_kernel": "K1", "raycast_rgb_kernel": "K1-rgb
                              "meshscene_rgb_kernel": "K4-rgb"},
                "inflate": {"inflate_kernel": "K2", "inflate_cluster_kernel": "K2c",
                            "inflate_grouped_kernel": "K2g"},
-               "frame": {"frame_kernel": "K3"},
+               "frame": {"frame_kernel": "K3", "percept_head_kernel": "K9"},
                "rollout": {"rollout_kernel": "K5"},  # K5 G=g: its template instance for g lanes
                "fleet_uwb": {"fleet_uwb_kernel": "K6"},
-               "plan": {"collision_check_kernel": "K7", "plan_gates_kernel": "K8"}}
+               "plan": {"collision_check_kernel": "K7", "plan_gates_kernel": "K8"},
+               "rounds": {"round_seeds_kernel": "K10", "pyramid_set_kernel": "K11",
+                          "lazy_seeds_kernel": "K12"}}
 
 
 def ptxas_report(lib, log, label=None):
@@ -5993,6 +6373,7 @@ def main(argv) -> int:
         state, launches = timed(fly)(dev, fused=True, frames=FRAMES)
         fly_ms = fly.last_ms
         k7, k8, plan_cases = timed(check_plan_kernels)(dev, state)
+        rounds = timed(check_plan_rounds)(dev, state)
         timed(fly)(dev, fused=False, frames=PLAIN_FRAMES, state=state)
         timed(check_ticks_against_cpu)(state, dev, 1.0)
         fleet_state, fleet_launches = timed(fly_fleet)(dev)
@@ -6086,6 +6467,26 @@ def main(argv) -> int:
          "replaces": "agrifly_tpu/planner/traj.py:264 (check_input_feasibility) and :317 "
                      "(check_velocity_feasibility); jnp, no pallas_call",
          "launches": launches["plan_gates"], **k8},
+        {"name": "percept_head", "route": "cuda", "source": source("frame"),
+         "replaces": "agrifly_tpu/sim/orchard_env.py:348 (_frame_percept's head: "
+                     "offboard/estimators.py:354, render/raycast.py:52, planner/rappids.py:937, "
+                     ":150; jnp under jit, no pallas_call)",
+         "launches": launches["percept_head"], **rounds["percept_head"]},
+        {"name": "round_seeds", "route": "cuda", "source": source("rounds"),
+         "replaces": "agrifly_tpu/planner/rappids.py:994 (_plan_core's rounds: the order, "
+                     "find_containing_pyramid:626, the seed set-up; jnp under jit, no "
+                     "pallas_call)",
+         "launches": launches["round_seeds"], **rounds["round_seeds"]},
+        {"name": "pyramid_set", "route": "cuda", "source": source("rounds"),
+         "replaces": "agrifly_tpu/planner/rappids.py:470 (build_pyramid_set's tail, "
+                     "_pyramid_from_edges:182, merge_pyramid_sets:613; jnp under jit, no "
+                     "pallas_call)",
+         "launches": launches["pyramid_set"], **rounds["pyramid_set"]},
+        {"name": "lazy_seeds", "route": "cuda", "source": source("rounds"),
+         "replaces": "agrifly_tpu/planner/rappids.py:1022 (_plan_core's lazy round: "
+                     "prefilter_seeds:538, _greedy_seed_dedupe:912; jnp under jit, no "
+                     "pallas_call)",
+         "launches": launches["lazy_seeds"], **rounds["lazy_seeds"]},
     ]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

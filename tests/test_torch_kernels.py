@@ -199,7 +199,7 @@ def test_inflate_kernel_edge_cases(cuda, kind):  # noqa: F811
     gradient."""
     params, img, seeds, extra = _edge_case(kind, cuda)
     ok_r, maxd_r, edges_r = rappids.inflate_pyramid(params, img, *seeds, extra)
-    rows = cuda_inflate.seed_rows(params, *seeds, extra)
+    rows = rappids.seed_rows(params, *seeds, extra)
     got = [cuda_inflate.inflate_pyramids(params, img, *seeds, extra)]
     for C in (1,) + cuda_inflate.CLUSTER_SIZES:
         out = cuda_inflate._launch(img.contiguous(), rows, cluster=C)

@@ -98,6 +98,37 @@ def test_plan_debug_matches_jax(kind, seed, downsample):
     assert best_j == best_t
 
 
+def test_round_chain_matches_jax_plan_debug():
+    """The planner's rounds chained as their kernels run them
+    (test_torch_plan_rounds.py's chain: round seeds, inflation from seed
+    rows, pyramid set, lazy seeds) against the JAX package's plan_debug
+    under jit: gates and labels equal, costs rtol 1e-5, pyramid valid and
+    bounds equal, depth and normals within 1e-5 of |ref| + 1e-6 (the
+    corners' float32 products)."""
+    from test_torch_plan_rounds import _case, _rounds_chain
+
+    tp, img, cand, gate = _case("orchard", 1)
+    vel, acc, grav, goal = _motion(1)
+    samples = _samples(1)
+    j = _jax_plan_debug(2)(jnp.asarray(img.numpy()), tuple(jnp.asarray(x) for x in samples),
+                           *(jnp.asarray(x) for x in (vel, acc, grav, goal)))
+    _, cost_j, _, _, gate_j, free_j, pyrs_j = (jax.tree_util.tree_map(np.asarray, x) for x in j)
+    _, check, lazy, failed = _rounds_chain(tp, img, cand.tr, cand.cost, gate, cand.epx,
+                                           cand.epy, cand.endz, 2)
+    refree = trp.collision_check_plain(tp, lazy, cand.tr, failed)[0]
+    free = torch.where(failed, refree, check[0])
+    np.testing.assert_array_equal(gate.numpy(), gate_j)
+    np.testing.assert_allclose(cand.cost.numpy(), cost_j, rtol=1e-5)
+    np.testing.assert_array_equal(free.numpy(), free_j)
+    np.testing.assert_array_equal(lazy.valid.numpy(), pyrs_j.valid)
+    v = pyrs_j.valid
+    assert v.sum() > 0
+    np.testing.assert_array_equal(lazy.bounds.numpy()[v], pyrs_j.bounds[v])
+    for got, ref in ((lazy.depth.numpy()[v], pyrs_j.depth[v]),
+                     (lazy.normals.numpy()[v], pyrs_j.normals[v])):
+        assert np.all(np.abs(got - ref) <= 1e-5 * (np.abs(ref) + 1e-6))
+
+
 def test_plan_with_injected_uniform_draws_matches_jax():
     jp, tp = _params()
     img = _orchard_frame(3)
